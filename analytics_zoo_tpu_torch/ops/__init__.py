@@ -1,0 +1,20 @@
+"""Detection ops on tensors: PriorBox, box math, NMS, DetectionOutput,
+and the kernels K1 (``pallas_nms``) and K2 (``pallas_detout``)."""
+
+from analytics_zoo_tpu_torch.ops import bbox
+from analytics_zoo_tpu_torch.ops.detection_output import (
+    DetectionOutputParam,
+    detection_output,
+    detection_output_single,
+    scale_detections,
+)
+from analytics_zoo_tpu_torch.ops.nms import nms
+from analytics_zoo_tpu_torch.ops.pallas_detout import fused_detection_output
+from analytics_zoo_tpu_torch.ops.pallas_nms import nms_sweep
+from analytics_zoo_tpu_torch.ops.priorbox import (
+    PriorBoxParam,
+    concat_priors,
+    prior_box,
+)
+
+__all__ = [k for k in dir() if not k.startswith("_")]

@@ -1,0 +1,82 @@
+"""Bounding-box math on tensors (the counterpart of ``ops/bbox.py``).
+
+Box convention: corner form ``(x1, y1, x2, y2)``; ``normalized=True``
+means [0,1] image coordinates (no +1 width term), ``False`` integer pixel
+boxes Caffe-style (+1 term).  Every function broadcasts over leading
+dims; the float operations follow the reference one for one, in the same
+order, so results agree to the last bit where the platforms round alike.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def area(boxes: torch.Tensor, normalized: bool = True) -> torch.Tensor:
+    """(…, 4) → (…,) box areas; empty/invalid boxes give 0."""
+    off = 0.0 if normalized else 1.0
+    w = boxes[..., 2] - boxes[..., 0] + off
+    h = boxes[..., 3] - boxes[..., 1] + off
+    return torch.where((w > 0) & (h > 0), w * h, torch.zeros_like(w))
+
+
+def intersection(a: torch.Tensor, b: torch.Tensor,
+                 normalized: bool = True) -> torch.Tensor:
+    """Pairwise intersection areas: a (…,N,4), b (…,M,4) → (…,N,M)."""
+    off = 0.0 if normalized else 1.0
+    a, b = a[..., :, None, :], b[..., None, :, :]
+    x1 = torch.maximum(a[..., 0], b[..., 0])
+    y1 = torch.maximum(a[..., 1], b[..., 1])
+    x2 = torch.minimum(a[..., 2], b[..., 2])
+    y2 = torch.minimum(a[..., 3], b[..., 3])
+    w = torch.clamp(x2 - x1 + off, min=0.0)
+    h = torch.clamp(y2 - y1 + off, min=0.0)
+    return w * h
+
+
+def iou_matrix(a: torch.Tensor, b: torch.Tensor,
+               normalized: bool = True) -> torch.Tensor:
+    """Pairwise IoU: a (…,N,4), b (…,M,4) → (…,N,M); 0 where the union
+    is not positive."""
+    inter = intersection(a, b, normalized)
+    ua = (area(a, normalized)[..., :, None] + area(b, normalized)[..., None, :]
+          - inter)
+    return torch.where(ua > 0, inter / ua, torch.zeros_like(ua))
+
+
+def center_size(boxes: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """corner → (cx, cy, w, h)."""
+    w = boxes[..., 2] - boxes[..., 0]
+    h = boxes[..., 3] - boxes[..., 1]
+    cx = boxes[..., 0] + w * 0.5
+    cy = boxes[..., 1] + h * 0.5
+    return cx, cy, w, h
+
+
+def decode_bbox(priors: torch.Tensor, variances: torch.Tensor,
+                deltas: torch.Tensor, clip: bool = False) -> torch.Tensor:
+    """Caffe-SSD center-size decode of predicted deltas against priors →
+    corner-form boxes."""
+    pcx, pcy, pw, ph = center_size(priors)
+    cx = variances[..., 0] * deltas[..., 0] * pw + pcx
+    cy = variances[..., 1] * deltas[..., 1] * ph + pcy
+    w = torch.exp(variances[..., 2] * deltas[..., 2]) * pw
+    h = torch.exp(variances[..., 3] * deltas[..., 3]) * ph
+    boxes = torch.stack([cx - w * 0.5, cy - h * 0.5,
+                         cx + w * 0.5, cy + h * 0.5], dim=-1)
+    if clip:
+        boxes = torch.clamp(boxes, 0.0, 1.0)
+    return boxes
+
+
+def clip_boxes(boxes: torch.Tensor, height: float = 1.0,
+               width: float = 1.0) -> torch.Tensor:
+    """Clip corner boxes into the image."""
+    return torch.stack([
+        torch.clamp(boxes[..., 0], 0.0, width),
+        torch.clamp(boxes[..., 1], 0.0, height),
+        torch.clamp(boxes[..., 2], 0.0, width),
+        torch.clamp(boxes[..., 3], 0.0, height),
+    ], dim=-1)

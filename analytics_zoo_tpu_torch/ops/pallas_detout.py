@@ -1,0 +1,185 @@
+"""Kernel K2: the fused DetectionOutput (counterpart of
+``ops/pallas_detout.py``, ``stage="full"``).
+
+``fused_detection_output`` computes the whole SSD post-processing chain
+in one call — decode; per (image, foreground class) the confidence
+filter, a pop-the-max selection capped at ``nms_topk`` (ties to the
+lowest prior) and greedy suppression (normalized IoU, ``>=``); then the
+global ``keep_topk`` merge (ties to the lowest flat (class row, prior)
+index) — and writes ``(class_id, score, x1, y1, x2, y2)`` rows, empty
+rows ``(-1, 0, 0, 0, 0, 0)``.
+
+On a CUDA tensor it launches ``csrc/detection_output.cu``; on a CPU
+tensor it runs :func:`fused_detection_output_plain`, which vectorises
+over every (image, class) row and loops only over the sequential pop
+index.  The reference's VMEM budget and its warn-and-fall-back are TPU
+planning and have no counterpart: the kernel takes SSD300 and SSD512
+alike, and raises, naming the limit, for a geometry past it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from analytics_zoo_tpu_torch.ops.bbox import decode_bbox
+from analytics_zoo_tpu_torch.ops.pallas_nms import sweep_iou
+from analytics_zoo_tpu_torch.utils import cuda_build
+
+#: shared memory one select block may use: 227 KB less the block's static
+#: reduction scratch
+SELECT_SMEM_BYTES = 232448 - 1024
+
+
+def select_smem_bytes(n_priors: int, nms_topk: int) -> int:
+    """The select launch stages one score row (4 bytes a prior) and the
+    popped candidates (box, score, prior, flag: 25 bytes each)."""
+    return 4 * n_priors + 25 * nms_topk
+
+
+def foreground_ids(n_classes: int, background_id: int):
+    return [c for c in range(n_classes) if c != background_id]
+
+
+def fused_keep_plain(loc, conf, priors, variances, param
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decode + per-row selection + suppression, all (image, foreground
+    class) rows at once: returns the corner boxes (B,P,4) and the keep
+    scores (B,C_fg,P) — a prior's score where it was popped and kept,
+    else 0 (the reference kernel's ``allkeep`` plane)."""
+    B, P, C = conf.shape
+    dev = conf.device
+    boxes = decode_bbox(priors, variances, loc, clip=param.clip_boxes)
+    fg = torch.as_tensor(foreground_ids(C, param.background_id), device=dev)
+    s = conf.index_select(2, fg).transpose(1, 2)             # (B,Cf,P)
+    valid = s > param.conf_thresh
+    bound = torch.clamp(valid.sum(-1), max=param.nms_topk)   # (B,Cf)
+    neg = torch.tensor(float("-inf"), device=dev)
+    remaining = torch.where(valid, s, neg)
+    active = valid.clone()
+    keep = torch.zeros_like(s)
+    lanes = torch.arange(P, device=dev)
+    bx = [boxes[:, None, :, i] for i in range(4)]            # (B,1,P) each
+    for it in range(int(bound.max()) if bound.numel() else 0):
+        live = it < bound
+        m = remaining.amax(-1, keepdim=True)
+        # ties to the lowest prior
+        p = torch.where(remaining == m, lanes, P).amin(-1, keepdim=True)
+        # rows past their bound re-write their max in place: a no-op
+        on = torch.take_along_dim(active, p, -1) & live[..., None]
+        remaining = remaining.scatter(
+            -1, p, torch.where(live[..., None], neg, m))
+        keep = keep.scatter(
+            -1, p, torch.where(on, m, torch.take_along_dim(keep, p, -1)))
+        pb = [torch.take_along_dim(c.expand_as(s), p, -1) for c in bx]
+        iou = sweep_iou(*bx, *pb, 0.0)
+        active &= ~((iou >= param.nms_thresh) & on)
+    return boxes, keep
+
+
+def fused_detection_output_plain(loc, conf, priors, variances, param
+                                 ) -> torch.Tensor:
+    """Plain PyTorch version of K2: (B,P,4), (B,P,C) → (B,keep_topk,6)."""
+    B, P, C = conf.shape
+    boxes, keep = fused_keep_plain(loc, conf, priors, variances, param)
+    fg = torch.as_tensor(foreground_ids(C, param.background_id),
+                         device=conf.device)
+    flat = keep.reshape(B, -1)
+    # stable descending sort: equal scores keep the lowest flat
+    # (class row, prior) index first; unkept (0) entries sort last
+    vals, order = torch.sort(flat, dim=-1, descending=True, stable=True)
+    kout = param.keep_topk
+    if vals.shape[-1] < kout:
+        fill = kout - vals.shape[-1]
+        vals = torch.cat([vals, vals.new_zeros(B, fill)], -1)
+        order = torch.cat([order, order.new_zeros(B, fill)], -1)
+    vals, order = vals[:, :kout], order[:, :kout]
+    ok = vals > 0
+    cls = fg[order // P].to(torch.float32)
+    bsel = torch.take_along_dim(boxes, (order % P)[..., None], dim=1)
+    return torch.cat([
+        torch.where(ok, cls, -1.0)[..., None],
+        torch.where(ok, vals, 0.0)[..., None],
+        torch.where(ok[..., None], bsel, 0.0),
+    ], dim=-1)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous float32 whose base is 16-byte aligned (the kernel reads
+    boxes as float4)."""
+    t = t.to(torch.float32).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch_fused(loc, conf, priors, variances, param, n_fg, out):
+    fn = cuda_build.load_function(
+        "detection_output", "az_detection_output",
+        [ctypes.c_void_p] * 9
+        + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
+        + [ctypes.c_void_p])
+    B, P, C = conf.shape
+    dev = conf.device
+    boxes = torch.empty((B, P, 4), dtype=torch.float32, device=dev)
+    kscore = torch.empty((B, n_fg, param.nms_topk), dtype=torch.float32,
+                         device=dev)
+    kidx = torch.empty((B, n_fg, param.nms_topk), dtype=torch.int32,
+                       device=dev)
+    kcount = torch.empty((B, n_fg), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(loc.data_ptr(), conf.data_ptr(), priors.data_ptr(),
+                  variances.data_ptr(), boxes.data_ptr(), kscore.data_ptr(),
+                  kidx.data_ptr(), kcount.data_ptr(), out.data_ptr(),
+                  B, P, C, n_fg, int(param.background_id),
+                  float(param.conf_thresh), float(param.nms_thresh),
+                  int(param.nms_topk), int(param.keep_topk),
+                  int(bool(param.clip_boxes)), stream)
+    cuda_build.check_launch("detection_output", code,
+                            "fused DetectionOutput kernel")
+
+
+def fused_detection_output(loc: torch.Tensor, conf: torch.Tensor,
+                           priors: torch.Tensor, variances: torch.Tensor, *,
+                           param) -> torch.Tensor:
+    """Batched fused DetectionOutput: loc (B,P,4), conf (B,P,C)
+    probabilities, priors and variances (P,4) → (B, keep_topk, 6)."""
+    B, P, C = conf.shape
+    if loc.shape != (B, P, 4) or priors.shape != (P, 4) \
+            or variances.shape != (P, 4):
+        raise ValueError(f"fused DetectionOutput: loc {tuple(loc.shape)}, "
+                         f"priors {tuple(priors.shape)} and variances "
+                         f"{tuple(variances.shape)} do not fit conf "
+                         f"{tuple(conf.shape)}")
+    n_fg = len(foreground_ids(C, param.background_id))
+    if not n_fg:
+        raise ValueError("fused DetectionOutput needs >= 1 foreground class")
+    dev = conf.device
+    if any(t.device != dev for t in (loc, priors, variances)):
+        raise ValueError("fused DetectionOutput: inputs on different devices")
+    if dev.type == "cpu":
+        return fused_detection_output_plain(loc, conf, priors, variances,
+                                            param)
+    if dev.type != "cuda":
+        raise ValueError(f"fused DetectionOutput: no kernel for device {dev}")
+    need = select_smem_bytes(P, param.nms_topk)
+    if need > SELECT_SMEM_BYTES:
+        raise ValueError(f"fused DetectionOutput: P={P} priors and nms_topk="
+                         f"{param.nms_topk} need {need} bytes of shared "
+                         f"memory in one block; the limit is "
+                         f"{SELECT_SMEM_BYTES}")
+    out = torch.empty((B, param.keep_topk, 6), dtype=torch.float32,
+                      device=dev)
+    if B and P and param.keep_topk and param.nms_topk > 0:
+        loc, conf, priors, variances = (
+            _aligned(t) for t in (loc, conf, priors, variances))
+        _launch_fused(loc, conf, priors, variances, param, n_fg, out)
+        fused_detection_output.launches += 1
+    else:
+        out.zero_()
+        out[..., 0] = -1.0
+    return out
+
+
+fused_detection_output.launches = 0

@@ -1,0 +1,27 @@
+"""The port's device policy, in one place."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the GPU.  A CUDA device with no GPU present raises:
+    the port never carries on silently on the CPU — the caller asks for
+    it with ``device="cpu"``."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions of the kernels")
+    return dev
+
+
+def tensor_device(x, device=None) -> torch.device:
+    """Where an entry point taking arrays runs: an explicit ``device``
+    wins, else a tensor's own device, else the default policy."""
+    if device is not None:
+        return resolve_device(device)
+    if isinstance(x, torch.Tensor):
+        return x.device
+    return resolve_device(None)

@@ -1,0 +1,36 @@
+"""The PyTorch port stands alone: no module of ``analytics_zoo_tpu_torch``
+and not ``chip_smoke.py`` imports JAX, flax, optax or the JAX package
+(checked over the AST, so an import inside a function counts too)."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "analytics_zoo_tpu")
+FILES = sorted((ROOT / "analytics_zoo_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    assert path.exists()
+    bad = sorted(set(imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_scan_catches_a_forbidden_import(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("def f():\n    from analytics_zoo_tpu.ops import nms\n"
+                     "import jax.numpy as jnp\n")
+    assert set(imported_roots(probe)) == {"analytics_zoo_tpu", "jax"}
