@@ -1,5 +1,8 @@
 """Layers of the port (PyTorch ``nn.Module``s)."""
 
 from analytics_zoo_tpu_torch.core.layers import CMul, Normalize, NormalizeScale
+from analytics_zoo_tpu_torch.core.rnn import (BiRecurrent, GRUCell, LSTMCell,
+                                              Recurrent, RnnCell)
 
-__all__ = ["CMul", "Normalize", "NormalizeScale"]
+__all__ = ["BiRecurrent", "CMul", "GRUCell", "LSTMCell", "Normalize",
+           "NormalizeScale", "Recurrent", "RnnCell"]

@@ -1,4 +1,5 @@
-"""The layers the SSD path needs (counterpart of ``core/layers.py``).
+"""The layers the SSD path needs (counterpart of ``core/layers.py``),
+and flax's default kernel initializer for the port's models.
 
 Tensors here are NCHW, so "channels" is dim 1.
 """
@@ -9,6 +10,19 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+
+# std of a unit normal truncated at +-2 (flax's variance_scaling divides by
+# it, so the truncated draw keeps the asked-for variance)
+_TRUNC2_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax ``lecun_normal`` in place: variance ``1/fan_in``, truncated at
+    two standard deviations."""
+    std = (1.0 / fan_in) ** 0.5 / _TRUNC2_STD
+    return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                 generator=generator)
 
 
 class Normalize(nn.Module):

@@ -1,5 +1,10 @@
 """Models of the port."""
 
+from analytics_zoo_tpu_torch.models.deepspeech2 import (
+    DeepSpeech2,
+    SequenceBN,
+    ds2_valid_out_frames,
+)
 from analytics_zoo_tpu_torch.models.ssd import (
     SSDConfig,
     SSDDetector,

@@ -1,0 +1,154 @@
+"""DeepSpeech2 acoustic model (counterpart of ``models/deepspeech2.py``):
+mel features ``(B, T, n_mels)`` → log-probs ``(B, T', n_alphabet)``.
+
+conv front-end (11 × n_mels, stride 2 in time) → sequence BN → clipped
+ReLU → ``n_rnn_layers`` × (projection → sequence BN → BiRNN of
+identity-input clipped-ReLU cells, directions summed) → BN → output
+projection → log-softmax.  Module names are the flax scope names
+(``conv1``, ``bn_conv1``, ``proj{i}``, ``bn_rnn{i}``, ``birnn{i}`` or
+``rnn{i}``, ``bn_out``, ``fc_out``), so ``utils/convert.py`` maps a flax
+tree by name.
+
+Inference only: sequence BN uses its running statistics; train-mode
+(masked batch statistics), CTC and the sequence-parallel forward come
+with later slices (ROADMAP.md Queue 1 items 9 and 12).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from analytics_zoo_tpu_torch.core.layers import lecun_normal_
+from analytics_zoo_tpu_torch.core.rnn import BiRecurrent, Recurrent, RnnCell
+from analytics_zoo_tpu_torch.utils.device import resolve_device
+
+
+class SequenceBN(nn.Module):
+    """BatchNorm over (B·T) per feature of a ``(B, T, F)`` sequence,
+    inference form: ``(x − mean) · scale / sqrt(var + ε) + bias`` with
+    the running statistics (flax ``BatchNorm(use_running_average=True)``).
+    Train-mode statistics are not ported: calling it in training mode
+    raises."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "train-mode SequenceBN (masked batch statistics) comes "
+                "with the DS2 training slice (ROADMAP.md Queue 1 item 9); "
+                "call .eval()")
+        shape = x.shape
+        y = F.batch_norm(x.reshape(-1, shape[-1]), self.running_mean,
+                         self.running_var, self.weight, self.bias,
+                         training=False, eps=self.epsilon)
+        return y.reshape(shape)
+
+
+def ds2_valid_out_frames(n_frames):
+    """Valid output frames of the stride-2 SAME conv for ``n_frames``
+    valid inputs: ``ceil(n/2)``."""
+    return (n_frames + 1) // 2
+
+
+class DeepSpeech2(nn.Module):
+    """``bidirectional=False`` is the streamable form (``rnn{i}`` layers
+    with ``carry``/``return_carry``; the conv then runs VALID on input
+    the caller has extended with context frames).  ``rnn_engine``:
+    ``None``/``"blocked"`` (a loop over time) or ``"pallas"`` (the
+    persistent-RNN kernel K3); the parameters are the same.
+
+    Built on ``device`` (the GPU unless ``device="cpu"``), in eval mode,
+    with weights from ``torch.Generator().manual_seed(seed)`` drawn from
+    flax's distributions: lecun-normal kernels, zero biases, BN scale 1,
+    bias 0, mean 0, var 1."""
+
+    def __init__(self, hidden: int = 1024, n_rnn_layers: int = 3,
+                 n_alphabet: int = 29, n_mels: int = 13,
+                 conv_channels: int = 32, bidirectional: bool = True,
+                 rnn_engine: Optional[str] = None, *, device=None,
+                 seed: int = 0):
+        super().__init__()
+        dev = resolve_device(device)
+        self.hidden = hidden
+        self.n_rnn_layers = n_rnn_layers
+        self.n_mels = n_mels
+        self.bidirectional = bidirectional
+        self.rnn_engine = rnn_engine
+        gen = torch.Generator().manual_seed(seed)
+        self.conv1 = nn.Conv2d(1, conv_channels, (11, n_mels), stride=(2, 1))
+        self.bn_conv1 = SequenceBN(conv_channels)
+        cell = RnnCell(hidden, identity_input=True, activation="clipped_relu",
+                       generator=gen)
+        width = conv_channels
+        for i in range(n_rnn_layers):
+            self.add_module(f"proj{i}", nn.Linear(width, hidden))
+            self.add_module(f"bn_rnn{i}", SequenceBN(hidden))
+            if bidirectional:
+                self.add_module(f"birnn{i}", BiRecurrent(
+                    cell, merge="sum", engine=rnn_engine, generator=gen))
+            else:
+                self.add_module(f"rnn{i}", Recurrent(
+                    cell, engine=rnn_engine, generator=gen))
+            width = hidden
+        self.bn_out = SequenceBN(hidden)
+        self.fc_out = nn.Linear(hidden, n_alphabet)
+        self._init_weights(gen)
+        self.to(dev)
+        self.eval()
+
+    @torch.no_grad()
+    def _init_weights(self, gen: torch.Generator) -> None:
+        lecun_normal_(self.conv1.weight, self.conv1.weight[0].numel(), gen)
+        self.conv1.bias.zero_()
+        for d in [getattr(self, f"proj{i}") for i in range(self.n_rnn_layers)
+                  ] + [self.fc_out]:
+            lecun_normal_(d.weight, d.in_features, gen)
+            d.bias.zero_()
+
+    def forward(self, x: torch.Tensor, n_frames=None, carry=None,
+                return_carry: bool = False):
+        """``n_frames`` (per-row valid input frames) masks padding: each
+        RNN layer's carry freezes past ``ceil(n/2)`` output frames and the
+        backward pass reverses only the valid prefix.  ``carry = {"h":
+        (per-layer hidden,)}`` / ``return_carry`` stream a unidirectional
+        model across calls."""
+        streaming = carry is not None or return_carry
+        if streaming and self.bidirectional:
+            raise ValueError("streaming requires bidirectional=False")
+        B = x.shape[0]
+        pad = (0, 0) if streaming else (5, 0)
+        h = F.conv2d(x[:, None], self.conv1.weight, self.conv1.bias,
+                     stride=(2, 1), padding=pad)            # (B, 32, T', 1)
+        # flax reshapes NHWC (B, T', 1, 32) to (B, T', 32): channels last
+        h = h.permute(0, 2, 3, 1).reshape(B, h.shape[2], -1)
+        out_n = None
+        if n_frames is not None:
+            out_n = ds2_valid_out_frames(
+                torch.as_tensor(n_frames, device=x.device).long())
+        h = torch.clamp(self.bn_conv1(h), 0.0, 20.0)
+        new_h = []
+        for i in range(self.n_rnn_layers):
+            h = getattr(self, f"bn_rnn{i}")(getattr(self, f"proj{i}")(h))
+            if self.bidirectional:
+                h = getattr(self, f"birnn{i}")(h, n_frames=out_n)
+            else:
+                h0 = carry["h"][i] if carry is not None else None
+                h, hN = getattr(self, f"rnn{i}")(
+                    h, carry0=h0, return_carry=True, n_frames=out_n)
+                new_h.append(hN)
+        logits = self.fc_out(self.bn_out(h))
+        out = torch.log_softmax(logits, dim=-1)
+        if return_carry:
+            return out, {"h": tuple(new_h)}
+        return out

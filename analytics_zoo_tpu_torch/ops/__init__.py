@@ -1,5 +1,6 @@
-"""Detection ops on tensors: PriorBox, box math, NMS, DetectionOutput,
-and the kernels K1 (``pallas_nms``) and K2 (``pallas_detout``)."""
+"""Ops on tensors: PriorBox, box math, NMS, DetectionOutput, and the
+kernels K1 (``pallas_nms``), K2 (``pallas_detout``) and K3
+(``pallas_rnn``)."""
 
 from analytics_zoo_tpu_torch.ops import bbox
 from analytics_zoo_tpu_torch.ops.detection_output import (
@@ -11,6 +12,7 @@ from analytics_zoo_tpu_torch.ops.detection_output import (
 from analytics_zoo_tpu_torch.ops.nms import nms
 from analytics_zoo_tpu_torch.ops.pallas_detout import fused_detection_output
 from analytics_zoo_tpu_torch.ops.pallas_nms import nms_sweep
+from analytics_zoo_tpu_torch.ops.pallas_rnn import persistent_rnn
 from analytics_zoo_tpu_torch.ops.priorbox import (
     PriorBoxParam,
     concat_priors,

@@ -24,7 +24,8 @@ def resolve_compute_dtype(compute_dtype) -> Optional[torch.dtype]:
 def make_eval_step(module: nn.Module, compute_dtype=None) -> Callable:
     """``outputs = eval_step(inputs)``: the module's forward without
     autograd.  ``compute_dtype='bf16'`` runs it under bfloat16 autocast
-    (the convolutions in bf16) and casts the outputs back to fp32.  The
+    (the convolutions in bf16) and casts the outputs back to fp32, whatever
+    their structure (SSD's ``(loc, conf)``, DS2's one tensor).  The
     step reads the module's parameters at call time, so a later
     ``load_state_dict`` takes effect."""
     cdtype = resolve_compute_dtype(compute_dtype)
@@ -36,6 +37,18 @@ def make_eval_step(module: nn.Module, compute_dtype=None) -> Callable:
             dev = inputs.device.type
             with torch.autocast(dev, dtype=cdtype):
                 out = module(inputs.to(cdtype))
-            return tuple(o.float() for o in out)
+            return _to_float(out)
 
     return eval_step
+
+
+def _to_float(out):
+    """Cast every floating tensor of an output tree (a tensor, or nested
+    tuples, lists and dicts of them) to fp32, keeping its structure."""
+    if isinstance(out, torch.Tensor):
+        return out.float() if out.is_floating_point() else out
+    if isinstance(out, (tuple, list)):
+        return type(out)(_to_float(o) for o in out)
+    if isinstance(out, dict):
+        return {k: _to_float(v) for k, v in out.items()}
+    return out

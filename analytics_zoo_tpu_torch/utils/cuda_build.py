@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-KERNEL_SOURCES = ("nms_sweep", "detection_output")
+KERNEL_SOURCES = ("nms_sweep", "detection_output", "persistent_rnn")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SSD300 serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's SSD300 and DeepSpeech2 serving paths once on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, one JSON line each; any failure exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: both CUDA kernels compiled with ``nvcc`` for sm_90a from
-   ``analytics_zoo_tpu_torch/csrc`` (in parallel, cached by source hash);
+2. build: the three CUDA kernels compiled with ``nvcc`` for sm_90a from
+   ``analytics_zoo_tpu_torch/csrc`` (in parallel, cached by source hash),
+   each with its ptxas report;
 3. K1 (NMS sweep) against its plain PyTorch version at the SSD300 unfused
    shape (batch 8 → 160 rows × 512 candidates): random, tie-heavy and
    sparse rows; keep masks must be equal;
@@ -15,14 +17,26 @@ Phases, one JSON line each; any failure exits non-zero:
    (batch 8, P=8732, 21 classes; dense untrained and trained-like int8-tie
    confidences) and SSD512 geometry (P=24564): classes equal, scores
    within 1e-6, boxes within 1e-5;
+4b. K3 (persistent-RNN forward) against its plain version, TF32 off: the
+   DS2 shape (B=8, T=1500, H=1760, clipped ReLU) all valid and ragged,
+   GRU and LSTM at B=8, T=200, H=512, the DS2 shape with bf16 weights,
+   and B=3, T=11, H=6 tanh masked; ``ys`` and the carry within a
+   relative max-abs error of 1e-4 (fp32) or 2e-2 (bf16 weights);
 5. serving: ``SSDPredictor`` around a seeded random ``SSDVgg(21, 300)``
    answers 4 staged uint8 batches of 8 through ``backend="auto"`` (K2)
    and one through ``"pallas"`` (K1), with every launch counter set to 0
    just before and read just after; then "fused", "pallas" and the plain
    path must agree on one forward's (loc, probs), and the card's forward
    must agree with a CPU forward of the same weights;
+5b. ds2_serving: ``DeepSpeech2Pipeline`` around a seeded random
+   ``make_ds2_model(hidden=1760, n_rnn_layers=3, rnn_engine="pallas")``
+   transcribes 10 seeded synthetic utterances (3-70 s, 17 segments of
+   30 s, 3 batches of 8) with K3's launch counter set to 0 just before
+   and read just after (6 launches a batch); transcripts over the
+   alphabet; then on one batch the "pallas" and "blocked" engines, and
+   the card's forward against a CPU forward of one segment;
 6. timings with CUDA events at the main path's shapes: each kernel and
-   its plain version, the forward, and the end-to-end batch;
+   its plain version, the forwards, and the end-to-end batches;
 7. the ``kernels`` line, then the device line last.
 
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -47,6 +61,23 @@ FP32_OPS_PER_S = 67e12
 # 2 clamps, 1 product, 3 for the area, 3 for the union, 1 divide, 1 compare
 IOU_OPS = 17
 BATCH = 8
+# DS2 serving: the reference's serialized width, 30 s segments; 3-70 s
+# utterances give 17 segments of 30 s, 3 batches of 8
+DS2_HIDDEN = 1760
+DS2_SECONDS = (3, 12, 25, 31, 45, 58, 70, 8, 20, 64)
+# log-prob agreement of two DS2 forwards whose products sum in another
+# order (K3 against the blocked loop, the card against the CPU)
+DS2_LOGP_TOL = 1e-3
+# K3 check cases: name, cell, activation, B, T, H, ragged lengths, w type
+K3_CASES = [
+    ("ds2", "vanilla", "clipped_relu", 8, 1500, 1760, False, "float32"),
+    ("ds2_ragged", "vanilla", "clipped_relu", 8, 1500, 1760, True, "float32"),
+    ("gru", "gru", "relu", 8, 200, 512, True, "float32"),
+    ("lstm", "lstm", "relu", 8, 200, 512, True, "float32"),
+    ("ds2_bf16_w", "vanilla", "clipped_relu", 8, 1500, 1760, False,
+     "bfloat16"),
+    ("nonaligned", "vanilla", "tanh", 3, 11, 6, True, "float32"),
+]
 
 
 def emit(phase: str, **fields) -> None:
@@ -176,6 +207,71 @@ def synthetic_conf(rng, B, P, C, regime):
     return conf.astype(np.float32)
 
 
+def rnn_inputs(rng, dev, cell, B, T, H, ragged, wdt):
+    """K3 inputs at DS2's activation scale: unit-variance projections
+    (what the BN before each BiRNN gives), lecun-scaled h2h weights,
+    zero bias and carry; ``ragged`` draws per-row lengths in [T/2, T]."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.ops.pallas_rnn import CELL_CARRY, CELL_GATES
+
+    k, C = CELL_GATES[cell], CELL_CARRY[cell]
+    pre = rng.randn(B, T, k * H).astype(np.float32)
+    w = (rng.randn(H, k * H) / np.sqrt(H)).astype(np.float32)
+    n = (rng.randint(T // 2, T + 1, B) if ragged else np.full(B, T)
+         ).astype(np.int32)
+    return (torch.from_numpy(pre).to(dev),
+            torch.from_numpy(w).to(dev).to(wdt),
+            torch.zeros(k * H, device=dev), torch.zeros(C, B, H, device=dev),
+            torch.from_numpy(n).to(dev))
+
+
+def rnn_work(pre, w, b, h0, n):
+    """(bytes, operations) of one K3 call on these inputs: pre, w, b, h0
+    and n read once, ys and the carry written once; 2·H·k·H operations a
+    valid (row, step) for the product (masked steps do no work)."""
+    B, T, kH = pre.shape
+    H = w.shape[0]
+    nbytes = (pre.numel() * pre.element_size() + w.numel() * w.element_size()
+              + 4 * (b.numel() + 2 * h0.numel() + B + B * T * H))
+    return nbytes, 2 * H * kH * int(n.sum().item())
+
+
+def cudnn_relu_rnn_ms(pre, w, b) -> float:
+    """cuDNN's relu RNN (``torch.nn.RNN``) on the hoisted projections,
+    fed through an identity input weight: the nearest library call to
+    K3.  Not the same function (relu, not clipped at 20)."""
+    import torch
+
+    H = w.shape[0]
+    rnn = torch.nn.RNN(H, H, nonlinearity="relu", batch_first=True).to(
+        pre.device)
+    with torch.no_grad():
+        rnn.weight_ih_l0.copy_(torch.eye(H))
+        rnn.bias_ih_l0.zero_()
+        rnn.weight_hh_l0.copy_(w.float().t())
+        rnn.bias_hh_l0.copy_(b)
+    with torch.inference_mode():
+        return cuda_ms(lambda: rnn(pre), 5, 1)
+
+
+def synthetic_utterances(seconds, seed):
+    """Seeded 16 kHz audio: a few drifting tones under noise."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = {}
+    for i, sec in enumerate(seconds):
+        t = np.arange(int(sec * 16000)) / 16000.0
+        x = 0.02 * rng.randn(t.size)
+        for _ in range(3):
+            f0, df = rng.uniform(100, 3000), rng.uniform(-50, 50)
+            x += 0.1 * np.sin(2 * np.pi * (f0 + df * t) * t)
+        out[f"utt{i}"] = x.astype(np.float32)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -188,12 +284,17 @@ def main() -> int:
                                                     build_ssd_vgg,
                                                     ssd300_config,
                                                     ssd512_config)
-    from analytics_zoo_tpu_torch.ops import pallas_detout, pallas_nms
+    from analytics_zoo_tpu_torch.ops import (pallas_detout, pallas_nms,
+                                             pallas_rnn)
     from analytics_zoo_tpu_torch.ops.detection_output import (
         DetectionOutputParam, detection_output, sweep_candidates)
+    from analytics_zoo_tpu_torch.parallel.train import make_eval_step
+    from analytics_zoo_tpu_torch.pipelines.deepspeech2 import (
+        DeepSpeech2Pipeline, DS2Param, make_ds2_model)
     from analytics_zoo_tpu_torch.pipelines.ssd import (PreProcessParam,
                                                        SSDPredictor,
                                                        run_serving_loop)
+    from analytics_zoo_tpu_torch.transform.audio import ALPHABET
     from analytics_zoo_tpu_torch.utils import cuda_build
 
     dev = torch.device("cuda")
@@ -258,9 +359,38 @@ def main() -> int:
             if res == 300 and regime == "trained":
                 trained_inputs = (loc, conf)
 
-    # -- 5. serving: the main path ----------------------------------------
+    # -- 4b. K3 against its plain version --------------------------------
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    k3_err = 0.0
+    for case, cell, act, B, T, H, ragged, wdt in K3_CASES:
+        wdt = getattr(torch, wdt)
+        inputs = rnn_inputs(rng, dev, cell, B, T, H, ragged, wdt)
+        ys, cf = pallas_rnn.persistent_rnn(*inputs, cell=cell,
+                                           activation=act)
+        torch.cuda.synchronize()
+        want_ys, want_cf = pallas_rnn.persistent_rnn_plain(
+            pallas_rnn.RnnKernelConfig(cell, act), *inputs)
+        tol = 2e-2 if wdt == torch.bfloat16 else 1e-4
+        errs = {}
+        for what, got, want in (("ys", ys, want_ys), ("carry", cf, want_cf)):
+            err = (got - want).abs().max().item()
+            rel = err / max(want.abs().max().item(), 1e-6)
+            if not rel <= tol:
+                raise AssertionError(f"K3 {case} {what}: relative max-abs "
+                                     f"error {rel} (tol {tol})")
+            errs[what] = err
+            errs[f"{what}_rel"] = rel
+            k3_err = max(k3_err, err)
+        emit("k3_check", case=case, cell=cell, activation=act, B=B, T=T,
+             H=H, weights=str(wdt).split(".")[-1],
+             valid_steps=int(inputs[4].sum().item()), tolerance_rel=tol,
+             max_abs_err_ys=errs["ys"], max_abs_err_carry=errs["carry"],
+             rel_err_ys=errs["ys_rel"], rel_err_carry=errs["carry_rel"])
+        if case == "ds2":
+            ds2_inputs = inputs
+
+    # -- 5. serving: the main path ----------------------------------------
     model = build_ssd_vgg(21, 300, device=dev, seed=0)
     param = PreProcessParam(batch_size=BATCH, resolution=300)
     predictor = SSDPredictor(model, param, device=dev)
@@ -326,6 +456,58 @@ def main() -> int:
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
 
+    # -- 5b. DS2 serving: the second main path ---------------------------
+    ds2 = make_ds2_model(hidden=DS2_HIDDEN, n_rnn_layers=3,
+                         rnn_engine="pallas", seed=0, device=dev)
+    pipe = DeepSpeech2Pipeline(ds2, DS2Param(batch_size=BATCH), device=dev)
+    utts = synthetic_utterances(DS2_SECONDS, seed=7)
+    n_seg = sum(-(-len(u) // pipe.segmenter.segment_size)
+                for u in utts.values())
+    n_batches = -(-n_seg // BATCH)
+    pipe.transcribe_samples({"warm": utts["utt0"]})     # cuBLAS/cuFFT warm-up
+    torch.cuda.synchronize()
+    pallas_rnn.persistent_rnn.launches = 0
+    texts = pipe.transcribe_samples(utts)
+    torch.cuda.synchronize()
+    k3_launches = pallas_rnn.persistent_rnn.launches
+    if k3_launches != 6 * n_batches:
+        raise AssertionError(f"K3 launched {k3_launches} times for "
+                             f"{n_batches} batches (want {6 * n_batches})")
+    if sorted(texts) != sorted(utts) or any(
+            set(t) - set(ALPHABET) for t in texts.values()):
+        raise AssertionError(f"bad transcripts {texts}")
+
+    # one batch: pallas against blocked, and the card against the CPU
+    segs = [s for a, u in utts.items() for s in pipe.segmenter.segment(u, a)]
+    batch, n_valid = pipe._pack_batch(segs[:BATCH])
+    feats = pipe._make_featurizer()(batch, n_valid)
+    lp = pipe._eval_step(feats)
+    blocked = make_ds2_model(hidden=DS2_HIDDEN, n_rnn_layers=3,
+                             rnn_engine="blocked", seed=0, device=dev)
+    lp_blocked = make_eval_step(blocked)(feats)
+    engines_err = (lp - lp_blocked).abs().max().item()
+    argmax_agree = (lp.argmax(-1) == lp_blocked.argmax(-1)).float().mean(
+        ).item()
+    cpu_ds2 = make_ds2_model(hidden=DS2_HIDDEN, n_rnn_layers=3,
+                             rnn_engine="pallas", seed=0, device="cpu")
+    lp_cpu = make_eval_step(cpu_ds2)(feats[:1].cpu())
+    cpu_err = (lp[:1].cpu() - lp_cpu).abs().max().item()
+    if not (engines_err <= DS2_LOGP_TOL and cpu_err <= DS2_LOGP_TOL
+            and argmax_agree >= 0.99):
+        raise AssertionError(
+            f"DS2 log-probs: pallas vs blocked {engines_err}, card vs CPU "
+            f"{cpu_err} (tol {DS2_LOGP_TOL}); argmax agreement "
+            f"{argmax_agree} (want >= 0.99)")
+    if tuple(lp.shape) != (BATCH, 1500, 29) or not torch.isfinite(lp).all():
+        raise AssertionError(f"bad DS2 log-probs {tuple(lp.shape)}")
+    emit("ds2_serving", utterances=len(utts), audio_s=sum(DS2_SECONDS),
+         segments=n_seg, batches=n_batches, launches={
+             "persistent_rnn": k3_launches},
+         chars=sum(len(t) for t in texts.values()),
+         logp_max_abs_err_pallas_vs_blocked=engines_err,
+         argmax_agreement_pallas_vs_blocked=argmax_agree,
+         logp_max_abs_err_card_vs_cpu=cpu_err, tolerance=DS2_LOGP_TOL)
+
     # -- 6. timings at the main path's shapes -----------------------------
     boxes, top, valid, _ = sweep_candidates(loc, probs, pri, var,
                                             predictor.post)
@@ -361,12 +543,45 @@ def main() -> int:
     for i in range(reps):
         predictor.detect_batch(dict(batches[i % len(batches)]))
     e2e_ms = (time.perf_counter() - t0) * 1e3 / reps
+    # K3 at the DS2 shape (all frames valid, as serving forwards padded
+    # segments), its plain version, and cuDNN's relu RNN on the same
+    # hoisted projections as the nearest library yardstick
+    def k3():
+        return pallas_rnn.persistent_rnn(*ds2_inputs, cell="vanilla",
+                                         activation="clipped_relu")
+
+    k3_ms = cuda_ms(k3, 5, 1)
+    k3_plain_ms = cuda_ms(lambda: pallas_rnn.persistent_rnn_plain(
+        pallas_rnn.RnnKernelConfig("vanilla", "clipped_relu"), *ds2_inputs),
+        2, 1)
+    k3_bound, k3_by = bound(*rnn_work(*ds2_inputs))
+    k3_nearest_ms = cudnn_relu_rnn_ms(*ds2_inputs[:3])
+    feat_ms = cuda_ms(lambda: pipe._make_featurizer()(batch, n_valid), 10)
+    ds2_fwd_ms = cuda_ms(lambda: pipe._eval_step(feats), 3, 1)
+    argmax_read_ms = cuda_ms(lambda: lp.argmax(-1).cpu(), 10)
+    e2e_utts = synthetic_utterances((30,) * BATCH, seed=11)  # 8 x 30 s
+    pipe.transcribe_samples(e2e_utts)
+    torch.cuda.synchronize()
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        pipe.transcribe_samples(e2e_utts)
+    ds2_e2e_ms = (time.perf_counter() - t0) * 1e3 / reps
+    audio_s = 30.0 * BATCH
     emit("timing", nvidia_smi=smi, forward_ms=fwd_ms,
          e2e_ms_per_batch=e2e_ms, images_per_s=BATCH * 1e3 / e2e_ms,
          k2_trained_like_ms=k2_trained_ms,
          k2_trained_like_bound_ms=k2_trained_bound,
          k2_trained_like_bound_by=k2_trained_by,
-         k1_rows=B * Cf, k1_k=k, k1_kept=int(keep.sum().item()))
+         k1_rows=B * Cf, k1_k=k, k1_kept=int(keep.sum().item()),
+         k3_ms=k3_ms, k3_bound_ms=k3_bound, k3_bound_by=k3_by,
+         k3_plain_ms=k3_plain_ms, k3_nearest_library_ms=k3_nearest_ms,
+         ds2_featurize_ms=feat_ms, ds2_forward_ms_per_batch=ds2_fwd_ms,
+         ds2_k3_share_of_forward=6 * k3_ms / ds2_fwd_ms,
+         ds2_argmax_readback_ms=argmax_read_ms,
+         ds2_e2e_ms_per_batch=ds2_e2e_ms,
+         ds2_audio_s_per_batch=audio_s,
+         ds2_audio_seconds_per_second=audio_s * 1e3 / ds2_e2e_ms)
 
     # -- 7. kernels, then the device line last ----------------------------
     kernels = [
@@ -382,6 +597,14 @@ def main() -> int:
          "launches": launches["fused_detection_output"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
+        {"name": "persistent_rnn", "route": "cuda",
+         "source": "analytics_zoo_tpu_torch/csrc/persistent_rnn.cu",
+         "replaces": "analytics_zoo_tpu/ops/pallas_rnn.py:266",
+         "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms,
+         "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
+         # no PyTorch call computes a clipped-ReLU recurrence; cuDNN's
+         # relu RNN on the same projections is the nearest yardstick
+         "library_ms": None, "nearest_library_ms": k3_nearest_ms},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,3 +34,25 @@ def test_scan_catches_a_forbidden_import(tmp_path):
     probe.write_text("def f():\n    from analytics_zoo_tpu.ops import nms\n"
                      "import jax.numpy as jnp\n")
     assert set(imported_roots(probe)) == {"analytics_zoo_tpu", "jax"}
+
+
+def test_port_imports_pull_in_no_jax():
+    """Importing every module of the port, the DS2 slice's included, in a
+    fresh interpreter loads no module of JAX, flax or the JAX package."""
+    import subprocess
+    import sys
+
+    mods = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
+            ".__init__")
+        for p in (ROOT / "analytics_zoo_tpu_torch").rglob("*.py"))
+    assert "analytics_zoo_tpu_torch.pipelines.deepspeech2" in mods
+    assert "analytics_zoo_tpu_torch.ops.pallas_rnn" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

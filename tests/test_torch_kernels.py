@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from analytics_zoo_tpu_torch.models.ssd import build_priors, ssd300_config
-from analytics_zoo_tpu_torch.ops import pallas_detout, pallas_nms
+from analytics_zoo_tpu_torch.ops import pallas_detout, pallas_nms, pallas_rnn
 from analytics_zoo_tpu_torch.ops.detection_output import (
     DetectionOutputParam, detection_output)
 from analytics_zoo_tpu_torch.utils import cuda_build
@@ -169,3 +169,121 @@ def test_fused_kernel_ssd300_and_backends_agree(regime):
         out = detection_output(loc, conf, priors, variances,
                                DetectionOutputParam(backend=backend))
         _assert_rows_match(out, want)
+
+
+# -- K3: the persistent-RNN forward ---------------------------------------
+# Tolerances: the kernel sums each product in another order than
+# torch.matmul, and the difference compounds along the recurrence, so the
+# test holds the largest absolute error to 1e-4 of the output's largest
+# magnitude in fp32 and 2e-2 with bf16 weights (h is rounded to bf16 before
+# each product, on both sides, so a rounding flip moves a value by one
+# bf16 ulp).
+
+RNN_CASES = [
+    # cell, activation, B, T, H
+    ("vanilla", "relu", 4, 40, 96),
+    ("vanilla", "clipped_relu", 8, 64, 300),
+    ("vanilla", "tanh", 3, 11, 6),
+    ("vanilla", "clipped_relu", 10, 24, 140),      # two passes of 8 rows
+    ("gru", "relu", 5, 48, 160),
+    ("lstm", "relu", 5, 48, 160),
+]
+
+
+def _rnn_inputs(seed, cell, B, T, H, masked, wdtype=torch.float32):
+    rng = np.random.RandomState(seed)
+    k = pallas_rnn.CELL_GATES[cell]
+    C = pallas_rnn.CELL_CARRY[cell]
+    pre = torch.from_numpy(rng.randn(B, T, k * H).astype(np.float32) * 0.5)
+    w = torch.from_numpy((rng.randn(H, k * H) / np.sqrt(H))
+                         .astype(np.float32)).to(wdtype)
+    b = torch.from_numpy(rng.randn(k * H).astype(np.float32) * 0.1)
+    h0 = torch.from_numpy(rng.randn(C, B, H).astype(np.float32) * 0.3)
+    n = (torch.from_numpy(rng.randint(0, T + 3, B).astype(np.int32))
+         if masked else None)
+    return pre, w, b, h0, n
+
+
+def _rel_err(got, want):
+    got, want = got.float().cpu(), want.float().cpu()
+    return ((got - want).abs().max() / want.abs().max().clamp(min=1e-6)
+            ).item()
+
+
+def test_rnn_fit_check_names_the_limit():
+    pallas_rnn.check_hopper_fit(1760, "vanilla")
+    pallas_rnn.check_hopper_fit(1760, "lstm")
+    with pytest.raises(ValueError, match="shared memory"):
+        pallas_rnn.check_hopper_fit(9000, "vanilla")
+    with pytest.raises(ValueError, match="threads"):
+        pallas_rnn.check_hopper_fit(9000, "lstm")
+
+
+def test_rnn_refuses_autograd_and_other_devices():
+    pre, w, b, h0, _ = _rnn_inputs(0, "vanilla", 2, 3, 4, False)
+    with pytest.raises(NotImplementedError, match="K4"):
+        pallas_rnn.persistent_rnn(pre, w.requires_grad_(), b, h0)
+    meta = [t.detach().to("meta") for t in (pre, w, b, h0)]
+    with pytest.raises(ValueError, match="no kernel"):
+        pallas_rnn.persistent_rnn(*meta)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("cell,act,B,T,H", RNN_CASES)
+def test_persistent_rnn_kernel(cell, act, B, T, H, masked):
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = [t.to(dev) if t is not None else None
+            for t in _rnn_inputs(7, cell, B, T, H, masked)]
+    before = pallas_rnn.persistent_rnn.launches
+    ys, cf = pallas_rnn.persistent_rnn(*args, cell=cell, activation=act)
+    torch.cuda.synchronize()
+    assert pallas_rnn.persistent_rnn.launches == before + 1
+    n = (args[4] if masked else torch.full((B,), T, device=dev)).clamp(0, T)
+    want_ys, want_cf = pallas_rnn.persistent_rnn_plain(
+        pallas_rnn.RnnKernelConfig(cell, act), *args[:4], n.int())
+    assert _rel_err(ys, want_ys) <= 1e-4
+    assert _rel_err(cf, want_cf) <= 1e-4
+    if masked:                       # masked steps emit exactly 0
+        t_idx = torch.arange(T, device=dev)
+        pad = t_idx[None, :] >= n[:, None]
+        assert (ys[pad] == 0).all()
+
+
+@pytest.mark.parametrize("cell", ["vanilla", "gru"])
+def test_persistent_rnn_kernel_bf16_weights(cell):
+    dev = _cuda()
+    args = [t.to(dev) for t in _rnn_inputs(
+        9, cell, 8, 50, 256, False, torch.bfloat16)[:4]]
+    act = "clipped_relu"
+    ys, cf = pallas_rnn.persistent_rnn(*args, cell=cell, activation=act)
+    n = torch.full((8,), 50, dtype=torch.int32, device=dev)
+    want_ys, want_cf = pallas_rnn.persistent_rnn_plain(
+        pallas_rnn.RnnKernelConfig(cell, act), *args, n)
+    assert _rel_err(ys, want_ys) <= 2e-2
+    assert _rel_err(cf, want_cf) <= 2e-2
+
+
+def test_ds2_forward_pallas_matches_blocked():
+    """The DS2 forward through K3 against the blocked loop on the card,
+    padded and with ragged ``n_frames``: log-probs within 1e-3 (two
+    summation orders through three BiRNN layers)."""
+    from analytics_zoo_tpu_torch.pipelines.deepspeech2 import make_ds2_model
+
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.from_numpy(np.random.RandomState(4).randn(4, 300, 13)
+                         .astype(np.float32)).to(dev)
+    n = torch.tensor([300, 211, 97, 4], device=dev)
+    pallas = make_ds2_model(hidden=256, seed=3, rnn_engine="pallas",
+                            device=dev)
+    blocked = make_ds2_model(hidden=256, seed=3, rnn_engine="blocked",
+                             device=dev)
+    with torch.inference_mode():
+        for kw in ({}, {"n_frames": n}):
+            before = pallas_rnn.persistent_rnn.launches
+            got = pallas(x, **kw)
+            assert pallas_rnn.persistent_rnn.launches == before + 6
+            want = blocked(x, **kw)
+            assert (got - want).abs().max().item() <= 1e-3
