@@ -12,9 +12,10 @@ parameter set:
 
 - ``"blocked"`` (the default) — a plain loop over time on the projected
   inputs, with the reference's masking;
-- ``"pallas"`` — the persistent-RNN kernel K3 (``ops/pallas_rnn.py``):
-  one launch runs the whole time axis on the card.  A geometry the
-  kernel cannot take raises; nothing falls back to the loop.
+- ``"pallas"`` — the persistent-RNN kernels (``ops/pallas_rnn.py``): one
+  launch of K3 runs the whole time axis on the card, and under autograd
+  one launch of K4 its backward.  A geometry a kernel cannot take raises,
+  naming the pass; nothing falls back to the loop.
 
 ``n_frames`` (per-row valid lengths, clamped to T) freezes a row's carry
 past its length and zeroes those outputs; ``reverse=True`` then reverses
@@ -325,14 +326,15 @@ class Recurrent(nn.Module):
 
     def _pallas_scan(self, pre, carry, n):
         """The whole recurrence in one K3 launch on the hoisted
-        projections.  Under autocast the h2h kernel is cast to the
-        autocast type, as the reference casts every parameter under a
-        bf16 ``compute_dtype``."""
+        projections (and its gradient in one K4 launch).  Under autocast
+        the h2h kernel is cast to the autocast type, as the reference
+        casts every parameter under a bf16 ``compute_dtype``; its
+        gradient reaches the fp32 parameter through that cast."""
         kind = _pallas_cell_kind(self.body)
         w, b = _stack_recurrent_params(kind, self.body)
-        dev_type = pre.device.type
-        if torch.is_autocast_enabled(dev_type):
-            w = w.to(torch.get_autocast_dtype(dev_type))
+        dev = pre.device
+        if torch.is_autocast_enabled(dev.type):
+            w = w.to(torch.get_autocast_dtype(dev.type))
         h0 = torch.stack(carry) if isinstance(carry, tuple) else carry[None]
         ys, cf = persistent_rnn(pre, w, b, h0, n, cell=kind,
                                 activation=getattr(self.body, "activation",

@@ -7,7 +7,11 @@
 // and the valid lengths n [B] in; ys [B,T,H] and the final carry [C,B,H]
 // out.  Each step computes hh = h.w + b in fp32 (h rounded to w's type
 // first, as the TPU kernel's h.astype(w.dtype)), then the vanilla / GRU /
-// LSTM gate math; a row with t >= n freezes its carry and emits 0.
+// LSTM gate math; a row with t >= n freezes its carry and emits 0.  Given a
+// residual buffer (the forward of a training step), it also writes the fp32
+// carry at the start of every U-th step, cs [ceil(T/U), C, B, H] (the TPU
+// kernel's save_residuals output, :230-231 and :303-308): the backward K4
+// recomputes each block of U steps from it.
 //
 // What bounds it on the H100: the operations, 2*B*H*k*H per valid step
 // (74 GFLOP for one DS2 direction at B=8, T=1500, H=1760: ~1.1 ms at 67
@@ -40,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rnn_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -49,9 +55,6 @@ constexpr int kRows = 8;  // batch rows per pass: the register tile
 constexpr int kLoads = 4;
 enum Cell { kVanilla = 0, kGru = 1, kLstm = 2 };
 enum Act { kRelu = 0, kClippedRelu = 1, kTanh = 2 };
-// a barrier that waits this long means a block never arrived: abort the
-// kernel (a CUDA error) instead of hanging the device
-constexpr unsigned long long kBarrierTimeoutNs = 10ull * 1000 * 1000 * 1000;
 
 struct Args {
   const float* pre;
@@ -63,65 +66,15 @@ struct Args {
   float* cf;
   float* hbuf;          // [2, B, ldh] ping-pong carry h
   unsigned int* bar;    // [2] arrivals, generation (zeroed by the caller)
+  float* cs;            // [ceil(T/U), C, B, H] block-start carries, or null
   int B, T, H, k, C, cell, act;
+  int U;                // steps between two saved carries
   int ldh;              // row stride of hbuf: H rounded up to 4 (float4 rows)
   int cols;             // hidden columns a block owns (the last may own fewer)
   int nc;               // k * cols: product columns of a block
   int slices;           // K-split of the product over the block's threads
   int w_smem;           // 1: the block's W slice lives in shared memory
 };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-// h as the product sees it: rounded to the weight type
-template <typename T> __device__ __forceinline__ float as_weight_type(float x) {
-  return to_f(from_f<T>(x));
-}
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Grid-wide barrier: every block of the cooperative launch is resident, so
-// spinning cannot starve a block that has not arrived.  The generation is
-// read BEFORE arriving, so the last arrival cannot bump it unseen.
-__device__ void grid_barrier(unsigned int* bar, unsigned int nblocks) {
-  __threadfence();  // this thread's stores, before the arrival
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned int* gen = bar + 1;
-    const unsigned int g = *gen;
-    __threadfence();
-    if (atomicAdd(bar, 1u) == nblocks - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      const unsigned long long t0 = global_ns();
-      while (*gen == g) {
-        if (global_ns() - t0 > kBarrierTimeoutNs) __trap();
-      }
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -286,6 +239,10 @@ persistent_rnn_kernel(const Args a) {
         const size_t rh = static_cast<size_t>(r) * a.ldh + j;
         const float hold = __ldcg(hcur + rh);
         const bool keep = t < a.n[r];
+        const bool save = a.cs != nullptr && t % a.U == 0;
+        float* csb = save ? a.cs + static_cast<size_t>(t / a.U) * a.C * a.B * H
+                          : nullptr;
+        if (save) csb[static_cast<size_t>(a.C - 1) * a.B * H + rj] = hold;
         float hnew;
         if (a.cell == kVanilla) {
           const float z = pv[0] + hh[0];
@@ -302,7 +259,9 @@ persistent_rnn_kernel(const Args a) {
           const float fg = sigmoidf(pv[1] + hh[1]);
           const float gg = tanhf(pv[2] + hh[2]);
           const float og = sigmoidf(pv[3] + hh[3]);
-          const float cnew = fg * a.cf[rj] + ig * gg;
+          const float cold = a.cf[rj];
+          if (save) csb[rj] = cold;
+          const float cnew = fg * cold + ig * gg;
           hnew = og * tanhf(cnew);
           if (keep) a.cf[rj] = cnew;
         }
@@ -314,12 +273,22 @@ persistent_rnn_kernel(const Args a) {
     grid_barrier(a.bar, nblocks);
   }
 
-  // final h of the own columns; outputs of steps past every row's length
+  // final h of the own columns (and, from the first block start past every
+  // row's length on, the saved carries: the carry is frozen there); outputs
+  // of steps past every row's length
   const float* hfin = a.hbuf + static_cast<size_t>(tmax & 1) * plane;
+  const int nb = (a.T + a.U - 1) / a.U;
   for (int idx = tid; idx < a.B * ncols; idx += kThreads) {
     const int r = idx / ncols, j = j0 + idx % ncols;
-    a.cf[(static_cast<size_t>(a.C - 1) * a.B + r) * H + j] =
-        __ldcg(hfin + static_cast<size_t>(r) * a.ldh + j);
+    const size_t rj = static_cast<size_t>(r) * H + j;
+    const float hf = __ldcg(hfin + static_cast<size_t>(r) * a.ldh + j);
+    a.cf[static_cast<size_t>(a.C - 1) * a.B * H + rj] = hf;
+    if (a.cs == nullptr) continue;
+    for (int blk = (tmax + a.U - 1) / a.U; blk < nb; ++blk) {
+      float* csb = a.cs + static_cast<size_t>(blk) * a.C * a.B * H;
+      csb[static_cast<size_t>(a.C - 1) * a.B * H + rj] = hf;
+      if (a.cell == kLstm) csb[rj] = a.cf[rj];
+    }
   }
   const size_t tail = static_cast<size_t>(a.T - tmax) * a.B * ncols;
   for (size_t idx = tid; idx < tail; idx += kThreads) {
@@ -353,13 +322,15 @@ const char* az_error_string(int code) {
 
 // Launch K3 on `stream`.  pre, b, h0 fp32; w fp32 (w_bf16 = 0) or bf16;
 // n int32 clamped to [0, T]; ys [B,T,H], cf [C,B,H] and hbuf
-// [2,B,round_up(H,4)] fp32; bar two zeroed words.  Returns the cudaError_t
-// of the launch (0 = launched); a geometry whose blocks cannot all be
-// resident is refused.
+// [2,B,round_up(H,4)] fp32; bar two zeroed words; cs null (inference) or
+// [ceil(T/U),C,B,H] fp32 for the carries at every U-th step.  Returns the
+// cudaError_t of the launch (0 = launched); a geometry whose blocks cannot
+// all be resident is refused.
 int az_persistent_rnn(const float* pre, const void* w, int w_bf16,
                       const float* b, const float* h0, const int* n, float* ys,
-                      float* cf, float* hbuf, unsigned int* bar, int B, int T,
-                      int H, int cell, int act, void* stream) {
+                      float* cf, float* hbuf, unsigned int* bar, float* cs,
+                      int B, int T, int H, int cell, int act, int U,
+                      void* stream) {
   int dev = 0, sms = 0, coop = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -399,9 +370,10 @@ int az_persistent_rnn(const float* pre, const void* w, int w_bf16,
   if (per_sm * sms < grid)
     return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
 
-  Args a{pre, w, b, h0, n, ys, cf, hbuf, bar, B, T, H, k,
-         cell == kLstm ? 2 : 1, cell, act, (H + 3) / 4 * 4, cols, nc, slices,
-         w_smem};
+  if (U < 1) return static_cast<int>(cudaErrorInvalidValue);
+  Args a{pre, w, b, h0, n, ys, cf, hbuf, bar, cs, B, T, H, k,
+         cell == kLstm ? 2 : 1, cell, act, U, (H + 3) / 4 * 4, cols, nc,
+         slices, w_smem};
   void* params[] = {&a};
   e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kThreads), params, smem,
                                   static_cast<cudaStream_t>(stream));

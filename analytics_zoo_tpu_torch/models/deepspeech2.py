@@ -9,9 +9,10 @@ projection → log-softmax.  Module names are the flax scope names
 ``rnn{i}``, ``bn_out``, ``fc_out``), so ``utils/convert.py`` maps a flax
 tree by name.
 
-Inference only: sequence BN uses its running statistics; train-mode
-(masked batch statistics), CTC and the sequence-parallel forward come
-with later slices (ROADMAP.md Queue 1 items 9 and 12).
+In ``eval()`` mode sequence BN uses its running statistics; under
+``train()`` it normalizes with the batch statistics of the valid frames
+(``n_frames``) and updates the running ones with flax's semantics.  The
+sequence-parallel forward is not ported (ROADMAP.md Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -28,11 +29,18 @@ from analytics_zoo_tpu_torch.utils.device import resolve_device
 
 
 class SequenceBN(nn.Module):
-    """BatchNorm over (B·T) per feature of a ``(B, T, F)`` sequence,
-    inference form: ``(x − mean) · scale / sqrt(var + ε) + bias`` with
-    the running statistics (flax ``BatchNorm(use_running_average=True)``).
-    Train-mode statistics are not ported: calling it in training mode
-    raises."""
+    """BatchNorm over (B·T) per feature of a ``(B, T, F)`` sequence (flax
+    ``BatchNorm``, reference ``BatchNormalizationDS``).
+
+    ``eval()``: ``(x − mean) · scale / sqrt(var + ε) + bias`` with the
+    running statistics.  ``train()``: the batch statistics over the frames
+    where ``mask`` (broadcastable to ``x``, 1/True = valid) is set — all
+    frames without one — as flax computes them: the mean and the biased
+    variance ``E[x²] − E[x]²`` (clipped at 0), in fp32; the running
+    statistics then move as ``ra = 0.9 · ra + 0.1 · batch`` (flax's
+    ``momentum=0.9``, the complement of torch's ``momentum``)."""
+
+    MOMENTUM = 0.9
 
     def __init__(self, features: int, epsilon: float = 1e-5):
         super().__init__()
@@ -42,17 +50,32 @@ class SequenceBN(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "train-mode SequenceBN (masked batch statistics) comes "
-                "with the DS2 training slice (ROADMAP.md Queue 1 item 9); "
-                "call .eval()")
-        shape = x.shape
-        y = F.batch_norm(x.reshape(-1, shape[-1]), self.running_mean,
-                         self.running_var, self.weight, self.bias,
-                         training=False, eps=self.epsilon)
-        return y.reshape(shape)
+    def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
+        if not self.training:
+            shape = x.shape
+            y = F.batch_norm(x.reshape(-1, shape[-1]), self.running_mean,
+                             self.running_var, self.weight, self.bias,
+                             training=False, eps=self.epsilon)
+            return y.reshape(shape)
+        xf = x.float()
+        dims = tuple(range(x.dim() - 1))
+        if mask is None:
+            mean = xf.mean(dims)
+            mean2 = (xf * xf).mean(dims)
+        else:
+            m = torch.broadcast_to(torch.as_tensor(mask, device=x.device),
+                                   x.shape).float()
+            count = m.sum(dims)
+            mean = (xf * m).sum(dims) / count
+            mean2 = (xf * xf * m).sum(dims) / count
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(self.MOMENTUM).add_(
+                (1.0 - self.MOMENTUM) * mean)
+            self.running_var.mul_(self.MOMENTUM).add_(
+                (1.0 - self.MOMENTUM) * var)
+        y = (xf - mean) * (torch.rsqrt(var + self.epsilon) * self.weight)
+        return (y + self.bias).to(x.dtype)
 
 
 def ds2_valid_out_frames(n_frames):
@@ -66,7 +89,8 @@ class DeepSpeech2(nn.Module):
     with ``carry``/``return_carry``; the conv then runs VALID on input
     the caller has extended with context frames).  ``rnn_engine``:
     ``None``/``"blocked"`` (a loop over time) or ``"pallas"`` (the
-    persistent-RNN kernel K3); the parameters are the same.
+    persistent-RNN kernels, K3 forward and K4 backward); the parameters
+    are the same.
 
     Built on ``device`` (the GPU unless ``device="cpu"``), in eval mode,
     with weights from ``torch.Generator().manual_seed(seed)`` drawn from
@@ -119,8 +143,9 @@ class DeepSpeech2(nn.Module):
     def forward(self, x: torch.Tensor, n_frames=None, carry=None,
                 return_carry: bool = False):
         """``n_frames`` (per-row valid input frames) masks padding: each
-        RNN layer's carry freezes past ``ceil(n/2)`` output frames and the
-        backward pass reverses only the valid prefix.  ``carry = {"h":
+        RNN layer's carry freezes past ``ceil(n/2)`` output frames, the
+        backward pass reverses only the valid prefix, and in training the
+        BN statistics count valid frames only.  ``carry = {"h":
         (per-layer hidden,)}`` / ``return_carry`` stream a unidirectional
         model across calls."""
         streaming = carry is not None or return_carry
@@ -132,14 +157,17 @@ class DeepSpeech2(nn.Module):
                      stride=(2, 1), padding=pad)            # (B, 32, T', 1)
         # flax reshapes NHWC (B, T', 1, 32) to (B, T', 32): channels last
         h = h.permute(0, 2, 3, 1).reshape(B, h.shape[2], -1)
-        out_n = None
+        out_n = bn_mask = None
         if n_frames is not None:
             out_n = ds2_valid_out_frames(
                 torch.as_tensor(n_frames, device=x.device).long())
-        h = torch.clamp(self.bn_conv1(h), 0.0, 20.0)
+            bn_mask = (torch.arange(h.shape[1], device=x.device)[None, :]
+                       < out_n[:, None])[..., None]        # (B, T', 1)
+        h = torch.clamp(self.bn_conv1(h, bn_mask), 0.0, 20.0)
         new_h = []
         for i in range(self.n_rnn_layers):
-            h = getattr(self, f"bn_rnn{i}")(getattr(self, f"proj{i}")(h))
+            h = getattr(self, f"bn_rnn{i}")(getattr(self, f"proj{i}")(h),
+                                           bn_mask)
             if self.bidirectional:
                 h = getattr(self, f"birnn{i}")(h, n_frames=out_n)
             else:
@@ -147,7 +175,7 @@ class DeepSpeech2(nn.Module):
                 h, hN = getattr(self, f"rnn{i}")(
                     h, carry0=h0, return_carry=True, n_frames=out_n)
                 new_h.append(hN)
-        logits = self.fc_out(self.bn_out(h))
+        logits = self.fc_out(self.bn_out(h, bn_mask))
         out = torch.log_softmax(logits, dim=-1)
         if return_carry:
             return out, {"h": tuple(new_h)}

@@ -1,5 +1,5 @@
 """Ops on tensors: PriorBox, box math, NMS, DetectionOutput, and the
-kernels K1 (``pallas_nms``), K2 (``pallas_detout``) and K3
+kernels K1 (``pallas_nms``), K2 (``pallas_detout``), K3 and K4
 (``pallas_rnn``)."""
 
 from analytics_zoo_tpu_torch.ops import bbox
@@ -12,7 +12,8 @@ from analytics_zoo_tpu_torch.ops.detection_output import (
 from analytics_zoo_tpu_torch.ops.nms import nms
 from analytics_zoo_tpu_torch.ops.pallas_detout import fused_detection_output
 from analytics_zoo_tpu_torch.ops.pallas_nms import nms_sweep
-from analytics_zoo_tpu_torch.ops.pallas_rnn import persistent_rnn
+from analytics_zoo_tpu_torch.ops.pallas_rnn import (persistent_rnn,
+                                                    persistent_rnn_bwd)
 from analytics_zoo_tpu_torch.ops.priorbox import (
     PriorBoxParam,
     concat_priors,

@@ -1,7 +1,10 @@
-"""DeepSpeech2 inference pipeline (counterpart of the serving half of
-``pipelines/deepspeech2.py``): audio → TimeSegmenter chunks tagged
-``(audio_id, audio_seq)`` → featurize → forward → CTC decode → re-join
-per utterance in ``audio_seq`` order → WER/CER.
+"""DeepSpeech2 pipelines (counterpart of ``pipelines/deepspeech2.py``).
+
+Serving: audio → TimeSegmenter chunks tagged ``(audio_id, audio_seq)`` →
+featurize → forward → CTC decode → re-join per utterance in
+``audio_seq`` order → WER/CER.  Training: ``load_asr_train_set`` (host
+featurize, optionally length-bucketed) → ``train_ds2`` (CTC loss, Adam,
+the recurrences through K3 and K4 on the card).
 
 All segments are zero-padded to ``segment_seconds`` and forwarded in
 groups of ``batch_size``.  The padded segments go through the model
@@ -9,8 +12,9 @@ WITHOUT ``n_frames``, as in the reference.  The greedy, device-featurize
 path runs featurize → forward → argmax on the card for one batch and
 reads back only the (B, T') ids, with a window of batches in flight.
 
-Not ported yet (ROADMAP.md Queue 1 items 9 and 12): ``StreamingDS2``,
-the serving tiers, CTC training and the sequence-parallel forward.
+Not ported yet (ROADMAP.md Queue 1 items 8, 9, 12 and 13):
+``StreamingDS2``, the serving tiers, the sequence-parallel forward and
+training, sharded training, the multiprocess loader and checkpoints.
 """
 
 from __future__ import annotations
@@ -24,11 +28,18 @@ import numpy as np
 import torch
 from torch import nn
 
+from analytics_zoo_tpu_torch.core.criterion import CTCCriterion
+from analytics_zoo_tpu_torch.data import (BucketBatcher, DataSet,
+                                          FnTransformer)
 from analytics_zoo_tpu_torch.data.prefetch import overlap_window
-from analytics_zoo_tpu_torch.models.deepspeech2 import DeepSpeech2
-from analytics_zoo_tpu_torch.parallel.train import make_eval_step
+from analytics_zoo_tpu_torch.models.deepspeech2 import (DeepSpeech2,
+                                                        ds2_valid_out_frames)
+from analytics_zoo_tpu_torch.parallel.optim import Adam, Trigger
+from analytics_zoo_tpu_torch.parallel.train import Optimizer, make_eval_step
 from analytics_zoo_tpu_torch.transform.audio import (
     SAMPLE_RATE,
+    WINDOW_SIZE,
+    WINDOW_STRIDE,
     ASREvaluator,
     TimeSegmenter,
     VocabDecoder,
@@ -225,7 +236,153 @@ def make_ds2_model(hidden: int = 1024, n_rnn_layers: int = 3,
                    device=None) -> DeepSpeech2:
     """A seeded, randomly initialised :class:`DeepSpeech2` in eval mode
     on ``device``.  ``rnn_engine="pallas"`` runs the recurrences through
-    the persistent-RNN kernel K3; ``None`` is the blocked loop."""
+    the persistent-RNN kernels (K3, and K4 for the gradient); ``None`` is
+    the blocked loop."""
     return DeepSpeech2(hidden=hidden, n_rnn_layers=n_rnn_layers,
                        n_mels=n_mels, bidirectional=bidirectional,
                        rnn_engine=rnn_engine, device=device, seed=seed)
+
+
+def ds2_ctc_criterion(blank_id: int = 0) -> Callable:
+    """CTC criterion for DS2 batches: a bucketed batch carries per-row
+    ``n_frames``, whose valid OUTPUT frames after the stride-2 conv are
+    ``ceil(n/2)``; frames past them are masked out of the loss."""
+    ctc = CTCCriterion(blank_id=blank_id)
+
+    def criterion(log_probs, batch):
+        logit_mask = None
+        if isinstance(batch, dict) and "n_frames" in batch:
+            out_n = ds2_valid_out_frames(
+                torch.as_tensor(batch["n_frames"], device=log_probs.device
+                                ).long())
+            T = log_probs.shape[1]
+            logit_mask = (torch.arange(T, device=log_probs.device)[None, :]
+                          < out_n[:, None]).float()
+        return ctc(log_probs, batch["labels"], logit_mask=logit_mask,
+                   label_mask=batch.get("label_mask"))
+
+    return criterion
+
+
+def ds2_padding_metric(batch) -> Dict[str, torch.Tensor]:
+    """``make_train_step`` ``metric_fn``: valid / padded input frames of a
+    length-bucketed batch (nothing for fixed-shape batches)."""
+    if not (isinstance(batch, dict) and "n_frames" in batch):
+        return {}
+    x = batch["input"]
+    x = x[0] if isinstance(x, (tuple, list)) else x
+    n = torch.as_tensor(batch["n_frames"])
+    return {"padding_efficiency":
+            n.float().sum() / (x.shape[0] * x.shape[1])}
+
+
+def load_asr_train_set(samples: np.ndarray, labels: np.ndarray,
+                       label_lengths: Optional[np.ndarray] = None,
+                       batch_size: int = 8,
+                       utt_length: Optional[int] = None,
+                       n_mels: int = 13, shuffle: bool = True,
+                       seed: int = 0, worker_processes: int = 0,
+                       sample_lengths: Optional[np.ndarray] = None,
+                       bucket_edges: Optional[Sequence[int]] = None
+                       ) -> DataSet:
+    """DataSet of host-featurized CTC train batches from raw waveforms.
+
+    ``samples``: (N, S) float32 waveforms; ``labels``: (N, L) int32
+    (0-padded); ``label_lengths``: (N,) true lengths (defaults to counting
+    nonzero labels).  Batches: ``{"input", "labels", "label_mask"}``.
+
+    With ``bucket_edges`` (frame counts), ragged waveforms
+    (``sample_lengths``: true per-row sample counts) are featurized at
+    their true length and batched into the smallest fitting bucket
+    (``data.bucket.BucketBatcher``); batches then carry ``"input":
+    (features, n_frames)`` for the model's mask, plus top-level
+    ``n_frames`` for the CTC logit mask and ``padding_efficiency``.  The
+    multiprocess loader (``worker_processes > 0``) is not ported
+    (ROADMAP.md Queue 1 item 8)."""
+    if worker_processes > 0:
+        raise NotImplementedError(
+            "load_asr_train_set(worker_processes > 0): the multiprocess "
+            "loader is not ported yet (ROADMAP.md Queue 1 item 8)")
+
+    samples = np.asarray(samples, np.float32)
+    labels = np.asarray(labels, np.int32)
+    if label_lengths is None:
+        label_lengths = (labels != 0).sum(axis=1).astype(np.int32)
+    if sample_lengths is None:
+        sample_lengths = np.full((len(samples),), samples.shape[1], np.int64)
+    sample_lengths = np.asarray(sample_lengths, np.int64)
+    L = labels.shape[1]
+    base = DataSet.from_arrays(samples=samples, labels=labels,
+                               n_label=label_lengths,
+                               n_sample=sample_lengths,
+                               shuffle=shuffle, seed=seed)
+
+    if bucket_edges is None:
+        def feat(s):
+            x = featurize(s["samples"], utt_length=utt_length, n_mels=n_mels)
+            mask = (np.arange(L) < s["n_label"]).astype(np.float32)
+            return {"input": x.astype(np.float32), "labels": s["labels"],
+                    "label_mask": mask}
+
+        return base.transform(FnTransformer(feat)).batch(batch_size)
+
+    # truncating frames but not labels could leave CTC no alignment
+    max_frames = (int(sample_lengths.max()) - WINDOW_SIZE) \
+        // WINDOW_STRIDE + 1
+    if max_frames > max(bucket_edges):
+        raise ValueError(
+            f"bucket_edges[-1]={max(bucket_edges)} < the longest "
+            f"utterance's {max_frames} frames — add a covering last "
+            "edge (or pre-segment the audio); truncating frames but "
+            "not labels can make the CTC loss infeasible")
+
+    def feat_ragged(s):
+        x = featurize(s["samples"][:int(s["n_sample"])], utt_length=None,
+                      n_mels=n_mels)
+        mask = (np.arange(L) < s["n_label"]).astype(np.float32)
+        return {"input": x.astype(np.float32),
+                "n_frames": np.int32(x.shape[0]),
+                "labels": s["labels"], "label_mask": mask}
+
+    def pack(batch):
+        return {"input": (batch["input"], batch["n_frames"]),
+                "n_frames": batch["n_frames"],
+                "labels": batch["labels"],
+                "label_mask": batch["label_mask"]}
+
+    return (base.transform(FnTransformer(feat_ragged))
+            .transform(BucketBatcher(batch_size, bucket_edges,
+                                     length_key="n_frames",
+                                     pad_key="input"))
+            .transform(FnTransformer(pack)))
+
+
+def train_ds2(model: DeepSpeech2, dataset, epochs: int = 10,
+              lr: float = 3e-4, mesh=None,
+              checkpoint_path: Optional[str] = None, param_rules=None,
+              sequence_parallel: bool = False, specs=None) -> DeepSpeech2:
+    """CTC training for DS2 on the model's device: ``dataset`` yields
+    batches ``{"input": (B,T,n_mels), "labels": (B,L) int32,
+    "label_mask": (B,L)}``, or length-bucketed ones with ``"input":
+    (features, n_frames)`` and ``"n_frames"``
+    (``load_asr_train_set(bucket_edges=...)``), whose padding the model
+    and the loss mask; their metrics gain ``padding_efficiency``.  Adam at
+    ``lr`` for ``epochs`` epochs.  The recurrence engine is the model's:
+    ``make_ds2_model(rnn_engine="pallas")`` trains through K3 and K4."""
+    if mesh is not None or specs is not None or param_rules is not None:
+        raise NotImplementedError(
+            "train_ds2: sharded training (mesh, specs, param_rules) is not "
+            "ported yet (ROADMAP.md Queue 1 item 12)")
+    if sequence_parallel:
+        raise NotImplementedError(
+            "train_ds2(sequence_parallel=True) is not ported yet "
+            "(ROADMAP.md Queue 1 item 12)")
+    if checkpoint_path:
+        raise NotImplementedError(
+            "train_ds2(checkpoint_path=...): checkpoints are not ported yet "
+            "(ROADMAP.md Queue 1 item 12)")
+    return (Optimizer(model, dataset, ds2_ctc_criterion(blank_id=0),
+                      metric_fn=ds2_padding_metric)
+            .set_optim_method(Adam(lr))
+            .set_end_when(Trigger.max_epoch(epochs))
+            .optimize())

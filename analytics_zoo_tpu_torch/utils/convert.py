@@ -1,10 +1,13 @@
-"""Weight import: a flax params tree → a PyTorch ``state_dict``.
+"""Weight bridges between a flax variables tree and a PyTorch
+``state_dict``, both ways.
 
 The port's own copy of ``flatten_params`` (``utils/convert.py`` of the
 JAX package) plus the bridges for SSD and DeepSpeech2: the port names
 its modules after the flax ones, so ``vgg/conv1_1/kernel`` becomes
 ``vgg.conv1_1.weight`` with the kernel moved from flax HWIO to torch
-OIHW.
+OIHW.  :func:`state_dict_to_flax` maps tensors named as the module's
+(parameters, buffers or their gradients) back onto a flax tree's names
+and layouts, so that two trainings compare leaf by leaf.
 """
 
 from __future__ import annotations
@@ -39,6 +42,40 @@ _PARAM_LEAF = {"kernel": "weight", "scale": "weight"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
 
 
+def _torch_name(coll: str, key: str) -> str:
+    """The ``state_dict`` name of flax leaf ``key`` of collection
+    ``coll`` (``a/BatchNorm_0/scale`` → ``a.weight``)."""
+    leaves = _PARAM_LEAF if coll == "params" else _STAT_LEAF
+    parts = [p for p in key.split("/") if p != "BatchNorm_0"]
+    return ".".join(parts[:-1] + [leaves.get(parts[-1], parts[-1])])
+
+
+def _to_flax_layout(key: str, value: np.ndarray) -> np.ndarray:
+    """A torch tensor of flax leaf ``key`` in flax's layout (Dense
+    kernels transposed, conv kernels OIHW → HWIO)."""
+    if key.split("/")[-1] != "kernel":
+        return value
+    return np.transpose(value, (2, 3, 1, 0)) if value.ndim == 4 else value.T
+
+
+def state_dict_to_flax(tensors: Mapping[str, torch.Tensor],
+                       like: Mapping) -> Dict[str, Dict[str, np.ndarray]]:
+    """The inverse of :func:`flax_variables_to_state_dict`: tensors named
+    as the module's ``state_dict`` (or its parameters' gradients) → a
+    dict of collections, each flattened to flax's slash-joined keys,
+    for every leaf of the flax tree ``like`` that ``tensors`` holds
+    (gradients hold no ``batch_stats``).  Values are numpy arrays in
+    flax's layouts; a collection with no leaf is left out."""
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    for coll in ("params", "batch_stats"):
+        for key in flatten_params(like.get(coll, {})):
+            name = _torch_name(coll, key)
+            if name in tensors:
+                value = tensors[name].detach().float().cpu().numpy()
+                out.setdefault(coll, {})[key] = _to_flax_layout(key, value)
+    return out
+
+
 def flax_variables_to_state_dict(variables: Mapping, model: nn.Module
                                  ) -> Dict[str, torch.Tensor]:
     """Map flax ``variables`` (``{"params": …, "batch_stats": …}``, each
@@ -55,12 +92,10 @@ def flax_variables_to_state_dict(variables: Mapping, model: nn.Module
     want = model.state_dict()
     out: Dict[str, torch.Tensor] = {}
     extra = []
-    for coll, leaves in (("params", _PARAM_LEAF),
-                         ("batch_stats", _STAT_LEAF)):
+    for coll in ("params", "batch_stats"):
         for key, value in flatten_params(variables.get(coll, {})).items():
-            parts = [p for p in key.split("/") if p != "BatchNorm_0"]
-            name = ".".join(parts[:-1] + [leaves.get(parts[-1], parts[-1])])
-            if parts[-1] == "kernel":
+            name = _torch_name(coll, key)
+            if key.split("/")[-1] == "kernel":
                 value = (conv_hwio_to_oihw(value) if value.ndim == 4
                          else value.T)
             if name not in want or name in out:

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``_build/lib<name>-<hash>.so`` for ``sm_90a``.  The hash covers the
-source and the flags, so a second call in the same checkout reuses the
-library and an edited source rebuilds.  :func:`build_kernels` starts one
+source, the shared headers (``csrc/*.cuh``) and the flags, so a second
+call in the same checkout reuses the library and an edited source or
+header rebuilds.  :func:`build_kernels` starts one
 ``nvcc`` per missing source, all at once, and waits for all of them.
 
 Nothing is downloaded; a missing ``nvcc`` or a failed compile raises.
@@ -31,7 +32,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-KERNEL_SOURCES = ("nms_sweep", "detection_output", "persistent_rnn")
+KERNEL_SOURCES = ("nms_sweep", "detection_output", "persistent_rnn",
+                  "persistent_rnn_bwd")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -48,7 +50,9 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SSD300 and DeepSpeech2 serving paths once on
-one NVIDIA GPU.
+"""Drive the PyTorch port's SSD300 and DeepSpeech2 serving paths and its
+DeepSpeech2 CTC training path once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, one JSON line each; any failure exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the three CUDA kernels compiled with ``nvcc`` for sm_90a from
+2. build: the four CUDA kernels compiled with ``nvcc`` for sm_90a from
    ``analytics_zoo_tpu_torch/csrc`` (in parallel, cached by source hash),
    each with its ptxas report;
 3. K1 (NMS sweep) against its plain PyTorch version at the SSD300 unfused
@@ -22,6 +22,15 @@ Phases, one JSON line each; any failure exits non-zero:
    GRU and LSTM at B=8, T=200, H=512, the DS2 shape with bf16 weights,
    and B=3, T=11, H=6 tanh masked; ``ys`` and the carry within a
    relative max-abs error of 1e-4 (fp32) or 2e-2 (bf16 weights);
+4c. K4 (persistent-RNN backward) against its plain version on random
+   cotangents of both outputs, from the same saved carries: the DS2
+   shape all valid and ragged, GRU and LSTM at B=8, T=200, H=512, B=3,
+   T=11, H=6 tanh with ``time_block=3``, and the DS2 shape with bf16
+   weights; d_pre, d_w, d_b and d_h0 within a relative L2 error of
+   ``K4_TOL`` (the relative max-abs error is reported beside it); K3's
+   saved carries ``cs`` against the plain version's
+   within K3's tolerance, and equal bit for bit to K3's own outputs at
+   each block start;
 5. serving: ``SSDPredictor`` around a seeded random ``SSDVgg(21, 300)``
    answers 4 staged uint8 batches of 8 through ``backend="auto"`` (K2)
    and one through ``"pallas"`` (K1), with every launch counter set to 0
@@ -35,8 +44,21 @@ Phases, one JSON line each; any failure exits non-zero:
    and read just after (6 launches a batch); transcripts over the
    alphabet; then on one batch the "pallas" and "blocked" engines, and
    the card's forward against a CPU forward of one segment;
+5c. ds2_train: the same model in training through ``Optimizer`` with
+   ``Adam(3e-4)`` and ``ds2_ctc_criterion`` on ``load_asr_train_set``
+   batches of 8 seeded synthetic utterances of 3-30 s with random labels
+   over the 29 characters, bucketed at 1000/2000/3000 frames: 3 distinct
+   batches, then 5 steps on one 3000-frame batch (1500 frames after the
+   conv), with K3's and K4's launch counters set to 0 just before and
+   read just after (6 each a step); every loss finite and the repeated
+   batch's falling; then, on one batch cut to 600 frames and a 1-layer
+   model, the loss and every gradient of the "pallas" and "blocked"
+   engines, and of the card and the CPU, within ``DS2_GRAD_TOL``;
 6. timings with CUDA events at the main path's shapes: each kernel and
-   its plain version, the forwards, and the end-to-end batches;
+   its plain version, the forwards and the end-to-end batches; a DS2
+   train step by the host clock, and one under ``torch.profiler``, split
+   into forward and loss, backward and update, with the device's busy
+   share of that step;
 7. the ``kernels`` line, then the device line last.
 
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -78,6 +100,30 @@ K3_CASES = [
      "bfloat16"),
     ("nonaligned", "vanilla", "tanh", 3, 11, 6, True, "float32"),
 ]
+# K4 check cases: the K3 cases with the steps between saved carries
+K4_CASES = [case + (3 if case[0] == "nonaligned" else 8,)
+            for case in K3_CASES]
+# K4 against its plain version, relative L2 error by weight type.  The two
+# recompute each block's forward in another summation order; where a
+# clipped ReLU's argument lies within that rounding of 0 (a few of the
+# 21M DS2 entries, more with bf16 weights, whose h rounds to bf16 at
+# different values now and then), they take different branches and that
+# d_pre entry differs by its whole cotangent, which then runs back
+# through the chain.  Such isolated kinks dominate a max-abs error, not
+# the L2 one: 2e-7 to 4e-6 measured without one, while a wrong gate, a
+# stale h or a missed barrier moves it by 1e-2 or more
+K4_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
+# DS2 training on one reduced batch: loss and gradients of two
+# computations of the same step (another summation order through the
+# conv, the projections, K3/K4 or the blocked loop, and the CTC loss),
+# each gradient's relative L2 error (robust to the clipped-ReLU kinks of
+# ``K4_TOL``); a bias in front of a BN, whose gradient is 0 up to
+# rounding, is held to the model's largest gradient norm instead
+DS2_GRAD_TOL = 1e-3
+# synthetic DS2 training set: 48 utterances of 3-30 s, evenly spread, in
+# 8-utterance buckets of <= 1000, 2000 and 3000 frames
+DS2_TRAIN_SECONDS = tuple(3.0 + 27.0 * i / 47 for i in range(48))
+DS2_BUCKETS = (1000, 2000, 3000)
 
 
 def emit(phase: str, **fields) -> None:
@@ -238,7 +284,20 @@ def rnn_work(pre, w, b, h0, n):
     return nbytes, 2 * H * kH * int(n.sum().item())
 
 
-def cudnn_relu_rnn_ms(pre, w, b) -> float:
+def rnn_bwd_work(pre, w, b, n, cs, g_ys, g_cf):
+    """(bytes, operations) of one K4 call on these inputs: pre, g_ys, cs,
+    w, b, g_cf and n read once, d_pre, d_w, d_b and d_h0 written once;
+    three products of 2·H·k·H operations a valid (row, step): the
+    recompute, the dh chain and dW (masked steps do no work)."""
+    B, T, kH = pre.shape
+    H = w.shape[0]
+    nbytes = (4 * (2 * pre.numel() + g_ys.numel() + cs.numel()
+                   + 2 * b.numel() + 2 * g_cf.numel() + B)
+              + 2 * w.numel() * w.element_size())
+    return nbytes, 3 * 2 * H * kH * int(n.sum().item())
+
+
+def cudnn_relu_rnn(pre, w, b):
     """cuDNN's relu RNN (``torch.nn.RNN``) on the hoisted projections,
     fed through an identity input weight: the nearest library call to
     K3.  Not the same function (relu, not clipped at 20)."""
@@ -252,6 +311,146 @@ def cudnn_relu_rnn_ms(pre, w, b) -> float:
         rnn.bias_ih_l0.zero_()
         rnn.weight_hh_l0.copy_(w.float().t())
         rnn.bias_hh_l0.copy_(b)
+    return rnn
+
+
+def cudnn_relu_rnn_bwd_ms(pre, w, b, g_ys) -> float:
+    """The nearest library yardstick of K4: cuDNN's relu RNN forward and
+    backward (the gradients of the input and of every weight) on the same
+    projections, minus its forward alone."""
+    import torch
+
+    rnn = cudnn_relu_rnn(pre, w, b)
+    x = pre.detach().requires_grad_()
+    weights = list(rnn.parameters())
+
+    def fwd():
+        return rnn(x)[0]
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), [x] + weights, g_ys)
+
+    return cuda_ms(fwd_bwd, 5, 1) - cuda_ms(fwd, 5, 1)
+
+
+def ds2_train_set(seed):
+    """Seeded synthetic utterances of ``DS2_TRAIN_SECONDS`` with random
+    labels over the 28 characters (2 a second of audio plus 5), padded
+    into the (samples, sample_lengths, labels) arrays of
+    ``load_asr_train_set``."""
+    import numpy as np
+
+    utts = synthetic_utterances(DS2_TRAIN_SECONDS, seed)
+    lengths = np.array([len(u) for u in utts.values()], np.int64)
+    samples = np.zeros((len(utts), lengths.max()), np.float32)
+    rng = np.random.RandomState(seed)
+    n_label = (2 * np.asarray(DS2_TRAIN_SECONDS) + 5).astype(int)
+    labels = np.zeros((len(utts), n_label.max()), np.int32)
+    for i, u in enumerate(utts.values()):
+        samples[i, :len(u)] = u
+        labels[i, :n_label[i]] = rng.randint(1, 29, n_label[i])
+    return samples, lengths, labels
+
+
+def loss_and_grads(model, batch, criterion):
+    """One training forward and backward of ``model`` on ``batch`` (on
+    the model's device): the loss and each parameter's gradient."""
+    from analytics_zoo_tpu_torch.parallel.train import to_device
+
+    dev = next(model.parameters()).device
+    batch = to_device(batch, dev)
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss = criterion(model(*batch["input"]), batch)
+    loss.backward()
+    grads = {k: p.grad.detach().cpu()
+             for k, p in model.named_parameters()}
+    return loss.item(), grads
+
+
+def grads_err(got, want):
+    """Each gradient's relative L2 error: against its own norm, or the
+    model's largest for a bias in front of a BN (``conv1``, ``proj{i}``),
+    whose gradient is 0 up to rounding."""
+    top = max(g.norm().item() for g in want.values())
+    errs = {}
+    for k, g in want.items():
+        before_bn = k.endswith(".bias") and k.split(".")[0].startswith(
+            ("conv1", "proj"))
+        errs[k] = (got[k] - g).norm().item() / (
+            top if before_bn else g.norm().item())
+    return errs
+
+
+def profile_train_step(fn, top: int = 8):
+    """One call of ``fn`` (a train step of ``make_train_step``) under
+    ``torch.profiler``, every number read from that one trace (its chrome
+    export): the device time of each kernel, summed by name (ms, the
+    ``top`` largest); the device time of the kernels launched inside each
+    of the step's ranges (``forward_loss``, ``backward``, ``update``), a
+    kernel going to the range that holds its launch on the host clock,
+    whatever thread launched it (autograd runs the backward on a thread
+    of its own); the step's span, from the start of its ``train_step``
+    range to the end of its last kernel; and the share of that span in
+    which the device ran something (overlapping kernels counted once,
+    so the share is at most 1)."""
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)["traceEvents"]
+    ranges, launch_us, device = {}, {}, []
+    for e in trace:
+        cat, args = e.get("cat"), e.get("args", {})
+        if cat == "user_annotation" and e["name"].startswith("train_step"):
+            ranges[e["name"]] = (e["ts"], e["ts"] + e["dur"])
+        elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
+            launch_us[args["correlation"]] = e["ts"]
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            device.append((e["ts"], e["ts"] + e["dur"], e["name"],
+                           args.get("correlation")))
+    t0, t1 = ranges["train_step"]
+    device = [d for d in device if t0 <= launch_us.get(d[3], -1) <= t1]
+    span_us = max([t1] + [d[1] for d in device]) - t0
+    by_name, parts = {}, {}
+    for start, end, name, corr in device:
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + (end - start) / 1e3
+        for part, (r0, r1) in ranges.items():
+            if part != "train_step" and r0 <= launch_us[corr] <= r1:
+                key = part.split(".", 1)[1]
+                parts[key] = parts.get(key, 0.0) + (end - start) / 1e3
+    busy_us, cur0, cur1 = 0.0, None, None
+    for start, end, _, _ in sorted(device):
+        if cur1 is None or start > cur1:
+            busy_us += 0.0 if cur1 is None else cur1 - cur0
+            cur0, cur1 = start, end
+        else:
+            cur1 = max(cur1, end)
+    busy_us += 0.0 if cur1 is None else cur1 - cur0
+    ranked = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
+    return {"span_ms": span_us / 1e3, "kernel_ms": sum(by_name.values()),
+            "busy_share": busy_us / span_us, "kernel_ms_by_part": parts,
+            "kernel_ms_by_name": ranked}
+
+
+def cudnn_relu_rnn_ms(pre, w, b) -> float:
+    """cuDNN's relu RNN (``torch.nn.RNN``) on the hoisted projections,
+    fed through an identity input weight: the nearest library call to
+    K3.  Not the same function (relu, not clipped at 20)."""
+    import torch
+
+    rnn = cudnn_relu_rnn(pre, w, b)
     with torch.inference_mode():
         return cuda_ms(lambda: rnn(pre), 5, 1)
 
@@ -288,9 +487,14 @@ def main() -> int:
                                              pallas_rnn)
     from analytics_zoo_tpu_torch.ops.detection_output import (
         DetectionOutputParam, detection_output, sweep_candidates)
-    from analytics_zoo_tpu_torch.parallel.train import make_eval_step
+    from analytics_zoo_tpu_torch.parallel import (Adam, Optimizer, Trigger,
+                                                  create_train_state,
+                                                  make_eval_step,
+                                                  make_train_step)
     from analytics_zoo_tpu_torch.pipelines.deepspeech2 import (
-        DeepSpeech2Pipeline, DS2Param, make_ds2_model)
+        DeepSpeech2Pipeline, DS2Param, ds2_ctc_criterion, ds2_padding_metric,
+        load_asr_train_set, make_ds2_model)
+    from analytics_zoo_tpu_torch.transform.audio import featurize
     from analytics_zoo_tpu_torch.pipelines.ssd import (PreProcessParam,
                                                        SSDPredictor,
                                                        run_serving_loop)
@@ -389,6 +593,60 @@ def main() -> int:
              rel_err_ys=errs["ys_rel"], rel_err_carry=errs["carry_rel"])
         if case == "ds2":
             ds2_inputs = inputs
+
+    # -- 4c. K4 against its plain version, and K3's saved carries ---------
+    k4_err = 0.0
+    for case, cell, act, B, T, H, ragged, wdt, tb in K4_CASES:
+        wdt = getattr(torch, wdt)
+        pre, w, b, h0, n = rnn_inputs(rng, dev, cell, B, T, H, ragged, wdt)
+        cfg = pallas_rnn.RnnKernelConfig(cell, act, tb)
+        ys, _, cs = pallas_rnn.persistent_rnn_fwd(cfg, pre, w, b, h0, n,
+                                                  save_residuals=True)
+        torch.cuda.synchronize()
+        want_cs = pallas_rnn.persistent_rnn_plain(cfg, pre, w, b, h0, n,
+                                                  save_residuals=True)[2]
+        cs_rel = ((cs - want_cs).abs().max() / want_cs.abs().max().clamp(
+            min=1e-6)).item()
+        if not cs_rel <= (2e-2 if wdt == torch.bfloat16 else 1e-4):
+            raise AssertionError(f"K3 cs {case}: relative error {cs_rel}")
+        # each saved h is the output of the row's last valid step before
+        # the block start (or h0 before any): the same floats
+        for blk in range(cs.shape[0]):
+            last = torch.clamp(torch.minimum(n.long(), torch.tensor(
+                blk * tb, device=dev)) - 1, min=-1)
+            h_then = torch.where(
+                (last >= 0)[:, None],
+                ys[torch.arange(B, device=dev), last.clamp(min=0)], h0[-1])
+            if not torch.equal(cs[blk, -1], h_then):
+                raise AssertionError(f"K3 cs {case}: block {blk} is not the "
+                                     "carry K3 computed")
+        k = pallas_rnn.CELL_GATES[cell]
+        g_ys = torch.from_numpy(rng.randn(B, T, H).astype(np.float32)).to(dev)
+        g_cf = torch.from_numpy(rng.randn(*h0.shape).astype(np.float32)
+                                ).to(dev)
+        got = pallas_rnn.persistent_rnn_bwd(cfg, pre, w, b, n, cs, g_ys, g_cf)
+        torch.cuda.synchronize()
+        want = pallas_rnn.persistent_rnn_bwd_plain(cfg, pre, w, b, n, cs,
+                                                   g_ys, g_cf)
+        errs = {}
+        for what, g_, w_ in zip(("d_pre", "d_w", "d_b", "d_h0"), got, want):
+            g_, w_ = g_.float(), w_.float()
+            err = (g_ - w_).abs().max().item()
+            errs[what] = err
+            errs[what + "_rel"] = err / max(w_.abs().max().item(), 1e-6)
+            errs[what + "_rel_l2"] = ((g_ - w_).norm() / w_.norm().clamp(
+                min=1e-12)).item()
+            tol = K4_TOL[str(wdt).split(".")[-1]]
+            if not errs[what + "_rel_l2"] <= tol:
+                raise AssertionError(f"K4 {case} {what}: relative L2 error "
+                                     f"{errs[what + '_rel_l2']} (tol {tol})")
+            k4_err = max(k4_err, err)
+        emit("k4_check", case=case, cell=cell, activation=act, B=B, T=T,
+             H=H, k=k, time_block=tb, weights=str(wdt).split(".")[-1],
+             valid_steps=int(n.sum().item()), cs_rel_err=cs_rel,
+             tolerance_rel_l2=tol, **errs)
+        if case == "ds2":
+            k4_inputs = (cfg, pre, w, b, n, cs, g_ys, g_cf)
 
     # -- 5. serving: the main path ----------------------------------------
     model = build_ssd_vgg(21, 300, device=dev, seed=0)
@@ -508,6 +766,81 @@ def main() -> int:
          argmax_agreement_pallas_vs_blocked=argmax_agree,
          logp_max_abs_err_card_vs_cpu=cpu_err, tolerance=DS2_LOGP_TOL)
 
+    # -- 5c. DS2 training: the third main path ---------------------------
+    samples, sample_lengths, labels = ds2_train_set(seed=13)
+    train_set = load_asr_train_set(samples, labels,
+                                   sample_lengths=sample_lengths,
+                                   batch_size=BATCH, seed=0,
+                                   bucket_edges=DS2_BUCKETS)
+    train_batches = list(train_set)
+    long_batch = next(b for b in train_batches
+                      if b["input"][0].shape[1] == DS2_BUCKETS[-1])
+    criterion = ds2_ctc_criterion()
+    train_model = make_ds2_model(hidden=DS2_HIDDEN, n_rnn_layers=3,
+                                 rnn_engine="pallas", seed=0, device=dev)
+
+    def optimizer(data, steps):
+        return (Optimizer(train_model, data, criterion,
+                          metric_fn=ds2_padding_metric)
+                .set_optim_method(Adam(3e-4))
+                .set_end_when(Trigger.max_iteration(steps)))
+
+    torch.cuda.synchronize()
+    pallas_rnn.persistent_rnn.launches = 0
+    pallas_rnn.persistent_rnn_bwd.launches = 0
+    distinct = optimizer(train_set, 3)
+    distinct.optimize()
+    repeated = optimizer([long_batch] * 5, 5)
+    repeated.optimize()
+    torch.cuda.synchronize()
+    train_launches = {"persistent_rnn": pallas_rnn.persistent_rnn.launches,
+                      "persistent_rnn_bwd":
+                          pallas_rnn.persistent_rnn_bwd.launches}
+    n_steps = len(distinct.history) + len(repeated.history)
+    if n_steps != 8 or any(v != 6 * n_steps
+                           for v in train_launches.values()):
+        raise AssertionError(f"DS2 training: {n_steps} steps launched "
+                             f"{train_launches} (want 6 each a step)")
+    losses = [m["loss"].item() for m in distinct.history + repeated.history]
+    rep_losses = losses[3:]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"DS2 training losses {losses}")
+    if not rep_losses[-1] < rep_losses[0]:
+        raise AssertionError(f"DS2 loss on the repeated batch did not "
+                             f"fall: {rep_losses}")
+    # one batch cut to 600 frames (300 after the conv), a 1-layer model:
+    # "pallas" against "blocked" on the card, the card against the CPU
+    feats_long, n_long = long_batch["input"]
+    n_cut = np.minimum(n_long, 600).astype(np.int32)
+    small = {"input": (feats_long[:, :600], n_cut), "n_frames": n_cut,
+             "labels": long_batch["labels"],
+             "label_mask": long_batch["label_mask"]}
+    one_layer = {e: make_ds2_model(hidden=DS2_HIDDEN, n_rnn_layers=1,
+                                   rnn_engine=e, seed=1, device=dev)
+                 for e in ("pallas", "blocked")}
+    loss_p, grads_p = loss_and_grads(one_layer["pallas"], small, criterion)
+    loss_b, grads_b = loss_and_grads(one_layer["blocked"], small, criterion)
+    cpu_model = make_ds2_model(hidden=DS2_HIDDEN, n_rnn_layers=1,
+                               rnn_engine="pallas", seed=1, device="cpu")
+    loss_c, grads_c = loss_and_grads(cpu_model, small, criterion)
+    engines = {"loss": abs(loss_p - loss_b) / abs(loss_b),
+               **grads_err(grads_p, grads_b)}
+    card_cpu = {"loss": abs(loss_p - loss_c) / abs(loss_c),
+                **grads_err(grads_p, grads_c)}
+    if max(*engines.values(), *card_cpu.values()) > DS2_GRAD_TOL:
+        raise AssertionError(f"DS2 training step: pallas vs blocked "
+                             f"{engines}, card vs CPU {card_cpu} (tol "
+                             f"{DS2_GRAD_TOL})")
+    emit("ds2_train", hidden=DS2_HIDDEN, layers=3, batch=BATCH,
+         utterances=len(samples), batches=len(train_batches),
+         bucket_frames=[int(b["input"][0].shape[1])
+                        for b in train_batches],
+         steps=n_steps, launches=train_launches, losses=losses,
+         padding_efficiency=[m["padding_efficiency"].item()
+                             for m in distinct.history],
+         rel_err_pallas_vs_blocked=engines, rel_err_card_vs_cpu=card_cpu,
+         tolerance=DS2_GRAD_TOL)
+
     # -- 6. timings at the main path's shapes -----------------------------
     boxes, top, valid, _ = sweep_candidates(loc, probs, pri, var,
                                             predictor.post)
@@ -568,6 +901,44 @@ def main() -> int:
         pipe.transcribe_samples(e2e_utts)
     ds2_e2e_ms = (time.perf_counter() - t0) * 1e3 / reps
     audio_s = 30.0 * BATCH
+    # K4 at the DS2 shape, its plain version, cuDNN's relu RNN backward as
+    # the nearest yardstick, and K3 saving its carries
+    k4_cfg, pre, w, b, n, cs, g_ys, g_cf = k4_inputs
+    k4_ms = cuda_ms(lambda: pallas_rnn.persistent_rnn_bwd(*k4_inputs), 5, 1)
+    k4_plain_ms = cuda_ms(lambda: pallas_rnn.persistent_rnn_bwd_plain(
+        *k4_inputs), 2, 1)
+    k4_bound, k4_by = bound(*rnn_bwd_work(pre, w, b, n, cs, g_ys, g_cf))
+    k4_nearest_ms = cudnn_relu_rnn_bwd_ms(pre, w, b, g_ys)
+    k3_residuals_ms = cuda_ms(lambda: pallas_rnn.persistent_rnn_fwd(
+        k4_cfg, *ds2_inputs, save_residuals=True), 5, 1)
+    # K4 with fewer, longer time blocks (fewer swaps of the W slice)
+    k4_ms_by_time_block = {k4_cfg.time_block: k4_ms}
+    for tb in (16, 32):
+        cfg_tb = k4_cfg._replace(time_block=tb)
+        cs_tb = pallas_rnn.persistent_rnn_fwd(cfg_tb, *ds2_inputs,
+                                              save_residuals=True)[2]
+        k4_ms_by_time_block[tb] = cuda_ms(
+            lambda: pallas_rnn.persistent_rnn_bwd(cfg_tb, pre, w, b, n, cs_tb,
+                                                  g_ys, g_cf), 3, 1)
+    # one DS2 train step on a 3000-frame (1500 after the conv) batch: host
+    # clock around the step; then the same step under the profiler, split
+    # into its parts; the host featurize of its 8 utterances of up to
+    # 30 s by the host clock
+    step = make_train_step(train_model, criterion, Adam(3e-4),
+                           metric_fn=ds2_padding_metric)
+    state = create_train_state(train_model, Adam(3e-4))
+    state, _ = step(state, long_batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step(state, long_batch)
+    torch.cuda.synchronize()
+    train_step_ms = (time.perf_counter() - t0) * 1e3
+    step_trace = profile_train_step(lambda: step(state, long_batch))
+    longest = np.argsort(sample_lengths)[-BATCH:]
+    t0 = time.perf_counter()
+    for i in longest:
+        featurize(samples[i, :sample_lengths[i]])
+    train_featurize_ms = (time.perf_counter() - t0) * 1e3
     emit("timing", nvidia_smi=smi, forward_ms=fwd_ms,
          e2e_ms_per_batch=e2e_ms, images_per_s=BATCH * 1e3 / e2e_ms,
          k2_trained_like_ms=k2_trained_ms,
@@ -581,7 +952,17 @@ def main() -> int:
          ds2_argmax_readback_ms=argmax_read_ms,
          ds2_e2e_ms_per_batch=ds2_e2e_ms,
          ds2_audio_s_per_batch=audio_s,
-         ds2_audio_seconds_per_second=audio_s * 1e3 / ds2_e2e_ms)
+         ds2_audio_seconds_per_second=audio_s * 1e3 / ds2_e2e_ms,
+         k4_ms=k4_ms, k4_bound_ms=k4_bound, k4_bound_by=k4_by,
+         k4_plain_ms=k4_plain_ms, k4_nearest_library_ms=k4_nearest_ms,
+         k3_residuals_ms=k3_residuals_ms,
+         k4_ms_by_time_block=k4_ms_by_time_block,
+         ds2_train_step_ms=train_step_ms,
+         ds2_train_step_frames=int(long_batch["input"][0].shape[1]),
+         ds2_train_step_loss=metrics["loss"].item(),
+         ds2_train_step_profiled=step_trace,
+         ds2_train_featurize_host_ms=train_featurize_ms,
+         ds2_train_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
     # -- 7. kernels, then the device line last ----------------------------
     kernels = [
@@ -600,11 +981,24 @@ def main() -> int:
         {"name": "persistent_rnn", "route": "cuda",
          "source": "analytics_zoo_tpu_torch/csrc/persistent_rnn.cu",
          "replaces": "analytics_zoo_tpu/ops/pallas_rnn.py:266",
-         "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms,
+         "launches": k3_launches + train_launches["persistent_rnn"],
+         "launches_by_path": {"ds2_serving": k3_launches,
+                              "ds2_train": train_launches["persistent_rnn"]},
+         "max_abs_err": k3_err, "ms": k3_ms,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
          # no PyTorch call computes a clipped-ReLU recurrence; cuDNN's
          # relu RNN on the same projections is the nearest yardstick
-         "library_ms": None, "nearest_library_ms": k3_nearest_ms},
+         "library_ms": None, "nearest_library_ms": k3_nearest_ms,
+         "residuals_ms": k3_residuals_ms},
+        {"name": "persistent_rnn_bwd", "route": "cuda",
+         "source": "analytics_zoo_tpu_torch/csrc/persistent_rnn_bwd.cu",
+         "replaces": "analytics_zoo_tpu/ops/pallas_rnn.py:434",
+         "launches": train_launches["persistent_rnn_bwd"],
+         "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
+         "bound_ms": k4_bound, "bound_by": k4_by,
+         # no PyTorch call computes this backward; cuDNN's relu RNN
+         # backward on the same projections is the nearest yardstick
+         "library_ms": None, "nearest_library_ms": k4_nearest_ms},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

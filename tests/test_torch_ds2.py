@@ -236,9 +236,15 @@ def test_init_follows_flax_distributions():
     for (k, a), b in zip(model.state_dict().items(),
                          again.state_dict().values()):
         assert torch.equal(a, b), k
-    bn = SequenceBN(4)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        bn(torch.zeros(1, 2, 4))
+    # train mode: batch statistics over the valid frames only (the
+    # padded frame's 100 counts nowhere), running ones moved by 0.1
+    bn = SequenceBN(4).train()
+    x = torch.tensor([[[1.0], [3.0], [100.0]]]).expand(1, 3, 4)
+    y = bn(x, torch.tensor([[[True], [True], [False]]]))
+    torch.testing.assert_close(y[0, :2], torch.tensor(
+        [[-1.0], [1.0]]).expand(2, 4) / np.sqrt(1.0 + 1e-5))
+    torch.testing.assert_close(bn.running_mean, torch.full((4,), 0.2))
+    torch.testing.assert_close(bn.running_var, torch.full((4,), 1.0))
 
 
 @pytest.mark.parametrize("engine", ["blocked", "pallas"])

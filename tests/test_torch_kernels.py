@@ -220,12 +220,34 @@ def test_rnn_fit_check_names_the_limit():
 
 
 def test_rnn_refuses_autograd_and_other_devices():
+    """Autograd is no longer refused (on the CPU it runs the plain K3/K4;
+    ``test_rnn_autograd_launches_k4`` holds the card); a device with no
+    kernel still is, forward and backward."""
     pre, w, b, h0, _ = _rnn_inputs(0, "vanilla", 2, 3, 4, False)
-    with pytest.raises(NotImplementedError, match="K4"):
-        pallas_rnn.persistent_rnn(pre, w.requires_grad_(), b, h0)
+    ys, _ = pallas_rnn.persistent_rnn(pre, w.requires_grad_(), b, h0)
+    ys.sum().backward()
+    assert w.grad is not None and torch.isfinite(w.grad).all()
     meta = [t.detach().to("meta") for t in (pre, w, b, h0)]
     with pytest.raises(ValueError, match="no kernel"):
         pallas_rnn.persistent_rnn(*meta)
+    cfg = pallas_rnn.RnnKernelConfig("vanilla", "relu")
+    n = torch.full((2,), 3, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        pallas_rnn.persistent_rnn_bwd(cfg, meta[0], meta[1], meta[2], n,
+                                      meta[3][None], meta[0][..., :4],
+                                      meta[3])
+
+
+def test_rnn_fit_check_prices_the_backward():
+    """K4's block holds a whole slice of ``W`` in shared memory: DS2's
+    vanilla H=1760 fits in fp32, an LSTM of that width only forward."""
+    pallas_rnn.check_hopper_fit(1760, "vanilla", backward=True)
+    pallas_rnn.check_hopper_fit(1760, "lstm", backward=False)
+    pallas_rnn.check_hopper_fit(512, "lstm", backward=True)
+    with pytest.raises(ValueError, match="backward .K4."):
+        pallas_rnn.check_hopper_fit(1760, "lstm", backward=True)
+    assert pallas_rnn.hopper_bwd_smem_bytes(1760, "vanilla", 132, 2) < \
+        pallas_rnn.hopper_bwd_smem_bytes(1760, "vanilla", 132, 4)
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -287,3 +309,193 @@ def test_ds2_forward_pallas_matches_blocked():
             assert pallas_rnn.persistent_rnn.launches == before + 6
             want = blocked(x, **kw)
             assert (got - want).abs().max().item() <= 1e-3
+
+
+# -- K4: the persistent-RNN backward, and K3's saved carries ---------------
+# Tolerance: 1e-4 of each output's largest magnitude (measured ≤ 4.2e-6 at
+# the DS2 shape; at these sizes a clipped-ReLU argument within rounding of
+# 0, which would send the two versions down different branches, does not
+# occur for these seeds).
+
+
+def _k4_case(seed, cell, act, B, T, H, masked, time_block,
+             wdtype=torch.float32):
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pre, w, b, h0, n = _rnn_inputs(seed, cell, B, T, H, masked, wdtype)
+    n = (torch.full((B,), T, dtype=torch.int32) if n is None
+         else n.clamp(0, T).int())
+    cfg = pallas_rnn.RnnKernelConfig(cell, act, time_block)
+    rng = np.random.RandomState(seed + 1)
+    g_ys = torch.from_numpy(rng.randn(B, T, H).astype(np.float32))
+    g_cf = torch.from_numpy(rng.randn(*h0.shape).astype(np.float32))
+    return cfg, [t.to(dev) for t in (pre, w, b, h0, n, g_ys, g_cf)]
+
+
+@pytest.mark.parametrize("time_block", [8, 5])
+@pytest.mark.parametrize("cell,act,B,T,H", RNN_CASES)
+def test_persistent_rnn_bwd_kernel(cell, act, B, T, H, time_block):
+    """K4 against its plain version from the same saved carries, ragged
+    rows (some past T, some empty): d_pre, d_w, d_b, d_h0."""
+    cfg, (pre, w, b, h0, n, g_ys, g_cf) = _k4_case(
+        11, cell, act, B, T, H, True, time_block)
+    _, _, cs = pallas_rnn.persistent_rnn_fwd(cfg, pre, w, b, h0, n,
+                                             save_residuals=True)
+    before = pallas_rnn.persistent_rnn_bwd.launches
+    got = pallas_rnn.persistent_rnn_bwd(cfg, pre, w, b, n, cs, g_ys, g_cf)
+    torch.cuda.synchronize()
+    assert pallas_rnn.persistent_rnn_bwd.launches == before + 1
+    want = pallas_rnn.persistent_rnn_bwd_plain(cfg, pre, w, b, n, cs, g_ys,
+                                               g_cf)
+    for name, g, r in zip(("d_pre", "d_w", "d_b", "d_h0"), got, want):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        assert _rel_err(g, r) <= 1e-4, name
+    # a step past a row's length gets no gradient; a rerun is bit-equal
+    pad = torch.arange(T, device=n.device)[None, :] >= n[:, None]
+    assert (got[0][pad] == 0).all()
+    again = pallas_rnn.persistent_rnn_bwd(cfg, pre, w, b, n, cs, g_ys, g_cf)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_persistent_rnn_bwd_kernel_bf16_weights():
+    """bf16 weights: d_w comes back in bf16; within 2e-2 relative L2 of the
+    plain version (h rounds to bf16 at different values now and then)."""
+    cfg, (pre, w, b, h0, n, g_ys, g_cf) = _k4_case(
+        12, "vanilla", "clipped_relu", 8, 50, 256, False, 8, torch.bfloat16)
+    _, _, cs = pallas_rnn.persistent_rnn_fwd(cfg, pre, w, b, h0, n,
+                                             save_residuals=True)
+    got = pallas_rnn.persistent_rnn_bwd(cfg, pre, w, b, n, cs, g_ys, g_cf)
+    want = pallas_rnn.persistent_rnn_bwd_plain(cfg, pre, w, b, n, cs, g_ys,
+                                               g_cf)
+    assert got[1].dtype == torch.bfloat16
+    for g, r in zip(got, want):
+        g, r = g.float(), r.float()
+        assert ((g - r).norm() / r.norm()).item() <= 2e-2
+
+
+@pytest.mark.parametrize("cell", ["vanilla", "gru", "lstm"])
+def test_saved_carries_kernel(cell):
+    """K3's ``cs`` against the plain version's, and each saved h equal to
+    the output of the row's last valid step before the block start (or
+    h0): the same floats."""
+    cfg, (pre, w, b, h0, n, _, _) = _k4_case(13, cell, "tanh", 5, 23, 96,
+                                             True, 4)
+    ys, _, cs = pallas_rnn.persistent_rnn_fwd(cfg, pre, w, b, h0, n,
+                                              save_residuals=True)
+    torch.cuda.synchronize()
+    want = pallas_rnn.persistent_rnn_plain(cfg, pre, w, b, h0, n,
+                                           save_residuals=True)[2]
+    assert cs.shape == want.shape == (6,) + tuple(h0.shape)
+    assert _rel_err(cs, want) <= 1e-4
+    rows = torch.arange(5, device=pre.device)
+    for blk in range(cs.shape[0]):
+        last = torch.clamp(n.long(), max=4 * blk) - 1
+        h_then = torch.where((last >= 0)[:, None],
+                             ys[rows, last.clamp(min=0)], h0[-1])
+        assert torch.equal(cs[blk, -1], h_then), blk
+
+
+def test_inference_saves_no_carries(monkeypatch):
+    """Without autograd K3 launches once and writes no residuals; K4 does
+    not launch."""
+    cfg, (pre, w, b, h0, n, _, _) = _k4_case(14, "vanilla", "relu", 4, 40,
+                                             96, True, 8)
+    seen = []
+    launch = pallas_rnn._launch_persistent_rnn
+    monkeypatch.setattr(pallas_rnn, "_launch_persistent_rnn",
+                        lambda *a, **k: seen.append(a[8:] + tuple(
+                            k.values())) or launch(*a, **k))
+    k3, k4 = (pallas_rnn.persistent_rnn.launches,
+              pallas_rnn.persistent_rnn_bwd.launches)
+    w.requires_grad_()
+    with torch.inference_mode():
+        pallas_rnn.persistent_rnn(pre, w, b, h0, n)
+    assert pallas_rnn.persistent_rnn.launches == k3 + 1
+    assert pallas_rnn.persistent_rnn_bwd.launches == k4
+    assert seen == [(None,)]
+
+
+@pytest.mark.parametrize("cell", ["vanilla", "gru", "lstm"])
+def test_rnn_autograd_launches_k4(cell):
+    """A ``requires_grad`` call runs K3 (saving its carries) forward and
+    K4 backward, once each; its gradients equal autograd through the
+    plain loop (``backward="scan"``) on the card within 1e-4."""
+    cfg, (pre, w, b, h0, n, g_ys, g_cf) = _k4_case(15, cell, "tanh", 6, 37,
+                                                   128, True, 8)
+    grads = {}
+    for backward in ("pallas", "scan"):
+        args = [t.clone().requires_grad_() for t in (pre, w, b, h0)]
+        k3, k4 = (pallas_rnn.persistent_rnn.launches,
+                  pallas_rnn.persistent_rnn_bwd.launches)
+        ys, cf = pallas_rnn.persistent_rnn(*args, n, cell=cell,
+                                           activation="tanh",
+                                           backward=backward)
+        ((ys * g_ys).sum() + (cf * g_cf).sum()).backward()
+        torch.cuda.synchronize()
+        launched = (pallas_rnn.persistent_rnn.launches - k3,
+                    pallas_rnn.persistent_rnn_bwd.launches - k4)
+        assert launched == ((1, 1) if backward == "pallas" else (0, 0))
+        grads[backward] = [a.grad for a in args]
+    for g, r in zip(grads["pallas"], grads["scan"]):
+        assert _rel_err(g, r) <= 1e-4
+
+
+def test_recurrent_prices_k4_only_under_autograd():
+    """An LSTM of DS2's width fits K3 but not K4: a ``Recurrent`` layer
+    serves it without autograd (one K3 launch) and refuses only a call
+    whose gradient would need K4, naming that pass."""
+    from analytics_zoo_tpu_torch.core.rnn import LSTMCell, Recurrent
+
+    dev = _cuda()
+    layer = Recurrent(LSTMCell(1760, input_size=8), engine="pallas",
+                      generator=torch.Generator().manual_seed(0)).to(dev)
+    x = torch.randn(2, 5, 8, device=dev)
+    k3 = pallas_rnn.persistent_rnn.launches
+    with torch.inference_mode():
+        ys = layer(x, n_frames=torch.tensor([5, 3], device=dev))
+    assert pallas_rnn.persistent_rnn.launches == k3 + 1
+    assert ys.shape == (2, 5, 1760) and torch.isfinite(ys).all()
+    with pytest.raises(ValueError, match="backward .K4."):
+        layer(x)
+
+
+def test_ds2_training_pallas_matches_blocked():
+    """One DS2 training forward and backward on the card, ragged
+    ``n_frames``, through K3/K4 and through the blocked loop: the CTC loss
+    and every gradient within 1e-3 relative L2 (two summation orders
+    through the conv, one BiRNN layer and the loss); the biases in front
+    of a BN, whose gradient is 0 up to rounding, against the largest
+    gradient norm."""
+    from analytics_zoo_tpu_torch.pipelines.deepspeech2 import (
+        ds2_ctc_criterion, make_ds2_model)
+
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(16)
+    n = np.array([300, 211, 97, 40], np.int32)
+    labels = rng.randint(1, 29, (4, 12)).astype(np.int32)
+    batch = {"input": (torch.from_numpy(rng.randn(4, 300, 13).astype(
+        np.float32)).to(dev), torch.from_numpy(n).to(dev)),
+        "n_frames": torch.from_numpy(n).to(dev),
+        "labels": torch.from_numpy(labels).to(dev),
+        "label_mask": torch.ones(4, 12, device=dev)}
+    crit = ds2_ctc_criterion()
+    out = {}
+    for engine in ("pallas", "blocked"):
+        model = make_ds2_model(hidden=256, n_rnn_layers=1, seed=5,
+                               rnn_engine=engine, device=dev).train()
+        before = pallas_rnn.persistent_rnn_bwd.launches
+        loss = crit(model(*batch["input"]), batch)
+        loss.backward()
+        assert pallas_rnn.persistent_rnn_bwd.launches - before == (
+            2 if engine == "pallas" else 0)
+        out[engine] = (loss.item(), {k: p.grad for k, p in
+                                     model.named_parameters()})
+    assert abs(out["pallas"][0] - out["blocked"][0]) <= 1e-3 * abs(
+        out["blocked"][0])
+    top = max(g.norm().item() for g in out["blocked"][1].values())
+    for k, r in out["blocked"][1].items():
+        g = out["pallas"][1][k]
+        scale = top if k in ("conv1.bias", "proj0.bias") else r.norm().item()
+        assert (g - r).norm().item() <= 1e-3 * scale, k

@@ -96,8 +96,14 @@ def test_config_and_errors():
         pallas_rnn.persistent_rnn(*args, cell="elman")
     with pytest.raises(ValueError, match="shapes"):
         pallas_rnn.persistent_rnn(*args, cell="gru")
-    with pytest.raises(NotImplementedError, match="K4"):
-        pallas_rnn.persistent_rnn(pre.requires_grad_(), *args[1:])
+    # autograd runs the persistent backward (K4's plain version here):
+    # every differentiable input receives a gradient
+    grads = [a.clone().requires_grad_() for a in args]
+    ys, cf = pallas_rnn.persistent_rnn(*grads, activation="tanh")
+    (ys.sum() + cf.sum()).backward()
+    for a in grads:
+        assert a.grad is not None and a.grad.shape == a.shape
+        assert torch.isfinite(a.grad).all()
 
 
 # -- layers ----------------------------------------------------------------
