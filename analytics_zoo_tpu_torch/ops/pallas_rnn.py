@@ -42,9 +42,22 @@ CELL_CARRY = {"vanilla": 1, "gru": 1, "lstm": 2}
 ACTIVATIONS = ("relu", "clipped_relu", "tanh")
 BACKWARDS = ("pallas", "scan")
 
-#: the kernels' block: 256 threads, batch rows 8 at a time
+#: the kernels' block: 256 threads, batch rows 8 at a time, each thread
+#: a tile of 8 rows x 2 columns over a K-slice; a thread of K3 holds its
+#: slice of W in registers up to ``KERNEL_REG_K`` rows, one of K4 the
+#: first ``KERNEL_SPLIT_K`` rows (the rest in shared memory)
+#: (``csrc/rnn_common.cuh``)
 KERNEL_THREADS = 256
 KERNEL_ROWS = 8
+KERNEL_REG_K = 52
+KERNEL_SPLIT_K = 24
+#: static shared memory a block of K3 or K4 holds besides the dynamic
+#: (the delivery's mbarriers and a word), at most
+KERNEL_STATIC_SMEM = 48
+#: where K3 and K4's recompute read the block's column slice of W
+#: ("split": K4's first rows a thread in registers, the rest shared), by
+#: the code the launchers return
+W_SOURCES = ("registers", "shared", "l2", "split")
 #: H100 SXM defaults for :func:`check_hopper_fit` off the card
 H100_SMS = 132
 H100_SMEM_OPTIN = 232448
@@ -60,29 +73,99 @@ class RnnKernelConfig(NamedTuple):
     time_block: int = 8
 
 
+class RnnGeometry(NamedTuple):
+    """The kernels' partition (``make_geom`` in ``csrc/rnn_common.cuh``):
+    ``G`` blocks of ``cols`` hidden columns of every gate (``nc`` product
+    columns); the forward product in ``CP`` column pairs × ``S`` K-slices
+    of ``klen`` rows of ``H``; K4's dh product in ``CPr`` pairs of own
+    columns × ``Sr`` K-slices of ``klenr`` of the ``k·H`` products."""
+
+    H: int
+    kH: int
+    cols: int
+    G: int
+    nc: int
+    CP: int
+    S: int
+    klen: int
+    CPr: int
+    Sr: int
+    klenr: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def rnn_geometry(hidden: int, cell: str = "vanilla",
+                 n_sm: int = H100_SMS) -> RnnGeometry:
+    k = CELL_GATES[cell]
+    kH = k * hidden
+    cols = _cdiv(hidden, n_sm)
+    nc = k * cols
+    CP = _cdiv(nc, 2)
+    klen = _cdiv(hidden, max(1, min(KERNEL_THREADS // CP, hidden)))
+    CPr = _cdiv(cols, 2)
+    klenr = _cdiv(kH, max(1, min(KERNEL_THREADS // CPr, kH)))
+    return RnnGeometry(hidden, kH, cols, _cdiv(hidden, cols), nc, CP,
+                       _cdiv(hidden, klen), klen, CPr, _cdiv(kH, klenr),
+                       klenr)
+
+
+def _r4(x: int) -> int:
+    return _cdiv(x, 4) * 4
+
+
 def hopper_smem_bytes(hidden: int, cell: str = "vanilla",
                       n_sm: int = H100_SMS) -> int:
     """Shared memory one block of K3 needs besides its slice of ``W``
-    (which is read from L2 when it does not fit): ``h`` transposed for 8
-    batch rows, the split-K partial sums, and two stages of ``pre``.
-    Mirrors ``base_smem_bytes`` in the CUDA source."""
-    cols = -(-hidden // n_sm)
-    nc = CELL_GATES[cell] * cols
-    slices = KERNEL_THREADS // max(nc, 1)
-    return 4 * (hidden * KERNEL_ROWS + slices * KERNEL_ROWS * nc
-                + 2 * KERNEL_ROWS * nc)
+    (which sits in registers, or is read from L2 when it does not fit):
+    the delivered ``h`` for 8 batch rows, the split-K partial sums, two
+    stages of ``pre`` and the block's bias.  Mirrors ``base_floats`` in
+    the CUDA source."""
+    g = rnn_geometry(hidden, cell, n_sm)
+    return 4 * (_r4(hidden * KERNEL_ROWS) + _r4(g.S * KERNEL_ROWS * 2 * g.CP)
+                + _r4(2 * KERNEL_ROWS * g.nc) + _r4(g.nc))
 
 
 def hopper_bwd_smem_bytes(hidden: int, cell: str = "vanilla",
                           n_sm: int = H100_SMS, weight_bytes: int = 4) -> int:
-    """Shared memory one block of K4's sweep needs: the ``k·H`` products
-    transposed for 8 batch rows, the split-K partial sums, and one slice
-    of ``W`` (``H × k·cols``, the column slice and the row slice by turns).
-    Mirrors ``bwd_smem_bytes`` in the CUDA source."""
-    cols = -(-hidden // n_sm)
-    kH = CELL_GATES[cell] * hidden
-    return (4 * (kH * KERNEL_ROWS + KERNEL_THREADS * KERNEL_ROWS)
-            + kH * cols * weight_bytes)
+    """Shared memory one block of K4's sweep needs besides its column
+    slice of ``W`` (registers, shared memory or L2, as K3): one delivered
+    vector of the ``k·H`` products for 8 batch rows, the split-K partial
+    sums, the block's bias and the row slice of ``W`` (``cols × k·H``,
+    resident for the whole launch).  Mirrors ``bwd_base_bytes`` in the
+    CUDA source."""
+    g = rnn_geometry(hidden, cell, n_sm)
+    red = max(g.S * KERNEL_ROWS * 2 * g.CP, g.Sr * KERNEL_ROWS * 2 * g.CPr)
+    return (4 * (_r4(g.kH * KERNEL_ROWS) + _r4(red) + _r4(g.nc))
+            + _cdiv(g.kH * 2 * g.CPr * weight_bytes, 16) * 16)
+
+
+def hopper_w_source(hidden: int, cell: str = "vanilla",
+                    n_sm: int = H100_SMS,
+                    smem_limit: int = H100_SMEM_OPTIN,
+                    backward: bool = False, weight_bytes: int = 4) -> str:
+    """Where K3 (or, with ``backward``, K4's recompute) keeps the block's
+    column slice of ``W``, as the launchers choose it.  K3:
+    ``"registers"`` when a thread's K-slice fits ``KERNEL_REG_K`` rows,
+    else ``"shared"`` when the slice fits beside the rest, else ``"l2"``.
+    K4: ``"split"`` (the first ``KERNEL_SPLIT_K`` rows a thread in
+    registers, the rest in shared memory) when that fits, else ``"l2"``
+    (the whole slice in shared memory never fits where the split does
+    not)."""
+    g = rnn_geometry(hidden, cell, n_sm)
+    limit = smem_limit - KERNEL_STATIC_SMEM
+    whole = hidden * 2 * g.CP * weight_bytes
+    if backward:
+        base = hopper_bwd_smem_bytes(hidden, cell, n_sm, weight_bytes)
+        split = (g.S * max(0, g.klen - KERNEL_SPLIT_K) * 2 * g.CP
+                 * weight_bytes)
+        return "split" if base + split <= limit else "l2"
+    if g.klen <= KERNEL_REG_K:
+        return "registers"
+    base = hopper_smem_bytes(hidden, cell, n_sm)
+    return "shared" if base + whole <= limit else "l2"
 
 
 def check_hopper_fit(hidden: int, cell: str = "vanilla",
@@ -91,28 +174,31 @@ def check_hopper_fit(hidden: int, cell: str = "vanilla",
                      backward: bool = False, weight_bytes: int = 4) -> None:
     """Raise ``ValueError`` naming the limit when a kernel cannot take
     ``hidden``: each of at most ``n_sm`` resident blocks owns
-    ``ceil(hidden/n_sm)`` columns of every gate (≤ 256, one per thread)
-    and must hold ``h`` in shared memory (K3, the forward); with
-    ``backward``, K4's block must also hold its slice of ``W`` there."""
+    ``ceil(hidden/n_sm)`` columns of every gate (≤ 256 product columns)
+    and must hold the delivered ``h`` in shared memory (K3, the forward);
+    with ``backward``, K4's block must also hold the delivered ``d_hh`` and
+    its row slice of ``W`` there for the whole launch."""
+    limit = smem_limit - KERNEL_STATIC_SMEM
     nc = CELL_GATES[cell] * -(-hidden // n_sm)
     if nc > KERNEL_THREADS:
         raise ValueError(
-            f"persistent_rnn: H={hidden} ({cell}) gives {nc} product "
+            f"persistent_rnn (K3): H={hidden} ({cell}) gives {nc} product "
             f"columns a block, over the {KERNEL_THREADS} threads of one "
             f"block on {n_sm} SMs")
     need = hopper_smem_bytes(hidden, cell, n_sm)
-    if need > smem_limit:
+    if need > limit:
         raise ValueError(
-            f"persistent_rnn: H={hidden} ({cell}) needs {need} bytes of "
-            f"shared memory a block, over the {smem_limit}-byte limit of "
-            f"this card")
+            f"persistent_rnn (K3): H={hidden} ({cell}) needs {need} bytes of "
+            f"shared memory a block, over the {limit}-byte limit of this "
+            f"card")
     if backward:
         need = hopper_bwd_smem_bytes(hidden, cell, n_sm, weight_bytes)
-        if need > smem_limit:
+        if need > limit:
             raise ValueError(
                 f"persistent_rnn backward (K4): H={hidden} ({cell}) needs "
-                f"{need} bytes of shared memory a block, over the "
-                f"{smem_limit}-byte limit of this card")
+                f"{need} bytes of shared memory a block for its row slice "
+                f"of W and the delivered d_hh, over the {limit}-byte limit "
+                f"of this card")
 
 
 def _cell_step(cfg: RnnKernelConfig, pre_t, hh, carry):
@@ -284,35 +370,46 @@ def persistent_rnn_bwd_plain(cfg: RnnKernelConfig, pre, w, b, n, cs, g_ys,
                 torch.stack(g_carry).to(g_cf.dtype))
 
 
-def _launch_persistent_rnn(cfg, pre, w, b, h0, n, ys, cf, cs=None):
+def _launch_persistent_rnn(cfg, pre, w, b, h0, n, ys, cf, cs=None,
+                           stamps=None):
+    """Launch K3.  ``stamps`` (int64, :data:`STAMP_WORDS` words, or None)
+    takes block 0's step-phase clock stamps (:func:`step_split_us`)."""
     fn = cuda_build.load_function(
         "persistent_rnn", "az_persistent_rnn",
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-        + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+        + [ctypes.c_void_p] * 3)
     B, T, _ = pre.shape
     H = w.shape[0]
     dev = pre.device
-    # ping-pong carry, rows padded to whole float4s
-    hbuf = torch.empty((2, B, -(-H // 4) * 4), dtype=torch.float32,
-                       device=dev)
-    bar = torch.zeros(2, dtype=torch.int32, device=dev)
+    # the delivered h: [2 ping-pong, passes of 8 rows, H, 8], rows past B 0
+    hg = torch.zeros((2, -(-B // KERNEL_ROWS), H, KERNEL_ROWS),
+                     dtype=torch.float32, device=dev)
+    bar = torch.zeros(1, dtype=torch.int32, device=dev)
+    src = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(pre.data_ptr(), w.data_ptr(),
                   int(w.dtype == torch.bfloat16), b.data_ptr(),
                   h0.data_ptr(), n.data_ptr(), ys.data_ptr(), cf.data_ptr(),
-                  hbuf.data_ptr(), bar.data_ptr(),
+                  hg.data_ptr(), bar.data_ptr(),
                   None if cs is None else cs.data_ptr(), B, T, H,
                   list(CELL_GATES).index(cfg.cell),
-                  ACTIVATIONS.index(cfg.activation), cfg.time_block, stream)
+                  ACTIVATIONS.index(cfg.activation), cfg.time_block,
+                  None if stamps is None else stamps.data_ptr(),
+                  ctypes.byref(src), stream)
     cuda_build.check_launch("persistent_rnn", code, "persistent_rnn kernel")
+    persistent_rnn.w_source = W_SOURCES[src.value]
 
 
-def _launch_persistent_rnn_bwd(cfg, pre, w, b, n, cs, g_ys, g_cf):
+def _launch_persistent_rnn_bwd(cfg, pre, w, b, n, cs, g_ys, g_cf,
+                               stamps=None):
+    """Launch K4; ``stamps`` as for :func:`_launch_persistent_rnn` (chain
+    0 the recompute, chain 1 the dh chain)."""
     fn = cuda_build.load_function(
         "persistent_rnn_bwd", "az_persistent_rnn_bwd",
         [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 13
-        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
     B, T, kH = pre.shape
     H = w.shape[0]
     C = CELL_CARRY[cfg.cell]
@@ -324,14 +421,19 @@ def _launch_persistent_rnn_bwd(cfg, pre, w, b, n, cs, g_ys, g_cf):
 
     d_pre, dwb, d_h0 = f32(B, T, kH), f32(H + 1, kH), f32(C, B, H)
     # scratch: d_hh (GRU; vanilla and LSTM read d_pre), the h every step
-    # reads, the time block's hh and LSTM c, the published d_hh, and the
-    # carry's running cotangent
+    # reads, the time block's hh and LSTM c, and the delivered h and d_hh
+    # ([2 ping-pong, passes of 8 rows, width, 8], rows past B 0)
     dhh = f32(B, T, kH) if cfg.cell == "gru" else d_pre
     hin = f32(B, T, -(-H // 4) * 4)
     hhs = f32(U, B, kH)
     cin = f32(U, B, H) if cfg.cell == "lstm" else hhs
-    dpub, dst = f32(2, B, -(-kH // 4) * 4), f32(C, B, H)
-    bar = torch.zeros(2, dtype=torch.int32, device=dev)
+    passes = -(-B // KERNEL_ROWS)
+    hg = torch.zeros((2, passes, H, KERNEL_ROWS), dtype=torch.float32,
+                     device=dev)
+    dg = torch.zeros((2, passes, kH, KERNEL_ROWS), dtype=torch.float32,
+                     device=dev)
+    bar = torch.zeros(1, dtype=torch.int32, device=dev)
+    src = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(pre.data_ptr(), g_ys.data_ptr(), cs.data_ptr(),
@@ -339,12 +441,54 @@ def _launch_persistent_rnn_bwd(cfg, pre, w, b, n, cs, g_ys, g_cf):
                   g_cf.data_ptr(), n.data_ptr(), d_pre.data_ptr(),
                   dwb.data_ptr(), d_h0.data_ptr(), dhh.data_ptr(),
                   hin.data_ptr(), hhs.data_ptr(), cin.data_ptr(),
-                  dpub.data_ptr(), dst.data_ptr(), bar.data_ptr(), B, T, H,
+                  hg.data_ptr(), dg.data_ptr(), bar.data_ptr(), B, T, H,
                   list(CELL_GATES).index(cfg.cell),
-                  ACTIVATIONS.index(cfg.activation), U, stream)
+                  ACTIVATIONS.index(cfg.activation), U,
+                  None if stamps is None else stamps.data_ptr(),
+                  ctypes.byref(src), stream)
     cuda_build.check_launch("persistent_rnn_bwd", code,
                             "persistent_rnn_bwd kernel")
+    persistent_rnn_bwd.w_source = W_SOURCES[src.value]
     return d_pre, dwb[:H], dwb[H], d_h0
+
+
+#: the kernels' step-phase stamps (``csrc/rnn_common.cuh``): steps
+#: [16, 80) of each of two chains, ten clock slots a step
+STAMP_STEPS, STAMP_PHASES = 64, 10
+STAMP_WORDS = 2 * STAMP_STEPS * STAMP_PHASES
+#: phase -> (slot it starts at, slot it ends at), by chain order: K3 and
+#: K4's recompute deliver h, multiply, run the cell math, then wait at the
+#: barrier; K4's dh chain runs the cell's VJP, waits, then delivers d_hh
+#: and multiplies
+STAMP_SPANS = {
+    "forward": {"delivery": (0, 1), "product": (1, 2), "cell": (2, 3),
+                "barrier": (3, 4)},
+    # the forward's cell phase split at thread 0's first (row, column):
+    # partial sums and pre, the gates, the stores, the rest of the phase
+    "forward_cell": {"partials": (2, 5), "gates": (5, 6), "stores": (6, 7),
+                     "rest": (7, 3)},
+    # the forward's last K-slice (the first thread of it): the vector
+    # landed, its product done
+    "forward_last": {"delivery": (0, 8), "product": (8, 9)},
+    "dh": {"cell": (0, 3), "barrier": (3, 4), "delivery": (4, 1),
+           "product": (1, 2)},
+}
+
+
+def step_split_us(stamps: torch.Tensor, chain: int, order: str) -> dict:
+    """Mean µs a step of each phase from a stamps buffer written by one
+    launch (``order``: "forward" or "dh", see :data:`STAMP_SPANS`), and
+    their sum, the step."""
+    s = stamps.view(2, STAMP_STEPS, STAMP_PHASES)[chain].double().cpu()
+    out = {name: ((s[:, b] - s[:, a]).mean() / 1e3).item()
+           for name, (a, b) in STAMP_SPANS[order].items()}
+    out["step"] = sum(out.values())
+    if order == "forward":
+        for key, sub in (("cell_split", "forward_cell"),
+                         ("last_slice", "forward_last")):
+            out[key] = step_split_us(stamps, chain, sub)
+            del out[key]["step"]
+    return out
 
 
 def _check_device(cell: str, pre, w, backward: bool):
@@ -501,3 +645,5 @@ def persistent_rnn(pre: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 persistent_rnn.launches = 0
 persistent_rnn_bwd.launches = 0
+# where the last launch kept its column slice of W (:data:`W_SOURCES`)
+persistent_rnn.w_source = persistent_rnn_bwd.w_source = None

@@ -9,7 +9,7 @@ Phases, one JSON line each; any failure exits non-zero:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: the four CUDA kernels compiled with ``nvcc`` for sm_90a from
    ``analytics_zoo_tpu_torch/csrc`` (in parallel, cached by source hash),
-   each with its ptxas report;
+   each with its ptxas report; a register spill in K3 or K4 fails;
 3. K1 (NMS sweep) against its plain PyTorch version at the SSD300 unfused
    shape (batch 8 → 160 rows × 512 candidates): random, tie-heavy and
    sparse rows; keep masks must be equal;
@@ -20,17 +20,26 @@ Phases, one JSON line each; any failure exits non-zero:
 4b. K3 (persistent-RNN forward) against its plain version, TF32 off: the
    DS2 shape (B=8, T=1500, H=1760, clipped ReLU) all valid and ragged,
    GRU and LSTM at B=8, T=200, H=512, the DS2 shape with bf16 weights,
-   and B=3, T=11, H=6 tanh masked; ``ys`` and the carry within a
-   relative max-abs error of 1e-4 (fp32) or 2e-2 (bf16 weights);
+   B=3, T=11, H=6 tanh masked, B=12 ragged at the DS2 width (two
+   passes of 8 rows), the column slice of W in shared memory (GRU at
+   H=1200, vanilla at H=1900) and in L2 (LSTM at H=1760), and an odd
+   grid that runs without clusters (GRU at H=97); ``ys`` and the carry
+   within a relative max-abs error of 1e-4 (fp32) or 2e-2 (bf16
+   weights); each case's W source as the fit predicts, and every source
+   launched; two launches at the DS2 shape bit-equal;
 4c. K4 (persistent-RNN backward) against its plain version on random
    cotangents of both outputs, from the same saved carries: the DS2
    shape all valid and ragged, GRU and LSTM at B=8, T=200, H=512, B=3,
-   T=11, H=6 tanh with ``time_block=3``, and the DS2 shape with bf16
-   weights; d_pre, d_w, d_b and d_h0 within a relative L2 error of
-   ``K4_TOL`` (the relative max-abs error is reported beside it); K3's
+   T=11, H=6 tanh with ``time_block=3``, the DS2 shape with bf16
+   weights, B=12, the column slice in L2 (H=1900) and the odd grid;
+   d_pre, d_w, d_b and d_h0 within a relative L2 error of ``K4_TOL``
+   (the relative max-abs error is reported beside it); at the clipped
+   ReLU cases, every entry where the two take different branches within
+   ``KINK_TOL`` of a kink and d_pre outside those entries' reach within
+   ``K4_BRANCH_TOL``; K3's
    saved carries ``cs`` against the plain version's
    within K3's tolerance, and equal bit for bit to K3's own outputs at
-   each block start;
+   each block start; two launches at the DS2 shape bit-equal;
 5. serving: ``SSDPredictor`` around a seeded random ``SSDVgg(21, 300)``
    answers 4 staged uint8 batches of 8 through ``backend="auto"`` (K2)
    and one through ``"pallas"`` (K1), with every launch counter set to 0
@@ -55,7 +64,10 @@ Phases, one JSON line each; any failure exits non-zero:
    model, the loss and every gradient of the "pallas" and "blocked"
    engines, and of the card and the CPU, within ``DS2_GRAD_TOL``;
 6. timings with CUDA events at the main path's shapes: each kernel and
-   its plain version, the forwards and the end-to-end batches; a DS2
+   its plain version, the forwards and the end-to-end batches; where a
+   K3 and a K4 step goes at the DS2 shape (``k3_step_us``,
+   ``k4_step_us``: the delivery, product, cell math and barrier from the
+   kernels' step-phase stamps); K4 by ``time_block``; a DS2
    train step by the host clock, and one under ``torch.profiler``, split
    into forward and loss, backward and update, with the device's busy
    share of that step;
@@ -99,10 +111,23 @@ K3_CASES = [
     ("ds2_bf16_w", "vanilla", "clipped_relu", 8, 1500, 1760, False,
      "bfloat16"),
     ("nonaligned", "vanilla", "tanh", 3, 11, 6, True, "float32"),
+    # two passes of 8 batch rows, the second ragged and half empty; tanh,
+    # whose derivative has no kink, so the check sees the two passes and
+    # not where a clipped ReLU's argument rounds across 0 (``K4_TOL``)
+    ("ds2_b12", "vanilla", "tanh", 12, 1500, 1760, True, "float32"),
+    # the column slice of W off the register path: in shared memory (K3;
+    # K4 refuses the GRU, its row slice does not fit), and in L2 (K3's
+    # LSTM, which K4 refuses; K4 at H=1900, where K3 takes shared memory)
+    ("gru_shared", "gru", "relu", 8, 200, 1200, True, "float32"),
+    ("lstm_l2", "lstm", "relu", 8, 200, 1760, True, "float32"),
+    ("vanilla_l2", "vanilla", "tanh", 8, 200, 1900, True, "float32"),
+    # one column a block, an odd grid of 97 blocks: no clusters
+    ("odd_grid", "gru", "relu", 5, 40, 97, True, "float32"),
 ]
-# K4 check cases: the K3 cases with the steps between saved carries
+# K4 check cases: the K3 cases it takes, with the steps between saved
+# carries
 K4_CASES = [case + (3 if case[0] == "nonaligned" else 8,)
-            for case in K3_CASES]
+            for case in K3_CASES if case[0] not in ("gru_shared", "lstm_l2")]
 # K4 against its plain version, relative L2 error by weight type.  The two
 # recompute each block's forward in another summation order; where a
 # clipped ReLU's argument lies within that rounding of 0 (a few of the
@@ -113,6 +138,13 @@ K4_CASES = [case + (3 if case[0] == "nonaligned" else 8,)
 # the L2 one: 2e-7 to 4e-6 measured without one, while a wrong gate, a
 # stale h or a missed barrier moves it by 1e-2 or more
 K4_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
+# the witness of that (``kink_witness``): each entry where the two take
+# different branches has its argument within KINK_TOL of a kink (the two
+# recomputes differ by ~1e-6 there), and d_pre outside what those entries
+# reach back to (their rows, at their steps and before) agrees within
+# K4_BRANCH_TOL relative L2, as K4 does in the cases without a kink
+KINK_TOL = 1e-4
+K4_BRANCH_TOL = 1e-5
 # DS2 training on one reduced batch: loss and gradients of two
 # computations of the same step (another summation order through the
 # conv, the projections, K3/K4 or the blocked loop, and the CTC loss),
@@ -297,6 +329,33 @@ def rnn_bwd_work(pre, w, b, n, cs, g_ys, g_cf):
     return nbytes, 3 * 2 * H * kH * int(n.sum().item())
 
 
+def rnn_step_split(k4_inputs, h0):
+    """Where a step goes, from one K3 and one K4 launch at the DS2 shape
+    with the step-phase stamps on (``pallas_rnn.step_split_us``): µs a
+    step of the delivery of h, the product, the cell math and the
+    barrier, for K3 and for each chain of K4."""
+    import torch
+
+    from analytics_zoo_tpu_torch.ops import pallas_rnn
+
+    cfg, pre, w, b, n, cs, g_ys, g_cf = k4_inputs
+    B, T, _ = pre.shape
+    H = w.shape[0]
+    stamps = torch.zeros(pallas_rnn.STAMP_WORDS, dtype=torch.int64,
+                         device=pre.device)
+    ys = torch.empty((B, T, H), device=pre.device)
+    cf = torch.empty_like(h0)
+    pallas_rnn._launch_persistent_rnn(cfg, pre, w, b, h0, n, ys, cf, None,
+                                      stamps)
+    torch.cuda.synchronize()
+    k3 = pallas_rnn.step_split_us(stamps, 0, "forward")
+    stamps.zero_()
+    pallas_rnn._launch_persistent_rnn_bwd(*k4_inputs, stamps=stamps)
+    torch.cuda.synchronize()
+    return k3, {"recompute": pallas_rnn.step_split_us(stamps, 0, "forward"),
+                "dh": pallas_rnn.step_split_us(stamps, 1, "dh")}
+
+
 def cudnn_relu_rnn(pre, w, b):
     """cuDNN's relu RNN (``torch.nn.RNN``) on the hoisted projections,
     fed through an identity input weight: the nearest library call to
@@ -471,6 +530,90 @@ def synthetic_utterances(seconds, seed):
     return out
 
 
+def kernel_ms_by_name(fn, match: str = "rnn"):
+    """Device ms of each kernel whose name holds ``match`` in one call of
+    ``fn``, from ``torch.profiler`` (K4's sweep and its dW/db launch)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = (getattr(ev, "device_time_total", None)
+              or getattr(ev, "cuda_time_total", 0))
+        if match in ev.key:
+            out[ev.key[:60]] = us / 1e3
+    return out
+
+
+def check_no_spills(ptxas) -> None:
+    """Fail if ptxas spilled registers in K3 or K4: their column slice of
+    W is meant to live in registers, and a spill moves it to local
+    memory."""
+    import re
+
+    for name in ("persistent_rnn", "persistent_rnn_bwd"):
+        spilled = [ln for ln in ptxas.get(name, [])
+                   if any(int(x) for x in re.findall(
+                       r"(\d+) bytes spill", ln))]
+        if spilled:
+            raise AssertionError(f"{name}: ptxas spilled: {spilled}")
+
+
+def check_repeatable(name, fn) -> None:
+    """Fail unless two launches of ``fn`` give bit-equal outputs."""
+    import torch
+
+    first, again = fn(), fn()
+    if not all(torch.equal(x, y) for x, y in zip(first, again)):
+        raise AssertionError(f"{name}: two launches differ")
+
+
+def kink_witness(cfg, pre, w, b, n, cs, got_dpre, want_dpre):
+    """Where K4 and its plain version take different branches of the
+    clipped ReLU (one d_pre entry 0, the other above 1e-3 of the rms:
+    smaller ones are rounding around a cotangent of 0 and stay in the
+    error below), how far the plain recompute's argument lies from the
+    nearest kink (0 or 20) there, and the relative L2 error of d_pre
+    outside what those entries reach back to: a row's steps up to its
+    last such entry.  The first 8 such entries are listed as (row, step,
+    column, argument, K4's d_pre, the plain d_pre)."""
+    import torch
+
+    B, T, _ = pre.shape
+    U = cfg.time_block
+    wf, bf = w.float(), b.float()
+    z = torch.empty_like(pre)
+    steps = torch.arange(T, device=pre.device)
+    for blk in range(cs.shape[0]):              # as the plain version does
+        h = cs[blk, -1]
+        for t in range(blk * U, min(T, blk * U + U)):
+            z[:, t] = pre[:, t] + (h.to(w.dtype).float() @ wf + bf)
+            h = torch.where((n > t)[:, None], z[:, t].clamp(0.0, 20.0), h)
+    valid = (steps[None, :] < n[:, None])[..., None]
+    big = torch.maximum(got_dpre.abs(), want_dpre.abs()) > (
+        1e-3 * want_dpre.square().mean().sqrt())
+    flips = valid & big & ((got_dpre == 0) != (want_dpre == 0))
+    kink = torch.minimum(z.abs(), (z - 20.0).abs())
+    last = torch.where(flips.any(-1), steps[None, :], -1).amax(1)
+    outside = steps[None, :] > last[:, None]
+    diff = (got_dpre - want_dpre)[outside]
+    at = flips.nonzero()[:8]
+    return {"flips": int(flips.sum().item()),
+            "flip_max_kink_distance": (kink[flips].max().item()
+                                       if flips.any() else 0.0),
+            "flip_entries": [[*map(int, i), z[tuple(i)].item(),
+                              got_dpre[tuple(i)].item(),
+                              want_dpre[tuple(i)].item()]
+                             for i in at.tolist()],
+            "share_outside": outside.float().mean().item(),
+            "d_pre_rel_l2_outside": (diff.norm() / want_dpre[outside].norm(
+                ).clamp(min=1e-12)).item()}
+
+
 def main() -> int:
     import torch
 
@@ -523,6 +666,7 @@ def main() -> int:
              for n in libs}
     emit("build", seconds=round(build_s, 3),
          libraries={n: str(p.name) for n, p in libs.items()}, ptxas=ptxas)
+    check_no_spills(ptxas)
 
     # -- 3. K1 against its plain version ----------------------------------
     k1_err = 0.0
@@ -566,13 +710,29 @@ def main() -> int:
     # -- 4b. K3 against its plain version --------------------------------
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    k3_err = 0.0
+    props = torch.cuda.get_device_properties(dev)
+
+    def w_source_as_fit(case, H, cell, wdt, backward, got):
+        """Fail unless the launcher kept W's column slice where the fit
+        says it goes on this card."""
+        want = pallas_rnn.hopper_w_source(
+            H, cell, props.multi_processor_count,
+            props.shared_memory_per_block_optin, backward,
+            torch.finfo(wdt).bits // 8)
+        if got != want:
+            raise AssertionError(f"{case}: W slice in {got}, the fit says "
+                                 f"{want}")
+        return got
+
+    k3_err, k3_sources = 0.0, set()
     for case, cell, act, B, T, H, ragged, wdt in K3_CASES:
         wdt = getattr(torch, wdt)
         inputs = rnn_inputs(rng, dev, cell, B, T, H, ragged, wdt)
         ys, cf = pallas_rnn.persistent_rnn(*inputs, cell=cell,
                                            activation=act)
         torch.cuda.synchronize()
+        k3_sources.add(w_source_as_fit(case, H, cell, wdt, False,
+                                       pallas_rnn.persistent_rnn.w_source))
         want_ys, want_cf = pallas_rnn.persistent_rnn_plain(
             pallas_rnn.RnnKernelConfig(cell, act), *inputs)
         tol = 2e-2 if wdt == torch.bfloat16 else 1e-4
@@ -588,14 +748,21 @@ def main() -> int:
             k3_err = max(k3_err, err)
         emit("k3_check", case=case, cell=cell, activation=act, B=B, T=T,
              H=H, weights=str(wdt).split(".")[-1],
+             w_source=pallas_rnn.persistent_rnn.w_source,
+             grid=pallas_rnn.rnn_geometry(H, cell,
+                                          props.multi_processor_count).G,
              valid_steps=int(inputs[4].sum().item()), tolerance_rel=tol,
              max_abs_err_ys=errs["ys"], max_abs_err_carry=errs["carry"],
              rel_err_ys=errs["ys_rel"], rel_err_carry=errs["carry_rel"])
         if case == "ds2":
             ds2_inputs = inputs
+            check_repeatable("K3 ds2", lambda: pallas_rnn.persistent_rnn(
+                *inputs, cell=cell, activation=act))
+    if k3_sources != {"registers", "shared", "l2"}:
+        raise AssertionError(f"K3 cases took W from {k3_sources} only")
 
     # -- 4c. K4 against its plain version, and K3's saved carries ---------
-    k4_err = 0.0
+    k4_err, k4_sources = 0.0, set()
     for case, cell, act, B, T, H, ragged, wdt, tb in K4_CASES:
         wdt = getattr(torch, wdt)
         pre, w, b, h0, n = rnn_inputs(rng, dev, cell, B, T, H, ragged, wdt)
@@ -626,6 +793,8 @@ def main() -> int:
                                 ).to(dev)
         got = pallas_rnn.persistent_rnn_bwd(cfg, pre, w, b, n, cs, g_ys, g_cf)
         torch.cuda.synchronize()
+        k4_sources.add(w_source_as_fit(case, H, cell, wdt, True,
+                                       pallas_rnn.persistent_rnn_bwd.w_source))
         want = pallas_rnn.persistent_rnn_bwd_plain(cfg, pre, w, b, n, cs,
                                                    g_ys, g_cf)
         errs = {}
@@ -641,12 +810,26 @@ def main() -> int:
                 raise AssertionError(f"K4 {case} {what}: relative L2 error "
                                      f"{errs[what + '_rel_l2']} (tol {tol})")
             k4_err = max(k4_err, err)
+        kinks = None
+        if act == "clipped_relu" and wdt == torch.float32:
+            kinks = kink_witness(cfg, pre, w, b, n, cs, got[0], want[0])
+            if not (kinks["flip_max_kink_distance"] <= KINK_TOL
+                    and kinks["d_pre_rel_l2_outside"] <= K4_BRANCH_TOL):
+                raise AssertionError(f"K4 {case}: branches differ away "
+                                     f"from a kink, or d_pre outside them "
+                                     f"does: {kinks} (tol {KINK_TOL}, "
+                                     f"{K4_BRANCH_TOL})")
         emit("k4_check", case=case, cell=cell, activation=act, B=B, T=T,
              H=H, k=k, time_block=tb, weights=str(wdt).split(".")[-1],
+             w_source=pallas_rnn.persistent_rnn_bwd.w_source,
              valid_steps=int(n.sum().item()), cs_rel_err=cs_rel,
-             tolerance_rel_l2=tol, **errs)
+             tolerance_rel_l2=tol, kinks=kinks, **errs)
         if case == "ds2":
-            k4_inputs = (cfg, pre, w, b, n, cs, g_ys, g_cf)
+            k4_inputs, k4_h0 = (cfg, pre, w, b, n, cs, g_ys, g_cf), h0
+            check_repeatable("K4 ds2", lambda: pallas_rnn.persistent_rnn_bwd(
+                *k4_inputs))
+    if k4_sources != {"split", "l2"}:
+        raise AssertionError(f"K4 cases took W from {k4_sources} only")
 
     # -- 5. serving: the main path ----------------------------------------
     model = build_ssd_vgg(21, 300, device=dev, seed=0)
@@ -911,7 +1094,12 @@ def main() -> int:
     k4_nearest_ms = cudnn_relu_rnn_bwd_ms(pre, w, b, g_ys)
     k3_residuals_ms = cuda_ms(lambda: pallas_rnn.persistent_rnn_fwd(
         k4_cfg, *ds2_inputs, save_residuals=True), 5, 1)
-    # K4 with fewer, longer time blocks (fewer swaps of the W slice)
+    # where a step of each goes (step-phase stamps), K4's two launches
+    k3_step_us, k4_step_us = rnn_step_split(k4_inputs, k4_h0)
+    k4_ms_by_kernel = kernel_ms_by_name(
+        lambda: pallas_rnn.persistent_rnn_bwd(*k4_inputs))
+    # K4 with fewer, longer time blocks: both W slices stay resident, so
+    # only the scratch changes
     k4_ms_by_time_block = {k4_cfg.time_block: k4_ms}
     for tb in (16, 32):
         cfg_tb = k4_cfg._replace(time_block=tb)
@@ -957,6 +1145,8 @@ def main() -> int:
          k4_plain_ms=k4_plain_ms, k4_nearest_library_ms=k4_nearest_ms,
          k3_residuals_ms=k3_residuals_ms,
          k4_ms_by_time_block=k4_ms_by_time_block,
+         k3_step_us=k3_step_us, k4_step_us=k4_step_us,
+         k4_ms_by_kernel=k4_ms_by_kernel,
          ds2_train_step_ms=train_step_ms,
          ds2_train_step_frames=int(long_batch["input"][0].shape[1]),
          ds2_train_step_loss=metrics["loss"].item(),
@@ -989,7 +1179,8 @@ def main() -> int:
          # no PyTorch call computes a clipped-ReLU recurrence; cuDNN's
          # relu RNN on the same projections is the nearest yardstick
          "library_ms": None, "nearest_library_ms": k3_nearest_ms,
-         "residuals_ms": k3_residuals_ms},
+         "residuals_ms": k3_residuals_ms,
+         "w_source": pallas_rnn.persistent_rnn.w_source},
         {"name": "persistent_rnn_bwd", "route": "cuda",
          "source": "analytics_zoo_tpu_torch/csrc/persistent_rnn_bwd.cu",
          "replaces": "analytics_zoo_tpu/ops/pallas_rnn.py:434",
@@ -998,7 +1189,8 @@ def main() -> int:
          "bound_ms": k4_bound, "bound_by": k4_by,
          # no PyTorch call computes this backward; cuDNN's relu RNN
          # backward on the same projections is the nearest yardstick
-         "library_ms": None, "nearest_library_ms": k4_nearest_ms},
+         "library_ms": None, "nearest_library_ms": k4_nearest_ms,
+         "w_source": pallas_rnn.persistent_rnn_bwd.w_source},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -187,6 +187,7 @@ RNN_CASES = [
     ("vanilla", "clipped_relu", 10, 24, 140),      # two passes of 8 rows
     ("gru", "relu", 5, 48, 160),
     ("lstm", "relu", 5, 48, 160),
+    ("gru", "relu", 5, 40, 97),     # an odd grid of 97 blocks: no clusters
 ]
 
 
@@ -248,6 +249,80 @@ def test_rnn_fit_check_prices_the_backward():
         pallas_rnn.check_hopper_fit(1760, "lstm", backward=True)
     assert pallas_rnn.hopper_bwd_smem_bytes(1760, "vanilla", 132, 2) < \
         pallas_rnn.hopper_bwd_smem_bytes(1760, "vanilla", 132, 4)
+
+
+def test_rnn_fit_check_names_k4_row_slice():
+    """K4 keeps its row slice of ``W`` and the delivered ``d_hh`` in
+    shared memory for the whole launch: a GRU of DS2's width is refused
+    by name, forward only is taken."""
+    pallas_rnn.check_hopper_fit(1760, "gru")
+    with pytest.raises(ValueError, match="backward .K4.*row slice"):
+        pallas_rnn.check_hopper_fit(1760, "gru", backward=True)
+    with pytest.raises(ValueError, match=r"\(K3\).*shared memory"):
+        pallas_rnn.check_hopper_fit(9000, "vanilla")
+
+
+@pytest.mark.parametrize("hidden,cell,n_sm,wbytes,backward,where", [
+    (1760, "vanilla", 132, 4, False, "registers"),   # DS2: 49 rows a thread
+    (1760, "vanilla", 132, 4, True, "split"),        # 24 + 25 in shared
+    (1760, "vanilla", 132, 2, True, "split"),
+    (512, "lstm", 132, 4, True, "split"),             # 16 rows: all in regs
+    (6, "vanilla", 132, 4, True, "split"),
+    (300, "gru", 8, 4, False, "shared"),              # 75 rows a thread
+    (1760, "lstm", 132, 4, False, "l2"),              # 394 KB a slice
+    (1200, "gru", 132, 4, False, "shared"),           # 71 rows a thread
+    (2000, "vanilla", 132, 4, False, "shared"),
+    (1900, "vanilla", 132, 4, True, "l2"),            # split part too big
+    (1900, "vanilla", 132, 2, True, "split"),
+])
+def test_rnn_w_source_follows_the_fit(hidden, cell, n_sm, wbytes, backward,
+                                      where):
+    """Where the launchers keep the block's column slice of ``W``: K3 in
+    registers while a thread's K-slice fits ``KERNEL_REG_K`` rows, K4 its
+    first ``KERNEL_SPLIT_K`` rows there and the rest in shared memory;
+    else K3 all of it in shared memory while it fits beside the rest, and
+    else both read it from L2."""
+    assert pallas_rnn.hopper_w_source(hidden, cell, n_sm,
+                                      backward=backward,
+                                      weight_bytes=wbytes) == where
+
+
+@pytest.mark.parametrize("hidden,cell", [(1760, "vanilla"), (512, "gru"),
+                                         (512, "lstm"), (6, "vanilla"),
+                                         (1760, "lstm"), (97, "gru")])
+def test_rnn_partition_covers_every_input(hidden, cell):
+    """The kernels' partition: every hidden column owned by one block,
+    every K row in one slice of each product, no slice empty, and no more
+    (pair, slice) roles than a block has threads."""
+    g = pallas_rnn.rnn_geometry(hidden, cell)
+    k = pallas_rnn.CELL_GATES[cell]
+    assert g.G <= pallas_rnn.H100_SMS and (g.G - 1) * g.cols < hidden <= \
+        g.G * g.cols
+    for pairs, width, S, klen in ((g.CP, g.nc, g.S, g.klen),
+                                  (g.CPr, g.cols, g.Sr, g.klenr)):
+        span = hidden if pairs == g.CP else k * hidden
+        assert 2 * pairs >= width and pairs * S <= pallas_rnn.KERNEL_THREADS
+        assert (S - 1) * klen < span <= S * klen
+
+
+def test_step_split_reads_the_stamps():
+    """``step_split_us`` turns a stamps buffer into µs a step by phase, in
+    each chain's order."""
+    s = torch.zeros(2, pallas_rnn.STAMP_STEPS, pallas_rnn.STAMP_PHASES,
+                    dtype=torch.int64)
+    base = torch.arange(pallas_rnn.STAMP_STEPS)[:, None] * 10_000
+    s[0] = base + torch.tensor([0, 1000, 3000, 3500, 5000, 3100, 3200,
+                                3300, 1500, 2500])              # forward
+    s[1] = base + torch.tensor([0, 6000, 8000, 1000, 4000, 0, 0, 0, 0, 0])
+    fwd = pallas_rnn.step_split_us(s.view(-1), 0, "forward")
+    dh = pallas_rnn.step_split_us(s.view(-1), 1, "dh")
+    assert fwd == {"delivery": 1.0, "product": 2.0, "cell": 0.5,
+                   "barrier": 1.5, "step": 5.0,
+                   "cell_split": {"partials": 0.1, "gates": 0.1,
+                                  "stores": 0.1, "rest": 0.2},
+                   "last_slice": {"delivery": 1.5, "product": 1.0}}
+    assert dh == {"cell": 1.0, "barrier": 3.0, "delivery": 2.0,
+                  "product": 2.0, "step": 8.0}
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -355,6 +430,39 @@ def test_persistent_rnn_bwd_kernel(cell, act, B, T, H, time_block):
     assert (got[0][pad] == 0).all()
     again = pallas_rnn.persistent_rnn_bwd(cfg, pre, w, b, n, cs, g_ys, g_cf)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("cell,H,backward,where", [
+    ("gru", 1200, False, "shared"),     # K3: 71 rows a thread, 144 KB slice
+    ("vanilla", 2000, False, "shared"),
+    ("lstm", 1760, False, "l2"),        # K3: a 394 KB slice
+    ("vanilla", 1900, True, "l2"),      # K4: the split's shared part too big
+])
+def test_rnn_w_sources_off_the_register_path(cell, H, backward, where):
+    """The column slice of ``W`` read from shared memory or L2, as the fit
+    chooses it on this card: K3 (and K4 with ``backward``) against their
+    plain versions, and the launcher reporting that source."""
+    dev = _cuda()
+    props = torch.cuda.get_device_properties(dev)
+    assert pallas_rnn.hopper_w_source(
+        H, cell, props.multi_processor_count,
+        props.shared_memory_per_block_optin, backward) == where
+    cfg, (pre, w, b, h0, n, g_ys, g_cf) = _k4_case(19, cell, "tanh", 3, 12,
+                                                   H, True, 5)
+    ys, cf, cs = pallas_rnn.persistent_rnn_fwd(cfg, pre, w, b, h0, n,
+                                               save_residuals=True)
+    if not backward:
+        assert pallas_rnn.persistent_rnn.w_source == where
+    want_ys, want_cf = pallas_rnn.persistent_rnn_plain(cfg, pre, w, b, h0, n)
+    assert _rel_err(ys, want_ys) <= 1e-4 and _rel_err(cf, want_cf) <= 1e-4
+    if backward:
+        got = pallas_rnn.persistent_rnn_bwd(cfg, pre, w, b, n, cs, g_ys,
+                                            g_cf)
+        assert pallas_rnn.persistent_rnn_bwd.w_source == where
+        want = pallas_rnn.persistent_rnn_bwd_plain(cfg, pre, w, b, n, cs,
+                                                   g_ys, g_cf)
+        for name, g, r in zip(("d_pre", "d_w", "d_b", "d_h0"), got, want):
+            assert _rel_err(g, r) <= 1e-4, name
 
 
 def test_persistent_rnn_bwd_kernel_bf16_weights():
