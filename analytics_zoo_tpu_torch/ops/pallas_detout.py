@@ -25,18 +25,53 @@ from typing import Tuple
 import torch
 
 from analytics_zoo_tpu_torch.ops.bbox import decode_bbox
-from analytics_zoo_tpu_torch.ops.pallas_nms import sweep_iou
+from analytics_zoo_tpu_torch.ops.pallas_nms import (BLOCK_SMEM_BYTES,
+                                                    ENGINE_TILES,
+                                                    STAMP_SLOTS,
+                                                    SWEEP_PHASES,
+                                                    _launch_nms_sweep,
+                                                    _round_up,
+                                                    engine_work_bytes,
+                                                    phase_split_us,
+                                                    sweep_iou)
+
+#: the phases the select launch stamps the end of (block 0, slots 0-8),
+#: then the merge launch (block 0, slots 9-13); read with
+#: ``pallas_nms.phase_split_us``
+SELECT_PHASES = ("keys", "radix_select", "compact", "rank_decode", "mask",
+                 "walk", "later_tiles", "write")
+MERGE_PHASES = ("offsets", "stage", "rank", "write")
+MERGE_STAMPS = len(SELECT_PHASES) + 1
 from analytics_zoo_tpu_torch.utils import cuda_build
 
-#: shared memory one select block may use: 227 KB less the block's static
-#: reduction scratch
-SELECT_SMEM_BYTES = 232448 - 1024
+#: dynamic shared memory one select block may use: 227 KB less the
+#: block's static scan scratch
+SELECT_SMEM_BYTES = BLOCK_SMEM_BYTES - 256
+
+
+def _select_bytes(n_priors: int, nms_topk: int, tile: int) -> int:
+    """``az_detection_output_smem``: region Y holds the key row (4 bytes
+    a prior), later the sorted candidates (box and score, 20 bytes each);
+    region X the compacted (score, prior) pairs, the 512-byte radix
+    histogram, later the engine's alive bits and work area."""
+    m = min(n_priors, nms_topk)
+    y = _round_up(max(4 * n_priors, 20 * m), 16)
+    x = max(8 * m, 4 * ((m + 31) // 32) + engine_work_bytes(m, tile), 512)
+    return y + x
+
+
+def select_tile(n_priors: int, nms_topk: int):
+    """The largest engine tile whose select block fits, or None."""
+    return next((t for t in ENGINE_TILES
+                 if _select_bytes(n_priors, nms_topk, t)
+                 <= SELECT_SMEM_BYTES), None)
 
 
 def select_smem_bytes(n_priors: int, nms_topk: int) -> int:
-    """The select launch stages one score row (4 bytes a prior) and the
-    popped candidates (box, score, prior, flag: 25 bytes each)."""
-    return 4 * n_priors + 25 * nms_topk
+    """Shared memory of one select block at the tile it launches with
+    (the smallest tile's where none fits)."""
+    return _select_bytes(n_priors, nms_topk,
+                         select_tile(n_priors, nms_topk) or ENGINE_TILES[-1])
 
 
 def foreground_ids(n_classes: int, background_id: int):
@@ -113,31 +148,57 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch_fused(loc, conf, priors, variances, param, n_fg, out):
+def _launch_fused(loc, conf, priors, variances, param, n_fg, out,
+                  stamps=None):
+    """Launch K2 into ``out``; ``stamps`` (int64, ``STAMP_SLOTS`` words,
+    or None) takes the select's phase stamps (:data:`SELECT_PHASES`)."""
     fn = cuda_build.load_function(
         "detection_output", "az_detection_output",
-        [ctypes.c_void_p] * 9
-        + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
-        + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 8
+        + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_int] * 4
+        + [ctypes.c_void_p, ctypes.c_void_p])
     B, P, C = conf.shape
     dev = conf.device
-    boxes = torch.empty((B, P, 4), dtype=torch.float32, device=dev)
     kscore = torch.empty((B, n_fg, param.nms_topk), dtype=torch.float32,
                          device=dev)
-    kidx = torch.empty((B, n_fg, param.nms_topk), dtype=torch.int32,
+    kbox = torch.empty((B, n_fg, param.nms_topk, 4), dtype=torch.float32,
                        device=dev)
     kcount = torch.empty((B, n_fg), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(loc.data_ptr(), conf.data_ptr(), priors.data_ptr(),
-                  variances.data_ptr(), boxes.data_ptr(), kscore.data_ptr(),
-                  kidx.data_ptr(), kcount.data_ptr(), out.data_ptr(),
+                  variances.data_ptr(), kscore.data_ptr(), kbox.data_ptr(),
+                  kcount.data_ptr(), out.data_ptr(),
                   B, P, C, n_fg, int(param.background_id),
                   float(param.conf_thresh), float(param.nms_thresh),
                   int(param.nms_topk), int(param.keep_topk),
-                  int(bool(param.clip_boxes)), stream)
+                  int(bool(param.clip_boxes)),
+                  select_tile(P, param.nms_topk),
+                  None if stamps is None else stamps.data_ptr(), stream)
     cuda_build.check_launch("detection_output", code,
                             "fused DetectionOutput kernel")
+
+
+def block_phases_us(loc, conf, priors, variances, param, planes) -> dict:
+    """Where block 0 of K2's select and merge launches and of one K1
+    launch over ``planes`` spends its time, in µs, from the kernels'
+    ``%globaltimer`` stamps (:data:`SELECT_PHASES`, :data:`MERGE_PHASES`,
+    ``pallas_nms.SWEEP_PHASES``).  CUDA tensors only; one launch each."""
+    stamps = torch.zeros(STAMP_SLOTS, dtype=torch.int64, device=loc.device)
+    B, _, C = conf.shape
+    out = torch.empty((B, param.keep_topk, 6), device=loc.device)
+    _launch_fused(loc, conf, priors, variances, param,
+                  len(foreground_ids(C, param.background_id)), out,
+                  stamps=stamps)
+    torch.cuda.synchronize()
+    split = {"k2_select": phase_split_us(stamps, SELECT_PHASES),
+             "k2_merge": phase_split_us(stamps, MERGE_PHASES, MERGE_STAMPS)}
+    stamps.zero_()
+    _launch_nms_sweep(planes, torch.empty_like(planes[0]), param.nms_thresh,
+                      0.0, stamps=stamps)
+    torch.cuda.synchronize()
+    split["k1"] = phase_split_us(stamps, SWEEP_PHASES)
+    return split
 
 
 def fused_detection_output(loc: torch.Tensor, conf: torch.Tensor,
@@ -163,8 +224,8 @@ def fused_detection_output(loc: torch.Tensor, conf: torch.Tensor,
                                             param)
     if dev.type != "cuda":
         raise ValueError(f"fused DetectionOutput: no kernel for device {dev}")
-    need = select_smem_bytes(P, param.nms_topk)
-    if need > SELECT_SMEM_BYTES:
+    if select_tile(P, param.nms_topk) is None:
+        need = select_smem_bytes(P, param.nms_topk)
         raise ValueError(f"fused DetectionOutput: P={P} priors and nms_topk="
                          f"{param.nms_topk} need {need} bytes of shared "
                          f"memory in one block; the limit is "

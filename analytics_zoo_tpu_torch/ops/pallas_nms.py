@@ -24,13 +24,44 @@ import torch
 from analytics_zoo_tpu_torch.ops.nms import topk_stable
 from analytics_zoo_tpu_torch.utils import cuda_build
 
-#: one block stages a row's four coordinate planes (f32) and its flags
-#: (1 byte) in shared memory: 17 bytes a candidate, ≤ 227 KB a block
-MAX_SWEEP_K = 232448 // 17
+#: shared memory one Hopper block may use (227 KB)
+BLOCK_SMEM_BYTES = 232448
+#: the sweep kernel's dynamic shared memory: the block's limit less its
+#: static shared memory (one int)
+SWEEP_SMEM_BYTES = BLOCK_SMEM_BYTES - 64
+#: tile sizes of the suppression engine (``csrc/nms_common.cuh``), largest
+#: first: a launch takes the largest whose T x T bit mask fits
+ENGINE_TILES = (512, 256, 128, 64, 32)
+#: the longest row K1 takes: the limit of its first design (a row's four
+#: planes and a flag byte, 17 bytes a candidate), which the tiled engine
+#: keeps (``sweep_tile(MAX_SWEEP_K)`` finds a tile)
+MAX_SWEEP_K = BLOCK_SMEM_BYTES // 17
 
 
 def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
+
+
+def engine_work_bytes(n: int, tile: int) -> int:
+    """Bytes of the engine's work area for n candidates in tiles of
+    ``tile`` (``nms::work_bytes``): a tile holds at most n rounded up to
+    32; each of its rows (tile / 32) mask words rounded up to odd, the
+    candidate's area and its suppressors within its own word."""
+    t = max(32, min(tile, _round_up(n, 32)))
+    return 4 * t * (((t // 32) | 1) + 2)
+
+
+def sweep_smem_bytes(K: int, tile: int) -> int:
+    """One K1 block: float4 boxes (K rounded up to 32), ceil(K/32) alive
+    words and the engine's work area (``az_nms_sweep_smem``)."""
+    return (16 * _round_up(K, 32) + 4 * ((K + 31) // 32)
+            + engine_work_bytes(K, tile))
+
+
+def sweep_tile(K: int):
+    """The largest engine tile whose K1 block fits, or None."""
+    return next((t for t in ENGINE_TILES
+                 if sweep_smem_bytes(K, t) <= SWEEP_SMEM_BYTES), None)
 
 
 def sweep_iou(x1, y1, x2, y2, bx1, by1, bx2, by2, off: float):
@@ -72,16 +103,33 @@ def nms_sweep_plain(x1, y1, x2, y2, valid, iou_threshold: float = 0.45,
     return keep
 
 
-def _launch_nms_sweep(planes, keep, iou_threshold: float, off: float):
+#: block 0's phase stamps (``nms::stamp``): words of the buffer, and the
+#: phases K1 stamps the end of, in order after its start stamp
+STAMP_SLOTS = 16
+SWEEP_PHASES = ("load", "mask", "walk", "later_tiles", "write")
+
+
+def phase_split_us(stamps: torch.Tensor, phases, start: int = 0) -> dict:
+    """µs of each phase of block 0 from a stamps buffer: slot ``start``
+    is the launch's start, slot start + i + 1 the end of ``phases[i]``."""
+    t = stamps[start:start + len(phases) + 1].double().cpu()
+    return {name: (t[i + 1] - t[i]).item() / 1e3
+            for i, name in enumerate(phases)}
+
+
+def _launch_nms_sweep(planes, keep, iou_threshold: float, off: float,
+                      stamps=None):
     fn = cuda_build.load_function(
         "nms_sweep", "az_nms_sweep",
         [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                 ctypes.c_float, ctypes.c_void_p])
+                                 ctypes.c_float, ctypes.c_int,
+                                 ctypes.c_void_p, ctypes.c_void_p])
     C, K = keep.shape
     with torch.cuda.device(keep.device):
         stream = torch.cuda.current_stream(keep.device).cuda_stream
         code = fn(*(p.data_ptr() for p in planes), keep.data_ptr(), C, K,
-                  float(iou_threshold), float(off), stream)
+                  float(iou_threshold), float(off), sweep_tile(K),
+                  None if stamps is None else stamps.data_ptr(), stream)
     cuda_build.check_launch("nms_sweep", code, "nms_sweep kernel")
 
 
@@ -100,7 +148,7 @@ def nms_sweep(x1, y1, x2, y2, valid, iou_threshold: float = 0.45,
                                normalized=normalized)
     if dev.type != "cuda":
         raise ValueError(f"nms_sweep: no kernel for device {dev}")
-    if K > MAX_SWEEP_K:
+    if K > MAX_SWEEP_K or sweep_tile(K) is None:
         raise ValueError(f"nms_sweep: K={K} candidates a row exceed the "
                          f"{MAX_SWEEP_K} one block's shared memory holds")
     keep = torch.empty((C, K), dtype=torch.float32, device=dev)

@@ -11,11 +11,15 @@ Phases, one JSON line each; any failure exits non-zero:
    ``analytics_zoo_tpu_torch/csrc`` (in parallel, cached by source hash),
    each with its ptxas report; a register spill in K3 or K4 fails;
 3. K1 (NMS sweep) against its plain PyTorch version at the SSD300 unfused
-   shape (batch 8 → 160 rows × 512 candidates): random, tie-heavy and
-   sparse rows; keep masks must be equal;
+   shape (batch 8 → 160 rows × 512 candidates): random, tie-heavy,
+   sparse and non-prefix-valid rows; then rows of several engine tiles
+   (4 × 1536, 2 × 13000: random, and 1536 non-prefix-valid); keep masks
+   must be equal;
 4. K2 (fused DetectionOutput) against its plain version at SSD300
    (batch 8, P=8732, 21 classes; dense untrained and trained-like int8-tie
-   confidences) and SSD512 geometry (P=24564): classes equal, scores
+   confidences) and SSD512 geometry (P=24564), SSD512 at nms_topk 1000
+   (two engine tiles a row), and SSD300 with five int8 score levels (the
+   nms_topk boundary inside a run of equal scores): classes equal, scores
    within 1e-6, boxes within 1e-5;
 4b. K3 (persistent-RNN forward) against its plain version, TF32 off: the
    DS2 shape (B=8, T=1500, H=1760, clipped ReLU) all valid and ragged,
@@ -64,7 +68,11 @@ Phases, one JSON line each; any failure exits non-zero:
    model, the loss and every gradient of the "pallas" and "blocked"
    engines, and of the card and the CPU, within ``DS2_GRAD_TOL``;
 6. timings with CUDA events at the main path's shapes: each kernel and
-   its plain version, the forwards and the end-to-end batches; where a
+   its plain version, the forwards and the end-to-end batches; K1 and K2
+   on dense and trained-like scores, K2 by launch (``k2_ms_by_kernel``,
+   ``torch.profiler``: select and merge) and K2's and K1's blocks by
+   phase (``detout_block_us``: the kernels' ``%globaltimer`` stamps);
+   where a
    K3 and a K4 step goes at the DS2 shape (``k3_step_us``,
    ``k4_step_us``: the delivery, product, cell math and barrier from the
    kernels' step-phase stamps); K4 by ``time_block``; a DS2
@@ -207,6 +215,8 @@ def sweep_planes(rng, C, K, kind):
     if kind == "sparse":            # short valid prefixes, as in serving
         valid = (np.arange(K)[None] < rng.randint(0, 40, (C, 1))
                  ).astype(np.float32)
+    if kind == "non_prefix":        # invalid lanes scattered through a row
+        valid = (rng.rand(C, K) < 0.6).astype(np.float32)
     boxes = boxes.astype(np.float32)
     return [np.ascontiguousarray(boxes[..., i]) for i in range(4)] + [valid]
 
@@ -670,9 +680,12 @@ def main() -> int:
 
     # -- 3. K1 against its plain version ----------------------------------
     k1_err = 0.0
-    for kind in ("random", "ties", "sparse"):
+    for rows, K, kind in [(BATCH * 20, 512, k) for k in
+                          ("random", "ties", "sparse", "non_prefix")] + [
+            (4, 1536, "random"), (4, 1536, "ties"), (4, 1536, "non_prefix"),
+            (2, 13000, "random")]:
         planes = [torch.from_numpy(p).to(dev)
-                  for p in sweep_planes(rng, BATCH * 20, 512, kind)]
+                  for p in sweep_planes(rng, rows, K, kind)]
         got = pallas_nms.nms_sweep(*planes)
         torch.cuda.synchronize()
         want = pallas_nms.nms_sweep_plain(*planes)
@@ -680,8 +693,8 @@ def main() -> int:
         if err != 0:
             raise AssertionError(f"K1 keep mask differs ({kind}): {err}")
         k1_err = max(k1_err, err)
-        emit("k1_check", case=kind, rows=planes[0].shape[0],
-             k=planes[0].shape[1], kept=int(got.sum().item()),
+        emit("k1_check", case=kind, rows=rows, k=K,
+             tile=pallas_nms.sweep_tile(K), kept=int(got.sum().item()),
              max_abs_err=err)
 
     # -- 4. K2 against its plain version ----------------------------------
@@ -706,6 +719,31 @@ def main() -> int:
                  kept=int((got[..., 1] > 0).sum().item()), max_abs_err=err)
             if res == 300 and regime == "trained":
                 trained_inputs = (loc, conf)
+    # SSD512 at nms_topk 1000 (two engine tiles a row); SSD300 scores of
+    # five int8 levels, so each row's nms_topk-th score lies inside a run
+    # of equal scores
+    for res, cfg, regime, topk in ((512, ssd512_config(), "dense", 1000),
+                                   (300, ssd300_config(), "tie_levels",
+                                    400)):
+        pri, var = (torch.from_numpy(a).to(dev) for a in build_priors(cfg))
+        P = pri.shape[0]
+        post_k = dataclasses.replace(post, nms_topk=topk)
+        loc = torch.from_numpy((rng.randn(BATCH, P, 4) * 0.5)
+                               .astype(np.float32)).to(dev)
+        conf = (torch.from_numpy(synthetic_conf(rng, BATCH, P, 21, regime))
+                if regime == "dense" else torch.from_numpy(
+                    (rng.randint(2, 7, (BATCH, P, 21)) / 127.0)
+                    .astype(np.float32))).to(dev)
+        got = pallas_detout.fused_detection_output(loc, conf, pri, var,
+                                                   param=post_k)
+        torch.cuda.synchronize()
+        want = pallas_detout.fused_detection_output_plain(loc, conf, pri,
+                                                          var, post_k)
+        err = rows_err(got, want)
+        k2_err = max(k2_err, err)
+        emit("k2_check", resolution=res, priors=P, regime=regime,
+             nms_topk=topk, tile=pallas_detout.select_tile(P, topk),
+             kept=int((got[..., 1] > 0).sum().item()), max_abs_err=err)
 
     # -- 4b. K3 against its plain version --------------------------------
     torch.backends.cudnn.allow_tf32 = False
@@ -1049,6 +1087,22 @@ def main() -> int:
     k2_trained_ms = cuda_ms(lambda: k2(t_loc, t_conf), 20)
     k2_trained_bound, k2_trained_by = bound(*detout_work(
         t_loc, t_conf, pri, var, predictor.post))
+    # K2 by launch (select, merge), both regimes; K1 on the trained-like
+    # scores' candidates
+    k2_ms_by_kernel = {
+        "dense": kernel_ms_by_name(lambda: k2(loc, probs), match="kernel"),
+        "trained_like": kernel_ms_by_name(lambda: k2(t_loc, t_conf),
+                                          match="kernel")}
+    block_us = pallas_detout.block_phases_us(loc, probs, pri, var,
+                                             predictor.post, planes)
+    t_boxes, _, t_valid, _ = sweep_candidates(t_loc, t_conf, pri, var,
+                                              predictor.post)
+    t_planes = [t_boxes[..., i].reshape(B * Cf, k).contiguous()
+                for i in range(4)] + [t_valid.reshape(B * Cf, k)]
+    t_keep = pallas_nms.nms_sweep(*t_planes)
+    k1_trained_ms = cuda_ms(lambda: pallas_nms.nms_sweep(*t_planes), 50)
+    k1_trained_bound, k1_trained_by = bound(6 * t_planes[0].numel() * 4,
+                                            sweep_ops(t_keep, t_planes[4]))
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda: model(x), 10)
     for b in batches:                                 # host-clock e2e
@@ -1132,7 +1186,12 @@ def main() -> int:
          k2_trained_like_ms=k2_trained_ms,
          k2_trained_like_bound_ms=k2_trained_bound,
          k2_trained_like_bound_by=k2_trained_by,
+         k2_ms_by_kernel=k2_ms_by_kernel, detout_block_us=block_us,
          k1_rows=B * Cf, k1_k=k, k1_kept=int(keep.sum().item()),
+         k1_trained_like_ms=k1_trained_ms,
+         k1_trained_like_bound_ms=k1_trained_bound,
+         k1_trained_like_bound_by=k1_trained_by,
+         k1_trained_like_kept=int(t_keep.sum().item()),
          k3_ms=k3_ms, k3_bound_ms=k3_bound, k3_bound_by=k3_by,
          k3_plain_ms=k3_plain_ms, k3_nearest_library_ms=k3_nearest_ms,
          ds2_featurize_ms=feat_ms, ds2_forward_ms_per_batch=ds2_fwd_ms,

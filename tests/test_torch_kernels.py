@@ -99,12 +99,40 @@ def test_wrappers_refuse_other_devices():
 
 
 def test_fused_geometry_limit_is_named():
-    """SSD300 and SSD512 fit one select block; a far larger prior set is
+    """SSD300 and SSD512 fit one select block at nms_topk 400 (and SSD512
+    at 1000) with the engine's largest tile; a far larger prior set is
     refused by name before any launch."""
-    assert pallas_detout.select_smem_bytes(24564, 400) <= \
-        pallas_detout.SELECT_SMEM_BYTES
+    for P, k in ((8732, 400), (24564, 400), (24564, 1000)):
+        assert pallas_detout.select_tile(P, k) == 512
+        assert pallas_detout.select_smem_bytes(P, k) <= \
+            pallas_detout.SELECT_SMEM_BYTES
+    assert pallas_detout.select_tile(60000, 400) is None
     assert pallas_detout.select_smem_bytes(60000, 400) > \
         pallas_detout.SELECT_SMEM_BYTES
+
+
+@pytest.mark.parametrize("n_priors", [1, 40, 997, 8732, 24564, 41000,
+                                      57000])
+def test_select_limit_not_narrowed(n_priors):
+    """Every (P, nms_topk) the first select design took (4 bytes a prior
+    and 25 a candidate within 227 KB less 1 KB) still finds a tile."""
+    k_max = (232448 - 1024 - 4 * n_priors) // 25
+    for k in sorted({1, 2, 31, 33, 400, 1000, k_max // 2, k_max}):
+        if 1 <= k <= k_max:
+            assert pallas_detout.select_tile(n_priors, k) is not None, k
+
+
+def test_sweep_limit_not_lowered():
+    """K1 still takes rows of MAX_SWEEP_K = 227 KB / 17 bytes, its first
+    design's limit, in tiles that fit; the SSD shape takes one tile."""
+    assert pallas_nms.MAX_SWEEP_K == 232448 // 17
+    assert pallas_nms.sweep_tile(512) == 512
+    assert pallas_nms.sweep_tile(1536) == 512
+    for K in (pallas_nms.MAX_SWEEP_K, 13000, 9000, 4096):
+        t = pallas_nms.sweep_tile(K)
+        assert t is not None and pallas_nms.sweep_smem_bytes(K, t) <= \
+            pallas_nms.SWEEP_SMEM_BYTES
+    assert pallas_nms.sweep_tile(15000) is None
 
 
 @pytest.mark.parametrize("kind", ["random", "ties", "sparse", "pixel"])
@@ -116,6 +144,47 @@ def test_nms_sweep_kernel(kind):
     got = pallas_nms.nms_sweep(*planes, normalized=normalized)
     assert pallas_nms.nms_sweep.launches == before + 1
     want = pallas_nms.nms_sweep_plain(*planes, normalized=normalized)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_phase_stamps_split():
+    """The stamp slots the kernels write (K2's select 0-8, its merge 9-13)
+    fit the buffer, and a split is the difference of neighbouring slots
+    in µs."""
+    assert pallas_detout.MERGE_STAMPS == len(pallas_detout.SELECT_PHASES) + 1
+    assert pallas_detout.MERGE_STAMPS + len(pallas_detout.MERGE_PHASES) + 1 \
+        <= pallas_nms.STAMP_SLOTS
+    assert len(pallas_nms.SWEEP_PHASES) + 1 <= pallas_nms.STAMP_SLOTS
+    stamps = torch.zeros(pallas_nms.STAMP_SLOTS, dtype=torch.int64)
+    stamps[9:12] = torch.tensor([5000, 6500, 10000])
+    assert pallas_nms.phase_split_us(stamps, ("a", "b"), 9) == \
+        {"a": 1.5, "b": 3.5}
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "sparse", "pixel"])
+@pytest.mark.parametrize("K", [1536, 13000])
+def test_nms_sweep_kernel_tiles(K, kind):
+    """Rows of several engine tiles (3 of 512; 51 of 256 near
+    MAX_SWEEP_K)."""
+    dev = _cuda()
+    planes = [p.to(dev) for p in _planes(6, 3, K, kind)]
+    normalized = kind != "pixel"
+    got = pallas_nms.nms_sweep(*planes, normalized=normalized)
+    want = pallas_nms.nms_sweep_plain(*planes, normalized=normalized)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("K", [512, 1536])
+def test_nms_sweep_kernel_non_prefix_valid(K):
+    """Invalid lanes scattered through the row are never kept and
+    suppress nothing."""
+    dev = _cuda()
+    planes = _planes(7, 40, K, "ties")
+    rng = np.random.RandomState(8)
+    planes[4] = torch.from_numpy((rng.rand(40, K) < 0.6).astype(np.float32))
+    planes = [p.to(dev) for p in planes]
+    got = pallas_nms.nms_sweep(*planes)
+    want = pallas_nms.nms_sweep_plain(*planes)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
@@ -169,6 +238,99 @@ def test_fused_kernel_ssd300_and_backends_agree(regime):
         out = detection_output(loc, conf, priors, variances,
                                DetectionOutputParam(backend=backend))
         _assert_rows_match(out, want)
+
+
+def _priors(seed, P):
+    rng = np.random.RandomState(seed)
+    cx = rng.rand(P, 2).astype(np.float32)
+    wh = (rng.rand(P, 2) * 0.2 + 0.05).astype(np.float32)
+    pri = torch.from_numpy(np.concatenate([cx - wh / 2, cx + wh / 2], 1))
+    var = torch.tensor([0.1, 0.1, 0.2, 0.2]).expand(P, 4).contiguous()
+    return pri, var
+
+
+def _fused_matches_plain(loc, conf, pri, var, param):
+    dev = _cuda()
+    args = [t.to(dev) for t in (loc, conf, pri, var)]
+    got = pallas_detout.fused_detection_output(*args, param=param)
+    _assert_rows_match(got, pallas_detout.fused_detection_output_plain(
+        *args, param))
+
+
+def test_fused_kernel_ssd512_topk_1000():
+    """nms_topk 1000 at SSD512 geometry: two engine tiles a row."""
+    dev = _cuda()
+    from analytics_zoo_tpu_torch.models.ssd import ssd512_config
+    priors, variances = (torch.from_numpy(a)
+                         for a in build_priors(ssd512_config()))
+    loc, conf = _detout_inputs(9, priors.shape[0], 6, "dense")
+    p = DetectionOutputParam(n_classes=6, nms_topk=1000, keep_topk=300)
+    _fused_matches_plain(loc, conf, priors, variances, p)
+    assert dev.type == "cuda"
+
+
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+def test_fused_kernel_valid_count_at_topk(delta):
+    """Rows whose valid count is nms_topk - 1, nms_topk and nms_topk + 1
+    (the radix select runs only for the last)."""
+    P, C, k = 600, 4, 200
+    rng = np.random.RandomState(10 + delta)
+    conf = np.zeros((2, P, C), np.float32)
+    for b in range(2):
+        for c in range(C):
+            lanes = rng.choice(P, k + delta, replace=False)
+            conf[b, lanes, c] = rng.rand(k + delta) * 0.9 + 0.05
+    loc = torch.from_numpy((rng.randn(2, P, 4) * 0.3).astype(np.float32))
+    pri, var = _priors(11, P)
+    _fused_matches_plain(loc, torch.from_numpy(conf), pri, var,
+                         DetectionOutputParam(n_classes=C, nms_topk=k,
+                                              keep_topk=150))
+
+
+@pytest.mark.parametrize("nms_topk", [50, 333])
+def test_fused_kernel_boundary_in_tie_run(nms_topk):
+    """int8 scores from five levels: the nms_topk-th score lies inside a
+    long run of equal scores, so the lowest priors of the run must be
+    taken."""
+    P, C = 900, 5
+    rng = np.random.RandomState(12)
+    conf = (rng.randint(2, 7, (2, P, C)) / 127.0).astype(np.float32)
+    loc = torch.from_numpy((rng.randn(2, P, 4) * 0.3).astype(np.float32))
+    pri, var = _priors(13, P)
+    _fused_matches_plain(loc, torch.from_numpy(conf), pri, var,
+                         DetectionOutputParam(n_classes=C, nms_topk=nms_topk,
+                                              keep_topk=400))
+
+
+def test_fused_kernel_negative_conf_thresh():
+    """A negative conf_thresh: negative, -0 and +0 scores are candidates
+    (-0 ties +0), kept ones with score <= 0 never reach the output."""
+    P, C = 500, 4
+    rng = np.random.RandomState(14)
+    conf = (rng.rand(2, P, C) - 0.4).astype(np.float32)
+    conf[:, ::7, 1] = -0.0
+    conf[:, 3::7, 1] = 0.0
+    loc = torch.from_numpy((rng.randn(2, P, 4) * 0.3).astype(np.float32))
+    pri, var = _priors(15, P)
+    for k in (100, 450):
+        _fused_matches_plain(loc, torch.from_numpy(conf), pri, var,
+                             DetectionOutputParam(n_classes=C, nms_topk=k,
+                                                  keep_topk=200,
+                                                  conf_thresh=-0.5))
+
+
+def test_fused_kernel_cross_class_ties_and_short_output():
+    """Equal scores across classes at the merge (ties to the lowest
+    class row, then prior), and keep_topk above the total kept."""
+    P, C = 400, 7
+    rng = np.random.RandomState(16)
+    conf = (rng.randint(0, 4, (3, P, C)) / 127.0).astype(np.float32)
+    loc = torch.from_numpy((rng.randn(3, P, 4) * 0.3).astype(np.float32))
+    pri, var = _priors(17, P)
+    for keep in (40, 5000):
+        _fused_matches_plain(loc, torch.from_numpy(conf), pri, var,
+                             DetectionOutputParam(n_classes=C, nms_topk=120,
+                                                  keep_topk=keep))
 
 
 # -- K3: the persistent-RNN forward ---------------------------------------
