@@ -1,6 +1,10 @@
-"""Criterions of the port (counterpart of ``core/criterion.py``): only
-what the DS2 training slice uses so far, ``Criterion`` and
-``CTCCriterion``.
+"""Criterions of the port (counterpart of ``core/criterion.py``): a
+criterion is a callable ``loss = crit(input, target)`` returning a
+scalar, with an optional ``mask`` (1.0 = a valid element) for padded
+batches: ``ClassNLLCriterion``, ``CrossEntropyCriterion``,
+``BCECriterion``, ``SmoothL1Criterion``, ``MSECriterion``,
+``ParallelCriterion`` and ``CTCCriterion``.  The SSD ``MultiBoxLoss``
+lives in ``ops/multibox_loss.py`` with the rest of the detection math.
 
 ``CTCCriterion`` is the reference's ``optax.ctc_loss`` per sequence,
 averaged over the batch.  A feasible row goes through ``F.ctc_loss``
@@ -16,7 +20,7 @@ and gradient.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +32,111 @@ class Criterion:
 
     def __call__(self, inputs, target):  # pragma: no cover - interface
         raise NotImplementedError
+
+
+def _reduce(x: torch.Tensor, mask=None, size_average: bool = True):
+    """Sum of ``x`` (times ``mask``), divided by the count of valid
+    elements (at least 1) or by ``x``'s size under ``size_average``."""
+    if mask is not None:
+        mask = torch.as_tensor(mask, dtype=x.dtype, device=x.device)
+        x = x * mask
+        denom = torch.clamp(mask.sum(), min=1.0)
+    else:
+        denom = x.numel()
+    total = x.sum()
+    return total / denom if size_average else total
+
+
+class ClassNLLCriterion(Criterion):
+    """Negative log-likelihood over log-probabilities (pairs with a
+    ``LogSoftMax`` output layer); targets are 0-based ints."""
+
+    def __init__(self, size_average: bool = True):
+        self.size_average = size_average
+
+    def __call__(self, log_probs, target, mask=None):
+        target = torch.as_tensor(target, device=log_probs.device).long()
+        nll = -torch.take_along_dim(log_probs, target[..., None], -1)[..., 0]
+        return _reduce(nll, mask, self.size_average)
+
+
+class CrossEntropyCriterion(Criterion):
+    """Softmax cross-entropy over raw logits (``LogSoftMax`` and
+    ``ClassNLL`` in one): ``logsumexp(logits) - logits[target]``."""
+
+    def __init__(self, size_average: bool = True):
+        self.size_average = size_average
+
+    def __call__(self, logits, target, mask=None):
+        target = torch.as_tensor(target, device=logits.device).long()
+        nll = (torch.logsumexp(logits, -1)
+               - torch.take_along_dim(logits, target[..., None], -1)[..., 0])
+        return _reduce(nll, mask, self.size_average)
+
+
+class BCECriterion(Criterion):
+    """Binary cross-entropy on probabilities, clipped to [eps, 1 - eps]."""
+
+    def __init__(self, size_average: bool = True, eps: float = 1e-7):
+        self.size_average = size_average
+        self.eps = eps
+
+    def __call__(self, probs, target, mask=None):
+        p = torch.clamp(probs, self.eps, 1.0 - self.eps)
+        target = torch.as_tensor(target, dtype=p.dtype, device=p.device)
+        bce = -(target * torch.log(p) + (1.0 - target) * torch.log(1.0 - p))
+        return _reduce(bce, mask, self.size_average)
+
+
+def smooth_l1(diff: torch.Tensor, sigma: float = 1.0) -> torch.Tensor:
+    """Elementwise smooth-L1 (Huber) in Caffe's sigma form: 0.5·(σd)² for
+    |d| < 1/σ², else |d| − 0.5/σ²."""
+    s2 = sigma * sigma
+    ad = torch.abs(diff)
+    return torch.where(ad < 1.0 / s2, 0.5 * s2 * diff * diff, ad - 0.5 / s2)
+
+
+class SmoothL1Criterion(Criterion):
+    def __init__(self, size_average: bool = True, sigma: float = 1.0):
+        self.size_average = size_average
+        self.sigma = sigma
+
+    def __call__(self, inputs, target, mask=None):
+        return _reduce(smooth_l1(inputs - target, self.sigma), mask,
+                       self.size_average)
+
+
+class MSECriterion(Criterion):
+    def __init__(self, size_average: bool = True):
+        self.size_average = size_average
+
+    def __call__(self, inputs, target, mask=None):
+        return _reduce((inputs - target) ** 2, mask, self.size_average)
+
+
+class ParallelCriterion(Criterion):
+    """Weighted sum of sub-criterions over paired (input, target)
+    sequences."""
+
+    def __init__(self, criterions: Sequence[Tuple[Criterion, float]] = ()):
+        self.criterions = list(criterions)
+
+    def add(self, criterion: Criterion,
+            weight: float = 1.0) -> "ParallelCriterion":
+        self.criterions.append((criterion, weight))
+        return self
+
+    def __call__(self, inputs, targets):
+        if (len(inputs) != len(self.criterions)
+                or len(targets) != len(self.criterions)):
+            raise ValueError(
+                f"ParallelCriterion has {len(self.criterions)} "
+                f"sub-criterions but got {len(inputs)} inputs / "
+                f"{len(targets)} targets")
+        total = 0.0
+        for (crit, w), inp, tgt in zip(self.criterions, inputs, targets):
+            total = total + w * crit(inp, tgt)
+        return total
 
 
 def ctc_loss_plain(logits: torch.Tensor, logit_paddings: torch.Tensor,

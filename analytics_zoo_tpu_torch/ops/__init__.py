@@ -1,6 +1,6 @@
-"""Ops on tensors: PriorBox, box math, NMS, DetectionOutput, and the
-kernels K1 (``pallas_nms``), K2 (``pallas_detout``), K3 and K4
-(``pallas_rnn``)."""
+"""Ops on tensors: PriorBox, box math, NMS, DetectionOutput,
+MultiBoxLoss, and the kernels K1 (``pallas_nms``), K2
+(``pallas_detout``), K3 and K4 (``pallas_rnn``)."""
 
 from analytics_zoo_tpu_torch.ops import bbox
 from analytics_zoo_tpu_torch.ops.detection_output import (
@@ -9,6 +9,9 @@ from analytics_zoo_tpu_torch.ops.detection_output import (
     detection_output_single,
     scale_detections,
 )
+from analytics_zoo_tpu_torch.ops.multibox_loss import (MultiBoxLoss,
+                                                       MultiBoxLossParam,
+                                                       match_priors)
 from analytics_zoo_tpu_torch.ops.nms import nms
 from analytics_zoo_tpu_torch.ops.pallas_detout import fused_detection_output
 from analytics_zoo_tpu_torch.ops.pallas_nms import nms_sweep

@@ -55,6 +55,23 @@ def center_size(boxes: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     return cx, cy, w, h
 
 
+def encode_bbox(priors: torch.Tensor, variances: torch.Tensor,
+                gt: torch.Tensor) -> torch.Tensor:
+    """Caffe-SSD center-size encoding of gt boxes against priors, the
+    deltas divided by the variances: priors, variances, gt (…,4) →
+    (…,4).  Prior sizes and gt sizes are floored at 1e-8, so a zero (padding)
+    box encodes to a finite target."""
+    pcx, pcy, pw, ph = center_size(priors)
+    gcx, gcy, gw, gh = center_size(gt)
+    pw = torch.clamp(pw, min=1e-8)
+    ph = torch.clamp(ph, min=1e-8)
+    ex = (gcx - pcx) / pw / variances[..., 0]
+    ey = (gcy - pcy) / ph / variances[..., 1]
+    ew = torch.log(torch.clamp(gw, min=1e-8) / pw) / variances[..., 2]
+    eh = torch.log(torch.clamp(gh, min=1e-8) / ph) / variances[..., 3]
+    return torch.stack([ex, ey, ew, eh], dim=-1)
+
+
 def decode_bbox(priors: torch.Tensor, variances: torch.Tensor,
                 deltas: torch.Tensor, clip: bool = False) -> torch.Tensor:
     """Caffe-SSD center-size decode of predicted deltas against priors →
@@ -80,3 +97,10 @@ def clip_boxes(boxes: torch.Tensor, height: float = 1.0,
         torch.clamp(boxes[..., 2], 0.0, width),
         torch.clamp(boxes[..., 3], 0.0, height),
     ], dim=-1)
+
+
+def scale_boxes(boxes: torch.Tensor, sx, sy) -> torch.Tensor:
+    """Scale x coordinates by ``sx`` and y by ``sy`` (normalized → pixel
+    boxes)."""
+    return torch.stack([boxes[..., 0] * sx, boxes[..., 1] * sy,
+                        boxes[..., 2] * sx, boxes[..., 3] * sy], dim=-1)

@@ -15,6 +15,11 @@ share parameters:
   (``ops/pallas_detout.py``);
 - ``"auto"``: ``"fused"`` on CUDA, ``"xla"`` on the CPU.
 
+Where ``"fused"`` (asked for, or picked by ``"auto"``) meets a geometry
+whose select block does not fit K2's shared memory, ``detection_output``
+warns and runs ``"pallas"`` (K1's rows are ``nms_topk`` wide, not P), as
+the reference falls back; ``fused_detection_output`` itself refuses it.
+
 All backends implement the same semantics (topk-``nms_topk`` pre-filter,
 greedy IoU suppression, global keep-topk, score ties to the lowest
 index), so outputs agree up to float associativity.
@@ -23,13 +28,15 @@ index), so outputs agree up to float associativity.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import torch
 
 from analytics_zoo_tpu_torch.ops.bbox import decode_bbox
 from analytics_zoo_tpu_torch.ops.nms import nms_batched, topk_stable
-from analytics_zoo_tpu_torch.ops.pallas_detout import (foreground_ids,
-                                                       fused_detection_output)
+from analytics_zoo_tpu_torch.ops.pallas_detout import (
+    SELECT_SMEM_BYTES, foreground_ids, fused_detection_output,
+    select_smem_bytes, select_tile)
 from analytics_zoo_tpu_torch.ops.pallas_nms import _round_up, nms_sweep
 from analytics_zoo_tpu_torch.utils.device import tensor_device
 
@@ -172,8 +179,17 @@ def detection_output(loc, conf, priors, variances,
         for x in (loc, conf, priors, variances))
     backend = resolve_backend(param, dev)
     if backend == "fused":
-        return fused_detection_output(loc, conf, priors, variances,
-                                      param=param)
+        P = priors.shape[0]
+        if select_tile(P, param.nms_topk) is not None:
+            return fused_detection_output(loc, conf, priors, variances,
+                                          param=param)
+        need = select_smem_bytes(P, param.nms_topk)
+        warnings.warn(
+            f"fused DetectionOutput needs {need} bytes of shared memory "
+            f"(P={P}, nms_topk={param.nms_topk}) over the "
+            f"{SELECT_SMEM_BYTES}-byte limit of one block — falling back to "
+            f"the unfused pallas path")
+        backend = "pallas"
     if backend == "pallas":
         return _detection_output_pallas(loc, conf, priors, variances, param)
     return _detection_output_xla(loc, conf, priors, variances, param)

@@ -1,6 +1,6 @@
 """Optim methods, LR schedules and triggers (counterpart of
-``parallel/optim.py``): ``OptimMethod``, ``SGD``, ``Adam``,
-``multistep``, ``Trigger`` and ``TrainingState``.
+``parallel/optim.py``): ``OptimMethod``, ``SGD``, ``Adam``, ``AdamW``,
+``multistep``, ``Plateau``, ``Trigger`` and ``TrainingState``.
 
 The reference wraps optax transformations; here each method writes the
 same arithmetic out on tensors, in optax's order of operations, so that
@@ -8,14 +8,16 @@ one step gives the same parameters: Adam with bias-corrected moments and
 ``eps`` outside the square root, SGD with the decayed weights added to
 the gradient before the momentum trace.  An update can be masked (the
 step's ``skip_loss_above`` guard): where ``keep`` is false every
-parameter and every slot keeps its value.  ``Plateau`` and ``AdamW``
-are not ported (ROADMAP.md Queue 1 item 6).
+parameter and every slot keeps its value.  The learning rate a step uses
+is ``schedule(step) * lr_scale``: ``lr_scale`` is 1 unless a
+:class:`Plateau`, driven by the validation score between steps, has
+lowered it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -36,6 +38,46 @@ def multistep(base_lr: float, milestones, gamma: float = 0.1) -> Callable:
     return schedule
 
 
+class Plateau:
+    """Plateau-on-metric LR control (reference SGD ``Plateau``): call
+    ``update(metric)`` once a validation; after more than ``patience``
+    results that do not beat the best by ``epsilon``, ``scale`` is
+    multiplied by ``factor`` (unless that takes ``base_lr * scale`` under
+    ``min_lr``)."""
+
+    def __init__(self, monitor: str = "score", factor: float = 0.5,
+                 patience: int = 10, mode: str = "max", epsilon: float = 1e-4,
+                 min_lr: float = 0.0, base_lr: float = 1.0):
+        self.monitor = monitor
+        self.factor = factor
+        self.patience = patience
+        self.mode = mode
+        self.epsilon = epsilon
+        self.min_lr = min_lr
+        self.base_lr = base_lr
+        self.scale = 1.0
+        self.best: Optional[float] = None
+        self.num_bad = 0
+
+    def update(self, metric: float) -> float:
+        better = (
+            self.best is None
+            or (self.mode == "max" and metric > self.best + self.epsilon)
+            or (self.mode == "min" and metric < self.best - self.epsilon)
+        )
+        if better:
+            self.best = metric
+            self.num_bad = 0
+        else:
+            self.num_bad += 1
+            if self.num_bad > self.patience:
+                new_scale = self.scale * self.factor
+                if self.base_lr * new_scale >= self.min_lr:
+                    self.scale = new_scale
+                self.num_bad = 0
+        return self.scale
+
+
 # ---------------------------------------------------------------------------
 # OptimMethod
 # ---------------------------------------------------------------------------
@@ -44,13 +86,40 @@ def multistep(base_lr: float, milestones, gamma: float = 0.1) -> Callable:
 class OptimMethod:
     """An update rule with a learning-rate schedule.  ``init(params)``
     makes the slots; ``update(params, grads, state, lr, keep)`` applies
-    one step in place."""
+    one step in place.  ``plateau`` (optional) rescales the schedule from
+    the validation results (:meth:`on_validation`)."""
 
-    def __init__(self, schedule: Callable[[int], float]):
+    def __init__(self, schedule: Callable[[int], float],
+                 plateau: Optional[Plateau] = None):
         self.schedule = schedule
+        self.plateau = plateau
 
-    def lr_for_step(self, step: int) -> float:
-        return self.schedule(step)
+    def lr_for_step(self, step: int, lr_scale: float = 1.0) -> float:
+        return self.schedule(step) * lr_scale
+
+    @property
+    def lr_scale(self) -> float:
+        return self.plateau.scale if self.plateau is not None else 1.0
+
+    def on_validation(self, metrics: Dict[str, float]) -> None:
+        if self.plateau is not None and self.plateau.monitor in metrics:
+            self.plateau.update(metrics[self.plateau.monitor])
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Host state a resumed run needs besides the slots: Plateau's
+        scale, best score and patience count."""
+        if self.plateau is None:
+            return {}
+        return {"plateau": {"scale": self.plateau.scale,
+                            "best": self.plateau.best,
+                            "num_bad": self.plateau.num_bad}}
+
+    def load_state_dict(self, d: Dict[str, Any]) -> None:
+        p = d.get("plateau")
+        if p and self.plateau is not None:
+            self.plateau.scale = float(p["scale"])
+            self.plateau.best = p["best"]
+            self.plateau.num_bad = int(p["num_bad"])
 
     def init(self, params: Sequence[torch.Tensor]) -> Dict:
         raise NotImplementedError  # pragma: no cover - interface
@@ -74,8 +143,11 @@ class SGD(OptimMethod):
 
     def __init__(self, learning_rate: float = 1e-3, momentum: float = 0.0,
                  weight_decay: float = 0.0, nesterov: bool = False,
-                 schedule: Optional[Callable] = None):
-        super().__init__(schedule or (lambda step: learning_rate))
+                 schedule: Optional[Callable] = None,
+                 plateau: Optional[Plateau] = None):
+        if plateau is not None:
+            plateau.base_lr = learning_rate
+        super().__init__(schedule or (lambda step: learning_rate), plateau)
         self.momentum = momentum
         self.weight_decay = weight_decay
         self.nesterov = nesterov
@@ -105,8 +177,11 @@ class Adam(OptimMethod):
 
     def __init__(self, learning_rate: float = 1e-3, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8,
-                 schedule: Optional[Callable] = None):
-        super().__init__(schedule or (lambda step: learning_rate))
+                 schedule: Optional[Callable] = None,
+                 plateau: Optional[Plateau] = None):
+        if plateau is not None:
+            plateau.base_lr = learning_rate
+        super().__init__(schedule or (lambda step: learning_rate), plateau)
         self.b1, self.b2, self.eps = b1, b2, eps
 
     def init(self, params):
@@ -125,11 +200,29 @@ class Adam(OptimMethod):
         for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
             m = (1.0 - self.b1) * g + self.b1 * mu
             v = (1.0 - self.b2) * (g * g) + self.b2 * nu
-            u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
+            u = self._direction(p, (m / bc1) / (torch.sqrt(v / bc2)
+                                                + self.eps))
             _assign(mu, m, keep)
             _assign(nu, v, keep)
             _assign(p, p + (-lr) * u, keep)
         _assign(state["count"], count, keep)
+
+    def _direction(self, p, u):
+        return u
+
+
+class AdamW(Adam):
+    """Adam with decoupled weight decay, as optax's ``adamw``: the Adam
+    direction plus ``weight_decay · p``, scaled by ``−lr``."""
+
+    def __init__(self, learning_rate: float = 1e-3,
+                 weight_decay: float = 1e-4,
+                 schedule: Optional[Callable] = None):
+        super().__init__(learning_rate, schedule=schedule)
+        self.weight_decay = weight_decay
+
+    def _direction(self, p, u):
+        return u + self.weight_decay * p
 
 
 # ---------------------------------------------------------------------------
@@ -141,16 +234,20 @@ class Adam(OptimMethod):
 class TrainingState:
     """Host-visible loop state that triggers predicate over.  ``loss``
     holds the last step's loss as the step left it (a tensor on the
-    device until something reads it)."""
+    device until something reads it); ``score`` the last validation
+    score; ``epoch_finished`` is true at an epoch's end."""
 
     epoch: int = 0
     iteration: int = 0
+    epoch_finished: bool = False
     loss: object = float("inf")
+    score: Optional[float] = None
 
 
 class Trigger:
     """Predicate over :class:`TrainingState` (reference ``Trigger``:
-    maxEpoch / maxIteration)."""
+    everyEpoch / maxEpoch / maxIteration / severalIteration / maxScore /
+    minLoss, and their ``or_`` / ``and_``)."""
 
     def __init__(self, fn: Callable[[TrainingState], bool],
                  name: str = "trigger"):
@@ -161,9 +258,41 @@ class Trigger:
         return self._fn(state)
 
     @staticmethod
+    def always() -> "Trigger":
+        return Trigger(lambda s: True, "always")
+
+    @staticmethod
+    def every_epoch() -> "Trigger":
+        return Trigger(lambda s: s.epoch_finished, "everyEpoch")
+
+    @staticmethod
     def max_epoch(n: int) -> "Trigger":
         return Trigger(lambda s: s.epoch >= n, f"maxEpoch({n})")
 
     @staticmethod
     def max_iteration(n: int) -> "Trigger":
         return Trigger(lambda s: s.iteration >= n, f"maxIteration({n})")
+
+    @staticmethod
+    def several_iteration(n: int) -> "Trigger":
+        return Trigger(lambda s: s.iteration > 0 and s.iteration % n == 0,
+                       f"severalIteration({n})")
+
+    @staticmethod
+    def max_score(s: float) -> "Trigger":
+        return Trigger(lambda st: st.score is not None and st.score >= s,
+                       f"maxScore({s})")
+
+    @staticmethod
+    def min_loss(l: float) -> "Trigger":
+        return Trigger(lambda st: float(st.loss) <= l, f"minLoss({l})")
+
+    @staticmethod
+    def or_(*triggers: "Trigger") -> "Trigger":
+        return Trigger(lambda s: any(t(s) for t in triggers),
+                       " | ".join(t.name for t in triggers))
+
+    @staticmethod
+    def and_(*triggers: "Trigger") -> "Trigger":
+        return Trigger(lambda s: all(t(s) for t in triggers),
+                       " & ".join(t.name for t in triggers))

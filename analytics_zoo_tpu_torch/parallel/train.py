@@ -10,11 +10,10 @@ loss exceeds ``skip_loss_above``.  Parameters and batch statistics live
 in the module and are updated in place; :class:`TrainState` carries the
 step count and the optimizer's slots.
 
-Not ported yet, and refused by name: gradient accumulation, fused
-device transforms, custom forwards, the health sentinel and sharded
-steps (ROADMAP.md Queue 1 items 6, 8, 12 and 13); the ``Optimizer``'s
-checkpoints, validation, prefetch, resilience and observability (items
-8, 12 and 13).
+Not ported yet, and refused by name: fused device transforms, custom
+forwards, the health sentinel and sharded steps (ROADMAP.md Queue 1
+items 8, 12 and 13); the ``Optimizer``'s checkpoints, prefetch,
+resilience and observability (items 8, 12 and 13).
 """
 
 from __future__ import annotations
@@ -22,13 +21,14 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 from torch.profiler import record_function
 
+from analytics_zoo_tpu_torch.core.criterion import Criterion
 from analytics_zoo_tpu_torch.parallel.optim import (Adam, OptimMethod,
                                                     TrainingState, Trigger)
 
@@ -46,37 +46,53 @@ def resolve_compute_dtype(compute_dtype) -> Optional[torch.dtype]:
     raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
 
 
+def _tree_map(fn: Callable, tree):
+    """``fn`` on every leaf of nested tuples, lists and dicts, keeping the
+    structure."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def cast_floating(tree: Any, dtype: torch.dtype) -> Any:
+    """Cast every floating tensor of a tree to ``dtype``; integer tensors
+    and other leaves stay as they are."""
+    return _tree_map(lambda x: x.to(dtype) if isinstance(x, torch.Tensor)
+                     and x.is_floating_point() else x, tree)
+
+
+def _forward(module: nn.Module, inputs, cdtype: Optional[torch.dtype]):
+    """The module on ``inputs`` (a tuple or list is unpacked into its
+    arguments).  Under ``cdtype`` the floating inputs are cast to it, the
+    forward runs under autocast to it, and the floating outputs come back
+    in fp32."""
+    args = inputs if isinstance(inputs, (tuple, list)) else (inputs,)
+    if cdtype is None:
+        return module(*args)
+    dev = next(module.parameters()).device
+    with torch.autocast(dev.type, dtype=cdtype):
+        out = module(*cast_floating(args, cdtype))
+    return cast_floating(out, torch.float32)
+
+
 def make_eval_step(module: nn.Module, compute_dtype=None) -> Callable:
     """``outputs = eval_step(inputs)``: the module's forward without
-    autograd.  ``compute_dtype='bf16'`` runs it under bfloat16 autocast
-    (the convolutions in bf16) and casts the outputs back to fp32, whatever
-    their structure (SSD's ``(loc, conf)``, DS2's one tensor).  The
-    step reads the module's parameters at call time, so a later
+    autograd.  ``inputs`` is one tensor or a tuple of the forward's
+    arguments (DS2's ``(features, n_frames)``).  ``compute_dtype='bf16'``
+    runs it under bfloat16 autocast (the convolutions in bf16) with the
+    floating inputs cast to bf16 and the outputs cast back to fp32,
+    whatever their structure (SSD's ``(loc, conf)``, DS2's one tensor).
+    The step reads the module's parameters at call time, so a later
     ``load_state_dict`` takes effect."""
     cdtype = resolve_compute_dtype(compute_dtype)
 
-    def eval_step(inputs: torch.Tensor):
+    def eval_step(inputs):
         with torch.inference_mode():
-            if cdtype is None:
-                return module(inputs)
-            dev = inputs.device.type
-            with torch.autocast(dev, dtype=cdtype):
-                out = module(inputs.to(cdtype))
-            return _to_float(out)
+            return _forward(module, inputs, cdtype)
 
     return eval_step
-
-
-def _to_float(out):
-    """Cast every floating tensor of an output tree (a tensor, or nested
-    tuples, lists and dicts of them) to fp32, keeping its structure."""
-    if isinstance(out, torch.Tensor):
-        return out.float() if out.is_floating_point() else out
-    if isinstance(out, (tuple, list)):
-        return type(out)(_to_float(o) for o in out)
-    if isinstance(out, dict):
-        return {k: _to_float(v) for k, v in out.items()}
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -119,6 +135,44 @@ def to_device(batch: Any, device: torch.device) -> Any:
     return batch
 
 
+def _call_criterion(criterion: Callable, output, batch):
+    """The criterion protocol: a :class:`Criterion` gets ``(output,
+    batch["target"])``, with ``mask=batch["target_mask"]`` when the batch
+    has one; any other callable gets ``(output, batch)``."""
+    if isinstance(criterion, Criterion):
+        target = batch.get("target")
+        if "target_mask" in batch:
+            return criterion(output, target, mask=batch["target_mask"])
+        return criterion(output, target)
+    return criterion(output, batch)
+
+
+def _tree_leaves(tree) -> List[Any]:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tree_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [tree]
+
+
+def _split_microbatches(batch, n: int) -> List[Any]:
+    """``batch`` cut along dim 0 into ``n`` equal microbatches.  Every
+    leaf must be a tensor with one common dim 0 divisible by ``n``: a
+    leaf that is not batch-major would be cut as if it were."""
+    sizes = {leaf.shape[0] if isinstance(leaf, torch.Tensor)
+             and leaf.ndim > 0 else None for leaf in _tree_leaves(batch)}
+    if None in sizes or len(sizes) != 1:
+        raise ValueError(f"grad_accum needs batch-major array leaves with "
+                         f"one common dim 0, got leading dims {sizes}")
+    (B,) = sizes
+    if B % n:
+        raise ValueError(f"batch size {B} not divisible by grad_accum={n} "
+                         f"(pad or drop_remainder the tail batch)")
+    m = B // n
+    return [_tree_map(lambda x: x[i * m:(i + 1) * m], batch)
+            for i in range(n)]
+
+
 def make_train_step(module: nn.Module, criterion: Callable,
                     optim: OptimMethod, *,
                     grad_clip_norm: Optional[float] = None,
@@ -133,14 +187,21 @@ def make_train_step(module: nn.Module, criterion: Callable,
 
     ``batch`` is a dict whose ``"input"`` is the forward's argument (a
     tuple for several, e.g. DS2's ``(features, n_frames)``); numpy leaves
-    are moved to the device.  ``criterion(output, batch)`` is the loss.
+    are moved to the device.  The loss is ``criterion(output,
+    batch["target"])`` for a :class:`Criterion` (with ``mask=
+    batch["target_mask"]`` when present), else ``criterion(output,
+    batch)``; it runs in fp32, outside autocast.  ``grad_accum=N`` cuts the
+    batch into N microbatches and steps on the mean of their gradients
+    and losses (batch statistics advance once a microbatch).  The
+    learning rate is ``optim.lr_for_step(step, optim.lr_scale)``.
     ``metrics`` holds ``"loss"`` (a tensor, not read back), ``"lr"`` and
     whatever ``metric_fn(batch)`` returns.
     The step and its parts are ``torch.profiler`` ranges:
-    ``train_step`` around ``train_step.forward_loss``,
-    ``train_step.backward`` and ``train_step.update``."""
-    if grad_accum != 1:
-        _not_ported("grad_accum", "item 6")
+    ``train_step`` around ``train_step.upload`` (the batch to the device
+    and its microbatch split), then ``train_step.forward_loss`` and
+    ``train_step.backward`` once a microbatch, and ``train_step.update``."""
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum={grad_accum} must be >= 1")
     if device_transform is not None:
         _not_ported("device_transform", "item 8")
     if forward_fn is not None:
@@ -155,35 +216,39 @@ def make_train_step(module: nn.Module, criterion: Callable,
     @record_function("train_step")
     def step(state: TrainState, batch):
         dev = params[0].device
-        with record_function("train_step.forward_loss"):
+        with record_function("train_step.upload"):
             batch = to_device(batch, dev)
-            inputs = batch["input"]
-            args = inputs if isinstance(inputs, (tuple, list)) else (inputs,)
-            module.train()
-            if cdtype is None:
-                output = module(*args)
-            else:
-                with torch.autocast(dev.type, dtype=cdtype):
-                    output = module(*args)
-                output = _to_float(output)
-            loss = criterion(output, batch)
-        with record_function("train_step.backward"):
-            for p in params:
-                p.grad = None
-            loss.backward()
+            micro = ([batch] if grad_accum == 1
+                     else _split_microbatches(batch, grad_accum))
+        for p in params:
+            p.grad = None
+        losses = []
+        for mb in micro:
+            with record_function("train_step.forward_loss"):
+                module.train()
+                loss = _call_criterion(
+                    criterion, _forward(module, mb["input"], cdtype), mb)
+            with record_function("train_step.backward"):
+                loss.backward()
+            losses.append(loss.detach())
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
         with torch.no_grad(), record_function("train_step.update"):
+            loss = losses[0]
+            if grad_accum > 1:
+                inv = 1.0 / grad_accum
+                grads = [g * inv for g in grads]
+                loss = sum(losses[1:], losses[0]) * inv
             if grad_clip_norm:
                 gnorm = torch.sqrt(sum((g.float() * g.float()).sum()
                                        for g in grads))
                 scale = torch.clamp(grad_clip_norm / (gnorm + 1e-6), max=1.0)
                 grads = [g * scale for g in grads]
             keep = (None if skip_loss_above is None
-                    else loss.detach() <= skip_loss_above)
-            lr = optim.lr_for_step(state.step)
+                    else loss <= skip_loss_above)
+            lr = optim.lr_for_step(state.step, optim.lr_scale)
             optim.update(params, grads, state.opt_state, lr, keep)
-        metrics = {"loss": loss.detach(), "lr": lr}
+        metrics = {"loss": loss, "lr": lr}
         if metric_fn is not None:
             metrics.update(metric_fn(batch))
         return TrainState(step=state.step + 1,
@@ -192,22 +257,78 @@ def make_train_step(module: nn.Module, criterion: Callable,
     return step
 
 
+# ---------------------------------------------------------------------------
+# Validation methods
+# ---------------------------------------------------------------------------
+
+
+class ValidationResult:
+    """A mergeable metric (a monoid under ``+``): ``value / count``."""
+
+    def __init__(self, value: float, count: float, name: str):
+        self.value = value
+        self.count = count
+        self.name = name
+
+    def __add__(self, other: "ValidationResult") -> "ValidationResult":
+        return ValidationResult(self.value + other.value,
+                                self.count + other.count, self.name)
+
+    def result(self) -> float:
+        return self.value / max(self.count, 1e-12)
+
+    def __repr__(self):
+        return f"{self.name}: {self.result():.6f} ({int(self.count)} samples)"
+
+
+class ValidationMethod:
+    """``method(output, batch)`` → a mergeable result with ``name`` and
+    ``result()`` (e.g. ``pipelines.ssd.SSDMeanAveragePrecision``)."""
+
+    name = "validation"
+
+    def __call__(self, output, batch):  # pragma: no cover - interface
+        raise NotImplementedError
+
+
+def validate(module: nn.Module, dataset, methods: Sequence[Callable],
+             eval_step: Optional[Callable] = None) -> List[Any]:
+    """Forward a dataset's ``"input"`` on the module's device and merge
+    each method's per-batch results (reference ``Validator.test``)."""
+    eval_step = eval_step or make_eval_step(module)
+    dev = next(module.parameters()).device
+    totals: List[Any] = [None] * len(methods)
+    for batch in dataset:
+        out = eval_step(to_device(batch["input"], dev))
+        for i, m in enumerate(methods):
+            r = m(out, batch)
+            totals[i] = r if totals[i] is None else totals[i] + r
+    return [t for t in totals if t is not None]
+
+
 class Optimizer:
     """The reference's ``Optimizer`` on one device::
 
         model = (Optimizer(model, train_set, criterion)
-                 .set_optim_method(Adam(lr))
+                 .set_optim_method(SGD(lr, momentum=0.9, plateau=...))
+                 .set_validation(Trigger.every_epoch(), val_set, [method])
                  .set_end_when(Trigger.max_epoch(n))
                  .optimize())
 
     ``dataset`` is re-iterated each epoch (a ``data.DataSet`` or any
     iterable of batches).  Each step's metrics are kept in ``history``
-    as the step returned them (the loss stays on the device)."""
+    as the step returned them (the loss stays on the device); each
+    validation's results in ``val_history``.  Validation runs where its
+    trigger fires after a step or at an epoch's end (once an iteration),
+    with the model in eval mode, and its score (the first method's,
+    unless ``score_name`` says) becomes ``loop.score`` and goes to
+    ``optim.on_validation`` (Plateau)."""
 
     def __init__(self, model: nn.Module, dataset, criterion,
                  mesh=None, skip_loss_above: Optional[float] = None,
                  grad_clip_norm: Optional[float] = None, compute_dtype=None,
-                 prefetch: int = 0, metric_fn=None, specs=None):
+                 prefetch: int = 0, grad_accum: int = 1, metric_fn=None,
+                 specs=None):
         if prefetch:
             _not_ported("prefetch", "item 8")
         if mesh is not None or specs is not None:
@@ -215,12 +336,19 @@ class Optimizer:
         self.model = model
         self.dataset = dataset
         self.criterion = criterion
+        self.compute_dtype = compute_dtype
         self.optim: OptimMethod = Adam(1e-3)
         self.end_when: Trigger = Trigger.max_epoch(1)
+        self.val_trigger: Optional[Trigger] = None
+        self.val_dataset = None
+        self.val_methods: Sequence[Callable] = ()
+        self._score_name: Optional[str] = None
         self._step_options = dict(
             skip_loss_above=skip_loss_above, grad_clip_norm=grad_clip_norm,
-            compute_dtype=compute_dtype, metric_fn=metric_fn)
+            compute_dtype=compute_dtype, grad_accum=grad_accum,
+            metric_fn=metric_fn)
         self.history: List[Dict] = []
+        self.val_history: List[Dict] = []
 
     def set_optim_method(self, m: OptimMethod) -> "Optimizer":
         self.optim = m
@@ -230,8 +358,15 @@ class Optimizer:
         self.end_when = t
         return self
 
-    def set_validation(self, *args, **kwargs):
-        _not_ported("validation during training", "item 13")
+    def set_validation(self, trigger: Trigger, dataset,
+                       methods: Sequence[Callable],
+                       score_name: Optional[str] = None) -> "Optimizer":
+        self.val_trigger = trigger
+        self.val_dataset = dataset
+        self.val_methods = list(methods)
+        self._score_name = score_name or (methods[0].name if methods
+                                          else None)
+        return self
 
     def set_checkpoint(self, *args, **kwargs):
         _not_ported("checkpointing", "item 12")
@@ -245,31 +380,61 @@ class Optimizer:
     def optimize(self) -> nn.Module:
         step = make_train_step(self.model, self.criterion, self.optim,
                                **self._step_options)
+        eval_step = make_eval_step(self.model,
+                                   compute_dtype=self.compute_dtype)
         state = create_train_state(self.model, self.optim)
         loop = TrainingState()
+        self._last_val_iter = None
         t_epoch, records = time.perf_counter(), 0
         while not self.end_when(loop):
             stop = False
+            loop.epoch_finished = False
             for batch in self.dataset:
                 state, metrics = step(state, batch)
                 self.history.append(metrics)
                 loop.iteration += 1
                 loop.loss = metrics["loss"]
                 records += _batch_size(batch)
+                self._maybe_validate(loop, eval_step)
                 if self.end_when(loop):
                     stop = True
                     break
             if stop:
                 break
             loop.epoch += 1
+            loop.epoch_finished = True
             loop.loss = float(loop.loss)
             dt = time.perf_counter() - t_epoch
             logger.info("Epoch %d done: %d records in %.1fs (%.1f "
                         "records/s), loss %.4f", loop.epoch, records, dt,
                         records / max(dt, 1e-9), loop.loss)
             t_epoch, records = time.perf_counter(), 0
+            self._maybe_validate(loop, eval_step)
         self.model.eval()
         return self.model
+
+    def _maybe_validate(self, loop: TrainingState, eval_step) -> None:
+        if self.val_trigger is None or not self.val_trigger(loop):
+            return
+        # an iteration trigger still fires at the epoch's end: validate an
+        # iteration once, so Plateau counts it once
+        if self._last_val_iter == loop.iteration:
+            return
+        self._last_val_iter = loop.iteration
+        self.model.eval()
+        try:
+            results = validate(self.model, self.val_dataset,
+                               self.val_methods, eval_step=eval_step)
+        finally:
+            self.model.train()
+        metrics = {r.name: r.result() for r in results}
+        for name, value in metrics.items():
+            logger.info("Validation @ iter %d: %s = %.5f", loop.iteration,
+                        name, value)
+        self.val_history.append({"iteration": loop.iteration, **metrics})
+        if self._score_name and self._score_name in metrics:
+            loop.score = metrics[self._score_name]
+            self.optim.on_validation({"score": loop.score, **metrics})
 
 
 def _batch_size(batch) -> int:

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SSD300 and DeepSpeech2 serving paths and its
-DeepSpeech2 CTC training path once on one NVIDIA GPU.
+"""Drive the PyTorch port's SSD300 and DeepSpeech2 serving paths, its
+DeepSpeech2 CTC training path and its SSD300 training path once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -77,8 +78,31 @@ Phases, one JSON line each; any failure exits non-zero:
    ``k4_step_us``: the delivery, product, cell math and barrier from the
    kernels' step-phase stamps); K4 by ``time_block``; a DS2
    train step by the host clock, and one under ``torch.profiler``, split
-   into forward and loss, backward and update, with the device's busy
-   share of that step;
+   into the upload, forward and loss, backward and update, with the
+   device's busy share of that step;
+6b. ssd_train: a seeded ``SSDVgg(21, 300)`` (TF32 off) — one MultiBoxLoss
+   and every gradient at batch 2 on the card and on the CPU (the loss
+   within ``SSD_GRAD_TOL``, each gradient against an fp64 CPU computation
+   as ``SSD_GRAD_TOL`` says), and ``match_priors`` and the negatives
+   mining keeps equal on the card and the CPU (random logits, all-zero
+   logits, two gts sharing a best prior); then ``train_ssd`` with the
+   reference's ``TrainParams(max_epoch=1)`` (bf16, SGD
+   under Plateau, updates skipped above a loss of 50) on 6 seeded
+   batches of 32, validating on 2 batches of 8, every launch counter set
+   to 0 just before and read just after (K2 once a validation batch, no
+   other kernel; a fallback warning is an error); every loss finite; the
+   validation detections against the CPU "xla" path on the same outputs
+   (classes equal, scores within 1e-6, boxes within 1e-5); one bf16
+   step against one fp32 step from the same weights on one batch: the
+   loss within ``SSD_BF16_TOL``, the update of the weights within
+   ``SSD_BF16_UPDATE_TOL`` (and each tensor's within
+   ``SSD_BF16_UPDATE_TENSOR_TOL``), and the loss after it finite;
+   then a ``timing`` line: the train step of 32 by the host clock (median
+   of ``SSD_TIMED_STEPS``), the step's upload of one batch alone by the
+   host clock (median of 3), one step under ``torch.profiler`` split into
+   the upload, forward and loss (and ``multibox_loss`` inside it),
+   backward and update, validation by the batch of 8, and the steps'
+   peak memory;
 7. the ``kernels`` line, then the device line last.
 
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -164,6 +188,33 @@ DS2_GRAD_TOL = 1e-3
 # 8-utterance buckets of <= 1000, 2000 and 3000 frames
 DS2_TRAIN_SECONDS = tuple(3.0 + 27.0 * i / 47 for i in range(48))
 DS2_BUCKETS = (1000, 2000, 3000)
+
+
+# SSD300 training at the reference's TrainParams batch: 6 batches of 32
+# seeded images to train on, 2 of 8 to validate
+SSD_TRAIN_BATCH, SSD_TRAIN_BATCHES = 32, 6
+SSD_VAL_BATCH, SSD_VAL_BATCHES = 8, 2
+# one MultiBoxLoss and its gradients on the card against the CPU, fp32,
+# TF32 off, batch 2: the loss, and all the gradients as one vector, within
+# SSD_GRAD_TOL relative (L2); each gradient's relative L2 error against an
+# fp64 CPU computation of the same step within SSD_GRAD_TOL, or within
+# twice the CPU fp32 result's own error where that is larger: the first
+# layers' weight gradients sum 180,000 terms with heavy cancellation, and
+# there fp32 itself is ~2e-3 from fp64 (conv1_1 measured 2.2e-3 on the
+# CPU), so no two fp32 summation orders agree within 1e-3 a tensor
+SSD_GRAD_TOL = 1e-3
+# the bf16 train step's loss (autocast over fp32 weights) against the
+# fp32 step's on the same weights and batch, relative
+SSD_BF16_TOL = 2e-2
+# the bf16 step's update (the change of the fp32 weights after one SGD
+# step) against the fp32 step's, relative L2: all tensors as one vector
+# (measured 8.3e-3; a wrong update of the right direction but scaled by
+# 1 + e reads e), and the worst tensor (measured 8.4e-2, extra.conv7_1's
+# bias; the median tensor 1.3e-2); NVIDIA H100 80GB HBM3, 700.00 W
+SSD_BF16_UPDATE_TOL = 2e-2
+SSD_BF16_UPDATE_TENSOR_TOL = 0.2
+# host-clock train steps: 2 of warm-up, then the timed ones (median)
+SSD_WARMUP_STEPS, SSD_TIMED_STEPS = 2, 6
 
 
 def emit(phase: str, **fields) -> None:
@@ -456,10 +507,12 @@ def profile_train_step(fn, top: int = 8):
     ``torch.profiler``, every number read from that one trace (its chrome
     export): the device time of each kernel, summed by name (ms, the
     ``top`` largest); the device time of the kernels launched inside each
-    of the step's ranges (``forward_loss``, ``backward``, ``update``), a
-    kernel going to the range that holds its launch on the host clock,
-    whatever thread launched it (autograd runs the backward on a thread
-    of its own); the step's span, from the start of its ``train_step``
+    of the step's ranges (``upload``, ``forward_loss``, ``backward``,
+    ``update``, and ``multibox_loss`` inside ``forward_loss`` where the
+    criterion is SSD's), summed over every instance of a range (one a
+    microbatch), a kernel going to the range that holds its launch on the
+    host clock, whatever thread launched it (autograd runs the backward on
+    a thread of its own); the step's span, from the start of its ``train_step``
     range to the end of its last kernel; and the share of that span in
     which the device ran something (overlapping kernels counted once,
     so the share is at most 1)."""
@@ -482,22 +535,25 @@ def profile_train_step(fn, top: int = 8):
     ranges, launch_us, device = {}, {}, []
     for e in trace:
         cat, args = e.get("cat"), e.get("args", {})
-        if cat == "user_annotation" and e["name"].startswith("train_step"):
-            ranges[e["name"]] = (e["ts"], e["ts"] + e["dur"])
+        if cat == "user_annotation" and e["name"].startswith(
+                ("train_step", "multibox_loss")):
+            ranges.setdefault(e["name"], []).append(
+                (e["ts"], e["ts"] + e["dur"]))
         elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
             launch_us[args["correlation"]] = e["ts"]
         elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
             device.append((e["ts"], e["ts"] + e["dur"], e["name"],
                            args.get("correlation")))
-    t0, t1 = ranges["train_step"]
+    ((t0, t1),) = ranges["train_step"]
     device = [d for d in device if t0 <= launch_us.get(d[3], -1) <= t1]
     span_us = max([t1] + [d[1] for d in device]) - t0
     by_name, parts = {}, {}
     for start, end, name, corr in device:
         by_name[name[:60]] = by_name.get(name[:60], 0.0) + (end - start) / 1e3
-        for part, (r0, r1) in ranges.items():
-            if part != "train_step" and r0 <= launch_us[corr] <= r1:
-                key = part.split(".", 1)[1]
+        for part, spans in ranges.items():
+            if part != "train_step" and any(
+                    r0 <= launch_us[corr] <= r1 for r0, r1 in spans):
+                key = part.split(".", 1)[-1]
                 parts[key] = parts.get(key, 0.0) + (end - start) / 1e3
     busy_us, cur0, cur1 = 0.0, None, None
     for start, end, _, _ in sorted(device):
@@ -622,6 +678,306 @@ def kink_witness(cfg, pre, w, b, n, cs, got_dpre, want_dpre):
             "share_outside": outside.float().mean().item(),
             "d_pre_rel_l2_outside": (diff.norm() / want_dpre[outside].norm(
                 ).clamp(min=1e-12)).item()}
+
+
+def ssd_batch(rng, B, max_gt=100):
+    """A seeded SSD300 batch in the collate layout of the reference's
+    ``RoiImageToBatch``: mean-subtracted float images, ``im_info``, and
+    1-10 random gt boxes an image (sides of 5-95% of the image, so that
+    every head's priors match some) padded to ``max_gt`` under a mask."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.data import pad_ragged
+    from analytics_zoo_tpu_torch.pipelines.ssd import BGR_MEANS
+
+    images = (rng.randint(0, 256, (B, 300, 300, 3), dtype=np.uint8)
+              .astype(np.float32) - np.float32(BGR_MEANS))
+    boxes, labels = [], []
+    for _ in range(B):
+        n = rng.randint(1, 11)
+        wh = rng.rand(n, 2) * 0.9 + 0.05
+        xy = rng.rand(n, 2) * (1.0 - wh)
+        boxes.append(np.concatenate([xy, xy + wh], 1))
+        labels.append(rng.randint(1, 21, (n, 1)))
+    bboxes, mask = pad_ragged(boxes, max_gt)
+    lab, _ = pad_ragged(labels, max_gt)
+    return {"input": images,
+            "im_info": np.tile(np.float32([300, 300, 1, 1]), (B, 1)),
+            "target": {"bboxes": bboxes, "labels": lab[..., 0].astype(
+                np.int32), "difficult": np.zeros_like(mask), "mask": mask}}
+
+
+def ssd_loss_and_grads(model, batch, criterion):
+    """One training forward and backward of an SSD on ``batch`` (on the
+    model's device, in its parameters' type; the criterion matches and
+    mines in fp32 whatever that type): the MultiBoxLoss and each
+    parameter's gradient."""
+    import torch
+
+    p = next(model.parameters())
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss = criterion(model(torch.from_numpy(batch["input"]).to(
+        p.device, p.dtype)), batch["target"])
+    loss.backward()
+    return loss.item(), {k: p.grad.detach().cpu()
+                         for k, p in model.named_parameters()}
+
+
+def ssd_train_phase(dev, smi, rng):
+    """The SSD300 training path on the card (phase ``ssd_train``, then a
+    ``timing`` line); returns K2's launch count of its run."""
+    import statistics
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.models.ssd import (SSDVgg, build_priors,
+                                                    ssd300_config)
+    from analytics_zoo_tpu_torch.ops import (pallas_detout, pallas_nms,
+                                             pallas_rnn)
+    from analytics_zoo_tpu_torch.ops.detection_output import (
+        DetectionOutputParam, detection_output)
+    from analytics_zoo_tpu_torch.ops.multibox_loss import (
+        MultiBoxLoss, MultiBoxLossParam, match_priors, mine_hard_examples)
+    from analytics_zoo_tpu_torch.parallel import (SGD, create_train_state,
+                                                  make_eval_step,
+                                                  make_train_step, validate)
+    from analytics_zoo_tpu_torch.parallel.train import to_device
+    from analytics_zoo_tpu_torch.pipelines import ssd as ssd_pipe
+
+    cpu = torch.device("cpu")
+    priors, variances = build_priors(ssd300_config())
+    criterion = MultiBoxLoss(priors, variances)
+
+    # 1. the card against the CPU: one loss and every gradient at batch 2
+    # (same seeded weights), both against fp64 on the CPU; then matching
+    # and mining on three inputs
+    small = ssd_batch(rng, 2)
+    loss_g, grads_g = ssd_loss_and_grads(SSDVgg(21, 300, device=dev, seed=0),
+                                         small, criterion)
+    loss_c, grads_c = ssd_loss_and_grads(SSDVgg(21, 300, device=cpu, seed=0),
+                                         small, criterion)
+    _, grads_64 = ssd_loss_and_grads(
+        SSDVgg(21, 300, device=cpu, seed=0).double(), small, criterion)
+
+    def rel_l2(got, want):
+        return {k: ((got[k].double() - w).norm()
+                    / w.norm().clamp(min=1e-30)).item()
+                for k, w in want.items()}
+
+    grad_err = rel_l2(grads_g, grads_c)
+    all_err = rel_l2(*({"all": torch.cat([g.flatten() for g in gr.values()])}
+                       for gr in (grads_g, grads_c)))["all"]
+    card_64, cpu_64 = rel_l2(grads_g, grads_64), rel_l2(grads_c, grads_64)
+    over = {k: (card_64[k], cpu_64[k]) for k in grads_64
+            if card_64[k] > max(SSD_GRAD_TOL, 2 * cpu_64[k])}
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    masks_equal, kept = {}, {}
+    for case in ("random_logits", "zero_logits", "shared_best_prior"):
+        tgt = ssd_batch(rng, 4)["target"]
+        if case == "shared_best_prior":      # the later gt wins the prior
+            tgt["mask"][0, :2] = 1.0
+            tgt["labels"][0, :2] = (3, 7)
+            tgt["bboxes"][0, 0] = priors[4000]
+            tgt["bboxes"][0, 1] = priors[4000] + np.float32(
+                [0.002, 0.0, 0.002, 0.0])
+        logits = (np.zeros((4, priors.shape[0], 21), np.float32)
+                  if case == "zero_logits" else
+                  rng.randn(4, priors.shape[0], 21).astype(np.float32))
+        got = []
+        for d in (dev, cpu):
+            m, pos, iou = match_priors(
+                *(torch.from_numpy(a).to(d) for a in (
+                    priors, tgt["bboxes"], tgt["mask"])))
+            logp = torch.log_softmax(torch.from_numpy(logits).to(d), -1)
+            negs = [mine_hard_examples(logp, pos, iou, MultiBoxLossParam(
+                mining=mode)) for mode in ("sort", "topk")]
+            got.append([t.cpu() for t in (m, pos, *negs)])
+        masks_equal[case] = all(torch.equal(a, b) for a, b in zip(*got))
+        if case == "shared_best_prior":
+            masks_equal[case] &= int(got[0][0][0, 4000]) == 1
+        kept[case] = {"positives": int(got[0][1].sum()),
+                      "negatives": int(got[0][2].sum())}
+    if not (all(masks_equal.values()) and loss_err <= SSD_GRAD_TOL
+            and all_err <= SSD_GRAD_TOL and not over):
+        raise AssertionError(f"SSD card vs CPU: loss {loss_err}, all "
+                             f"gradients {all_err}; gradients (card, CPU) "
+                             f"against fp64 {over} (tol {SSD_GRAD_TOL} or "
+                             f"twice the CPU's); matching and mining equal "
+                             f"{masks_equal}")
+
+    # 2. train_ssd: one epoch of the reference's TrainParams (bf16,
+    # Plateau), validating through K2; a fallback warning is an error
+    train_set = [ssd_batch(rng, SSD_TRAIN_BATCH)
+                 for _ in range(SSD_TRAIN_BATCHES)]
+    val_set = [ssd_batch(rng, SSD_VAL_BATCH) for _ in range(SSD_VAL_BATCHES)]
+    runs, seen = [], []
+
+    class RecordingOptimizer(ssd_pipe.Optimizer):
+        def optimize(self):
+            runs.append(self)
+            return super().optimize()
+
+    class RecordingMAP(ssd_pipe.SSDMeanAveragePrecision):
+        def detect(self, output):
+            dets = super().detect(output)
+            # the same softmax on the same logits: the probabilities K2 read
+            seen.append((output[0].cpu(),
+                         torch.softmax(output[1], dim=-1).cpu(), dets.cpu()))
+            return dets
+
+    model = SSDVgg(21, 300, device=dev, seed=0)
+    params = ssd_pipe.TrainParams(max_epoch=1)
+    patched = (ssd_pipe.Optimizer, ssd_pipe.SSDMeanAveragePrecision)
+    ssd_pipe.Optimizer, ssd_pipe.SSDMeanAveragePrecision = (RecordingOptimizer,
+                                                            RecordingMAP)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message=".*falling back")
+            torch.cuda.synchronize()
+            for counter in (pallas_nms.nms_sweep,
+                            pallas_detout.fused_detection_output,
+                            pallas_rnn.persistent_rnn,
+                            pallas_rnn.persistent_rnn_bwd):
+                counter.launches = 0
+            t0 = time.perf_counter()
+            ssd_pipe.train_ssd(train_set, val_set, params, model=model)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches = {"nms_sweep": pallas_nms.nms_sweep.launches,
+                        "fused_detection_output":
+                            pallas_detout.fused_detection_output.launches,
+                        "persistent_rnn": pallas_rnn.persistent_rnn.launches,
+                        "persistent_rnn_bwd":
+                            pallas_rnn.persistent_rnn_bwd.launches}
+    finally:
+        ssd_pipe.Optimizer, ssd_pipe.SSDMeanAveragePrecision = patched
+    (opt,) = runs
+    losses = [m["loss"].item() for m in opt.history]
+    if (len(losses) != SSD_TRAIN_BATCHES
+            or not all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"SSD training losses {losses}")
+    if (launches["fused_detection_output"] < SSD_VAL_BATCHES
+            or launches["fused_detection_output"] != len(seen)
+            or any(v for k, v in launches.items()
+                   if k != "fused_detection_output")):
+        raise AssertionError(f"SSD training: validation of {len(seen)} "
+                             f"batches launched {launches}")
+
+    # 3. the validation detections against the CPU "xla" path on the same
+    # outputs
+    xla = DetectionOutputParam(n_classes=21, backend="xla")
+    pri_c, var_c = torch.from_numpy(priors), torch.from_numpy(variances)
+    val_err = max(rows_err(dets, detection_output(loc, probs, pri_c, var_c,
+                                                  xla))
+                  for loc, probs, dets in seen)
+    val_kept = sum(int((d[..., 1] > 0).sum()) for _, _, d in seen)
+
+    # 4. one bf16 step against one fp32 step from the same weights on the
+    # same batch: the loss, the update (the change of the fp32 weights),
+    # and the loss on that batch after the update
+    first, after, moved = {}, {}, {}
+    for cd in (None, "bf16"):
+        m = SSDVgg(21, 300, device=dev, seed=0)
+        start = {k: p.detach().clone() for k, p in m.named_parameters()}
+        sgd = SGD(params.learning_rate, momentum=params.momentum,
+                  weight_decay=params.weight_decay)
+        step = make_train_step(m, criterion, sgd, skip_loss_above=50.0,
+                               compute_dtype=cd)
+        state, metrics = step(create_train_state(m, sgd), train_set[0])
+        key = cd or "fp32"
+        first[key] = metrics["loss"].item()
+        moved[key] = {k: (p.detach() - start[k]).double()
+                      for k, p in m.named_parameters()}
+        after[key] = step(state, train_set[0])[1]["loss"].item()
+        del m, step, state, start
+    bf16_err = abs(first["bf16"] - first["fp32"]) / abs(first["fp32"])
+    update_err = {k: ((moved["bf16"][k] - d).norm()
+                      / d.norm().clamp(min=1e-30)).item()
+                  for k, d in moved["fp32"].items()}
+    update_err_all = (
+        torch.cat([(moved["bf16"][k] - d).flatten()
+                   for k, d in moved["fp32"].items()]).norm()
+        / torch.cat([d.flatten() for d in moved["fp32"].values()]).norm()
+    ).item()
+    worst_update = max(update_err, key=update_err.get)
+    del moved
+    if not (bf16_err <= SSD_BF16_TOL
+            and update_err_all <= SSD_BF16_UPDATE_TOL
+            and update_err[worst_update] <= SSD_BF16_UPDATE_TENSOR_TOL
+            and all(math.isfinite(x) for x in after.values())):
+        raise AssertionError(
+            f"SSD bf16 step against fp32: loss {first} (tol "
+            f"{SSD_BF16_TOL}), update {update_err_all} (tol "
+            f"{SSD_BF16_UPDATE_TOL}), worst tensor {worst_update} "
+            f"{update_err[worst_update]} (tol "
+            f"{SSD_BF16_UPDATE_TENSOR_TOL}), loss after it {after}")
+    emit("ssd_train", batch=SSD_TRAIN_BATCH, steps=len(losses),
+         losses=losses, skipped_steps=sum(x > 50.0 for x in losses),
+         compute_dtype=params.compute_dtype, lr_scale=opt.optim.lr_scale,
+         validation=opt.val_history, launches=launches,
+         validation_batches=len(seen), validation_detections=val_kept,
+         validation_rows_max_abs_err=val_err, train_ssd_s=train_s,
+         loss_rel_err_card_vs_cpu=loss_err,
+         grad_rel_l2_card_vs_cpu_all=all_err,
+         grad_rel_l2_card_vs_cpu_max=max(grad_err.values()),
+         grad_rel_l2_card_vs_cpu=grad_err,
+         grad_rel_l2_vs_fp64={k: [card_64[k], cpu_64[k]] for k in card_64},
+         tolerance=SSD_GRAD_TOL,
+         matching_and_mining_equal_card_vs_cpu=masks_equal,
+         matching_and_mining_counts=kept, first_step_loss=first,
+         loss_after_first_update=after,
+         bf16_loss_rel_err=bf16_err, bf16_tolerance=SSD_BF16_TOL,
+         bf16_update_rel_l2_all=update_err_all,
+         bf16_update_rel_l2_worst=[worst_update, update_err[worst_update]],
+         bf16_update_rel_l2=update_err,
+         bf16_update_tolerance=[SSD_BF16_UPDATE_TOL,
+                                SSD_BF16_UPDATE_TENSOR_TOL])
+
+    # 5. timing: host-clock steps of 32 (bf16, as train_ssd runs them),
+    # one profiled step, validation by the batch, peak memory
+    sgd = SGD(params.learning_rate, momentum=params.momentum,
+              weight_decay=params.weight_decay)
+    step = make_train_step(model, criterion, sgd, skip_loss_above=50.0,
+                           compute_dtype=params.compute_dtype)
+    state = create_train_state(model, sgd)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for i in range(SSD_WARMUP_STEPS + SSD_TIMED_STEPS):
+        t0 = time.perf_counter()
+        state, _ = step(state, train_set[i % len(train_set)])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    timed = step_ms[SSD_WARMUP_STEPS:]
+    upload_ms = []                   # the step's upload alone, host clock
+    for _ in range(3):
+        t0 = time.perf_counter()
+        to_device(train_set[0], dev)
+        torch.cuda.synchronize()
+        upload_ms.append((time.perf_counter() - t0) * 1e3)
+    trace = profile_train_step(lambda: step(state, train_set[0]))
+    evaluator = ssd_pipe.SSDMeanAveragePrecision()
+    eval_step = make_eval_step(model, compute_dtype=params.compute_dtype)
+    model.eval()
+    validate(model, val_set, [evaluator], eval_step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    validate(model, val_set, [evaluator], eval_step)
+    val_ms = (time.perf_counter() - t0) * 1e3 / len(val_set)
+    emit("timing", nvidia_smi=smi,
+         ssd_train_step_ms=statistics.median(timed),
+         ssd_train_step_ms_each=step_ms, ssd_train_batch=SSD_TRAIN_BATCH,
+         ssd_train_images_per_s=(SSD_TRAIN_BATCH * 1e3
+                                 / statistics.median(timed)),
+         ssd_train_step_profiled=trace,
+         ssd_train_upload_ms=statistics.median(upload_ms),
+         ssd_validation_ms_per_batch=val_ms,
+         ssd_validation_batch=SSD_VAL_BATCH, ssd_train_peak_gb=peak_gb)
+    return {"k2_launches": launches["fused_detection_output"]}
 
 
 def main() -> int:
@@ -1213,6 +1569,9 @@ def main() -> int:
          ds2_train_featurize_host_ms=train_featurize_ms,
          ds2_train_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
+    # -- 6b. SSD training: the fourth main path, and its timings ----------
+    ssd_train = ssd_train_phase(dev, smi, np.random.RandomState(21))
+
     # -- 7. kernels, then the device line last ----------------------------
     kernels = [
         {"name": "nms_sweep", "route": "cuda",
@@ -1224,7 +1583,11 @@ def main() -> int:
         {"name": "fused_detection_output", "route": "cuda",
          "source": "analytics_zoo_tpu_torch/csrc/detection_output.cu",
          "replaces": "analytics_zoo_tpu/ops/pallas_detout.py:242",
-         "launches": launches["fused_detection_output"],
+         "launches": (launches["fused_detection_output"]
+                      + ssd_train["k2_launches"]),
+         "launches_by_path": {
+             "ssd_serving": launches["fused_detection_output"],
+             "ssd_train_validation": ssd_train["k2_launches"]},
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
         {"name": "persistent_rnn", "route": "cuda",

@@ -271,6 +271,26 @@ class TestDispatch:
                                DetectionOutputParam(**kw, backend="xla"))
         np.testing.assert_array_equal(auto, xla.numpy())
 
+    def test_fused_over_limit_warns_and_falls_back(self):
+        """60000 priors: K2's select block cannot hold the row, so
+        ``"fused"`` (what ``"auto"`` resolves to on the card) warns as the
+        reference does and runs the unfused path, whose output equals the
+        reference's ``detection_output``."""
+        loc, conf, priors, variances = _inputs(seed=8, batch=1,
+                                               priors_n=60000, classes=4,
+                                               bg_bias=4.0, hot_frac=0.01)
+        kw = dict(n_classes=4, nms_topk=64, keep_topk=32)
+        assert pallas_detout.select_tile(60000, 64) is None
+        with pytest.warns(UserWarning, match=r"P=60000.*falling back to "
+                          r"the unfused pallas path"):
+            got = detection_output(T(loc), T(conf), T(priors), T(variances),
+                                   DetectionOutputParam(**kw,
+                                                        backend="fused"))
+        want = jax_detout(loc, conf, priors, variances,
+                          JaxParam(**kw, backend="xla"))
+        assert int((got[..., 1] > 0).sum()) > 0
+        _assert_rows_match(got.numpy(), np.asarray(want))
+
     def test_approx_topk_raises(self):
         loc, conf, priors, variances, kw = _case("dense_0")
         with pytest.raises(NotImplementedError, match="ROADMAP"):

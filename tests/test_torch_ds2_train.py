@@ -44,6 +44,7 @@ from analytics_zoo_tpu_torch.utils.convert import (
 
 torch.set_num_threads(2)
 
+T = torch.from_numpy
 BN_ATOL = 1e-5
 LOGP_ATOL = 1e-4
 GRAD_RTOL = 1e-4
@@ -248,8 +249,9 @@ def _grads(rng, shapes):
     lambda m: m.SGD(1e-2, momentum=0.9, nesterov=True),
     lambda m: m.SGD(0.1, momentum=0.9,
                     schedule=m.multistep(0.1, [1, 2], 0.5)),
+    lambda m: m.AdamW(1e-2, weight_decay=0.1),
 ], ids=["adam", "adam-params", "sgd", "sgd-momentum-wd", "sgd-nesterov",
-        "sgd-multistep"])
+        "sgd-multistep", "adamw"])
 def test_optimizers_match_optax(make):
     """Three steps of the port's method against the JAX package's (optax
     under ``inject_hyperparams``, the learning rate set each step as its
@@ -335,6 +337,83 @@ def test_train_step_clip_and_skip_match_jax():
     assert all(torch.equal(a, b) for a, b in zip(before, model.parameters()))
 
 
+@pytest.mark.parametrize("compute_dtype", [None, "bf16"])
+def test_eval_step_takes_an_input_tree(compute_dtype):
+    """``make_eval_step`` on DS2's ``(features, n_frames)`` against the
+    reference's: the tuple is unpacked into the forward's arguments, and
+    under bf16 only the floating leaves are cast (``n_frames`` stays an
+    integer tensor).  fp32 within ``LOGP_ATOL``; bf16 within 0.1 of the
+    log-probs (the reference casts every parameter to bf16, the port runs
+    autocast over fp32 parameters: two roundings of a 8-bit mantissa
+    through the conv, BN, one BiRNN and the output layer), and both
+    within that of the fp32 result."""
+    module, variables = _jax_ds2(16, 1, T=16)
+    model = _port_ds2(variables, 16, 1, "pallas").eval()
+    x, n = _ctc_batch(9)["input"]
+    want = np.asarray(jax_train.make_eval_step(module, compute_dtype)(
+        variables, (jnp.asarray(x), jnp.asarray(n))))
+    seen = []
+    forward = model.forward
+
+    def spy(*args):
+        seen.extend(a.dtype for a in args)
+        return forward(*args)
+
+    model.forward = spy
+    got = train.make_eval_step(model, compute_dtype)((T(x), T(n)))
+    assert got.dtype == torch.float32
+    assert seen == [torch.float32 if compute_dtype is None
+                    else torch.bfloat16, torch.int32]
+    atol = LOGP_ATOL if compute_dtype is None else 0.1
+    np.testing.assert_allclose(got.numpy(), want, atol=atol)
+
+
+def test_criterion_protocol_matches_jax():
+    """``make_train_step`` calls a ``Criterion`` as ``crit(output,
+    batch["target"], mask=batch["target_mask"])`` and any other callable
+    as ``crit(output, batch)``, as the reference's ``_call_criterion``:
+    one SGD step of a dense layer under ``MSECriterion`` with a target
+    mask, against the reference's step on the same weights."""
+    import flax.linen as fnn
+
+    from analytics_zoo_tpu.core.criterion import MSECriterion as JaxMSE
+    from analytics_zoo_tpu_torch.core.criterion import MSECriterion
+
+    rng = np.random.RandomState(10)
+    w = rng.randn(5, 3).astype(np.float32)
+    b = rng.randn(3).astype(np.float32)
+    batch = {"input": rng.randn(4, 5).astype(np.float32),
+             "target": rng.randn(4, 3).astype(np.float32),
+             "target_mask": (rng.rand(4, 3) < 0.6).astype(np.float32)}
+    jopt = jax_optim.SGD(0.1)
+    jstep = jax_train.make_train_step(fnn.Dense(3), JaxMSE(), jopt)
+    params = {"kernel": jnp.asarray(w), "bias": jnp.asarray(b)}
+    jstate = jax_train.TrainState(
+        step=jnp.zeros((), jnp.int32), params=params, model_state={},
+        opt_state=jopt.tx.init(params), rng=jax.random.PRNGKey(0))
+    jstate, jm = jstep(jstate, jax.tree_util.tree_map(jnp.asarray, batch),
+                       1.0)
+    lin = torch.nn.Linear(5, 3)
+    lin.load_state_dict({"weight": T(w.T.copy()), "bias": T(b)})
+    popt = optim.SGD(0.1)
+    step = train.make_train_step(lin, MSECriterion(), popt)
+    _, metrics = step(train.create_train_state(lin, popt), batch)
+    np.testing.assert_allclose(metrics["loss"].item(), float(jm["loss"]),
+                               rtol=1e-6)
+    np.testing.assert_allclose(lin.weight.detach().numpy().T,
+                               np.asarray(jstate.params["kernel"]),
+                               atol=1e-6)
+    seen = []
+
+    def plain(out, batch):
+        seen.append(sorted(batch))
+        return out.sum()
+
+    step = train.make_train_step(lin, plain, popt)
+    step(train.create_train_state(lin, popt), batch)
+    assert seen == [["input", "target", "target_mask"]]
+
+
 def test_train_step_bf16_and_refusals():
     """``compute_dtype="bf16"`` runs the forward under autocast over the
     fp32 parameters (the loss within 5% of fp32's); the options not
@@ -354,7 +433,7 @@ def test_train_step_bf16_and_refusals():
         losses[cd] = metrics["loss"].item()
         assert all(p.dtype == torch.float32 for p in m.parameters())
     assert abs(losses["bf16"] - losses[None]) <= 0.05 * abs(losses[None])
-    for kw, item in ((dict(grad_accum=2), "item 6"),
+    for kw, item in ((dict(device_transform=lambda b: b), "item 8"),
                      (dict(forward_fn=lambda *a: a), "item 12"),
                      (dict(health_check=True), "item 13"),
                      (dict(mesh=object()), "item 12")):
@@ -362,7 +441,7 @@ def test_train_step_bf16_and_refusals():
             train.make_train_step(model, crit, optim.Adam(), **kw)
     opt = train.Optimizer(model, [batch], crit)
     for call, item in ((opt.set_checkpoint, "item 12"),
-                       (opt.set_validation, "item 13"),
+                       (opt.set_anomaly_policy, "item 13"),
                        (opt.set_observability, "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             call()

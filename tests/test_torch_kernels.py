@@ -11,6 +11,8 @@ within 1e-5 (the kernel and the plain version run the same float ops;
 only ``expf`` may round differently in the last bit).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -727,6 +729,78 @@ def test_recurrent_prices_k4_only_under_autograd():
     assert ys.shape == (2, 5, 1760) and torch.isfinite(ys).all()
     with pytest.raises(ValueError, match="backward .K4."):
         layer(x)
+
+
+def test_detection_output_falls_back_to_k1_past_k2s_limit():
+    """60000 priors do not fit K2's select block: the kernel still refuses
+    them, naming the limit, while ``detection_output`` ("auto" on the
+    card) warns and runs the unfused path, launching K1 and not K2; its
+    rows equal the plain path's."""
+    dev = _cuda()
+    rng = np.random.RandomState(3)
+    P = 60000
+    xy = rng.rand(P, 2).astype(np.float32)
+    priors = torch.from_numpy(np.concatenate(
+        [xy, xy + 0.05], 1).astype(np.float32)).to(dev)
+    variances = torch.full((P, 4), 0.1, device=dev)
+    loc = torch.from_numpy((rng.randn(1, P, 4) * 0.1).astype(np.float32)
+                           ).to(dev)
+    conf = torch.softmax(torch.from_numpy(rng.randn(1, P, 4).astype(
+        np.float32)).to(dev), -1)
+    param = DetectionOutputParam(n_classes=4, nms_topk=64, keep_topk=32)
+    with pytest.raises(ValueError, match="shared memory"):
+        pallas_detout.fused_detection_output(loc, conf, priors, variances,
+                                             param=param)
+    k1, k2 = (pallas_nms.nms_sweep.launches,
+              pallas_detout.fused_detection_output.launches)
+    with pytest.warns(UserWarning, match="falling back to the unfused"):
+        got = detection_output(loc, conf, priors, variances, param)
+    torch.cuda.synchronize()
+    assert (pallas_nms.nms_sweep.launches - k1,
+            pallas_detout.fused_detection_output.launches - k2) == (1, 0)
+    want = detection_output(loc, conf, priors, variances,
+                            dataclasses.replace(param, backend="xla"))
+    assert torch.equal(got[..., 0], want[..., 0])
+    assert (got[..., 1:] - want[..., 1:]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("case", ["random", "zero_logits", "shared_prior"])
+def test_multibox_matching_and_mining_equal_on_card_and_cpu(case):
+    """``match_priors`` and ``mine_hard_examples`` at SSD300 (8732
+    priors, batch 4, up to 10 gts) give EQUAL results on the card and
+    the CPU: random logits, all-zero logits (every negative tied) and two
+    gts that share a best prior (the later one wins it on both)."""
+    from analytics_zoo_tpu_torch.ops.multibox_loss import (
+        MultiBoxLossParam, match_priors, mine_hard_examples)
+
+    dev = _cuda()
+    priors, _ = build_priors(ssd300_config())
+    rng = np.random.RandomState(4)
+    B, G, P = 4, 10, priors.shape[0]
+    xy = rng.rand(B, G, 2) * 0.8
+    boxes = np.concatenate([xy, xy + rng.rand(B, G, 2) * 0.3 + 0.02], -1)
+    mask = (np.arange(G)[None] < rng.randint(0, G + 1, (B, 1))).astype(
+        np.float32)
+    if case == "shared_prior":
+        mask[0, :5] = 1.0
+        boxes[0, 1] = priors[4000]
+        boxes[0, 3] = priors[4000] + np.float32([0.002, 0, 0.002, 0])
+    boxes = (boxes * mask[..., None]).astype(np.float32)
+    logits = (np.zeros((B, P, 21)) if case == "zero_logits"
+              else rng.randn(B, P, 21)).astype(np.float32)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        m, pos, iou = match_priors(torch.from_numpy(priors).to(d),
+                                   torch.from_numpy(boxes).to(d),
+                                   torch.from_numpy(mask).to(d))
+        logp = torch.log_softmax(torch.from_numpy(logits).to(d), -1)
+        negs = [mine_hard_examples(logp, pos, iou, MultiBoxLossParam(
+            mining=mode, mining_topk=64)) for mode in ("sort", "topk")]
+        out[d.type] = [t.cpu() for t in (m, pos, *negs)]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)
+    if case == "shared_prior":
+        assert int(out["cuda"][0][0, 4000]) == 3
 
 
 def test_ds2_training_pallas_matches_blocked():
