@@ -10,10 +10,15 @@ loss exceeds ``skip_loss_above``.  Parameters and batch statistics live
 in the module and are updated in place; :class:`TrainState` carries the
 step count and the optimizer's slots.
 
-Not ported yet, and refused by name: fused device transforms, custom
-forwards, the health sentinel and sharded steps (ROADMAP.md Queue 1
-items 8, 12 and 13); the ``Optimizer``'s checkpoints, prefetch,
-resilience and observability (items 8, 12 and 13).
+A ``device_transform`` (the SSD device augmentation) runs in the step
+after the upload, without autograd; the ``Optimizer``'s ``prefetch``
+feeds the step through ``data.prefetch.device_prefetch`` on a CUDA
+device.
+
+Not ported yet, and refused by name: custom forwards, the health
+sentinel and sharded steps (ROADMAP.md Queue 1 items 12 and 13); the
+``Optimizer``'s checkpoints, resilience and observability (items 12 and
+13).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from analytics_zoo_tpu_torch.core.criterion import Criterion
+from analytics_zoo_tpu_torch.data.prefetch import device_prefetch
 from analytics_zoo_tpu_torch.parallel.optim import (Adam, OptimMethod,
                                                     TrainingState, Trigger)
 
@@ -195,15 +201,16 @@ def make_train_step(module: nn.Module, criterion: Callable,
     and losses (batch statistics advance once a microbatch).  The
     learning rate is ``optim.lr_for_step(step, optim.lr_scale)``.
     ``metrics`` holds ``"loss"`` (a tensor, not read back), ``"lr"`` and
-    whatever ``metric_fn(batch)`` returns.
+    whatever ``metric_fn(batch)`` returns.  ``device_transform(batch)``
+    (e.g. ``transform.vision.make_device_augment``'s) rewrites the
+    uploaded batch, without autograd, before the forward.
     The step and its parts are ``torch.profiler`` ranges:
-    ``train_step`` around ``train_step.upload`` (the batch to the device
-    and its microbatch split), then ``train_step.forward_loss`` and
-    ``train_step.backward`` once a microbatch, and ``train_step.update``."""
+    ``train_step`` around ``train_step.upload`` (the batch to the device;
+    a prefetched batch is there already), ``train_step.device_transform``,
+    then ``train_step.forward_loss`` and ``train_step.backward`` once a
+    microbatch, and ``train_step.update``."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum={grad_accum} must be >= 1")
-    if device_transform is not None:
-        _not_ported("device_transform", "item 8")
     if forward_fn is not None:
         _not_ported("forward_fn (the sequence-parallel forward)", "item 12")
     if health_check:
@@ -218,8 +225,12 @@ def make_train_step(module: nn.Module, criterion: Callable,
         dev = params[0].device
         with record_function("train_step.upload"):
             batch = to_device(batch, dev)
-            micro = ([batch] if grad_accum == 1
-                     else _split_microbatches(batch, grad_accum))
+        if device_transform is not None:
+            with torch.no_grad(), record_function(
+                    "train_step.device_transform"):
+                batch = device_transform(batch)
+        micro = ([batch] if grad_accum == 1
+                 else _split_microbatches(batch, grad_accum))
         for p in params:
             p.grad = None
         losses = []
@@ -322,21 +333,30 @@ class Optimizer:
     trigger fires after a step or at an epoch's end (once an iteration),
     with the model in eval mode, and its score (the first method's,
     unless ``score_name`` says) becomes ``loop.score`` and goes to
-    ``optim.on_validation`` (Plateau)."""
+    ``optim.on_validation`` (Plateau).
+
+    ``prefetch=N`` on a CUDA model feeds the step through
+    ``data.prefetch.device_prefetch``: a thread pins the next N batches
+    and uploads them on a side stream while the step runs, closing the
+    epoch's host iterator (a multiprocess loader's workers) when the
+    epoch ends or stops early.  Pinned memory and a copy stream need a
+    card: on a CPU model ``prefetch`` does nothing and the step takes the
+    batches as they come.  ``device_transform`` goes to the step."""
 
     def __init__(self, model: nn.Module, dataset, criterion,
                  mesh=None, skip_loss_above: Optional[float] = None,
                  grad_clip_norm: Optional[float] = None, compute_dtype=None,
                  prefetch: int = 0, grad_accum: int = 1, metric_fn=None,
-                 specs=None):
-        if prefetch:
-            _not_ported("prefetch", "item 8")
+                 specs=None, device_transform: Optional[Callable] = None):
+        if prefetch < 0:
+            raise ValueError(f"prefetch={prefetch} must be >= 0")
         if mesh is not None or specs is not None:
             _not_ported("sharded training (mesh, specs)", "item 12")
         self.model = model
         self.dataset = dataset
         self.criterion = criterion
         self.compute_dtype = compute_dtype
+        self.prefetch = prefetch
         self.optim: OptimMethod = Adam(1e-3)
         self.end_when: Trigger = Trigger.max_epoch(1)
         self.val_trigger: Optional[Trigger] = None
@@ -346,7 +366,7 @@ class Optimizer:
         self._step_options = dict(
             skip_loss_above=skip_loss_above, grad_clip_norm=grad_clip_norm,
             compute_dtype=compute_dtype, grad_accum=grad_accum,
-            metric_fn=metric_fn)
+            metric_fn=metric_fn, device_transform=device_transform)
         self.history: List[Dict] = []
         self.val_history: List[Dict] = []
 
@@ -386,19 +406,30 @@ class Optimizer:
         loop = TrainingState()
         self._last_val_iter = None
         t_epoch, records = time.perf_counter(), 0
+        dev = next(self.model.parameters()).device
         while not self.end_when(loop):
             stop = False
             loop.epoch_finished = False
-            for batch in self.dataset:
-                state, metrics = step(state, batch)
-                self.history.append(metrics)
-                loop.iteration += 1
-                loop.loss = metrics["loss"]
-                records += _batch_size(batch)
-                self._maybe_validate(loop, eval_step)
-                if self.end_when(loop):
-                    stop = True
-                    break
+            host_iter = iter(self.dataset)
+            # close_source: the prefetch thread closes host_iter itself
+            batches = (device_prefetch(host_iter, dev, self.prefetch,
+                                       close_source=True)
+                       if self.prefetch and dev.type == "cuda"
+                       else host_iter)
+            try:
+                for batch in batches:
+                    state, metrics = step(state, batch)
+                    self.history.append(metrics)
+                    loop.iteration += 1
+                    loop.loss = metrics["loss"]
+                    records += _batch_size(batch)
+                    self._maybe_validate(loop, eval_step)
+                    if self.end_when(loop):
+                        stop = True
+                        break
+            finally:
+                if hasattr(batches, "close"):
+                    batches.close()
             if stop:
                 break
             loop.epoch += 1
@@ -438,7 +469,8 @@ class Optimizer:
 
 
 def _batch_size(batch) -> int:
-    x = batch["input"] if isinstance(batch, dict) else batch
-    while isinstance(x, (tuple, list)):
-        x = x[0]
-    return int(x.shape[0])
+    """Dim 0 of the batch's ``"input"``, else of its first array leaf (a
+    staged device-augmentation batch has no ``"input"`` yet)."""
+    x = batch["input"] if isinstance(batch, dict) and "input" in batch \
+        else batch
+    return int(_tree_leaves(x)[0].shape[0])

@@ -1,5 +1,6 @@
-"""Pipelines of the port: SSD serving, validation and training,
-DeepSpeech2 serving and CTC training, and detection evaluation."""
+"""Pipelines of the port: the SSD input path, serving, validation and
+training, DeepSpeech2 serving and CTC training, detection evaluation and
+the VOC/COCO readers."""
 
 from analytics_zoo_tpu_torch.pipelines.deepspeech2 import (
     DS2Param, DeepSpeech2Pipeline, ds2_ctc_criterion, ds2_padding_metric,
@@ -7,16 +8,15 @@ from analytics_zoo_tpu_torch.pipelines.deepspeech2 import (
 from analytics_zoo_tpu_torch.pipelines.evaluation import (
     CocoMeanAveragePrecision, DetectionResult, MeanAveragePrecision,
     PascalVocEvaluator)
-from analytics_zoo_tpu_torch.pipelines.ssd import (PreProcessParam,
-                                                   SSDMeanAveragePrecision,
-                                                   SSDPredictor, TrainParams,
-                                                   Validator,
-                                                   run_serving_loop,
-                                                   train_ssd)
+from analytics_zoo_tpu_torch.pipelines.ssd import (
+    PreProcessParam, RecordToFeature, RoiImageToBatch,
+    SSDMeanAveragePrecision, SSDPredictor, TrainParams, Uint8ToBatch,
+    Validator, load_train_set, load_train_set_device, load_val_set,
+    run_serving_loop, serving_chain, train_ssd, train_transformer,
+    val_transformer)
+from analytics_zoo_tpu_torch.pipelines.voc import (VOC_CLASSES, Coco,
+                                                   PascalVoc, get_imdb,
+                                                   parse_voc_annotation,
+                                                   to_ssd_records)
 
-__all__ = ["CocoMeanAveragePrecision", "DS2Param", "DeepSpeech2Pipeline",
-           "DetectionResult", "MeanAveragePrecision", "PascalVocEvaluator",
-           "PreProcessParam", "SSDMeanAveragePrecision", "SSDPredictor",
-           "TrainParams", "Validator", "ds2_ctc_criterion",
-           "ds2_padding_metric", "load_asr_train_set", "make_ds2_model",
-           "run_serving_loop", "train_ds2", "train_ssd"]
+__all__ = [k for k in dir() if not k.startswith("_")]

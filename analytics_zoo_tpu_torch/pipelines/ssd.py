@@ -1,5 +1,12 @@
-"""SSD serving, validation and training (counterpart of
+"""SSD input, serving, validation and training (counterpart of
 ``pipelines/ssd.py``).
+
+The input half reads ``.azr`` records of JPEGs: ``load_train_set`` (the
+reference's host augmentation chain), ``load_train_set_device`` (host
+geometry and labels, then ``make_device_augment`` on the card as the
+train step's ``device_transform``), ``load_val_set`` and
+``serving_chain``.  JPEGs decode through the codec of the pipeline's
+``device`` (``data.native``: nvJPEG on the GPU, libjpeg on the CPU).
 
 A staged batch is a dict ``{"input": (B,H,W,3) uint8 BGR or float32
 mean-subtracted, "im_info": (B,4) rows (h, w, scale_h, scale_w)}``; a
@@ -12,9 +19,9 @@ padded to ``max_gt`` (``RoiImageToBatch``).
 on the device for one batch; :func:`run_serving_loop` keeps a window of
 batches in flight; :class:`Validator` and :class:`SSDMeanAveragePrecision`
 measure mAP; :func:`train_ssd` is the reference's training entry point.
-JPEG decode (``predict(records)``), the input pipeline and augmentation,
-the yuv420 wire, int8 tiers and sharded serving or training are not
-ported yet (ROADMAP.md, Queue 1).
+The yuv420 wire and packed staging (deferred item e), int8 tiers (item
+7) and sharded serving or training (item 12) are not ported yet
+(ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -29,7 +36,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from analytics_zoo_tpu_torch.data.prefetch import overlap_window
+from analytics_zoo_tpu_torch.data import (DataSet, ParallelTransformer,
+                                          RandomTransformer, SSDByteRecord,
+                                          Transformer, overlap_window,
+                                          pad_ragged)
 from analytics_zoo_tpu_torch.models.ssd import SSDVgg, build_priors, config_for
 from analytics_zoo_tpu_torch.ops.detection_output import (
     DetectionOutputParam, detection_output, scale_detections)
@@ -43,6 +53,13 @@ from analytics_zoo_tpu_torch.parallel.train import (Optimizer,
 from analytics_zoo_tpu_torch.pipelines.evaluation import (
     CocoMeanAveragePrecision, DetectionResult, MeanAveragePrecision,
     MultiIoUResult)
+from analytics_zoo_tpu_torch.transform.vision import (BytesToMat,
+                                                      ColorJitter, Expand,
+                                                      HFlip, ImageFeature,
+                                                      MatToFloats,
+                                                      RandomSampler, Resize,
+                                                      RoiExpand, RoiHFlip,
+                                                      RoiLabel, RoiNormalize)
 from analytics_zoo_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
@@ -53,11 +70,294 @@ BGR_MEANS = (104.0, 117.0, 123.0)
 
 @dataclasses.dataclass
 class PreProcessParam:
-    """The serving fields of the reference ``PreProcessParam``."""
+    """The reference ``PreProcessParam``, all fields; the yuv420 wire and
+    packed staging are refused (ROADMAP.md deferred item e)."""
 
     batch_size: int = 32
     resolution: int = 300
     pixel_means: Sequence[float] = BGR_MEANS
+    n_partition: int = 1
+    max_gt: int = 100
+    # host augmentation worker threads; 1 = serial, >1 = a
+    # ParallelTransformer pool (not seeded)
+    num_workers: int = 1
+    # host augmentation worker PROCESSES (data.parallel.ParallelLoader):
+    # 0 = in-process; >0 forks that many workers, order-preserving and
+    # seeded from loader_seed (byte-identical stream for any count);
+    # replaces the thread pool when set
+    worker_processes: int = 0
+    loader_seed: int = 0
+    # record-level windowed shuffle (data.ShuffleBuffer); 0 disables
+    shuffle_buffer: int = 0
+    shuffle_seed: int = 0
+    # device-augmentation staging canvas (None = DeviceAugParam's 512)
+    canvas_size: Optional[int] = None
+    wire_format: str = "bgr"
+    pack_staging: bool = False
+    # length-bucketed batching edges, read by the DS2 loader only
+    bucket_edges: Optional[Sequence[int]] = None
+
+    def __post_init__(self):
+        from analytics_zoo_tpu_torch.transform.vision.device import (
+            _refuse_wire)
+
+        _refuse_wire(self.wire_format, self.pack_staging)
+
+
+class RecordToFeature(Transformer):
+    """SSDByteRecord → ImageFeature with its RoiLabel."""
+
+    def transform(self, record: SSDByteRecord) -> ImageFeature:
+        f = ImageFeature(record.data, path=record.path)
+        gt = record.gt if record.gt is not None else np.zeros((0, 6),
+                                                             np.float32)
+        f["label"] = RoiLabel.from_gt_matrix(gt)
+        return f
+
+
+class RoiImageToBatch(Transformer):
+    """Batch ImageFeatures into padded dicts: ``"input"`` (B, H, W, 3)
+    float32, ``"im_info"`` and, with ``keep_label``, ``"target"`` (the
+    ragged labels padded to ``max_gt`` under a mask).  Invalid features
+    are skipped unless ``MatToFloats`` zero-filled them."""
+
+    def __init__(self, batch_size: int, max_gt: int = 100,
+                 keep_label: bool = True, drop_remainder: bool = True):
+        self.batch_size = batch_size
+        self.max_gt = max_gt
+        self.keep_label = keep_label
+        self.drop_remainder = drop_remainder
+
+    def _usable(self, f: ImageFeature) -> bool:
+        # invalid features stay in the batch ONLY once MatToFloats has
+        # zero-filled them — callers' outputs stay index-aligned
+        return f.is_valid or f.get("floats") is not None
+
+    def apply_iter(self, it):
+        buf: List[ImageFeature] = []
+        for f in it:
+            if not self._usable(f):
+                continue
+            buf.append(f)
+            if len(buf) == self.batch_size:
+                yield self.collate(buf)
+                buf = []
+        if buf and not self.drop_remainder:
+            yield self.collate(buf)
+
+    def collate(self, feats: Sequence[ImageFeature]) -> Dict:
+        imgs = np.stack([f["floats"] for f in feats]).astype(np.float32)
+        im_info = np.stack([f.get_im_info() for f in feats])
+        batch = {"input": imgs, "im_info": im_info}
+        if self.keep_label:
+            boxes, labels, difficult = [], [], []
+            for f in feats:
+                lab = f.label if isinstance(f.label, RoiLabel) else RoiLabel(
+                    np.zeros(0), np.zeros((0, 4)))
+                boxes.append(lab.bboxes)
+                labels.append(lab.labels.reshape(-1, 1))
+                difficult.append(lab.difficult.reshape(-1, 1))
+            b, mask = pad_ragged(boxes, self.max_gt)
+            l, _ = pad_ragged(labels, self.max_gt)
+            d, _ = pad_ragged(difficult, self.max_gt)
+            batch["target"] = {
+                "bboxes": b, "labels": l[..., 0].astype(np.int32),
+                "difficult": d[..., 0], "mask": mask,
+            }
+        return batch
+
+
+def train_transformer(param: PreProcessParam, device=None) -> Transformer:
+    """The canonical SSD host augmentation chain: RecordToFeature ->
+    BytesToMat -> RoiNormalize -> ColorJitter -> Random(Expand->RoiExpand)
+    -> RandomSampler -> Resize(random interp) -> Random(HFlip->RoiHFlip)
+    -> MatToFloats(mean subtract).  Decodes with ``device``'s codec."""
+    return (
+        RecordToFeature()
+        >> BytesToMat(device=device)
+        >> RoiNormalize()
+        >> ColorJitter()
+        >> RandomTransformer(Expand(means=param.pixel_means) >> RoiExpand(),
+                             0.5)
+        >> RandomSampler()
+        >> Resize(param.resolution, param.resolution, interp=-1,
+                  device=device)
+        >> RandomTransformer(HFlip() >> RoiHFlip(), 0.5)
+        >> MatToFloats(mean=param.pixel_means,
+                       valid_height=param.resolution,
+                       valid_width=param.resolution)
+    )
+
+
+def val_transformer(param: PreProcessParam, flip: bool = False,
+                    device=None) -> Transformer:
+    """Validation chain without augmentation; ``flip=True`` inserts a
+    random horizontal flip before the float extraction (the resize-only
+    train chain, ``load_train_set(augment=False)``)."""
+    chain = (
+        RecordToFeature()
+        >> BytesToMat(device=device)
+        >> RoiNormalize()
+        >> Resize(param.resolution, param.resolution, device=device)
+    )
+    if flip:
+        # before MatToFloats: the float tensor is extracted there
+        chain = chain >> RandomTransformer(HFlip() >> RoiHFlip(), 0.5)
+    return chain >> MatToFloats(mean=param.pixel_means,
+                                valid_height=param.resolution,
+                                valid_width=param.resolution)
+
+
+def _maybe_parallel(t: Transformer, workers: int) -> Transformer:
+    return ParallelTransformer(t, workers) if workers > 1 else t
+
+
+def _maybe_loader(ds: DataSet, param: PreProcessParam):
+    """Wrap the dataset in the multiprocess loader when the param asks
+    for worker processes; otherwise return it unchanged."""
+    if param.worker_processes > 0:
+        return ds.parallel(param.worker_processes,
+                           base_seed=param.loader_seed)
+    return ds
+
+
+def load_train_set_device(pattern: str, param: PreProcessParam,
+                          aug=None, device=None):
+    """The device-augmentation train path: the host decodes and makes the
+    geometry and label decisions, the card does the pixel work.  Returns
+    (the dataset of staged batches, the augment function); pass the
+    function as ``device_transform=`` to ``train_ssd`` or the step.
+    ``device`` (the GPU unless given) picks the codec and where the
+    augment runs."""
+    from analytics_zoo_tpu_torch.transform.vision import (DeviceAugBatch,
+                                                          DeviceAugParam,
+                                                          DeviceAugPrepare,
+                                                          make_device_augment)
+
+    dev = resolve_device(device)
+    if aug is None:
+        extra = ({"canvas_size": param.canvas_size}
+                 if param.canvas_size else {})
+        aug = DeviceAugParam(resolution=param.resolution,
+                             pixel_means=tuple(param.pixel_means),
+                             wire_format=param.wire_format,
+                             pack=param.pack_staging, **extra)
+    chain = (RecordToFeature() >> BytesToMat(to_float=False, device=dev)
+             >> RoiNormalize() >> DeviceAugPrepare(aug))
+    ds = DataSet.from_record_files(pattern, SSDByteRecord.decode,
+                                   shuffle_files=True)
+    if param.shuffle_buffer:
+        ds = ds.shuffle(param.shuffle_buffer, seed=param.shuffle_seed)
+    ds = (ds.transform(_maybe_parallel(chain, param.num_workers))
+          .transform(DeviceAugBatch(param.batch_size, param.max_gt,
+                                    pack=aug.pack)))
+    return _maybe_loader(ds, param), make_device_augment(aug, device=dev)
+
+
+def load_train_set(pattern: str, param: PreProcessParam,
+                   augment: bool = True, device=None) -> DataSet:
+    """The host augmentation train path.  ``augment=False`` keeps file
+    shuffling, the shuffle buffer, the random flip and drop_remainder
+    batching but swaps the geometric chain for a plain resize."""
+    ds = DataSet.from_record_files(pattern, SSDByteRecord.decode,
+                                   shuffle_files=True)
+    if param.shuffle_buffer:
+        ds = ds.shuffle(param.shuffle_buffer, seed=param.shuffle_seed)
+    chain = (train_transformer(param, device) if augment
+             else val_transformer(param, flip=True, device=device))
+    if param.worker_processes > 0:
+        # strip decode bytes + working mat (im_info materialized first)
+        # so the shared-memory ring ships only what the batcher reads
+        from analytics_zoo_tpu_torch.transform.vision import SealForWire
+        chain = chain >> SealForWire()
+    return _maybe_loader(
+        ds.transform(_maybe_parallel(chain, param.num_workers))
+        .transform(RoiImageToBatch(param.batch_size, param.max_gt)), param)
+
+
+def load_val_set(pattern: str, param: PreProcessParam, device=None):
+    """Validation batches (float, mean-subtracted) in record order, the
+    last one partial."""
+    chain = val_transformer(param, device=device)
+    if param.worker_processes > 0:
+        from analytics_zoo_tpu_torch.transform.vision import SealForWire
+        chain = chain >> SealForWire()
+    return _maybe_loader(
+        DataSet.from_record_files(pattern, SSDByteRecord.decode)
+        .transform(_maybe_parallel(chain, param.num_workers))
+        .transform(RoiImageToBatch(param.batch_size, param.max_gt,
+                                   drop_remainder=False)), param)
+
+
+class Uint8ToBatch(RoiImageToBatch):
+    """Serving batcher: stacks RESIZED uint8 mats + im_info (the cast and
+    mean subtraction run on the device, 4× fewer upload bytes).  Invalid
+    records become zero images so outputs stay index-aligned with the
+    records; a final partial batch is padded to ``batch_size`` with zero
+    images and carries ``n_valid``."""
+
+    def __init__(self, batch_size: int, resolution: int,
+                 drop_remainder: bool = False, wire_format: str = "bgr"):
+        from analytics_zoo_tpu_torch.transform.vision.device import (
+            _refuse_wire)
+
+        super().__init__(batch_size, keep_label=False,
+                         drop_remainder=drop_remainder)
+        _refuse_wire(wire_format, False)
+        self.resolution = resolution
+        self.wire_format = wire_format
+
+    def _usable(self, f: ImageFeature) -> bool:
+        return True                     # invalid → zero image in collate
+
+    def apply_iter(self, it):
+        for batch in super().apply_iter(it):
+            n = batch["input"].shape[0]
+            if n < self.batch_size:
+                pad = self.batch_size - n
+                batch = {
+                    "input": np.concatenate(
+                        [batch["input"],
+                         np.zeros((pad,) + batch["input"].shape[1:],
+                                  np.uint8)]),
+                    "im_info": np.concatenate(
+                        [batch["im_info"],
+                         np.tile(np.array([[self.resolution,
+                                            self.resolution, 1.0, 1.0]],
+                                          np.float32), (pad, 1))]),
+                    "n_valid": n}
+            yield batch
+
+    def collate(self, feats: Sequence[ImageFeature]) -> Dict:
+        res = self.resolution
+        default_info = np.array([res, res, 1.0, 1.0], np.float32)
+        infos = [f.get_im_info() if (f.is_valid and f.mat is not None)
+                 else default_info for f in feats]
+        zero = np.zeros((res, res, 3), np.uint8)
+        mats = [f.mat if (f.is_valid and f.mat is not None) else zero
+                for f in feats]
+        return {"input": np.stack(mats), "im_info": np.stack(infos)}
+
+
+def serving_chain(param: PreProcessParam, uint8: bool = False,
+                  resize: Optional[Transformer] = None, device=None):
+    """The serving preprocess chain: the val transformer and unlabeled
+    batching.  ``uint8=True`` keeps pixels uint8 from decode to the
+    device; ``resize`` overrides the square ``Resize`` (it must still
+    emit ``param.resolution``² mats)."""
+    if uint8:
+        chain = (RecordToFeature() >> BytesToMat(to_float=False,
+                                                  device=device)
+                 >> (resize if resize is not None
+                     else Resize(param.resolution, param.resolution,
+                                 device=device)))
+        return (_maybe_parallel(chain, param.num_workers)
+                >> Uint8ToBatch(param.batch_size, param.resolution,
+                                wire_format=param.wire_format))
+    return (_maybe_parallel(val_transformer(param, device=device),
+                            param.num_workers)
+            >> RoiImageToBatch(param.batch_size, keep_label=False,
+                               drop_remainder=False))
 
 
 class SSDPredictor:
@@ -116,6 +416,16 @@ class SSDPredictor:
 
     def detect_batch(self, batch: Dict) -> np.ndarray:
         return self._detect_device(batch).cpu().numpy()
+
+    def predict(self, records) -> List[np.ndarray]:
+        """Records (``SSDByteRecord``s) → per-image (K, 6) detections in
+        original pixels, through the uint8 serving chain (decoded with
+        the predictor's device's codec) and a window of batches in
+        flight."""
+        return run_serving_loop(
+            serving_chain(self.param, uint8=True, device=self.device)(
+                records),
+            self._detect_device, lambda t: t.cpu().numpy())
 
 
 def run_serving_loop(batches, dispatch, readback,
@@ -214,10 +524,10 @@ class SSDMeanAveragePrecision(ValidationMethod):
 @dataclasses.dataclass
 class TrainParams:
     """Reference ``TrainParams`` (its ``Train.scala`` defaults), less the
-    fields that only the parts not ported yet read: ``batch_size`` and
-    ``max_gt`` (the input path, ROADMAP.md Queue 1 item 8; the batch
-    size is the one ``train_set`` was built at), ``overwrite_checkpoint``
-    (item 12) and ``job_name`` (item 13)."""
+    fields nothing in the port reads: ``batch_size`` and ``max_gt`` (the
+    input path takes them from ``PreProcessParam``, and ``train_ssd``
+    trains at the batch ``train_set`` was built at),
+    ``overwrite_checkpoint`` (item 12) and ``job_name`` (item 13)."""
 
     resolution: int = 300
     n_classes: int = 21
@@ -234,8 +544,7 @@ class TrainParams:
     # fp32 master weights, the forward and backward under bf16 autocast;
     # None = fp32
     compute_dtype: Optional[str] = "bf16"
-    # background batch transfer depth; not ported yet (item 8), see
-    # train_ssd
+    # background pinned upload depth (Optimizer prefetch); 0 = in the step
     prefetch: int = 2
 
 
@@ -254,19 +563,16 @@ def train_ssd(train_set, val_set, params: TrainParams,
     ``model`` defaults to a seeded ``SSDVgg`` (seed 0) on ``device`` (the
     GPU unless ``device="cpu"``); a given model trains where it lies.
     Batches come from ``train_set`` as the module docstring lays them
-    out.  Transfers run in the step (``prefetch=0``) whatever
-    ``params.prefetch`` says, until the input path is ported (ROADMAP.md
-    Queue 1 item 8).  Refused by name: ``mesh`` and ``tp`` (item 12),
-    ``device_transform`` (item 8), ``params.checkpoint_path`` (item 12)
-    and ``params.log_dir`` (item 13)."""
+    out, or staged (``load_train_set_device``) with its augment function
+    as ``device_transform``; ``params.prefetch`` batches are pinned and
+    uploaded ahead of the step on a CUDA device (the ``Optimizer``'s
+    ``prefetch``).  Refused by name: ``mesh`` and ``tp`` (item 12),
+    ``params.checkpoint_path`` (item 12) and ``params.log_dir`` (item
+    13)."""
     if mesh is not None or tp is not None:
         raise NotImplementedError(
             "train_ssd: sharded training (mesh, tp) is not ported yet "
             "(ROADMAP.md Queue 1 item 12)")
-    if device_transform is not None:
-        raise NotImplementedError(
-            "train_ssd(device_transform=...): the device augmentation is "
-            "not ported yet (ROADMAP.md Queue 1 item 8)")
     if params.checkpoint_path:
         raise NotImplementedError(
             "train_ssd: checkpoints (TrainParams.checkpoint_path) are not "
@@ -286,7 +592,9 @@ def train_ssd(train_set, val_set, params: TrainParams,
 
     def make_optimizer(optim_method, end_when):
         opt = (Optimizer(model, train_set, criterion, skip_loss_above=50.0,
-                         compute_dtype=params.compute_dtype, prefetch=0)
+                         compute_dtype=params.compute_dtype,
+                         prefetch=params.prefetch,
+                         device_transform=device_transform)
                .set_optim_method(optim_method)
                .set_end_when(end_when))
         if val_set is not None:

@@ -1,1 +1,1 @@
-"""Transforms of the port; only the audio chain so far."""
+"""Transforms of the port: the audio chain and the vision transforms."""

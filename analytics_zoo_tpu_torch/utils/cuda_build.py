@@ -34,6 +34,21 @@ NVCC_FLAGS = (
 
 KERNEL_SOURCES = ("nms_sweep", "detection_output", "persistent_rnn",
                   "persistent_rnn_bwd")
+# the toolkit's nvJPEG codec (``data/native.py``), no kernel of the port
+CODEC_SOURCES = ("nvjpeg_codec",)
+
+
+def _cuda_lib_dir() -> str:
+    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "lib64")
+
+
+def link_flags(name: str) -> tuple:
+    """Libraries a source links beyond the CUDA runtime: nvJPEG, found
+    at run time through an rpath to the toolkit's ``lib64``."""
+    if name == "nvjpeg_codec":
+        return ("-lnvjpeg", "-Xlinker", f"-rpath={_cuda_lib_dir()}")
+    return ()
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -52,8 +67,9 @@ def library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     headers = b"".join(h.read_bytes()
                        for h in sorted(CSRC_DIR.glob("*.cuh")))
+    flags = NVCC_FLAGS + link_flags(name)
     digest = hashlib.sha256(src.read_bytes() + headers
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -71,7 +87,8 @@ def build_kernels(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, Path]:
     procs: List[tuple] = []
     for name, out in todo.items():
         tmp = out.with_suffix(f".tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu"),
+               *link_flags(name)]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

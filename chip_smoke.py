@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SSD300 and DeepSpeech2 serving paths, its
-DeepSpeech2 CTC training path and its SSD300 training path once on one
-NVIDIA GPU.
+DeepSpeech2 CTC training path, its SSD300 training path and its SSD
+input path from JPEG records once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, one JSON line each; any failure exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the four CUDA kernels compiled with ``nvcc`` for sm_90a from
-   ``analytics_zoo_tpu_torch/csrc`` (in parallel, cached by source hash),
+2. build: the four CUDA kernels and the nvJPEG codec compiled with
+   ``nvcc`` for sm_90a from ``analytics_zoo_tpu_torch/csrc``, and the
+   host library of the input path with ``g++`` (in parallel, cached by
+   source hash),
    each with its ptxas report; a register spill in K3 or K4 fails;
 3. K1 (NMS sweep) against its plain PyTorch version at the SSD300 unfused
    shape (batch 8 → 160 rows × 512 candidates): random, tie-heavy,
@@ -103,6 +105,42 @@ Phases, one JSON line each; any failure exits non-zero:
    the upload, forward and loss (and ``multibox_loss`` inside it),
    backward and update, validation by the batch of 8, and the steps'
    peak memory;
+6c. ssd_input: the SSD input path from records. 256 seeded shapes
+   images at 300 rendered by ``data/synthetic.py`` and encoded through
+   the card's codec (named in the line: nvJPEG where the machine has no
+   libjpeg header) into 4 shards; the native reader and the pure-Python
+   one give the same records; every record decodes to (300, 300, 3), a
+   corrupt one to None; the codec's q92 round trip of 4 rendered images
+   at least ``CODEC_PSNR_MIN`` dB.  ``load_train_set_device`` (batch 32,
+   canvas 512, bgr) into ``train_ssd`` with its augment as
+   ``device_transform`` and ``TrainParams(prefetch=2)``: one epoch of 6
+   batches, validating through ``load_val_set`` on 16 records in
+   batches of 8 (8 from the first shard at 300², 8 rendered at 412² and
+   360 x 720, each one's im_info showing it resized to 300², not
+   dropped), every launch counter set to 0 just before and read
+   just after (K2 once a validation batch, no other kernel; a fallback
+   warning is an error), the validation detections against the CPU
+   "xla" path.  ``make_device_augment`` on the card against the CPU on
+   one staged batch of 32 within ``AUG_CARD_TOL``; the batches
+   ``device_prefetch(size=2)`` delivers bit-equal to synchronous
+   uploads; after CUDA is initialised, ``ParallelLoader`` refusing
+   worker processes on the decode chain (nvJPEG needs CUDA), and its
+   stream over the staging chain of decoded images byte-identical at 0,
+   2 and min(8, nproc / 2) workers; ``SSDPredictor.predict`` on the
+   16 validation records through ``serving_chain(uint8=True)`` (each
+   resized, as in validation), its launch counters
+   set to 0 just before and read just after (K2 twice), equal to
+   ``detect_batch`` on the same staged batches; cv2 never imported.
+   Then a ``timing`` line: the host input rate of
+   ``load_train_set_device`` at 0 and min(8, nproc / 2) workers, the
+   staging chain's by workers, decode per image, the augment per batch
+   (CUDA events), the pinning and the pinned upload of one staged batch,
+   the step of 32 fed from records with prefetch 2 (median of 6 after 2)
+   and fed the same batches resident on the card, one profiled step
+   split into upload, device_transform, forward and loss, backward and
+   update, and ``predict(records)`` per batch of 8 (over the 16, and
+   a batch of the 300² records and one of the others apart), with the
+   host resize of a 412² or 360 x 720 image to 300²;
 7. the ``kernels`` line, then the device line last.
 
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -215,6 +253,20 @@ SSD_BF16_UPDATE_TOL = 2e-2
 SSD_BF16_UPDATE_TENSOR_TOL = 0.2
 # host-clock train steps: 2 of warm-up, then the timed ones (median)
 SSD_WARMUP_STEPS, SSD_TIMED_STEPS = 2, 6
+# the SSD input path from records: shapes images at 300 in shards, train
+# batches of 32 staged on the canvas of 512, 6 of them an epoch; the first
+# 16 records of shard 0 validate in batches of 8 and are served in
+# batches of 8
+INPUT_IMAGES, INPUT_SHARDS, INPUT_BATCH, INPUT_STEPS = 256, 4, 32, 6
+INPUT_VAL, INPUT_VAL_BATCH = 16, 8
+# images the host input rates are timed over (4 batches)
+INPUT_RATE_IMAGES = 128
+# nvJPEG's q92 round trip of a rendered image: PSNR floor, dB
+CODEC_PSNR_MIN = 35.0
+# make_device_augment on the card against the CPU on one staged batch,
+# max-abs in pixel levels: the same fp32 elementwise ops, the two
+# products summed in another order (TF32 off)
+AUG_CARD_TOL = 1e-3
 
 
 def emit(phase: str, **fields) -> None:
@@ -728,17 +780,12 @@ def ssd_train_phase(dev, smi, rng):
     """The SSD300 training path on the card (phase ``ssd_train``, then a
     ``timing`` line); returns K2's launch count of its run."""
     import statistics
-    import warnings
 
     import numpy as np
     import torch
 
     from analytics_zoo_tpu_torch.models.ssd import (SSDVgg, build_priors,
                                                     ssd300_config)
-    from analytics_zoo_tpu_torch.ops import (pallas_detout, pallas_nms,
-                                             pallas_rnn)
-    from analytics_zoo_tpu_torch.ops.detection_output import (
-        DetectionOutputParam, detection_output)
     from analytics_zoo_tpu_torch.ops.multibox_loss import (
         MultiBoxLoss, MultiBoxLossParam, match_priors, mine_hard_examples)
     from analytics_zoo_tpu_torch.parallel import (SGD, create_train_state,
@@ -813,67 +860,15 @@ def ssd_train_phase(dev, smi, rng):
     train_set = [ssd_batch(rng, SSD_TRAIN_BATCH)
                  for _ in range(SSD_TRAIN_BATCHES)]
     val_set = [ssd_batch(rng, SSD_VAL_BATCH) for _ in range(SSD_VAL_BATCHES)]
-    runs, seen = [], []
-
-    class RecordingOptimizer(ssd_pipe.Optimizer):
-        def optimize(self):
-            runs.append(self)
-            return super().optimize()
-
-    class RecordingMAP(ssd_pipe.SSDMeanAveragePrecision):
-        def detect(self, output):
-            dets = super().detect(output)
-            # the same softmax on the same logits: the probabilities K2 read
-            seen.append((output[0].cpu(),
-                         torch.softmax(output[1], dim=-1).cpu(), dets.cpu()))
-            return dets
-
     model = SSDVgg(21, 300, device=dev, seed=0)
     params = ssd_pipe.TrainParams(max_epoch=1)
-    patched = (ssd_pipe.Optimizer, ssd_pipe.SSDMeanAveragePrecision)
-    ssd_pipe.Optimizer, ssd_pipe.SSDMeanAveragePrecision = (RecordingOptimizer,
-                                                            RecordingMAP)
-    try:
-        with warnings.catch_warnings():
-            warnings.filterwarnings("error", message=".*falling back")
-            torch.cuda.synchronize()
-            for counter in (pallas_nms.nms_sweep,
-                            pallas_detout.fused_detection_output,
-                            pallas_rnn.persistent_rnn,
-                            pallas_rnn.persistent_rnn_bwd):
-                counter.launches = 0
-            t0 = time.perf_counter()
-            ssd_pipe.train_ssd(train_set, val_set, params, model=model)
-            torch.cuda.synchronize()
-            train_s = time.perf_counter() - t0
-            launches = {"nms_sweep": pallas_nms.nms_sweep.launches,
-                        "fused_detection_output":
-                            pallas_detout.fused_detection_output.launches,
-                        "persistent_rnn": pallas_rnn.persistent_rnn.launches,
-                        "persistent_rnn_bwd":
-                            pallas_rnn.persistent_rnn_bwd.launches}
-    finally:
-        ssd_pipe.Optimizer, ssd_pipe.SSDMeanAveragePrecision = patched
-    (opt,) = runs
-    losses = [m["loss"].item() for m in opt.history]
-    if (len(losses) != SSD_TRAIN_BATCHES
-            or not all(math.isfinite(x) for x in losses)):
-        raise AssertionError(f"SSD training losses {losses}")
-    if (launches["fused_detection_output"] < SSD_VAL_BATCHES
-            or launches["fused_detection_output"] != len(seen)
-            or any(v for k, v in launches.items()
-                   if k != "fused_detection_output")):
-        raise AssertionError(f"SSD training: validation of {len(seen)} "
-                             f"batches launched {launches}")
+    opt, seen, launches, train_s = recorded_train_ssd(train_set, val_set,
+                                                      params, model)
 
-    # 3. the validation detections against the CPU "xla" path on the same
-    # outputs
-    xla = DetectionOutputParam(n_classes=21, backend="xla")
-    pri_c, var_c = torch.from_numpy(priors), torch.from_numpy(variances)
-    val_err = max(rows_err(dets, detection_output(loc, probs, pri_c, var_c,
-                                                  xla))
-                  for loc, probs, dets in seen)
-    val_kept = sum(int((d[..., 1] > 0).sum()) for _, _, d in seen)
+    # 3. every loss finite; K2 once a validation batch; the validation
+    # detections against the CPU "xla" path on the same outputs
+    losses, val_err, val_kept = check_train_ssd_run(
+        opt, seen, launches, SSD_TRAIN_BATCHES, SSD_VAL_BATCHES)
 
     # 4. one bf16 step against one fp32 step from the same weights on the
     # same batch: the loss, the update (the change of the fp32 weights),
@@ -980,6 +975,480 @@ def ssd_train_phase(dev, smi, rng):
     return {"k2_launches": launches["fused_detection_output"]}
 
 
+def recorded_train_ssd(train_set, val_set, params, model, **kw):
+    """``train_ssd`` with its ``Optimizer`` and each validation batch's
+    (loc, probs, detections) recorded, every launch counter set to 0 just
+    before and read just after, a fallback warning an error.  Returns
+    (the optimizer, the validation records, the launches, seconds)."""
+    import warnings
+
+    import torch
+
+    from analytics_zoo_tpu_torch.ops import (pallas_detout, pallas_nms,
+                                             pallas_rnn)
+    from analytics_zoo_tpu_torch.pipelines import ssd as ssd_pipe
+
+    runs, seen = [], []
+
+    class RecordingOptimizer(ssd_pipe.Optimizer):
+        def optimize(self):
+            runs.append(self)
+            return super().optimize()
+
+    class RecordingMAP(ssd_pipe.SSDMeanAveragePrecision):
+        def detect(self, output):
+            dets = super().detect(output)
+            # the same softmax on the same logits: the probabilities K2 read
+            seen.append((output[0].cpu(),
+                         torch.softmax(output[1], dim=-1).cpu(), dets.cpu()))
+            return dets
+
+    counters = (pallas_nms.nms_sweep, pallas_detout.fused_detection_output,
+                pallas_rnn.persistent_rnn, pallas_rnn.persistent_rnn_bwd)
+    patched = (ssd_pipe.Optimizer, ssd_pipe.SSDMeanAveragePrecision)
+    ssd_pipe.Optimizer, ssd_pipe.SSDMeanAveragePrecision = (RecordingOptimizer,
+                                                            RecordingMAP)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message=".*falling back")
+            torch.cuda.synchronize()
+            for counter in counters:
+                counter.launches = 0
+            t0 = time.perf_counter()
+            ssd_pipe.train_ssd(train_set, val_set, params, model=model, **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {c.__name__: c.launches for c in counters}
+    finally:
+        ssd_pipe.Optimizer, ssd_pipe.SSDMeanAveragePrecision = patched
+    (opt,) = runs
+    return opt, seen, launches, seconds
+
+
+def check_train_ssd_run(opt, seen, launches, steps, val_batches):
+    """Every loss finite, ``steps`` steps; K2 once a validation batch and
+    no other kernel; the validation detections against the CPU "xla"
+    path on the same outputs.  Returns (losses, the rows' max error, the
+    detections kept)."""
+    import torch
+
+    from analytics_zoo_tpu_torch.models.ssd import (build_priors,
+                                                    ssd300_config)
+    from analytics_zoo_tpu_torch.ops.detection_output import (
+        DetectionOutputParam, detection_output)
+
+    losses = [m["loss"].item() for m in opt.history]
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"SSD training losses {losses}")
+    if (launches["fused_detection_output"] < val_batches
+            or launches["fused_detection_output"] != len(seen)
+            or any(v for k, v in launches.items()
+                   if k != "fused_detection_output")):
+        raise AssertionError(f"SSD training: validation of {len(seen)} "
+                             f"batches launched {launches}")
+    priors, variances = build_priors(ssd300_config())
+    xla = DetectionOutputParam(n_classes=21, backend="xla")
+    pri_c, var_c = torch.from_numpy(priors), torch.from_numpy(variances)
+    val_err = max(rows_err(dets, detection_output(loc, probs, pri_c, var_c,
+                                                  xla))
+                  for loc, probs, dets in seen)
+    val_kept = sum(int((d[..., 1] > 0).sum()) for _, _, d in seen)
+    return losses, val_err, val_kept
+
+
+def first_batches(iterable, n):
+    """The first ``n`` items of one pass over ``iterable``, the pass's
+    iterator closed after (a loader epoch's workers, a prefetch thread)."""
+    it = iter(iterable)
+    try:
+        return [b for _, b in zip(range(n), it)]
+    finally:
+        if hasattr(it, "close"):
+            it.close()
+
+
+class FirstBatches:
+    """Each epoch of ``dataset`` cut to its first ``n`` batches."""
+
+    def __init__(self, dataset, n):
+        self.dataset, self.n = dataset, n
+
+    def __iter__(self):
+        it = iter(self.dataset)
+        try:
+            for _, b in zip(range(self.n), it):
+                yield b
+        finally:
+            if hasattr(it, "close"):
+                it.close()
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def check_resized(im_info, sizes, what) -> None:
+    """Each record's im_info shows it resized from its own (h, w) to 300²:
+    a record the chain dropped would carry the default scales of 1."""
+    import numpy as np
+
+    want = np.array([[300, 300, 300 / h, 300 / w] for h, w in sizes],
+                    np.float32)
+    if im_info.shape != want.shape or not np.allclose(im_info, want,
+                                                      rtol=1e-6):
+        raise AssertionError(f"{what}: im_info {im_info.tolist()} for "
+                             f"sizes {sizes}")
+
+
+def ssd_input_phase(dev, smi):
+    """The SSD input path on the card (phase ``ssd_input``, then a
+    ``timing`` line); returns K2's launches by path."""
+    import os
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.data import (DataSet, FnTransformer,
+                                              ParallelLoader, SSDByteRecord,
+                                              device_prefetch, native,
+                                              read_records, read_ssd_records,
+                                              write_ssd_records)
+    from analytics_zoo_tpu_torch.data.synthetic import (
+        generate_shapes_records, render_shapes_image)
+    from analytics_zoo_tpu_torch.models.ssd import (SSDVgg, build_priors,
+                                                    ssd300_config)
+    from analytics_zoo_tpu_torch.ops import pallas_detout, pallas_nms
+    from analytics_zoo_tpu_torch.ops.multibox_loss import MultiBoxLoss
+    from analytics_zoo_tpu_torch.parallel import (SGD, create_train_state,
+                                                  make_train_step)
+    from analytics_zoo_tpu_torch.parallel.train import to_device
+    from analytics_zoo_tpu_torch.pipelines import ssd as ssd_pipe
+    from analytics_zoo_tpu_torch.transform.vision import (
+        DeviceAugBatch, DeviceAugParam, DeviceAugPrepare, ImageFeature,
+        RoiLabel, RoiNormalize, make_device_augment)
+    from analytics_zoo_tpu_torch.transform.vision.augmentation import (
+        resize_bilinear)
+
+    codec = native.codec_for(dev)
+    tmp = tempfile.mkdtemp(prefix="ssd_input-")
+    try:
+        # 1. records: render, encode through the codec, write 4 shards;
+        # the native reader against the pure-Python one; every decode
+        t0 = time.perf_counter()
+        paths = generate_shapes_records(os.path.join(tmp, "train"),
+                                        n_images=INPUT_IMAGES,
+                                        num_shards=INPUT_SHARDS, seed=0,
+                                        device=dev)
+        records_s = time.perf_counter() - t0
+        pattern = os.path.join(tmp, "train-*")
+        pure = sorted(p for path in paths for p in read_records(path))
+        with native.NativeRecordReader(paths, n_threads=INPUT_SHARDS) as rd:
+            threaded = sorted(rd)
+        if threaded != pure or len(pure) != INPUT_IMAGES:
+            raise AssertionError(f"native reader: {len(threaded)} records, "
+                                 f"pure-Python {len(pure)}, equal "
+                                 f"{threaded == pure}")
+        recs = list(read_ssd_records(paths))
+        t0 = time.perf_counter()
+        decoded = [native.decode_jpeg(r.data, codec) for r in recs]
+        decode_ms = (time.perf_counter() - t0) * 1e3 / len(recs)
+        if any(d is None or d.shape != (300, 300, 3) for d in decoded):
+            raise AssertionError("a record did not decode to (300, 300, 3)")
+        corrupt = [native.decode_jpeg(b, codec)
+                   for b in (recs[0].data[:40], b"not a jpeg")]
+        if any(c is not None for c in corrupt):
+            raise AssertionError("a corrupt JPEG decoded")
+        psnr = []
+        for seed in range(4):
+            img, _ = render_shapes_image(np.random.RandomState(1000 + seed))
+            back = native.decode_jpeg(native.encode_jpeg(img, 92, codec),
+                                      codec)
+            mse = np.mean((back.astype(np.float64) - img) ** 2)
+            psnr.append(10 * math.log10(255.0 ** 2 / mse))
+        if min(psnr) < CODEC_PSNR_MIN:
+            raise AssertionError(f"{codec} q92 round trip PSNR {psnr} dB "
+                                 f"(floor {CODEC_PSNR_MIN})")
+        # validation and serving records: half from the first shard at
+        # 300², half rendered at other sizes (412², and 360² side by side
+        # as 360 x 720), so the card's Resize resamples (and imports no cv2)
+        val_rng = np.random.RandomState(1)
+        other = []
+        for i in range(INPUT_VAL // 2):
+            img, gt = render_shapes_image(val_rng, 360 if i % 2 else 412)
+            if i % 2:
+                img = np.concatenate([img, img], axis=1)
+            other.append(SSDByteRecord(native.encode_jpeg(img, 92, codec),
+                                       f"other/{i}.jpg", gt))
+        val_recs = recs[:INPUT_VAL // 2] + other
+        (val_path,) = write_ssd_records(val_recs, os.path.join(tmp, "val"),
+                                        1)
+        val_sizes = [native.decode_jpeg(r.data, codec).shape[:2]
+                     for r in val_recs]
+
+        # 2. train_ssd from the records through the device augmentation,
+        # prefetch 2, validating from records through K2
+        param = ssd_pipe.PreProcessParam(batch_size=INPUT_BATCH)
+        train_set, augment = ssd_pipe.load_train_set_device(pattern, param,
+                                                            device=dev)
+        val_param = ssd_pipe.PreProcessParam(batch_size=INPUT_VAL_BATCH)
+        val_set = ssd_pipe.load_val_set(val_path, val_param, device=dev)
+        params = ssd_pipe.TrainParams(max_epoch=1, prefetch=2)
+        model = SSDVgg(21, 300, device=dev, seed=0)
+        opt, seen, launches, train_s = recorded_train_ssd(
+            FirstBatches(train_set, INPUT_STEPS), val_set, params, model,
+            device_transform=augment)
+        losses, val_err, val_kept = check_train_ssd_run(
+            opt, seen, launches, INPUT_STEPS, INPUT_VAL // INPUT_VAL_BATCH)
+        if opt.prefetch != 2:
+            raise AssertionError(f"the Optimizer's prefetch {opt.prefetch}")
+        val_info = np.concatenate([b["im_info"] for b in val_set])
+        check_resized(val_info, val_sizes, "load_val_set")
+
+        # 3. the augmentation on the card against the CPU, one staged
+        # batch of a seeded loader
+        (staged,) = first_batches(ParallelLoader(
+            ssd_pipe.load_train_set_device(pattern, param, device=dev)[0],
+            0, base_seed=7), 1)
+        card = augment(staged)["input"].cpu()
+        cpu = make_device_augment(DeviceAugParam(), device="cpu")(
+            staged)["input"]
+        aug_err = (card - cpu).abs().max().item()
+        if not aug_err <= AUG_CARD_TOL:
+            raise AssertionError(f"device augment card vs CPU {aug_err} "
+                                 f"(tol {AUG_CARD_TOL})")
+
+        # 4. prefetch: what device_prefetch delivers is bit-equal to
+        # synchronous uploads of the same host batches
+        host = first_batches(ParallelLoader(
+            ssd_pipe.load_train_set_device(pattern, param, device=dev)[0],
+            0, base_seed=8), 4)
+        fetched = [[x.cpu() for x in tree_leaves(b)]
+                   for b in device_prefetch(iter(host), dev, size=2)]
+        synced = [[x.cpu() for x in tree_leaves(to_device(b, dev))]
+                  for b in host]
+        prefetch_equal = (len(fetched) == len(synced) == 4 and all(
+            torch.equal(a, b) for fa, fb in zip(fetched, synced)
+            for a, b in zip(fa, fb)))
+        if not prefetch_equal:
+            raise AssertionError("device_prefetch batches differ from "
+                                 "synchronous uploads")
+
+        # 5. the loader after CUDA is initialised: the decode chain's
+        # workers would need CUDA (nvJPEG), so it is refused; the staging
+        # chain over decoded images is byte-identical at 0 and 2 workers
+        workers = min(8, (os.cpu_count() or 2) // 2)
+        try:
+            ssd_pipe.load_train_set_device(
+                pattern, ssd_pipe.PreProcessParam(
+                    batch_size=INPUT_BATCH, worker_processes=workers),
+                device=dev)
+            refusal = None
+        except ValueError as e:
+            refusal = str(e)
+        if codec == "nvjpeg" and not (refusal and "nvJPEG" in refusal):
+            raise AssertionError(f"decode chain in forked workers: "
+                                 f"{refusal}")
+        items = [(d, r.gt, r.path) for d, r in zip(decoded, recs)]
+
+        def to_feature(item):
+            mat, gt, path = item
+            f = ImageFeature(path=path)
+            f.mat = mat
+            f["label"] = RoiLabel.from_gt_matrix(gt)
+            return f
+
+        def staging_set():
+            return (DataSet.from_list(items)
+                    .transform(FnTransformer(to_feature))
+                    .transform(RoiNormalize())
+                    .transform(DeviceAugPrepare(DeviceAugParam()))
+                    .transform(DeviceAugBatch(INPUT_BATCH)))
+
+        # the rate over the epoch, and past its first batch (the workers'
+        # fork and first group are paid once an epoch)
+        streams, staging_rate = {}, {}
+        for n in sorted({0, 2, workers}):
+            loader = ParallelLoader(staging_set(), n, base_seed=11)
+            t0 = time.perf_counter()
+            streams[n], t_first = [], None
+            for b in loader:
+                t_first = t_first or time.perf_counter()
+                streams[n].append([np.asarray(x) for x in tree_leaves(b)])
+            t_end = time.perf_counter()
+            staging_rate[n] = {
+                "images_per_s": INPUT_IMAGES / (t_end - t0),
+                "first_batch_s": t_first - t0,
+                "after_first_images_per_s": ((INPUT_IMAGES - INPUT_BATCH)
+                                             / (t_end - t_first)),
+                "spills": loader.spills}
+        loader_equal = all(
+            len(streams[n]) == len(streams[0]) == INPUT_IMAGES
+            // INPUT_BATCH and all(
+                a.dtype == b.dtype and np.array_equal(a, b)
+                for sa, sb in zip(streams[0], streams[n])
+                for a, b in zip(sa, sb))
+            for n in streams)
+        if not loader_equal:
+            raise AssertionError("ParallelLoader streams differ by workers")
+        del streams
+
+        # 6. serving from records through the uint8 chain and K2
+        pred = ssd_pipe.SSDPredictor(SSDVgg(21, 300, device=dev, seed=0),
+                                     ssd_pipe.PreProcessParam(
+                                         batch_size=INPUT_VAL_BATCH),
+                                     device=dev)
+        served_recs = val_recs
+        pred.predict(served_recs[:INPUT_VAL_BATCH])         # warm-up
+        torch.cuda.synchronize()
+        pallas_detout.fused_detection_output.launches = 0
+        pallas_nms.nms_sweep.launches = 0
+        t0 = time.perf_counter()
+        served = pred.predict(served_recs)
+        torch.cuda.synchronize()
+        predict_ms = ((time.perf_counter() - t0) * 1e3
+                      / (INPUT_VAL // INPUT_VAL_BATCH))
+        predict_launches = {
+            "fused_detection_output":
+                pallas_detout.fused_detection_output.launches,
+            "nms_sweep": pallas_nms.nms_sweep.launches}
+        want, served_info = [], []
+        for b in ssd_pipe.serving_chain(pred.param, uint8=True, device=dev)(
+                served_recs):
+            n = b.pop("n_valid", INPUT_VAL_BATCH)
+            served_info.append(b["im_info"][:n])
+            want.extend(pred.detect_batch(b)[:n])
+        check_resized(np.concatenate(served_info), val_sizes,
+                      "serving_chain")
+        served_equal = len(served) == len(want) == INPUT_VAL and all(
+            np.array_equal(a, b) for a, b in zip(served, want))
+        if (not served_equal or predict_launches["fused_detection_output"]
+                < INPUT_VAL // INPUT_VAL_BATCH):
+            raise AssertionError(f"predict(records): equal to detect_batch "
+                                 f"{served_equal}, launches "
+                                 f"{predict_launches}")
+        if "cv2" in sys.modules:
+            raise AssertionError("the card's input path imported cv2")
+        emit("ssd_input", codec=codec, images=INPUT_IMAGES,
+             shards=INPUT_SHARDS, records_s=records_s,
+             native_reader_equal=True, decode_ms_per_image=decode_ms,
+             corrupt_decodes_none=True, codec_q92_psnr_db=psnr,
+             codec_psnr_floor_db=CODEC_PSNR_MIN, batch=INPUT_BATCH,
+             steps=len(losses), losses=losses, prefetch=opt.prefetch,
+             validation=opt.val_history, launches=launches,
+             validation_batches=len(seen),
+             validation_detections=val_kept,
+             validation_rows_max_abs_err=val_err, train_ssd_s=train_s,
+             augment_card_vs_cpu_max_abs=aug_err,
+             augment_tolerance=AUG_CARD_TOL,
+             prefetch_bit_equal=prefetch_equal,
+             loader_workers=sorted(staging_rate),
+             loader_streams_identical=loader_equal,
+             loader_decode_chain_refusal=refusal,
+             predict_records=len(served), predict_launches=predict_launches,
+             predict_equal_detect_batch=served_equal,
+             validation_and_served_sizes=sorted(set(val_sizes)),
+             cv2_imported=False)
+
+        # 7. timing
+        predict_by_size = {}
+        for name, part in (("300", val_recs[:INPUT_VAL // 2]),
+                           ("412_and_360x720", other)):
+            t0 = time.perf_counter()
+            pred.predict(part)
+            torch.cuda.synchronize()
+            predict_by_size[name] = ((time.perf_counter() - t0) * 1e3
+                                     / (len(part) // INPUT_VAL_BATCH))
+        larger = [native.decode_jpeg(r.data, codec) for r in other]
+        t0 = time.perf_counter()
+        for mat in larger:
+            resize_bilinear(mat, 300, 300)
+        resize_ms = (time.perf_counter() - t0) * 1e3 / len(larger)
+        dev_batch = to_device(staged, dev)
+        augment_ms = cuda_ms(lambda: augment(dev_batch), reps=10)
+        pin_ms, upload_ms = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            pinned = [torch.from_numpy(np.ascontiguousarray(x)).pin_memory()
+                      for x in tree_leaves(staged)]
+            pin_ms.append((time.perf_counter() - t0) * 1e3)
+            upload_ms.append(cuda_ms(lambda: [x.to(dev, non_blocking=True)
+                                              for x in pinned],
+                                     reps=1, warmup=1))
+        staged_mb = sum(x.nbytes for x in tree_leaves(staged)) / 1e6
+        host_rate = {}
+        for n in (0, workers):
+            try:
+                ds, _ = ssd_pipe.load_train_set_device(
+                    pattern, ssd_pipe.PreProcessParam(
+                        batch_size=INPUT_BATCH, worker_processes=n),
+                    device=dev)
+            except ValueError as e:
+                host_rate[f"workers_{n}"] = f"refused: {e}"
+                continue
+            t0 = time.perf_counter()
+            got = first_batches(ds, INPUT_RATE_IMAGES // INPUT_BATCH)
+            host_rate[f"workers_{n}"] = (len(got) * INPUT_BATCH
+                                         / (time.perf_counter() - t0))
+        sgd = SGD(params.learning_rate, momentum=params.momentum,
+                  weight_decay=params.weight_decay)
+        priors, variances = build_priors(ssd300_config())
+        step = make_train_step(model, MultiBoxLoss(priors, variances), sgd,
+                               skip_loss_above=50.0,
+                               compute_dtype=params.compute_dtype,
+                               device_transform=augment)
+        state = create_train_state(model, sgd)
+        fed_ms, resident = [], []
+        torch.cuda.synchronize()
+        t_prev = time.perf_counter()
+        for batch in device_prefetch(iter(ssd_pipe.load_train_set_device(
+                pattern, param, device=dev)[0]), dev, size=2,
+                close_source=True):
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fed_ms.append((t - t_prev) * 1e3)
+            t_prev = t
+            resident.append(batch)
+        resident_ms = []
+        for batch in resident:
+            t0 = time.perf_counter()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            resident_ms.append((time.perf_counter() - t0) * 1e3)
+        trace = profile_train_step(lambda: step(state, resident[0]))
+        del resident
+        emit("timing", nvidia_smi=smi, ssd_input_codec=codec,
+             ssd_input_host_images_per_s=host_rate,
+             ssd_input_staging_images_per_s_by_workers=staging_rate,
+             ssd_input_decode_ms_per_image=decode_ms,
+             ssd_input_augment_ms=augment_ms,
+             ssd_input_staged_batch_mb=staged_mb,
+             ssd_input_pin_ms=statistics.median(pin_ms),
+             ssd_input_pinned_upload_ms=statistics.median(upload_ms),
+             ssd_input_step_ms=statistics.median(fed_ms[SSD_WARMUP_STEPS:]),
+             ssd_input_step_ms_each=fed_ms,
+             ssd_input_step_images_per_s=(
+                 INPUT_BATCH * 1e3
+                 / statistics.median(fed_ms[SSD_WARMUP_STEPS:])),
+             ssd_input_step_ms_device_resident=statistics.median(
+                 resident_ms[SSD_WARMUP_STEPS:]),
+             ssd_input_step_profiled=trace,
+             ssd_input_train_ssd_s=train_s,
+             ssd_input_predict_ms_per_batch=predict_ms,
+             ssd_input_predict_ms_per_batch_by_sizes=predict_by_size,
+             ssd_input_resize_ms_per_image=resize_ms,
+             ssd_input_predict_batch=INPUT_VAL_BATCH)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"validation": launches["fused_detection_output"],
+            "predict": predict_launches["fused_detection_output"]}
+
+
 def main() -> int:
     import torch
 
@@ -1024,14 +1493,31 @@ def main() -> int:
          cuda=torch.version.cuda)
 
     # -- 2. build ---------------------------------------------------------
+    # the kernels and the nvJPEG codec with nvcc, the host library of the
+    # input path (record reader; libjpeg where its header is) with g++,
+    # all at once
+    import threading
+
+    from analytics_zoo_tpu_torch.data import native
+
     t0 = time.perf_counter()
-    libs = cuda_build.build_kernels()
+    host_lib = []
+    host_build = threading.Thread(
+        target=lambda: host_lib.append(native.build_host_library()))
+    host_build.start()
+    libs = cuda_build.build_kernels(cuda_build.KERNEL_SOURCES
+                                    + cuda_build.CODEC_SOURCES)
+    host_build.join()
+    if not host_lib:
+        raise AssertionError("the g++ build of azrecord.cpp failed")
     build_s = time.perf_counter() - t0
     ptxas = {n: [ln.strip() for ln in cuda_build.build_log(n).splitlines()
                  if "registers" in ln or "spill" in ln]
              for n in libs}
     emit("build", seconds=round(build_s, 3),
-         libraries={n: str(p.name) for n, p in libs.items()}, ptxas=ptxas)
+         libraries={n: str(p.name) for n, p in libs.items()}, ptxas=ptxas,
+         host_library=host_lib[0].name,
+         host_library_libjpeg=native.has_libjpeg_header())
     check_no_spills(ptxas)
 
     # -- 3. K1 against its plain version ----------------------------------
@@ -1572,6 +2058,9 @@ def main() -> int:
     # -- 6b. SSD training: the fourth main path, and its timings ----------
     ssd_train = ssd_train_phase(dev, smi, np.random.RandomState(21))
 
+    # -- 6c. the SSD input path from records: the fifth main path --------
+    ssd_input = ssd_input_phase(dev, smi)
+
     # -- 7. kernels, then the device line last ----------------------------
     kernels = [
         {"name": "nms_sweep", "route": "cuda",
@@ -1584,10 +2073,13 @@ def main() -> int:
          "source": "analytics_zoo_tpu_torch/csrc/detection_output.cu",
          "replaces": "analytics_zoo_tpu/ops/pallas_detout.py:242",
          "launches": (launches["fused_detection_output"]
-                      + ssd_train["k2_launches"]),
+                      + ssd_train["k2_launches"] + ssd_input["validation"]
+                      + ssd_input["predict"]),
          "launches_by_path": {
              "ssd_serving": launches["fused_detection_output"],
-             "ssd_train_validation": ssd_train["k2_launches"]},
+             "ssd_train_validation": ssd_train["k2_launches"],
+             "ssd_input_validation": ssd_input["validation"],
+             "ssd_input_predict": ssd_input["predict"]},
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
         {"name": "persistent_rnn", "route": "cuda",

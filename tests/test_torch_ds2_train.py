@@ -433,8 +433,7 @@ def test_train_step_bf16_and_refusals():
         losses[cd] = metrics["loss"].item()
         assert all(p.dtype == torch.float32 for p in m.parameters())
     assert abs(losses["bf16"] - losses[None]) <= 0.05 * abs(losses[None])
-    for kw, item in ((dict(device_transform=lambda b: b), "item 8"),
-                     (dict(forward_fn=lambda *a: a), "item 12"),
+    for kw, item in ((dict(forward_fn=lambda *a: a), "item 12"),
                      (dict(health_check=True), "item 13"),
                      (dict(mesh=object()), "item 12")):
         with pytest.raises(NotImplementedError, match=item):
@@ -445,8 +444,15 @@ def test_train_step_bf16_and_refusals():
                        (opt.set_observability, "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             call()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        train.Optimizer(model, [batch], crit, prefetch=2)
+    # the input path is ported: a device transform runs in the step, and
+    # prefetch on a CPU model does nothing (pinning needs a card)
+    seen = []
+    step = train.make_train_step(
+        model, crit, optim.Adam(),
+        device_transform=lambda b: seen.append(sorted(b)) or b)
+    step(train.create_train_state(model, optim.Adam()), batch)
+    assert seen == [sorted(batch)]
+    assert train.Optimizer(model, [batch], crit, prefetch=2).prefetch == 2
     with pytest.raises(NotImplementedError, match="item 12"):
         pipe.train_ds2(model, [batch], checkpoint_path="/nowhere")
     with pytest.raises(NotImplementedError, match="item 12"):

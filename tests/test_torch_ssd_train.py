@@ -666,8 +666,7 @@ def test_train_ssd_validates_each_epoch_and_drives_plateau(monkeypatch):
     assert (plateau.best, plateau.num_bad, plateau.scale) == (
         ref.best, ref.num_bad, ref.scale) and ref.best is not None
     for kw, item in ((dict(mesh=object()), "item 12"),
-                     (dict(tp="spatial"), "item 12"),
-                     (dict(device_transform=lambda b: b), "item 8")):
+                     (dict(tp="spatial"), "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             pipe.train_ssd([batch], None, params, model=model, **kw)
     for field, item in (("checkpoint_path", "item 12"),
