@@ -13,7 +13,13 @@ share parameters:
   per-class top-k, kernel K1 (``ops/pallas_nms.py``), global top-k;
 - ``"fused"``: kernel K2, the whole chain in one call
   (``ops/pallas_detout.py``);
-- ``"auto"``: ``"fused"`` on CUDA, ``"xla"`` on the CPU.
+- ``"auto"``: ``"fused"`` on CUDA (``"pallas"`` when ``approx_topk`` is
+  set, as the reference), ``"xla"`` on the CPU.
+
+``approx_topk`` asks the unfused path for an approximate per-class top-k
+at ``approx_recall``.  The port's selection is the exact stable top-k,
+which meets any recall target in (0, 1]; what the flag still changes is
+the backend ``"auto"`` picks on the card.
 
 Where ``"fused"`` (asked for, or picked by ``"auto"``) meets a geometry
 whose select block does not fit K2's shared memory, ``detection_output``
@@ -46,7 +52,8 @@ BACKENDS = ("auto", "xla", "pallas", "fused")
 @dataclasses.dataclass(frozen=True)
 class DetectionOutputParam:
     """Reference ``PostProcessParam``; same fields and defaults as the
-    JAX package's.  ``approx_topk`` is not ported yet and raises."""
+    JAX package's.  ``approx_recall`` must lie in (0, 1] when
+    ``approx_topk`` is set."""
 
     n_classes: int = 21
     background_id: int = 0
@@ -156,12 +163,13 @@ def resolve_backend(param: DetectionOutputParam, device: torch.device) -> str:
     if param.backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, "
                          f"got {param.backend!r}")
-    if param.approx_topk:
-        raise NotImplementedError(
-            "approx_topk is not ported yet (ROADMAP.md, Queue 1: "
-            "'approx_topk' under the deferred serve-side items)")
+    if param.approx_topk and not 0.0 < param.approx_recall <= 1.0:
+        raise ValueError(f"approx_recall must lie in (0, 1], got "
+                         f"{param.approx_recall}")
     if param.backend == "auto":
-        return "fused" if device.type == "cuda" else "xla"
+        if device.type != "cuda":
+            return "xla"
+        return "pallas" if param.approx_topk else "fused"
     return param.backend
 
 

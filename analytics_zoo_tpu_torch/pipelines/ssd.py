@@ -19,9 +19,10 @@ padded to ``max_gt`` (``RoiImageToBatch``).
 on the device for one batch; :func:`run_serving_loop` keeps a window of
 batches in flight; :class:`Validator` and :class:`SSDMeanAveragePrecision`
 measure mAP; :func:`train_ssd` is the reference's training entry point.
-The yuv420 wire and packed staging (deferred item e), int8 tiers (item
-7) and sharded serving or training (item 12) are not ported yet
-(ROADMAP.md, Queue 1).
+:func:`ssd_serving_tiers` gives ``serving.ServingRuntime`` its three
+rungs (fp, int8 weights, int8 with a smaller ``keep_topk``).  The yuv420
+wire and packed staging (deferred item e) and sharded serving or
+training (item 12) are not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -364,13 +365,31 @@ class SSDPredictor:
     """Inference (reference ``SSDPredictor.scala:30``): forward + softmax
     + DetectionOutput, detections rescaled to the original image size via
     ``im_info``.  The model is moved to ``device`` (the GPU unless
-    ``device="cpu"``)."""
+    ``device="cpu"``).
+
+    ``quantize``: ``False`` (fp serving), ``True`` / ``"weight"`` (int8
+    weights dequantized in the forward: the fp arithmetic on 4x smaller
+    weights) or ``"int8"`` (int8 × int8 → int32 convolutions on dynamic
+    per-tensor activation scales); see ``utils.quantize``.  A quantized
+    predictor serves a quantized copy of ``model`` (``quantize_model``)
+    and keeps no reference to ``model``, so the caller can release the
+    fp32 weights."""
 
     def __init__(self, model: nn.Module, param: PreProcessParam,
                  post: Optional[DetectionOutputParam] = None,
-                 n_classes: int = 21, compute_dtype=None, device=None):
+                 n_classes: int = 21, compute_dtype=None, quantize=False,
+                 device=None):
+        if quantize not in (False, True, "weight", "int8"):
+            raise ValueError(f"quantize must be False, True, 'weight' or "
+                             f"'int8', got {quantize!r}")
         self.device = resolve_device(device)
+        if quantize:
+            from analytics_zoo_tpu_torch.utils.quantize import quantize_model
+
+            model = quantize_model(
+                model, compute="int8" if quantize == "int8" else "dequant")
         self.model = model.to(self.device).eval()
+        self.quantize = quantize
         self.param = param
         self.post = post or DetectionOutputParam(n_classes=n_classes)
         priors, variances = build_priors(config_for(param.resolution))
@@ -388,7 +407,8 @@ class SSDPredictor:
         new.post = dataclasses.replace(self.post, keep_topk=k)
         return new
 
-    def _detect(self, inputs, h, w) -> torch.Tensor:
+    def _detect(self, inputs, h, w, post: DetectionOutputParam
+                ) -> torch.Tensor:
         x = torch.as_tensor(inputs).to(self.device, non_blocking=True)
         if x.dtype == torch.uint8:
             # uint8 staging: 4x fewer host→device bytes, normalize here
@@ -396,14 +416,14 @@ class SSDPredictor:
         loc, conf = self._eval_step(x)
         probs = torch.softmax(conf, dim=-1)
         dets = detection_output(loc, probs, self._priors, self._variances,
-                                self.post)
+                                post)
         return scale_detections(dets, h, w)
 
     def detect_normalized(self, inputs) -> torch.Tensor:
         """Forward + softmax + DetectionOutput → (B, K, 6) detections with
         normalized boxes, on the device."""
         ones = torch.ones(inputs.shape[0], device=self.device)
-        return self._detect(inputs, ones, ones)
+        return self._detect(inputs, ones, ones, self.post)
 
     def _detect_device(self, batch: Dict) -> torch.Tensor:
         """Enqueue one batch; returns the (B, K, 6) device tensor without
@@ -412,7 +432,7 @@ class SSDPredictor:
         # original size = current / scale
         h = info[:, 0] / np.maximum(info[:, 2], 1e-8)
         w = info[:, 1] / np.maximum(info[:, 3], 1e-8)
-        return self._detect(batch["input"], h, w)
+        return self._detect(batch["input"], h, w, self.post)
 
     def detect_batch(self, batch: Dict) -> np.ndarray:
         return self._detect_device(batch).cpu().numpy()
@@ -453,13 +473,15 @@ class Validator:
     batch's detections from :meth:`SSDPredictor.detect_normalized`, a
     window of batches in flight (``overlap_window``, as
     :func:`run_serving_loop`), each read back and scored by ``evaluator``,
-    the results merged.  The int8 modes are not ported yet (ROADMAP.md
-    Queue 1 item 7)."""
+    the results merged.  ``quantize`` goes to the :class:`SSDPredictor`,
+    so the int8 serving modes are evaluated as the fp path is."""
 
     def __init__(self, model: nn.Module, param: PreProcessParam,
                  evaluator: Optional[MeanAveragePrecision] = None,
-                 post: Optional[DetectionOutputParam] = None, device=None):
-        self.predictor = SSDPredictor(model, param, post=post, device=device)
+                 post: Optional[DetectionOutputParam] = None,
+                 quantize=False, device=None):
+        self.predictor = SSDPredictor(model, param, post=post,
+                                      quantize=quantize, device=device)
         self.evaluator = evaluator or MeanAveragePrecision()
 
     def test(self, dataset) -> DetectionResult:
@@ -621,3 +643,76 @@ def train_ssd(train_set, val_set, params: TrainParams,
                                     mode="max", min_lr=1e-5))
     make_optimizer(optim, Trigger.max_epoch(params.max_epoch)).optimize()
     return model
+
+
+# Relative service time of both int8 rungs against the fp rung, the
+# median ms of a batch of 8 through the runtime over the fp rung's: int8
+# 1.009 and int8_topk50 1.008 in one run, 1.003 and 1.005 in another, on
+# an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py's ssd_serving
+# line, rung_speed_vs_fp; PERF.md §6).  The two rungs differ by noise,
+# so they share one value.  Above 1.0 a rung is not cheaper: the fp32
+# convolutions are bound by arithmetic, not by the weights' bytes.
+# ServingRuntime.snapshot() reports it; nothing schedules by it yet.
+INT8_SPEED = 1.01
+
+
+def ssd_serving_tiers(model: nn.Module, param: PreProcessParam,
+                      post: Optional[DetectionOutputParam] = None,
+                      n_classes: int = 21, compute_dtype=None,
+                      degraded_topk: int = 50, specs=None,
+                      device=None) -> List:
+    """Degradation rungs for ``serving.ServingRuntime``: three
+    ``ServingTier`` s over ``SSDPredictor``, cheapest last.
+
+    - tier 0 ``fp``: full-precision weights, the full ``keep_topk``;
+    - tier 1 ``int8``: int8 weights dequantized in the forward
+      (``quantize=True``);
+    - tier 2 ``int8_topk<k>``: tier 1's predictor and quantized model
+      with ``keep_topk=degraded_topk``, a bounded cut of the kept rows.
+
+    Every rung runs the DetectionOutput backend ``post`` selects (K2 on
+    the card with the default ``"auto"``).  Requests carry preprocessed
+    images (``{"input": (H, W, 3) float32}``, the batcher's FIXED
+    bucket), and a rung's forward returns the batch's (B, K, 6) rows as
+    numpy, read back.  ``device_program()`` gives the rung's detect
+    callable and example arguments of its shapes, its
+    ``DetectionOutputParam`` last.  Sharded serving (``specs``) is
+    ROADMAP.md Queue 1 item 12."""
+    from analytics_zoo_tpu_torch.serving.ladder import ServingTier
+
+    if specs is not None:
+        raise NotImplementedError("ssd_serving_tiers(specs=...) is not "
+                                  "ported yet (ROADMAP.md Queue 1 item 12)")
+    full = SSDPredictor(model, param, post=post, n_classes=n_classes,
+                        compute_dtype=compute_dtype, device=device)
+    int8 = SSDPredictor(model, param, post=post, n_classes=n_classes,
+                        compute_dtype=compute_dtype, quantize=True,
+                        device=device)
+    low = int8.set_top_k(degraded_topk)
+
+    def fwd(pred: SSDPredictor) -> Callable[[Dict], np.ndarray]:
+        def forward(batch: Dict) -> np.ndarray:
+            return pred.detect_normalized(batch["input"]).cpu().numpy()
+        return forward
+
+    def program(pred: SSDPredictor) -> Callable[[], tuple]:
+        def device_program():
+            res = pred.param.resolution
+            x = torch.zeros((1, res, res, 3), device=pred.device)
+            ones = torch.ones(1, device=pred.device)
+            return pred._detect, (x, ones, ones, pred.post)
+        return device_program
+
+    return [
+        ServingTier("fp", fwd(full), speed=1.0,
+                    quality_note="full precision, full NMS top-K",
+                    device_program=program(full)),
+        ServingTier("int8", fwd(int8), speed=INT8_SPEED,
+                    quality_note="int8 weights, fp math",
+                    device_program=program(int8)),
+        ServingTier(f"int8_topk{degraded_topk}", fwd(low),
+                    speed=INT8_SPEED,
+                    quality_note=f"int8 + keep_topk={degraded_topk} "
+                                 "(fewer kept detections per image)",
+                    device_program=program(low)),
+    ]

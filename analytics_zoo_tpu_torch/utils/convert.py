@@ -126,3 +126,62 @@ def ds2_params_from_jax(variables: Mapping, model: nn.Module
     transposed, ``bn_*/BatchNorm_0/{scale,bias,mean,var}``,
     ``birnn{i}/{fwd,bwd}/body/h2h``)."""
     return flax_variables_to_state_dict(variables, model)
+
+
+def _is_qtensor(x) -> bool:
+    return hasattr(x, "q") and hasattr(x, "scale")
+
+
+def _flatten_quantized(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    """A nested tree → {'vgg/conv1_2/kernel': leaf}, stopping at leaves
+    that are quantized tensors (anything with ``q`` and ``scale``)."""
+    if isinstance(tree, Mapping):
+        out: Dict[str, Any] = {}
+        for k, v in tree.items():
+            out.update(_flatten_quantized(v, f"{prefix}/{k}" if prefix
+                                          else str(k)))
+        return out
+    return {prefix: tree}
+
+
+def quantized_params_from_jax(qvariables: Mapping, model: nn.Module
+                              ) -> Dict[str, Any]:
+    """The reference's quantized SSD variables (``{"params": ...}``,
+    nested or slash-flattened; each quantized kernel anything with
+    numpy-convertible ``q`` (int8, HWIO) and ``scale``, as the
+    reference's ``QTensor`` or its npz artifact read by
+    ``utils.quantize.load_quantized_npz``) → the port's quantized params
+    for ``model`` (the fp ``SSDVgg``): torch names, kernels as
+    :class:`~analytics_zoo_tpu_torch.utils.quantize.QTensor` in OIHW
+    (Dense kernels transposed), the scales unchanged.  Ready for
+    ``quantize_model(model, qparams=...)``.  The names go through
+    :func:`ssd_params_from_jax`'s map; an unused leaf, a model entry
+    without one, or a shape that does not fit raises."""
+    from analytics_zoo_tpu_torch.utils.quantize import QTensor
+
+    want = model.state_dict()
+    out: Dict[str, Any] = {}
+    extra = []
+    for key, leaf in _flatten_quantized(qvariables.get("params", {})).items():
+        name = _torch_name("params", key)
+        if name not in want or name in out:
+            extra.append(f"params/{key}")
+            continue
+        quantized = _is_qtensor(leaf)
+        value = np.asarray(leaf.q) if quantized else np.asarray(leaf)
+        if key.split("/")[-1] == "kernel":
+            value = (conv_hwio_to_oihw(value) if value.ndim == 4
+                     else value.T)
+        if tuple(value.shape) != tuple(want[name].shape):
+            raise ValueError(f"params/{key}: shape {tuple(value.shape)} "
+                             f"does not fit {name} "
+                             f"{tuple(want[name].shape)}")
+        value = torch.from_numpy(np.ascontiguousarray(value))
+        out[name] = (QTensor(value, torch.from_numpy(
+            np.asarray(leaf.scale, np.float32).copy())) if quantized
+            else value.to(torch.float32))
+    missing = sorted(set(want) - set(out))
+    if extra or missing:
+        raise KeyError(f"quantized flax → torch bridge: unused leaves "
+                       f"{extra}, model entries without a leaf {missing}")
+    return out

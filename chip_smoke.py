@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SSD300 and DeepSpeech2 serving paths, its
-DeepSpeech2 CTC training path, its SSD300 training path and its SSD
-input path from JPEG records once on one NVIDIA GPU.
+DeepSpeech2 CTC training path, its SSD300 training path, its SSD input
+path from JPEG records and SSD online serving through ``ServingRuntime``
+once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -141,6 +142,32 @@ Phases, one JSON line each; any failure exits non-zero:
    update, and ``predict(records)`` per batch of 8 (over the 16, and
    a batch of the 300² records and one of the others apart), with the
    host resize of a 412² or 360 x 720 image to 300²;
+6d. ssd_serving: SSD online serving at full width (SSD300, 21 classes,
+   batch 8, ``DetectionOutputParam`` defaults, seeded weights).
+   ``ssd_serving_tiers`` (fp, int8 weights, int8 with ``keep_topk`` 50)
+   behind ``ServingRuntime(n_replicas=2, max_batch=8,
+   queue_capacity=64)`` on the monotonic clock: 64 seeded float32
+   requests submitted, then ``drain()``, every launch counter set to 0
+   just before and read just after (K2 once a batch, K1 never); every
+   request done, the accounting balanced, no fence, failure or shed; the
+   rows equal to the fp predictor called directly.  Each rung forced in
+   turn through ``pump(force=True)`` in ``SERVE_WINDOWS`` interleaved
+   windows of one batch (ms a batch, the readback included; K2 once a
+   window on every rung), each rung's rows equal to its predictor's, the
+   fp rung's within K2's tolerances of the CPU "xla" path on the same
+   forward outputs.  The int8 modes: the weight-only rung against fp32
+   on the dequantized weights within ``DEQUANT_TOL``; the forwards of
+   fp32 (TF32 off), bf16, the weight-only rung and
+   ``SSDPredictor(quantize="int8")`` by CUDA events; the card's int32
+   accumulators equal to the plain float64 version on ``INT8_LAYERS``,
+   each layer timed in int8, fp32 and bf16; the weights' bytes on the
+   card, fp32 against int8, each predictor built from a CPU model.  A
+   predictor with ``DetectionOutputParam(approx_topk=True)``: K1 and no
+   K2 in a ``torch.profiler`` trace and by the counters, the rows equal to
+   the fused path's.  An overload burst (``BURST_ROUNDS`` of 3 batches'
+   worth of submits against a queue of 2): its sheds, the ladder's
+   transitions and the tiers that served, the accounting balanced, no
+   request failed and no replica fenced;
 7. the ``kernels`` line, then the device line last.
 
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -267,6 +294,17 @@ CODEC_PSNR_MIN = 35.0
 # max-abs in pixel levels: the same fp32 elementwise ops, the two
 # products summed in another order (TF32 off)
 AUG_CARD_TOL = 1e-3
+# SSD serving through ServingRuntime: seeded requests, each rung forced
+# in interleaved windows of one batch, the overload burst's rounds of 3
+# batches' worth of submits against a queue of 2
+SERVE_REQUESTS, SERVE_WINDOWS, BURST_ROUNDS = 64, 5, 12
+# the int8 x int8 layers held equal to the plain version: conv1_2 (the
+# largest im2col), fc6 (dilation 6), a conf head (N = 84, padded to 88)
+# and conv6_2 (stride 2)
+INT8_LAYERS = ("vgg.conv1_2", "vgg.fc6", "conf_0", "extra.conv6_2")
+# the weight-only rung against fp32 on the dequantized weights: the same
+# weights and the same convolutions, relative max-abs
+DEQUANT_TOL = 1e-5
 
 
 def emit(phase: str, **fields) -> None:
@@ -1449,6 +1487,314 @@ def ssd_input_phase(dev, smi):
             "predict": predict_launches["fused_detection_output"]}
 
 
+def rel_err(got, want) -> float:
+    """Relative max-abs error of ``got`` against ``want``."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp(min=1e-12)).item()
+
+
+def ssd_serving_phase(dev, smi):
+    """SSD online serving through ``ServingRuntime`` on the card (phase
+    ``ssd_serving``); returns K1's and K2's launches on its path."""
+    import statistics
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from analytics_zoo_tpu_torch.models.ssd import build_ssd_vgg
+    from analytics_zoo_tpu_torch.ops import pallas_detout, pallas_nms
+    from analytics_zoo_tpu_torch.ops.detection_output import (
+        DetectionOutputParam, detection_output)
+    from analytics_zoo_tpu_torch.pipelines.ssd import (BGR_MEANS,
+                                                       PreProcessParam,
+                                                       SSDPredictor,
+                                                       ssd_serving_tiers)
+    from analytics_zoo_tpu_torch.resilience.errors import ServerOverloaded
+    from analytics_zoo_tpu_torch.serving import (LadderPolicy, MonotonicClock,
+                                                 ServingRuntime)
+    from analytics_zoo_tpu_torch.utils import quantize
+
+    rng = np.random.RandomState(31)
+
+    def images(n):
+        """Seeded requests: random pixels, mean-subtracted, float32."""
+        return [rng.randint(0, 256, (300, 300, 3)).astype(np.float32)
+                - np.float32(BGR_MEANS) for _ in range(n)]
+
+    def zero_counters():
+        pallas_nms.nms_sweep.launches = 0
+        pallas_detout.fused_detection_output.launches = 0
+
+    def read_counters():
+        torch.cuda.synchronize()
+        return {"nms_sweep": pallas_nms.nms_sweep.launches,
+                "fused_detection_output":
+                    pallas_detout.fused_detection_output.launches}
+
+    model = build_ssd_vgg(21, 300, device=dev, seed=0)
+    param = PreProcessParam(batch_size=BATCH, resolution=300)
+    tiers = ssd_serving_tiers(model, param, device=dev)
+    # each rung's predictor, called directly below
+    preds = [t.device_program()[0].__self__ for t in tiers]
+    win = np.stack(images(BATCH))
+    for t in tiers:                                 # cuDNN / cuBLAS warm-up
+        t.forward({"input": win})
+
+    # -- 1. requests through the runtime: the slice's main path ----------
+    rt = ServingRuntime(tiers, n_replicas=2, max_batch=BATCH,
+                        queue_capacity=SERVE_REQUESTS,
+                        default_deadline_s=3600.0, clock=MonotonicClock())
+    requests = images(SERVE_REQUESTS)
+    zero_counters()
+    t0 = time.perf_counter()
+    for x in requests:
+        rt.submit({"input": x})
+    rt.drain()
+    launches = read_counters()
+    served_s = time.perf_counter() - t0
+    acct = rt.accounting()
+    served = rt.snapshot()["metrics"]
+    fences = [e for e in rt.pool.events if e["kind"] == "replica_fenced"]
+    if (acct["by_state"] != {"done": SERVE_REQUESTS} or acct["unaccounted"]
+            or fences or served["failed"] or served["shed_total"]):
+        raise AssertionError(f"runtime: accounting {acct}, fences {fences}, "
+                             f"metrics {served}")
+    if (launches["fused_detection_output"] != served["batches"]
+            or launches["nms_sweep"]):
+        raise AssertionError(f"runtime: {served['batches']} batches "
+                             f"launched {launches} (want K2 once each)")
+    rows = np.stack([r.result for r in rt.requests])
+    if rows.shape != (SERVE_REQUESTS, 200, 6) or not np.isfinite(rows).all():
+        raise AssertionError(f"runtime rows {rows.shape}")
+    if not (np.isin(rows[..., 0], np.arange(-1, 21)).all()
+            and (rows[..., 1] >= 0).all() and (rows[..., 1] <= 1).all()):
+        raise AssertionError("runtime: class ids or scores out of range")
+    direct = np.concatenate([
+        preds[0].detect_normalized(np.stack(requests[i:i + BATCH]))
+        .cpu().numpy() for i in range(0, SERVE_REQUESTS, BATCH)])
+    if not np.array_equal(rows, direct):
+        raise AssertionError("runtime rows differ from the fp predictor's")
+
+    # -- 2. each rung forced in turn, in interleaved windows -------------
+    rung_ms = {t.name: [] for t in tiers}
+    rung_launches = {t.name: {} for t in tiers}
+    rung_rows = {}
+    for _ in range(SERVE_WINDOWS):
+        for i, t in enumerate(tiers):
+            rt.ladder.tier = i
+            for x in win:
+                rt.submit({"input": x})
+            torch.cuda.synchronize()
+            zero_counters()
+            t0 = time.perf_counter()
+            if rt.pump(force=True) != 1:
+                raise AssertionError(f"rung {t.name}: not one batch")
+            rung_ms[t.name].append((time.perf_counter() - t0) * 1e3)
+            for k, v in read_counters().items():
+                rung_launches[t.name][k] = rung_launches[t.name].get(k, 0) + v
+            done = rt.requests[-BATCH:]
+            if {r.tier for r in done} != {i}:
+                raise AssertionError(f"rung {t.name} served at tiers "
+                                     f"{[r.tier for r in done]}")
+            rung_rows[t.name] = np.stack([r.result for r in done])
+    if any(n != {"nms_sweep": 0, "fused_detection_output": SERVE_WINDOWS}
+           for n in rung_launches.values()):
+        raise AssertionError(f"forced rungs launched {rung_launches} (want "
+                             f"K2 once a window on every rung)")
+    for pred, t in zip(preds, tiers):
+        want = pred.detect_normalized(win).cpu().numpy()
+        if not np.array_equal(rung_rows[t.name], want):
+            raise AssertionError(f"rung {t.name}: rows through the runtime "
+                                 "differ from its predictor's")
+    topk_rows = rung_rows[tiers[2].name]
+    if topk_rows.shape != (BATCH, 50, 6):
+        raise AssertionError(f"int8_topk50 rows {topk_rows.shape}")
+    x8 = torch.from_numpy(win).to(dev)
+    with torch.inference_mode():
+        loc, conf = preds[0]._eval_step(x8)
+        probs = torch.softmax(conf, -1)
+    plain = detection_output(
+        loc.cpu(), probs.cpu(), preds[0]._priors.cpu(),
+        preds[0]._variances.cpu(),
+        dataclasses.replace(preds[0].post, backend="xla"))
+    fp_vs_plain = rows_err(torch.from_numpy(rung_rows["fp"]), plain)
+
+    # -- 3. the int8 modes -----------------------------------------------
+    qparams = quantize.quantize_params(model)
+    deq_model = build_ssd_vgg(21, 300, device=dev, seed=0)
+    deq_model.load_state_dict(quantize.dequantize_params(qparams))
+    deq = SSDPredictor(deq_model, param, device=dev)
+    int8 = SSDPredictor(model, param, quantize="int8", device=dev)
+    bf16 = SSDPredictor(model, param, compute_dtype="bf16", device=dev)
+    forwards = {"fp32": preds[0], "bf16": bf16, "int8_weight": preds[1],
+                "int8_dequantized_fp32": deq, "int8_compute": int8}
+    outs = {}
+    with torch.inference_mode():
+        for name, pred in forwards.items():
+            outs[name] = pred._eval_step(x8)
+    weight_only_err = max(rel_err(a, b) for a, b in zip(
+        outs["int8_weight"], outs["int8_dequantized_fp32"]))
+    if weight_only_err > DEQUANT_TOL:
+        raise AssertionError(f"weight-only rung against fp32 on the "
+                             f"dequantized weights: {weight_only_err} "
+                             f"(tol {DEQUANT_TOL})")
+    vs_fp32 = {name: {"loc": rel_err(o[0], outs["fp32"][0]),
+                      "conf": rel_err(o[1], outs["fp32"][1])}
+               for name, o in outs.items() if name != "fp32"}
+    quantize.int8_matmul.launches = 0
+    forward_ms = {}
+    with torch.inference_mode():
+        for name, pred in forwards.items():
+            forward_ms[name] = cuda_ms(lambda: pred._eval_step(x8), 10)
+    gemms_per_forward = quantize.int8_matmul.launches // 12
+    # each rung and the other modes end to end: a batch of 8, readback
+    # included, host clock
+    e2e_ms = {}
+    for name, pred in (("int8_compute", int8), ("bf16", bf16)):
+        pred.detect_normalized(win).cpu()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            pred.detect_normalized(win).cpu()
+        e2e_ms[name] = (time.perf_counter() - t0) * 1e3 / 5
+    # the card's int32 accumulators against the plain float64 version on
+    # the activations the fp model feeds these layers
+    caps = {}
+    hooks = [model.get_submodule(n).register_forward_hook(
+        lambda m, inp, out, n=n: caps.__setitem__(n, inp[0].detach()))
+        for n in INT8_LAYERS]
+    with torch.inference_mode():
+        model(x8)
+    for h in hooks:
+        h.remove()
+    int8_layers = {}
+    for n in INT8_LAYERS:
+        m = int8.model.get_submodule(n)
+        geo = (m.stride, m.padding, m.dilation)
+        qa, _ = quantize.quantize_activation(caps[n])
+        got = quantize.int8_conv2d(qa, m.weight_q, *geo)
+        want = quantize.int8_conv2d_plain(qa, m.weight_q, *geo)
+        if not torch.equal(got, want):
+            raise AssertionError(f"int8 conv {n}: accumulators differ from "
+                                 f"the plain version by "
+                                 f"{(got - want).abs().max().item()}")
+        w32 = m.weight()
+        x32, xbf = caps[n], caps[n].to(torch.bfloat16)
+        int8_layers[n] = {
+            "input": list(caps[n].shape), "weight": list(m.weight_q.shape),
+            "gemm_mnk": [got.numel() // got.shape[1], got.shape[1],
+                         m.weight_q[0].numel()],
+            "equal": True,
+            "int8_ms": cuda_ms(lambda: quantize.int8_conv2d(
+                qa, m.weight_q, *geo), 10),
+            "quantize_activation_ms": cuda_ms(
+                lambda: quantize.quantize_activation(caps[n]), 10),
+            "fp32_ms": cuda_ms(lambda: torch.nn.functional.conv2d(
+                x32, w32, None, *geo), 10),
+            "bf16_ms": cuda_ms(lambda: torch.nn.functional.conv2d(
+                xbf, w32.to(torch.bfloat16), None, *geo), 10)}
+    # weights on the card: fp32 against int8, each built from a CPU model
+    cpu_model = build_ssd_vgg(21, 300, device="cpu", seed=0)
+    weight_mb = {}
+    for name, kw in (("fp32", {}), ("int8", {"quantize": True})):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        pred = SSDPredictor(copy.deepcopy(cpu_model), param, device=dev,
+                            **kw)
+        torch.cuda.synchronize()
+        weight_mb[name] = {
+            "peak": (torch.cuda.max_memory_allocated() - base) / 1e6,
+            "held": (torch.cuda.memory_allocated() - base) / 1e6,
+            "tensors": sum(t.numel() * t.element_size() for t in
+                           list(pred.model.parameters())
+                           + list(pred.model.buffers())) / 1e6}
+        del pred
+
+    # -- 4. approx_topk: the unfused path, K1 ----------------------------
+    approx = SSDPredictor(model, param,
+                          post=DetectionOutputParam(approx_topk=True),
+                          device=dev)
+    approx.detect_normalized(win)
+    zero_counters()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = approx.detect_normalized(win)
+        torch.cuda.synchronize()
+    approx_launches = read_counters()
+    traced = {k: sum(ev.count for ev in prof.key_averages() if k in ev.key)
+              for k in ("nms_sweep_kernel", "select_kernel", "merge_kernel")}
+    if not (traced["nms_sweep_kernel"] > 0 and approx_launches["nms_sweep"] > 0
+            and traced["select_kernel"] == traced["merge_kernel"] == 0
+            and approx_launches["fused_detection_output"] == 0):
+        raise AssertionError(f"approx_topk: traced {traced}, counted "
+                             f"{approx_launches} (want K1 > 0, K2 0)")
+    approx_err = rows_err(got, preds[0].detect_normalized(win))
+
+    # -- 5. a short overload burst ---------------------------------------
+    burst = ServingRuntime(tiers, n_replicas=2, max_batch=BATCH,
+                           queue_capacity=2 * BATCH, default_deadline_s=0.25,
+                           decision_every=2,
+                           ladder_policy=LadderPolicy(down_after=1,
+                                                      up_after=2),
+                           clock=MonotonicClock())
+    rejected = 0
+    for _ in range(BURST_ROUNDS):
+        for j in range(3 * BATCH):
+            try:
+                burst.submit({"input": win[j % BATCH]})
+            except ServerOverloaded:
+                rejected += 1
+        burst.pump()
+    burst.drain()
+    burst_acct = burst.accounting()
+    burst_metrics = burst.snapshot()["metrics"]
+    burst_fences = [e for e in burst.pool.events
+                    if e["kind"] == "replica_fenced"]
+    # sheds and ladder steps depend on timing; a failed request or a
+    # fence does not: Replica.forward turns any fault into a failover
+    if burst_acct["unaccounted"] or burst_metrics["failed"] or burst_fences:
+        raise AssertionError(f"overload burst: accounting {burst_acct}, "
+                             f"failed {burst_metrics['failed']}, fences "
+                             f"{burst_fences}")
+    served_by_tier = {}
+    for r in burst.requests:
+        if r.state == "done":
+            served_by_tier[r.tier] = served_by_tier.get(r.tier, 0) + 1
+
+    emit("ssd_serving", nvidia_smi=smi, requests=SERVE_REQUESTS,
+         n_replicas=2, batches=served["batches"], launches=launches,
+         served_s=served_s, accounting=acct,
+         fences=len(fences), failed=served["failed"],
+         shed=served["shed_total"],
+         latency_p50_s=served["latency_by_tier"]["0"]["p50_s"],
+         latency_p99_s=served["latency_by_tier"]["0"]["p99_s"],
+         rung_ms_per_batch={k: statistics.median(v)
+                            for k, v in rung_ms.items()},
+         rung_ms_windows=rung_ms, rung_launches=rung_launches,
+         rung_speed_vs_fp={k: statistics.median(v)
+                           / statistics.median(rung_ms["fp"])
+                           for k, v in rung_ms.items()},
+         tier_speed_hints=[t.speed for t in tiers],
+         fp_rows_vs_cpu_plain=fp_vs_plain,
+         weight_only_vs_dequantized_fp32=weight_only_err,
+         weight_only_tolerance=DEQUANT_TOL,
+         forward_rel_err_vs_fp32=vs_fp32, forward_ms_per_batch=forward_ms,
+         e2e_ms_per_batch=e2e_ms, int8_gemms_per_forward=gemms_per_forward,
+         int8_layers=int8_layers, weight_mb=weight_mb,
+         approx_topk={"traced": traced, "launches": approx_launches,
+                      "rows_max_abs_err_vs_fused": approx_err},
+         burst={"rejected": rejected, "accounting": burst_acct,
+                "failed": burst_metrics["failed"],
+                "fences": len(burst_fences),
+                "shed_by_cause": burst_metrics["shed_by_cause"],
+                "transitions": burst.ladder.events,
+                "served_by_tier": served_by_tier},
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+    return {"k2_launches": launches["fused_detection_output"],
+            "k1_launches": approx_launches["nms_sweep"]}
+
+
 def main() -> int:
     import torch
 
@@ -2061,12 +2407,19 @@ def main() -> int:
     # -- 6c. the SSD input path from records: the fifth main path --------
     ssd_input = ssd_input_phase(dev, smi)
 
+    # -- 6d. SSD online serving through the runtime: the sixth -----------
+    ssd_serving = ssd_serving_phase(dev, smi)
+
     # -- 7. kernels, then the device line last ----------------------------
     kernels = [
         {"name": "nms_sweep", "route": "cuda",
          "source": "analytics_zoo_tpu_torch/csrc/nms_sweep.cu",
          "replaces": "analytics_zoo_tpu/ops/pallas_nms.py:91",
-         "launches": launches["nms_sweep"], "max_abs_err": k1_err,
+         "launches": launches["nms_sweep"] + ssd_serving["k1_launches"],
+         "launches_by_path": {
+             "ssd_serving": launches["nms_sweep"],
+             "ssd_serving_approx_topk": ssd_serving["k1_launches"]},
+         "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
         {"name": "fused_detection_output", "route": "cuda",
@@ -2074,9 +2427,10 @@ def main() -> int:
          "replaces": "analytics_zoo_tpu/ops/pallas_detout.py:242",
          "launches": (launches["fused_detection_output"]
                       + ssd_train["k2_launches"] + ssd_input["validation"]
-                      + ssd_input["predict"]),
+                      + ssd_input["predict"] + ssd_serving["k2_launches"]),
          "launches_by_path": {
              "ssd_serving": launches["fused_detection_output"],
+             "ssd_serving_runtime": ssd_serving["k2_launches"],
              "ssd_train_validation": ssd_train["k2_launches"],
              "ssd_input_validation": ssd_input["validation"],
              "ssd_input_predict": ssd_input["predict"]},

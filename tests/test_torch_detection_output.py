@@ -292,10 +292,21 @@ class TestDispatch:
         _assert_rows_match(got.numpy(), np.asarray(want))
 
     def test_approx_topk_raises(self):
+        """``approx_topk`` runs (the port's exact stable top-k meets any
+        recall target; parity in test_torch_serving.py) and raises only
+        on a recall target outside (0, 1]."""
         loc, conf, priors, variances, kw = _case("dense_0")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            detection_output(T(loc), T(conf), T(priors), T(variances),
-                             DetectionOutputParam(**kw, approx_topk=True))
+        for recall in (0.0, 1.5):
+            with pytest.raises(ValueError, match="approx_recall"):
+                detection_output(T(loc), T(conf), T(priors), T(variances),
+                                 DetectionOutputParam(**kw, approx_topk=True,
+                                                      approx_recall=recall))
+        got = detection_output(T(loc), T(conf), T(priors), T(variances),
+                               DetectionOutputParam(**kw, approx_topk=True,
+                                                    backend="pallas"))
+        want = detection_output(T(loc), T(conf), T(priors), T(variances),
+                                DetectionOutputParam(**kw, backend="pallas"))
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
     def test_unknown_backend_raises(self):
         loc, conf, priors, variances, kw = _case("dense_0")

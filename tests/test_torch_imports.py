@@ -37,8 +37,9 @@ def test_scan_catches_a_forbidden_import(tmp_path):
 
 
 def test_port_imports_pull_in_no_jax():
-    """Importing every module of the port, the DS2 slice's included, in a
-    fresh interpreter loads no module of JAX, flax or the JAX package."""
+    """Importing every module of the port, the DS2 and serving slices'
+    included, in a fresh interpreter loads no module of JAX, flax or the
+    JAX package."""
     import subprocess
     import sys
 
@@ -48,6 +49,14 @@ def test_port_imports_pull_in_no_jax():
         for p in (ROOT / "analytics_zoo_tpu_torch").rglob("*.py"))
     assert "analytics_zoo_tpu_torch.pipelines.deepspeech2" in mods
     assert "analytics_zoo_tpu_torch.ops.pallas_rnn" in mods
+    # the serving slice: the runtime and what it stands on, quantization
+    assert {"analytics_zoo_tpu_torch.serving.runtime",
+            "analytics_zoo_tpu_torch.serving.replica",
+            "analytics_zoo_tpu_torch.serving.autoscale",
+            "analytics_zoo_tpu_torch.resilience.watchdog",
+            "analytics_zoo_tpu_torch.obs.registry",
+            "analytics_zoo_tpu_torch.utils.clock",
+            "analytics_zoo_tpu_torch.utils.quantize"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "

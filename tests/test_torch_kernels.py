@@ -843,3 +843,71 @@ def test_ds2_training_pallas_matches_blocked():
         g = out["pallas"][1][k]
         scale = top if k in ("conv1.bias", "proj0.bias") else r.norm().item()
         assert (g - r).norm().item() <= 1e-3 * scale, k
+
+
+# -- the int8 x int8 convolution (im2col + torch._int_mm on the card) --------
+
+# (C, O, k, stride, pad, dilation, B, H): conv1_2's shape at batch 1, fc6,
+# a conf head (N = 84, padded to 88), conv6_2 (stride 2), conv8_2 (pad 0)
+# and conv9_2 at batch 1 (one output row: M padded past 16)
+INT8_CONV_CASES = [
+    (64, 64, 3, 1, 1, 1, 1, 300), (512, 1024, 3, 1, 6, 6, 2, 19),
+    (512, 84, 3, 1, 1, 1, 2, 38), (256, 512, 3, 2, 1, 1, 2, 19),
+    (128, 256, 3, 1, 0, 1, 2, 5), (128, 256, 3, 1, 0, 1, 1, 3),
+]
+
+
+@pytest.mark.parametrize("C,O,k,s,p,d,B,H", INT8_CONV_CASES)
+def test_int8_conv_equals_plain_on_card(C, O, k, s, p, d, B, H):
+    """The card's int32 accumulators equal the plain float64 version's
+    (exact integer sums), and the GEMM ran on the card."""
+    from analytics_zoo_tpu_torch.utils import quantize
+
+    dev = _cuda()
+    g = torch.Generator().manual_seed(C * 1000 + O)
+    qa = torch.randint(-127, 128, (B, C, H, H), generator=g,
+                       dtype=torch.int8).to(dev)
+    qw = torch.randint(-127, 128, (O, C, k, k), generator=g,
+                       dtype=torch.int8).to(dev)
+    before = quantize.int8_matmul.launches
+    got = quantize.int8_conv2d(qa, qw, s, p, d)
+    want = quantize.int8_conv2d_plain(qa, qw, s, p, d)
+    assert quantize.int8_matmul.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+def test_int8_gemm_refuses_a_k_not_multiple_of_8():
+    """No fallback: a K that torch._int_mm refuses raises on the card."""
+    from analytics_zoo_tpu_torch.utils import quantize
+
+    dev = _cuda()
+    a = torch.ones(32, 12, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        quantize.int8_matmul(a, torch.ones(16, 12, dtype=torch.int8,
+                                           device=dev))
+
+
+def test_quantized_ssd_on_card_matches_cpu():
+    """The int8 x int8 SSD300 forward on the card against the same
+    quantized model on the CPU: the integer sums agree exactly, so what
+    differs is conv1_1 (fp32, another summation order) and the spread of
+    that through the dynamic scales (measured 7.3e-4 of the output's
+    largest magnitude on an NVIDIA H100 80GB HBM3 at 700.00 W); within
+    5e-3 of each output."""
+    from analytics_zoo_tpu_torch.models.ssd import SSDVgg
+    from analytics_zoo_tpu_torch.utils import quantize
+
+    dev = _cuda()
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = quantize.quantize_model(SSDVgg(21, 300, device="cpu", seed=0),
+                                  compute="int8")
+    card = quantize.quantize_model(SSDVgg(21, 300, device="cpu", seed=0),
+                                   compute="int8").to(dev)
+    x = torch.from_numpy(np.random.RandomState(3).rand(1, 300, 300, 3)
+                         .astype(np.float32) * 255 - 120)
+    with torch.inference_mode():
+        want = cpu(x)
+        got = card(x.to(dev))
+    for g, w in zip(got, want):
+        assert (g.cpu() - w).abs().max() <= 5e-3 * w.abs().max()
