@@ -1,10 +1,11 @@
 """Pipelines of the port: the SSD input path, serving (with its
 ``ServingRuntime`` rungs), validation and training, DeepSpeech2
-serving and CTC training, detection evaluation and the VOC/COCO
+transcription, online and streaming serving and CTC training, detection evaluation and the VOC/COCO
 readers."""
 
 from analytics_zoo_tpu_torch.pipelines.deepspeech2 import (
-    DS2Param, DeepSpeech2Pipeline, ds2_ctc_criterion, ds2_padding_metric,
+    DS2Param, DeepSpeech2Pipeline, StreamingDS2, ds2_ctc_criterion,
+    ds2_padding_metric, ds2_serving_tiers, ds2_streaming_tiers,
     load_asr_train_set, make_ds2_model, train_ds2)
 from analytics_zoo_tpu_torch.pipelines.evaluation import (
     CocoMeanAveragePrecision, DetectionResult, MeanAveragePrecision,

@@ -1,10 +1,13 @@
 """DeepSpeech2 pipelines (counterpart of ``pipelines/deepspeech2.py``).
 
-Serving: audio → TimeSegmenter chunks tagged ``(audio_id, audio_seq)`` →
-featurize → forward → CTC decode → re-join per utterance in
-``audio_seq`` order → WER/CER.  Training: ``load_asr_train_set`` (host
+Batch transcription: audio → TimeSegmenter chunks tagged ``(audio_id,
+audio_seq)`` → featurize → forward → CTC decode → re-join per utterance
+in ``audio_seq`` order → WER/CER.  Training: ``load_asr_train_set`` (host
 featurize, optionally length-bucketed) → ``train_ds2`` (CTC loss, Adam,
-the recurrences through K3 and K4 on the card).
+the recurrences through K3 and K4 on the card).  Online serving:
+``ds2_serving_tiers`` (one featurized utterance a request) and
+``ds2_streaming_tiers`` (sessions of raw-sample chunks through
+:class:`StreamingDS2`) behind ``serving.ServingRuntime``.
 
 All segments are zero-padded to ``segment_seconds`` and forwarded in
 groups of ``batch_size``.  The padded segments go through the model
@@ -12,9 +15,9 @@ WITHOUT ``n_frames``, as in the reference.  The greedy, device-featurize
 path runs featurize → forward → argmax on the card for one batch and
 reads back only the (B, T') ids, with a window of batches in flight.
 
-Not ported yet (ROADMAP.md Queue 1 items 8, 9, 12 and 13):
-``StreamingDS2``, the serving tiers, the sequence-parallel forward and
-training, sharded training, the multiprocess loader and checkpoints.
+Not ported yet (ROADMAP.md Queue 1 items 8, 9 and 12): the
+sequence-parallel forward and training, sharded training, the
+multiprocess loader and checkpoints.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from analytics_zoo_tpu_torch.models.deepspeech2 import (DeepSpeech2,
 from analytics_zoo_tpu_torch.parallel.optim import Adam, Trigger
 from analytics_zoo_tpu_torch.parallel.train import Optimizer, make_eval_step
 from analytics_zoo_tpu_torch.transform.audio import (
+    ALPHABET,
     SAMPLE_RATE,
     WINDOW_SIZE,
     WINDOW_STRIDE,
@@ -45,9 +49,13 @@ from analytics_zoo_tpu_torch.transform.audio import (
     VocabDecoder,
     beam_search_decode,
     best_path_decode,
+    dft_specgram,
     featurize,
+    frame_signal,
     ids_to_text,
     make_featurizer_device,
+    mel_features,
+    mel_filterbank_matrix,
     read_audio,
 )
 from analytics_zoo_tpu_torch.utils.device import resolve_device
@@ -386,3 +394,330 @@ def train_ds2(model: DeepSpeech2, dataset, epochs: int = 10,
             .set_optim_method(Adam(lr))
             .set_end_when(Trigger.max_epoch(epochs))
             .optimize())
+
+
+class StreamingDS2:
+    """Stateful streaming ASR: feed successive sample chunks, get
+    incremental transcript pieces.
+
+    Exactness contract: the emitted log-probs equal the batch forward of
+    the same (unidirectional) model over the whole utterance, because
+    every boundary carries its true state:
+
+    - featurization (host numpy): a 240-sample window-overlap residue
+      carries across chunks, so the frames are the whole utterance's;
+    - conv front-end (kernel 11, stride 2, SAME(5, 5) in batch mode): the
+      stream starts with 5 zero context frames (the left SAME pad),
+      carries the last 9 real mel frames between blocks, and ``flush()``
+      appends the 5-zero right pad; the model runs the conv VALID on the
+      extended block, so output indices line up;
+    - RNN layers: the hidden state of each layer carried across blocks,
+      on the model's device (``DeepSpeech2(bidirectional=False)`` called
+      with ``carry=`` and ``return_carry=True``; K3 with its ``h0`` under
+      ``rnn_engine="pallas"``); only the log-probs are read back;
+    - decoding: greedy CTC with the collapse state (previous argmax id)
+      carried, so repeats spanning a boundary collapse correctly.
+
+    Blocks are fixed: ``chunk_frames`` mel frames (remainder buffered),
+    so the forward sees three shapes: the first block, the steady block
+    and the flush block (padded to the steady shape, its emissions cut
+    to the true remaining count).  Latency: ``chunk_frames`` frames of
+    10 ms plus the conv's 5-frame lookahead.  The model is moved to
+    ``device`` (the GPU unless ``device="cpu"``)."""
+
+    _CTX = 9            # real mel frames carried between blocks
+    _PAD = 5            # zero frames standing in for SAME padding at ends
+
+    def __init__(self, model: DeepSpeech2, n_mels: int = 13,
+                 chunk_frames: int = 100, keep_log_probs: bool = False,
+                 device=None):
+        if getattr(model, "bidirectional", True):
+            raise ValueError("streaming needs DeepSpeech2(bidirectional="
+                             "False) — the backward pass needs the future")
+        if chunk_frames < 6 or chunk_frames % 2:
+            raise ValueError("chunk_frames must be even and >= 6")
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.n_mels = n_mels
+        self.chunk_frames = chunk_frames
+        # retain emitted per-frame log-probs (exactness testing, lattice
+        # consumers); unbounded for endless streams, so off by default
+        self.keep_log_probs = keep_log_probs
+        self._fb = mel_filterbank_matrix(n_mels, WINDOW_SIZE)
+        self.reset()
+
+    def reset(self) -> None:
+        self._samples = np.zeros((0,), np.float32)
+        self._frames = np.zeros((0, self.n_mels), np.float32)
+        self._ctx: Optional[np.ndarray] = None     # None = stream start
+        self._h = {"h": tuple(
+            torch.zeros((1, self.model.hidden), device=self.device)
+            for _ in range(self.model.n_rnn_layers))}
+        self._prev_id = 0                          # CTC collapse carry
+        self._pieces: List[str] = []
+        self._log_probs: List[np.ndarray] = []
+        self._total_frames = 0                     # real mel frames seen
+        self._emitted = 0                          # output frames emitted
+        self._finished = False
+
+    # -- internals ---------------------------------------------------------
+    def _apply(self, x: torch.Tensor, carry):
+        """One block through the model: ``(log_probs, carry)``."""
+        with torch.inference_mode():
+            return self.model(x, carry=carry, return_carry=True)
+
+    def _featurize_new(self, samples: np.ndarray) -> np.ndarray:
+        """Consume buffered samples into mel frames, keeping the
+        window-overlap residue (window 400, stride 160: 240 overlap)."""
+        self._samples = np.concatenate([self._samples, samples])
+        n = max((len(self._samples) - WINDOW_SIZE) // WINDOW_STRIDE + 1, 0)
+        if n == 0:
+            return np.zeros((0, self.n_mels), np.float32)
+        take = WINDOW_SIZE + WINDOW_STRIDE * (n - 1)
+        frames = frame_signal(self._samples[:take])
+        self._samples = self._samples[WINDOW_STRIDE * n:]
+        return mel_features(dft_specgram(frames), n_mels=self.n_mels,
+                            fb=self._fb)
+
+    def _run(self, ext: np.ndarray, n_emit: Optional[int] = None) -> str:
+        log_probs, self._h = self._apply(
+            torch.from_numpy(ext[None]).to(self.device), self._h)
+        lp = log_probs[0].cpu().numpy()
+        if n_emit is not None:
+            lp = lp[:n_emit]
+        self._emitted += lp.shape[0]
+        if self.keep_log_probs:
+            self._log_probs.append(lp)
+        return self._decode(lp)
+
+    def _update_ctx(self, real_frames: np.ndarray) -> None:
+        """ctx = the last 9 real frames of the stream (zero-left-padded
+        while fewer have been seen)."""
+        prev = (self._ctx if self._ctx is not None
+                else np.zeros((self._CTX, self.n_mels), np.float32))
+        self._ctx = np.concatenate([prev, real_frames])[-self._CTX:]
+
+    def _decode(self, log_probs: np.ndarray) -> str:
+        out = []
+        for t in np.argmax(log_probs, axis=-1):
+            if t != self._prev_id and t != 0:
+                out.append(ALPHABET[int(t)])
+            self._prev_id = int(t)
+        piece = "".join(out)
+        self._pieces.append(piece)
+        return piece
+
+    # -- public API --------------------------------------------------------
+    def accept(self, samples: np.ndarray) -> str:
+        """Feed raw samples; returns the transcript piece decoded from any
+        completed fixed-size frame blocks (possibly "")."""
+        if self._finished:
+            raise RuntimeError("stream finished — call reset() first")
+        frames = self._featurize_new(np.asarray(samples, np.float32))
+        if frames.shape[0]:
+            self._frames = np.concatenate([self._frames, frames])
+            self._total_frames += frames.shape[0]
+        pieces = []
+        C = self.chunk_frames
+        while self._frames.shape[0] >= C:
+            chunk, self._frames = self._frames[:C], self._frames[C:]
+            if self._ctx is None:
+                ext = np.concatenate(
+                    [np.zeros((self._PAD, self.n_mels), np.float32), chunk])
+            else:
+                ext = np.concatenate([self._ctx, chunk])
+            self._update_ctx(chunk)
+            pieces.append(self._run(ext))
+        return "".join(pieces)
+
+    def flush(self) -> str:
+        """End of stream: process the buffered frames and the right SAME
+        pad, padded up to the steady block shape (emissions cut to the
+        true remaining count, so the tail stays exact)."""
+        if self._finished:
+            return ""
+        self._finished = True
+        r = self._frames.shape[0]
+        ctx = (np.zeros((self._PAD, self.n_mels), np.float32)
+               if self._ctx is None else self._ctx)
+        # one flush shape whatever the remainder: r <= C - 1 (accept
+        # drains full blocks) and ctx is 5 or 9 frames, so pad >= PAD
+        target = self.chunk_frames + self._CTX + self._PAD
+        pad = target - ctx.shape[0] - r
+        assert pad >= self._PAD, (pad, r)
+        ext = np.concatenate([ctx, self._frames,
+                              np.zeros((pad, self.n_mels), np.float32)])
+        self._frames = np.zeros((0, self.n_mels), np.float32)
+        expected_total = (self._total_frames + 1) // 2
+        n_emit = max(expected_total - self._emitted, 0)
+        return self._run(ext, n_emit=n_emit) if n_emit else ""
+
+    @property
+    def transcript(self) -> str:
+        return "".join(self._pieces)
+
+    @property
+    def log_probs(self) -> np.ndarray:
+        """Concatenated emitted log-probs (requires keep_log_probs)."""
+        if not self._log_probs:
+            return np.zeros((0, 0), np.float32)
+        return np.concatenate(self._log_probs, axis=0)
+
+
+def ds2_serving_tiers(model: DeepSpeech2, param: Optional[DS2Param] = None,
+                      degraded_beam: Optional[int] = None, specs=None,
+                      device=None) -> List:
+    """Degradation rungs for ``serving.ServingRuntime``: the prefix-beam
+    width is DS2's counterpart of the SSD ladder's NMS top-K, decode work
+    cut under overload at a bounded, explicit quality cost.
+
+    Requests carry one featurized utterance (``{"input": (n_frames,
+    n_mels) float32}``, ``length=n_frames``); the batcher pads the time
+    axis to a bucket edge and hands the forward ``{"input": (B, edge,
+    n_mels), "n_frames": (B,)}``.  The forward runs the model on
+    ``device`` (the GPU unless ``device="cpu"``; K3 six times a batch
+    under ``rnn_engine="pallas"``) with ``n_frames``, so that a row's
+    padding reaches neither direction of its recurrences, reads the
+    log-probs back and decodes only ``ds2_valid_out_frames(n)`` frames a
+    row, on the host.  (The reference forwards the padded rows without
+    ``n_frames``: its transcript of a row shorter than its edge depends
+    on the edge.)
+
+    Tiers, cheapest last: prefix beam of ``param.beam_width``, a reduced
+    beam (``degraded_beam``, default ``max(4, width // 4)``), greedy best
+    path.  With ``param.decoder == "greedy"`` the ladder is the one
+    greedy tier.  ``device_program()`` gives ``(eval_step,
+    example_args)``, the forward every rung shares.  Sharded serving
+    (``specs``) is ROADMAP.md Queue 1 item 12."""
+    from analytics_zoo_tpu_torch.serving.ladder import ServingTier
+
+    if specs is not None:
+        raise NotImplementedError("ds2_serving_tiers(specs=...) is not "
+                                  "ported yet (ROADMAP.md Queue 1 item 12)")
+    param = param or DS2Param()
+    dev = resolve_device(device)
+    model = model.to(dev).eval()
+    eval_step = make_eval_step(model)
+
+    def device_program(edge: int = 64):
+        return eval_step, ((torch.zeros((1, edge, param.n_mels),
+                                        device=dev),
+                            torch.full((1,), edge, dtype=torch.int32,
+                                       device=dev)),)
+
+    def forward_with(decode: Callable[[np.ndarray], str]):
+        def forward(batch: Dict) -> List[str]:
+            feats = np.asarray(batch["input"], np.float32)
+            n_frames = batch.get("n_frames")
+            if n_frames is None:
+                n_frames = np.full((feats.shape[0],), feats.shape[1],
+                                   np.int32)
+            log_probs = eval_step((
+                torch.from_numpy(feats).to(dev),
+                torch.from_numpy(np.asarray(n_frames, np.int32)).to(dev))
+            ).cpu().numpy()
+            texts: List[str] = []
+            for i in range(feats.shape[0]):
+                n = int(n_frames[i])
+                if n <= 0:          # batch-axis padding row
+                    texts.append("")
+                    continue
+                texts.append(decode(log_probs[i, :ds2_valid_out_frames(n)]))
+            return texts
+        return forward
+
+    if param.decoder == "greedy":
+        return [ServingTier("greedy", forward_with(best_path_decode),
+                            speed=1.0, quality_note="best-path decode",
+                            device_program=device_program)]
+    width = param.beam_width
+    low = degraded_beam if degraded_beam is not None else max(4, width // 4)
+    return [
+        ServingTier(f"beam{width}",
+                    forward_with(lambda lp: beam_search_decode(
+                        lp, beam_width=width)),
+                    speed=1.0,
+                    quality_note=f"prefix beam search, width {width}",
+                    device_program=device_program),
+        ServingTier(f"beam{low}",
+                    forward_with(lambda lp: beam_search_decode(
+                        lp, beam_width=low)),
+                    speed=0.85,
+                    quality_note=f"reduced beam width {low} (bounded "
+                                 "WER cost under overload)",
+                    device_program=device_program),
+        ServingTier("greedy", forward_with(best_path_decode), speed=0.7,
+                    quality_note="best-path decode (no beam) — the "
+                                 "cheapest rung",
+                    device_program=device_program),
+    ]
+
+
+def ds2_streaming_tiers(model: DeepSpeech2, n_mels: int = 13,
+                        chunk_frames: int = 100, device=None) -> List:
+    """One replica's tier instances for streaming ASR sessions: a
+    stateful forward that owns this replica's session store,
+    ``{session id: StreamingDS2}``, so the carry lives on the pinned
+    replica.
+
+    Batch contract (what a ``ModelConfig(streaming=True)`` plan
+    assembles): ``{"input": (B, edge) float32 raw samples, "n_samples":
+    (B,) true lengths, "session": (B,) int64 ids (-1 padding), "final":
+    (B,) int8 flush flags}``.  Each row goes to its session's
+    :class:`StreamingDS2` (one forward at B = 1 a block); a ``final``
+    row appends the stream's flush tail and retires the session.
+    ``evict_session`` drops a dead session's stream.  Use as the
+    per-replica factory::
+
+        ModelConfig(name="ds2-stream", streaming=True,
+                    tiers=ds2_streaming_tiers(model),
+                    tier_factory=lambda rid: ds2_streaming_tiers(model),
+                    pad_key="input", length_key="n_samples",
+                    bucket_edges=[16000])
+    """
+    from analytics_zoo_tpu_torch.serving.ladder import ServingTier
+
+    dev = resolve_device(device)
+    model = model.to(dev).eval()
+    store: Dict[int, StreamingDS2] = {}
+
+    def forward(batch: Dict) -> List[str]:
+        sessions = batch["session"]
+        final = batch["final"]
+        lens = batch.get("n_samples")
+        texts: List[str] = []
+        for i in range(len(sessions)):
+            sid = int(sessions[i])
+            if sid < 0:             # batch-axis padding row
+                texts.append("")
+                continue
+            stream = store.get(sid)
+            if stream is None:
+                stream = StreamingDS2(model, n_mels=n_mels,
+                                      chunk_frames=chunk_frames, device=dev)
+                store[sid] = stream
+            n = (int(lens[i]) if lens is not None
+                 else batch["input"].shape[1])
+            piece = (stream.accept(np.asarray(batch["input"][i][:n],
+                                              np.float32))
+                     if n > 0 else "")
+            if int(final[i]):
+                piece += stream.flush()
+                store.pop(sid, None)
+            texts.append(piece)
+        return texts
+
+    def device_program():
+        """The steady block's forward (carry in, carry out)."""
+        stream = StreamingDS2(model, n_mels=n_mels, chunk_frames=chunk_frames,
+                              device=dev)
+        ext = torch.zeros((1, chunk_frames + StreamingDS2._CTX, n_mels),
+                          device=dev)
+        return stream._apply, (ext, stream._h)
+
+    return [ServingTier(
+        "stream", forward, speed=1.0,
+        quality_note=f"stateful streaming session ({chunk_frames}-frame "
+                     f"blocks, exact to the whole-utterance forward)",
+        device_program=device_program,
+        evict_session=lambda sid: store.pop(sid, None))]

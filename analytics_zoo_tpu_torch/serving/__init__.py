@@ -15,7 +15,9 @@ predictable latency.
   rungs (SSD: fp, int8, int8 with a smaller ``keep_topk``);
 - :mod:`metrics`: :class:`ServingMetrics`;
 - :mod:`runtime`: :class:`ServingRuntime`, the synchronous scheduler
-  over them, single model and serial.
+  over them, serial; ``models=[ModelConfig(...)]`` multiplexes several
+  models on one pool, with per-model ladders and SLOs, weighted-EDF
+  dispatch and session-affine streaming sessions.
 """
 
 from analytics_zoo_tpu_torch.serving.autoscale import OCCUPANCY_KNEE, Reshape
@@ -28,10 +30,10 @@ from analytics_zoo_tpu_torch.serving.ladder import (DegradationLadder,
                                                     LadderPolicy, ServingTier)
 from analytics_zoo_tpu_torch.serving.metrics import ServingMetrics, percentile
 from analytics_zoo_tpu_torch.serving.replica import Replica, ReplicaPool
-from analytics_zoo_tpu_torch.serving.request import (TERMINAL_STATES,
+from analytics_zoo_tpu_torch.serving.request import (DEFAULT_MODEL,
+                                                     TERMINAL_STATES,
                                                      AdmissionQueue, Request)
-from analytics_zoo_tpu_torch.serving.runtime import (DEFAULT_MODEL,
-                                                     ModelConfig,
+from analytics_zoo_tpu_torch.serving.runtime import (ModelConfig,
                                                      ServingRuntime)
 
 __all__ = [k for k in dir() if not k.startswith("_")]

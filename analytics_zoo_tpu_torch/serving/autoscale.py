@@ -1,9 +1,9 @@
 """The autoscaler's shared definitions (counterpart of
 ``serving/autoscale.py``): the width-grow decision :class:`Reshape` and
 the occupancy knee its rationale names.  The policy loop
-(``AutoscalePolicy``, ``Autoscaler``) that turns SLO burn rates into
-``ReplicaPool.resize`` calls waits for the SLO engine and the fleet
-runtime (ROADMAP.md Queue 1 item 13).
+(``AutoscalePolicy``, ``Autoscaler``) that turns the SLO engine's
+``scale_hint`` into ``ReplicaPool.resize`` calls is ROADMAP.md Queue 1
+item 13.
 """
 
 from __future__ import annotations

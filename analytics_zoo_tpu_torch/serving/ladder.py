@@ -12,8 +12,8 @@ decision windows step one tier down, ``up_after`` consecutive clean
 windows one tier up (asymmetric by default, so the tier does not
 oscillate).  The ladder is host state driven by ``observe_window``;
 what a tier means is the runtime's business (:class:`ServingTier`).
-The reference's SLO-driven input (``observe_decision``) comes with the
-SLO engine (ROADMAP.md Queue 1 item 13).
+With an SLO engine armed the runtime feeds ``observe_decision``: a window
+is overloaded when an SLO burns on both of its burn-rate windows.
 """
 
 from __future__ import annotations
@@ -31,13 +31,19 @@ class ServingTier:
     the relative service time the batcher may consult (1.0 = tier 0's),
     a note on what quality it gives up, and ``device_program``: a
     zero-argument callable returning ``(fn, example_args)``, the tier's
-    device program and example inputs of its shapes."""
+    device program and example inputs of its shapes.
+
+    ``evict_session(sid)`` (streaming session tiers): drop one session's
+    carry from this tier instance's store; the runtime calls it on the
+    pinned replica when a session dies without its final chunk served,
+    so a failed session leaks no state there."""
 
     name: str
     forward: Callable[[Dict[str, Any]], Any]
     speed: float = 1.0
     quality_note: str = ""
     device_program: Optional[Callable[[], tuple]] = None
+    evict_session: Optional[Callable[[int], None]] = None
 
 
 @dataclasses.dataclass
@@ -102,6 +108,16 @@ class DegradationLadder:
             logger.warning("serving ladder: tier %s to %d (window %d)",
                            action, self.tier, self.windows)
         return action
+
+    def observe_decision(self, decision,
+                         detail: Optional[Dict[str, Any]] = None) -> str:
+        """Feed one :class:`~analytics_zoo_tpu_torch.obs.slo.SloDecision`
+        in place of a raw overloaded flag: the window is overloaded when
+        an SLO burns; the transition event names the SLOs that drove
+        it."""
+        d = {"slo_burning": list(decision.burning),
+             "scale_hint": decision.scale_hint, **(detail or {})}
+        return self.observe_window(decision.overloaded, detail=d)
 
     def snapshot(self) -> Dict[str, Any]:
         return {"tier": self.tier, "windows": self.windows,

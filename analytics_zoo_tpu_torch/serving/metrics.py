@@ -4,8 +4,9 @@
 Counters and reservoirs in a :class:`~analytics_zoo_tpu_torch.obs.
 registry.MetricRegistry`, no clock reads of their own: every timestamp
 comes from the runtime's injected clock, so a virtual-clock run gives
-the same snapshot every time.  The reference's per-model labels belong
-to the multiplexed runtime (ROADMAP.md Queue 1 item 13).
+the same snapshot every time.  In a multiplexed runtime each outcome
+also lands under model-labeled names (``serve/<metric>/model=<m>...``),
+which the per-model SLOs read; the unlabeled totals are always kept.
 """
 
 from __future__ import annotations
@@ -35,25 +36,40 @@ class ServingMetrics:
         self._tiers: List[int] = []     # tiers with >= 1 completion, sorted
 
     # -- feed ----------------------------------------------------------------
-    def on_submit(self) -> None:
+    def on_submit(self, model: Optional[str] = None) -> None:
         self._r.counter("serve/submitted").inc()
+        if model is not None:
+            self._r.counter(f"serve/submitted/model={model}").inc()
 
-    def on_shed(self, cause: str) -> None:
+    def on_shed(self, cause: str, model: Optional[str] = None) -> None:
         self._r.counter(f"serve/shed/cause={cause}").inc()
+        if model is not None:
+            self._r.counter(f"serve/shed/model={model}/cause={cause}").inc()
 
-    def on_complete(self, latency_s: float, tier: int, missed: bool) -> None:
+    def on_complete(self, latency_s: float, tier: int, missed: bool,
+                    model: Optional[str] = None) -> None:
         self._r.counter("serve/completed").inc()
         tier = int(tier)
         if tier not in self._tiers:
             self._tiers = sorted(self._tiers + [tier])
         self._r.histogram(f"serve/latency_s/tier={tier}",
                           max_samples=self.reservoir).observe(latency_s)
+        if model is not None:
+            self._r.counter(f"serve/completed/model={model}").inc()
+            self._r.histogram(f"serve/latency_s/model={model}/tier={tier}",
+                              max_samples=self.reservoir).observe(latency_s)
         if missed:
             self.deadline_misses += 1
             self._r.counter("serve/deadline_misses_completed_late").inc()
+            if model is not None:
+                self._r.counter(
+                    f"serve/deadline_misses_completed_late/model={model}"
+                ).inc()
 
-    def on_fail(self) -> None:
+    def on_fail(self, model: Optional[str] = None) -> None:
         self._r.counter("serve/failed").inc()
+        if model is not None:
+            self._r.counter(f"serve/failed/model={model}").inc()
 
     def on_batch(self, n_valid: int, max_batch: int,
                  queue_depth: int) -> None:
@@ -107,15 +123,43 @@ class ServingMetrics:
     def shed_total(self) -> int:
         return sum(self.shed_by_cause.values())
 
-    def miss_rate(self) -> Optional[float]:
+    def _model_shed(self, model: str) -> int:
+        prefix = f"serve/shed/model={model}/cause="
+        return sum(m.value for name, m in self._r.metrics().items()
+                   if name.startswith(prefix))
+
+    def miss_rate(self, model: Optional[str] = None) -> Optional[float]:
         """Deadline-miss rate over the requests with a terminal state: a
         shed or timed-out request missed by definition, a completed-late
-        one in the client's hands."""
-        terminal = self.completed + self.failed + self.shed_total
+        one in the client's hands.  ``model`` narrows it to one
+        multiplexed model's requests."""
+        if model is None:
+            completed, failed, shed = (self.completed, self.failed,
+                                       self.shed_total)
+            late = self.deadline_misses
+        else:
+            completed = self._count(f"serve/completed/model={model}")
+            failed = self._count(f"serve/failed/model={model}")
+            shed = self._model_shed(model)
+            late = self._count(
+                f"serve/deadline_misses_completed_late/model={model}")
+        terminal = completed + failed + shed
         if terminal == 0:
             return None
-        return (self.deadline_misses + self.failed
-                + self.shed_total) / terminal
+        return (late + failed + shed) / terminal
+
+    def model_snapshot(self, model: str) -> Dict[str, Any]:
+        """One multiplexed model's outcomes: counts and miss rate (its
+        latencies stay in the registry's model-labeled reservoirs)."""
+        return {
+            "submitted": self._count(f"serve/submitted/model={model}"),
+            "completed": self._count(f"serve/completed/model={model}"),
+            "failed": self._count(f"serve/failed/model={model}"),
+            "shed": self._model_shed(model),
+            "completed_late": self._count(
+                f"serve/deadline_misses_completed_late/model={model}"),
+            "deadline_miss_rate": self.miss_rate(model=model),
+        }
 
     def snapshot(self) -> Dict[str, Any]:
         lat = {}

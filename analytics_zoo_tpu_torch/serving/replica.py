@@ -22,11 +22,17 @@ clock: every sleep inside a supervised forward goes through
 (a new replica joins healthy: eager PyTorch has no per-shape compile to
 pre-warm); shrinking drains a replica and retires it once idle.
 
+**Sessions**: a batch with an ``affinity`` (a streaming session's
+chunks) runs on its pinned replica or fails; it never fails over, since
+the session's carry lives on that replica.  ``resize`` never drains a
+replica in ``protected`` (the runtime's session-pinned set) while another
+victim exists.
+
 Supervision is pull mode on the runtime's clock: ``beat`` when the
 forward starts, ``check`` when it returns.  Live-weight hot swap and its
 rollout machine need checkpoints (ROADMAP.md Queue 1 item 12); the
-parallel service model, quarantine and mesh-slice replicas belong to the
-fleet runtime (item 13).
+parallel service model, quarantine and mesh-slice replicas are ROADMAP.md
+Queue 1 item 13.
 """
 
 from __future__ import annotations
@@ -37,23 +43,35 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 from analytics_zoo_tpu_torch.resilience.errors import ReplicaWedged, StallError
 from analytics_zoo_tpu_torch.resilience.watchdog import StallWatchdog
 from analytics_zoo_tpu_torch.serving.batcher import AssembledBatch
+from analytics_zoo_tpu_torch.serving.request import DEFAULT_MODEL
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
+
 
 class Replica:
     """One supervised model replica.
 
-    ``forward_fns[tier]`` is the tier's ``batch dict -> rows`` callable.
-    ``service_hook(batch, rid)`` (the virtual-clock path) returns the
-    simulated service seconds of a dispatch; with ``None`` the real
-    forward's duration is what the watchdog sees."""
+    ``forward_fns`` maps the tier index to the tier's ``batch dict ->
+    rows`` callable: a list for a single-model runtime, or ``{model:
+    [tier fns]}`` for a multiplexed one.  ``service_hook(batch, rid)``
+    (the virtual-clock path) returns the simulated service seconds of a
+    dispatch; with ``None`` the real forward's duration is what the
+    watchdog sees.  ``tier_objs`` (set by the runtime) holds the
+    per-model :class:`~analytics_zoo_tpu_torch.serving.ladder.
+    ServingTier` instances this replica serves, through which a dead
+    session's state is evicted."""
 
-    def __init__(self, rid: int, forward_fns: Sequence[Callable], clock,
+    def __init__(self, rid: int, forward_fns, clock,
                  wedge_timeout_s: float,
                  service_hook: Optional[Callable[..., float]] = None,
                  fence_budget_s: Optional[float] = None):
         self.rid = rid
-        self.forward_fns = list(forward_fns)
+        if isinstance(forward_fns, dict):
+            self.forward_fns: Dict[str, List[Callable]] = {
+                m: list(fns) for m, fns in forward_fns.items()}
+        else:
+            self.forward_fns = {DEFAULT_MODEL: list(forward_fns)}
+        self.tier_objs: Dict[str, List[Any]] = {}
         self.clock = clock
         self.service_hook = service_hook
         self.fence_budget_s = fence_budget_s
@@ -68,10 +86,11 @@ class Replica:
 
     def _fn_for(self, batch: AssembledBatch) -> Callable:
         try:
-            return self.forward_fns[batch.tier]
-        except IndexError:
-            raise ReplicaWedged(f"replica {self.rid}: no forward for tier "
-                                f"{batch.tier}") from None
+            return self.forward_fns[batch.model][batch.tier]
+        except (KeyError, IndexError):
+            raise ReplicaWedged(
+                f"replica {self.rid}: no forward for model "
+                f"{batch.model!r} tier {batch.tier}") from None
 
     def sleep_guarded(self, seconds: float) -> None:
         """Advance the clock inside a supervised forward, bounded by the
@@ -206,6 +225,12 @@ class ReplicaPool:
         self._rr += 1
         return r
 
+    def replica_by_rid(self, rid: int) -> Optional[Replica]:
+        for r in self.replicas:
+            if r.rid == rid:
+                return r
+        return None
+
     def next_event_t(self, now: float) -> Optional[float]:
         """The next instant pool state changes (a restart completes)."""
         ts = [r.restart_at for r in self.replicas
@@ -214,16 +239,19 @@ class ReplicaPool:
         return min(ts) if ts else None
 
     # -- resize --------------------------------------------------------------
-    def resize(self, n: int) -> Dict[str, List[int]]:
+    def resize(self, n: int, protected: Sequence[int] = ()
+               ) -> Dict[str, List[int]]:
         """Grow or shrink the pool to ``n`` non-draining replicas.
 
         Growth builds replicas through ``replica_factory``; they join
         healthy.  Shrinking drains victims (fenced first, then the
-        highest-rid healthy replica) and retires them once idle.
-        Returns the rids acted on."""
+        highest-rid healthy replica; never one in ``protected``, the
+        session-pinned replicas) and retires them once idle.  Returns
+        the rids acted on."""
         if n < 1:
             raise ValueError(f"pool size must be >= 1, got {n}")
         self._revive()
+        protected_set = set(protected)
         actions: Dict[str, List[int]] = {"grown": [], "drained": []}
         while self.size < n:
             if self.replica_factory is None:
@@ -238,11 +266,17 @@ class ReplicaPool:
                          "state": r.state})
             actions["grown"].append(rid)
         while self.size > n:
-            victims = [r for r in self.replicas if r.state == "fenced"]
+            # a fenced replica is the cheapest victim, unless sessions are
+            # pinned to it: it restarts with their state intact
+            victims = [r for r in self.replicas if r.state == "fenced"
+                       and r.rid not in protected_set]
             if not victims:
                 victims = sorted((r for r in self.replicas
-                                  if r.state == "healthy"),
+                                  if r.state == "healthy"
+                                  and r.rid not in protected_set),
                                  key=lambda r: -r.rid)
+            if not victims:
+                break                   # everything left is protected
             victim = victims[0]
             victim.state = "draining"
             self._event({"kind": "replica_draining",
@@ -274,7 +308,22 @@ class ReplicaPool:
         """Run ``batch`` on a healthy replica; on :class:`ReplicaWedged`
         fence the replica and re-dispatch exactly once.  Raises
         :class:`ReplicaWedged` when the retry is spent or no healthy
-        replica remains."""
+        replica remains.  A batch with an ``affinity`` runs on that
+        replica or fails: failing over would decode its sessions from
+        zeroed state."""
+        if batch.affinity is not None:
+            self._revive()
+            replica = self.replica_by_rid(batch.affinity)
+            if replica is None or replica.state != "healthy":
+                raise ReplicaWedged(
+                    f"session replica {batch.affinity} unavailable "
+                    f"(state: {replica.state if replica else 'retired'})"
+                    f" — session state lost")
+            try:
+                return self.dispatch_on(replica, batch)
+            except ReplicaWedged as err:
+                self._fence(replica, err)
+                raise
         replica = self.pick()
         if replica is None:
             raise ReplicaWedged("no healthy replica available")

@@ -13,9 +13,6 @@ device time.  Two overload behaviours, both explicit:
   useful one.
 
 Ordering is earliest-deadline-first (EDF), ties in submission order.
-The reference's per-request ``model``, ``session``, ``affinity`` and
-``final`` fields belong to the multiplexed and streaming runtime
-(ROADMAP.md Queue 1 item 13) and are not ported.
 """
 
 from __future__ import annotations
@@ -31,6 +28,10 @@ from analytics_zoo_tpu_torch.resilience.errors import (RequestTimeout,
 #: terminal request states: every submitted request ends in exactly one
 TERMINAL_STATES = ("done", "shed", "timeout", "failed")
 
+#: the model name a single-model runtime serves under; a multiplexed
+#: runtime (``ServingRuntime(models=...)``) keys everything per model
+DEFAULT_MODEL = "default"
+
 
 @dataclasses.dataclass
 class Request:
@@ -38,7 +39,13 @@ class Request:
 
     ``payload`` is a single sample (``{"input": array}``); ``length`` the
     sample's variable-axis length for bucket assignment (``None`` for
-    fixed-shape models); ``deadline_t`` absolute clock time."""
+    fixed-shape models); ``deadline_t`` absolute clock time.
+
+    ``model`` names the multiplexed model the request is for: a batch
+    never mixes models.  A streaming session's chunk also carries
+    ``session`` (its id), ``affinity`` (the rid of the replica that holds
+    the session's carry: such a batch runs there or fails) and ``final``
+    (the chunk that flushes the session)."""
 
     rid: int
     payload: Any
@@ -51,6 +58,10 @@ class Request:
     completed_t: Optional[float] = None
     tier: Optional[int] = None      # degradation tier that served it
     attempts: int = 0               # device dispatches (failover <= 2)
+    model: str = DEFAULT_MODEL
+    session: Optional[int] = None
+    affinity: Optional[int] = None
+    final: bool = False
 
     @property
     def finished(self) -> bool:

@@ -1,5 +1,5 @@
 """The online serving runtime: a request-level API over the predictors
-(counterpart of ``serving/runtime.py``, its single-model serial path).
+(counterpart of ``serving/runtime.py``, its serial path).
 
 One synchronous, clock-driven scheduler over
 
@@ -11,7 +11,9 @@ One synchronous, clock-driven scheduler over
   StallWatchdog supervision, fence, exactly-once failover, restart;
 - :class:`~analytics_zoo_tpu_torch.serving.ladder.DegradationLadder`:
   tier step-down under sustained overload, step-up with hysteresis;
-- :class:`~analytics_zoo_tpu_torch.serving.metrics.ServingMetrics`.
+- :class:`~analytics_zoo_tpu_torch.serving.metrics.ServingMetrics`;
+- optionally :class:`~analytics_zoo_tpu_torch.obs.slo.SloEvaluator`:
+  the ladder then steps on SLO burn instead of the raw shed flag.
 
 Every scheduling decision happens inside :meth:`ServingRuntime.pump`,
 reading time only through the injected clock.  On the card the loop
@@ -20,6 +22,16 @@ and each tier forward ends in its readback; under a
 :class:`~analytics_zoo_tpu_torch.utils.clock.VirtualClock` plus a
 ``service_time`` model the overload and failover story replays the same
 way every run.
+
+**Multiplexed mode**: ``models=[ModelConfig(...), ...]`` in place of
+``tiers`` schedules several models on the shared replica pool: per-model
+batching geometry (models never share a batch), ladders, SLOs whose burn
+rates weight the EDF dispatch order, and service-time EWMAs.  A
+streaming session model (``ModelConfig(streaming=True)``) is served
+through :meth:`ServingRuntime.open_session`, which pins the session to a
+replica (where its carry lives), :meth:`ServingRuntime.submit_chunk`,
+whose per-chunk deadlines are incremental and monotone (so EDF keeps the
+chunks in order), and :meth:`ServingRuntime.close_session`.
 
 Usage::
 
@@ -32,24 +44,26 @@ Usage::
     rt.drain()                                    # flush everything queued
     print(rt.metrics.snapshot())
 
-Not ported, each refused where it is asked for: the fleet mode
-(``models=``, ``parallel_replicas``, ``slice_width > 1``,
-``device_budget``), the SLO engine, autoscaler, chaos injection,
-telemetry spans and device-health sentinel, the compile-cost model of
-pre-warming (``compile_s``), streaming sessions (ROADMAP.md Queue 1
-item 13), and sharded serving (``specs=``) and live
-weight swaps (item 12).
+Not ported, each refused where it is asked for: the parallel service
+model (``parallel_replicas``), mesh-slice replicas (``slice_width > 1``,
+``device_budget``), the autoscaler, chaos injection, telemetry spans,
+the device-health sentinel and the compile-cost model of pre-warming
+(``compile_s``) (ROADMAP.md Queue 1 item 13); sharded serving
+(``specs=``) and live weight swaps (``hot_swap``,
+``ModelConfig.weights_to_tiers``) (item 12).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Set
 
 import numpy as np
 
-from analytics_zoo_tpu_torch.resilience.errors import ReplicaWedged
+from analytics_zoo_tpu_torch.obs.slo import SloEvaluator
+from analytics_zoo_tpu_torch.resilience.errors import (ReplicaWedged,
+                                                       ServerOverloaded)
 from analytics_zoo_tpu_torch.serving.batcher import (AssembledBatch,
                                                      DeadlineBatcher,
                                                      ModelPlan)
@@ -58,25 +72,24 @@ from analytics_zoo_tpu_torch.serving.ladder import (DegradationLadder,
                                                     LadderPolicy, ServingTier)
 from analytics_zoo_tpu_torch.serving.metrics import ServingMetrics
 from analytics_zoo_tpu_torch.serving.replica import Replica, ReplicaPool
-from analytics_zoo_tpu_torch.serving.request import AdmissionQueue, Request
+from analytics_zoo_tpu_torch.serving.request import (DEFAULT_MODEL,
+                                                     AdmissionQueue, Request)
 
-#: the model name a single-model runtime serves under
-DEFAULT_MODEL = "default"
-
-# keyword → the ROADMAP item that ports it; a non-default value raises
-_FLEET = "the fleet runtime, ROADMAP.md Queue 1 item 13"
+_ITEM_13 = "ROADMAP.md Queue 1 item 13"
+_ITEM_12 = "ROADMAP.md Queue 1 item 12"
+# keyword → what it is and the ROADMAP item that ports it; a non-default
+# value raises
 _REFUSED = {
-    "models": _FLEET, "parallel_replicas": _FLEET, "slice_width": _FLEET,
-    "device_budget": _FLEET,
-    "slo": "the SLO engine, ROADMAP.md Queue 1 item 13",
-    "slo_params": "the SLO engine, ROADMAP.md Queue 1 item 13",
-    "autoscaler": "the autoscaler, ROADMAP.md Queue 1 item 13",
-    "chaos": "chaos injection, ROADMAP.md Queue 1 item 13",
-    "obs": "telemetry spans, ROADMAP.md Queue 1 item 13",
-    "health": "the device-health sentinel, ROADMAP.md Queue 1 item 13",
-    "specs": "sharded serving, ROADMAP.md Queue 1 item 12",
-    "compile_s": "the per-geometry compile cost of pre-warming, "
-                 "ROADMAP.md Queue 1 item 13",
+    "parallel_replicas": ("the parallel service model", _ITEM_13),
+    "slice_width": ("mesh-slice replicas", _ITEM_13),
+    "device_budget": ("mesh-slice replicas", _ITEM_13),
+    "autoscaler": ("the autoscaler", _ITEM_13),
+    "chaos": ("chaos injection", _ITEM_13),
+    "obs": ("telemetry spans", _ITEM_13),
+    "health": ("the device-health sentinel", _ITEM_13),
+    "compile_s": ("the per-geometry compile cost of pre-warming",
+                  _ITEM_13),
+    "specs": ("sharded serving", _ITEM_12),
 }
 
 
@@ -86,35 +99,85 @@ def _not_ported(what: str, where: str):
 
 @dataclasses.dataclass
 class ModelConfig:
-    """One model's serving configuration: its degradation rungs
-    (cheapest last), its batching plan and its ladder policy.  A
-    single-model runtime builds one from its own arguments; several on
-    one pool (``models=``) are the fleet runtime."""
+    """One model on the shared pool.
+
+    ``tiers``: its degradation rungs, cheapest last.  ``tier_factory``
+    (optional): ``replica rid -> [ServingTier]`` building per-replica
+    tier instances, so that each replica has its own session store;
+    ``tiers`` stays the template (names, speeds).  ``bucket_edges``,
+    ``pad_key``, ``length_key``, ``max_batch``: the batching plan
+    (:class:`~analytics_zoo_tpu_torch.serving.batcher.ModelPlan`).
+    ``default_deadline_s``: the model's deadline when ``submit`` passes
+    none (``None`` = the runtime's).  ``slos``: its objectives (e.g.
+    :func:`~analytics_zoo_tpu_torch.obs.slo.model_slos`), whose burn
+    rates drive its ladder and its dispatch weight.  ``streaming``: a
+    session model, served through ``open_session``/``submit_chunk``,
+    with ``chunk_deadline_s`` the per-chunk incremental deadline.
+    ``weights_to_tiers`` (live swaps from a checkpoint) is not ported
+    (ROADMAP.md Queue 1 item 12)."""
 
     name: str
     tiers: Sequence[ServingTier]
+    tier_factory: Optional[Callable[[int], Sequence[ServingTier]]] = None
+    weights_to_tiers: Optional[Callable[..., Sequence[ServingTier]]] = None
     bucket_edges: Optional[Sequence[int]] = None
     pad_key: str = "input"
     length_key: Optional[str] = "n_frames"
+    max_batch: Optional[int] = None
+    default_deadline_s: Optional[float] = None
+    slos: Sequence[Any] = ()
+    streaming: bool = False
+    chunk_deadline_s: float = 0.5
     ladder_policy: Optional[LadderPolicy] = None
 
     def __post_init__(self):
         if not self.tiers:
             raise ValueError(f"model {self.name!r} needs at least one tier")
+        if self.weights_to_tiers is not None:
+            _not_ported(f"ModelConfig({self.name!r}, weights_to_tiers=...) "
+                        f"(live weights from a checkpoint)", _ITEM_12)
+        if self.streaming and self.tier_factory is None:
+            raise ValueError(
+                f"streaming model {self.name!r} needs a tier_factory — "
+                f"session carry state must live per replica for session "
+                f"affinity to mean anything")
+        if self.streaming and self.bucket_edges \
+                and len(self.bucket_edges) > 1:
+            # chunk order rests on EDF within ONE (model, affinity, edge)
+            # group: with several edges a later chunk's bucket could
+            # flush first
+            raise ValueError(
+                f"streaming model {self.name!r} may declare at most one "
+                f"bucket edge — multiple edges would let a later chunk's "
+                f"bucket flush before an earlier chunk's, breaking "
+                f"in-order decode")
 
     def plan(self) -> ModelPlan:
         return ModelPlan(bucket_edges=self.bucket_edges,
-                         pad_key=self.pad_key, length_key=self.length_key)
+                         pad_key=self.pad_key, length_key=self.length_key,
+                         max_batch=self.max_batch, streaming=self.streaming)
 
 
 class ServingRuntime:
     """Deadline-aware serving over N supervised replicas.
 
     ``tiers``: degradation rungs, cheapest last (``pipelines.ssd.
-    ssd_serving_tiers``).  ``service_time(edge, n, tier)``: estimated
+    ssd_serving_tiers``, ``pipelines.deepspeech2.ds2_serving_tiers``):
+    the single-model path.  ``models``: a list of :class:`ModelConfig`
+    instead (``tiers`` then ``None``), the multiplexed path.
+    ``service_time(edge, n, tier)`` (single model) or
+    ``service_time(model, edge, n, tier)`` (multiplexed): estimated
     service seconds; required with a virtual clock (it also advances
     it); with the monotonic clock it may be ``None``, and the batcher
-    learns a per-(edge, tier) EWMA from observed forwards.
+    learns a per-(model, edge, tier) EWMA from observed forwards.
+
+    ``slo``: an :class:`~analytics_zoo_tpu_torch.obs.slo.SloEvaluator`;
+    each decision window then feeds the registry through its burn-rate
+    evaluation and the ladder steps on ``SloDecision.overloaded``.
+    Multiplexed, the runtime builds it from the models' ``slos`` when
+    none is given (``slo_params`` are its keywords), maps each burning
+    SLO to its model's ladder, and sets each model's dispatch weight to
+    ``1 + its worst fast burn``, capped at ``weight_cap``.
 
     ``fence_budget_s`` bounds wedge detection (see
     :mod:`~analytics_zoo_tpu_torch.serving.replica`).
@@ -138,56 +201,102 @@ class ServingRuntime:
                  decision_every: int = 8,
                  shed_expired: bool = True,
                  chaos=None, obs=None, specs=None, slo=None,
-                 models=None, autoscaler=None,
+                 models: Optional[Sequence[ModelConfig]] = None,
+                 autoscaler=None,
                  fence_budget_s: Optional[float] = None,
                  compile_s: float = 0.0,
                  slo_params: Optional[Dict[str, Any]] = None,
+                 weight_cap: float = 4.0,
                  retain_requests: bool = True,
                  parallel_replicas: bool = False,
                  slice_width: int = 1,
                  device_budget: Optional[int] = None,
                  health=None):
-        given = {"models": models, "parallel_replicas": parallel_replicas,
+        given = {"parallel_replicas": parallel_replicas,
                  "slice_width": slice_width != 1,
-                 "device_budget": device_budget, "slo": slo,
-                 "slo_params": slo_params, "autoscaler": autoscaler,
+                 "device_budget": device_budget, "autoscaler": autoscaler,
                  "chaos": chaos, "obs": obs, "health": health,
                  "specs": specs, "compile_s": compile_s != 0}
         for key, value in given.items():
             if value is not None and value is not False:
-                _not_ported(f"ServingRuntime({key}=...)", _REFUSED[key])
-        if not tiers:
-            raise ValueError("need at least one ServingTier")
-        self.tiers = list(tiers)
-        self.model = ModelConfig(name=DEFAULT_MODEL, tiers=self.tiers,
-                                 bucket_edges=bucket_edges, pad_key=pad_key,
-                                 length_key=length_key,
-                                 ladder_policy=ladder_policy)
+                what, where = _REFUSED[key]
+                _not_ported(f"ServingRuntime({key}=...) ({what})", where)
+        if models is not None:
+            if tiers is not None:
+                raise ValueError("pass tiers= OR models=, not both")
+            if not models:
+                raise ValueError("models= must name at least one model")
+            self.models: Dict[str, ModelConfig] = {}
+            for cfg in models:
+                if cfg.name in self.models:
+                    raise ValueError(f"duplicate model name {cfg.name!r}")
+                self.models[cfg.name] = cfg
+            self._multi = True
+            self.tiers = None
+        else:
+            if not tiers:
+                raise ValueError("need at least one ServingTier")
+            self.tiers = list(tiers)
+            self.models = {DEFAULT_MODEL: ModelConfig(
+                name=DEFAULT_MODEL, tiers=self.tiers,
+                bucket_edges=bucket_edges, pad_key=pad_key,
+                length_key=length_key)}
+            self._multi = False
         self.clock = clock or MonotonicClock()
         self.default_deadline_s = float(default_deadline_s)
         self.max_batch = int(max_batch)
         self.decision_every = int(decision_every)
         self.wedge_timeout_s = float(wedge_timeout_s)
+        self.weight_cap = float(weight_cap)
         self.retain_requests = bool(retain_requests)
         self.metrics = ServingMetrics()
+        # the SLO engine: built from the models' declared SLOs when none
+        # is passed; each SLO maps back to its model's ladder
+        self._slo_model: Dict[str, str] = {
+            s.name: cfg.name for cfg in self.models.values()
+            for s in cfg.slos}
+        if slo is None and self._slo_model:
+            slo = SloEvaluator(
+                slos=[s for cfg in self.models.values() for s in cfg.slos],
+                registry=self.metrics.registry, **(slo_params or {}))
+        self.slo = slo
         self.requests: List[Request] = []      # every request submitted
         self._rid = itertools.count()
         self._window_shed = 0
+        self._window_shed_by: Dict[str, int] = {}
         self._since_decision = 0
         # incremental accounting, exact when request objects are dropped
         self._submitted = 0
         self._by_state: Dict[str, int] = {}
+        # live sessions only (sid -> model, replica, open, chunks); the
+        # history is in the counters
+        self._sessions: Dict[int, Dict[str, Any]] = {}
+        self._next_sid = 0
+        self._sessions_opened = 0
+        self._sessions_failed = 0
+        self._open_sessions = 0
+        # sessions with work outstanding per replica rid: where the next
+        # session goes, and what a shrink must not drain
+        self._session_load: Dict[int, int] = {}
 
         self.queue = AdmissionQueue(queue_capacity, self.clock,
                                     on_shed=self._on_shed,
                                     shed_expired=shed_expired)
-        plan = self.model.plan()
-        self.batcher = DeadlineBatcher(
-            self.queue, max_batch, bucket_edges=plan.bucket_edges,
-            pad_key=plan.pad_key, length_key=plan.length_key,
-            service_time=service_time, slack_margin_s=slack_margin_s)
+        if self._multi:
+            self.batcher = DeadlineBatcher(
+                self.queue, max_batch, service_time=service_time,
+                slack_margin_s=slack_margin_s,
+                plans={name: cfg.plan() for name, cfg in self.models.items()})
+        else:
+            self.batcher = DeadlineBatcher(
+                self.queue, max_batch, bucket_edges=bucket_edges,
+                pad_key=pad_key, length_key=length_key,
+                service_time=service_time, slack_margin_s=slack_margin_s)
 
         def service_hook(batch: AssembledBatch, rid: int) -> float:
+            if self._multi:
+                return service_time(batch.model, batch.edge, batch.n_valid,
+                                    batch.tier)
             return service_time(batch.edge, batch.n_valid, batch.tier)
 
         self._service_hook = (service_hook if service_time is not None
@@ -197,65 +306,252 @@ class ServingRuntime:
             self.clock, restart_s=restart_s,
             fence_budget_s=fence_budget_s,
             replica_factory=self._make_replica)
-        self.ladder = DegradationLadder(len(self.tiers),
-                                        self.model.ladder_policy)
+        self.ladders: Dict[str, DegradationLadder] = {
+            name: DegradationLadder(len(cfg.tiers),
+                                    cfg.ladder_policy or ladder_policy)
+            for name, cfg in self.models.items()}
+        #: the single-model ladder (``None`` when multiplexed)
+        self.ladder = (self.ladders[DEFAULT_MODEL] if not self._multi
+                       else None)
 
     # -- construction helpers ------------------------------------------------
     def _make_replica(self, rid: int) -> Replica:
-        """Build one replica (also the pool's growth factory)."""
-        return Replica(rid, [tier.forward for tier in self.tiers],
-                       self.clock, self.wedge_timeout_s,
-                       service_hook=self._service_hook)
+        """Build one replica (also the pool's growth factory): the
+        per-model tier table, with per-replica tier instances where a
+        model declares a ``tier_factory``."""
+        fwd: Dict[str, List[Callable]] = {}
+        tier_objs: Dict[str, List[ServingTier]] = {}
+        for name, cfg in self.models.items():
+            t = cfg.tier_factory(rid) if cfg.tier_factory else cfg.tiers
+            if len(t) != len(cfg.tiers):
+                raise ValueError(
+                    f"model {name!r}: tier_factory built {len(t)} tiers, "
+                    f"template declares {len(cfg.tiers)}")
+            fwd[name] = [tier.forward for tier in t]
+            tier_objs[name] = list(t)
+        replica = Replica(rid, fwd, self.clock, self.wedge_timeout_s,
+                          service_hook=self._service_hook)
+        replica.tier_objs = tier_objs
+        return replica
 
     # -- shed observer -------------------------------------------------------
     def _on_shed(self, req: Request, cause: str) -> None:
-        self.metrics.on_shed(cause)
+        self.metrics.on_shed(cause, model=req.model if self._multi
+                             else None)
         self._window_shed += 1
+        self._window_shed_by[req.model] = \
+            self._window_shed_by.get(req.model, 0) + 1
         self._account_terminal(req)
+        if req.session is not None:
+            # a gap in the chunk stream would corrupt the session's carry:
+            # a shed chunk fails the whole session
+            self._kill_session(req)
 
     def _account_terminal(self, req: Request) -> None:
         self._by_state[req.state] = self._by_state.get(req.state, 0) + 1
 
     # -- client API ----------------------------------------------------------
+    def _resolve_model(self, model: Optional[str]) -> ModelConfig:
+        if model is None:
+            if self._multi and len(self.models) > 1:
+                raise ValueError(
+                    f"multiplexed runtime serves {sorted(self.models)} — "
+                    f"submit(model=...) is required")
+            return next(iter(self.models.values()))
+        try:
+            return self.models[model]
+        except KeyError:
+            raise KeyError(f"unknown model {model!r} (registered: "
+                           f"{sorted(self.models)})") from None
+
     def submit(self, payload: Any, deadline_s: Optional[float] = None,
                length: Optional[int] = None,
                model: Optional[str] = None) -> Request:
         """Admit one request; raises
         :class:`~analytics_zoo_tpu_torch.resilience.errors.ServerOverloaded`
         on a full queue (the request is still accounted, state ``shed``).
-        ``length``: variable-axis length for bucket assignment."""
-        if model is not None and model != DEFAULT_MODEL:
-            raise KeyError(f"unknown model {model!r} (a single-model "
-                           f"runtime serves {DEFAULT_MODEL!r})")
+        ``length``: variable-axis length for bucket assignment.
+        ``model``: which model (required when several are served)."""
+        cfg = self._resolve_model(model)
+        if cfg.streaming:
+            raise ValueError(
+                f"model {cfg.name!r} is a streaming session model — use "
+                f"open_session()/submit_chunk()")
         if deadline_s is None:
-            deadline_s = self.default_deadline_s
+            deadline_s = (cfg.default_deadline_s
+                          if cfg.default_deadline_s is not None
+                          else self.default_deadline_s)
+        return self._submit(payload, deadline_s, length, cfg.name)
+
+    def _submit(self, payload: Any, deadline_s: float,
+                length: Optional[int], model: str,
+                session: Optional[int] = None,
+                affinity: Optional[int] = None,
+                final: bool = False) -> Request:
         now = self.clock.now()
         req = Request(rid=next(self._rid), payload=payload, arrival_t=now,
-                      deadline_t=now + deadline_s, length=length)
+                      deadline_t=now + deadline_s, length=length,
+                      model=model, session=session, affinity=affinity,
+                      final=final)
         self._submitted += 1
         if self.retain_requests:
             self.requests.append(req)
-        self.metrics.on_submit()
+        self.metrics.on_submit(model=model if self._multi else None)
         self.queue.submit(req)          # may raise; _on_shed accounts it
         return req
 
-    def open_session(self, *args, **kwargs):
-        _not_ported("ServingRuntime.open_session (streaming sessions)",
-                    "ROADMAP.md Queue 1 item 13")
-
-    def submit_chunk(self, *args, **kwargs):
-        _not_ported("ServingRuntime.submit_chunk (streaming sessions)",
-                    "ROADMAP.md Queue 1 item 13")
-
-    def close_session(self, *args, **kwargs):
-        _not_ported("ServingRuntime.close_session (streaming sessions)",
-                    "ROADMAP.md Queue 1 item 13")
-
     def hot_swap(self, *args, **kwargs):
         _not_ported("ServingRuntime.hot_swap (live weights from a "
-                    "checkpoint)", "ROADMAP.md Queue 1 item 12")
+                    "checkpoint)", _ITEM_12)
+
+    # -- streaming sessions --------------------------------------------------
+    def open_session(self, model: Optional[str] = None) -> int:
+        """Open a streaming session on the healthy replica with the
+        fewest sessions (ties to the lower rid): every chunk of the
+        session runs there, where its carry lives.  Raises
+        :class:`ServerOverloaded` when no replica is healthy."""
+        cfg = self._resolve_model(model)
+        if not cfg.streaming:
+            raise ValueError(f"model {cfg.name!r} is not a streaming "
+                             f"session model")
+        healthy = self.pool.healthy()
+        if not healthy:
+            raise ServerOverloaded("no healthy replica to pin a "
+                                   "session to; retry with backoff")
+        rid = min((r.rid for r in healthy),
+                  key=lambda r: (self._session_load.get(r, 0), r))
+        sid = self._next_sid
+        self._next_sid += 1
+        self._sessions[sid] = {"model": cfg.name, "replica": rid,
+                               "open": True, "chunks": 0}
+        self._sessions_opened += 1
+        self._open_sessions += 1
+        self._session_load[rid] = self._session_load.get(rid, 0) + 1
+        self.metrics.registry.counter("serve/sessions/opened").inc()
+        self.metrics.registry.gauge("serve/sessions_open").set(
+            float(self._open_sessions))
+        return sid
+
+    def submit_chunk(self, sid: int, payload: Any,
+                     length: Optional[int] = None,
+                     deadline_s: Optional[float] = None,
+                     final: bool = False) -> Request:
+        """Feed one chunk of an open session.  Its deadline is anchored at
+        this submit (``deadline_s`` or the model's ``chunk_deadline_s``)
+        and clamped up to the session's last chunk deadline, so chunk
+        deadlines are monotone and EDF serves them in order.
+        ``final=True`` flushes the session and closes it once admitted; a
+        final chunk shed at the door kills the session instead."""
+        sess = self._sessions.get(sid)
+        if sess is None:
+            if 0 <= sid < self._next_sid:
+                raise RuntimeError(f"session {sid} is closed")
+            raise KeyError(f"unknown session {sid}")
+        if not sess["open"]:
+            raise RuntimeError(f"session {sid} is closed")
+        cfg = self.models[sess["model"]]
+        if deadline_s is None:
+            deadline_s = cfg.chunk_deadline_s
+        now = self.clock.now()
+        deadline_s = max(deadline_s,
+                         sess.get("last_deadline_t", 0.0) - now)
+        # submit first: a shed at the door goes through _on_shed, which
+        # kills the session; only an admitted final chunk closes it
+        req = self._submit(payload, deadline_s, length, cfg.name,
+                           session=sid, affinity=sess["replica"],
+                           final=final)
+        sess["chunks"] += 1
+        sess["last_deadline_t"] = req.deadline_t
+        if final:
+            self._close_session_books(sess)
+        return req
+
+    def close_session(self, sid: int) -> None:
+        """Abandon an open session without a flush chunk: its books close,
+        its replica pin is released and the pinned replica's store entry
+        evicted.  No-op on a session already closed and released."""
+        sess = self._sessions.get(sid)
+        if sess is None:
+            return
+        self._close_session_books(sess)
+        self._release_session(sid)
+        self._evict(sess["replica"], sess["model"], sid)
+
+    def _evict(self, rid: Optional[int], model: str, sid: int) -> None:
+        replica = (self.pool.replica_by_rid(rid) if rid is not None
+                   else None)
+        if replica is not None:
+            for tier in replica.tier_objs.get(model, []):
+                if tier.evict_session is not None:
+                    tier.evict_session(sid)
+
+    def _close_session_books(self, sess: Dict[str, Any]) -> None:
+        if not sess["open"]:
+            return
+        sess["open"] = False
+        self._open_sessions -= 1
+        self.metrics.registry.counter("serve/sessions/closed").inc()
+        self.metrics.registry.gauge("serve/sessions_open").set(
+            float(self._open_sessions))
+
+    def _session_rids(self) -> Set[int]:
+        """Replicas pinned by sessions with work outstanding (open, or
+        closed with the final chunk in flight)."""
+        return {rid for rid, n in self._session_load.items() if n > 0}
+
+    def _release_session(self, sid: int) -> None:
+        """The session's last outcome landed (its final chunk terminal, or
+        the session killed): drop the live entry and its pin."""
+        sess = self._sessions.pop(sid, None)
+        if sess is None:
+            return
+        rid = sess["replica"]
+        n = self._session_load.get(rid, 0) - 1
+        if n > 0:
+            self._session_load[rid] = n
+        else:
+            self._session_load.pop(rid, None)
+
+    def _kill_session(self, req: Request) -> None:
+        """A chunk died unserved (shed, failed dispatch, replica lost):
+        the session's carry has a gap, so the whole session fails — books
+        closed, entry released, the pinned replica's store entry evicted.
+        Its chunks still queued fail before their dispatch
+        (:meth:`_scrub_dead_session_rows`)."""
+        sid = req.session
+        sess = self._sessions.get(sid)
+        if sess is None:
+            return
+        self._close_session_books(sess)
+        self._release_session(sid)
+        self._sessions_failed += 1
+        self._evict(req.affinity, req.model, sid)
+
+    def _scrub_dead_session_rows(self, batch: AssembledBatch) -> None:
+        """Fail a killed session's chunks that were admitted before the
+        kill, before the forward, and mask their rows (session -1, final
+        0): they neither return garbage marked ``done`` nor recreate the
+        evicted store entry."""
+        if batch.affinity is None:
+            return
+        for i, req in enumerate(batch.requests):
+            if req.session is None or req.session in self._sessions:
+                continue
+            req.finish("failed", self.clock.now(), error=ReplicaWedged(
+                f"session {req.session} already failed"))
+            self._account_terminal(req)
+            self.metrics.on_fail(model=batch.model if self._multi
+                                 else None)
+            batch.batch["session"][i] = -1
+            batch.batch["final"][i] = 0
 
     # -- scheduler -----------------------------------------------------------
+    def _tier_arg(self):
+        if self._multi:
+            return {name: ladder.tier
+                    for name, ladder in self.ladders.items()}
+        return self.ladder.tier
+
     def pump(self, force: bool = False) -> int:
         """Run all currently due scheduling work: shed expired requests,
         assemble and dispatch every flush-ready batch.  Returns the
@@ -263,7 +559,7 @@ class ServingRuntime:
         clock moves."""
         dispatched = 0
         while True:
-            batch = self.batcher.next_batch(self.ladder.tier, force=force)
+            batch = self.batcher.next_batch(self._tier_arg(), force=force)
             if batch is None:
                 break
             self._dispatch(batch)
@@ -285,35 +581,50 @@ class ServingRuntime:
 
     # -- internals -----------------------------------------------------------
     def _dispatch(self, batch: AssembledBatch) -> None:
-        self.metrics.on_batch(batch.n_valid, self.max_batch,
+        self._scrub_dead_session_rows(batch)
+        self.metrics.on_batch(batch.n_valid,
+                              self.batcher.model_batch(batch.model),
                               self.queue.depth)
+        model_label = batch.model if self._multi else None
         t0 = self.clock.now()
         try:
             out = self.pool.dispatch(batch)
         except ReplicaWedged as err:
             now = self.clock.now()
             for req in batch.requests:
+                if req.finished:        # a scrubbed dead-session row
+                    continue
                 req.finish("failed", now, error=err)
                 self._account_terminal(req)
-                self.metrics.on_fail()
+                self.metrics.on_fail(model=model_label)
+                if req.session is not None:
+                    # the pinned replica is gone or wedged: the session's
+                    # carry is lost
+                    self._kill_session(req)
             self._after_dispatch(batch, t0, failed=True)
             return
         now = self.clock.now()
         rows = np.asarray(out)
         for i, req in enumerate(batch.requests):
+            if req.finished:            # a scrubbed dead-session row
+                continue
             req.tier = batch.tier
             req.finish("done", now,
                        result=rows[i] if self.retain_requests else None)
             self._account_terminal(req)
             self.metrics.on_complete(now - req.arrival_t, batch.tier,
-                                     missed=now > req.deadline_t)
+                                     missed=now > req.deadline_t,
+                                     model=model_label)
+            if req.final and req.session is not None:
+                self._release_session(req.session)
         self._after_dispatch(batch, t0, failed=False)
 
     def _after_dispatch(self, batch: AssembledBatch, t0: float,
                         failed: bool) -> None:
         dt = self.clock.now() - t0
         if not failed and self.batcher.service_time is None:
-            self.batcher.observe_service_s(batch.edge, dt, tier=batch.tier)
+            self.batcher.observe_service_s(batch.edge, dt, tier=batch.tier,
+                                           model=batch.model)
         if batch.redispatched:
             self.metrics.redispatches += 1
         self._since_decision += 1
@@ -323,12 +634,59 @@ class ServingRuntime:
     def _decide_window(self) -> None:
         detail = {"shed_in_window": self._window_shed,
                   "queue_depth": self.queue.depth}
-        depth_high = self.ladder.policy.depth_high * self.max_batch
-        overloaded = (self._window_shed > 0
-                      or self.queue.depth > depth_high)
-        self.ladder.observe_window(overloaded, detail=detail)
+        if self.slo is not None:
+            # window verdicts from multi-window burn rates over the
+            # registry, not the raw shed flag
+            now = self.clock.now()
+            self.slo.observe_registry(self.metrics.registry, now)
+            decision = self.slo.decide(now)
+            if self._multi:
+                self._observe_multi(decision, detail)
+            else:
+                self.ladder.observe_decision(decision, detail=detail)
+        elif self._multi:
+            for name, ladder in self.ladders.items():
+                depth_high = ladder.policy.depth_high * self.max_batch
+                overloaded = (self._window_shed_by.get(name, 0) > 0
+                              or self.queue.depth > depth_high)
+                ladder.observe_window(overloaded, detail=dict(detail))
+        else:
+            depth_high = self.ladder.policy.depth_high * self.max_batch
+            overloaded = (self._window_shed > 0
+                          or self.queue.depth > depth_high)
+            self.ladder.observe_window(overloaded, detail=detail)
         self._window_shed = 0
+        self._window_shed_by = {}
         self._since_decision = 0
+
+    def _observe_multi(self, decision, detail: Dict[str, Any]) -> None:
+        """Fan one SLO decision out to the per-model ladders and set the
+        weighted-EDF weights: each model's ladder sees only its own SLOs'
+        burn, and its weight follows its worst fast-window burn."""
+        burning_by_model: Dict[str, List[str]] = {}
+        for slo_name in decision.burning:
+            m = self._slo_model.get(slo_name)
+            if m is not None:
+                burning_by_model.setdefault(m, []).append(slo_name)
+        for name, ladder in self.ladders.items():
+            cfg = self.models[name]
+            if not cfg.slos:
+                # a model with no SLOs steps on its own shed flag
+                ladder.observe_window(
+                    self._window_shed_by.get(name, 0) > 0,
+                    detail=dict(detail))
+                continue
+            burning = burning_by_model.get(name, [])
+            ladder.observe_window(bool(burning), detail={
+                "slo_burning": burning,
+                "scale_hint": decision.scale_hint, **detail})
+            worst = max((decision.per_slo[s.name]["fast"]["burn"]
+                         for s in cfg.slos if s.name in decision.per_slo),
+                        default=0.0)
+            w = min(max(1.0, 1.0 + worst), self.weight_cap)
+            self.batcher.set_model_weight(name, w)
+            self.metrics.registry.gauge(
+                f"serve/model_weight/model={name}").set(w)
 
     # -- observability -------------------------------------------------------
     def accounting(self) -> Dict[str, Any]:
@@ -347,14 +705,36 @@ class ServingRuntime:
                 "unaccounted": self._submitted - terminal}
 
     def snapshot(self) -> Dict[str, Any]:
-        return {
+        out = {
             "mesh": None,
             "metrics": self.metrics.snapshot(),
             "queue": self.queue.snapshot(),
             "replicas": self.pool.snapshot(),
             "accounting": self.accounting(),
-            "ladder": self.ladder.snapshot(),
-            "tiers": [{"name": t.name, "speed": t.speed,
-                       "quality_note": t.quality_note}
-                      for t in self.tiers],
         }
+        if self._multi:
+            out["models"] = {
+                name: {
+                    "ladder": self.ladders[name].snapshot(),
+                    "weight": self.batcher.model_weight(name),
+                    "outcomes": self.metrics.model_snapshot(name),
+                    "tiers": [{"name": t.name, "speed": t.speed}
+                              for t in cfg.tiers],
+                }
+                for name, cfg in self.models.items()}
+            out["sessions"] = {
+                "opened": self._sessions_opened,
+                "open": self._open_sessions,
+                "failed": self._sessions_failed,
+            }
+        else:
+            out["ladder"] = self.ladder.snapshot()
+            out["tiers"] = [{"name": t.name, "speed": t.speed,
+                             "quality_note": t.quality_note}
+                            for t in self.tiers]
+        if self.slo is not None:
+            r = self.slo.report()
+            out["slo"] = {k: r[k] for k in
+                          ("slos", "windows", "decisions", "trips",
+                           "peak_burns")}
+        return out

@@ -5,10 +5,13 @@ from analytics_zoo_tpu_torch.transform.audio.decoders import (
     ALPHABET,
     BLANK_ID,
     ASREvaluator,
+    NGramDecoder,
+    TranscriptVectorizer,
     VocabDecoder,
     beam_search_decode,
     best_path_decode,
     cer,
+    evaluate_ctc_decoders,
     ids_to_text,
     levenshtein,
     wer,
@@ -25,6 +28,7 @@ from analytics_zoo_tpu_torch.transform.audio.featurize import (
     make_featurizer_device,
     mel_features,
     mel_filterbank_matrix,
+    transpose_flip,
 )
 from analytics_zoo_tpu_torch.transform.audio.readers import (
     read_audio,

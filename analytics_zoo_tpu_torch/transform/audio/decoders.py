@@ -1,9 +1,8 @@
 """CTC decoders and ASR metrics (counterpart of
 ``transform/audio/decoders.py``, numpy on the host): greedy best-path,
-prefix beam search, the vocabulary snap by edit distance, and WER/CER.
-The bigram rerank (``NGramDecoder``), the transcript vectorizer and the
-shared decoder evaluation wait for the DS2 training slice (ROADMAP.md
-Queue 1 item 9).
+prefix beam search, the vocabulary snap by edit distance, the bigram
+rerank, the transcript vectorizer for CTC labels, WER/CER, and the
+shared evaluation of the greedy and beam decoders.
 
 Alphabet: 29 chars, blank at index 0 (reference ``InferenceExample.scala:
 17-23``): ``_'A-Z<space>``.
@@ -150,6 +149,60 @@ class VocabDecoder:
         return " ".join(self.decode_word(w) for w in text.split())
 
 
+class NGramDecoder:
+    """Bigram-context candidate rerank (reference ``NGramDecoder.scala:36``):
+    among near-vocab candidates for each word, prefer the one whose bigram
+    with the previous decoded word was seen in the corpus."""
+
+    def __init__(self, vocab: Sequence[str], bigrams: Sequence[Sequence[str]],
+                 max_distance: int = 2):
+        self.inner = VocabDecoder(vocab, max_distance)
+        self.bigrams = {(a.upper(), b.upper()) for a, b in bigrams}
+        self.max_distance = max_distance
+
+    def _candidates(self, word: str):
+        """(candidate, distance) pairs within max_distance, from one scan
+        of the vocabulary (the word itself at distance 0 when none)."""
+        cands = [(v, levenshtein(word, v)) for v in self.inner.vocab]
+        cands = [(v, d) for v, d in cands if d <= self.max_distance]
+        return cands or [(word, 0)]
+
+    def __call__(self, text: str) -> str:
+        out: List[str] = []
+        for w in text.split():
+            cands = self._candidates(w)
+            pick = None
+            if out:
+                for c, _ in cands:
+                    if (out[-1], c) in self.bigrams:
+                        pick = c
+                        break
+            if pick is None:
+                pick = min(cands, key=lambda cd: cd[1])[0]
+            out.append(pick)
+        return " ".join(out)
+
+
+class TranscriptVectorizer:
+    """transcript → padded label-id vector for CTC training (reference
+    ``acoustic/TranscriptVectorizer.scala:11``)."""
+
+    def __init__(self, alphabet: str = ALPHABET, max_length: int = 200):
+        self.alphabet = alphabet
+        self.index = {c: i for i, c in enumerate(alphabet)}
+        self.max_length = max_length
+
+    def __call__(self, transcript: str):
+        """Returns (ids (max_length,) int32, mask (max_length,) float32)."""
+        ids = [self.index[c] for c in transcript.upper() if c in self.index]
+        ids = ids[: self.max_length]
+        out = np.zeros(self.max_length, np.int32)
+        mask = np.zeros(self.max_length, np.float32)
+        out[: len(ids)] = ids
+        mask[: len(ids)] = 1.0
+        return out, mask
+
+
 class ASREvaluator:
     """Accumulating WER/CER over utterances (reference ``ASREvaluator``)."""
 
@@ -172,3 +225,37 @@ class ASREvaluator:
     @property
     def cer(self) -> float:
         return self.char_errors / max(self.chars, 1)
+
+
+def evaluate_ctc_decoders(forward_fn, batches,
+                          alphabet: str = ALPHABET) -> dict:
+    """Held-out CER and exact-sequence accuracy with both the greedy and
+    the prefix-beam decoder.
+
+    ``forward_fn(inputs) → (B, T, n_alphabet)`` log-probs (a tensor on
+    any device, or an array); ``batches`` yield ``{"input", "labels"}``
+    with 0 = padding in labels."""
+    stats = {"greedy": [0, 0], "beam": [0, 0]}    # [edit distance, exact]
+    total_len = n_seq = 0
+    for hb in batches:
+        log_probs = forward_fn(hb["input"])
+        if hasattr(log_probs, "detach"):
+            log_probs = log_probs.detach().cpu().numpy()
+        for i in range(hb["input"].shape[0]):
+            ref = "".join(alphabet[t] for t in hb["labels"][i] if t > 0)
+            lp = np.asarray(log_probs[i])
+            for name, hyp in (("greedy", best_path_decode(lp, alphabet)),
+                              ("beam", beam_search_decode(lp,
+                                                          alphabet=alphabet))):
+                stats[name][0] += levenshtein(hyp, ref)
+                stats[name][1] += int(hyp == ref)
+            total_len += max(len(ref), 1)
+            n_seq += 1
+    g, b = stats["greedy"], stats["beam"]
+    return {
+        "cer": round(g[0] / max(total_len, 1), 4),
+        "exact_sequence_acc": round(g[1] / max(n_seq, 1), 4),
+        "beam_cer": round(b[0] / max(total_len, 1), 4),
+        "beam_exact_sequence_acc": round(b[1] / max(n_seq, 1), 4),
+        "sequences": n_seq,
+    }

@@ -93,6 +93,14 @@ def mel_features(spec: np.ndarray, n_mels: int = N_MELS,
     return mel
 
 
+def transpose_flip(mel: np.ndarray) -> np.ndarray:
+    """Min-max normalize to [0, 255] and emit (n_mels, T) model layout
+    (reference ``TransposeFlip``: normalize + flip + transpose)."""
+    lo, hi = float(mel.min()), float(mel.max())
+    scaled = (mel - lo) / max(hi - lo, 1e-10) * 255.0
+    return np.ascontiguousarray(scaled.T[::-1]).astype(np.float32)
+
+
 def featurize(samples: np.ndarray, utt_length: Optional[int] = None,
               n_mels: int = N_MELS) -> np.ndarray:
     """samples (T,) → (n_frames, n_mels) log-mel features — the full

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SSD300 and DeepSpeech2 serving paths, its
 DeepSpeech2 CTC training path, its SSD300 training path, its SSD input
-path from JPEG records and SSD online serving through ``ServingRuntime``
-once on one NVIDIA GPU.
+path from JPEG records, SSD and DeepSpeech2 online serving through
+``ServingRuntime``, DeepSpeech2 streaming sessions and the multiplexed
+pool once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -168,6 +169,41 @@ Phases, one JSON line each; any failure exits non-zero:
    worth of submits against a queue of 2): its sheds, the ladder's
    transitions and the tiers that served, the accounting balanced, no
    request failed and no replica fenced;
+6e. ds2_online: DeepSpeech2 online serving at the width of 5b
+   (hidden 1760, 3 layers, ``rnn_engine="pallas"``, seeded weights).
+   K3 at the streaming blocks' geometry (B = 1, T in ``K3_STREAM_T``,
+   H = 1760, clipped ReLU, a random carry as ``h0``) against its plain
+   version (relative max-abs 1e-4), the carry the last step's fp32
+   output, two launches bit-equal.  ``ds2_serving_tiers`` (beam16,
+   beam4, greedy) behind ``ServingRuntime(n_replicas=2, max_batch=8,
+   bucket_edges=[1000, 2000, 3000], queue_capacity=64)`` on the
+   monotonic clock, the ladder pinned to greedy: ``DS2_ONLINE_REQUESTS``
+   seeded utterances of 3-30 s featurized on the host, then ``drain()``,
+   K3's counter set to 0 just before and read just after (6 a batch);
+   every request done, no fence, failure or shed; each row's valid
+   log-probs within ``STREAM_RTOL``/``STREAM_ATOL`` of the utterance
+   forwarded alone at its own length, each served transcript its row's,
+   and every frame whose argmax differs from the alone forward's within
+   that bound of a tie.  Each rung forced in turn through ``pump(force=True)`` in
+   ``DS2_RUNG_WINDOWS`` interleaved windows of one batch of 8 utterances
+   of 3-10 s (the 1000 edge): ms a batch, the forward's ms (CUDA events)
+   and each decoder's host ms, the served transcripts its decoder's.
+   ``StreamingDS2`` over the unidirectional model at ``chunk_frames=100``
+   on two 20 s utterances in 1 s chunks, K3's counter around it (3 a
+   block): the streamed log-probs against the whole utterance's forward
+   within ``STREAM_RTOL``/``STREAM_ATOL``, the transcripts equal, ms a
+   block (p50, p99) and the real-time factor.  The multiplexed pool,
+   ``ServingRuntime(models=[...], n_replicas=2, max_batch=8)``: SSD300
+   over ``ssd_serving_tiers`` with ``model_slos("ssd")``, greedy DS2 at
+   the three edges with ``model_slos("ds2")`` and DS2 sessions
+   (``ds2_streaming_tiers``, edge 16000 samples); ``FLEET_SSD``
+   requests, ``FLEET_DS2`` utterances and ``FLEET_SESSIONS`` sessions of
+   10-30 s in 1 s chunks submitted interleaved, then ``drain()``, the
+   counters around it: every request done, no batch holding two models,
+   every session closed and none failed, each session's pieces equal to
+   a direct ``StreamingDS2``, K2 once an SSD batch and K3 6 times a DS2
+   batch plus 3 times a streaming block; each model's p50, p99, batches
+   and weight;
 7. the ``kernels`` line, then the device line last.
 
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -305,6 +341,32 @@ INT8_LAYERS = ("vgg.conv1_2", "vgg.fc6", "conf_0", "extra.conv6_2")
 # the weight-only rung against fp32 on the dequantized weights: the same
 # weights and the same convolutions, relative max-abs
 DEQUANT_TOL = 1e-5
+# DS2 online serving: requests of 3-30 s through the runtime at the
+# training buckets; each rung forced in windows of one batch of 3-10 s
+# (the 1000 edge); two 20 s streams in 1 s chunks at StreamingDS2's
+# block of 100 frames; the multiplexed pool's SSD requests, DS2
+# utterances and sessions of 10-30 s
+DS2_ONLINE_REQUESTS, DS2_RUNG_WINDOWS = 24, 3
+DS2_STREAM_SECONDS = (20, 20)
+STREAM_CHUNK, STREAM_BLOCK = 16000, 100
+FLEET_SSD, FLEET_DS2, FLEET_SESSIONS = 32, 16, 8
+# K3 at the streaming blocks' geometry: B = 1 and the output frames of
+# the first (48), a steady (50) and the flush block (52)
+K3_STREAM_T = (48, 50, 52)
+# two forwards of one utterance through differently shaped programs: a
+# served row's valid log-probs against the utterance forwarded alone at
+# its own length (another batch size takes other GEMM and convolution
+# kernels, whose sums run in another order: 7.2e-5 max-abs, 0.33 of the
+# bound, NVIDIA H100 80GB HBM3, 700.00 W), and streamed
+# log-probs against the whole-utterance forward; the reference's bound
+# for the streaming case (tests/test_streaming_ds2.py), |a - b| <=
+# atol + rtol * |b|
+STREAM_RTOL, STREAM_ATOL = 1e-4, 1e-5
+# the DS2 runtime's wedge bound: a beam16 batch of 8 rows of up to 10 s is
+# seconds of Python decode that scale with the host's core (2.0-2.9 s on
+# the host of an NVIDIA H100 80GB HBM3, 700.00 W), which is its work and
+# not a wedge
+DS2_WEDGE_S = 120.0
 
 
 def emit(phase: str, **fields) -> None:
@@ -1795,6 +1857,438 @@ def ssd_serving_phase(dev, smi):
             "k1_launches": approx_launches["nms_sweep"]}
 
 
+def host_ms(fn) -> float:
+    """Host-clock ms of one call of ``fn`` (which ends in a readback)."""
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def record_batches(rt):
+    """Wrap ``rt._dispatch`` to keep each batch's model, affinity, rids,
+    models of its requests and (for DS2) its padded input."""
+    seen = []
+    orig = rt._dispatch
+
+    def record(batch):
+        x = batch.batch.get("input")
+        seen.append({"model": batch.model, "affinity": batch.affinity,
+                     "rids": [r.rid for r in batch.requests],
+                     "models": sorted({r.model for r in batch.requests}),
+                     "n_valid": batch.n_valid, "edge": str(batch.edge),
+                     "input": (x.copy() if "n_frames" in batch.batch
+                               else None),
+                     "n_frames": batch.batch.get("n_frames")})
+        orig(batch)
+
+    rt._dispatch = record
+    return seen
+
+
+def check_served(rt, what, n):
+    """Every request done, the accounting balanced, no fence, failure or
+    shed; returns the metrics snapshot."""
+    acct = rt.accounting()
+    metrics = rt.snapshot()["metrics"]
+    fences = [e for e in rt.pool.events if e["kind"] == "replica_fenced"]
+    if (acct["by_state"] != {"done": n} or acct["unaccounted"] or fences
+            or metrics["failed"] or metrics["shed_total"]):
+        raise AssertionError(f"{what}: accounting {acct}, fences {fences}, "
+                             f"metrics {metrics}")
+    return metrics
+
+
+def ds2_online_phase(dev, smi):
+    """DS2 online serving on the card (phases ``ds2_online_k3``,
+    ``ds2_online``, ``ds2_streaming`` and ``fleet``); returns the
+    launches of K2 and K3 on its paths and K3's largest error at the
+    streaming geometry."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.models.deepspeech2 import (
+        ds2_valid_out_frames)
+    from analytics_zoo_tpu_torch.models.ssd import build_ssd_vgg
+    from analytics_zoo_tpu_torch.obs import model_slos
+    from analytics_zoo_tpu_torch.ops import pallas_detout, pallas_rnn
+    from analytics_zoo_tpu_torch.pipelines.deepspeech2 import (
+        DS2Param, StreamingDS2, ds2_serving_tiers, ds2_streaming_tiers,
+        make_ds2_model)
+    from analytics_zoo_tpu_torch.pipelines.ssd import (BGR_MEANS,
+                                                       PreProcessParam,
+                                                       ssd_serving_tiers)
+    from analytics_zoo_tpu_torch.serving import (ModelConfig,
+                                                 MonotonicClock,
+                                                 ServingRuntime)
+    from analytics_zoo_tpu_torch.transform.audio import (beam_search_decode,
+                                                         best_path_decode,
+                                                         featurize)
+
+    rng = np.random.RandomState(41)
+    H = DS2_HIDDEN
+
+    def k3_count():
+        torch.cuda.synchronize()
+        return pallas_rnn.persistent_rnn.launches
+
+    # -- 1. K3 at the streaming geometry: B = 1, a carried h0 ------------
+    k3_err = 0.0
+    for T in K3_STREAM_T:
+        pre, w, b, _, n = rnn_inputs(rng, dev, "vanilla", 1, T, H, False,
+                                     torch.float32)
+        h0 = torch.from_numpy(rng.rand(1, 1, H).astype(np.float32)
+                              * 5.0).to(dev)
+        args = (pre, w, b, h0, n)
+        ys, cf = pallas_rnn.persistent_rnn(*args, cell="vanilla",
+                                           activation="clipped_relu")
+        torch.cuda.synchronize()
+        want_ys, want_cf = pallas_rnn.persistent_rnn_plain(
+            pallas_rnn.RnnKernelConfig("vanilla", "clipped_relu"), *args)
+        errs = {}
+        for what, got, want in (("ys", ys, want_ys), ("carry", cf, want_cf)):
+            err = (got - want).abs().max().item()
+            rel = err / max(want.abs().max().item(), 1e-6)
+            if not rel <= 1e-4:
+                raise AssertionError(f"K3 stream T={T} {what}: relative "
+                                     f"max-abs error {rel} (tol 1e-4)")
+            errs[what], errs[what + "_rel"] = err, rel
+            k3_err = max(k3_err, err)
+        if cf.dtype != torch.float32 or not torch.equal(cf[0], ys[:, -1]):
+            raise AssertionError(f"K3 stream T={T}: the carry is not the "
+                                 "last step's fp32 output")
+        check_repeatable(f"K3 stream T={T}", lambda: pallas_rnn.persistent_rnn(
+            *args, cell="vanilla", activation="clipped_relu"))
+        k3_ms = cuda_ms(lambda: pallas_rnn.persistent_rnn(
+            *args, cell="vanilla", activation="clipped_relu"), 20)
+        k3_bound, k3_by = bound(*rnn_work(*args))
+        emit("ds2_online_k3", B=1, T=T, H=H, activation="clipped_relu",
+             h0="random", w_source=pallas_rnn.persistent_rnn.w_source,
+             max_abs_err_ys=errs["ys"], max_abs_err_carry=errs["carry"],
+             rel_err_ys=errs["ys_rel"], rel_err_carry=errs["carry_rel"],
+             tolerance_rel=1e-4, repeatable=True, ms=k3_ms,
+             bound_ms=k3_bound, bound_by=k3_by)
+
+    # -- 2. DS2 requests through the runtime ---------------------------
+    ds2 = make_ds2_model(hidden=H, n_rnn_layers=3, rnn_engine="pallas",
+                         seed=0, device=dev)
+    tiers = ds2_serving_tiers(ds2, DS2Param(decoder="beam", beam_width=16),
+                              device=dev)
+    eval_step = tiers[0].device_program()[0]
+
+    def forward(x, n):
+        return eval_step((torch.from_numpy(np.ascontiguousarray(x)).to(dev),
+                          torch.from_numpy(np.asarray(n, np.int32)).to(dev)))
+
+    for e in DS2_BUCKETS:                   # cuDNN / cuBLAS per edge
+        forward(np.zeros((BATCH, e, 13), np.float32), [e] * BATCH)
+    seconds = [float(s) for s in rng.uniform(3, 30, DS2_ONLINE_REQUESTS)]
+    feats = [featurize(x) for x in synthetic_utterances(seconds,
+                                                        seed=43).values()]
+    rt = ServingRuntime(tiers, n_replicas=2, max_batch=BATCH,
+                        bucket_edges=list(DS2_BUCKETS), queue_capacity=64,
+                        default_deadline_s=3600.0,
+                        wedge_timeout_s=DS2_WEDGE_S, clock=MonotonicClock())
+    greedy = len(tiers) - 1
+    rt.ladder.tier = greedy
+    batches = record_batches(rt)
+    pallas_rnn.persistent_rnn.launches = 0
+    t0 = time.perf_counter()
+    for f in feats:
+        rt.submit({"input": f}, length=f.shape[0])
+    rt.drain()
+    online_launches = k3_count()
+    served_s = time.perf_counter() - t0
+    metrics = check_served(rt, "DS2 runtime", DS2_ONLINE_REQUESTS)
+    if online_launches != 6 * len(batches):
+        raise AssertionError(f"DS2 runtime: {len(batches)} batches launched "
+                             f"K3 {online_launches} times (want 6 each)")
+    if {r.tier for r in rt.requests} != {greedy}:
+        raise AssertionError("DS2 runtime: the ladder left greedy")
+    # each row's valid log-probs against the utterance alone at its length
+    by_rid = {r.rid: r for r in rt.requests}
+    row_err, row_ratio, flips, near_ties, text_diffs = 0.0, 0.0, 0, 0, 0
+    for bt in batches:
+        lp = forward(bt["input"], bt["n_frames"])
+        for i, rid in enumerate(bt["rids"]):
+            f = feats[rid]
+            v = ds2_valid_out_frames(f.shape[0])
+            alone = forward(f[None], [f.shape[0]])[0, :v]
+            row = lp[i, :v]
+            diff = (row - alone).abs()
+            allowed = STREAM_ATOL + STREAM_RTOL * alone.abs()
+            row_err = max(row_err, diff.max().item())
+            row_ratio = max(row_ratio, (diff / allowed).max().item())
+            served = str(by_rid[rid].result)
+            if served != best_path_decode(row.cpu().numpy()):
+                raise AssertionError(f"DS2 runtime request {rid}: the served "
+                                     "transcript is not its row's")
+            if served != best_path_decode(alone.cpu().numpy()):
+                # a frame may flip its argmax only where the top two lie
+                # within what the two forwards may move them apart
+                text_diffs += 1
+                top2 = torch.topk(alone, 2, dim=-1).values
+                differ = row.argmax(-1) != alone.argmax(-1)
+                margin = (top2[:, 0] - top2[:, 1])[differ]
+                room = 2 * (STREAM_ATOL + STREAM_RTOL * top2[:, 0].abs())
+                flips += int(differ.sum().item())
+                near_ties += int((margin <= room[differ]).sum().item())
+    if row_ratio > 1.0 or near_ties != flips:
+        raise AssertionError(f"DS2 runtime rows against alone forwards: "
+                             f"max-abs {row_err}, {row_ratio} of the bound "
+                             f"(rtol {STREAM_RTOL}, atol {STREAM_ATOL}); "
+                             f"{flips} argmax flips, {near_ties} of them "
+                             "within the bound of a tie")
+    chars = sum(len(str(r.result)) for r in rt.requests)
+    emit("ds2_online", nvidia_smi=smi, requests=DS2_ONLINE_REQUESTS,
+         audio_s=sum(seconds), n_replicas=2, bucket_edges=list(DS2_BUCKETS),
+         batches=len(batches),
+         batch_edges=[bt["edge"] for bt in batches],
+         batch_fill=[bt["n_valid"] for bt in batches],
+         launches={"persistent_rnn": online_launches}, served_s=served_s,
+         latency_p50_s=metrics["latency_by_tier"][str(greedy)]["p50_s"],
+         latency_p99_s=metrics["latency_by_tier"][str(greedy)]["p99_s"],
+         fences=0, failed=metrics["failed"], shed=metrics["shed_total"],
+         tier=tiers[greedy].name, chars=chars,
+         rows_max_abs_err_vs_alone=row_err,
+         rows_err_share_of_bound=row_ratio, rtol=STREAM_RTOL,
+         atol=STREAM_ATOL,
+         transcripts_differing_from_alone=text_diffs,
+         argmax_flips=flips, argmax_flips_within_tolerance=near_ties)
+
+    # -- 3. each rung forced in turn, in interleaved windows -----------
+    win_s = [float(s) for s in rng.uniform(3, 10, BATCH)]
+    win = [featurize(x) for x in synthetic_utterances(win_s,
+                                                      seed=47).values()]
+    edge = DS2_BUCKETS[0]
+    x_win = np.zeros((BATCH, edge, 13), np.float32)
+    for i, f in enumerate(win):
+        x_win[i, :f.shape[0]] = f
+    n_win = np.asarray([f.shape[0] for f in win], np.int32)
+    decoders = {t.name: (best_path_decode if t.name == "greedy" else
+                         (lambda lp, w=int(t.name[4:]): beam_search_decode(
+                             lp, beam_width=w))) for t in tiers}
+    # each window: the rung served through the runtime, then the host
+    # decode of the same rows by its decoder alone, the transcripts equal
+    lp_win = forward(x_win, n_win).cpu().numpy()
+    rung_ms = {t.name: [] for t in tiers}
+    decode_ms = {t.name: [] for t in tiers}
+    for _ in range(DS2_RUNG_WINDOWS):
+        for i, t in enumerate(tiers):
+            rt.ladder.tier = i
+            for f in win:
+                rt.submit({"input": f}, length=f.shape[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if rt.pump(force=True) != 1:
+                raise AssertionError(f"rung {t.name}: not one batch")
+            rung_ms[t.name].append((time.perf_counter() - t0) * 1e3)
+            done = rt.requests[-BATCH:]
+            if {r.tier for r in done} != {i}:
+                raise AssertionError(f"rung {t.name} served at tiers "
+                                     f"{[r.tier for r in done]}")
+            t0 = time.perf_counter()
+            want = [decoders[t.name](lp_win[j, :ds2_valid_out_frames(n)])
+                    for j, n in enumerate(n_win)]
+            decode_ms[t.name].append((time.perf_counter() - t0) * 1e3)
+            if [str(r.result) for r in done] != want:
+                raise AssertionError(f"rung {t.name}: served transcripts "
+                                     "differ from its decoder's")
+    check_served(rt, "DS2 runtime with the rungs",
+                 DS2_ONLINE_REQUESTS
+                 + DS2_RUNG_WINDOWS * len(tiers) * BATCH)
+    fwd_ms = cuda_ms(lambda: forward(x_win, n_win), 5)
+    # one of the forward's six K3 launches at this edge (all rows full)
+    k3_args = rnn_inputs(rng, dev, "vanilla", BATCH, edge // 2, H, False,
+                         torch.float32)
+    k3_edge_ms = cuda_ms(lambda: pallas_rnn.persistent_rnn(
+        *k3_args, cell="vanilla", activation="clipped_relu"), 5)
+    emit("ds2_online", nvidia_smi=smi, step="rungs", edge=edge,
+         audio_s=sum(win_s), windows=DS2_RUNG_WINDOWS,
+         rung_ms_per_batch={k: statistics.median(v)
+                            for k, v in rung_ms.items()},
+         rung_ms_windows=rung_ms,
+         forward_ms_per_batch=fwd_ms, k3_ms_at_edge=k3_edge_ms,
+         decode_ms_per_batch={k: statistics.median(v)
+                              for k, v in decode_ms.items()},
+         decode_ms_windows=decode_ms,
+         tier_speed_hints=[t.speed for t in tiers],
+         chars={t.name: sum(len(str(r.result)) for r in rt.requests
+                            if r.tier == i and r.rid >= DS2_ONLINE_REQUESTS)
+                // DS2_RUNG_WINDOWS for i, t in enumerate(tiers)})
+
+    # -- 4. streaming, direct ------------------------------------------
+    uni = make_ds2_model(hidden=H, n_rnn_layers=3, bidirectional=False,
+                         rnn_engine="pallas", seed=0, device=dev)
+    warm = StreamingDS2(uni, chunk_frames=STREAM_BLOCK, device=dev)
+    warm.accept(np.zeros(3 * STREAM_CHUNK, np.float32))
+    warm.flush()                         # first, steady and flush blocks
+    streams = synthetic_utterances(DS2_STREAM_SECONDS, seed=53)
+    block_ms, stream_s, blocks = [], [], 0
+    pallas_rnn.persistent_rnn.launches = 0
+    results = []
+    for x in streams.values():
+        stream = StreamingDS2(uni, chunk_frames=STREAM_BLOCK,
+                              keep_log_probs=True, device=dev)
+        busy = 0.0
+        calls = [lambda c=x[k:k + STREAM_CHUNK]: stream.accept(c)
+                 for k in range(0, len(x), STREAM_CHUNK)] + [stream.flush]
+        for call in calls:
+            before = len(stream._pieces)
+            t0 = time.perf_counter()
+            call()
+            dt = time.perf_counter() - t0
+            busy += dt
+            ran = len(stream._pieces) - before
+            if ran:
+                block_ms.extend([dt * 1e3 / ran] * ran)
+        blocks += len(stream._pieces)
+        stream_s.append(busy)
+        results.append((x, stream))
+    stream_launches = k3_count()
+    if stream_launches != 3 * blocks:
+        raise AssertionError(f"streaming: {blocks} blocks launched K3 "
+                             f"{stream_launches} times (want 3 each)")
+    stream_err = []
+    for x, stream in results:
+        with torch.inference_mode():
+            whole = uni(torch.from_numpy(featurize(x)[None]).to(dev))[0]
+        whole = whole.cpu().numpy()
+        got = stream.log_probs
+        if got.shape != whole.shape or not np.allclose(
+                got, whole, rtol=STREAM_RTOL, atol=STREAM_ATOL):
+            raise AssertionError(
+                f"streamed log-probs {got.shape} against the whole "
+                f"utterance's {whole.shape}: max-abs "
+                f"{np.abs(got - whole).max() if got.shape == whole.shape else None}")
+        if stream.transcript != best_path_decode(whole):
+            raise AssertionError("streamed transcript differs from the "
+                                 "whole utterance's")
+        stream_err.append(float(np.abs(got - whole).max()))
+    # a steady block's forward on the card, and a 1 s chunk's host
+    # featurize
+    steady = StreamingDS2(uni, chunk_frames=STREAM_BLOCK, device=dev)
+    ext = torch.zeros((1, STREAM_BLOCK + StreamingDS2._CTX, 13), device=dev)
+    block_fwd_ms = cuda_ms(lambda: steady._apply(ext, steady._h), 20)
+    chunk = next(iter(streams.values()))[:STREAM_CHUNK]
+    featurize_ms = statistics.median(
+        host_ms(lambda: steady._featurize_new(chunk)) for _ in range(10))
+    emit("ds2_streaming", nvidia_smi=smi, seconds=list(DS2_STREAM_SECONDS),
+         chunk_samples=STREAM_CHUNK, chunk_frames=STREAM_BLOCK,
+         blocks=blocks, launches={"persistent_rnn": stream_launches},
+         block_ms_p50=float(np.percentile(block_ms, 50)),
+         block_ms_p99=float(np.percentile(block_ms, 99)),
+         block_forward_ms=block_fwd_ms, chunk_featurize_ms=featurize_ms,
+         host_s_per_stream=stream_s,
+         real_time_factor=[s / b for s, b in zip(DS2_STREAM_SECONDS,
+                                                 stream_s)],
+         logp_max_abs_err_vs_whole=stream_err, rtol=STREAM_RTOL,
+         atol=STREAM_ATOL, transcripts_equal=True)
+
+    # -- 5. the multiplexed pool: SSD, DS2 and DS2 sessions ------------
+    ssd_model = build_ssd_vgg(21, 300, device=dev, seed=0)
+    ssd_tiers = ssd_serving_tiers(ssd_model, PreProcessParam(
+        batch_size=BATCH, resolution=300), device=dev)
+    images = [rng.randint(0, 256, (300, 300, 3)).astype(np.float32)
+              - np.float32(BGR_MEANS) for _ in range(FLEET_SSD)]
+    for t in ssd_tiers:                  # cuDNN warm-up on every rung
+        t.forward({"input": np.stack(images[:BATCH])})
+    ds2_s = [float(s) for s in rng.uniform(3, 30, FLEET_DS2)]
+    ds2_feats = [featurize(x) for x in synthetic_utterances(
+        ds2_s, seed=59).values()]
+    sess_s = [int(s) for s in rng.randint(10, 31, FLEET_SESSIONS)]
+    sess_audio = list(synthetic_utterances(sess_s, seed=61).values())
+    chunks = [[x[k:k + STREAM_CHUNK] for k in range(0, len(x), STREAM_CHUNK)]
+              for x in sess_audio]
+    fleet = ServingRuntime(models=[
+        ModelConfig("ssd", tiers=ssd_tiers, length_key=None,
+                    slos=model_slos("ssd")),
+        ModelConfig("ds2", tiers=ds2_serving_tiers(ds2, DS2Param(),
+                                                   device=dev),
+                    bucket_edges=list(DS2_BUCKETS), slos=model_slos("ds2")),
+        ModelConfig("ds2-stream", streaming=True,
+                    tiers=ds2_streaming_tiers(uni, chunk_frames=STREAM_BLOCK,
+                                              device=dev),
+                    tier_factory=lambda rid: ds2_streaming_tiers(
+                        uni, chunk_frames=STREAM_BLOCK, device=dev),
+                    pad_key="input", length_key="n_samples",
+                    bucket_edges=[STREAM_CHUNK], chunk_deadline_s=3600.0)],
+        n_replicas=2, max_batch=BATCH, queue_capacity=512,
+        default_deadline_s=3600.0, clock=MonotonicClock())
+    seen = record_batches(fleet)
+    sids = [fleet.open_session("ds2-stream") for _ in chunks]
+    pieces = [[] for _ in chunks]
+    pallas_rnn.persistent_rnn.launches = 0
+    pallas_detout.fused_detection_output.launches = 0
+    t0 = time.perf_counter()
+    for i in range(max(FLEET_SSD, FLEET_DS2, *map(len, chunks))):
+        if i < FLEET_SSD:
+            fleet.submit({"input": images[i]}, model="ssd")
+        if i < FLEET_DS2:
+            f = ds2_feats[i]
+            fleet.submit({"input": f}, length=f.shape[0], model="ds2")
+        for s, cs in enumerate(chunks):
+            if i < len(cs):
+                pieces[s].append(fleet.submit_chunk(
+                    sids[s], {"input": cs[i]}, length=len(cs[i]),
+                    final=(i == len(cs) - 1)))
+        fleet.pump()
+    fleet.drain()
+    fleet_k3 = k3_count()
+    fleet_k2 = pallas_detout.fused_detection_output.launches
+    fleet_s = time.perf_counter() - t0
+    n_req = FLEET_SSD + FLEET_DS2 + sum(map(len, chunks))
+    check_served(fleet, "fleet", n_req)
+    snap = fleet.snapshot()
+    if any(len(b["models"]) != 1 or b["models"] != [b["model"]]
+           for b in seen):
+        raise AssertionError("fleet: a batch held two models")
+    if snap["sessions"] != {"opened": FLEET_SESSIONS, "open": 0,
+                            "failed": 0}:
+        raise AssertionError(f"fleet sessions {snap['sessions']}")
+    n_batches = {m: sum(b["model"] == m for b in seen)
+                 for m in fleet.models}
+    fleet_blocks = 0
+    for s, cs in enumerate(chunks):
+        direct = StreamingDS2(uni, chunk_frames=STREAM_BLOCK, device=dev)
+        want = [direct.accept(c) for c in cs]
+        want[-1] += direct.flush()
+        fleet_blocks += len(direct._pieces)
+        if [str(r.result) for r in pieces[s]] != want:
+            raise AssertionError(f"fleet session {s}: served pieces differ "
+                                 "from a direct StreamingDS2")
+    if fleet_k2 != n_batches["ssd"]:
+        raise AssertionError(f"fleet: {n_batches['ssd']} SSD batches "
+                             f"launched K2 {fleet_k2} times")
+    if fleet_k3 != 6 * n_batches["ds2"] + 3 * fleet_blocks:
+        raise AssertionError(f"fleet: K3 {fleet_k3} launches for "
+                             f"{n_batches['ds2']} DS2 batches and "
+                             f"{fleet_blocks} streaming blocks")
+    per_model = {}
+    reg = fleet.metrics.registry
+    for m in fleet.models:
+        lat = reg.histogram(f"serve/latency_s/model={m}/tier=0").snapshot()
+        per_model[m] = {"requests": snap["models"][m]["outcomes"][
+            "completed"], "batches": n_batches[m],
+            "latency_p50_s": lat["p50"], "latency_p99_s": lat["p99"],
+            "weight": snap["models"][m]["weight"],
+            "tier": snap["models"][m]["ladder"]["tier"]}
+    emit("fleet", nvidia_smi=smi, n_replicas=2, served_s=fleet_s,
+         requests=n_req, models=per_model, sessions=snap["sessions"],
+         session_seconds=sess_s, streaming_blocks=fleet_blocks,
+         launches={"persistent_rnn": fleet_k3,
+                   "fused_detection_output": fleet_k2},
+         session_replicas=sorted({b["affinity"] for b in seen
+                                  if b["affinity"] is not None}),
+         slo_decisions=snap["slo"]["decisions"], slo_trips=snap["slo"]["trips"],
+         fences=0, failed=0, shed=0)
+    return {"k3_err": k3_err, "k3": {"ds2_online": online_launches,
+                                     "ds2_streaming": stream_launches,
+                                     "fleet": fleet_k3},
+            "k2_fleet": fleet_k2}
+
+
 def main() -> int:
     import torch
 
@@ -2410,6 +2904,10 @@ def main() -> int:
     # -- 6d. SSD online serving through the runtime: the sixth -----------
     ssd_serving = ssd_serving_phase(dev, smi)
 
+    # -- 6e. DS2 online serving, streaming and the multiplexed pool ------
+    ds2_online = ds2_online_phase(dev, smi)
+    k3_err = max(k3_err, ds2_online["k3_err"])
+
     # -- 7. kernels, then the device line last ----------------------------
     kernels = [
         {"name": "nms_sweep", "route": "cuda",
@@ -2427,10 +2925,12 @@ def main() -> int:
          "replaces": "analytics_zoo_tpu/ops/pallas_detout.py:242",
          "launches": (launches["fused_detection_output"]
                       + ssd_train["k2_launches"] + ssd_input["validation"]
-                      + ssd_input["predict"] + ssd_serving["k2_launches"]),
+                      + ssd_input["predict"] + ssd_serving["k2_launches"]
+                      + ds2_online["k2_fleet"]),
          "launches_by_path": {
              "ssd_serving": launches["fused_detection_output"],
              "ssd_serving_runtime": ssd_serving["k2_launches"],
+             "fleet": ds2_online["k2_fleet"],
              "ssd_train_validation": ssd_train["k2_launches"],
              "ssd_input_validation": ssd_input["validation"],
              "ssd_input_predict": ssd_input["predict"]},
@@ -2439,9 +2939,11 @@ def main() -> int:
         {"name": "persistent_rnn", "route": "cuda",
          "source": "analytics_zoo_tpu_torch/csrc/persistent_rnn.cu",
          "replaces": "analytics_zoo_tpu/ops/pallas_rnn.py:266",
-         "launches": k3_launches + train_launches["persistent_rnn"],
+         "launches": (k3_launches + train_launches["persistent_rnn"]
+                      + sum(ds2_online["k3"].values())),
          "launches_by_path": {"ds2_serving": k3_launches,
-                              "ds2_train": train_launches["persistent_rnn"]},
+                              "ds2_train": train_launches["persistent_rnn"],
+                              **ds2_online["k3"]},
          "max_abs_err": k3_err, "ms": k3_ms,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
          # no PyTorch call computes a clipped-ReLU recurrence; cuDNN's

@@ -57,8 +57,17 @@ def test_port_imports_pull_in_no_jax():
             "analytics_zoo_tpu_torch.obs.registry",
             "analytics_zoo_tpu_torch.utils.clock",
             "analytics_zoo_tpu_torch.utils.quantize"} <= set(mods)
+    # the DS2 online slice: the SLO engine, the multiplexed runtime and
+    # the streaming pipeline beside the decoders
+    assert {"analytics_zoo_tpu_torch.obs.slo",
+            "analytics_zoo_tpu_torch.serving.batcher",
+            "analytics_zoo_tpu_torch.transform.audio.decoders"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
+            "from analytics_zoo_tpu_torch.pipelines import (StreamingDS2, "
+            "ds2_serving_tiers, ds2_streaming_tiers)\n"
+            "from analytics_zoo_tpu_torch.obs import SloEvaluator, "
+            "model_slos\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")

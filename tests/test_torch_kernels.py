@@ -511,6 +511,36 @@ def test_persistent_rnn_kernel(cell, act, B, T, H, masked):
         assert (ys[pad] == 0).all()
 
 
+@pytest.mark.parametrize("T", [48, 50, 52])
+def test_persistent_rnn_kernel_streaming_block(T):
+    """K3 at a streaming DS2 block (``StreamingDS2`` at
+    ``chunk_frames=100``: the first block gives 48 output frames, a steady
+    one 50, the flush one 52): one batch row, DS2's width, the carry of
+    the previous block as a random fp32 ``h0``.  ``ys`` and the carry
+    within K3's fp32 tolerance of the plain version, and two launches
+    bit-equal."""
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pre, w, b, h0, _ = [t.to(dev) if t is not None else None for t in
+                        _rnn_inputs(11 + T, "vanilla", 1, T, 1760, False)]
+    h0 = h0 * 10.0                 # a carry at the clipped ReLU's scale
+    ys, cf = pallas_rnn.persistent_rnn(pre, w, b, h0, cell="vanilla",
+                                       activation="clipped_relu")
+    again = pallas_rnn.persistent_rnn(pre, w, b, h0, cell="vanilla",
+                                      activation="clipped_relu")
+    torch.cuda.synchronize()
+    n = torch.full((1,), T, dtype=torch.int32, device=dev)
+    want_ys, want_cf = pallas_rnn.persistent_rnn_plain(
+        pallas_rnn.RnnKernelConfig("vanilla", "clipped_relu"), pre, w, b,
+        h0, n)
+    assert _rel_err(ys, want_ys) <= 1e-4
+    assert _rel_err(cf, want_cf) <= 1e-4
+    assert cf.dtype == torch.float32 and tuple(cf.shape) == (1, 1, 1760)
+    assert torch.equal(ys, again[0]) and torch.equal(cf, again[1])
+    # the carry is the last step's output: the next block's h0
+    assert torch.equal(cf[0], ys[:, -1])
+
+
 @pytest.mark.parametrize("cell", ["vanilla", "gru"])
 def test_persistent_rnn_kernel_bf16_weights(cell):
     dev = _cuda()

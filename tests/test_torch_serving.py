@@ -338,9 +338,8 @@ def test_scenarios_cover_what_they_claim():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"models": []}, "item 13"), ({"parallel_replicas": True}, "item 13"),
+    ({"parallel_replicas": True}, "item 13"),
     ({"slice_width": 2}, "item 13"), ({"device_budget": 4}, "item 13"),
-    ({"slo": object()}, "item 13"), ({"slo_params": {}}, "item 13"),
     ({"autoscaler": object()}, "item 13"), ({"chaos": object()}, "item 13"),
     ({"obs": object()}, "item 13"), ({"health": object()}, "item 13"),
     ({"specs": object()}, "item 12"), ({"compile_s": 0.5}, "item 13"),
@@ -357,13 +356,16 @@ def test_defaults_of_refused_keywords_construct():
         parallel_replicas=False, slice_width=1, device_budget=None,
         slo=None, slo_params=None, autoscaler=None, chaos=None, obs=None,
         health=None, specs=None, compile_s=0.0)
-    for call, item in ((rt.open_session, "item 13"),
-                       (rt.submit_chunk, "item 13"),
-                       (rt.close_session, "item 13"),
-                       (rt.hot_swap, "item 12"),
+    for call, item in ((rt.hot_swap, "item 12"),
                        (rt.pool.hot_swap, "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    # sessions are served by a streaming model only, as in the reference
+    with pytest.raises(ValueError, match="not a streaming"):
+        rt.open_session()
+    with pytest.raises(KeyError, match="unknown session"):
+        rt.submit_chunk(0, {"input": np.ones((1, 2), np.float32)})
+    rt.close_session(0)                 # no such session: a no-op
 
 
 def test_error_taxonomy_matches_reference():
