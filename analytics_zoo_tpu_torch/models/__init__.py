@@ -5,6 +5,14 @@ from analytics_zoo_tpu_torch.models.deepspeech2 import (
     SequenceBN,
     ds2_valid_out_frames,
 )
+from analytics_zoo_tpu_torch.models.faster_rcnn import (
+    FasterRcnnDetector,
+    FasterRcnnVgg,
+    FrcnnParam,
+    FrcnnVggTrunk,
+    decode_frcnn_boxes,
+    frcnn_vgg_rename,
+)
 from analytics_zoo_tpu_torch.models.ssd import (
     SSDConfig,
     SSDDetector,

@@ -1,14 +1,19 @@
 """Ops on tensors: PriorBox, box math, NMS, DetectionOutput,
-MultiBoxLoss, and the kernels K1 (``pallas_nms``), K2
+MultiBoxLoss, the Faster-RCNN anchors, proposal, ROI pooling and
+post-processing, and the kernels K1 (``pallas_nms``), K2
 (``pallas_detout``), K3 and K4 (``pallas_rnn``)."""
 
 from analytics_zoo_tpu_torch.ops import bbox
+from analytics_zoo_tpu_torch.ops.anchor import (generate_base_anchors,
+                                                shift_anchors)
 from analytics_zoo_tpu_torch.ops.detection_output import (
     DetectionOutputParam,
     detection_output,
     detection_output_single,
     scale_detections,
 )
+from analytics_zoo_tpu_torch.ops.frcnn import (FrcnnPostParam,
+                                               frcnn_postprocess)
 from analytics_zoo_tpu_torch.ops.multibox_loss import (MultiBoxLoss,
                                                        MultiBoxLossParam,
                                                        match_priors)
@@ -22,5 +27,7 @@ from analytics_zoo_tpu_torch.ops.priorbox import (
     concat_priors,
     prior_box,
 )
+from analytics_zoo_tpu_torch.ops.proposal import ProposalParam, proposal
+from analytics_zoo_tpu_torch.ops.roi_pool import roi_pool, roi_pool_batch
 
 __all__ = [k for k in dir() if not k.startswith("_")]

@@ -88,15 +88,18 @@ def decode_bbox(priors: torch.Tensor, variances: torch.Tensor,
     return boxes
 
 
-def clip_boxes(boxes: torch.Tensor, height: float = 1.0,
-               width: float = 1.0) -> torch.Tensor:
-    """Clip corner boxes into the image."""
-    return torch.stack([
-        torch.clamp(boxes[..., 0], 0.0, width),
-        torch.clamp(boxes[..., 1], 0.0, height),
-        torch.clamp(boxes[..., 2], 0.0, width),
-        torch.clamp(boxes[..., 3], 0.0, height),
-    ], dim=-1)
+def clip_boxes(boxes: torch.Tensor, height=1.0, width=1.0) -> torch.Tensor:
+    """Clip corner boxes into the image: each coordinate to [0, width] or
+    [0, height], ``min(max(x, 0), hi)`` as ``jnp.clip``.  ``height`` and
+    ``width`` are numbers or tensors broadcasting against ``boxes[..., 0]``
+    (one image's size a row)."""
+    def clip(x, hi):
+        return torch.minimum(torch.clamp(x, min=0.0), torch.as_tensor(
+            hi, dtype=x.dtype, device=x.device))
+
+    return torch.stack([clip(boxes[..., 0], width), clip(boxes[..., 1], height),
+                        clip(boxes[..., 2], width), clip(boxes[..., 3], height)],
+                       dim=-1)
 
 
 def scale_boxes(boxes: torch.Tensor, sx, sy) -> torch.Tensor:
@@ -104,3 +107,53 @@ def scale_boxes(boxes: torch.Tensor, sx, sy) -> torch.Tensor:
     boxes)."""
     return torch.stack([boxes[..., 0] * sx, boxes[..., 1] * sy,
                         boxes[..., 2] * sx, boxes[..., 3] * sy], dim=-1)
+
+
+def bbox_transform(ex_rois: torch.Tensor, gt_rois: torch.Tensor
+                   ) -> torch.Tensor:
+    """Faster-RCNN pixel-box regression targets: +1 widths, no variance
+    scaling.  (…,4), (…,4) → (…,4)."""
+    ew = ex_rois[..., 2] - ex_rois[..., 0] + 1.0
+    eh = ex_rois[..., 3] - ex_rois[..., 1] + 1.0
+    ecx = ex_rois[..., 0] + 0.5 * (ew - 1.0)
+    ecy = ex_rois[..., 1] + 0.5 * (eh - 1.0)
+    gw = gt_rois[..., 2] - gt_rois[..., 0] + 1.0
+    gh = gt_rois[..., 3] - gt_rois[..., 1] + 1.0
+    gcx = gt_rois[..., 0] + 0.5 * (gw - 1.0)
+    gcy = gt_rois[..., 1] + 0.5 * (gh - 1.0)
+    return torch.stack([(gcx - ecx) / ew, (gcy - ecy) / eh,
+                        torch.log(gw / ew), torch.log(gh / eh)], dim=-1)
+
+
+def bbox_transform_inv(boxes: torch.Tensor, deltas: torch.Tensor
+                       ) -> torch.Tensor:
+    """Apply Faster-RCNN deltas to pixel boxes (the inverse of
+    :func:`bbox_transform`)."""
+    w = boxes[..., 2] - boxes[..., 0] + 1.0
+    h = boxes[..., 3] - boxes[..., 1] + 1.0
+    cx = boxes[..., 0] + 0.5 * (w - 1.0)
+    cy = boxes[..., 1] + 0.5 * (h - 1.0)
+    ncx = deltas[..., 0] * w + cx
+    ncy = deltas[..., 1] * h + cy
+    nw = torch.exp(deltas[..., 2]) * w
+    nh = torch.exp(deltas[..., 3]) * h
+    return torch.stack([ncx - 0.5 * (nw - 1.0), ncy - 0.5 * (nh - 1.0),
+                        ncx + 0.5 * (nw - 1.0), ncy + 0.5 * (nh - 1.0)],
+                       dim=-1)
+
+
+def bbox_vote(kept_boxes: torch.Tensor, kept_scores: torch.Tensor,
+              all_boxes: torch.Tensor, all_scores: torch.Tensor,
+              all_mask: torch.Tensor, iou_thresh: float = 0.5
+              ) -> torch.Tensor:
+    """Box voting: each kept box (…,K,4) becomes the score-weighted mean
+    of the candidates (…,R,4) whose pixel IoU with it is at least
+    ``iou_thresh`` (``all_mask`` > 0 marks a candidate); a kept box with
+    no such candidate stays.  ``kept_scores`` is unused, as in the
+    reference."""
+    iou = iou_matrix(kept_boxes, all_boxes, normalized=False)
+    w = torch.where((iou >= iou_thresh) & (all_mask[..., None, :] > 0),
+                    all_scores[..., None, :], torch.zeros_like(iou))
+    total = torch.sum(w, dim=-1, keepdim=True)
+    voted = (w @ all_boxes) / torch.clamp(total, min=1e-12)
+    return torch.where(total > 0, voted, kept_boxes)

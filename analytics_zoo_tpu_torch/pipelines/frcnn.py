@@ -1,0 +1,210 @@
+"""Faster-RCNN serving (counterpart of ``pipelines/frcnn.py``): the
+preprocess chain, one detector forward (trunk → RPN → proposal → ROI
+pool → heads → per-class NMS) and the detections rescaled to the
+original image size.
+
+As in the reference, serving keeps py-faster-rcnn's aspect-preserving
+geometry inside one fixed square canvas (``AspectScaleCanvas``: the long
+side scaled to ``resolution``, the rest padded bottom and right), and
+``im_info`` carries the scale factors back to original pixels.
+``aspect_preserving=False`` takes the distorting square resize instead.
+
+:func:`frcnn_serving_tiers` gives ``serving.ServingRuntime`` two rungs:
+fp and weight-only int8.  Faster-RCNN training is ROADMAP.md Queue 1
+item 10's second half; sharded serving (``specs=``) item 12.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from analytics_zoo_tpu_torch.pipelines.ssd import (BGR_MEANS,
+                                                   PreProcessParam,
+                                                   run_serving_loop,
+                                                   serving_chain)
+from analytics_zoo_tpu_torch.transform.vision import AspectScaleCanvas
+from analytics_zoo_tpu_torch.utils.device import resolve_device
+
+logger = logging.getLogger("analytics_zoo_tpu_torch")
+
+# py-faster-rcnn BGR channel means (its models were trained with these,
+# not the SSD-Caffe 104/117/123)
+FRCNN_BGR_MEANS = (102.9801, 115.9465, 122.7717)
+
+# Relative service time of the int8 rung against the fp rung: the median
+# ms of a batch of 8 through the runtime over the fp rung's, each rung
+# forced in interleaved windows (chip_smoke.py's frcnn_serving line,
+# rung_speed_vs_fp), on an NVIDIA H100 80GB HBM3 at 700.00 W: 1.16, 0.89
+# and 1.03 in three runs, the last the quietest (its windows 197-220 ms);
+# this is the median of the three.  The host-bound NMS rounds swing a
+# batch by up to ±20% between windows, more than the rungs differ: the
+# fp32 convolutions are bound by arithmetic, not by the weights' bytes,
+# as on SSD.  ServingRuntime.snapshot() reports it; nothing schedules by
+# it yet.
+INT8_SPEED = 1.03
+
+
+class FrcnnPredictor:
+    """``SSDPredictor``'s counterpart for the Faster-RCNN family, around
+    a :class:`~analytics_zoo_tpu_torch.models.faster_rcnn.
+    FasterRcnnDetector` moved to ``device`` (the GPU unless
+    ``device="cpu"``).
+
+    ``param`` defaults to ``PreProcessParam(resolution=512,
+    pixel_means=FRCNN_BGR_MEANS)``; a param left at the SSD-Caffe means
+    gets the Faster-RCNN ones unless ``swap_default_means=False``.
+    ``quantize``: ``False``, ``True`` / ``"weight"`` (int8 weights
+    dequantized in the forward) or ``"int8"`` (int8 × int8 products), as
+    ``SSDPredictor``'s; a quantized predictor serves a quantized copy of
+    ``detector``."""
+
+    def __init__(self, detector: nn.Module,
+                 param: Optional[PreProcessParam] = None,
+                 aspect_preserving: bool = True,
+                 swap_default_means: bool = True, quantize=False,
+                 device=None):
+        if quantize not in (False, True, "weight", "int8"):
+            raise ValueError(f"quantize must be False, True, 'weight' or "
+                             f"'int8', got {quantize!r}")
+        if param is not None and param.wire_format != "bgr":
+            raise ValueError(
+                "FrcnnPredictor serves over the uint8 BGR wire only; "
+                f"wire_format={param.wire_format!r} is not supported "
+                "(the yuv420 wire is an SSDPredictor feature)")
+        if param is None:
+            param = PreProcessParam(resolution=512,
+                                    pixel_means=FRCNN_BGR_MEANS)
+        elif (swap_default_means
+              and tuple(param.pixel_means) == tuple(BGR_MEANS)):
+            # the SSD-Caffe default means are wrong for py-faster-rcnn
+            # weights; a caller who wants them passes
+            # swap_default_means=False
+            logger.info("FrcnnPredictor: replacing default SSD pixel "
+                        "means with FRCNN_BGR_MEANS "
+                        "(swap_default_means=False keeps them)")
+            param = dataclasses.replace(param, pixel_means=FRCNN_BGR_MEANS)
+        self.device = resolve_device(device)
+        if quantize:
+            from analytics_zoo_tpu_torch.utils.quantize import quantize_model
+
+            detector = quantize_model(
+                detector, compute="int8" if quantize == "int8" else "dequant")
+        self.detector = detector.to(self.device).eval()
+        self.quantize = quantize
+        self.param = param
+        self.aspect_preserving = aspect_preserving
+        self._means = torch.as_tensor(param.pixel_means, dtype=torch.float32,
+                                      device=self.device)
+
+    def _forward(self, x, info) -> torch.Tensor:
+        """NHWC pixels (uint8, or float32 mean-subtracted) and (B, 3)
+        ``im_info`` → (B, max_per_image, 6) detections on the device."""
+        x = torch.as_tensor(x).to(self.device, non_blocking=True)
+        if x.dtype == torch.uint8:
+            # uint8 staging: 4x fewer host→device bytes, normalize here
+            x = x.to(torch.float32) - self._means
+        with torch.inference_mode():
+            return self.detector(x, torch.as_tensor(info).to(self.device))
+
+    def _detect_device(self, batch: Dict):
+        """Enqueue one batch; returns (device detections, scale_h,
+        scale_w), the boxes still in resized-image pixels.  The
+        detector's ``im_info`` rows are (height, width, scale): the
+        content's size, so boxes clip to the image and not to the
+        canvas' padding, and the mean of the two scale factors, by which
+        the proposal layer's ``min_size`` scales."""
+        im_info = np.asarray(batch["im_info"], np.float32)
+        scale_h = np.maximum(im_info[:, 2], 1e-8)
+        scale_w = np.maximum(im_info[:, 3], 1e-8)
+        info = np.stack([im_info[:, 0], im_info[:, 1],
+                         ((scale_h + scale_w) * 0.5).astype(np.float32)],
+                        axis=1)
+        return self._forward(batch["input"], info), scale_h, scale_w
+
+    @staticmethod
+    def _rescale(dets: torch.Tensor, scale_h, scale_w) -> np.ndarray:
+        """Read back and project to original pixels: x / scale_w,
+        y / scale_h (numpy on the host: the array is tiny)."""
+        out = dets.cpu().numpy().copy()
+        out[..., 2] /= scale_w[:, None]
+        out[..., 4] /= scale_w[:, None]
+        out[..., 3] /= scale_h[:, None]
+        out[..., 5] /= scale_h[:, None]
+        return out
+
+    def detect_batch(self, batch: Dict) -> np.ndarray:
+        """(B, max_per_image, 6) detections in original image pixels."""
+        return self._rescale(*self._detect_device(batch))
+
+    def predict(self, records) -> List[np.ndarray]:
+        """Records (``SSDByteRecord``s) → per-image (K, 6) detections in
+        original pixels, through the uint8 serving chain (decoded and
+        resized by the predictor's device's routes) and a window of
+        batches in flight."""
+        resize = (AspectScaleCanvas(self.param.resolution,
+                                    device=self.device)
+                  if self.aspect_preserving else None)
+        return run_serving_loop(
+            serving_chain(self.param, uint8=True, resize=resize,
+                          device=self.device)(records),
+            self._detect_device, lambda t: self._rescale(*t))
+
+
+def frcnn_serving_tiers(detector: nn.Module,
+                        param: Optional[PreProcessParam] = None,
+                        specs=None, aspect_preserving: bool = True,
+                        device=None) -> List:
+    """Degradation rungs for ``serving.ServingRuntime``: two
+    ``ServingTier`` s over the same detector forward, cheapest last —
+    tier 0 ``fp``, tier 1 ``int8`` (int8 weights dequantized in the
+    forward, ``quantize=True``).
+
+    Requests carry one preprocessed canvas (``{"input": (res, res, 3)
+    float32}``, the pixel means already subtracted, the batcher's FIXED
+    bucket, as for the SSD tiers); the forward gives the whole canvas a
+    unit-scale ``im_info``, so detections come back in canvas pixels,
+    read back as numpy.  ``device_program()`` gives the rung's forward
+    and example arguments of its shapes.  Sharded serving (``specs``) is
+    ROADMAP.md Queue 1 item 12."""
+    from analytics_zoo_tpu_torch.serving.ladder import ServingTier
+
+    if specs is not None:
+        raise NotImplementedError("frcnn_serving_tiers(specs=...) is not "
+                                  "ported yet (ROADMAP.md Queue 1 item 12)")
+    full = FrcnnPredictor(detector, param=param,
+                          aspect_preserving=aspect_preserving, device=device)
+    int8 = FrcnnPredictor(detector, param=full.param,
+                          swap_default_means=False, quantize=True,
+                          device=device)
+    res = full.param.resolution
+
+    def fwd(pred: FrcnnPredictor) -> Callable[[Dict], np.ndarray]:
+        def forward(batch: Dict) -> np.ndarray:
+            B = batch["input"].shape[0]
+            im_info = np.tile(np.asarray([[res, res, 1.0, 1.0]], np.float32),
+                              (B, 1))
+            return pred.detect_batch({"input": batch["input"],
+                                      "im_info": im_info})
+        return forward
+
+    def program(pred: FrcnnPredictor) -> Callable[[], tuple]:
+        def device_program():
+            x = torch.zeros((1, res, res, 3), device=pred.device)
+            info = torch.tensor([[res, res, 1.0]], device=pred.device)
+            return pred._forward, (x, info)
+        return device_program
+
+    return [
+        ServingTier("fp", fwd(full), speed=1.0,
+                    quality_note="full precision, per-class NMS",
+                    device_program=program(full)),
+        ServingTier("int8", fwd(int8), speed=INT8_SPEED,
+                    quality_note="int8 weights, fp math",
+                    device_program=program(int8)),
+    ]

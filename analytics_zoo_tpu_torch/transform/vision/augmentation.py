@@ -6,9 +6,10 @@ The ops call OpenCV as the reference does, importing ``cv2`` inside the
 functions that need it, so importing this module needs no cv2.  The ops
 of the card's path never call it: ``BytesToMat`` decodes through the
 port's JPEG codec (``data/native.py``), ``HFlip`` mirrors with numpy
-(what ``cv2.flip(mat, 1)`` computes), and ``Resize`` on a CUDA pipeline
-resamples INTER_LINEAR with ``resize_bilinear`` in numpy; to the mat's
-own size it copies, as ``cv2.resize`` does.  Random decisions come from
+(what ``cv2.flip(mat, 1)`` computes), and ``Resize``, ``AspectScale``
+and ``AspectScaleCanvas`` on a CUDA pipeline resample INTER_LINEAR with
+``resize_bilinear`` in numpy; to the mat's own size ``Resize`` copies,
+as ``cv2.resize`` does.  Random decisions come from
 ``self.rng``, the per-sample stream ``data.transformer.sample_random``,
 in the reference's order.
 """
@@ -297,11 +298,9 @@ class Resize(FeatureTransformer):
 
     def __init__(self, width: int, height: int, interp: int = INTER_LINEAR,
                  device=None):
-        from analytics_zoo_tpu_torch.utils.device import resolve_device
-
         super().__init__()
         self.width_, self.height_, self.interp = width, height, interp
-        self.numpy_linear = resolve_device(device).type == "cuda"
+        self.numpy_linear = _resize_route(device)
         self.rng = sample_random()
 
     def transform_mat(self, feature: ImageFeature) -> None:
@@ -319,17 +318,39 @@ class Resize(FeatureTransformer):
                                      interpolation=interp)
 
 
+def _resize_route(device) -> bool:
+    """True where INTER_LINEAR runs as :func:`resize_bilinear` (a CUDA
+    pipeline, whose card has no cv2), False for ``cv2.resize``."""
+    from analytics_zoo_tpu_torch.utils.device import resolve_device
+
+    return resolve_device(device).type == "cuda"
+
+
+def _resize_linear(mat: np.ndarray, width: int, height: int,
+                   numpy_linear: bool) -> np.ndarray:
+    """INTER_LINEAR to (width, height) by the route ``numpy_linear``
+    picks."""
+    if numpy_linear:
+        return resize_bilinear(mat, width, height)
+    import cv2
+
+    return cv2.resize(mat, (width, height))
+
+
 class AspectScale(FeatureTransformer):
     """Scale the short side to ``min_size`` capped so the long side stays
     ≤ ``max_size``, optionally rounding dims to a multiple (Faster-RCNN
-    style)."""
+    style).  The resize follows ``device`` (the GPU unless given), as
+    ``Resize``'s: ``resize_bilinear`` on a CUDA pipeline, ``cv2.resize``
+    on the CPU."""
 
     def __init__(self, min_size: int, scale_multiple_of: int = 1,
-                 max_size: int = 1000):
+                 max_size: int = 1000, device=None):
         super().__init__()
         self.min_size = min_size
         self.scale_multiple_of = scale_multiple_of
         self.max_size = max_size
+        self.numpy_linear = _resize_route(device)
 
     def _scale(self, h: int, w: int) -> float:
         short, long = min(h, w), max(h, w)
@@ -346,9 +367,7 @@ class AspectScale(FeatureTransformer):
             m = self.scale_multiple_of
             nh = int(np.ceil(nh / m) * m)
             nw = int(np.ceil(nw / m) * m)
-        import cv2
-
-        feature.mat = cv2.resize(feature.mat, (nw, nh))
+        feature.mat = _resize_linear(feature.mat, nw, nh, self.numpy_linear)
         feature["scale"] = scale
 
 
@@ -356,21 +375,21 @@ class AspectScaleCanvas(FeatureTransformer):
     """Aspect-preserving resize into one fixed square canvas: scale =
     canvas/max(h, w), resize, paste top-left into a ``canvas``×``canvas``
     field of ``fill``.  Both axes share one scale factor, recorded in
-    ``im_info`` so detections project back to original pixels."""
+    ``im_info`` so detections project back to original pixels.  The
+    resize follows ``device``, as ``AspectScale``'s."""
 
-    def __init__(self, canvas: int, fill: int = 0):
+    def __init__(self, canvas: int, fill: int = 0, device=None):
         super().__init__()
         self.canvas = canvas
         self.fill = fill
+        self.numpy_linear = _resize_route(device)
 
     def transform_mat(self, feature: ImageFeature) -> None:
         h, w = feature.mat.shape[:2]
         scale = self.canvas / max(h, w)
         nh = max(int(round(h * scale)), 1)
         nw = max(int(round(w * scale)), 1)
-        import cv2
-
-        resized = cv2.resize(feature.mat, (nw, nh))
+        resized = _resize_linear(feature.mat, nw, nh, self.numpy_linear)
         out = np.full((self.canvas, self.canvas) + resized.shape[2:],
                       self.fill, dtype=resized.dtype)
         out[:nh, :nw] = resized
@@ -387,8 +406,9 @@ class RandomAspectScale(AspectScale):
     """AspectScale with min_size drawn from ``scales``."""
 
     def __init__(self, scales: Sequence[int], scale_multiple_of: int = 1,
-                 max_size: int = 1000):
-        super().__init__(scales[0], scale_multiple_of, max_size)
+                 max_size: int = 1000, device=None):
+        super().__init__(scales[0], scale_multiple_of, max_size,
+                         device=device)
         self.scales = list(scales)
         self.rng = sample_random()
 

@@ -1,8 +1,9 @@
 """Weight bridges between a flax variables tree and a PyTorch
-``state_dict``, both ways.
+``state_dict``, both ways, and the name-keyed weight copy the Caffe
+importer uses.
 
 The port's own copy of ``flatten_params`` (``utils/convert.py`` of the
-JAX package) plus the bridges for SSD and DeepSpeech2: the port names
+JAX package) plus the bridges for SSD, DeepSpeech2 and Faster-RCNN: the port names
 its modules after the flax ones, so ``vgg/conv1_1/kernel`` becomes
 ``vgg.conv1_1.weight`` with the kernel moved from flax HWIO to torch
 OIHW.  :func:`state_dict_to_flax` maps tensors named as the module's
@@ -12,7 +13,7 @@ and layouts, so that two trainings compare leaf by leaf.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -117,6 +118,62 @@ def ssd_params_from_jax(params: Mapping, model: nn.Module
                         ) -> Dict[str, torch.Tensor]:
     """A flax SSD params tree → the port's ``SSDVgg`` ``state_dict``."""
     return flax_variables_to_state_dict({"params": params}, model)
+
+
+def frcnn_params_from_jax(params: Mapping, model: nn.Module
+                          ) -> Dict[str, torch.Tensor]:
+    """A flax ``FasterRcnnDetector`` or ``FasterRcnnVgg`` params tree →
+    the port's ``state_dict`` of the same module (``frcnn/vgg/conv1_1``
+    → ``frcnn.vgg.conv1_1``).  Both flatten the ROI-pooled map HWC into
+    fc6 (``models/faster_rcnn.py``), so fc6's kernel needs no permutation,
+    only the transpose of every Dense kernel."""
+    return flax_variables_to_state_dict({"params": params}, model)
+
+
+def load_weights_by_name(state: Any, source: Mapping[str, np.ndarray],
+                         rename: Optional[Callable[[str], str]] = None,
+                         strict: bool = False
+                         ) -> Tuple[Dict[str, torch.Tensor], Dict[str, list]]:
+    """Copy ``source`` arrays (slash-keyed, ``conv1_1/weight``) into a
+    ``state_dict`` (or a module's) by name, the port's counterpart of the
+    reference's by-layer-name copy: entry ``frcnn.vgg.conv1_1.weight`` is
+    looked up under its full key ``frcnn/vgg/conv1_1/weight``, then its
+    last two parts ``conv1_1/weight``; ``rename`` pre-maps the source
+    keys.  Caffe and torch share the OIHW convolution and ``(out, in)``
+    dense layouts, so arrays are copied as they are; a shape that does
+    not fit raises.
+
+    Returns ``(new_state, report)``: every entry (loaded ones as tensors
+    of the entry's dtype and device), and the report's ``loaded``,
+    ``missing`` (entries with no source) and ``unused`` (source keys
+    never consumed).  ``strict=True`` raises on a missing entry."""
+    if isinstance(state, nn.Module):
+        state = state.state_dict()
+    src = {(rename(k) if rename else k): np.asarray(v)
+           for k, v in source.items()}
+    out: Dict[str, torch.Tensor] = {}
+    loaded, missing, used = [], [], set()
+    for name, value in state.items():
+        parts = name.split(".")
+        found = next((c for c in ("/".join(parts), "/".join(parts[-2:]))
+                      if c in src), None)
+        if found is None:
+            out[name] = value
+            missing.append(name)
+            continue
+        w = src[found]
+        if tuple(w.shape) != tuple(value.shape):
+            raise ValueError(f"shape mismatch for {name}: "
+                             f"{tuple(value.shape)} vs source {found} "
+                             f"{tuple(w.shape)}")
+        out[name] = torch.as_tensor(np.array(w), dtype=value.dtype,
+                                    device=value.device)
+        loaded.append(name)
+        used.add(found)
+    if strict and missing:
+        raise KeyError(f"no source weights for: {missing}")
+    return out, {"loaded": loaded, "missing": missing,
+                 "unused": [k for k in src if k not in used]}
 
 
 def ds2_params_from_jax(variables: Mapping, model: nn.Module

@@ -2,8 +2,8 @@
 """Drive the PyTorch port's SSD300 and DeepSpeech2 serving paths, its
 DeepSpeech2 CTC training path, its SSD300 training path, its SSD input
 path from JPEG records, SSD and DeepSpeech2 online serving through
-``ServingRuntime``, DeepSpeech2 streaming sessions and the multiplexed
-pool once on one NVIDIA GPU.
+``ServingRuntime``, DeepSpeech2 streaming sessions, the multiplexed
+pool and Faster-RCNN VGG16 serving once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -204,6 +204,34 @@ Phases, one JSON line each; any failure exits non-zero:
    a direct ``StreamingDS2``, K2 once an SSD batch and K3 6 times a DS2
    batch plus 3 times a streaming block; each model's p50, p99, batches
    and weight;
+6f. frcnn_serving: Faster-RCNN VGG16 serving at full width (the
+   py-faster-rcnn VGG16 trunk, 9 anchors, 6000/300 proposals, 7 x 7 ROI
+   pooling, fc6/fc7 of 4096, 21 classes, ``FrcnnPostParam`` defaults,
+   fp32 on the 512² canvas, batch 8, seeded weights); every launch
+   counter set to 0 at its start and read at its end: no K1-K4 launch
+   (the path runs none of the four, as in the reference).  Each stage on
+   the card against the CPU on one image: the trunk, the RPN's scores
+   and deltas and the heads (fed the CPU's pooled map) within
+   ``FRCNN_STAGE_TOL`` relative max-abs; the proposal fed the CPU's
+   scores and deltas, its kept indices equal unless the first differing
+   decision's IoU, score or size margin is under ``FRCNN_MARGIN``
+   (counted and printed); ``roi_pool`` fed the CPU's map and ROIs,
+   bit-equal; the post-processing fed the CPU's probabilities and
+   boxes, rows equal.  ``FrcnnPredictor.predict`` on 4 batches of 8
+   shapes records of ``FRCNN_RECORD_SIZES`` (nvJPEG, cv2 unimportable,
+   ``AspectScaleCanvas`` resampling on the card's route), equal to
+   ``detect_batch`` on the same staged batches, detections in range.
+   ``detect_batch`` by the host clock (median of ``FRCNN_TIMED``), split
+   with CUDA events into upload, trunk, rpn, proposal (its NMS rounds
+   apart), roi_pool, heads, post (its NMS rounds apart) and readback;
+   one batch under ``torch.profiler``: kernel ms by stage, launches and
+   the device's busy share.  ``frcnn_serving_tiers`` (fp, int8) behind
+   ``ServingRuntime(n_replicas=2, max_batch=8)``: ``FRCNN_REQUESTS``
+   requests, then ``drain()``, no fence, failure or shed, the rows the
+   fp predictor's; each rung forced in ``FRCNN_WINDOWS`` interleaved
+   windows of one batch (ms a batch), each rung's rows its predictor's,
+   the int8 rung's detections against fp's with the largest score
+   difference;
 7. the ``kernels`` line, then the device line last.
 
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -367,6 +395,30 @@ STREAM_RTOL, STREAM_ATOL = 1e-4, 1e-5
 # the host of an NVIDIA H100 80GB HBM3, 700.00 W), which is its work and
 # not a wedge
 DS2_WEDGE_S = 120.0
+# Faster-RCNN VGG16 serving at the reference's full width (the py-faster-
+# rcnn VGG16 trunk, 9 anchors, 6000/300 proposals, 7 x 7 ROI pooling,
+# fc6/fc7 of 4096, 21 classes, FrcnnPostParam defaults) on the 512²
+# canvas of FrcnnPredictor's default PreProcessParam, batch 8: record
+# batches served through predict(records), detect_batch timed (median of
+# FRCNN_TIMED after 2), requests through the runtime and each rung forced
+# in FRCNN_WINDOWS interleaved windows of one batch
+FRCNN_RESOLUTION, FRCNN_RECORD_BATCHES = 512, 4
+FRCNN_TIMED, FRCNN_REQUESTS, FRCNN_WINDOWS = 7, 32, 5
+# the records' original sizes (h, w): non-square and square, larger and
+# smaller than the canvas, so AspectScaleCanvas resamples every one
+FRCNN_RECORD_SIZES = ((375, 500), (500, 375), (333, 500), (480, 640),
+                      (512, 512), (300, 450), (640, 427), (256, 384))
+# a stage on the card against the CPU on the same inputs, fp32, TF32
+# off: relative max-abs error of the trunk's map, the RPN's scores and
+# deltas and the heads' probabilities and deltas (the SSD forward's
+# bound); a proposal decision (the next kept candidate) whose IoU or
+# score margin lies within FRCNN_MARGIN of the threshold or of the
+# competing candidate may go either way on two platforms
+FRCNN_STAGE_TOL = 1e-4
+FRCNN_MARGIN = 1e-5
+# the model's FrcnnParam: None is FrcnnParam(), the full width (a CPU
+# rehearsal of the phase sets a small one)
+FRCNN_PARAM = None
 
 
 def emit(phase: str, **fields) -> None:
@@ -654,7 +706,7 @@ def grads_err(got, want):
     return errs
 
 
-def profile_train_step(fn, top: int = 8):
+def profile_train_step(fn, top: int = 8, root: str = "train_step"):
     """One call of ``fn`` (a train step of ``make_train_step``) under
     ``torch.profiler``, every number read from that one trace (its chrome
     export): the device time of each kernel, summed by name (ms, the
@@ -667,7 +719,8 @@ def profile_train_step(fn, top: int = 8):
     a thread of its own); the step's span, from the start of its ``train_step``
     range to the end of its last kernel; and the share of that span in
     which the device ran something (overlapping kernels counted once,
-    so the share is at most 1)."""
+    so the share is at most 1), and the kernels launched in it.  ``root``
+    names the step's range and prefixes its parts' (``root.part``)."""
     import os
     import tempfile
 
@@ -688,7 +741,7 @@ def profile_train_step(fn, top: int = 8):
     for e in trace:
         cat, args = e.get("cat"), e.get("args", {})
         if cat == "user_annotation" and e["name"].startswith(
-                ("train_step", "multibox_loss")):
+                (root, "multibox_loss")):
             ranges.setdefault(e["name"], []).append(
                 (e["ts"], e["ts"] + e["dur"]))
         elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
@@ -696,14 +749,14 @@ def profile_train_step(fn, top: int = 8):
         elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
             device.append((e["ts"], e["ts"] + e["dur"], e["name"],
                            args.get("correlation")))
-    ((t0, t1),) = ranges["train_step"]
+    ((t0, t1),) = ranges[root]
     device = [d for d in device if t0 <= launch_us.get(d[3], -1) <= t1]
     span_us = max([t1] + [d[1] for d in device]) - t0
     by_name, parts = {}, {}
     for start, end, name, corr in device:
         by_name[name[:60]] = by_name.get(name[:60], 0.0) + (end - start) / 1e3
         for part, spans in ranges.items():
-            if part != "train_step" and any(
+            if part != root and any(
                     r0 <= launch_us[corr] <= r1 for r0, r1 in spans):
                 key = part.split(".", 1)[-1]
                 parts[key] = parts.get(key, 0.0) + (end - start) / 1e3
@@ -718,7 +771,9 @@ def profile_train_step(fn, top: int = 8):
     ranked = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
     return {"span_ms": span_us / 1e3, "kernel_ms": sum(by_name.values()),
             "busy_share": busy_us / span_us, "kernel_ms_by_part": parts,
-            "kernel_ms_by_name": ranked}
+            "kernel_ms_by_name": ranked,
+            "launches": sum(1 for d in device if d[2] and not d[2].startswith(
+                ("Memcpy", "Memset")))}
 
 
 def cudnn_relu_rnn_ms(pre, w, b) -> float:
@@ -2289,6 +2344,474 @@ def ds2_online_phase(dev, smi):
             "k2_fleet": fleet_k2}
 
 
+class StageEvents:
+    """``with stages("trunk"): ...`` records a pair of CUDA events around
+    the block; :meth:`ms` sums each stage's device time (ms) after a
+    synchronize.  Nested stages are timed inside their parent."""
+
+    def __init__(self):
+        self.spans = []
+
+    def __call__(self, name):
+        import contextlib
+
+        import torch
+
+        @contextlib.contextmanager
+        def span():
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            yield
+            b.record()
+            self.spans.append((name, a, b))
+        return span()
+
+    def ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        out = {}
+        for name, a, b in self.spans:
+            out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+        return out
+
+
+def frcnn_staged(pred, batch, stage):
+    """``FrcnnPredictor.detect_batch`` step by step, each step inside
+    ``stage(name)`` (``StageEvents`` or a profiler range), the NMS of the
+    proposal layer and of the post-processing in nested stages of their
+    own: upload, trunk, rpn, proposal (⊃ proposal_nms), roi_pool, heads,
+    post (⊃ post_nms), readback.  Returns what ``detect_batch`` returns."""
+    import numpy as np
+    import torch
+
+    import importlib
+
+    from analytics_zoo_tpu_torch.models.faster_rcnn import decode_frcnn_boxes
+    from analytics_zoo_tpu_torch.ops.roi_pool import roi_pool_batch
+
+    # the modules (the package exports a function named ``proposal``)
+    frcnn_ops = importlib.import_module("analytics_zoo_tpu_torch.ops.frcnn")
+    proposal_ops = importlib.import_module(
+        "analytics_zoo_tpu_torch.ops.proposal")
+
+    net, dev = pred.detector.frcnn, pred.device
+    p = net.param
+    orig = {proposal_ops: proposal_ops.nms_batched,
+            frcnn_ops: frcnn_ops.nms_batched}
+
+    def nms_in(name, fn):
+        def wrapped(*args, **kw):
+            with stage(name):
+                return fn(*args, **kw)
+        return wrapped
+
+    proposal_ops.nms_batched = nms_in("proposal_nms", orig[proposal_ops])
+    frcnn_ops.nms_batched = nms_in("post_nms", orig[frcnn_ops])
+    try:
+        im_info = np.asarray(batch["im_info"], np.float32)
+        scale_h = np.maximum(im_info[:, 2], 1e-8)
+        scale_w = np.maximum(im_info[:, 3], 1e-8)
+        with torch.inference_mode():
+            with stage("upload"):
+                x = torch.as_tensor(batch["input"]).to(dev)
+                x = x.to(torch.float32) - pred._means
+                info = torch.as_tensor(np.stack(
+                    [im_info[:, 0], im_info[:, 1],
+                     ((scale_h + scale_w) * 0.5).astype(np.float32)], 1)
+                    ).to(dev)
+            with stage("trunk"):
+                feat = net.vgg(x.permute(0, 3, 1, 2))
+            with stage("rpn"):
+                scores, deltas = net.rpn(feat)
+            with stage("proposal"):
+                rois, mask = proposal_ops.proposal(
+                    scores, deltas,
+                    net.anchors(feat.shape[2], feat.shape[3], dev),
+                    info[:, 0], info[:, 1], info[:, 2], param=p.proposal)
+            with stage("roi_pool"):
+                pooled = roi_pool_batch(
+                    feat.permute(0, 2, 3, 1).contiguous(), rois, mask,
+                    pooled_h=p.pooled, pooled_w=p.pooled,
+                    spatial_scale=1.0 / p.feat_stride)
+            with stage("heads"):
+                probs, bbox_deltas = net.heads(pooled)
+            with stage("post"):
+                dets = frcnn_ops.frcnn_postprocess(
+                    probs * mask[..., None],
+                    decode_frcnn_boxes(rois, bbox_deltas, info),
+                    pred.detector.post)
+            with stage("readback"):
+                return pred._rescale(dets, scale_h, scale_w)
+    finally:
+        for mod, fn in orig.items():
+            mod.nms_batched = fn
+
+
+def kept_indices(boxes, rois, mask):
+    """The decoded candidate each valid ROI copies (nearest in L1),
+    numpy rows."""
+    import numpy as np
+
+    return [int(np.abs(boxes - r).sum(1).argmin()) for r in rois[mask > 0]]
+
+
+def proposal_near_ties(got, want, boxes, scores, min_sz, thresh):
+    """Walk two kept-index lists of one image; at the first decision
+    where they differ, the margins that decided it: each candidate's
+    largest IoU with the boxes kept before it against ``thresh``, the two
+    candidates' score gap, and each one's size against ``min_sz``
+    (relative).  Returns (position, smallest margin), or None where the
+    lists are equal."""
+    import numpy as np
+
+    if got == want:
+        return None
+    i = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b),
+             min(len(got), len(want)))
+    cands = got[i:i + 1] + want[i:i + 1]
+    kept = boxes[want[:i]]
+
+    def iou(b, others):
+        if not len(others):
+            return 0.0
+        ix = (np.minimum(b[2], others[:, 2]) - np.maximum(b[0], others[:, 0])
+              + 1).clip(min=0)
+        iy = (np.minimum(b[3], others[:, 3]) - np.maximum(b[1], others[:, 1])
+              + 1).clip(min=0)
+        inter = ix * iy
+        area = lambda x: (x[..., 2] - x[..., 0] + 1) * (x[..., 3] - x[..., 1]
+                                                         + 1)
+        return float((inter / (area(b) + area(others) - inter)).max())
+
+    margins = [abs(iou(boxes[c], kept) - thresh) for c in cands]
+    if len(cands) == 2:
+        margins.append(abs(float(scores[cands[0]] - scores[cands[1]])))
+    for c in cands:
+        w = boxes[c, 2] - boxes[c, 0] + 1
+        h = boxes[c, 3] - boxes[c, 1] + 1
+        margins.append(float(min(abs(w - min_sz), abs(h - min_sz)) / min_sz))
+    return i, min(margins)
+
+
+def match_detections(a, b, iou_min=0.5):
+    """Greedy match of two images' detection rows (class equal, pixel IoU
+    ≥ ``iou_min``, highest score first): (matched share of ``a``'s valid
+    rows, largest score difference over the matches)."""
+    va, vb = a[a[:, 1] > 0], b[b[:, 1] > 0]
+    used, diffs = set(), []
+    for row in va:
+        best, best_iou = None, iou_min
+        for j, other in enumerate(vb):
+            if j in used or other[0] != row[0]:
+                continue
+            ix = max(0.0, min(row[4], other[4]) - max(row[2], other[2]) + 1)
+            iy = max(0.0, min(row[5], other[5]) - max(row[3], other[3]) + 1)
+            inter = ix * iy
+            union = ((row[4] - row[2] + 1) * (row[5] - row[3] + 1)
+                     + (other[4] - other[2] + 1) * (other[5] - other[3] + 1)
+                     - inter)
+            if union > 0 and inter / union >= best_iou:
+                best, best_iou = j, inter / union
+        if best is not None:
+            used.add(best)
+            diffs.append(abs(float(row[1] - vb[best][1])))
+    return (len(diffs) / max(len(va), 1),
+            max(diffs) if diffs else None)
+
+
+def frcnn_serving_phase(dev, smi):
+    """Faster-RCNN VGG16 serving on the card at full width (phase
+    ``frcnn_serving``); returns the launches of K1-K4 over the whole phase
+    (the path reaches none of them)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.data import native
+    from analytics_zoo_tpu_torch.data.records import SSDByteRecord
+    from analytics_zoo_tpu_torch.data.synthetic import render_shapes_image
+    from analytics_zoo_tpu_torch.models.faster_rcnn import (
+        FasterRcnnDetector, FrcnnParam, decode_frcnn_boxes)
+    from analytics_zoo_tpu_torch.ops import (pallas_detout, pallas_nms,
+                                             pallas_rnn)
+    from analytics_zoo_tpu_torch.ops.bbox import (bbox_transform_inv,
+                                                  clip_boxes)
+    from analytics_zoo_tpu_torch.ops.frcnn import frcnn_postprocess
+    from analytics_zoo_tpu_torch.ops.proposal import proposal
+    from analytics_zoo_tpu_torch.ops.roi_pool import roi_pool_batch
+    from analytics_zoo_tpu_torch.pipelines.frcnn import (FRCNN_BGR_MEANS,
+                                                         FrcnnPredictor,
+                                                         frcnn_serving_tiers)
+    from analytics_zoo_tpu_torch.pipelines.ssd import (PreProcessParam,
+                                                       serving_chain)
+    from analytics_zoo_tpu_torch.serving import (MonotonicClock,
+                                                 ServingRuntime)
+    from analytics_zoo_tpu_torch.transform.vision import AspectScaleCanvas
+
+    counters = (pallas_nms.nms_sweep, pallas_detout.fused_detection_output,
+                pallas_rnn.persistent_rnn, pallas_rnn.persistent_rnn_bwd)
+    for k in counters:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.RandomState(51)
+    res = FRCNN_RESOLUTION
+    means = np.float32(FRCNN_BGR_MEANS)
+    cpu_det = FasterRcnnDetector(FRCNN_PARAM or FrcnnParam(), device="cpu",
+                                 seed=0)
+    det = copy.deepcopy(cpu_det).to(dev)
+    p = det.param
+    n_params = sum(t.numel() for t in det.parameters())
+
+    # -- 1. each stage on the card against the CPU, one image -------------
+    img, _ = render_shapes_image(rng, res)
+    x_c = torch.from_numpy(img.astype(np.float32) - means)[None]
+    info_c = torch.tensor([[res, res, 1.0]])
+    stage_err = {}
+    with torch.inference_mode():
+        feat_c = cpu_det.frcnn.vgg(x_c.permute(0, 3, 1, 2))
+        feat_g = det.frcnn.vgg(x_c.to(dev).permute(0, 3, 1, 2))
+        stage_err["trunk"] = rel_err(feat_g.cpu(), feat_c)
+        s_c, d_c = cpu_det.frcnn.rpn(feat_c)
+        s_g, d_g = det.frcnn.rpn(feat_c.to(dev))
+        stage_err["rpn_scores"] = rel_err(s_g.cpu(), s_c)
+        stage_err["rpn_deltas"] = rel_err(d_g.cpu(), d_c)
+        h, w = feat_c.shape[2:]
+        anchors = cpu_det.frcnn.anchors(h, w, "cpu")
+        r_c, m_c = proposal(s_c, d_c, anchors, info_c[:, 0], info_c[:, 1],
+                            info_c[:, 2], param=p.proposal)
+        r_g, m_g = proposal(s_c.to(dev), d_c.to(dev), anchors.to(dev),
+                            info_c[:, 0].to(dev), info_c[:, 1].to(dev),
+                            info_c[:, 2].to(dev), param=p.proposal)
+        boxes = clip_boxes(bbox_transform_inv(anchors, d_c[0]), res - 1.0,
+                           res - 1.0).numpy()
+        kept_c = kept_indices(boxes, r_c[0].numpy(), m_c[0].numpy())
+        kept_g = kept_indices(boxes, r_g[0].cpu().numpy(),
+                              m_g[0].cpu().numpy())
+        tie = proposal_near_ties(kept_g, kept_c, boxes, s_c[0].numpy(),
+                                 p.proposal.min_size * 1.0,
+                                 p.proposal.nms_thresh)
+        if tie is not None and not tie[1] < FRCNN_MARGIN:
+            raise AssertionError(f"proposal: kept indices differ at "
+                                 f"{tie[0]} with a margin of {tie[1]} "
+                                 f"(tol {FRCNN_MARGIN})")
+        if tie is None:
+            roi_err = (r_g.cpu() - r_c).abs().max().item()
+            if roi_err > 1e-3:
+                raise AssertionError(f"proposal ROIs card vs CPU {roi_err}")
+        else:
+            roi_err = None
+        feat_nhwc = feat_c.permute(0, 2, 3, 1).contiguous()
+        pool_c = roi_pool_batch(feat_nhwc, r_c, m_c, p.pooled, p.pooled,
+                                1.0 / p.feat_stride)
+        pool_g = roi_pool_batch(feat_nhwc.to(dev), r_c.to(dev), m_c.to(dev),
+                                p.pooled, p.pooled, 1.0 / p.feat_stride)
+        if not torch.equal(pool_g.cpu(), pool_c):
+            raise AssertionError("roi_pool card vs CPU not bit-equal")
+        pr_c, bd_c = cpu_det.frcnn.heads(pool_c)
+        pr_g, bd_g = det.frcnn.heads(pool_c.to(dev))
+        stage_err["heads_probs"] = rel_err(pr_g.cpu(), pr_c)
+        stage_err["heads_deltas"] = rel_err(bd_g.cpu(), bd_c)
+        if not max(stage_err.values()) <= FRCNN_STAGE_TOL:
+            raise AssertionError(f"stages card vs CPU {stage_err} (tol "
+                                 f"{FRCNN_STAGE_TOL})")
+        probs_c = pr_c * m_c[..., None]
+        boxes_c = decode_frcnn_boxes(r_c, bd_c, info_c)
+        post_c = frcnn_postprocess(probs_c, boxes_c, det.post)
+        post_g = frcnn_postprocess(probs_c.to(dev), boxes_c.to(dev), det.post)
+        post_err = rows_err(post_g, post_c)
+        post_rows = int((post_c[..., 1] > 0).sum().item())
+    check = {"stage_rel_err": stage_err, "tolerance": FRCNN_STAGE_TOL,
+             "proposal_kept": len(kept_c),
+             "proposal_near_ties": 0 if tie is None else 1,
+             "proposal_first_difference": tie,
+             "proposal_roi_max_abs_err": roi_err,
+             "roi_pool_bit_equal": True,
+             "post_rows_max_abs_err": post_err, "post_rows": post_rows}
+    del cpu_det, feat_c, pool_c, pool_g, feat_g
+
+    # -- 2. predict(records): 4 batches of 8 of mixed sizes ---------------
+    codec = native.codec_for(dev)
+    recs = []
+    for i in range(FRCNN_RECORD_BATCHES * BATCH):
+        oh, ow = FRCNN_RECORD_SIZES[i % len(FRCNN_RECORD_SIZES)]
+        img, gt = render_shapes_image(rng, max(oh, ow))
+        recs.append(SSDByteRecord(native.encode_jpeg(
+            np.ascontiguousarray(img[:oh, :ow]), 92, codec), f"f{i}.jpg",
+            gt))
+    param = PreProcessParam(batch_size=BATCH, resolution=res,
+                            pixel_means=FRCNN_BGR_MEANS)
+    pred = FrcnnPredictor(det, param, device=dev)
+    # cv2 unimportable while the card's path decodes, resizes and serves
+    cv2_module = sys.modules.get("cv2")
+    sys.modules["cv2"] = None
+    try:
+        pred.predict(recs[:BATCH])                  # cuDNN / cuBLAS warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served = pred.predict(recs)
+        predict_s = time.perf_counter() - t0
+        staged = list(serving_chain(
+            param, uint8=True, resize=AspectScaleCanvas(res, device=dev),
+            device=dev)(recs))
+    finally:
+        if cv2_module is None:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = cv2_module
+    direct = np.concatenate([pred.detect_batch(b) for b in staged])
+    if len(served) != len(recs) or not np.array_equal(np.stack(served),
+                                                      direct):
+        raise AssertionError("predict(records) differs from detect_batch "
+                             "on the same staged batches")
+    kept_rows = 0
+    for i, d in enumerate(served):
+        oh, ow = FRCNN_RECORD_SIZES[i % len(FRCNN_RECORD_SIZES)]
+        v = d[d[:, 1] > 0]
+        kept_rows += len(v)
+        if not (d.shape == (det.post.max_per_image, 6)
+                and np.isfinite(d).all()
+                and np.isin(d[:, 0], np.arange(-1, p.num_classes)).all()
+                and (v[:, 0] >= 1).all() and (v[:, 1] <= 1).all()
+                and (v[:, 2:] >= 0).all()
+                and (v[:, [2, 4]] <= ow + 1e-3).all()
+                and (v[:, [3, 5]] <= oh + 1e-3).all()):
+            raise AssertionError(f"record {i}: detections out of range")
+
+    # -- 3. detect_batch timed, and split by stage ------------------------
+    batch = staged[0]
+    for _ in range(2):
+        pred.detect_batch(batch)
+    host = []
+    for _ in range(FRCNN_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pred.detect_batch(batch)
+        host.append((time.perf_counter() - t0) * 1e3)
+    split = []
+    for _ in range(5):
+        ev = StageEvents()
+        t0 = time.perf_counter()
+        staged_out = frcnn_staged(pred, batch, ev)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        split.append(dict(ev.ms(), host_total=host_ms))
+        if not np.array_equal(staged_out, out):
+            raise AssertionError("the staged forward differs from "
+                                 "detect_batch")
+    split_ms = {k: statistics.median(s[k] for s in split) for k in split[0]}
+    split_ms["proposal_other"] = split_ms["proposal"] - split_ms[
+        "proposal_nms"]
+    split_ms["post_other"] = split_ms["post"] - split_ms["post_nms"]
+    from torch.profiler import record_function
+
+    def profiled():
+        with record_function("frcnn_batch"):
+            frcnn_staged(pred, batch,
+                         lambda n: record_function(f"frcnn_batch.{n}"))
+
+    trace = profile_train_step(profiled, root="frcnn_batch")
+    launches_per_batch = trace.pop("launches")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # -- 4. the runtime: fp and int8 rungs ---------------------------------
+    tiers = frcnn_serving_tiers(det, param, device=dev)
+    preds = [t.device_program()[0].__self__ for t in tiers]
+    canvases = [rng.randint(0, 256, (res, res, 3)).astype(np.float32)
+                - means for _ in range(FRCNN_REQUESTS)]
+    win = np.stack(canvases[:BATCH])
+    for t in tiers:
+        t.forward({"input": win})
+    rt = ServingRuntime(tiers, n_replicas=2, max_batch=BATCH,
+                        queue_capacity=FRCNN_REQUESTS,
+                        default_deadline_s=3600.0, clock=MonotonicClock())
+    t0 = time.perf_counter()
+    for x in canvases:
+        rt.submit({"input": x})
+    rt.drain()
+    torch.cuda.synchronize()
+    runtime_s = time.perf_counter() - t0
+    metrics = check_served(rt, "frcnn runtime", FRCNN_REQUESTS)
+    rows = np.stack([r.result for r in rt.requests])
+    unit = np.tile(np.array([[res, res, 1.0, 1.0]], np.float32), (BATCH, 1))
+    want = np.concatenate([preds[0].detect_batch(
+        {"input": np.stack(canvases[i:i + BATCH]), "im_info": unit})
+        for i in range(0, FRCNN_REQUESTS, BATCH)])
+    if not np.array_equal(rows, want):
+        raise AssertionError("runtime rows differ from the fp predictor's")
+    rung_ms = {t.name: [] for t in tiers}
+    rung_rows = {}
+    for _ in range(FRCNN_WINDOWS):
+        for i, t in enumerate(tiers):
+            rt.ladder.tier = i
+            for x in win:
+                rt.submit({"input": x})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if rt.pump(force=True) != 1:
+                raise AssertionError(f"rung {t.name}: not one batch")
+            rung_ms[t.name].append((time.perf_counter() - t0) * 1e3)
+            done = rt.requests[-BATCH:]
+            if {r.tier for r in done} != {i}:
+                raise AssertionError(f"rung {t.name} served at tiers "
+                                     f"{[r.tier for r in done]}")
+            rung_rows[t.name] = np.stack([r.result for r in done])
+    check_served(rt, "frcnn rungs", FRCNN_REQUESTS
+                 + FRCNN_WINDOWS * len(tiers) * BATCH)
+    for pr, t in zip(preds, tiers):
+        if not np.array_equal(rung_rows[t.name], pr.detect_batch(
+                {"input": win, "im_info": unit})):
+            raise AssertionError(f"rung {t.name}: rows differ from its "
+                                 "predictor's")
+    fp_rows, q_rows = rung_rows["fp"], rung_rows["int8"]
+    matched = [match_detections(a, b) for a, b in zip(fp_rows, q_rows)]
+    same_pos = fp_rows[..., 0] == q_rows[..., 0]
+    int8_vs_fp = {
+        "rows_same_class_at_same_position": float(same_pos.mean()),
+        "max_score_diff_same_position": float(np.abs(
+            fp_rows[..., 1] - q_rows[..., 1])[same_pos].max()),
+        "matched_share_by_image": [m[0] for m in matched],
+        "max_score_diff_matched": max((m[1] for m in matched
+                                       if m[1] is not None), default=None),
+        "kept_rows_fp": int((fp_rows[..., 1] > 0).sum()),
+        "kept_rows_int8": int((q_rows[..., 1] > 0).sum())}
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in counters}
+    if any(launches.values()):
+        raise AssertionError(f"the Faster-RCNN path launched {launches}: "
+                             "it reaches none of K1-K4")
+    lat = metrics["latency_by_tier"]["0"]
+    emit("frcnn_serving", nvidia_smi=smi, resolution=res, batch=BATCH,
+         num_classes=p.num_classes, proposal=dataclasses.asdict(p.proposal),
+         post=dataclasses.asdict(det.post), parameters=n_params,
+         stage_checks=check,
+         records={"batches": FRCNN_RECORD_BATCHES, "images": len(recs),
+                  "sizes": FRCNN_RECORD_SIZES, "codec": codec,
+                  "kept_rows": kept_rows, "predict_s": predict_s,
+                  "predict_ms_per_batch": predict_s * 1e3
+                  / FRCNN_RECORD_BATCHES, "cv2_importable": False},
+         detect_batch_ms=statistics.median(host), detect_batch_ms_all=host,
+         split_ms=split_ms, profiled_batch=trace,
+         launches_per_batch=launches_per_batch, peak_gb=peak_gb,
+         runtime={"requests": FRCNN_REQUESTS, "n_replicas": 2,
+                  "batches": metrics["batches"], "served_s": runtime_s,
+                  "latency_p50_s": lat["p50_s"], "latency_p99_s": lat["p99_s"],
+                  "fences": 0, "failed": metrics["failed"],
+                  "shed": metrics["shed_total"]},
+         rung_ms_per_batch={k: statistics.median(v)
+                            for k, v in rung_ms.items()},
+         rung_ms_windows=rung_ms,
+         rung_speed_vs_fp={k: statistics.median(v)
+                           / statistics.median(rung_ms["fp"])
+                           for k, v in rung_ms.items()},
+         tier_speed_hints=[t.speed for t in tiers], int8_vs_fp=int8_vs_fp,
+         kernel_launches=launches,
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2908,6 +3431,9 @@ def main() -> int:
     ds2_online = ds2_online_phase(dev, smi)
     k3_err = max(k3_err, ds2_online["k3_err"])
 
+    # -- 6f. Faster-RCNN serving: reaches none of the four kernels --------
+    frcnn = frcnn_serving_phase(dev, smi)
+
     # -- 7. kernels, then the device line last ----------------------------
     kernels = [
         {"name": "nms_sweep", "route": "cuda",
@@ -2916,7 +3442,8 @@ def main() -> int:
          "launches": launches["nms_sweep"] + ssd_serving["k1_launches"],
          "launches_by_path": {
              "ssd_serving": launches["nms_sweep"],
-             "ssd_serving_approx_topk": ssd_serving["k1_launches"]},
+             "ssd_serving_approx_topk": ssd_serving["k1_launches"],
+             "frcnn_serving": frcnn["nms_sweep"]},
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
@@ -2933,7 +3460,8 @@ def main() -> int:
              "fleet": ds2_online["k2_fleet"],
              "ssd_train_validation": ssd_train["k2_launches"],
              "ssd_input_validation": ssd_input["validation"],
-             "ssd_input_predict": ssd_input["predict"]},
+             "ssd_input_predict": ssd_input["predict"],
+             "frcnn_serving": frcnn["fused_detection_output"]},
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
         {"name": "persistent_rnn", "route": "cuda",
@@ -2943,7 +3471,8 @@ def main() -> int:
                       + sum(ds2_online["k3"].values())),
          "launches_by_path": {"ds2_serving": k3_launches,
                               "ds2_train": train_launches["persistent_rnn"],
-                              **ds2_online["k3"]},
+                              **ds2_online["k3"],
+                              "frcnn_serving": frcnn["persistent_rnn"]},
          "max_abs_err": k3_err, "ms": k3_ms,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
          # no PyTorch call computes a clipped-ReLU recurrence; cuDNN's
@@ -2955,6 +3484,9 @@ def main() -> int:
          "source": "analytics_zoo_tpu_torch/csrc/persistent_rnn_bwd.cu",
          "replaces": "analytics_zoo_tpu/ops/pallas_rnn.py:434",
          "launches": train_launches["persistent_rnn_bwd"],
+         "launches_by_path": {
+             "ds2_train": train_launches["persistent_rnn_bwd"],
+             "frcnn_serving": frcnn["persistent_rnn_bwd"]},
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
          "bound_ms": k4_bound, "bound_by": k4_by,
          # no PyTorch call computes this backward; cuDNN's relu RNN

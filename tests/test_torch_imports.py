@@ -62,6 +62,15 @@ def test_port_imports_pull_in_no_jax():
     assert {"analytics_zoo_tpu_torch.obs.slo",
             "analytics_zoo_tpu_torch.serving.batcher",
             "analytics_zoo_tpu_torch.transform.audio.decoders"} <= set(mods)
+    # the Faster-RCNN serving slice and the Caffe importer
+    assert {"analytics_zoo_tpu_torch.ops.anchor",
+            "analytics_zoo_tpu_torch.ops.proposal",
+            "analytics_zoo_tpu_torch.ops.roi_pool",
+            "analytics_zoo_tpu_torch.ops.frcnn",
+            "analytics_zoo_tpu_torch.models.faster_rcnn",
+            "analytics_zoo_tpu_torch.pipelines.frcnn",
+            "analytics_zoo_tpu_torch.utils.caffe",
+            "analytics_zoo_tpu_torch.utils.protowire"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "from analytics_zoo_tpu_torch.pipelines import (StreamingDS2, "

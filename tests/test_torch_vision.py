@@ -143,9 +143,10 @@ def _ops(pkg):
         "color_jitter_shuffle": lambda: pkg.ColorJitter(shuffle=True),
         "resize_random": lambda: pkg.Resize(40, 30, interp=-1, **_cpu(pkg)),
         "resize_same": lambda: pkg.Resize(91, 67, interp=-1, **_cpu(pkg)),
-        "aspect_scale": lambda: pkg.AspectScale(50, 8, 80),
-        "aspect_canvas": lambda: pkg.AspectScaleCanvas(64),
-        "random_aspect": lambda: pkg.RandomAspectScale([30, 40, 50]),
+        "aspect_scale": lambda: pkg.AspectScale(50, 8, 80, **_cpu(pkg)),
+        "aspect_canvas": lambda: pkg.AspectScaleCanvas(64, **_cpu(pkg)),
+        "random_aspect": lambda: pkg.RandomAspectScale([30, 40, 50],
+                                                       **_cpu(pkg)),
         "hflip": lambda: pkg.HFlip(),
         "expand": lambda: pkg.Expand(),
         "crop": lambda: pkg.Crop(bbox=[0.1, 0.2, 0.7, 0.9]),
