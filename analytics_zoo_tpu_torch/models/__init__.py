@@ -23,5 +23,12 @@ from analytics_zoo_tpu_torch.models.ssd import (
     ssd300_config,
     ssd512_config,
 )
+from analytics_zoo_tpu_torch.models.ssd_variants import (
+    SSDAlexNet,
+    SSDMobileNet,
+    alexnet_ssd_config,
+    mobilenet_ssd_config,
+    multibox_heads,
+)
 
 __all__ = [k for k in dir() if not k.startswith("_")]

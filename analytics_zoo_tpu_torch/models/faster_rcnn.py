@@ -20,8 +20,15 @@ read a CHW flatten, is permuted on import
 
 Layer names follow the reference's (``vgg.conv1_1`` … ``rpn_conv_3x3``,
 ``fc6``, ``cls_score``; ``frcnn.`` in front inside the detector).
-Inference only: training (``train=True``, ``extra_rois=``,
-``train_outputs=True``) is ROADMAP.md Queue 1 item 10's second half.
+
+Training (approximate joint training, ``ops/frcnn_train.py``):
+``train=True`` applies dropout 0.5 after fc6 and fc7 with masks drawn from
+the model's own ``torch.Generator`` on the input's device, seeded with
+``seed`` (so a seeded model's steps repeat), ``extra_rois`` (the gt
+boxes) join the proposals, and
+``train_outputs=True`` returns the raw RPN and head outputs the loss
+takes.  The proposal runs without autograd and in fp32 under autocast,
+and the ROIs carry no gradient.
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from analytics_zoo_tpu_torch.core.layers import lecun_normal_
+from analytics_zoo_tpu_torch.core.layers import (SeededGenerators, dropout,
+                                                lecun_normal_)
 from analytics_zoo_tpu_torch.ops.anchor import (generate_base_anchors,
                                                 shift_anchors)
 from analytics_zoo_tpu_torch.ops.bbox import bbox_transform_inv, clip_boxes
@@ -90,12 +98,6 @@ class FrcnnParam:
         return len(self.anchor_ratios) * len(self.anchor_scales)
 
 
-def _training_not_ported(what: str):
-    raise NotImplementedError(
-        f"FasterRcnnVgg({what}) is Faster-RCNN training, which is not "
-        "ported yet (ROADMAP.md Queue 1 item 10, its training half)")
-
-
 class FasterRcnnVgg(nn.Module):
     """Trunk + RPN + proposal + ROI pool + classification heads.
 
@@ -124,6 +126,7 @@ class FasterRcnnVgg(nn.Module):
         self.cls_score = nn.Linear(4096, C)
         self.bbox_pred = nn.Linear(4096, 4 * C)
         self._anchors: Dict[Tuple, torch.Tensor] = {}
+        self.dropout_generator = SeededGenerators(seed)
         self._init_weights(seed)
         self.to(dev)
         self.eval()
@@ -148,50 +151,87 @@ class FasterRcnnVgg(nn.Module):
                 h, w, p.feat_stride), device=device)
         return self._anchors[key]
 
-    def rpn(self, feat: torch.Tensor):
-        """NCHW trunk features → (scores (B, h·w·A), deltas
-        (B, h·w·A, 4)) in the reference's (y, x, anchor) order."""
+    def _rpn(self, feat: torch.Tensor):
+        """NCHW trunk features → (scores (B, h·w·A), deltas (B, h·w·A, 4),
+        [bg, fg] logits (B, h·w·A, 2)), all in the reference's
+        (y, x, anchor) order."""
         B, _, h, w = feat.shape
         A = self.param.num_anchors
         y = F.relu(self.rpn_conv_3x3(feat))
+        # Caffe channel layout: [bg × A, fg × A]
         cls_pair = self.rpn_cls_score(y).view(B, 2, A, h, w)
         fg = torch.softmax(cls_pair, dim=1)[:, 1]                # (B,A,h,w)
         scores = fg.permute(0, 2, 3, 1).reshape(B, -1)
         deltas = self.rpn_bbox_pred(y).permute(0, 2, 3, 1).reshape(B, -1, 4)
+        logits = cls_pair.permute(0, 3, 4, 2, 1).reshape(B, -1, 2)
+        return scores, deltas, logits
+
+    def rpn(self, feat: torch.Tensor):
+        """NCHW trunk features → (scores (B, h·w·A), deltas
+        (B, h·w·A, 4)) in the reference's (y, x, anchor) order."""
+        scores, deltas, _ = self._rpn(feat)
         return scores, deltas
+
+    def _head_logits(self, pooled: torch.Tensor, train: bool = False):
+        """(B, R, P, P, 512) pooled maps → (cls_logits, bbox_deltas);
+        ``train`` drops out half after fc6 and fc7 (flax ``Dropout(0.5)``:
+        the kept scaled by 2)."""
+        flat = pooled.reshape(*pooled.shape[:2], -1)             # HWC order
+        y = F.relu(self.fc6(flat))
+        if train:
+            gen = self.dropout_generator(y.device)
+            y = dropout(y, 0.5, gen)
+        y = F.relu(self.fc7(y))
+        if train:
+            y = dropout(y, 0.5, gen)
+        return self.cls_score(y), self.bbox_pred(y)
 
     def heads(self, pooled: torch.Tensor):
         """(B, R, P, P, 512) pooled maps → (cls_probs, bbox_deltas)."""
-        flat = pooled.reshape(*pooled.shape[:2], -1)             # HWC order
-        y = F.relu(self.fc6(flat))
-        y = F.relu(self.fc7(y))
-        return (torch.softmax(self.cls_score(y), dim=-1),
-                self.bbox_pred(y))
+        cls_logits, bbox_deltas = self._head_logits(pooled)
+        return torch.softmax(cls_logits, dim=-1), bbox_deltas
 
     def forward(self, x: torch.Tensor, im_info, train: bool = False,
                 extra_rois=None, extra_rois_mask=None,
                 train_outputs: bool = False):
-        if train:
-            _training_not_ported("train=True")
-        if extra_rois is not None or extra_rois_mask is not None:
-            _training_not_ported("extra_rois=")
-        if train_outputs:
-            _training_not_ported("train_outputs=True")
+        """``extra_rois`` (B, G, 4) with ``extra_rois_mask`` (B, G) (all
+        valid when left out) join the proposals before pooling: the gt
+        boxes, py-faster-rcnn's way of having foreground ROIs early in
+        training.  ``train_outputs=True`` returns the dict
+        :func:`~analytics_zoo_tpu_torch.ops.frcnn_train.
+        frcnn_training_loss` takes: ``rpn_cls_logits`` (B, h·w·A, 2),
+        ``rpn_deltas``, ``fg_scores``, ``anchors``, ``rois``, ``roi_mask``,
+        ``cls_logits`` and ``bbox_deltas``."""
         p = self.param
         feat = self.vgg(x.permute(0, 3, 1, 2))                  # (B,512,h,w)
-        info = torch.as_tensor(im_info, dtype=torch.float32,
-                               device=feat.device)
-        scores, deltas = self.rpn(feat)
-        rois, roi_mask = proposal(
-            scores.detach(), deltas.detach(),
-            self.anchors(feat.shape[2], feat.shape[3], feat.device),
-            info[:, 0], info[:, 1], info[:, 2], param=p.proposal)
+        dev = feat.device
+        info = torch.as_tensor(im_info, dtype=torch.float32, device=dev)
+        scores, deltas, rpn_logits = self._rpn(feat)
+        anchors = self.anchors(feat.shape[2], feat.shape[3], dev)
+        with torch.no_grad(), torch.autocast(dev.type, enabled=False):
+            rois, roi_mask = proposal(
+                scores.detach().float(), deltas.detach().float(), anchors,
+                info[:, 0], info[:, 1], info[:, 2], param=p.proposal)
+        if extra_rois is not None:
+            extra = torch.as_tensor(extra_rois, dtype=torch.float32,
+                                    device=dev).detach()
+            extra_mask = (torch.ones(extra.shape[:-1], device=dev)
+                          if extra_rois_mask is None else
+                          torch.as_tensor(extra_rois_mask, device=dev)
+                          .detach().to(roi_mask.dtype))
+            rois = torch.cat([rois, extra], dim=1)
+            roi_mask = torch.cat([roi_mask, extra_mask], dim=1)
         pooled = roi_pool_batch(
             feat.permute(0, 2, 3, 1).contiguous(), rois, roi_mask,
             pooled_h=p.pooled, pooled_w=p.pooled,
             spatial_scale=1.0 / p.feat_stride)
-        cls_probs, bbox_deltas = self.heads(pooled)
-        return rois, roi_mask, cls_probs, bbox_deltas
+        cls_logits, bbox_deltas = self._head_logits(pooled, train)
+        if train_outputs:
+            return {"rpn_cls_logits": rpn_logits, "rpn_deltas": deltas,
+                    "fg_scores": scores, "anchors": anchors, "rois": rois,
+                    "roi_mask": roi_mask, "cls_logits": cls_logits,
+                    "bbox_deltas": bbox_deltas}
+        return rois, roi_mask, torch.softmax(cls_logits, dim=-1), bbox_deltas
 
 
 def decode_frcnn_boxes(rois: torch.Tensor, bbox_deltas: torch.Tensor,

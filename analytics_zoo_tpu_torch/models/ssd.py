@@ -189,6 +189,32 @@ def _source_channels(resolution: int) -> List[int]:
         [] if resolution == 300 else [256])
 
 
+def add_multibox_heads(module: nn.Module, channels: Sequence[int],
+                       priors_per_cell: Sequence[int],
+                       num_classes: int) -> None:
+    """``loc_i``/``conf_i`` 3 × 3 convolutions over each source."""
+    for i, (ch, k) in enumerate(zip(channels, priors_per_cell)):
+        module.add_module(f"loc_{i}", nn.Conv2d(ch, k * 4, 3, padding=1))
+        module.add_module(f"conf_{i}",
+                          nn.Conv2d(ch, k * num_classes, 3, padding=1))
+
+
+def multibox_heads(module: nn.Module, sources: Sequence[torch.Tensor],
+                   num_classes: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The heads over the NCHW sources, each flattened in NHWC order, as
+    the reference's heads, and joined (the reference's
+    ConcatTable/JoinTable, ``SSD.scala:196,213``): (loc (B, P, 4), conf
+    (B, P, C))."""
+    B = sources[0].shape[0]
+    locs, confs = [], []
+    for i, src in enumerate(sources):
+        loc = getattr(module, f"loc_{i}")(src).permute(0, 2, 3, 1)
+        conf = getattr(module, f"conf_{i}")(src).permute(0, 2, 3, 1)
+        locs.append(loc.reshape(B, -1, 4))
+        confs.append(conf.reshape(B, -1, num_classes))
+    return torch.cat(locs, dim=1), torch.cat(confs, dim=1)
+
+
 class SSDVgg(nn.Module):
     """SSD300/512-VGG16: NHWC images → raw ``(loc (B,P,4), conf (B,P,C))``.
 
@@ -208,11 +234,8 @@ class SSDVgg(nn.Module):
         self.vgg = VGGBase()
         self.extra = ExtraLayers(resolution)
         self.conv4_3_norm = NormalizeScale(512, scale=20.0)
-        k_cells = num_priors_per_cell(self.config)
-        for i, (ch, k) in enumerate(zip(_source_channels(resolution), k_cells)):
-            self.add_module(f"loc_{i}", nn.Conv2d(ch, k * 4, 3, padding=1))
-            self.add_module(f"conf_{i}",
-                            nn.Conv2d(ch, k * num_classes, 3, padding=1))
+        add_multibox_heads(self, _source_channels(resolution),
+                           num_priors_per_cell(self.config), num_classes)
         self._init_weights(seed)
         self.to(dev)
         self.eval()
@@ -235,15 +258,7 @@ class SSDVgg(nn.Module):
         x = x.permute(0, 3, 1, 2)
         conv4_3, fc7 = self.vgg(x)
         sources = [self.conv4_3_norm(conv4_3), fc7] + self.extra(fc7)
-        B = x.shape[0]
-        locs, confs = [], []
-        for i, src in enumerate(sources):
-            # NHWC flattening order, as the reference's heads
-            loc = getattr(self, f"loc_{i}")(src).permute(0, 2, 3, 1)
-            conf = getattr(self, f"conf_{i}")(src).permute(0, 2, 3, 1)
-            locs.append(loc.reshape(B, -1, 4))
-            confs.append(conf.reshape(B, -1, self.num_classes))
-        return torch.cat(locs, dim=1), torch.cat(confs, dim=1)
+        return multibox_heads(self, sources, self.num_classes)
 
 
 def build_ssd_vgg(num_classes: int = 21, resolution: int = 300,

@@ -1,6 +1,6 @@
 """Ops on tensors: PriorBox, box math, NMS, DetectionOutput,
-MultiBoxLoss, the Faster-RCNN anchors, proposal, ROI pooling and
-post-processing, and the kernels K1 (``pallas_nms``), K2
+MultiBoxLoss, the Faster-RCNN anchors, proposal, ROI pooling,
+post-processing and training targets and losses, and the kernels K1 (``pallas_nms``), K2
 (``pallas_detout``), K3 and K4 (``pallas_rnn``)."""
 
 from analytics_zoo_tpu_torch.ops import bbox
@@ -14,6 +14,10 @@ from analytics_zoo_tpu_torch.ops.detection_output import (
 )
 from analytics_zoo_tpu_torch.ops.frcnn import (FrcnnPostParam,
                                                frcnn_postprocess)
+from analytics_zoo_tpu_torch.ops.frcnn_train import (FrcnnLossParam,
+                                                     frcnn_training_loss,
+                                                     head_targets,
+                                                     rpn_targets)
 from analytics_zoo_tpu_torch.ops.multibox_loss import (MultiBoxLoss,
                                                        MultiBoxLossParam,
                                                        match_priors)

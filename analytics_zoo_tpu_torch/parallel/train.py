@@ -15,10 +15,13 @@ after the upload, without autograd; the ``Optimizer``'s ``prefetch``
 feeds the step through ``data.prefetch.device_prefetch`` on a CUDA
 device.
 
-Not ported yet, and refused by name: custom forwards, the health
-sentinel and sharded steps (ROADMAP.md Queue 1 items 12 and 13); the
-``Optimizer``'s checkpoints, resilience and observability (items 12 and
-13).
+A ``forward_fn(module, inputs, train)`` replaces the module's own call
+in the step (Faster-RCNN's training forward, ``pipelines/frcnn.py``), and
+``Optimizer.set_epoch_hook`` runs a function after each epoch.
+
+Not ported yet, and refused by name: the health sentinel and sharded
+steps (ROADMAP.md Queue 1 items 13 and 12); the ``Optimizer``'s
+checkpoints, resilience and observability (items 12 and 13).
 """
 
 from __future__ import annotations
@@ -69,17 +72,22 @@ def cast_floating(tree: Any, dtype: torch.dtype) -> Any:
                      and x.is_floating_point() else x, tree)
 
 
-def _forward(module: nn.Module, inputs, cdtype: Optional[torch.dtype]):
+def _forward(module: nn.Module, inputs, cdtype: Optional[torch.dtype],
+             forward_fn: Optional[Callable] = None, train: bool = False):
     """The module on ``inputs`` (a tuple or list is unpacked into its
-    arguments).  Under ``cdtype`` the floating inputs are cast to it, the
-    forward runs under autocast to it, and the floating outputs come back
-    in fp32."""
-    args = inputs if isinstance(inputs, (tuple, list)) else (inputs,)
+    arguments), or ``forward_fn(module, inputs, train)`` when given.
+    Under ``cdtype`` the floating inputs are cast to it, the forward runs
+    under autocast to it, and the floating outputs come back in fp32."""
+    def run(x):
+        if forward_fn is not None:
+            return forward_fn(module, x, train)
+        return module(*(x if isinstance(x, (tuple, list)) else (x,)))
+
     if cdtype is None:
-        return module(*args)
+        return run(inputs)
     dev = next(module.parameters()).device
     with torch.autocast(dev.type, dtype=cdtype):
-        out = module(*cast_floating(args, cdtype))
+        out = run(cast_floating(inputs, cdtype))
     return cast_floating(out, torch.float32)
 
 
@@ -208,11 +216,14 @@ def make_train_step(module: nn.Module, criterion: Callable,
     ``train_step`` around ``train_step.upload`` (the batch to the device;
     a prefetched batch is there already), ``train_step.device_transform``,
     then ``train_step.forward_loss`` and ``train_step.backward`` once a
-    microbatch, and ``train_step.update``."""
+    microbatch, and ``train_step.update``.
+
+    ``forward_fn(module, inputs, train)`` (``train`` is True here)
+    replaces ``module(*inputs)``: it gets the batch's ``"input"`` as it
+    is, under the same casts, autocast and ranges, and returns the
+    criterion's output."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum={grad_accum} must be >= 1")
-    if forward_fn is not None:
-        _not_ported("forward_fn (the sequence-parallel forward)", "item 12")
     if health_check:
         _not_ported("the health sentinel", "item 13")
     if specs is not None or mesh is not None:
@@ -238,7 +249,8 @@ def make_train_step(module: nn.Module, criterion: Callable,
             with record_function("train_step.forward_loss"):
                 module.train()
                 loss = _call_criterion(
-                    criterion, _forward(module, mb["input"], cdtype), mb)
+                    criterion, _forward(module, mb["input"], cdtype,
+                                        forward_fn, train=True), mb)
             with record_function("train_step.backward"):
                 loss.backward()
             losses.append(loss.detach())
@@ -341,13 +353,16 @@ class Optimizer:
     epoch's host iterator (a multiprocess loader's workers) when the
     epoch ends or stops early.  Pinned memory and a copy stream need a
     card: on a CPU model ``prefetch`` does nothing and the step takes the
-    batches as they come.  ``device_transform`` goes to the step."""
+    batches as they come.  ``device_transform`` and ``forward_fn`` go to
+    the step; ``set_epoch_hook(fn)`` calls ``fn(loop, state)`` after each
+    completed epoch, after its validation."""
 
     def __init__(self, model: nn.Module, dataset, criterion,
                  mesh=None, skip_loss_above: Optional[float] = None,
                  grad_clip_norm: Optional[float] = None, compute_dtype=None,
                  prefetch: int = 0, grad_accum: int = 1, metric_fn=None,
-                 specs=None, device_transform: Optional[Callable] = None):
+                 specs=None, device_transform: Optional[Callable] = None,
+                 forward_fn: Optional[Callable] = None):
         if prefetch < 0:
             raise ValueError(f"prefetch={prefetch} must be >= 0")
         if mesh is not None or specs is not None:
@@ -366,7 +381,9 @@ class Optimizer:
         self._step_options = dict(
             skip_loss_above=skip_loss_above, grad_clip_norm=grad_clip_norm,
             compute_dtype=compute_dtype, grad_accum=grad_accum,
-            metric_fn=metric_fn, device_transform=device_transform)
+            metric_fn=metric_fn, device_transform=device_transform,
+            forward_fn=forward_fn)
+        self.epoch_hook: Optional[Callable] = None
         self.history: List[Dict] = []
         self.val_history: List[Dict] = []
 
@@ -386,6 +403,13 @@ class Optimizer:
         self.val_methods = list(methods)
         self._score_name = score_name or (methods[0].name if methods
                                           else None)
+        return self
+
+    def set_epoch_hook(self, fn: Callable) -> "Optimizer":
+        """``fn(loop, state)`` after each completed epoch, after its
+        validation (the ``TrainingState`` and the step's ``TrainState``;
+        the module holds the live parameters)."""
+        self.epoch_hook = fn
         return self
 
     def set_checkpoint(self, *args, **kwargs):
@@ -441,6 +465,8 @@ class Optimizer:
                         records / max(dt, 1e-9), loop.loss)
             t_epoch, records = time.perf_counter(), 0
             self._maybe_validate(loop, eval_step)
+            if self.epoch_hook is not None:
+                self.epoch_hook(loop, state)
         self.model.eval()
         return self.model
 

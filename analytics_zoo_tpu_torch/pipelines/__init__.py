@@ -1,6 +1,6 @@
 """Pipelines of the port: the SSD input path, serving (with its
 ``ServingRuntime`` rungs), validation and training, Faster-RCNN serving
-(with its rungs), DeepSpeech2
+(with its rungs) and training, DeepSpeech2
 transcription, online and streaming serving and CTC training, detection evaluation and the VOC/COCO
 readers."""
 
@@ -11,9 +11,9 @@ from analytics_zoo_tpu_torch.pipelines.deepspeech2 import (
 from analytics_zoo_tpu_torch.pipelines.evaluation import (
     CocoMeanAveragePrecision, DetectionResult, MeanAveragePrecision,
     PascalVocEvaluator)
-from analytics_zoo_tpu_torch.pipelines.frcnn import (FRCNN_BGR_MEANS,
-                                                     FrcnnPredictor,
-                                                     frcnn_serving_tiers)
+from analytics_zoo_tpu_torch.pipelines.frcnn import (
+    FRCNN_BGR_MEANS, FrcnnPredictor, frcnn_forward_fn, frcnn_serving_tiers,
+    frcnn_train_batches, train_frcnn)
 from analytics_zoo_tpu_torch.pipelines.ssd import (
     PreProcessParam, RecordToFeature, RoiImageToBatch,
     SSDMeanAveragePrecision, SSDPredictor, TrainParams, Uint8ToBatch,

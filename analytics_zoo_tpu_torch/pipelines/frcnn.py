@@ -10,8 +10,10 @@ side scaled to ``resolution``, the rest padded bottom and right), and
 ``aspect_preserving=False`` takes the distorting square resize instead.
 
 :func:`frcnn_serving_tiers` gives ``serving.ServingRuntime`` two rungs:
-fp and weight-only int8.  Faster-RCNN training is ROADMAP.md Queue 1
-item 10's second half; sharded serving (``specs=``) item 12.
+fp and weight-only int8.  :func:`train_frcnn` trains the detector
+(approximate joint training, ``ops/frcnn_train.py``) through the
+``Optimizer`` with a ``forward_fn``; sharded serving and training
+(``specs=``, ``mesh=``) are ROADMAP.md Queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -208,3 +210,92 @@ def frcnn_serving_tiers(detector: nn.Module,
                     quality_note="int8 weights, fp math",
                     device_program=program(int8)),
     ]
+
+
+def frcnn_train_batches(dataset, resolution: int):
+    """SSD-style labeled batches (normalized gt) in the Faster-RCNN train
+    step's form: ``input`` becomes the forward's tuple ``(pixels,
+    im_info, gt_px, gt_mask)``, the gt boxes doubling as ``extra_rois``
+    (py-faster-rcnn's guaranteed foreground), and ``target.bboxes`` is
+    scaled to pixels for the target assignment."""
+
+    class _DS:
+        def __len__(self):
+            return len(dataset)
+
+        def __iter__(self):
+            for b in dataset:
+                B = b["input"].shape[0]
+                gt_px = np.asarray(b["target"]["bboxes"],
+                                   np.float32) * resolution
+                im_info = np.tile(
+                    np.asarray([[resolution, resolution, 1.0]], np.float32),
+                    (B, 1))
+                mask = np.asarray(b["target"]["mask"], np.float32)
+                yield {
+                    "input": (np.asarray(b["input"], np.float32), im_info,
+                              gt_px, mask),
+                    "im_info": im_info,
+                    "target": {
+                        "bboxes": gt_px,
+                        "labels": np.asarray(b["target"]["labels"],
+                                             np.int32),
+                        "mask": mask,
+                    },
+                }
+
+    return _DS()
+
+
+def frcnn_forward_fn(module: nn.Module, inputs, train: bool = False):
+    """The train step's forward (``Optimizer(forward_fn=...)``): the
+    ``FasterRcnnVgg`` on ``(pixels, im_info, gt_px, gt_mask)`` with the gt
+    boxes as extra ROIs, returning its training outputs."""
+    x, im_info, gt_px, gt_mask = inputs
+    return module(x, im_info, train=train, extra_rois=gt_px,
+                  extra_rois_mask=gt_mask, train_outputs=True)
+
+
+def train_frcnn(model: Optional[nn.Module], dataset, resolution: int,
+                epochs: int = 10, lr: float = 1e-3, mesh=None,
+                loss_param=None, grad_clip_norm: Optional[float] = 10.0,
+                lr_schedule=None, epoch_hook=None,
+                device=None) -> nn.Module:
+    """End-to-end Faster-RCNN training: the RPN objectness and box losses
+    and the head class and box losses (``ops.frcnn_train``), the gt boxes
+    injected as extra ROIs, deterministic hard-negative sampling; SGD
+    with momentum 0.9 (``lr_schedule`` as its schedule), the gradients
+    clipped to a global norm of ``grad_clip_norm``, for ``epochs``
+    epochs, ``epoch_hook(loop, state)`` after each.
+
+    ``model`` is a ``FasterRcnnVgg`` (a seeded one on ``device``, the GPU
+    unless ``device="cpu"``, when None; a given model trains where it
+    lies); ``dataset`` yields SSD-style labeled batches with normalized
+    gt (e.g. ``pipelines.ssd.load_train_set``), adapted by
+    :func:`frcnn_train_batches`.  ``mesh`` is refused (ROADMAP.md Queue 1
+    item 12)."""
+    from analytics_zoo_tpu_torch.models.faster_rcnn import FasterRcnnVgg
+    from analytics_zoo_tpu_torch.ops.frcnn_train import (FrcnnLossParam,
+                                                         frcnn_training_loss)
+    from analytics_zoo_tpu_torch.parallel import SGD, Optimizer, Trigger
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "train_frcnn: sharded training (mesh) is not ported yet "
+            "(ROADMAP.md Queue 1 item 12)")
+    loss_param = loss_param or FrcnnLossParam()
+    if model is None:
+        model = FasterRcnnVgg(device=device, seed=0)
+
+    def criterion(outputs, batch):
+        return frcnn_training_loss(outputs, batch, loss_param)
+
+    opt = (Optimizer(model, frcnn_train_batches(dataset, resolution),
+                     criterion, forward_fn=frcnn_forward_fn,
+                     grad_clip_norm=grad_clip_norm)
+           .set_optim_method(SGD(lr, momentum=0.9, schedule=lr_schedule))
+           .set_end_when(Trigger.max_epoch(epochs)))
+    if epoch_hook is not None:
+        opt.set_epoch_hook(epoch_hook)
+    opt.optimize()
+    return model

@@ -365,7 +365,9 @@ class SSDPredictor:
     """Inference (reference ``SSDPredictor.scala:30``): forward + softmax
     + DetectionOutput, detections rescaled to the original image size via
     ``im_info``.  The model is moved to ``device`` (the GPU unless
-    ``device="cpu"``).
+    ``device="cpu"``).  The priors are the model's (``model.config``: an
+    ``SSDAlexNet``'s or ``SSDMobileNet``'s) where it has a config at
+    ``param.resolution``, else SSD-VGG's at that resolution.
 
     ``quantize``: ``False`` (fp serving), ``True`` / ``"weight"`` (int8
     weights dequantized in the forward: the fp arithmetic on 4x smaller
@@ -383,6 +385,11 @@ class SSDPredictor:
             raise ValueError(f"quantize must be False, True, 'weight' or "
                              f"'int8', got {quantize!r}")
         self.device = resolve_device(device)
+        # the model's own priors (an SSD variant's), else SSD-VGG's at
+        # the param's resolution
+        config = getattr(model, "config", None)
+        if config is None or config.resolution != param.resolution:
+            config = config_for(param.resolution)
         if quantize:
             from analytics_zoo_tpu_torch.utils.quantize import quantize_model
 
@@ -392,7 +399,7 @@ class SSDPredictor:
         self.quantize = quantize
         self.param = param
         self.post = post or DetectionOutputParam(n_classes=n_classes)
-        priors, variances = build_priors(config_for(param.resolution))
+        priors, variances = build_priors(config)
         self._priors = torch.as_tensor(priors, device=self.device)
         self._variances = torch.as_tensor(variances, device=self.device)
         self._means = torch.as_tensor(param.pixel_means, dtype=torch.float32,

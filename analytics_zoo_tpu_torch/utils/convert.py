@@ -3,7 +3,8 @@
 importer uses.
 
 The port's own copy of ``flatten_params`` (``utils/convert.py`` of the
-JAX package) plus the bridges for SSD, DeepSpeech2 and Faster-RCNN: the port names
+JAX package) plus the bridges for SSD and its AlexNet and MobileNet
+variants, DeepSpeech2, Faster-RCNN and a Caffe graph: the port names
 its modules after the flax ones, so ``vgg/conv1_1/kernel`` becomes
 ``vgg.conv1_1.weight`` with the kernel moved from flax HWIO to torch
 OIHW.  :func:`state_dict_to_flax` maps tensors named as the module's
@@ -128,6 +129,54 @@ def frcnn_params_from_jax(params: Mapping, model: nn.Module
     fc6 (``models/faster_rcnn.py``), so fc6's kernel needs no permutation,
     only the transpose of every Dense kernel."""
     return flax_variables_to_state_dict({"params": params}, model)
+
+
+def ssd_alexnet_params_from_jax(params: Mapping, model: nn.Module
+                                ) -> Dict[str, torch.Tensor]:
+    """A flax ``SSDAlexNet`` params tree → the port's ``SSDAlexNet``
+    ``state_dict`` (``conv1`` … ``conv8_2``, ``loc_i``, ``conf_i``)."""
+    return flax_variables_to_state_dict({"params": params}, model)
+
+
+def ssd_mobilenet_params_from_jax(params: Mapping, model: nn.Module
+                                  ) -> Dict[str, torch.Tensor]:
+    """A flax ``SSDMobileNet`` params tree → the port's ``SSDMobileNet``
+    ``state_dict`` (``conv0``, ``ds1/dw`` → ``ds1.dw``, the depthwise
+    kernels (3, 3, 1, C) → (C, 1, 3, 3), ``conv14_1`` …)."""
+    return flax_variables_to_state_dict({"params": params}, model)
+
+
+def caffe_graph_params_from_jax(params: Mapping, graph: nn.Module
+                                ) -> Dict[str, torch.Tensor]:
+    """A reference ``CaffeGraph``'s flax params → the port graph's
+    ``state_dict``.  Both name a layer's weights after the Caffe layer
+    (names may hold ``/``): a convolution's or InnerProduct's ``kernel``
+    (HWIO, or (in, out)) becomes ``weight`` (OIHW, or (out, in)), a
+    Normalize's ``cmul/weight`` becomes ``scale``, and BatchNorm's and
+    Scale's leaves keep their names.  Every leaf is used exactly once,
+    and every entry of the graph needs one, or this raises."""
+    src = flatten_params(params)
+    want = graph.state_dict()
+    out: Dict[str, torch.Tensor] = {}
+    for name, ref in want.items():
+        layer, leaf = name.rsplit(".", 1)
+        key = {"weight": f"{layer}/kernel",
+               "scale": f"{layer}/cmul/weight"}.get(leaf)
+        if key not in src:
+            key = f"{layer}/{leaf}"
+        if key not in src:
+            raise KeyError(f"no flax leaf for {name}")
+        value = src.pop(key)
+        if key.endswith("/kernel"):
+            value = conv_hwio_to_oihw(value) if value.ndim == 4 else value.T
+        if tuple(value.shape) != tuple(ref.shape):
+            raise ValueError(f"{key}: shape {tuple(value.shape)} does not "
+                             f"fit {name} {tuple(ref.shape)}")
+        out[name] = torch.tensor(np.array(value), dtype=ref.dtype)
+    if src:
+        raise KeyError(f"flax → torch bridge: unused flax leaves "
+                       f"{sorted(src)}")
+    return out
 
 
 def load_weights_by_name(state: Any, source: Mapping[str, np.ndarray],

@@ -3,7 +3,9 @@
 DeepSpeech2 CTC training path, its SSD300 training path, its SSD input
 path from JPEG records, SSD and DeepSpeech2 online serving through
 ``ServingRuntime``, DeepSpeech2 streaming sessions, the multiplexed
-pool and Faster-RCNN VGG16 serving once on one NVIDIA GPU.
+pool, Faster-RCNN VGG16 serving and training, graphs built from Caffe
+deploy nets and the SSD AlexNet and MobileNet variants once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -232,6 +234,46 @@ Phases, one JSON line each; any failure exits non-zero:
    windows of one batch (ms a batch), each rung's rows its predictor's,
    the int8 rung's detections against fp's with the largest score
    difference;
+6g. frcnn_train: Faster-RCNN VGG16 training at the reference bench's
+   configuration (21 classes, ``ProposalParam(2000, 128)``, the 512²
+   canvas, batch 8, 4 gt boxes an image, seeded shapes images and
+   weights); every launch counter set to 0 at its start and read at its
+   end: no K1-K4 launch (asserted).  At batch 2, dropout off, the card
+   against the CPU on the same weights: the card's forward fed the CPU's
+   proposals (its proposal op held to the CPU's on the CPU's RPN
+   outputs, kept indices equal unless a decision's margin is under
+   ``FRCNN_MARGIN``), the sampled targets of both on the CPU's outputs
+   EQUAL, the loss within ``FRCNN_LOSS_TOL``, each gradient under the
+   CPU's upstream gradient within ``FRCNN_GRAD_TOL`` (the trunk's within
+   ``FRCNN_TRUNK_GRAD_TOL``).  ``train_frcnn`` over one epoch of
+   ``FRCNN_TRAIN_BATCHES`` batches: the epoch hook once, every loss
+   finite; ``FRCNN_REPEAT`` steps on one batch, its loss falling; one
+   bf16 step against one fp32 step from the same weights (the loss
+   within ``FRCNN_BF16_TOL``, the update's cosine at least
+   ``FRCNN_BF16_COS``).  Then a ``timing`` line: the step by the host
+   clock (median of ``FRCNN_TRAIN_TIMED`` after 2), one step under
+   ``torch.profiler`` split into upload, forward and loss (the proposal
+   and its NMS rounds apart), backward and update, with its launches and
+   the device's busy share, and the steps' peak memory;
+6h. caffe_graph: ``build_caffe_graph`` on the SSD300 deploy net
+   (``ssd300_deploy_prototxt``, the SSD-Caffe release's) and on
+   py-faster-rcnn's VGG16 deploy net (``frcnn_vgg16_deploy_prototxt``:
+   the Python proposal layer, ROIPooling), each on a seeded caffemodel
+   written by ``save_caffemodel`` and loaded into the graph
+   (``load_caffe_weights``) and into ``SSDVgg`` (``load_ssd_vgg_caffe``)
+   or ``FasterRcnnVgg`` (``load_frcnn_vgg_caffe``), every blob used; on a
+   batch of 8 shapes images the SSD graph's detections (K2 once a
+   forward) against ``SSDVgg``'s with K2's tolerances, and the
+   Faster-RCNN graph's proposals equal to ``FasterRcnnVgg``'s, its class
+   probabilities and box deltas within ``FRCNN_STAGE_TOL``; then a
+   ``timing`` line: each graph's forward and its model's (CUDA events);
+6i. ssd_variants: ``SSDAlexNet`` and ``SSDMobileNet`` (21 classes, seeded)
+   through ``SSDPredictor`` with ``backend="auto"`` on
+   ``VARIANT_BATCHES`` batches of 8 shapes images, the counters set to 0
+   just before and read just after: K2 once a batch, K1 never; the rows
+   against the plain path's with K2's tolerances; then a ``timing``
+   line: ``detect_batch`` by the host clock (median of
+   ``VARIANT_TIMED``) and the forward (CUDA events);
 7. the ``kernels`` line, then the device line last.
 
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -419,6 +461,44 @@ FRCNN_MARGIN = 1e-5
 # the model's FrcnnParam: None is FrcnnParam(), the full width (a CPU
 # rehearsal of the phase sets a small one)
 FRCNN_PARAM = None
+# Faster-RCNN training at the reference bench's configuration
+# (bench.py bench_frcnn_train: FrcnnParam(num_classes=21,
+# proposal=ProposalParam(2000, 128)) on the 512² canvas, batch 8, 4 gt
+# boxes an image): train_frcnn over one epoch of FRCNN_TRAIN_BATCHES
+# seeded shapes batches, FRCNN_REPEAT steps on one batch, the step timed
+# (median of FRCNN_TRAIN_TIMED after 2); FRCNN_TRAIN_PARAM None is the
+# bench's (a CPU rehearsal sets a small one)
+FRCNN_TRAIN_RES, FRCNN_TRAIN_BATCH, FRCNN_TRAIN_GT = 512, 8, 4
+FRCNN_TRAIN_BATCHES, FRCNN_REPEAT, FRCNN_TRAIN_TIMED = 6, 5, 5
+FRCNN_TRAIN_PARAM = None
+# its loss and gradients on the card against the CPU at batch 2, fp32,
+# TF32 off, dropout off, each side's gradient under the CPU's upstream
+# gradient: the loss relative; each gradient's relative L2 error, the
+# RPN's and the heads' within FRCNN_GRAD_TOL, the trunk's within
+# FRCNN_TRUNK_GRAD_TOL: the two platforms' maps differ by ~1e-6, so a
+# 2 x 2 max pool or an ROI bin whose two largest values lie closer sends
+# its gradient to the other element (on the CPU one such pool window
+# moves conv4_3's kernel gradient by 4.5e-4 and conv1_1's by 6.7e-3,
+# tests/test_torch_frcnn_train.py)
+FRCNN_LOSS_TOL = 1e-5
+FRCNN_GRAD_TOL = 1e-3
+FRCNN_TRUNK_GRAD_TOL = 2e-2
+# the bf16 step (autocast over fp32 weights) against the fp32 step from
+# the same weights, batch and dropout masks: the loss relative, and the
+# update (the change of the weights over all tensors) by its cosine with
+# fp32's.  Not by its distance: the proposal ranks bf16 RPN scores, so
+# the heads see other ROIs and the sampling other anchors, and the
+# updates differ by 0.056 relative L2 at this configuration (cosine
+# 0.9985, the loss 7.0e-3 apart; NVIDIA H100 80GB HBM3, 700.00 W) and by
+# 0.32 (cosine 0.948) in a CPU rehearsal at 128 px
+FRCNN_BF16_TOL = 5e-2
+FRCNN_BF16_COS = 0.99
+# SSDAlexNet and SSDMobileNet served: batches of 8, host-clock timed
+# batches
+VARIANT_BATCHES, VARIANT_TIMED = 2, 5
+# the Faster-RCNN VGG16 deploy net's ROI pooling (7, py-faster-rcnn's; a
+# CPU rehearsal sets a small one), its proposal layer's ProposalParam()
+CAFFE_FRCNN_POOLED = 7
 
 
 def emit(phase: str, **fields) -> None:
@@ -706,14 +786,16 @@ def grads_err(got, want):
     return errs
 
 
-def profile_train_step(fn, top: int = 8, root: str = "train_step"):
+def profile_train_step(fn, top: int = 8, root: str = "train_step",
+                       nested=("multibox_loss",)):
     """One call of ``fn`` (a train step of ``make_train_step``) under
     ``torch.profiler``, every number read from that one trace (its chrome
     export): the device time of each kernel, summed by name (ms, the
     ``top`` largest); the device time of the kernels launched inside each
     of the step's ranges (``upload``, ``forward_loss``, ``backward``,
-    ``update``, and ``multibox_loss`` inside ``forward_loss`` where the
-    criterion is SSD's), summed over every instance of a range (one a
+    ``update``, and the ranges whose names start with one of ``nested``:
+    ``multibox_loss`` inside ``forward_loss`` where the criterion is
+    SSD's), summed over every instance of a range (one a
     microbatch), a kernel going to the range that holds its launch on the
     host clock, whatever thread launched it (autograd runs the backward on
     a thread of its own); the step's span, from the start of its ``train_step``
@@ -741,7 +823,7 @@ def profile_train_step(fn, top: int = 8, root: str = "train_step"):
     for e in trace:
         cat, args = e.get("cat"), e.get("args", {})
         if cat == "user_annotation" and e["name"].startswith(
-                (root, "multibox_loss")):
+                (root,) + tuple(nested)):
             ranges.setdefault(e["name"], []).append(
                 (e["ts"], e["ts"] + e["dur"]))
         elif cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
@@ -2812,6 +2894,721 @@ def frcnn_serving_phase(dev, smi):
     return launches
 
 
+def frcnn_shapes_batch(rng, B, res=None, n_gt=None):
+    """``B`` shapes images (``data/synthetic.py``) of ``n_gt`` shapes
+    each on the ``res``² canvas, in the SSD collate layout
+    ``frcnn_train_batches`` takes: mean-subtracted pixels and normalized
+    gt boxes (x1, y1, x2, y2) with their labels under a mask."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.data.synthetic import render_shapes_image
+    from analytics_zoo_tpu_torch.pipelines.frcnn import FRCNN_BGR_MEANS
+
+    res = res or FRCNN_TRAIN_RES
+    n_gt = n_gt or FRCNN_TRAIN_GT
+    images, boxes, labels = [], [], []
+    while len(images) < B:
+        img, gt = render_shapes_image(rng, res, max_shapes=n_gt)
+        if len(gt) != n_gt:
+            continue
+        images.append(img.astype(np.float32) - np.float32(FRCNN_BGR_MEANS))
+        boxes.append(gt[:, 2:] / np.float32(res))
+        labels.append(gt[:, 0].astype(np.int32))
+    return {"input": np.stack(images),
+            "target": {"bboxes": np.stack(boxes), "labels": np.stack(labels),
+                       "mask": np.ones((B, n_gt), np.float32)}}
+
+
+def frcnn_train_param():
+    """The reference bench's training configuration (``bench.py``
+    ``bench_frcnn_train``), or the rehearsal's."""
+    from analytics_zoo_tpu_torch.models.faster_rcnn import FrcnnParam
+    from analytics_zoo_tpu_torch.ops.proposal import ProposalParam
+
+    return FRCNN_TRAIN_PARAM or FrcnnParam(
+        num_classes=21, proposal=ProposalParam(pre_nms_topn=2000,
+                                               post_nms_topn=128))
+
+
+def frcnn_grads_vs_cpu(model_c, model_g, batch):
+    """Faster-RCNN's training loss and gradients on the card against the
+    CPU, dropout off, on the same weights and batch.  The card's forward
+    takes the CPU's proposals (its own proposal op is held to the CPU's
+    on the CPU's RPN outputs apart: kept indices equal unless the first
+    differing decision's margin is under ``FRCNN_MARGIN``), so both sides
+    pool the same ROIs.  The sampled targets of both on the CPU's outputs
+    are equal; each side's loss is on its own outputs; each parameter's
+    gradient is under the same upstream gradient (the CPU's, of the loss
+    with respect to the RPN's and the heads' outputs), so a sampling
+    decision two platforms' outputs tip differently does not move the
+    comparison.  Returns (the CPU's loss, the loss's relative error, the
+    targets' equality, each gradient's relative L2 error, the proposal's
+    near-tie margins by image)."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.models import faster_rcnn
+    from analytics_zoo_tpu_torch.ops.bbox import (bbox_transform_inv,
+                                                  clip_boxes)
+    from analytics_zoo_tpu_torch.ops.frcnn_train import (frcnn_training_loss,
+                                                         head_targets,
+                                                         rpn_targets)
+    from analytics_zoo_tpu_torch.parallel.train import to_device
+    from analytics_zoo_tpu_torch.pipelines.frcnn import frcnn_forward_fn
+
+    keys = ("rpn_cls_logits", "rpn_deltas", "cls_logits", "bbox_deltas")
+    plain, seen = faster_rcnn.proposal, {}
+
+    def capture(*a, **kw):
+        seen["args"], seen["kw"] = a, kw
+        seen["out"] = plain(*a, **kw)
+        return seen["out"]
+
+    def replay(*a, **kw):
+        return tuple(t.to(a[0].device) for t in seen["out"])
+
+    res = {}
+    try:
+        for side, model, fn in (("cpu", model_c, capture),
+                                ("card", model_g, replay)):
+            faster_rcnn.proposal = fn
+            dev = next(model.parameters()).device
+            b = to_device(batch, dev)
+            model.train()
+            out = frcnn_forward_fn(model, b["input"], False)
+            res[side] = (model, out, frcnn_training_loss(out, b), b)
+    finally:
+        faster_rcnn.proposal = plain
+    _, out_c, loss_c, b_c = res["cpu"]
+    _, out_g, loss_g, b_g = res["card"]
+    dev = b_g["im_info"].device
+
+    # the card's proposal op on the CPU's RPN outputs
+    a, kw = seen["args"], seen["kw"]
+    with torch.no_grad():
+        r_g, m_g = plain(*(t.to(dev) for t in a), **kw)
+    scores, deltas, anchors, im_h, im_w, scale = a
+    margins = {}
+    for i in range(scores.shape[0]):
+        boxes = clip_boxes(bbox_transform_inv(anchors, deltas[i]),
+                           im_h[i] - 1.0, im_w[i] - 1.0).numpy()
+        r_c, m_c = seen["out"][0][i].numpy(), seen["out"][1][i].numpy()
+        tie = proposal_near_ties(
+            kept_indices(boxes, r_g[i].cpu().numpy(), m_g[i].cpu().numpy()),
+            kept_indices(boxes, r_c, m_c), boxes, scores[i].numpy(),
+            kw["param"].min_size * float(scale[i]), kw["param"].nms_thresh)
+        if tie is not None:
+            if not tie[1] < FRCNN_MARGIN:
+                raise AssertionError(f"Faster-RCNN train: the card's "
+                                     f"proposal differs at {tie[0]} with a "
+                                     f"margin of {tie[1]} (tol "
+                                     f"{FRCNN_MARGIN})")
+            margins[i] = tie
+    # the targets on the card from the CPU's outputs, against the CPU's
+    tgt, info = b_c["target"], b_c["im_info"]
+    bg = 1.0 - torch.softmax(out_c["cls_logits"].detach(), -1)[..., 0]
+    args = {"rpn": (out_c["anchors"], tgt["bboxes"], tgt["mask"],
+                    info[:, 0], info[:, 1], out_c["fg_scores"].detach()),
+            "head": (out_c["rois"], out_c["roi_mask"], tgt["bboxes"],
+                     tgt["labels"], tgt["mask"], bg)}
+    targets_equal = {}
+    for name, fn in (("rpn", rpn_targets), ("head", head_targets)):
+        want = fn(*args[name])
+        got = fn(*(t.to(dev) for t in args[name]))
+        # labels and weights; the box targets are floats
+        targets_equal[name] = all(torch.equal(got[i].cpu(), want[i])
+                                  for i in (0, 1, 3))
+    upstream = torch.autograd.grad(loss_c, [out_c[k] for k in keys],
+                                   retain_graph=True)
+    grads = {}
+    for side, (model, out, _, _) in res.items():
+        params = dict(model.named_parameters())
+        g = torch.autograd.grad(
+            [out[k] for k in keys], list(params.values()),
+            [u.to(out[keys[0]].device) for u in upstream])
+        grads[side] = {k: v.detach().double().cpu()
+                       for k, v in zip(params, g)}
+    errs = {k: ((grads["card"][k] - w).norm()
+                / w.norm().clamp(min=1e-30)).item()
+            for k, w in grads["cpu"].items()}
+    loss_err = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
+    return (loss_c.item(), loss_err, targets_equal, errs,
+            {i: [int(t[0]), t[1]] for i, t in margins.items()})
+
+
+def frcnn_train_phase(dev, smi):
+    """Faster-RCNN VGG16 training on the card (phase ``frcnn_train``, then
+    a ``timing`` line); returns the launches of K1-K4 over the whole
+    phase (the path reaches none of them)."""
+    import importlib
+    import statistics
+
+    import numpy as np
+    import torch
+
+    import analytics_zoo_tpu_torch.parallel as parallel
+    from analytics_zoo_tpu_torch.models import faster_rcnn
+    from analytics_zoo_tpu_torch.ops import (pallas_detout, pallas_nms,
+                                             pallas_rnn)
+    from analytics_zoo_tpu_torch.ops.frcnn_train import frcnn_training_loss
+    from analytics_zoo_tpu_torch.parallel import (SGD, create_train_state,
+                                                  make_train_step)
+    from analytics_zoo_tpu_torch.pipelines.frcnn import (frcnn_forward_fn,
+                                                         frcnn_train_batches,
+                                                         train_frcnn)
+
+    # the package exports the function ``proposal`` under the module's name
+    proposal_mod = importlib.import_module(
+        "analytics_zoo_tpu_torch.ops.proposal")
+    counters = (pallas_nms.nms_sweep, pallas_detout.fused_detection_output,
+                pallas_rnn.persistent_rnn, pallas_rnn.persistent_rnn_bwd)
+    for k in counters:
+        k.launches = 0
+    rng = np.random.RandomState(61)
+    res, B = FRCNN_TRAIN_RES, FRCNN_TRAIN_BATCH
+    param = frcnn_train_param()
+    cpu = torch.device("cpu")
+
+    # 1. the card against the CPU at batch 2, dropout off
+    cpu_model = faster_rcnn.FasterRcnnVgg(param, device=cpu, seed=0)
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    small = next(iter(frcnn_train_batches([frcnn_shapes_batch(rng, 2)],
+                                          res)))
+    loss_c, loss_err, targets_equal, grad_err, near_ties = (
+        frcnn_grads_vs_cpu(cpu_model, card_model, small))
+    over = {k: e for k, e in grad_err.items()
+            if e > (FRCNN_TRUNK_GRAD_TOL if k.startswith("vgg.")
+                    else FRCNN_GRAD_TOL)}
+    if not (all(targets_equal.values()) and loss_err <= FRCNN_LOSS_TOL
+            and not over):
+        raise AssertionError(
+            f"Faster-RCNN train card vs CPU: targets equal {targets_equal}, "
+            f"loss {loss_err} (tol {FRCNN_LOSS_TOL}), gradients over "
+            f"tolerance {over}")
+    del cpu_model, card_model
+
+    # 2. train_frcnn: one epoch of shapes batches, the epoch hook, no
+    # kernel launched; then steps on one repeated batch
+    train_set = [frcnn_shapes_batch(rng, B) for _ in range(FRCNN_TRAIN_BATCHES)]
+    runs, hooks = [], []
+
+    class RecordingOptimizer(parallel.Optimizer):
+        def optimize(self):
+            runs.append(self)
+            return super().optimize()
+
+    model = faster_rcnn.FasterRcnnVgg(param, device=dev, seed=0)
+    patched, parallel.Optimizer = parallel.Optimizer, RecordingOptimizer
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_frcnn(model, train_set, res, epochs=1,
+                    epoch_hook=lambda loop, state: hooks.append(
+                        (loop.epoch, state.step)))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        parallel.Optimizer = patched
+    (opt,) = runs
+    losses = [m["loss"].item() for m in opt.history]
+    batches = list(frcnn_train_batches(train_set, res))
+    sgd = SGD(1e-3, momentum=0.9)
+    step = make_train_step(model, lambda out, b: frcnn_training_loss(out, b),
+                           sgd, grad_clip_norm=10.0,
+                           forward_fn=frcnn_forward_fn)
+    state = create_train_state(model, sgd)
+    repeated = []
+    for _ in range(FRCNN_REPEAT):
+        state, metrics = step(state, batches[0])
+        repeated.append(metrics["loss"].item())
+    launches = {k.__name__: k.launches for k in counters}
+    if not (len(losses) == FRCNN_TRAIN_BATCHES and hooks == [(1, len(losses))]
+            and all(math.isfinite(x) for x in losses + repeated)
+            and repeated[-1] < repeated[0] and not any(launches.values())):
+        raise AssertionError(
+            f"train_frcnn: losses {losses}, epoch hook {hooks}, repeated "
+            f"batch {repeated}, launches {launches}")
+
+    # 3. one bf16 step against one fp32 step from the same weights (and the
+    # same dropout masks: each model's generator starts from the seed)
+    first, moved = {}, {}
+    for cd in (None, "bf16"):
+        m = faster_rcnn.FasterRcnnVgg(param, device=dev, seed=0)
+        start = {k: p.detach().clone() for k, p in m.named_parameters()}
+        sgd = SGD(1e-3, momentum=0.9)
+        st = make_train_step(m, lambda out, b: frcnn_training_loss(out, b),
+                             sgd, grad_clip_norm=10.0, compute_dtype=cd,
+                             forward_fn=frcnn_forward_fn)
+        _, metrics = st(create_train_state(m, sgd), batches[1])
+        first[cd or "fp32"] = metrics["loss"].item()
+        moved[cd or "fp32"] = {k: (p.detach() - start[k]).double()
+                               for k, p in m.named_parameters()}
+        del m, st, start
+    bf16_err = abs(first["bf16"] - first["fp32"]) / abs(first["fp32"])
+    d16, d32 = (torch.cat([m[k].flatten() for k in moved["fp32"]])
+                for m in (moved["bf16"], moved["fp32"]))
+    update_err = ((d16 - d32).norm() / d32.norm()).item()
+    update_cos = (d16 @ d32 / (d16.norm() * d32.norm())).item()
+    del moved, d16, d32
+    if not (bf16_err <= FRCNN_BF16_TOL and update_cos >= FRCNN_BF16_COS
+            and math.isfinite(first["bf16"])):
+        raise AssertionError(
+            f"Faster-RCNN bf16 step against fp32: loss {first} (tol "
+            f"{FRCNN_BF16_TOL}), update cosine {update_cos} (at least "
+            f"{FRCNN_BF16_COS}), relative L2 {update_err}")
+    emit("frcnn_train", resolution=res, batch=B, gt_per_image=FRCNN_TRAIN_GT,
+         classes=param.num_classes,
+         proposal=[param.proposal.pre_nms_topn, param.proposal.post_nms_topn],
+         n_params=sum(p.numel() for p in model.parameters()),
+         epoch_losses=losses, epoch_hook=hooks, train_frcnn_s=train_s,
+         repeated_batch_losses=repeated, launches=launches,
+         card_vs_cpu={"batch": 2, "loss": loss_c, "loss_rel_err": loss_err,
+                      "loss_tolerance": FRCNN_LOSS_TOL,
+                      "targets_equal": targets_equal,
+                      "proposal_near_ties": near_ties,
+                      "grad_rel_l2_max": max(grad_err.values()),
+                      "grad_rel_l2": grad_err,
+                      "grad_tolerance": [FRCNN_GRAD_TOL,
+                                         FRCNN_TRUNK_GRAD_TOL]},
+         bf16_first_loss=first, bf16_loss_rel_err=bf16_err,
+         bf16_update_rel_l2=update_err, bf16_update_cosine=update_cos,
+         bf16_tolerance=[FRCNN_BF16_TOL, FRCNN_BF16_COS])
+
+    # 4. timing: host-clock steps (fp32, as train_frcnn runs them), one
+    # profiled step with the proposal and its NMS rounds as ranges,
+    # peak memory
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for i in range(2 + FRCNN_TRAIN_TIMED):
+        t0 = time.perf_counter()
+        state, _ = step(state, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    timed = step_ms[2:]
+    plain_proposal, plain_nms = faster_rcnn.proposal, proposal_mod.nms_batched
+
+    def ranged(name, fn):
+        def call(*a, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*a, **kw)
+        return call
+
+    faster_rcnn.proposal = ranged("frcnn_proposal", plain_proposal)
+    proposal_mod.nms_batched = ranged("frcnn_proposal_nms", plain_nms)
+    try:
+        trace = profile_train_step(lambda: step(state, batches[0]),
+                                   nested=("frcnn_proposal",))
+    finally:
+        faster_rcnn.proposal = plain_proposal
+        proposal_mod.nms_batched = plain_nms
+    emit("timing", nvidia_smi=smi,
+         frcnn_train_step_ms=statistics.median(timed),
+         frcnn_train_step_ms_each=step_ms, frcnn_train_batch=B,
+         frcnn_train_images_per_s=B * 1e3 / statistics.median(timed),
+         frcnn_train_step_profiled=trace, frcnn_train_peak_gb=peak_gb)
+    return {k.__name__: k.launches for k in counters}
+
+
+def seeded_caffe_net(graph, rng):
+    """A caffemodel for ``graph`` (a ``CaffeGraph``) with seeded blobs in
+    Caffe's layouts: LeCun-normal convolution and InnerProduct weights,
+    small biases, Normalize scales of 10-30."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.utils.caffe import CaffeLayer, CaffeNet
+
+    types = {s.name: s.type for s in graph.specs}
+    layers = []
+    for name, mod in graph.named_children():
+        sd = mod.state_dict()
+        if types[name] == "Normalize":
+            blobs = [(10.0 + 20.0 * rng.random_sample(
+                sd["scale"].shape[0])).astype(np.float32)]
+        else:
+            w = sd["weight"]
+            blobs = [(rng.standard_normal(tuple(w.shape))
+                      / np.sqrt(w[0].numel())).astype(np.float32),
+                     (rng.standard_normal(w.shape[0]) * 0.01).astype(
+                         np.float32)]
+        layers.append(CaffeLayer(name, types[name], blobs=blobs))
+    return CaffeNet(name="seeded", layers=layers)
+
+
+def ssd300_deploy_prototxt() -> str:
+    """The SSD300 VGG16 deploy net (the SSD-Caffe release's
+    ``VGG_VOC0712_SSD_300x300`` deploy.prototxt: its layer names, types
+    and parameters, 21 classes)."""
+    heads = [("conv4_3_norm", 30, 60, (2,), 8), ("fc7", 60, 111, (2, 3), 16),
+             ("conv6_2", 111, 162, (2, 3), 32),
+             ("conv7_2", 162, 213, (2, 3), 64),
+             ("conv8_2", 213, 264, (2,), 100),
+             ("conv9_2", 264, 315, (2,), 300)]
+    k = {1: 4, 2: 6}
+
+    def conv(name, bottom, out, kernel, stride=1, pad=0, dilation=1):
+        extra = "".join(f" {n}: {v}" for n, v, d in (
+            ("pad", pad, 0), ("stride", stride, 1),
+            ("dilation", dilation, 1)) if v != d)
+        return (f'layer {{ name: "{name}" type: "Convolution" bottom: '
+                f'"{bottom}" top: "{name}" convolution_param {{ num_output: '
+                f'{out} kernel_size: {kernel}{extra} }} }}\n')
+
+    def relu(name, blob):
+        return (f'layer {{ name: "{name}" type: "ReLU" bottom: "{blob}" '
+                f'top: "{blob}" }}\n')
+
+    def pool(name, bottom, kernel, stride, pad=0):
+        pad_s = f" pad: {pad}" if pad else ""
+        return (f'layer {{ name: "{name}" type: "Pooling" bottom: '
+                f'"{bottom}" top: "{name}" pooling_param {{ pool: MAX '
+                f'kernel_size: {kernel} stride: {stride}{pad_s} }} }}\n')
+
+    p = ['name: "VGG_VOC0712_SSD_300x300_deploy"\ninput: "data"\n'
+         'input_shape { dim: 1 dim: 3 dim: 300 dim: 300 }\n']
+    bottom = "data"
+    for blk, n, ch in ((1, 2, 64), (2, 2, 128), (3, 3, 256), (4, 3, 512),
+                       (5, 3, 512)):
+        for i in range(1, n + 1):
+            p.append(conv(f"conv{blk}_{i}", bottom, ch, 3, pad=1))
+            p.append(relu(f"relu{blk}_{i}", f"conv{blk}_{i}"))
+            bottom = f"conv{blk}_{i}"
+        p.append(pool(f"pool{blk}", bottom, 2, 2) if blk < 5
+                 else pool("pool5", bottom, 3, 1, pad=1))
+        bottom = f"pool{blk}"
+    p += [conv("fc6", bottom, 1024, 3, pad=6, dilation=6), relu("relu6", "fc6"),
+          conv("fc7", "fc6", 1024, 1), relu("relu7", "fc7")]
+    bottom = "fc7"
+    for name, ch, kern, s, pad in (
+            ("conv6_1", 256, 1, 1, 0), ("conv6_2", 512, 3, 2, 1),
+            ("conv7_1", 128, 1, 1, 0), ("conv7_2", 256, 3, 2, 1),
+            ("conv8_1", 128, 1, 1, 0), ("conv8_2", 256, 3, 1, 0),
+            ("conv9_1", 128, 1, 1, 0), ("conv9_2", 256, 3, 1, 0)):
+        p += [conv(name, bottom, ch, kern, stride=s, pad=pad),
+              relu(f"{name}_relu", name)]
+        bottom = name
+    p.append('layer { name: "conv4_3_norm" type: "Normalize" bottom: '
+             '"conv4_3" top: "conv4_3_norm" norm_param { across_spatial: '
+             'false scale_filler { type: "constant" value: 20 } '
+             'channel_shared: false } }\n')
+    for src, mn, mx, ars, step in heads:
+        for kind, ch in (("loc", 4), ("conf", 21)):
+            head = f"{src}_mbox_{kind}"
+            p.append(conv(head, src, k[len(ars)] * ch, 3, pad=1))
+            p.append(f'layer {{ name: "{head}_perm" type: "Permute" bottom: '
+                     f'"{head}" top: "{head}_perm" permute_param {{ order: 0 '
+                     'order: 2 order: 3 order: 1 } }\n')
+            p.append(f'layer {{ name: "{head}_flat" type: "Flatten" bottom: '
+                     f'"{head}_perm" top: "{head}_flat" flatten_param {{ '
+                     'axis: 1 } }\n')
+        ar_s = " ".join(f"aspect_ratio: {a}" for a in ars)
+        p.append(f'layer {{ name: "{src}_mbox_priorbox" type: "PriorBox" '
+                 f'bottom: "{src}" bottom: "data" top: "{src}_mbox_priorbox" '
+                 f'prior_box_param {{ min_size: {mn} max_size: {mx} {ar_s} '
+                 'flip: true clip: false variance: 0.1 variance: 0.1 '
+                 f'variance: 0.2 variance: 0.2 step: {step} offset: 0.5 }} '
+                 '}\n')
+    for kind in ("loc", "conf", "priorbox"):
+        bots = " ".join(f'bottom: "{s}_mbox_{kind}{"" if kind == "priorbox" else "_flat"}"'
+                        for s, *_ in heads)
+        p.append(f'layer {{ name: "mbox_{kind}" type: "Concat" {bots} top: '
+                 f'"mbox_{kind}" concat_param {{ axis: '
+                 f'{2 if kind == "priorbox" else 1} }} }}\n')
+    p.append('layer { name: "mbox_conf_reshape" type: "Reshape" bottom: '
+             '"mbox_conf" top: "mbox_conf_reshape" reshape_param { shape { '
+             'dim: 0 dim: -1 dim: 21 } } }\n'
+             'layer { name: "mbox_conf_softmax" type: "Softmax" bottom: '
+             '"mbox_conf_reshape" top: "mbox_conf_softmax" softmax_param { '
+             'axis: 2 } }\n'
+             'layer { name: "mbox_conf_flatten" type: "Flatten" bottom: '
+             '"mbox_conf_softmax" top: "mbox_conf_flatten" flatten_param { '
+             'axis: 1 } }\n'
+             'layer { name: "detection_out" type: "DetectionOutput" bottom: '
+             '"mbox_loc" bottom: "mbox_conf_flatten" bottom: "mbox_priorbox" '
+             'top: "detection_out" detection_output_param { num_classes: 21 '
+             'share_location: true background_label_id: 0 nms_param { '
+             'nms_threshold: 0.45 top_k: 400 } code_type: CENTER_SIZE '
+             'keep_top_k: 200 confidence_threshold: 0.01 } }\n')
+    return "".join(p)
+
+
+def frcnn_vgg16_deploy_prototxt(resolution: int = 512, pooled: int = 7,
+                                classes: int = 21) -> str:
+    """py-faster-rcnn's VGG16 ``test.prototxt`` (its layer names and types,
+    ``rpn_conv/3x3`` and the Python proposal layer included) at a fixed
+    ``resolution``² input."""
+    p = ['name: "VGG_ILSVRC_16_layers"\ninput: "data"\n'
+         f'input_shape {{ dim: 1 dim: 3 dim: {resolution} dim: '
+         f'{resolution} }}\ninput: "im_info"\ninput_shape {{ dim: 1 dim: 3 '
+         '}\n']
+    bottom = "data"
+    for blk, n, ch in ((1, 2, 64), (2, 2, 128), (3, 3, 256), (4, 3, 512),
+                       (5, 3, 512)):
+        for i in range(1, n + 1):
+            name = f"conv{blk}_{i}"
+            p.append(f'layer {{ name: "{name}" type: "Convolution" bottom: '
+                     f'"{bottom}" top: "{name}" convolution_param {{ '
+                     f'num_output: {ch} pad: 1 kernel_size: 3 }} }}\n'
+                     f'layer {{ name: "relu{blk}_{i}" type: "ReLU" bottom: '
+                     f'"{name}" top: "{name}" }}\n')
+            bottom = name
+        if blk < 5:
+            p.append(f'layer {{ name: "pool{blk}" type: "Pooling" bottom: '
+                     f'"{bottom}" top: "pool{blk}" pooling_param {{ pool: MAX '
+                     'kernel_size: 2 stride: 2 } }\n')
+            bottom = f"pool{blk}"
+    p.append(
+        'layer { name: "rpn_conv/3x3" type: "Convolution" bottom: "conv5_3" '
+        'top: "rpn/output" convolution_param { num_output: 512 kernel_size: '
+        '3 pad: 1 stride: 1 } }\n'
+        'layer { name: "rpn_relu/3x3" type: "ReLU" bottom: "rpn/output" top: '
+        '"rpn/output" }\n'
+        'layer { name: "rpn_cls_score" type: "Convolution" bottom: '
+        '"rpn/output" top: "rpn_cls_score" convolution_param { num_output: '
+        '18 kernel_size: 1 pad: 0 stride: 1 } }\n'
+        'layer { name: "rpn_bbox_pred" type: "Convolution" bottom: '
+        '"rpn/output" top: "rpn_bbox_pred" convolution_param { num_output: '
+        '36 kernel_size: 1 pad: 0 stride: 1 } }\n'
+        'layer { bottom: "rpn_cls_score" top: "rpn_cls_score_reshape" name: '
+        '"rpn_cls_score_reshape" type: "Reshape" reshape_param { shape { '
+        'dim: 0 dim: 2 dim: -1 dim: 0 } } }\n'
+        'layer { name: "rpn_cls_prob" type: "Softmax" bottom: '
+        '"rpn_cls_score_reshape" top: "rpn_cls_prob" }\n'
+        'layer { name: "rpn_cls_prob_reshape" type: "Reshape" bottom: '
+        '"rpn_cls_prob" top: "rpn_cls_prob_reshape" reshape_param { shape { '
+        'dim: 0 dim: 18 dim: -1 dim: 0 } } }\n'
+        'layer { name: "proposal" type: "Python" bottom: '
+        '"rpn_cls_prob_reshape" bottom: "rpn_bbox_pred" bottom: "im_info" '
+        'top: "rois" python_param { module: "rpn.proposal_layer" layer: '
+        '"ProposalLayer" param_str: "\'feat_stride\': 16" } }\n'
+        'layer { name: "roi_pool5" type: "ROIPooling" bottom: "conv5_3" '
+        f'bottom: "rois" top: "pool5" roi_pooling_param {{ pooled_w: '
+        f'{pooled} pooled_h: {pooled} spatial_scale: 0.0625 }} }}\n')
+    bottom = "pool5"
+    for i in (6, 7):
+        p.append(f'layer {{ name: "fc{i}" type: "InnerProduct" bottom: '
+                 f'"{bottom}" top: "fc{i}" inner_product_param {{ '
+                 'num_output: 4096 } }\n'
+                 f'layer {{ name: "relu{i}" type: "ReLU" bottom: "fc{i}" '
+                 f'top: "fc{i}" }}\n'
+                 f'layer {{ name: "drop{i}" type: "Dropout" bottom: "fc{i}" '
+                 f'top: "fc{i}" dropout_param {{ dropout_ratio: 0.5 }} }}\n')
+        bottom = f"fc{i}"
+    p.append(f'layer {{ name: "cls_score" type: "InnerProduct" bottom: '
+             f'"fc7" top: "cls_score" inner_product_param {{ num_output: '
+             f'{classes} }} }}\n'
+             f'layer {{ name: "bbox_pred" type: "InnerProduct" bottom: "fc7" '
+             f'top: "bbox_pred" inner_product_param {{ num_output: '
+             f'{4 * classes} }} }}\n'
+             'layer { name: "cls_prob" type: "Softmax" bottom: "cls_score" '
+             'top: "cls_prob" }\n')
+    return "".join(p)
+
+
+def caffe_graph_phase(dev, smi):
+    """``build_caffe_graph`` on the card (phase ``caffe_graph``, then a
+    ``timing`` line): the SSD300 deploy net against ``SSDVgg`` and the
+    Faster-RCNN VGG16 deploy net against ``FasterRcnnVgg``, each pair on
+    one seeded caffemodel.  Returns K2's launches of the graph's timed
+    forwards."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.data.synthetic import render_shapes_image
+    from analytics_zoo_tpu_torch.models.faster_rcnn import (FasterRcnnVgg,
+                                                            FrcnnParam)
+    from analytics_zoo_tpu_torch.models.ssd import (SSDVgg, build_priors,
+                                                    ssd300_config)
+    from analytics_zoo_tpu_torch.ops import pallas_detout
+    from analytics_zoo_tpu_torch.ops.detection_output import detection_output
+    from analytics_zoo_tpu_torch.pipelines.frcnn import FRCNN_BGR_MEANS
+    from analytics_zoo_tpu_torch.pipelines.ssd import BGR_MEANS
+    from analytics_zoo_tpu_torch.utils import caffe
+
+    k2 = pallas_detout.fused_detection_output
+    rng = np.random.RandomState(71)
+    tmp = tempfile.mkdtemp(prefix="caffe_graph-")
+    out = {}
+
+    def images(res, means):
+        return torch.from_numpy(np.stack([
+            render_shapes_image(rng, res)[0].astype(np.float32)
+            - np.float32(means) for _ in range(BATCH)])).to(dev)
+
+    def loaded(graph, model, loader, name, **kw):
+        path = os.path.join(tmp, f"{name}.caffemodel")
+        t0 = time.perf_counter()
+        caffe.save_caffemodel(path, seeded_caffe_net(graph, rng))
+        new, rep = caffe.load_caffe_weights(graph, path)
+        new_m, rep_m = loader(model, path, **kw)
+        seconds = time.perf_counter() - t0
+        if rep["missing"] or rep["unused"] or rep_m["missing"] or rep_m[
+                "unused"]:
+            raise AssertionError(f"{name}: caffemodel import {rep} {rep_m}")
+        graph.load_state_dict(new)
+        model.load_state_dict(new_m)
+        os.remove(path)
+        return len(rep["loaded"]), seconds
+
+    # 1. SSD300: the deploy graph and SSDVgg on one caffemodel, batch 8
+    t0 = time.perf_counter()
+    graph = caffe.build_caffe_graph(caffe.parse_prototxt(
+        ssd300_deploy_prototxt()), device=dev)
+    build_s = time.perf_counter() - t0
+    model = SSDVgg(21, 300, device=dev)
+    n_loaded, import_s = loaded(graph, model, caffe.load_ssd_vgg_caffe,
+                                "ssd300")
+    x = images(300, BGR_MEANS)
+    priors, variances = (torch.from_numpy(a).to(dev)
+                         for a in build_priors(ssd300_config()))
+    with torch.inference_mode():
+        k2.launches = 0
+        got = graph(x)
+        torch.cuda.synchronize()
+        graph_launches = k2.launches
+        loc, conf = model(x)
+        want = detection_output(loc, torch.softmax(conf, -1), priors,
+                                variances)
+    err = rows_err(got, want)
+    if graph_launches != 1:
+        raise AssertionError(f"SSD300 deploy graph: K2 launched "
+                             f"{graph_launches} times a forward")
+    with torch.inference_mode():
+        graph_ms = cuda_ms(lambda: graph(x), 5)
+        ssdvgg_ms = cuda_ms(lambda: detection_output(
+            *(lambda lc: (lc[0], torch.softmax(lc[1], -1)))(model(x)),
+            priors, variances), 5)
+    out["ssd300"] = {"layers": len(graph.specs), "params_loaded": n_loaded,
+                     "build_s": build_s, "caffemodel_s": import_s,
+                     "detections": int((got[..., 1] > 0).sum()),
+                     "rows_max_abs_err": err,
+                     "k2_launches_a_forward": graph_launches,
+                     "graph_ms": graph_ms, "ssdvgg_ms": ssdvgg_ms}
+    del graph, model
+
+    # 2. Faster-RCNN VGG16: the deploy graph (Python proposal, ROIPooling)
+    # and FasterRcnnVgg on one caffemodel (fc6 permuted CHW → HWC by
+    # load_frcnn_vgg_caffe), batch 8 on the 512² canvas
+    res = FRCNN_RESOLUTION
+    param = FrcnnParam(pooled=CAFFE_FRCNN_POOLED)
+    t0 = time.perf_counter()
+    graph = caffe.build_caffe_graph(caffe.parse_prototxt(
+        frcnn_vgg16_deploy_prototxt(res, param.pooled, param.num_classes)),
+        device=dev)
+    build_s = time.perf_counter() - t0
+    model = FasterRcnnVgg(param, device=dev)
+    n_loaded, import_s = loaded(graph, model, caffe.load_frcnn_vgg_caffe,
+                                "frcnn", pooled=param.pooled)
+    seen = {}
+
+    def proposal_layer(g, spec, ins, louts, ctx):
+        result = caffe._python_proposal(g, spec, ins, louts, ctx)
+        seen["rois"] = result[0]
+        return result
+
+    graph.registry["Python"] = proposal_layer
+    x = images(res, FRCNN_BGR_MEANS)
+    info = torch.tensor([[res, res, 1.0]], device=dev).expand(BATCH, 3)
+    with torch.inference_mode():
+        k2.launches = 0
+        bbox, prob = graph(x)
+        rois, mask, probs, deltas = model(x, info)
+    rois5, gmask = seen["rois"]
+    stage = {"rois_px": (rois5[:, 1:] - rois.reshape(-1, 4)).abs().max()
+             .item(),
+             "cls_prob": rel_err(prob, probs.reshape(prob.shape)),
+             "bbox_pred": rel_err(bbox, deltas.reshape(bbox.shape))}
+    if not (torch.equal(gmask, mask.reshape(-1)) and stage["rois_px"] <= 1e-3
+            and stage["cls_prob"] <= FRCNN_STAGE_TOL
+            and stage["bbox_pred"] <= FRCNN_STAGE_TOL and k2.launches == 0):
+        raise AssertionError(f"Faster-RCNN deploy graph against "
+                             f"FasterRcnnVgg: masks equal "
+                             f"{torch.equal(gmask, mask.reshape(-1))}, "
+                             f"{stage} (tol 1e-3 px, {FRCNN_STAGE_TOL}), K2 "
+                             f"{k2.launches}")
+    with torch.inference_mode():
+        frcnn_graph_ms = cuda_ms(lambda: graph(x), 3)
+        frcnn_model_ms = cuda_ms(lambda: model(x, info), 3)
+    out["frcnn_vgg16"] = {"layers": len(graph.specs),
+                          "params_loaded": n_loaded, "build_s": build_s,
+                          "caffemodel_s": import_s,
+                          "proposals": int(gmask.sum()), **stage,
+                          "tolerance": FRCNN_STAGE_TOL,
+                          "graph_ms": frcnn_graph_ms,
+                          "faster_rcnn_vgg_ms": frcnn_model_ms}
+    del graph, model
+    os.rmdir(tmp)
+    emit("caffe_graph", batch=BATCH, **out)
+    emit("timing", nvidia_smi=smi,
+         caffe_graph_ssd300_ms_per_batch=graph_ms,
+         ssdvgg_ms_per_batch=ssdvgg_ms,
+         caffe_graph_frcnn_ms_per_batch=frcnn_graph_ms,
+         faster_rcnn_vgg_ms_per_batch=frcnn_model_ms)
+    return {"k2_launches": graph_launches}
+
+
+def ssd_variants_phase(dev, smi):
+    """``SSDAlexNet`` and ``SSDMobileNet`` served through ``SSDPredictor``
+    on the card (phase ``ssd_variants``, then a ``timing`` line); returns
+    K2's launches of the served batches."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.data.synthetic import render_shapes_image
+    from analytics_zoo_tpu_torch.models import SSDAlexNet, SSDMobileNet
+    from analytics_zoo_tpu_torch.ops import pallas_detout, pallas_nms
+    from analytics_zoo_tpu_torch.ops.detection_output import (
+        DetectionOutputParam)
+    from analytics_zoo_tpu_torch.pipelines.ssd import (PreProcessParam,
+                                                       SSDPredictor)
+
+    k1, k2 = pallas_nms.nms_sweep, pallas_detout.fused_detection_output
+    rng = np.random.RandomState(81)
+    param = PreProcessParam(batch_size=BATCH)
+    batches = [{"input": np.stack([render_shapes_image(rng, 300)[0]
+                                   for _ in range(BATCH)]),
+                "im_info": np.tile(np.float32([300, 300, 1, 1]), (BATCH, 1))}
+               for _ in range(VARIANT_BATCHES)]
+    out, timing, launches = {}, {}, 0
+    for name, model in (("alexnet", SSDAlexNet(21, device=dev, seed=0)),
+                        ("mobilenet", SSDMobileNet(21, device=dev, seed=0))):
+        pred = SSDPredictor(model, param, device=dev)
+        plain = SSDPredictor(model, param, DetectionOutputParam(
+            n_classes=21, backend="xla"), device=dev)
+        k1.launches = k2.launches = 0
+        got = [pred.detect_batch(b) for b in batches]
+        n = k2.launches
+        if n != len(batches) or k1.launches:
+            raise AssertionError(f"{name}: K2 launched {n} times, K1 "
+                                 f"{k1.launches}, for {len(batches)} "
+                                 "batches")
+        launches += n
+        err = max(rows_err(torch.from_numpy(g),
+                           torch.from_numpy(plain.detect_batch(b)))
+                  for g, b in zip(got, batches))
+        ms = [host_ms(lambda: pred.detect_batch(batches[0]))
+              for _ in range(VARIANT_TIMED)]
+        x = torch.from_numpy(batches[0]["input"]).to(dev).float()
+        with torch.inference_mode():
+            fwd_ms = cuda_ms(lambda: model(x), 10)
+        out[name] = {"priors": int(pred._priors.shape[0]),
+                     "n_params": sum(p.numel() for p in model.parameters()),
+                     "k2_launches": n, "rows_max_abs_err": err,
+                     "detections": int(sum((g[..., 1] > 0).sum()
+                                           for g in got))}
+        timing[name] = {"detect_batch_ms": statistics.median(ms),
+                        "detect_batch_ms_each": ms, "forward_ms": fwd_ms}
+    emit("ssd_variants", batch=BATCH, batches=len(batches), **out)
+    emit("timing", nvidia_smi=smi, ssd_variants=timing)
+    return {"k2_launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -3434,6 +4231,15 @@ def main() -> int:
     # -- 6f. Faster-RCNN serving: reaches none of the four kernels --------
     frcnn = frcnn_serving_phase(dev, smi)
 
+    # -- 6g. Faster-RCNN training: reaches none of the four kernels -------
+    frcnn_train = frcnn_train_phase(dev, smi)
+
+    # -- 6h. build_caffe_graph: the SSD300 deploy net through K2 ----------
+    caffe_graph = caffe_graph_phase(dev, smi)
+
+    # -- 6i. the SSD AlexNet and MobileNet variants through K2 ------------
+    variants = ssd_variants_phase(dev, smi)
+
     # -- 7. kernels, then the device line last ----------------------------
     kernels = [
         {"name": "nms_sweep", "route": "cuda",
@@ -3443,7 +4249,8 @@ def main() -> int:
          "launches_by_path": {
              "ssd_serving": launches["nms_sweep"],
              "ssd_serving_approx_topk": ssd_serving["k1_launches"],
-             "frcnn_serving": frcnn["nms_sweep"]},
+             "frcnn_serving": frcnn["nms_sweep"],
+             "frcnn_train": frcnn_train["nms_sweep"]},
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
@@ -3453,7 +4260,8 @@ def main() -> int:
          "launches": (launches["fused_detection_output"]
                       + ssd_train["k2_launches"] + ssd_input["validation"]
                       + ssd_input["predict"] + ssd_serving["k2_launches"]
-                      + ds2_online["k2_fleet"]),
+                      + ds2_online["k2_fleet"] + caffe_graph["k2_launches"]
+                      + variants["k2_launches"]),
          "launches_by_path": {
              "ssd_serving": launches["fused_detection_output"],
              "ssd_serving_runtime": ssd_serving["k2_launches"],
@@ -3461,7 +4269,10 @@ def main() -> int:
              "ssd_train_validation": ssd_train["k2_launches"],
              "ssd_input_validation": ssd_input["validation"],
              "ssd_input_predict": ssd_input["predict"],
-             "frcnn_serving": frcnn["fused_detection_output"]},
+             "caffe_graph": caffe_graph["k2_launches"],
+             "ssd_variants": variants["k2_launches"],
+             "frcnn_serving": frcnn["fused_detection_output"],
+             "frcnn_train": frcnn_train["fused_detection_output"]},
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
         {"name": "persistent_rnn", "route": "cuda",
@@ -3472,7 +4283,8 @@ def main() -> int:
          "launches_by_path": {"ds2_serving": k3_launches,
                               "ds2_train": train_launches["persistent_rnn"],
                               **ds2_online["k3"],
-                              "frcnn_serving": frcnn["persistent_rnn"]},
+                              "frcnn_serving": frcnn["persistent_rnn"],
+                              "frcnn_train": frcnn_train["persistent_rnn"]},
          "max_abs_err": k3_err, "ms": k3_ms,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
          # no PyTorch call computes a clipped-ReLU recurrence; cuDNN's
@@ -3486,7 +4298,8 @@ def main() -> int:
          "launches": train_launches["persistent_rnn_bwd"],
          "launches_by_path": {
              "ds2_train": train_launches["persistent_rnn_bwd"],
-             "frcnn_serving": frcnn["persistent_rnn_bwd"]},
+             "frcnn_serving": frcnn["persistent_rnn_bwd"],
+             "frcnn_train": frcnn_train["persistent_rnn_bwd"]},
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
          "bound_ms": k4_bound, "bound_by": k4_by,
          # no PyTorch call computes this backward; cuDNN's relu RNN

@@ -433,7 +433,7 @@ def test_train_step_bf16_and_refusals():
         losses[cd] = metrics["loss"].item()
         assert all(p.dtype == torch.float32 for p in m.parameters())
     assert abs(losses["bf16"] - losses[None]) <= 0.05 * abs(losses[None])
-    for kw, item in ((dict(forward_fn=lambda *a: a), "item 12"),
+    for kw, item in ((dict(specs=object()), "item 12"),
                      (dict(health_check=True), "item 13"),
                      (dict(mesh=object()), "item 12")):
         with pytest.raises(NotImplementedError, match=item):

@@ -414,10 +414,14 @@ def test_decode_frcnn_boxes_matches_reference(nets):
 def test_training_and_sharding_refused(nets):
     _, _, tdet, x, info = nets
     xt = torch.from_numpy(x[:1])
-    for kw in ({"train": True}, {"extra_rois": torch.zeros(1, 2, 4)},
-               {"train_outputs": True}):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tdet.frcnn(xt, info[:1], **kw)
+    # training is ported (tests/test_torch_frcnn_train.py): the keywords
+    # run; sharded training is refused
+    with torch.no_grad():
+        out = tdet.frcnn(xt, info[:1], train=True,
+                         extra_rois=torch.zeros(1, 2, 4), train_outputs=True)
+    assert out["rois"].shape == (1, 16 + 2, 4)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        pipe.train_frcnn(tdet.frcnn, [], SIZE, mesh=object())
     with pytest.raises(NotImplementedError, match="item 12"):
         pipe.frcnn_serving_tiers(tdet, specs=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item e"):

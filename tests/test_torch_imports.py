@@ -71,12 +71,22 @@ def test_port_imports_pull_in_no_jax():
             "analytics_zoo_tpu_torch.pipelines.frcnn",
             "analytics_zoo_tpu_torch.utils.caffe",
             "analytics_zoo_tpu_torch.utils.protowire"} <= set(mods)
+    # the Faster-RCNN training slice, the Caffe graph builder's layers and
+    # the SSD variants
+    assert {"analytics_zoo_tpu_torch.ops.frcnn_train",
+            "analytics_zoo_tpu_torch.core.layers",
+            "analytics_zoo_tpu_torch.models.ssd_variants"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "from analytics_zoo_tpu_torch.pipelines import (StreamingDS2, "
             "ds2_serving_tiers, ds2_streaming_tiers)\n"
             "from analytics_zoo_tpu_torch.obs import SloEvaluator, "
             "model_slos\n"
+            "from analytics_zoo_tpu_torch.pipelines import train_frcnn\n"
+            "from analytics_zoo_tpu_torch.utils.caffe import "
+            "build_caffe_graph\n"
+            "from analytics_zoo_tpu_torch.models import SSDAlexNet, "
+            "SSDMobileNet\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")

@@ -494,17 +494,31 @@ def test_voc_reader_gives_the_reference_records(tmp_path):
 # -- serving and training from records ------------------------------------------------
 
 def test_predict_records_equals_detect_batch(shards):
+    """``predict(records)`` equals ``detect_batch`` on the same staged
+    batches, exactly.  Both calls run on one intra-op thread after one
+    warm-up forward of the first batch: once in 9 full tier-1 runs under
+    xdist, the first forward of this test computed the first intra-op
+    thread's share of its first batch (images 0 and 1) ~1e-4 apart from
+    every later forward of the same inputs, which all agreed with one
+    another; the process state behind it, left by earlier tests in the
+    worker, was not identified."""
     model = SSDVgg(21, 300, device="cpu", seed=1)
     param = pipe.PreProcessParam(batch_size=4)
     pred = pipe.SSDPredictor(model, param, device="cpu")
     recs = list(records.read_ssd_records(shards))[:6]
-    got = pred.predict(recs)
-    assert len(got) == 6 and all(g.shape == (200, 6) for g in got)
     staged = list(pipe.serving_chain(param, uint8=True, device="cpu")(recs))
-    want = []
-    for b in staged:
-        n = b.pop("n_valid", 4)
-        want.extend(pred.detect_batch(b)[:n])
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        pred.detect_batch(dict(staged[0]))
+        got = pred.predict(recs)
+        want = []
+        for b in staged:
+            n = b.pop("n_valid", 4)
+            want.extend(pred.detect_batch(b)[:n])
+    finally:
+        torch.set_num_threads(threads)
+    assert len(got) == 6 and all(g.shape == (200, 6) for g in got)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
 
