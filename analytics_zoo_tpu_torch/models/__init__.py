@@ -1,4 +1,5 @@
-"""Models of the port."""
+"""Models of the port: SSD and its variants, DeepSpeech2, Faster-RCNN and
+the small families (fraud, recommendation, sentiment)."""
 
 from analytics_zoo_tpu_torch.models.deepspeech2 import (
     DeepSpeech2,
@@ -12,6 +13,12 @@ from analytics_zoo_tpu_torch.models.faster_rcnn import (
     FrcnnVggTrunk,
     decode_frcnn_boxes,
     frcnn_vgg_rename,
+)
+from analytics_zoo_tpu_torch.models.simple import (
+    FraudMLP,
+    NeuralCF,
+    SentimentNet,
+    WideAndDeep,
 )
 from analytics_zoo_tpu_torch.models.ssd import (
     SSDConfig,

@@ -1,7 +1,8 @@
 """Ops on tensors: PriorBox, box math, NMS, DetectionOutput,
 MultiBoxLoss, the Faster-RCNN anchors, proposal, ROI pooling,
-post-processing and training targets and losses, and the kernels K1 (``pallas_nms``), K2
-(``pallas_detout``), K3 and K4 (``pallas_rnn``)."""
+post-processing and training targets and losses, the embedding lookups
+(dedup'd, naive, one-hot) and their sparse gradient, and the kernels K1
+(``pallas_nms``), K2 (``pallas_detout``), K3 and K4 (``pallas_rnn``)."""
 
 from analytics_zoo_tpu_torch.ops import bbox
 from analytics_zoo_tpu_torch.ops.anchor import (generate_base_anchors,
@@ -12,6 +13,10 @@ from analytics_zoo_tpu_torch.ops.detection_output import (
     detection_output_single,
     scale_detections,
 )
+from analytics_zoo_tpu_torch.ops.embedding import (
+    LOOKUP_MODES, DedupEmbed, SparseRows, dedup_lookup, embedding_grad_rows,
+    lookup_stats, naive_lookup, onehot_lookup, publish_lookup_stats,
+    sharded_embedding_lookup, sparse_rows_to_dense)
 from analytics_zoo_tpu_torch.ops.frcnn import (FrcnnPostParam,
                                                frcnn_postprocess)
 from analytics_zoo_tpu_torch.ops.frcnn_train import (FrcnnLossParam,

@@ -1,12 +1,13 @@
 """Steps of the port: the train and eval steps, the one-device
-``Optimizer`` with its validation, optim methods, Plateau and
-triggers."""
+``Optimizer`` with its validation methods, optim methods, Plateau,
+triggers and the row-sparse Adam apply."""
 
 from analytics_zoo_tpu_torch.parallel.optim import (SGD, Adam, AdamW,
                                                     OptimMethod, Plateau,
                                                     TrainingState, Trigger,
                                                     multistep)
-from analytics_zoo_tpu_torch.parallel.train import (Optimizer, TrainState,
+from analytics_zoo_tpu_torch.parallel.train import (MAE, Loss, Optimizer,
+                                                    Top1Accuracy, TrainState,
                                                     ValidationMethod,
                                                     ValidationResult,
                                                     cast_floating,
@@ -14,10 +15,12 @@ from analytics_zoo_tpu_torch.parallel.train import (Optimizer, TrainState,
                                                     make_eval_step,
                                                     make_train_step,
                                                     resolve_compute_dtype,
+                                                    sparse_adam_apply,
                                                     validate)
 
-__all__ = ["Adam", "AdamW", "OptimMethod", "Optimizer", "Plateau", "SGD",
-           "TrainState", "TrainingState", "Trigger", "ValidationMethod",
-           "ValidationResult", "cast_floating", "create_train_state",
-           "make_eval_step", "make_train_step", "multistep",
-           "resolve_compute_dtype", "validate"]
+__all__ = ["Adam", "AdamW", "Loss", "MAE", "OptimMethod", "Optimizer",
+           "Plateau", "SGD", "Top1Accuracy", "TrainState", "TrainingState",
+           "Trigger", "ValidationMethod", "ValidationResult",
+           "cast_floating", "create_train_state", "make_eval_step",
+           "make_train_step", "multistep", "resolve_compute_dtype",
+           "sparse_adam_apply", "validate"]

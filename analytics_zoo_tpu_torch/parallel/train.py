@@ -314,6 +314,82 @@ class ValidationMethod:
         raise NotImplementedError
 
 
+def _argmax_host(output) -> np.ndarray:
+    return torch.as_tensor(output).argmax(-1).reshape(-1).cpu().numpy()
+
+
+class Top1Accuracy(ValidationMethod):
+    """Share of rows whose argmax is the target, weighted by
+    ``batch["target_mask"]`` when the batch has one."""
+
+    name = "Top1Accuracy"
+
+    def __call__(self, output, batch):
+        target = np.asarray(batch["target"]).reshape(-1)
+        pred = _argmax_host(output)
+        mask = np.asarray(batch.get("target_mask", np.ones_like(target))
+                          ).reshape(-1)
+        correct = float(np.sum((pred == target) * mask))
+        return ValidationResult(correct, float(mask.sum()), self.name)
+
+
+class Loss(ValidationMethod):
+    """The criterion's mean loss, weighted by the batch's rows."""
+
+    name = "Loss"
+
+    def __init__(self, criterion):
+        self.criterion = criterion
+
+    def __call__(self, output, batch):
+        n = np.asarray(batch["target"]).shape[0]
+        with torch.no_grad():
+            loss = float(_call_criterion(self.criterion, output,
+                                         to_device(batch, output.device)))
+        return ValidationResult(loss * n, n, self.name)
+
+
+class MAE(ValidationMethod):
+    """Mean absolute error of the argmax class against the target (the
+    recommender's validation metric over 5 rating classes)."""
+
+    name = "MAE"
+
+    def __call__(self, output, batch):
+        target = np.asarray(batch["target"]).reshape(-1).astype(np.float32)
+        pred = _argmax_host(output).astype(np.float32)
+        return ValidationResult(float(np.abs(pred - target).sum()),
+                                target.size, self.name)
+
+
+def sparse_adam_apply(table: torch.Tensor, mu: torch.Tensor,
+                      nu: torch.Tensor, count: torch.Tensor, grad,
+                      learning_rate: float, b1: float = 0.9,
+                      b2: float = 0.999, eps: float = 1e-8):
+    """Row-sparse (lazy) Adam: update only the rows a batch touched and
+    their slots, with :class:`~analytics_zoo_tpu_torch.parallel.optim.Adam`'s
+    arithmetic (optax's ``scale_by_adam``: the moments, the bias
+    correction at ``count + 1``, ``eps`` outside the square root, the
+    step ``p + (-lr) * u``), so touched rows equal a dense Adam step's.
+    Untouched rows keep their values and their stale moments.
+
+    ``grad`` is an ``ops.embedding.SparseRows``; its padded tail (past
+    ``count``) is masked out, so it never reaches row 0 (the reference
+    sends it out of bounds, where a JAX scatter drops it; a torch scatter
+    would raise).  Returns new ``(table, mu, nu, count)``."""
+    n = int(grad.count)
+    ids, g = grad.ids[:n], grad.rows[:n]
+    new_count = count + 1
+    c = new_count.float()
+    m = (1.0 - b1) * g + b1 * mu[ids]
+    v = (1.0 - b2) * (g * g) + b2 * nu[ids]
+    u = (m / (1.0 - b1 ** c)) / (torch.sqrt(v / (1.0 - b2 ** c)) + eps)
+    rows = table[ids] + (-learning_rate) * u
+    return (table.index_copy(0, ids, rows.to(table.dtype)),
+            mu.index_copy(0, ids, m.to(mu.dtype)),
+            nu.index_copy(0, ids, v.to(nu.dtype)), new_count)
+
+
 def validate(module: nn.Module, dataset, methods: Sequence[Callable],
              eval_step: Optional[Callable] = None) -> List[Any]:
     """Forward a dataset's ``"input"`` on the module's device and merge

@@ -4,10 +4,12 @@ importer uses.
 
 The port's own copy of ``flatten_params`` (``utils/convert.py`` of the
 JAX package) plus the bridges for SSD and its AlexNet and MobileNet
-variants, DeepSpeech2, Faster-RCNN and a Caffe graph: the port names
-its modules after the flax ones, so ``vgg/conv1_1/kernel`` becomes
-``vgg.conv1_1.weight`` with the kernel moved from flax HWIO to torch
-OIHW.  :func:`state_dict_to_flax` maps tensors named as the module's
+variants, DeepSpeech2, Faster-RCNN, a Caffe graph and the small model
+families (the fraud MLP, NeuralCF, Wide&Deep, the sentiment heads): the
+port names its modules after the flax ones, so ``vgg/conv1_1/kernel``
+becomes ``vgg.conv1_1.weight`` with the kernel moved from flax HWIO to
+torch OIHW (a Dense kernel, and a 1-D convolution's (k, in, out), is
+transposed; an ``embedding`` table keeps its layout).  :func:`state_dict_to_flax` maps tensors named as the module's
 (parameters, buffers or their gradients) back onto a flax tree's names
 and layouts, so that two trainings compare leaf by leaf.
 """
@@ -234,6 +236,41 @@ def ds2_params_from_jax(variables: Mapping, model: nn.Module
     return flax_variables_to_state_dict(variables, model)
 
 
+def fraud_mlp_params_from_jax(params: Mapping, model: nn.Module
+                              ) -> Dict[str, torch.Tensor]:
+    """A flax ``FraudMLP`` params tree → the port's ``FraudMLP``
+    ``state_dict`` (``fc1``, ``fc2``; Dense kernels transposed)."""
+    return flax_variables_to_state_dict({"params": params}, model)
+
+
+def ncf_params_from_jax(params: Mapping, model: nn.Module
+                        ) -> Dict[str, torch.Tensor]:
+    """A flax ``NeuralCF`` params tree → the port's ``NeuralCF``
+    ``state_dict``: the tables (``user_embed/embedding`` →
+    ``user_embed.embedding``, ``mf_*`` under ``include_mf``) as they are,
+    ``fc{i}`` and ``out`` transposed."""
+    return flax_variables_to_state_dict({"params": params}, model)
+
+
+def wide_deep_params_from_jax(params: Mapping, model: nn.Module
+                              ) -> Dict[str, torch.Tensor]:
+    """A flax ``WideAndDeep`` params tree → the port's ``WideAndDeep``
+    ``state_dict`` (``wide_user``, ``wide_item``, ``wide_cross``,
+    ``user_embed``, ``item_embed``, ``fc{i}``, ``out``)."""
+    return flax_variables_to_state_dict({"params": params}, model)
+
+
+def sentiment_params_from_jax(params: Mapping, model: nn.Module
+                              ) -> Dict[str, torch.Tensor]:
+    """A flax ``SentimentNet`` params tree, any head → the port's
+    ``SentimentNet`` ``state_dict``: ``embed/embedding`` (absent with
+    frozen vectors), the cells by the DS2 bridge's names
+    (``Recurrent_0/body/gru/ir``, ``BiRecurrent_0/{fwd,bwd}/body/lstm/hi``
+    ...; Dense kernels transposed), the 1-D convolution's (5, in, out)
+    kernel to torch's (out, in, 5), and ``fc``."""
+    return flax_variables_to_state_dict({"params": params}, model)
+
+
 def _is_qtensor(x) -> bool:
     return hasattr(x, "q") and hasattr(x, "scale")
 
@@ -252,18 +289,20 @@ def _flatten_quantized(tree: Any, prefix: str = "") -> Dict[str, Any]:
 
 def quantized_params_from_jax(qvariables: Mapping, model: nn.Module
                               ) -> Dict[str, Any]:
-    """The reference's quantized SSD variables (``{"params": ...}``,
-    nested or slash-flattened; each quantized kernel anything with
+    """The reference's quantized variables (``{"params": ...}``, nested
+    or slash-flattened; each quantized leaf anything with
     numpy-convertible ``q`` (int8, HWIO) and ``scale``, as the
     reference's ``QTensor`` or its npz artifact read by
     ``utils.quantize.load_quantized_npz``) → the port's quantized params
-    for ``model`` (the fp ``SSDVgg``): torch names, kernels as
+    for ``model`` (the fp model, e.g. ``SSDVgg`` or ``NeuralCF``): torch
+    names, kernels as
     :class:`~analytics_zoo_tpu_torch.utils.quantize.QTensor` in OIHW
-    (Dense kernels transposed), the scales unchanged.  Ready for
+    (Dense kernels transposed), tables as they are with their column
+    scales, the scales unchanged.  Ready for
     ``quantize_model(model, qparams=...)``.  The names go through
     :func:`ssd_params_from_jax`'s map; an unused leaf, a model entry
     without one, or a shape that does not fit raises."""
-    from analytics_zoo_tpu_torch.utils.quantize import QTensor
+    from analytics_zoo_tpu_torch.utils.quantize import QTensor, scale_axis
 
     want = model.state_dict()
     out: Dict[str, Any] = {}
@@ -282,10 +321,10 @@ def quantized_params_from_jax(qvariables: Mapping, model: nn.Module
             raise ValueError(f"params/{key}: shape {tuple(value.shape)} "
                              f"does not fit {name} "
                              f"{tuple(want[name].shape)}")
-        value = torch.from_numpy(np.ascontiguousarray(value))
+        value = torch.from_numpy(np.array(value))
         out[name] = (QTensor(value, torch.from_numpy(
-            np.asarray(leaf.scale, np.float32).copy())) if quantized
-            else value.to(torch.float32))
+            np.asarray(leaf.scale, np.float32).copy()), scale_axis(name))
+            if quantized else value.to(torch.float32))
     missing = sorted(set(want) - set(out))
     if extra or missing:
         raise KeyError(f"quantized flax → torch bridge: unused leaves "

@@ -2,7 +2,8 @@
 ``utils/quantize.py``).
 
 Weights are stored as per-output-channel symmetric int8
-(:class:`QTensor`: int8 values and one fp32 scale per output channel).
+(:class:`QTensor`: int8 values and one fp32 scale per output channel; an
+embedding table one scale per column, the reference's trailing axis).
 From that storage, two compute modes:
 
 1. ``compute="dequant"`` (weight-only): each forward dequantizes the
@@ -18,12 +19,19 @@ From that storage, two compute modes:
 
 Torch's idiom is a module swap, not the reference's flax method
 interceptor: :func:`quantize_model` copies a model and replaces each
-``nn.Conv2d`` / ``nn.Linear`` whose weight holds at least ``min_size``
-elements with a :class:`QConv2d` / :class:`QLinear` holding the int8
-weight and its scales.  So every int8 tensor is consumed by exactly one
-convolution or dense layer by construction (the reference's census).
-In SSD300 that quantizes every convolution but ``conv1_1``
-(3·3·3·64 = 1728 elements).
+``nn.Conv2d`` / ``nn.Conv1d`` / ``nn.Linear`` whose weight, and each
+``ops.embedding.DedupEmbed`` whose table, holds at least ``min_size``
+elements with a :class:`QConv2d` / :class:`QConv1d` / :class:`QLinear` /
+:class:`QDedupEmbed` holding the int8 tensor and its scales.  These are
+the leaves the reference's pattern ``(kernel|embedding)$`` takes (its
+``kernel`` leaves are the convolutions' and dense layers', the RNN
+cells' among them; its ``embedding`` leaves the tables).  Every int8
+weight is consumed by exactly one convolution or dense layer (the
+reference's census); a table is dequantized before its lookup in both
+modes, as the reference dequantizes what its interceptor does not take.
+In SSD300 that quantizes every convolution but ``conv1_1`` (3·3·3·64 =
+1728 elements).  A frozen embedding (a buffer, e.g. ``SentimentNet``'s
+GloVe vectors) is never quantized.
 
 Usage::
 
@@ -50,39 +58,47 @@ _MM_MIN_ROWS, _MM_ALIGN = 17, 8
 
 
 class QTensor:
-    """Symmetric per-output-channel int8 tensor: ``q`` int8 in the
-    layer's torch layout (output channels first), ``scale`` fp32 of shape
-    ``(q.shape[0],)``."""
+    """Symmetric per-channel int8 tensor: ``q`` int8 in the layer's torch
+    layout, ``scale`` fp32 of shape ``(q.shape[axis],)``: ``axis`` 0 (the
+    output channels) for a weight, the last axis (the columns) for an
+    embedding table."""
 
-    def __init__(self, q: torch.Tensor, scale: torch.Tensor):
+    def __init__(self, q: torch.Tensor, scale: torch.Tensor, axis: int = 0):
         self.q = q
         self.scale = scale
+        self.axis = axis % max(q.dim(), 1)
 
     def dequant(self, dtype=torch.float32) -> torch.Tensor:
-        s = self.scale.reshape((-1,) + (1,) * (self.q.dim() - 1))
-        return self.q.to(dtype) * s.to(dtype)
+        shape = [1] * self.q.dim()
+        shape[self.axis] = -1
+        return self.q.to(dtype) * self.scale.reshape(shape).to(dtype)
 
     def to(self, device) -> "QTensor":
-        return QTensor(self.q.to(device), self.scale.to(device))
+        return QTensor(self.q.to(device), self.scale.to(device), self.axis)
 
     def __repr__(self):
         return f"QTensor(shape={tuple(self.q.shape)}, int8)"
 
 
-def quantize_tensor(w) -> QTensor:
-    """w (O, ...) → int8 values and a per-O scale (symmetric, round half
-    to even).  Computed in numpy float32 on the host, as the reference
-    does, so the values and scales are the reference's bit for bit."""
+def quantize_tensor(w, axis: int = 0) -> QTensor:
+    """w → int8 values and one scale per index of ``axis`` (symmetric,
+    round half to even).  Computed in numpy float32 on the host, as the
+    reference does, so the values and scales are the reference's bit for
+    bit."""
     t = w if isinstance(w, torch.Tensor) else None
     a = (t.detach().cpu().numpy() if t is not None else np.asarray(w)
          ).astype(np.float32)
-    amax = np.max(np.abs(a), axis=tuple(range(1, a.ndim)))      # (O,)
+    axis = axis % a.ndim
+    amax = np.max(np.abs(a), axis=tuple(i for i in range(a.ndim)
+                                        if i != axis))
     scale = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
-    q = np.clip(np.round(a / scale.reshape((-1,) + (1,) * (a.ndim - 1))),
-                -127, 127).astype(np.int8)
+    shape = [1] * a.ndim
+    shape[axis] = -1
+    q = np.clip(np.round(a / scale.reshape(shape)), -127, 127
+                ).astype(np.int8)
     dev = t.device if t is not None else torch.device("cpu")
     return QTensor(torch.from_numpy(q).to(dev),
-                   torch.from_numpy(scale).to(dev))
+                   torch.from_numpy(scale).to(dev), axis)
 
 
 # ---------------------------------------------------------------------------
@@ -209,6 +225,50 @@ class _QLayer(nn.Module):
         return QTensor(self.weight_q, self.weight_scale).dequant()
 
 
+class QConv1d(_QLayer):
+    """``nn.Conv1d`` over a :class:`QTensor` weight; its int8 product is
+    :func:`int8_conv2d` on a height-1 map."""
+
+    def __init__(self, conv: nn.Conv1d, qt: QTensor, compute: str):
+        if conv.groups != 1 or conv.padding_mode != "zeros" \
+                or isinstance(conv.padding, str):
+            raise ValueError("QConv1d takes ungrouped convolutions with "
+                             "explicit zero padding")
+        super().__init__(qt, conv.bias, compute)
+        self.stride, self.padding = conv.stride, conv.padding
+        self.dilation = conv.dilation
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute == "dequant":
+            return F.conv1d(x, self.weight(), self.bias, self.stride,
+                            self.padding, self.dilation)
+        qa, a_scale = quantize_activation(x)
+        acc = int8_conv2d(qa[:, :, None], self.weight_q[:, :, None],
+                          (1, self.stride[0]), (0, self.padding[0]),
+                          (1, self.dilation[0]))[:, :, 0]
+        return _rescale(acc, a_scale, self.weight_scale, self.bias, 1,
+                        x.dtype)
+
+
+class QDedupEmbed(nn.Module):
+    """``ops.embedding.DedupEmbed`` over an int8 table (``embedding_q``,
+    one scale a column in ``embedding_scale``): the table is dequantized
+    to fp32, then looked up by the module's mode, in both compute modes."""
+
+    def __init__(self, embed: nn.Module, qt: QTensor, compute: str):
+        super().__init__()
+        self.lookup = embed.lookup
+        self.register_buffer("embedding_q", qt.q)
+        self.register_buffer("embedding_scale", qt.scale)
+
+    def forward(self, ids) -> torch.Tensor:
+        from analytics_zoo_tpu_torch.ops.embedding import (
+            sharded_embedding_lookup)
+
+        table = QTensor(self.embedding_q, self.embedding_scale, -1).dequant()
+        return sharded_embedding_lookup(table, ids, mode=self.lookup)
+
+
 class QConv2d(_QLayer):
     """``nn.Conv2d`` over a :class:`QTensor` weight."""
 
@@ -248,12 +308,36 @@ class QLinear(_QLayer):
                         x.dtype)
 
 
-_QUANTIZABLE = {nn.Conv2d: QConv2d, nn.Linear: QLinear}
+def _quantizable_types():
+    """type → (quantized layer, the quantized leaf, its scale axis)."""
+    from analytics_zoo_tpu_torch.ops.embedding import DedupEmbed
+
+    return {nn.Conv2d: (QConv2d, "weight", 0),
+            nn.Conv1d: (QConv1d, "weight", 0),
+            nn.Linear: (QLinear, "weight", 0),
+            DedupEmbed: (QDedupEmbed, "embedding", -1)}
 
 
-def _quantizable(module: nn.Module, min_size: int) -> bool:
-    return (type(module) in _QUANTIZABLE
-            and module.weight.numel() >= min_size)
+def _quantized_leaves(model: nn.Module, min_size: int):
+    """``(name, module, leaf, axis)`` of every module whose leaf (its
+    weight or table) holds at least ``min_size`` elements."""
+    types = _quantizable_types()
+    out = []
+    for name, m in model.named_modules():
+        spec = types.get(type(m))
+        if spec is not None and getattr(m, spec[1]).numel() >= min_size:
+            out.append((name, m, spec[1], spec[2]))
+    return out
+
+
+def _leaf_key(name: str, leaf: str) -> str:
+    return f"{name}.{leaf}" if name else leaf
+
+
+def scale_axis(name: str) -> int:
+    """The scale axis of a quantized leaf by its name: the last for an
+    embedding table, 0 for a weight."""
+    return -1 if name.replace("/", ".").split(".")[-1] == "embedding" else 0
 
 
 # ---------------------------------------------------------------------------
@@ -264,14 +348,13 @@ QParams = Dict[str, Union[QTensor, torch.Tensor]]
 
 
 def quantize_params(model: nn.Module, min_size: int = MIN_SIZE) -> QParams:
-    """The model's ``state_dict`` with the weight of every ``nn.Conv2d``
-    and ``nn.Linear`` of at least ``min_size`` elements as a
-    :class:`QTensor`; everything else passes through."""
+    """The model's ``state_dict`` with the weight of every ``nn.Conv2d``,
+    ``nn.Conv1d`` and ``nn.Linear`` and the table of every ``DedupEmbed``
+    of at least ``min_size`` elements as a :class:`QTensor`; everything
+    else passes through."""
     out: QParams = dict(model.state_dict())
-    for name, m in model.named_modules():
-        if _quantizable(m, min_size):
-            key = f"{name}.weight" if name else "weight"
-            out[key] = quantize_tensor(m.weight)
+    for name, m, leaf, axis in _quantized_leaves(model, min_size):
+        out[_leaf_key(name, leaf)] = quantize_tensor(getattr(m, leaf), axis)
     return out
 
 
@@ -286,28 +369,29 @@ def dequantize_params(qparams: Mapping[str, Any],
 def quantize_model(model: nn.Module, compute: str = "dequant",
                    qparams: Optional[Mapping[str, Any]] = None,
                    min_size: int = MIN_SIZE) -> nn.Module:
-    """A copy of ``model`` in eval mode with every ``nn.Conv2d`` /
-    ``nn.Linear`` of at least ``min_size`` weight elements swapped for a
-    :class:`QConv2d` / :class:`QLinear` running ``compute``.  The int8
-    weights are quantized from the model's, or taken from ``qparams``
-    (a :func:`quantize_params` dict, e.g. loaded from an artifact).  The
-    copy holds no fp32 copy of a quantized weight."""
+    """A copy of ``model`` in eval mode with every layer
+    :func:`quantize_params` quantizes swapped for its quantized layer
+    (:class:`QConv2d`, :class:`QConv1d`, :class:`QLinear`,
+    :class:`QDedupEmbed`) running ``compute``.  The int8 tensors are
+    quantized from the model's, or taken from ``qparams`` (a
+    :func:`quantize_params` dict, e.g. loaded from an artifact).  The copy
+    holds no fp32 copy of a quantized leaf."""
     if compute not in ("dequant", "int8"):
         raise ValueError(f"unknown compute mode {compute!r}")
-    # the copy skips the weights that are about to be replaced
-    memo = {id(m.weight): None for m in model.modules()
-            if _quantizable(m, min_size)}
+    leaves = _quantized_leaves(model, min_size)
+    types = _quantizable_types()
+    # the copy skips the leaves that are about to be replaced
+    memo = {id(getattr(m, leaf)): None for _, m, leaf, _ in leaves}
     qmodel = copy.deepcopy(model, memo)
-    for name, m in list(model.named_modules()):
-        if not _quantizable(m, min_size):
-            continue
-        qt = (quantize_tensor(m.weight) if qparams is None
-              else qparams[f"{name}.weight"])
+    for name, m, leaf, axis in leaves:
+        key = _leaf_key(name, leaf)
+        qt = (quantize_tensor(getattr(m, leaf), axis) if qparams is None
+              else qparams[key])
         if not isinstance(qt, QTensor):
-            raise TypeError(f"{name}.weight: expected a QTensor in qparams")
-        qt = qt.to(m.weight.device)
+            raise TypeError(f"{key}: expected a QTensor in qparams")
+        qt = qt.to(getattr(m, leaf).device)
         copied = qmodel.get_submodule(name)
-        layer = _QUANTIZABLE[type(m)](copied, qt, compute)
+        layer = types[type(m)][0](copied, qt, compute)
         parent, _, child = name.rpartition(".")
         setattr(qmodel.get_submodule(parent) if parent else qmodel, child,
                 layer)
@@ -407,7 +491,8 @@ def load_quantized_npz(path: str) -> Any:
             leaves[name] = torch.from_numpy(np.array(data[key]))
     for name, qs in pending.items():
         leaves[name] = QTensor(torch.from_numpy(np.array(qs["q"])),
-                               torch.from_numpy(np.array(qs["scale"])))
+                               torch.from_numpy(np.array(qs["scale"])),
+                               scale_axis(name))
     for name, leaf in leaves.items():
         parts = name.split("/")
         node = out

@@ -4,7 +4,8 @@ DeepSpeech2 CTC training path, its SSD300 training path, its SSD input
 path from JPEG records, SSD and DeepSpeech2 online serving through
 ``ServingRuntime``, DeepSpeech2 streaming sessions, the multiplexed
 pool, Faster-RCNN VGG16 serving and training, graphs built from Caffe
-deploy nets and the SSD AlexNet and MobileNet variants once on one
+deploy nets, the SSD AlexNet and MobileNet variants, and the fraud,
+recommendation and sentiment pipelines with their pool once on one
 NVIDIA GPU.
 
     python3 chip_smoke.py
@@ -274,6 +275,46 @@ Phases, one JSON line each; any failure exits non-zero:
    against the plain path's with K2's tolerances; then a ``timing``
    line: ``detect_batch`` by the host clock (median of
    ``VARIANT_TIMED``) and the forward (CUDA events);
+6j. the model-zoo long tail, each phase with K1-K4's launch counters
+   set to 0 at its start and asserted 0 at its end (none of these paths
+   reaches a kernel, as in the reference), then its ``timing`` line;
+   TF32 off. ``fraud``: a seeded frame at creditcard.csv's shape
+   (``FRAUD_ROWS`` rows, ``time``, 28 PCA-like components and
+   ``amount``, ``FRAUD_POSITIVES`` frauds) through
+   ``run_fraud_pipeline`` with ``FRAUD_MODELS`` models of
+   ``FRAUD_EPOCHS`` epoch (cut from the reference's 20 x 10; the line
+   says so): every loss finite, the AUPRC printed; one ``FraudMLP``
+   loss and its gradients on the card against the CPU from the same
+   weights within ``ZOO_LOSS_TOL`` / ``ZOO_GRAD_TOL``;
+   ``ZOO_REQUESTS`` scaled rows through ``ServingRuntime(
+   fraud_serving_tiers(...), n_replicas=2, max_batch=8)``, all done, the
+   rows the fp tier's, each rung forced in ``ZOO_WINDOWS`` windows
+   (``rung_speed_vs_fp``); the timing line: the step of 64 (median of
+   50), each epoch, serving p50/p99. ``rec``: ``NeuralCF`` and
+   ``WideAndDeep`` at MovieLens-1M's counts (6,040 users, 3,952 items,
+   dim 20, GMF 8, hidden (40, 20), 5 classes, 1000 cross buckets) on
+   batches of ``REC_BATCH`` Zipf(1.3) ids: the dedup, naive and onehot
+   forwards and table gradients within ``LOOKUP_TOL``, the dedup
+   backward repeated bit for bit, ``sparse_adam_apply`` equal to a
+   dense ``Adam`` step on the touched rows; ``train_recommender`` for
+   200 steps with ``MAE`` and ``Loss`` validated before and after, the
+   loss falling; card vs CPU loss and gradients of both models;
+   ``ZOO_REQUESTS`` (user, item) pair requests through the runtime, all
+   done; the timing line: the step of 256, each lookup's forward and
+   forward + backward by mode (CUDA events), serving p50/p99.
+   ``sentiment``: ``make_sentiment_model`` at its defaults (vocab
+   20,000, dim 100, hidden 128, ``seq_len`` 128) for each of the five
+   heads and a frozen-table GRU: card vs CPU forward, loss and
+   gradients at batch 8 (``SENT_GRAD_TOL``); ``train_sentiment`` for 20
+   steps of 64 on the GRU head, the loss falling; the fp and int8 rungs
+   through the runtime, the int8 rows within ``SENT_INT8_TOL`` of fp's;
+   the timing line: each head's forward and train step at 64 x 128 (the
+   recurrent heads run the blocked scan, 128 steps a batch).
+   ``zoo_pool``: the three families on one ``ServingRuntime(models=
+   [...], n_replicas=2, max_batch=8)``, ``ZOO_POOL_REQUESTS``
+   interleaved requests, none failed, no batch holding two models, the
+   per-model accounting; then a ``timing`` line of the four phases'
+   seconds;
 7. the ``kernels`` line, then the device line last.
 
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -3609,6 +3650,696 @@ def ssd_variants_phase(dev, smi):
     return {"k2_launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# The model-zoo long tail: fraud, recommendation, sentiment, their pool
+# ---------------------------------------------------------------------------
+
+# the Kaggle creditcard.csv's shape: rows, frauds, two days of seconds
+FRAUD_ROWS = 284_807
+FRAUD_POSITIVES = 492
+FRAUD_SECONDS = 172_792
+# run_fraud_pipeline cut from the reference's 20 models x 10 epochs
+FRAUD_MODELS = 2
+FRAUD_EPOCHS = 1
+# MovieLens-1M's counts and the recommenders' widths
+ML1M_USERS = 6040
+ML1M_ITEMS = 3952
+REC_BATCH = 256
+REC_ZIPF = 1.3
+REC_TRAIN_BATCHES = 50
+REC_TRAIN_EPOCHS = 4           # 200 steps
+# make_sentiment_model's defaults, and the batch
+SENT_VOCAB = 20_000
+SENT_DIM = 100
+SENT_HIDDEN = 128
+SENT_SEQ = 128
+SENT_BATCH = 64
+SENT_TRAIN_BATCHES = 4
+SENT_TRAIN_EPOCHS = 5          # 20 steps
+# card against CPU, TF32 off, the same weights and batch: the loss within
+# ZOO_LOSS_TOL relative, each gradient within ZOO_GRAD_TOL relative L2
+# (fp32 products summed in another order; CUDA's and the CPU's exp, log
+# and tanh differ by an ulp); the sentiment heads' recurrences run 128
+# steps, which carry those differences through every step: SENT_GRAD_TOL
+ZOO_LOSS_TOL = 1e-5
+ZOO_GRAD_TOL = 1e-4
+SENT_GRAD_TOL = 1e-3
+# the three lookups' forwards and table gradients on the card
+LOOKUP_TOL = 1e-5
+# the weight-only int8 rung's probabilities against the fp rung's
+SENT_INT8_TOL = 5e-2
+# requests a family through the runtime, windows a rung, pool requests
+ZOO_REQUESTS = 64
+ZOO_WINDOWS = 5
+ZOO_POOL_REQUESTS = 96
+
+
+def kernel_counters():
+    """K1-K4, whose ``launches`` the zoo phases hold at 0."""
+    from analytics_zoo_tpu_torch.ops import (pallas_detout, pallas_nms,
+                                             pallas_rnn)
+
+    return (pallas_nms.nms_sweep, pallas_detout.fused_detection_output,
+            pallas_rnn.persistent_rnn, pallas_rnn.persistent_rnn_bwd)
+
+
+def zero_kernel_counters():
+    for k in kernel_counters():
+        k.launches = 0
+
+
+def no_kernel_launches(what):
+    """K1-K4's launches since :func:`zero_kernel_counters`; any raises."""
+    got = {k.__name__: k.launches for k in kernel_counters()}
+    if any(got.values()):
+        raise AssertionError(f"{what}: launched {got}; the path runs none "
+                             "of K1-K4")
+    return got
+
+
+def fraud_frame(seed):
+    """A seeded frame at creditcard.csv's shape: ``time`` (sorted seconds
+    over two days), ``V1``..``V28`` (PCA components of falling variance)
+    and ``amount`` (log-normal): 29 inputs; 492 ``label`` 1 rows, shifted
+    along the first ten components so a model can find them."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    n = FRAUD_ROWS
+    label = np.zeros(n, np.int64)
+    label[rng.choice(n, FRAUD_POSITIVES, replace=False)] = 1
+    v = (rng.randn(n, 28) * np.linspace(2.0, 0.3, 28)).astype(np.float32)
+    v[label == 1, :10] += rng.randn(10).astype(np.float32) * 2.0
+    frame = {"time": np.sort(rng.uniform(0, FRAUD_SECONDS, n)),
+             "amount": rng.lognormal(3.0, 1.5, n).astype(np.float32),
+             "label": label}
+    frame.update({f"V{i + 1}": v[:, i] for i in range(28)})
+    return frame, [f"V{i + 1}" for i in range(28)] + ["amount"]
+
+
+def card_vs_cpu(cpu_model, card_model, inputs, target, criterion):
+    """One loss and its gradients on the CPU and the card from the same
+    weights and batch (eval mode: no dropout): ``(loss, loss relative
+    error, {parameter: gradient relative L2 error})``."""
+    import torch
+
+    out = {}
+    for name, m in (("cpu", cpu_model), ("card", card_model)):
+        m.evaluate()
+        m.zero_grad()
+        loss = criterion(m(*inputs), torch.as_tensor(target,
+                                                      device=m.device))
+        loss.backward()
+        out[name] = (loss.item(), {n: p.grad.detach().cpu() for n, p in
+                                   m.module.named_parameters()})
+    (lc, gc), (lg, gg) = out["cpu"], out["card"]
+    errs = {n: ((gg[n] - gc[n]).norm() / gc[n].norm().clamp_min(1e-30)
+                ).item() for n in gc}
+    return lc, abs(lg - lc) / max(abs(lc), 1e-30), errs
+
+
+def twin(make, dev, *args, **kwargs):
+    """``make(...)`` on the CPU, and a copy of its weights on ``dev``."""
+    cpu = make(*args, device="cpu", **kwargs)
+    card = make(*args, device=dev, **kwargs)
+    card.load_weights(cpu.module.state_dict())
+    return cpu, card
+
+
+def rung_windows(rt, tiers, make_window):
+    """Each rung forced in turn through ``pump(force=True)`` in
+    ``ZOO_WINDOWS`` interleaved windows of one batch: ms a batch by rung
+    (host clock, the readback included) and each window's rows."""
+    import torch
+
+    ms = {t.name: [] for t in tiers}
+    rows = {t.name: [] for t in tiers}
+    for w in range(ZOO_WINDOWS):
+        payloads = make_window(w)
+        for i, t in enumerate(tiers):
+            rt.ladder.tier = i
+            for p in payloads:
+                rt.submit(p)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if rt.pump(force=True) != 1:
+                raise AssertionError(f"rung {t.name}: not one batch")
+            ms[t.name].append((time.perf_counter() - t0) * 1e3)
+            done = rt.requests[-len(payloads):]
+            if {r.tier for r in done} != {i}:
+                raise AssertionError(f"rung {t.name} served at tiers "
+                                     f"{[r.tier for r in done]}")
+            rows[t.name].append([r.result for r in done])
+    return ms, rows
+
+
+def serve_requests(tiers, payloads, what):
+    """``payloads`` through ``ServingRuntime(tiers, n_replicas=2,
+    max_batch=8)`` on the monotonic clock, then ``drain()``: every request
+    done; returns the runtime, its rows, and the seconds it took with the
+    requests' latency p50 and p99 (ms)."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.serving import MonotonicClock, ServingRuntime
+
+    rt = ServingRuntime(tiers, n_replicas=2, max_batch=BATCH,
+                        queue_capacity=len(payloads), length_key=None,
+                        default_deadline_s=3600.0, clock=MonotonicClock())
+    t0 = time.perf_counter()
+    for p in payloads:
+        rt.submit(p)
+    rt.drain()
+    served_s = time.perf_counter() - t0
+    check_served(rt, what, len(payloads))
+    lat = rt.snapshot()["metrics"]["latency_by_tier"]["0"]
+    return rt, np.stack([np.asarray(r.result) for r in rt.requests]), {
+        "served_s": served_s, "p50_ms": lat["p50_s"] * 1e3,
+        "p99_ms": lat["p99_s"] * 1e3}
+
+
+def step_ms(step, state, batches, n):
+    """Median host-clock ms of ``n`` train steps (after one of warm-up),
+    each ending in a synchronize; returns (median, state)."""
+    import statistics
+
+    import torch
+
+    state, _ = step(state, batches[0])
+    times = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), state
+
+
+def fraud_phase(dev, smi):
+    """Fraud detection on the card (phase ``fraud``, then a ``timing``
+    line); returns the trained model and K1-K4's launches (none)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.core.criterion import ClassNLLCriterion
+    from analytics_zoo_tpu_torch.core.module import Model
+    from analytics_zoo_tpu_torch.models import FraudMLP
+    from analytics_zoo_tpu_torch.parallel import (Adam, create_train_state,
+                                                  make_train_step)
+    from analytics_zoo_tpu_torch.pipelines import fraud
+
+    zero_kernel_counters()
+    frame, cols = fraud_frame(71)
+    runs = []
+
+    class Recorded(fraud.Optimizer):
+        def optimize(self):
+            t0 = time.perf_counter()
+            out = super().optimize()
+            torch.cuda.synchronize()
+            runs.append((self, time.perf_counter() - t0))
+            return out
+
+    plain = fraud.Optimizer
+    fraud.Optimizer = Recorded
+    try:
+        t0 = time.perf_counter()
+        result = fraud.run_fraud_pipeline(frame, cols, n_models=FRAUD_MODELS,
+                                          epochs=FRAUD_EPOCHS, device=dev)
+        pipeline_s = time.perf_counter() - t0
+    finally:
+        fraud.Optimizer = plain
+    losses = [torch.stack([m["loss"] for m in opt.history]).cpu().numpy()
+              for opt, _ in runs]
+    if len(runs) != FRAUD_MODELS or not all(np.isfinite(x).all()
+                                            for x in losses):
+        raise AssertionError(f"fraud: {len(runs)} models trained, finite "
+                             f"losses {[np.isfinite(x).all() for x in losses]}")
+
+    # one MLPClassifier step's loss and gradients, card against CPU
+    x = np.random.RandomState(72).randn(64, 29).astype(np.float32)
+    y = (np.arange(64) % 7 == 0).astype(np.int64)
+
+    def make(device):
+        return Model(FraudMLP(), device=device).build(
+            0, np.zeros((1, 29), np.float32))
+
+    cpu_m, card_m = twin(make, dev)
+    loss, loss_err, grad_err = card_vs_cpu(cpu_m, card_m, (x,), y,
+                                           ClassNLLCriterion())
+    if loss_err > ZOO_LOSS_TOL or max(grad_err.values()) > ZOO_GRAD_TOL:
+        raise AssertionError(f"fraud card vs CPU: loss {loss_err}, "
+                             f"gradients {grad_err}")
+
+    # the trained model served through the runtime, on the pipeline's
+    # assembled and scaled features
+    features = fraud.FramePipeline([
+        fraud.VectorAssembler(cols), fraud.StandardScaler()]).fit_transform(
+            frame)["features"]
+    model = runs[0][0].model
+    tiers = fraud.fraud_serving_tiers(model)
+    rows_in = features[np.random.RandomState(73).choice(
+        len(features), ZOO_REQUESTS, replace=False)]
+    rt, served, serve_time = serve_requests(
+        tiers, [{"input": r} for r in rows_in], "fraud")
+    direct = tiers[0].forward({"input": rows_in})
+    serve_err = float(np.abs(served - direct).max())
+    if serve_err > 1e-5:
+        raise AssertionError(f"fraud: served rows {serve_err} from direct")
+    rung_ms, _ = rung_windows(rt, tiers, lambda w: [
+        {"input": r} for r in rows_in[w * BATCH:(w + 1) * BATCH]])
+    launches = no_kernel_launches("fraud")
+
+    step = make_train_step(card_m, ClassNLLCriterion(), Adam(5e-3))
+    batches = [{"input": x, "target": y}]
+    med, _ = step_ms(step, create_train_state(card_m, Adam(5e-3)), batches,
+                     50)
+    epochs_s = [s for _, s in runs]
+    speed = {t: statistics.median(v) for t, v in rung_ms.items()}
+    emit("fraud", rows=FRAUD_ROWS, positives=FRAUD_POSITIVES, inputs=29,
+         n_models=FRAUD_MODELS, epochs=FRAUD_EPOCHS,
+         cut="run_fraud_pipeline with 2 models x 1 epoch, from the "
+             "reference's 20 models x 10 epochs",
+         auprc=result.auprc, best_threshold=result.best_threshold,
+         precision=result.precision, recall=result.recall,
+         steps_per_model=[len(x) for x in losses],
+         first_last_loss=[[float(x[0]), float(x[-1])] for x in losses],
+         pipeline_s=pipeline_s,
+         card_vs_cpu={"loss": loss, "loss_rel_err": loss_err,
+                      "grad_rel_l2": grad_err,
+                      "tolerance": [ZOO_LOSS_TOL, ZOO_GRAD_TOL]},
+         served=ZOO_REQUESTS, served_rows_max_abs_err=serve_err,
+         rung_speed_vs_fp=speed["int8"] / speed["fp"],
+         launches=launches)
+    emit("timing", nvidia_smi=smi, fraud={
+        "train_step_ms": med, "batch": 64,
+        "epoch_s": epochs_s,
+        "epoch_steps": [len(x) for x in losses],
+        "step_ms_in_epoch": [s * 1e3 / len(x)
+                             for s, x in zip(epochs_s, losses)],
+        **serve_time,
+        "rung_ms_per_batch": speed, "rung_ms_each": rung_ms})
+    return model, launches
+
+
+def rec_ids(rng, n):
+    """``n`` users and items drawn as the bench draws them: Zipf(1.3)
+    modulo the vocabulary."""
+    import numpy as np
+
+    return ((rng.zipf(REC_ZIPF, n) % ML1M_USERS).astype(np.int32),
+            (rng.zipf(REC_ZIPF, n) % ML1M_ITEMS).astype(np.int32))
+
+
+def rec_ratings(seed, n):
+    """Seeded ratings 1..5 from a rank-4 user x item affinity, on Zipf
+    ids."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    u_f = np.random.RandomState(0).randn(ML1M_USERS, 4)
+    i_f = np.random.RandomState(1).randn(ML1M_ITEMS, 4)
+    users, items = rec_ids(rng, n)
+    score = (u_f[users] * i_f[items]).sum(1) + 0.3 * rng.randn(n)
+    ratings = np.clip(np.round(3 + score), 1, 5).astype(np.int32)
+    return users, items, ratings
+
+
+def rec_phase(dev, smi):
+    """NeuralCF and Wide&Deep on the card (phase ``rec``, then a
+    ``timing`` line); returns the trained NeuralCF and K1-K4's launches
+    (none)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.core.criterion import ClassNLLCriterion
+    from analytics_zoo_tpu_torch.ops import embedding as emb
+    from analytics_zoo_tpu_torch.parallel import (MAE, Adam, Loss,
+                                                  create_train_state,
+                                                  make_train_step,
+                                                  sparse_adam_apply, validate)
+    from analytics_zoo_tpu_torch.pipelines import recommendation as rec
+
+    zero_kernel_counters()
+    rng = np.random.RandomState(81)
+    users, items = rec_ids(rng, REC_BATCH)
+    tu, ti = (torch.as_tensor(v, device=dev).long() for v in (users, items))
+    widths = dict(n_users=ML1M_USERS, n_items=ML1M_ITEMS, embedding_dim=20,
+                  hidden=(40, 20), n_classes=5)
+    makers = {"ncf": lambda **k: rec.make_ncf_model(
+                  mf_embedding_dim=8, **widths, **k),
+              "wide_deep": lambda **k: rec.make_wide_deep_model(
+                  cross_buckets=1000, **widths, **k)}
+
+    # 1. the three lookups on the card: forwards and table gradients
+    w = torch.as_tensor(rng.randn(REC_BATCH, 5).astype(np.float32),
+                        device=dev)
+    lookup_err, repeat_equal = {}, True
+    for name, make in makers.items():
+        models = {m: make(lookup=m, device=dev) for m in emb.LOOKUP_MODES}
+        for m in models.values():
+            m.load_weights(models["dedup"].module.state_dict())
+        res = {}
+        for mode, m in models.items():
+            m.zero_grad()
+            out = m(tu, ti)
+            (out * w).sum().backward()
+            res[mode] = (out.detach(), {n: p.grad.clone() for n, p in
+                                        m.module.named_parameters()
+                                        if n.endswith("embedding")})
+        m = models["dedup"]
+        m.zero_grad()
+        (m(tu, ti) * w).sum().backward()
+        repeat_equal &= all(torch.equal(p.grad, res["dedup"][1][n])
+                            for n, p in m.module.named_parameters()
+                            if n.endswith("embedding"))
+        ref_out, ref_g = res["onehot"]
+        lookup_err[name] = {mode: max(
+            [(o - ref_out).abs().max().item()]
+            + [(g[n] - ref_g[n]).abs().max().item() for n in ref_g])
+            for mode, (o, g) in res.items() if mode != "onehot"}
+    worst = max(v for d in lookup_err.values() for v in d.values())
+    if worst > LOOKUP_TOL or not repeat_equal:
+        raise AssertionError(f"rec lookups: {lookup_err}, dedup backward "
+                             f"repeats bit for bit: {repeat_equal}")
+
+    # 2. sparse_adam_apply against a dense Adam step on the touched rows
+    table = torch.as_tensor(rng.randn(ML1M_USERS, 20).astype(np.float32),
+                            device=dev)
+    grad = emb.embedding_grad_rows(tu, torch.as_tensor(
+        rng.randn(REC_BATCH, 20).astype(np.float32), device=dev))
+    zeros = torch.zeros_like(table)
+    new, mu, nu, _ = sparse_adam_apply(table, zeros, zeros,
+                                       torch.zeros((), dtype=torch.int32,
+                                                   device=dev),
+                                       grad, learning_rate=1e-3)
+    dense = torch.nn.Parameter(table.clone())
+    adam = Adam(1e-3)
+    state = adam.init([dense])
+    adam.update([dense], [emb.sparse_rows_to_dense(grad, ML1M_USERS)],
+                state, 1e-3)
+    touched = grad.ids[:int(grad.count)]
+    sparse_equal = (torch.equal(new[touched], dense[touched])
+                    and torch.equal(mu[touched], state["mu"][0][touched])
+                    and torch.equal(nu[touched], state["nu"][0][touched]))
+    if not sparse_equal:
+        raise AssertionError("sparse_adam_apply differs from the dense Adam "
+                             "step on the touched rows")
+
+    # 3. train_recommender: 200 steps, validated before and after
+    tr = rec.rating_batches(*rec_ratings(82, REC_BATCH * REC_TRAIN_BATCHES),
+                            REC_BATCH)
+    val = rec.rating_batches(*rec_ratings(83, REC_BATCH * 4), REC_BATCH)
+    model = makers["ncf"](device=dev)
+    methods = [MAE(), Loss(ClassNLLCriterion())]
+    before = {r.name: r.result() for r in validate(model, val, methods)}
+    runs = []
+
+    class Recorded(rec.Optimizer):
+        def optimize(self):
+            out = super().optimize()
+            runs.append(self)
+            return out
+
+    plain = rec.Optimizer
+    rec.Optimizer = Recorded
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec.train_recommender(model, tr, epochs=REC_TRAIN_EPOCHS)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        rec.Optimizer = plain
+    losses = torch.stack([m["loss"] for m in runs[0].history]).cpu().numpy()
+    after = {r.name: r.result() for r in validate(model, val, methods)}
+    first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+    if (len(losses) != REC_TRAIN_BATCHES * REC_TRAIN_EPOCHS
+            or not np.isfinite(losses).all() or not last < first
+            or not after["Loss"] < before["Loss"]):
+        raise AssertionError(f"rec training: {len(losses)} steps, loss "
+                             f"{first} -> {last}, validation {before} -> "
+                             f"{after}")
+
+    # 4. card against CPU: loss and gradients, both models
+    batch = tr[0]
+    grads = {}
+    for name, make in makers.items():
+        cpu_m, card_m = twin(lambda device: make(device=device), dev)
+        loss, loss_err, grad_err = card_vs_cpu(cpu_m, card_m,
+                                               batch["input"],
+                                               batch["target"],
+                                               ClassNLLCriterion())
+        grads[name] = {"loss": loss, "loss_rel_err": loss_err,
+                       "grad_rel_l2_max": max(grad_err.values())}
+        if loss_err > ZOO_LOSS_TOL or max(grad_err.values()) > ZOO_GRAD_TOL:
+            raise AssertionError(f"rec {name} card vs CPU: loss {loss_err},"
+                                 f" gradients {grad_err}")
+
+    # 5. pair requests through the runtime
+    tiers = rec.rec_serving_tiers(model)
+    pu, pi = rec_ids(np.random.RandomState(84), ZOO_REQUESTS)
+    pairs = [{"input": np.array([u, i], np.int32)} for u, i in zip(pu, pi)]
+    rt, served, serve_time = serve_requests(tiers, pairs, "rec")
+    direct = tiers[0].forward({"input": (pu, pi)})
+    serve_err = float(np.abs(served - direct).max())
+    if serve_err > 1e-5:
+        raise AssertionError(f"rec: served rows {serve_err} from direct")
+    rung_ms, _ = rung_windows(rt, tiers,
+                              lambda k: pairs[k * BATCH:(k + 1) * BATCH])
+    launches = no_kernel_launches("rec")
+
+    # 6. timing: the step, the lookups by mode, serving
+    step = make_train_step(model, ClassNLLCriterion(), Adam(1e-3))
+    med, _ = step_ms(step, create_train_state(model, Adam(1e-3)), tr, 50)
+    table = model.module.user_embed.embedding
+    g = torch.ones((REC_BATCH, 20), device=dev)
+    lookup_ms = {}
+    for mode in emb.LOOKUP_MODES:
+        def fwd():
+            with torch.no_grad():
+                emb.sharded_embedding_lookup(table, tu, mode=mode)
+
+        def fwd_bwd():
+            t = table.detach().requires_grad_()
+            (emb.sharded_embedding_lookup(t, tu, mode=mode) * g).sum(
+            ).backward()
+        lookup_ms[mode] = {"forward": cuda_ms(fwd, 50),
+                           "forward_backward": cuda_ms(fwd_bwd, 50)}
+    speed = {t: statistics.median(v) for t, v in rung_ms.items()}
+    stats = emb.lookup_stats(users)
+    emit("rec", users=ML1M_USERS, items=ML1M_ITEMS, embedding_dim=20,
+         mf_embedding_dim=8, hidden=[40, 20], classes=5, cross_buckets=1000,
+         batch=REC_BATCH, zipf=REC_ZIPF, lookup_stats=stats,
+         lookups_max_abs_err_vs_onehot=lookup_err,
+         lookup_tolerance=LOOKUP_TOL, dedup_backward_repeats=repeat_equal,
+         sparse_adam_equals_dense_on_touched_rows=sparse_equal,
+         touched_rows=int(grad.count),
+         train_steps=len(losses), train_s=train_s,
+         loss_first_last_20=[first, last], validation_before=before,
+         validation_after=after, card_vs_cpu=grads,
+         card_vs_cpu_tolerance=[ZOO_LOSS_TOL, ZOO_GRAD_TOL],
+         served=ZOO_REQUESTS, served_rows_max_abs_err=serve_err,
+         rung_speed_vs_fp=speed["int8"] / speed["fp"], launches=launches)
+    emit("timing", nvidia_smi=smi, rec={
+        "train_step_ms": med, "batch": REC_BATCH,
+        "lookup_ms_by_mode": lookup_ms, "lookup_table": [ML1M_USERS, 20],
+        **serve_time,
+        "rung_ms_per_batch": speed, "rung_ms_each": rung_ms})
+    return model, launches
+
+
+def review_tokens(seed, n):
+    """Seeded reviews of ``SENT_SEQ`` tokens over the whole vocabulary,
+    a fifth of them sentiment words: ids 0-49 in a positive review, 50-99
+    in a negative one."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    labels = (rng.rand(n) < 0.5).astype(np.float32)
+    words = rng.randint(0, 50, (n, SENT_SEQ)) + 50 * (labels[:, None] < 1)
+    tokens = np.where(rng.rand(n, SENT_SEQ) < 0.2, words,
+                      rng.randint(0, SENT_VOCAB, (n, SENT_SEQ)))
+    return tokens.astype(np.int32), labels
+
+
+def sentiment_phase(dev, smi):
+    """SentimentNet's five heads and the frozen table on the card (phase
+    ``sentiment``, then a ``timing`` line); returns the trained GRU model
+    and K1-K4's launches (none)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.core.criterion import BCECriterion
+    from analytics_zoo_tpu_torch.models.simple import HEADS
+    from analytics_zoo_tpu_torch.parallel import (Adam, create_train_state,
+                                                  make_train_step)
+    from analytics_zoo_tpu_torch.pipelines import sentiment as sent
+
+    zero_kernel_counters()
+    glove = np.random.RandomState(91).randn(SENT_VOCAB, SENT_DIM).astype(
+        np.float32) * 0.1
+    cases = {h: dict(head=h) for h in HEADS}
+    cases["gru-frozen"] = dict(head="gru", embeddings=glove)
+    tokens, labels = review_tokens(92, SENT_BATCH * SENT_TRAIN_BATCHES)
+    batches = sent.review_batches(tokens, labels, SENT_BATCH)
+    small = tokens[:BATCH], labels[:BATCH]
+    x = torch.as_tensor(batches[0]["input"], device=dev)
+    checks, timing = {}, {}
+    for name, kw in cases.items():
+        cpu_m, card_m = twin(sent.make_sentiment_model, dev, **kw)
+        loss, loss_err, grad_err = card_vs_cpu(cpu_m, card_m, (small[0],),
+                                               small[1], BCECriterion())
+        with torch.no_grad():
+            fwd_err = (card_m(small[0]).cpu() - cpu_m(small[0])).abs().max(
+            ).item()
+        checks[name] = {"loss": loss, "loss_rel_err": loss_err,
+                        "forward_max_abs_err": fwd_err,
+                        "grad_rel_l2_max": max(grad_err.values())}
+        if (loss_err > ZOO_LOSS_TOL or fwd_err > ZOO_LOSS_TOL
+                or max(grad_err.values()) > SENT_GRAD_TOL):
+            raise AssertionError(f"sentiment {name} card vs CPU: "
+                                 f"{checks[name]}, gradients {grad_err}")
+        card_m.evaluate()
+
+        def forward():
+            with torch.inference_mode():
+                card_m(x)
+        step = make_train_step(card_m, BCECriterion(), Adam(1e-3))
+        med, _ = step_ms(step, create_train_state(card_m, Adam(1e-3)),
+                         batches, 5)
+        timing[name] = {"forward_ms": cuda_ms(forward, 5),
+                        "train_step_ms": med}
+        del cpu_m, card_m, step
+
+    # train_sentiment on the GRU head: 20 steps
+    model = sent.make_sentiment_model(head="gru", device=dev)
+    runs = []
+
+    class Recorded(sent.Optimizer):
+        def optimize(self):
+            out = super().optimize()
+            runs.append(self)
+            return out
+
+    plain = sent.Optimizer
+    sent.Optimizer = Recorded
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sent.train_sentiment(model, batches, epochs=SENT_TRAIN_EPOCHS)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        sent.Optimizer = plain
+    losses = torch.stack([m["loss"] for m in runs[0].history]).cpu().numpy()
+    n = SENT_TRAIN_BATCHES
+    first, last = float(losses[:n].mean()), float(losses[-n:].mean())
+    if (len(losses) != n * SENT_TRAIN_EPOCHS
+            or not np.isfinite(losses).all() or not last < first):
+        raise AssertionError(f"sentiment training: {len(losses)} steps, "
+                             f"loss by epoch {first} -> {last}")
+
+    # the fp and int8 rungs through the runtime
+    tiers = sent.sentiment_serving_tiers(model, seq_len=SENT_SEQ)
+    req_tokens, _ = review_tokens(93, ZOO_REQUESTS)
+    payloads = [{"input": t} for t in req_tokens]
+    rt, served, serve_time = serve_requests(tiers, payloads, "sentiment")
+    direct = tiers[0].forward({"input": req_tokens})
+    serve_err = float(np.abs(served - direct).max())
+    if serve_err > 1e-5:
+        raise AssertionError(f"sentiment: served rows {serve_err} from "
+                             "direct")
+    rung_ms, rows = rung_windows(rt, tiers, lambda k: payloads[
+        k * BATCH:(k + 1) * BATCH])
+    int8_err = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+                   for wa, wb in zip(rows["int8"], rows["fp"])
+                   for a, b in zip(wa, wb))
+    if int8_err > SENT_INT8_TOL:
+        raise AssertionError(f"sentiment int8 rung {int8_err} from fp")
+    launches = no_kernel_launches("sentiment")
+    speed = {t: statistics.median(v) for t, v in rung_ms.items()}
+    emit("sentiment", vocab=SENT_VOCAB, embedding_dim=SENT_DIM,
+         hidden=SENT_HIDDEN, seq_len=SENT_SEQ, batch=SENT_BATCH,
+         heads=sorted(cases), card_vs_cpu=checks, card_vs_cpu_batch=BATCH,
+         tolerance=[ZOO_LOSS_TOL, SENT_GRAD_TOL], train_head="gru",
+         train_steps=len(losses), train_s=train_s,
+         loss_first_last_epoch=[first, last], served=ZOO_REQUESTS,
+         served_rows_max_abs_err=serve_err, int8_vs_fp_max_abs=int8_err,
+         int8_tolerance=SENT_INT8_TOL,
+         rung_speed_vs_fp=speed["int8"] / speed["fp"], launches=launches)
+    emit("timing", nvidia_smi=smi, sentiment={
+        "by_head": timing, "batch": SENT_BATCH, "seq_len": SENT_SEQ,
+        "recurrence": "blocked scan, 128 steps a batch (gru, lstm, "
+                      "bilstm both ways, cnn-lstm)",
+        **serve_time,
+        "rung_ms_per_batch": speed, "rung_ms_each": rung_ms})
+    return model, launches
+
+
+def zoo_pool_phase(dev, smi, fraud_model, rec_model, sent_model):
+    """The three families on one multiplexed ``ServingRuntime`` (phase
+    ``zoo_pool``); returns K1-K4's launches (none)."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.pipelines import (fraud_serving_tiers,
+                                                   rec_serving_tiers,
+                                                   sentiment_serving_tiers)
+    from analytics_zoo_tpu_torch.serving import (ModelConfig, MonotonicClock,
+                                                 ServingRuntime)
+
+    zero_kernel_counters()
+    rng = np.random.RandomState(101)
+    pool = ServingRuntime(models=[
+        ModelConfig("fraud", tiers=fraud_serving_tiers(fraud_model),
+                    length_key=None),
+        ModelConfig("rec", tiers=rec_serving_tiers(rec_model),
+                    length_key=None),
+        ModelConfig("sentiment", tiers=sentiment_serving_tiers(
+            sent_model, seq_len=SENT_SEQ), length_key=None)],
+        n_replicas=2, max_batch=BATCH, queue_capacity=ZOO_POOL_REQUESTS,
+        default_deadline_s=3600.0, clock=MonotonicClock())
+    seen = record_batches(pool)
+    users, items = rec_ids(rng, ZOO_POOL_REQUESTS)
+    tokens, _ = review_tokens(102, ZOO_POOL_REQUESTS)
+    feats = rng.randn(ZOO_POOL_REQUESTS, 29).astype(np.float32)
+    t0 = time.perf_counter()
+    for i in range(ZOO_POOL_REQUESTS):
+        name = ("fraud", "rec", "sentiment")[i % 3]
+        payload = {"fraud": feats[i],
+                   "rec": np.array([users[i], items[i]], np.int32),
+                   "sentiment": tokens[i]}[name]
+        pool.submit({"input": payload}, model=name)
+        pool.pump()
+    pool.drain()
+    served_s = time.perf_counter() - t0
+    check_served(pool, "zoo_pool", ZOO_POOL_REQUESTS)
+    if any(len(b["models"]) != 1 for b in seen):
+        raise AssertionError("zoo_pool: a batch held two models")
+    snap = pool.snapshot()
+    reg = pool.metrics.registry
+    per_model = {}
+    for m in pool.models:
+        lat = reg.histogram(f"serve/latency_s/model={m}/tier=0").snapshot()
+        per_model[m] = {"requests": snap["models"][m]["outcomes"],
+                        "batches": sum(b["model"] == m for b in seen),
+                        "latency_p50_ms": lat["p50"] * 1e3,
+                        "latency_p99_ms": lat["p99"] * 1e3,
+                        "weight": snap["models"][m]["weight"],
+                        "tier": snap["models"][m]["ladder"]["tier"]}
+    launches = no_kernel_launches("zoo_pool")
+    emit("zoo_pool", nvidia_smi=smi, n_replicas=2,
+         requests=ZOO_POOL_REQUESTS, served_s=served_s, models=per_model,
+         accounting=pool.accounting(), launches=launches)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4240,6 +4971,24 @@ def main() -> int:
     # -- 6i. the SSD AlexNet and MobileNet variants through K2 ------------
     variants = ssd_variants_phase(dev, smi)
 
+    # -- 6j. the model-zoo long tail: reaches none of the four kernels ----
+    zoo_s, zoo = {}, {}
+    t0 = time.perf_counter()
+    fraud_model, zoo["fraud"] = fraud_phase(dev, smi)
+    zoo_s["fraud"] = time.perf_counter() - t0
+    rec_model, zoo["rec"] = rec_phase(dev, smi)
+    zoo_s["rec"] = time.perf_counter() - t0 - sum(zoo_s.values())
+    sent_model, zoo["sentiment"] = sentiment_phase(dev, smi)
+    zoo_s["sentiment"] = time.perf_counter() - t0 - sum(zoo_s.values())
+    zoo["zoo_pool"] = zoo_pool_phase(dev, smi, fraud_model, rec_model,
+                                     sent_model)
+    zoo_s["zoo_pool"] = time.perf_counter() - t0 - sum(zoo_s.values())
+    emit("timing", nvidia_smi=smi, zoo_phases_s=zoo_s,
+         zoo_total_s=time.perf_counter() - t0)
+
+    def zoo_paths(name):
+        return {path: counts[name] for path, counts in zoo.items()}
+
     # -- 7. kernels, then the device line last ----------------------------
     kernels = [
         {"name": "nms_sweep", "route": "cuda",
@@ -4250,7 +4999,8 @@ def main() -> int:
              "ssd_serving": launches["nms_sweep"],
              "ssd_serving_approx_topk": ssd_serving["k1_launches"],
              "frcnn_serving": frcnn["nms_sweep"],
-             "frcnn_train": frcnn_train["nms_sweep"]},
+             "frcnn_train": frcnn_train["nms_sweep"],
+             **zoo_paths("nms_sweep")},
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
@@ -4272,7 +5022,8 @@ def main() -> int:
              "caffe_graph": caffe_graph["k2_launches"],
              "ssd_variants": variants["k2_launches"],
              "frcnn_serving": frcnn["fused_detection_output"],
-             "frcnn_train": frcnn_train["fused_detection_output"]},
+             "frcnn_train": frcnn_train["fused_detection_output"],
+             **zoo_paths("fused_detection_output")},
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
         {"name": "persistent_rnn", "route": "cuda",
@@ -4284,7 +5035,8 @@ def main() -> int:
                               "ds2_train": train_launches["persistent_rnn"],
                               **ds2_online["k3"],
                               "frcnn_serving": frcnn["persistent_rnn"],
-                              "frcnn_train": frcnn_train["persistent_rnn"]},
+                              "frcnn_train": frcnn_train["persistent_rnn"],
+                              **zoo_paths("persistent_rnn")},
          "max_abs_err": k3_err, "ms": k3_ms,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
          # no PyTorch call computes a clipped-ReLU recurrence; cuDNN's
@@ -4299,7 +5051,8 @@ def main() -> int:
          "launches_by_path": {
              "ds2_train": train_launches["persistent_rnn_bwd"],
              "frcnn_serving": frcnn["persistent_rnn_bwd"],
-             "frcnn_train": frcnn_train["persistent_rnn_bwd"]},
+             "frcnn_train": frcnn_train["persistent_rnn_bwd"],
+             **zoo_paths("persistent_rnn_bwd")},
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
          "bound_ms": k4_bound, "bound_by": k4_by,
          # no PyTorch call computes this backward; cuDNN's relu RNN

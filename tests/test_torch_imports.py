@@ -76,6 +76,16 @@ def test_port_imports_pull_in_no_jax():
     assert {"analytics_zoo_tpu_torch.ops.frcnn_train",
             "analytics_zoo_tpu_torch.core.layers",
             "analytics_zoo_tpu_torch.models.ssd_variants"} <= set(mods)
+    # the model-zoo slice: containers, the embedding lookups, the small
+    # models and the fraud, recommendation and sentiment pipelines
+    assert {"analytics_zoo_tpu_torch.core.module",
+            "analytics_zoo_tpu_torch.ops.embedding",
+            "analytics_zoo_tpu_torch.models.simple",
+            "analytics_zoo_tpu_torch.pipelines.frame",
+            "analytics_zoo_tpu_torch.pipelines.fraud",
+            "analytics_zoo_tpu_torch.pipelines.recommendation",
+            "analytics_zoo_tpu_torch.pipelines.sentiment",
+            "analytics_zoo_tpu_torch.pipelines.visualizer"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "from analytics_zoo_tpu_torch.pipelines import (StreamingDS2, "
@@ -87,9 +97,38 @@ def test_port_imports_pull_in_no_jax():
             "build_caffe_graph\n"
             "from analytics_zoo_tpu_torch.models import SSDAlexNet, "
             "SSDMobileNet\n"
+            "from analytics_zoo_tpu_torch.pipelines import ("
+            "run_fraud_pipeline, train_recommender, train_sentiment)\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_zoo_slice_imports_without_cv2():
+    """The card's import path of the model-zoo slice (the package's
+    ``pipelines``, ``models``, ``ops``, ``core`` and ``parallel``) loads
+    no cv2: only ``pipelines.visualizer`` needs it, and nothing imports
+    that module."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "sys.modules['cv2'] = None\n"
+            "from analytics_zoo_tpu_torch.pipelines import (\n"
+            "    fraud_serving_tiers, rec_serving_tiers,\n"
+            "    sentiment_serving_tiers, run_fraud_pipeline)\n"
+            "from analytics_zoo_tpu_torch.core import Model, Sequential\n"
+            "from analytics_zoo_tpu_torch.ops import DedupEmbed\n"
+            "from analytics_zoo_tpu_torch.parallel import sparse_adam_apply\n"
+            "from analytics_zoo_tpu_torch.models import SentimentNet\n"
+            "try:\n"
+            "    import analytics_zoo_tpu_torch.pipelines.visualizer\n"
+            "except ImportError:\n"
+            "    print('visualizer needs cv2')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip() == "visualizer needs cv2"

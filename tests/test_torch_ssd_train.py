@@ -88,7 +88,18 @@ def _gt(seed, B=2, G=10, n_valid=(7, 3)):
 
 def test_encode_bbox_and_scale_boxes_match_jax():
     """Encoding against the SSD300 priors, with two zero (padding) boxes
-    on the 1e-8 floors: value and gradient (with respect to the gts)."""
+    on the 1e-8 floors: value and gradient (with respect to the gts).
+
+    The port's side runs on one intra-op thread.  With two, the first
+    parallel ``torch.log`` of a process (the (8732,) ``ew`` argument,
+    split over both threads) now and then came out ~1e-4 relative off in
+    the second thread's half: rows 4367-8731, 3,186 of the 34,928
+    entries past the tolerance, the same entries every time, while the
+    same call right after, the ``eh`` column's log and the JAX side all
+    equal a float64 computation within the fp32 rounding.  It shows on a
+    loaded CPU, in a fresh interpreter too (3 of 32 probes), and never on
+    one thread (0 of 24 beside them): the CPU runtime's, not the
+    program's.  The comparison stays at 1e-6."""
     rng = np.random.RandomState(0)
     P = PRIORS.shape[0]
     xy = rng.rand(P, 2) * 0.8
@@ -99,9 +110,14 @@ def test_encode_bbox_and_scale_boxes_match_jax():
     want, j_grad = jax.value_and_grad(
         lambda b: jnp.sum(jax_bbox.encode_bbox(PRIORS, VARIANCES, b) * g)
     )(jnp.asarray(gt))
-    x = T(gt.copy()).requires_grad_()
-    enc = bbox.encode_bbox(T(PRIORS), T(VARIANCES), x)
-    (enc * T(g)).sum().backward()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        x = T(gt.copy()).requires_grad_()
+        enc = bbox.encode_bbox(T(PRIORS), T(VARIANCES), x)
+        (enc * T(g)).sum().backward()
+    finally:
+        torch.set_num_threads(threads)
     assert torch.isfinite(enc).all()
     np.testing.assert_allclose(
         enc.detach().numpy(), np.asarray(jax_bbox.encode_bbox(
