@@ -7,9 +7,13 @@ recurrence from a projected input), and its parameters carry the flax
 names (``h2h``; ``ir/iz/in/hr/hz/hn``; ``ii…io/hi…ho``), so a flax tree
 maps onto the module by name (``utils/convert.py``).
 
-``Recurrent(engine=...)`` picks the schedule; both engines share one
+``Recurrent(engine=...)`` picks the schedule; the engines share one
 parameter set:
 
+- ``"legacy"`` — the per-step body: each step computes its own input
+  projection and the h2h product (the cell's ``forward``); the reverse
+  direction flips time.  No length masking (``n_frames`` raises, as in
+  the reference); kept as the A/B baseline of the other two;
 - ``"blocked"`` (the default) — a plain loop over time on the projected
   inputs, with the reference's masking;
 - ``"pallas"`` — the persistent-RNN kernels (``ops/pallas_rnn.py``): one
@@ -20,8 +24,7 @@ parameter set:
 ``n_frames`` (per-row valid lengths, clamped to T) freezes a row's carry
 past its length and zeroes those outputs; ``reverse=True`` then reverses
 only each row's valid prefix (a per-row gather, not a whole-axis flip),
-so padding never enters the backward direction first.  The reference's
-``"legacy"`` per-step engine is not ported (ROADMAP.md Queue 1 item 9).
+so padding never enters the backward direction first.
 """
 
 from __future__ import annotations
@@ -274,10 +277,6 @@ class Recurrent(nn.Module):
         self.engine = engine
 
     def _resolve_engine(self) -> str:
-        if self.engine == "legacy":
-            raise NotImplementedError(
-                "engine='legacy' (the per-step scan) is not ported "
-                "(ROADMAP.md Queue 1 item 9): use 'blocked' or 'pallas'")
         return self.engine or "blocked"
 
     def forward(self, x, carry0=None, return_carry: bool = False,
@@ -285,6 +284,13 @@ class Recurrent(nn.Module):
         """``carry0``/``return_carry`` expose the boundary state for
         streaming inference (chunked input, state carried across calls)."""
         engine = self._resolve_engine()
+        if engine == "legacy":
+            if n_frames is not None:
+                raise ValueError(
+                    "length masking (n_frames) requires engine='blocked' "
+                    "or 'pallas' — the legacy per-step scan has no masked "
+                    "reverse")
+            return self._legacy_scan(x, carry0, return_carry)
         B, T, _ = x.shape
         n = mask = perm = None
         if n_frames is not None:
@@ -311,6 +317,23 @@ class Recurrent(nn.Module):
         if self.reverse:
             ys = (torch.take_along_dim(ys, perm[..., None], 1)
                   if perm is not None else torch.flip(ys, (1,)))
+        return (ys, carry) if return_carry else ys
+
+    def _legacy_scan(self, x, carry0, return_carry):
+        """The per-step body: the cell's whole step (input projection and
+        h2h product) at every time index; reverse flips time."""
+        if self.reverse:
+            x = torch.flip(x, (1,))
+        carry = (carry0 if carry0 is not None
+                 else self.body.initial_carry(x.shape[0], x.dtype, x.device))
+        ys = []
+        for t in range(x.shape[1]):
+            carry, y = self.body(carry, x[:, t])
+            ys.append(y)
+        ys = (torch.stack(ys, 1) if ys
+              else x.new_zeros((x.shape[0], 0, self.body.hidden_size)))
+        if self.reverse:
+            ys = torch.flip(ys, (1,))
         return (ys, carry) if return_carry else ys
 
     def _blocked_scan(self, pre, carry, mask):

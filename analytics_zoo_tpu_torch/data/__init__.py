@@ -10,6 +10,7 @@ from analytics_zoo_tpu_torch.data.dataset import (Batcher, DataSet,
 from analytics_zoo_tpu_torch.data.parallel import (ParallelLoader,
                                                    elastic_resume_coordinates,
                                                    make_input_pipeline,
+                                                   replay_batches,
                                                    sample_rng, seed_rngs,
                                                    stable_seed)
 from analytics_zoo_tpu_torch.data.prefetch import (PrefetchDataSet,

@@ -24,8 +24,9 @@ processes, order-preserving and deterministically seeded.  Host code.
   initialised in it, and the loader refuses a chain that would decode
   with nvJPEG (a CUDA codec) in its workers.
 
-``replay_batches``, ``elastic_resume_coordinates`` and
-``make_input_pipeline`` take a checkpoint or a mesh and raise until the
+``replay_batches`` re-materialises a checkpointed run's batches and
+``elastic_resume_coordinates`` turns a checkpoint's sample offset into
+loader terms.  ``make_input_pipeline`` takes a mesh and raises until the
 sharded runtime is ported (ROADMAP.md Queue 1 item 12); compose
 ``ParallelLoader`` with ``data.prefetch.device_prefetch`` instead.
 """
@@ -789,25 +790,67 @@ class ParallelLoader:
 
 
 # ---------------------------------------------------------------------------
-# Replay, elastic resume and the mesh pipeline: the sharded runtime's
+# Deterministic replay and resume coordinates
 # ---------------------------------------------------------------------------
 
 
 def replay_batches(dataset, epoch: int, batch_indices: Sequence[int],
                    base_seed: int = 0, batch_transform=None):
-    """Re-materialising a checkpointed run's batches is the resilience
-    layer's, not ported yet."""
-    raise NotImplementedError(
-        "replay_batches: checkpoint replay is not ported yet (ROADMAP.md "
-        "Queue 1 item 12)")
+    """Re-materialise exact batches of ``epoch`` under the determinism
+    contract (the forensics and re-seek hook).
+
+    ``dataset`` must be freshly constructed (its source at its epoch-0
+    state): a :class:`ParallelLoader` (its own ``base_seed`` and grouping
+    win) or a bare ``DataSet`` (run on the serial path with
+    ``base_seed``).  The source is fast-forwarded ``epoch`` epochs, the
+    per-epoch and per-sample RNGs are pinned as the live run pinned them,
+    for any worker count, and the requested 0-based batch indices of that
+    epoch come back as ``{index: batch}``.  ``batch_transform(batch,
+    index)`` post-processes each one."""
+    if isinstance(dataset, ParallelLoader):
+        loader = ParallelLoader(dataset.dataset, 0,
+                                base_seed=dataset.base_seed,
+                                group_size=dataset.group_size)
+    else:
+        loader = ParallelLoader(dataset, 0, base_seed=base_seed)
+    want = sorted({int(i) for i in batch_indices})
+    if not want:
+        return {}
+    _advance_source_epochs(loader.dataset._source_fn, epoch)
+    out = {}
+    for i, batch in enumerate(loader._serial_epoch(epoch)):
+        if i in want:
+            out[i] = (batch_transform(batch, i) if batch_transform
+                      else batch)
+        if i >= want[-1]:
+            break
+    missing = [i for i in want if i not in out]
+    if missing:
+        raise ValueError(
+            f"epoch {epoch} ended before batch index(es) {missing} — "
+            "wrong epoch coordinate, or the dataset was not freshly "
+            "constructed (its source state already advanced)")
+    return out
 
 
 def elastic_resume_coordinates(epoch: int, samples_into_epoch: int,
                                global_batch: int):
-    """Elastic resume takes a checkpoint, not ported yet."""
-    raise NotImplementedError(
-        "elastic_resume_coordinates: elastic resume is not ported yet "
-        "(ROADMAP.md Queue 1 item 12)")
+    """A checkpoint's sample coordinate in loader terms under a (possibly
+    different) batch geometry: ``(start_epoch, skip_batches)``.  The
+    deterministic stream is defined over the merged sample sequence, so
+    only the batch size matters; an offset that does not land on a batch
+    boundary of the new stream raises ``ValueError``."""
+    if epoch < 0 or samples_into_epoch < 0 or global_batch < 1:
+        raise ValueError(
+            f"elastic_resume_coordinates: invalid coordinate (epoch="
+            f"{epoch}, samples={samples_into_epoch}, batch={global_batch})")
+    if samples_into_epoch % global_batch:
+        raise ValueError(
+            f"elastic resume: sample offset {samples_into_epoch} is not "
+            f"a multiple of the new global batch {global_batch} — the "
+            f"checkpoint boundary does not land on a batch boundary of "
+            f"the resumed stream")
+    return int(epoch), samples_into_epoch // global_batch
 
 
 def make_input_pipeline(dataset, mesh, num_workers: int = 0,

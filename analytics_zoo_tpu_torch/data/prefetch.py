@@ -23,14 +23,10 @@ from typing import Any, Iterable, Iterator, List
 
 import numpy as np
 
+from analytics_zoo_tpu_torch.resilience.errors import PrefetchWorkerDied
 from analytics_zoo_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
-
-
-class PrefetchWorkerDied(RuntimeError):
-    """An input worker (the prefetch thread or a loader process) died
-    without delivering its stream; retryable by restarting the epoch."""
 
 
 def _drain(q: "queue.Queue", stop: object, err: list, worker,

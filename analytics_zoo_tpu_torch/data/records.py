@@ -19,13 +19,11 @@ from typing import Callable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from analytics_zoo_tpu_torch.resilience.errors import ShardReadError
+
 logger = logging.getLogger("analytics_zoo_tpu_torch")
 
 MAGIC = b"AZR1"
-
-
-class ShardReadError(IOError):
-    """A shard's transient I/O errors outlasted the retry budget."""
 
 
 @dataclasses.dataclass

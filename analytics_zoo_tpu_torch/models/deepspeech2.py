@@ -88,9 +88,9 @@ class DeepSpeech2(nn.Module):
     """``bidirectional=False`` is the streamable form (``rnn{i}`` layers
     with ``carry``/``return_carry``; the conv then runs VALID on input
     the caller has extended with context frames).  ``rnn_engine``:
-    ``None``/``"blocked"`` (a loop over time) or ``"pallas"`` (the
-    persistent-RNN kernels, K3 forward and K4 backward); the parameters
-    are the same.
+    ``None``/``"blocked"`` (a loop over time), ``"pallas"`` (the
+    persistent-RNN kernels, K3 forward and K4 backward) or ``"legacy"``
+    (the per-step body, no ``n_frames``); the parameters are the same.
 
     Built on ``device`` (the GPU unless ``device="cpu"``), in eval mode,
     with weights from ``torch.Generator().manual_seed(seed)`` drawn from
@@ -151,6 +151,9 @@ class DeepSpeech2(nn.Module):
         streaming = carry is not None or return_carry
         if streaming and self.bidirectional:
             raise ValueError("streaming requires bidirectional=False")
+        if n_frames is not None and self.rnn_engine == "legacy":
+            raise ValueError("n_frames masking requires rnn_engine in "
+                             "('blocked', 'pallas')")
         B = x.shape[0]
         pad = (0, 0) if streaming else (5, 0)
         h = F.conv2d(x[:, None], self.conv1.weight, self.conv1.bias,

@@ -1,7 +1,12 @@
 """Steps of the port: the train and eval steps, the one-device
-``Optimizer`` with its validation methods, optim methods, Plateau,
-triggers and the row-sparse Adam apply."""
+``Optimizer`` with its validation methods, checkpoints and resume, optim
+methods, Plateau, triggers, the row-sparse Adam apply and the restart
+supervisor."""
 
+from analytics_zoo_tpu_torch.parallel.elastic import (RETRYABLE_ERRORS,
+                                                      DivergenceDetector,
+                                                      FaultInjector,
+                                                      run_resilient)
 from analytics_zoo_tpu_torch.parallel.optim import (SGD, Adam, AdamW,
                                                     OptimMethod, Plateau,
                                                     TrainingState, Trigger,
@@ -17,10 +22,19 @@ from analytics_zoo_tpu_torch.parallel.train import (MAE, Loss, Optimizer,
                                                     resolve_compute_dtype,
                                                     sparse_adam_apply,
                                                     validate)
+from analytics_zoo_tpu_torch.resilience.errors import (InjectedFault,
+                                                       Preempted,
+                                                       PrefetchWorkerDied,
+                                                       ShardReadError,
+                                                       StallError,
+                                                       TrainingDiverged)
 
-__all__ = ["Adam", "AdamW", "Loss", "MAE", "OptimMethod", "Optimizer",
-           "Plateau", "SGD", "Top1Accuracy", "TrainState", "TrainingState",
-           "Trigger", "ValidationMethod", "ValidationResult",
+__all__ = ["Adam", "AdamW", "DivergenceDetector", "FaultInjector",
+           "InjectedFault", "Loss", "MAE", "OptimMethod", "Optimizer",
+           "Plateau", "Preempted", "PrefetchWorkerDied", "RETRYABLE_ERRORS",
+           "SGD", "ShardReadError", "StallError", "Top1Accuracy",
+           "TrainState", "TrainingDiverged", "TrainingState", "Trigger",
+           "ValidationMethod", "ValidationResult",
            "cast_floating", "create_train_state", "make_eval_step",
            "make_train_step", "multistep", "resolve_compute_dtype",
-           "sparse_adam_apply", "validate"]
+           "run_resilient", "sparse_adam_apply", "validate"]

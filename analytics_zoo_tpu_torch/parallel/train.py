@@ -19,15 +19,26 @@ A ``forward_fn(module, inputs, train)`` replaces the module's own call
 in the step (Faster-RCNN's training forward, ``pipelines/frcnn.py``), and
 ``Optimizer.set_epoch_hook`` runs a function after each epoch.
 
+The ``Optimizer`` checkpoints and resumes (``set_checkpoint``,
+``set_resume``; ``parallel/checkpoint.py``): a snapshot holds the
+module's ``state_dict()`` (parameters and batch statistics), the
+``TrainState``'s step and optimizer slots, and in its manifest the loop
+position and the optim method's host state (Plateau).  A resumed run
+skips the interrupted epoch's trained batches on the host iterator and
+repeats no step.  ``set_preemption_handler``, ``set_stall_watchdog`` and
+``set_failure_detector`` arm the resilience layer; ``parallel/elastic.py``
+supervises restarts.
+
 Not ported yet, and refused by name: the health sentinel and sharded
-steps (ROADMAP.md Queue 1 items 13 and 12); the ``Optimizer``'s
-checkpoints, resilience and observability (items 12 and 13).
+steps (ROADMAP.md Queue 1 items 13 and 12); the anomaly sentinel and
+observability (item 13).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -40,6 +51,8 @@ from analytics_zoo_tpu_torch.core.criterion import Criterion
 from analytics_zoo_tpu_torch.data.prefetch import device_prefetch
 from analytics_zoo_tpu_torch.parallel.optim import (Adam, OptimMethod,
                                                     TrainingState, Trigger)
+from analytics_zoo_tpu_torch.resilience.errors import (CheckpointCorrupt,
+                                                       Preempted, StallError)
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
 
@@ -431,7 +444,11 @@ class Optimizer:
     card: on a CPU model ``prefetch`` does nothing and the step takes the
     batches as they come.  ``device_transform`` and ``forward_fn`` go to
     the step; ``set_epoch_hook(fn)`` calls ``fn(loop, state)`` after each
-    completed epoch, after its validation."""
+    completed epoch, after its validation and checkpoint.
+
+    Each step and epoch boundary runs, in order: validation, the
+    checkpoint, the stall check, the preemption check (one place, so the
+    two boundaries cannot drift apart)."""
 
     def __init__(self, model: nn.Module, dataset, criterion,
                  mesh=None, skip_loss_above: Optional[float] = None,
@@ -462,6 +479,21 @@ class Optimizer:
         self.epoch_hook: Optional[Callable] = None
         self.history: List[Dict] = []
         self.val_history: List[Dict] = []
+        self.checkpoint_path: Optional[str] = None
+        self.checkpoint_trigger: Optional[Trigger] = None
+        self.overwrite_checkpoint = True
+        self.checkpoint_keep_last: Optional[int] = None
+        self.resume_path: Optional[str] = None
+        self._resume_requested = False
+        self.failure_detector = None
+        self.preemption_handler = None
+        self.stall_watchdog = None
+        self._skip_batches = 0          # mid-epoch resume fast-forward
+        self._skip_samples: Optional[int] = None
+        self._iter_in_epoch = 0
+        self._samples_in_epoch = 0
+        self._last_ckpt_iter: Optional[int] = None
+        self._last_state: Optional[TrainState] = None
 
     def set_optim_method(self, m: OptimMethod) -> "Optimizer":
         self.optim = m
@@ -488,8 +520,54 @@ class Optimizer:
         self.epoch_hook = fn
         return self
 
-    def set_checkpoint(self, *args, **kwargs):
-        _not_ported("checkpointing", "item 12")
+    def set_checkpoint(self, path: str, trigger: Trigger,
+                       overwrite: bool = True,
+                       keep_last: Optional[int] = None) -> "Optimizer":
+        """``overwrite=True`` keeps one ``latest`` snapshot; ``False``
+        publishes ``step_N`` snapshots, with ``keep_last=N`` retention
+        (older snapshots are the fallbacks when the newest is corrupt)."""
+        self.checkpoint_path = path
+        self.checkpoint_trigger = trigger
+        self.overwrite_checkpoint = overwrite
+        self.checkpoint_keep_last = keep_last
+        return self
+
+    def set_resume(self, path: Optional[str] = None) -> "Optimizer":
+        """Resume from the newest intact checkpoint under ``path`` (the
+        ``set_checkpoint`` path by default, resolved at ``optimize()``
+        time, so the order of the calls does not matter) when one
+        exists."""
+        self.resume_path = path
+        self._resume_requested = True
+        return self
+
+    def set_preemption_handler(self, handler=None) -> "Optimizer":
+        """Trap SIGTERM during ``optimize()``: the loop finishes the step
+        in flight, takes a forced checkpoint at the boundary and raises
+        the retryable ``Preempted``."""
+        from analytics_zoo_tpu_torch.resilience.preempt import (
+            PreemptionHandler)
+        self.preemption_handler = handler or PreemptionHandler()
+        return self
+
+    def set_stall_watchdog(self, watchdog) -> "Optimizer":
+        """Raise ``StallError`` instead of hanging when the loop makes no
+        progress within a deadline: a ``StallWatchdog`` or a timeout in
+        seconds.  The heartbeat is per phase (step, validation,
+        checkpoint save): size it for the slowest single phase, the
+        first step's kernel builds and a full snapshot write included."""
+        from analytics_zoo_tpu_torch.resilience.watchdog import StallWatchdog
+        if not hasattr(watchdog, "beat"):
+            watchdog = StallWatchdog(float(watchdog))
+        self.stall_watchdog = watchdog
+        return self
+
+    def set_failure_detector(self, detector) -> "Optimizer":
+        """A periodic loss-health check
+        (``parallel.elastic.DivergenceDetector``); raises out of
+        ``optimize()``."""
+        self.failure_detector = detector
+        return self
 
     def set_anomaly_policy(self, *args, **kwargs):
         _not_ported("the anomaly sentinel", "item 13")
@@ -505,46 +583,229 @@ class Optimizer:
         state = create_train_state(self.model, self.optim)
         loop = TrainingState()
         self._last_val_iter = None
+        if self._resume_requested:
+            resume_base = self.resume_path or self.checkpoint_path
+            if resume_base:
+                state = self._try_resume(resume_base, state, loop)
         t_epoch, records = time.perf_counter(), 0
         dev = next(self.model.parameters()).device
-        while not self.end_when(loop):
-            stop = False
-            loop.epoch_finished = False
-            host_iter = iter(self.dataset)
-            # close_source: the prefetch thread closes host_iter itself
-            batches = (device_prefetch(host_iter, dev, self.prefetch,
-                                       close_source=True)
-                       if self.prefetch and dev.type == "cuda"
-                       else host_iter)
-            try:
-                for batch in batches:
-                    state, metrics = step(state, batch)
-                    self.history.append(metrics)
-                    loop.iteration += 1
-                    loop.loss = metrics["loss"]
-                    records += _batch_size(batch)
-                    self._maybe_validate(loop, eval_step)
-                    if self.end_when(loop):
-                        stop = True
+        ph, wd = self.preemption_handler, self.stall_watchdog
+        if ph is not None:
+            ph.stall_watchdog = wd      # a stall interrupt beats preemption
+            ph.install()
+        if wd is not None:
+            wd.start()
+        sentinel = object()
+        try:
+            while not self.end_when(loop):
+                stop = False
+                loop.epoch_finished = False
+                host_iter = iter(self.dataset)
+                # mid-epoch resume: skip the trained batches on the host,
+                # before the prefetch thread could pin or upload them
+                while self._skip_samples:
+                    b = next(host_iter, sentinel)
+                    if b is sentinel:
                         break
-            finally:
-                if hasattr(batches, "close"):
-                    batches.close()
-            if stop:
-                break
-            loop.epoch += 1
-            loop.epoch_finished = True
-            loop.loss = float(loop.loss)
-            dt = time.perf_counter() - t_epoch
-            logger.info("Epoch %d done: %d records in %.1fs (%.1f "
-                        "records/s), loss %.4f", loop.epoch, records, dt,
-                        records / max(dt, 1e-9), loop.loss)
-            t_epoch, records = time.perf_counter(), 0
-            self._maybe_validate(loop, eval_step)
-            if self.epoch_hook is not None:
-                self.epoch_hook(loop, state)
+                    n_skip = _batch_size(b)
+                    if n_skip > self._skip_samples:
+                        raise ValueError(
+                            f"resume: the checkpointed sample offset leaves "
+                            f"{self._skip_samples} samples to skip but the "
+                            f"next batch holds {n_skip}: the offset is not "
+                            f"on a batch boundary of the resumed stream")
+                    self._skip_samples -= n_skip
+                    self._samples_in_epoch += n_skip
+                    self._iter_in_epoch += 1
+                self._skip_samples = None
+                while self._skip_batches > 0:
+                    b = next(host_iter, sentinel)
+                    if b is sentinel:
+                        break
+                    self._skip_batches -= 1
+                    self._samples_in_epoch += _batch_size(b)
+                    self._iter_in_epoch += 1
+                # close_source: the prefetch thread closes host_iter itself
+                batches = (device_prefetch(host_iter, dev, self.prefetch,
+                                           close_source=True)
+                           if self.prefetch and dev.type == "cuda"
+                           else host_iter)
+                try:
+                    for batch in batches:
+                        state, metrics = step(state, batch)
+                        self.history.append(metrics)
+                        n = _batch_size(batch)
+                        loop.iteration += 1
+                        self._iter_in_epoch += 1
+                        self._samples_in_epoch += n
+                        loop.loss = metrics["loss"]
+                        records += n
+                        if (self.failure_detector is not None
+                                and self.failure_detector.should_check(
+                                    loop.iteration)):
+                            self.failure_detector.check(
+                                float(metrics["loss"]), loop.iteration)
+                        self._boundary_checks(loop, state, eval_step, wd, ph)
+                        if self.end_when(loop):
+                            stop = True
+                            break
+                finally:
+                    if hasattr(batches, "close"):
+                        batches.close()
+                if stop:
+                    break
+                loop.epoch += 1
+                loop.epoch_finished = True
+                self._iter_in_epoch = 0
+                self._samples_in_epoch = 0
+                loop.loss = float(loop.loss)
+                dt = time.perf_counter() - t_epoch
+                logger.info("Epoch %d done: %d records in %.1fs (%.1f "
+                            "records/s), loss %.4f", loop.epoch, records, dt,
+                            records / max(dt, 1e-9), loop.loss)
+                t_epoch, records = time.perf_counter(), 0
+                self._boundary_checks(loop, state, eval_step, wd, ph)
+                if self.epoch_hook is not None:
+                    self.epoch_hook(loop, state)
+        except KeyboardInterrupt:
+            # the stall watchdog interrupts the main thread; a real Ctrl-C
+            # (watchdog quiet) keeps its meaning
+            self._raise_if_stalled(wd, loop)
+            raise
+        finally:
+            if wd is not None:
+                wd.stop()
+            if ph is not None:
+                ph.uninstall()
+        self._last_state = state
         self.model.eval()
         return self.model
+
+    def _boundary_checks(self, loop: TrainingState, state: TrainState,
+                         eval_step, wd, ph) -> None:
+        """What runs at a step or epoch boundary, in order: validation,
+        the checkpoint, the stall check, the preemption check.  Each
+        phase gets its own heartbeat.  A stall beats a preemption: the
+        watchdog's interrupt may have been taken by the signal handler."""
+        if wd is not None:
+            wd.beat()
+        self._maybe_validate(loop, eval_step)
+        if wd is not None:
+            wd.beat()
+        self._maybe_checkpoint(loop, state)
+        self._raise_if_stalled(wd, loop)
+        if wd is not None:
+            wd.beat()
+        if ph is not None and ph.requested:
+            self._graceful_preempt(loop, state)
+
+    def _raise_if_stalled(self, wd, loop: TrainingState) -> None:
+        if wd is None or not wd.stalled:
+            return
+        # absorb the watchdog's interrupt if it is still pending (the
+        # monitor sets ``stalled`` a moment before interrupt_main)
+        try:
+            time.sleep(0.2)
+        except KeyboardInterrupt:
+            pass
+        raise StallError(
+            f"no training progress past the {wd.timeout_s:.1f}s stall "
+            f"deadline at iteration {loop.iteration}")
+
+    def _graceful_preempt(self, loop: TrainingState, state: TrainState):
+        """The step-boundary answer to SIGTERM: a forced checkpoint, then
+        the retryable ``Preempted``."""
+        saved = False
+        if self.checkpoint_path is not None:
+            saved = self._maybe_checkpoint(loop, state, force=True)
+        raise Preempted(
+            f"preemption signal received at iteration {loop.iteration}; "
+            + ("final checkpoint written" if saved else
+               "NO final checkpoint written (no path configured, or the "
+               "loss is non-finite): resume falls back to the previous "
+               "snapshot"))
+
+    # -- checkpoint and resume ------------------------------------------------
+    def _snapshot_state(self, state: TrainState) -> Dict[str, Any]:
+        """What a snapshot holds: the module's parameters and buffers, the
+        step and the optimizer's slots (on their devices; ``checkpoint``
+        copies them to the host)."""
+        return {"model": self.model.state_dict(), "step": int(state.step),
+                "opt_state": state.opt_state}
+
+    def _resume_meta(self, loop: TrainingState) -> Dict[str, Any]:
+        return {"epoch": loop.epoch, "iteration": loop.iteration,
+                "iter_in_epoch": self._iter_in_epoch,
+                "samples_in_epoch": self._samples_in_epoch,
+                "world_width": 1, "optim": self.optim.state_dict()}
+
+    def _maybe_checkpoint(self, loop: TrainingState, state: TrainState,
+                          force: bool = False) -> bool:
+        """True when this iteration's state is persisted (saved now, or
+        already saved at this iteration).  A non-finite loss is never
+        saved."""
+        if not force and (self.checkpoint_trigger is None
+                          or not self.checkpoint_trigger(loop)):
+            return False
+        if self._last_ckpt_iter == loop.iteration:
+            return True
+        loss_now = float(loop.loss)
+        if not np.isfinite(loss_now):
+            logger.warning("skipping checkpoint at iteration %d: loss %s",
+                           loop.iteration, loss_now)
+            return False
+        # memoized only on an actual save: a skipped save must not make a
+        # later forced call at this iteration report "already persisted"
+        self._last_ckpt_iter = loop.iteration
+        from analytics_zoo_tpu_torch.parallel import checkpoint as ckpt
+        tag = None if self.overwrite_checkpoint else loop.iteration
+        # the loop position and the optim method's host state ride in the
+        # snapshot's own manifest: a restore never pairs parameters with
+        # another snapshot's metadata
+        ckpt.save(self.checkpoint_path, self._snapshot_state(state),
+                  step=tag, keep_last=self.checkpoint_keep_last,
+                  meta=self._resume_meta(loop))
+        return True
+
+    def _apply_resume_meta(self, meta: Dict[str, Any],
+                           loop: TrainingState, step: int) -> None:
+        loop.epoch = int(meta.get("epoch", 0))
+        loop.iteration = int(meta.get("iteration", step))
+        if meta.get("samples_in_epoch") is not None:
+            # the same geometry consumes exactly iter_in_epoch batches
+            self._skip_samples = int(meta["samples_in_epoch"])
+            self._skip_batches = 0
+        else:
+            self._skip_batches = int(meta.get("iter_in_epoch", 0))
+        self.optim.load_state_dict(meta.get("optim", {}) or {})
+
+    def _try_resume(self, base: str, state: TrainState,
+                    loop: TrainingState) -> TrainState:
+        """Restore the module, the step, the slots, the loop position and
+        the optim method's state from the newest intact snapshot under
+        ``base``, when there is one.  A corrupt newest snapshot falls back
+        to the next older intact one; the loop position comes from the
+        restored snapshot's own manifest.  Every tensor lands beside the
+        one it replaces (the module's device)."""
+        from analytics_zoo_tpu_torch.parallel import checkpoint as ckpt
+        base = os.path.abspath(base)
+        if not ckpt.has_checkpoint(base):
+            return state
+        found = ckpt.newest_intact(base)
+        if found is None:
+            raise CheckpointCorrupt(f"no intact snapshot under {base}")
+        snap_dir, manifest = found
+        # newest_intact checksummed this very directory already
+        restored = ckpt.load(snap_dir, target=self._snapshot_state(state),
+                             verify=False)
+        self.model.load_state_dict(restored["model"])
+        state = TrainState(step=int(restored["step"]),
+                           opt_state=restored["opt_state"])
+        self._apply_resume_meta(manifest.get("meta", {}), loop, state.step)
+        logger.info("resumed from %s at epoch %d, iteration %d (skipping "
+                    "%s in-epoch samples)", snap_dir, loop.epoch,
+                    loop.iteration, self._skip_samples)
+        return state
 
     def _maybe_validate(self, loop: TrainingState, eval_step) -> None:
         if self.val_trigger is None or not self.val_trigger(loop):

@@ -291,8 +291,8 @@ def load_asr_train_set(samples: np.ndarray, labels: np.ndarray,
                        n_mels: int = 13, shuffle: bool = True,
                        seed: int = 0, worker_processes: int = 0,
                        sample_lengths: Optional[np.ndarray] = None,
-                       bucket_edges: Optional[Sequence[int]] = None
-                       ) -> DataSet:
+                       bucket_edges: Optional[Sequence[int]] = None,
+                       param=None):
     """DataSet of host-featurized CTC train batches from raw waveforms.
 
     ``samples``: (N, S) float32 waveforms; ``labels``: (N, L) int32
@@ -304,13 +304,22 @@ def load_asr_train_set(samples: np.ndarray, labels: np.ndarray,
     their true length and batched into the smallest fitting bucket
     (``data.bucket.BucketBatcher``); batches then carry ``"input":
     (features, n_frames)`` for the model's mask, plus top-level
-    ``n_frames`` for the CTC logit mask and ``padding_efficiency``.  The
-    multiprocess loader (``worker_processes > 0``) is not ported
-    (ROADMAP.md Queue 1 item 8)."""
-    if worker_processes > 0:
-        raise NotImplementedError(
-            "load_asr_train_set(worker_processes > 0): the multiprocess "
-            "loader is not ported yet (ROADMAP.md Queue 1 item 8)")
+    ``n_frames`` for the CTC logit mask and ``padding_efficiency``.
+
+    ``worker_processes > 0`` fans the host featurize (the per-sample
+    loop) out to that many forked worker processes through
+    ``data.parallel.ParallelLoader`` (shared-memory rings,
+    order-preserving, seeded from ``seed``): the batches equal
+    ``worker_processes=0``'s, array for array.  ``param`` (a
+    ``pipelines.ssd.PreProcessParam``) supplies ``batch_size``,
+    ``worker_processes``, ``loader_seed`` and ``bucket_edges`` in one
+    object."""
+    if param is not None:
+        batch_size = param.batch_size
+        worker_processes = param.worker_processes
+        seed = param.loader_seed
+        if getattr(param, "bucket_edges", None):
+            bucket_edges = param.bucket_edges
 
     samples = np.asarray(samples, np.float32)
     labels = np.asarray(labels, np.int32)
@@ -332,7 +341,9 @@ def load_asr_train_set(samples: np.ndarray, labels: np.ndarray,
             return {"input": x.astype(np.float32), "labels": s["labels"],
                     "label_mask": mask}
 
-        return base.transform(FnTransformer(feat)).batch(batch_size)
+        return (base.transform(FnTransformer(feat))
+                .batch(batch_size, num_workers=worker_processes,
+                       base_seed=seed))
 
     # truncating frames but not labels could leave CTC no alignment
     max_frames = (int(sample_lengths.max()) - WINDOW_SIZE) \
@@ -358,11 +369,13 @@ def load_asr_train_set(samples: np.ndarray, labels: np.ndarray,
                 "labels": batch["labels"],
                 "label_mask": batch["label_mask"]}
 
-    return (base.transform(FnTransformer(feat_ragged))
-            .transform(BucketBatcher(batch_size, bucket_edges,
-                                     length_key="n_frames",
-                                     pad_key="input"))
-            .transform(FnTransformer(pack)))
+    ds = (base.transform(FnTransformer(feat_ragged))
+          .transform(BucketBatcher(batch_size, bucket_edges,
+                                   length_key="n_frames", pad_key="input"))
+          .transform(FnTransformer(pack)))
+    if worker_processes > 0:
+        return ds.parallel(worker_processes, base_seed=seed)
+    return ds
 
 
 def train_ds2(model: DeepSpeech2, dataset, epochs: int = 10,
@@ -375,7 +388,8 @@ def train_ds2(model: DeepSpeech2, dataset, epochs: int = 10,
     (features, n_frames)`` and ``"n_frames"``
     (``load_asr_train_set(bucket_edges=...)``), whose padding the model
     and the loss mask; their metrics gain ``padding_efficiency``.  Adam at
-    ``lr`` for ``epochs`` epochs.  The recurrence engine is the model's:
+    ``lr`` for ``epochs`` epochs, with a snapshot every epoch under
+    ``checkpoint_path`` when given.  The recurrence engine is the model's:
     ``make_ds2_model(rnn_engine="pallas")`` trains through K3 and K4."""
     if mesh is not None or specs is not None or param_rules is not None:
         raise NotImplementedError(
@@ -385,15 +399,13 @@ def train_ds2(model: DeepSpeech2, dataset, epochs: int = 10,
         raise NotImplementedError(
             "train_ds2(sequence_parallel=True) is not ported yet "
             "(ROADMAP.md Queue 1 item 12)")
+    opt = (Optimizer(model, dataset, ds2_ctc_criterion(blank_id=0),
+                     metric_fn=ds2_padding_metric)
+           .set_optim_method(Adam(lr))
+           .set_end_when(Trigger.max_epoch(epochs)))
     if checkpoint_path:
-        raise NotImplementedError(
-            "train_ds2(checkpoint_path=...): checkpoints are not ported yet "
-            "(ROADMAP.md Queue 1 item 12)")
-    return (Optimizer(model, dataset, ds2_ctc_criterion(blank_id=0),
-                      metric_fn=ds2_padding_metric)
-            .set_optim_method(Adam(lr))
-            .set_end_when(Trigger.max_epoch(epochs))
-            .optimize())
+        opt.set_checkpoint(checkpoint_path, Trigger.every_epoch())
+    return opt.optimize()
 
 
 class StreamingDS2:

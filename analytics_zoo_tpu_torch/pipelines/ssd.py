@@ -555,8 +555,8 @@ class TrainParams:
     """Reference ``TrainParams`` (its ``Train.scala`` defaults), less the
     fields nothing in the port reads: ``batch_size`` and ``max_gt`` (the
     input path takes them from ``PreProcessParam``, and ``train_ssd``
-    trains at the batch ``train_set`` was built at),
-    ``overwrite_checkpoint`` (item 12) and ``job_name`` (item 13)."""
+    trains at the batch ``train_set`` was built at) and ``job_name``
+    (item 13)."""
 
     resolution: int = 300
     n_classes: int = 21
@@ -569,6 +569,7 @@ class TrainParams:
     warm_up_map: Optional[float] = None  # Adam warm-up target mAP
     warm_up_lr: float = 1e-4
     checkpoint_path: Optional[str] = None
+    overwrite_checkpoint: bool = True
     log_dir: Optional[str] = None
     # fp32 master weights, the forward and backward under bf16 autocast;
     # None = fp32
@@ -595,17 +596,14 @@ def train_ssd(train_set, val_set, params: TrainParams,
     out, or staged (``load_train_set_device``) with its augment function
     as ``device_transform``; ``params.prefetch`` batches are pinned and
     uploaded ahead of the step on a CUDA device (the ``Optimizer``'s
-    ``prefetch``).  Refused by name: ``mesh`` and ``tp`` (item 12),
-    ``params.checkpoint_path`` (item 12) and ``params.log_dir`` (item
-    13)."""
+    ``prefetch``).  With ``params.checkpoint_path`` a snapshot is taken
+    every epoch (one ``latest``, or ``step_N`` ones when
+    ``params.overwrite_checkpoint`` is false).  Refused by name: ``mesh``
+    and ``tp`` (item 12) and ``params.log_dir`` (item 13)."""
     if mesh is not None or tp is not None:
         raise NotImplementedError(
             "train_ssd: sharded training (mesh, tp) is not ported yet "
             "(ROADMAP.md Queue 1 item 12)")
-    if params.checkpoint_path:
-        raise NotImplementedError(
-            "train_ssd: checkpoints (TrainParams.checkpoint_path) are not "
-            "ported yet (ROADMAP.md Queue 1 item 12)")
     if params.log_dir:
         raise NotImplementedError(
             "train_ssd: summaries (TrainParams.log_dir) are not ported yet "
@@ -628,6 +626,9 @@ def train_ssd(train_set, val_set, params: TrainParams,
                .set_end_when(end_when))
         if val_set is not None:
             opt.set_validation(Trigger.every_epoch(), val_set, [evaluator])
+        if params.checkpoint_path:
+            opt.set_checkpoint(params.checkpoint_path, Trigger.every_epoch(),
+                               overwrite=params.overwrite_checkpoint)
         return opt
 
     if params.warm_up_map is not None and val_set is not None:

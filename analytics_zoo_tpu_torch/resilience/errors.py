@@ -1,13 +1,17 @@
-"""The serving runtime's failure classes and their classification
-(counterpart of ``resilience/errors.py``).
+"""The failure classes and their classification (counterpart of
+``resilience/errors.py``).
 
 The split that matters operationally is *retryable* against *fatal*:
 retryable means the program was right and the world failed under it (a
 full queue, a deadline, a wedged or crashed replica, a device that ran
 out of memory or failed a launch); fatal means a restart cannot fix it.
-This module holds the serving half of the reference's taxonomy; the
-checkpoint, data-shard and divergence classes come with the modules that
-raise them (ROADMAP.md Queue 1 items 12 and 13).
+Every class of the taxonomy the port raises is defined here, once, and
+sits in exactly one of the two tuples: the serving classes, the training
+supervisor's (``Preempted``, ``InjectedFault``, ``TrainingDiverged``),
+the checkpoint's (``CheckpointCorrupt``), the input path's
+(``PrefetchWorkerDied``, ``ShardReadError``, which ``data.prefetch`` and
+``data.records`` import from here) and ``ElasticPlacementError``, raised
+by the still-refused elastic restore.
 
 ``retryable_errors()`` adds torch's CUDA errors in place of the
 reference's jaxlib runtime error: ``torch.cuda.OutOfMemoryError`` and
@@ -19,10 +23,44 @@ from __future__ import annotations
 from typing import Tuple, Type
 
 
+class Preempted(RuntimeError):
+    """The process received SIGTERM mid-training; a final checkpoint was
+    taken at the step boundary before raising.  Retryable: a supervisor
+    (or the job's next incarnation) resumes from that checkpoint."""
+
+
 class StallError(RuntimeError):
-    """A supervised unit (a replica's forward) made no progress past the
+    """A supervised unit (a train step, a validation pass, a checkpoint
+    save or a replica's forward) made no progress past the
     :class:`~analytics_zoo_tpu_torch.resilience.watchdog.StallWatchdog`
     deadline.  Raised instead of hanging forever."""
+
+
+class PrefetchWorkerDied(RuntimeError):
+    """An input worker (the prefetch thread or a loader process) died
+    without delivering its stream; retryable by restarting the epoch."""
+
+
+class CheckpointCorrupt(RuntimeError):
+    """A snapshot failed manifest verification (missing manifest, missing
+    file, size or checksum mismatch) and no older intact snapshot could
+    be restored in its place."""
+
+
+class ShardReadError(IOError):
+    """A shard's transient I/O errors outlasted the retry budget.
+    Persistent by definition, so not retryable by a restart."""
+
+
+class InjectedFault(RuntimeError):
+    """The default exception of fault injection: it stands in for a lost
+    device or a killed task, so it is retryable."""
+
+
+class TrainingDiverged(RuntimeError):
+    """The loss stayed non-finite through the failure detector's strikes.
+    Fatal: a restart would resume from the same checkpoint into the same
+    divergence."""
 
 
 class ServerOverloaded(RuntimeError):
@@ -45,16 +83,31 @@ class ReplicaWedged(RuntimeError):
     if that dispatch also fails do the requests fail with this error)."""
 
 
+class ElasticPlacementError(ValueError):
+    """A restored state cannot be placed under the declared sharding.
+    Fatal: a configuration error that a restart re-creates."""
+
+
 #: Explicit classification: every class above is in exactly one tuple.
 _RETRYABLE_CLASSES: Tuple[Type[BaseException], ...] = (
+    Preempted,
     StallError,
+    PrefetchWorkerDied,
+    InjectedFault,
     ServerOverloaded,
     RequestTimeout,
     ReplicaWedged,
 )
 
-#: Fatal: restarting cannot fix these.  None of the serving classes is.
-FATAL_ERRORS: Tuple[Type[BaseException], ...] = ()
+#: Fatal: restarting cannot fix these (no intact snapshot left; a shard
+#: that stays unreadable; a run whose loss keeps diverging; a placement
+#: the declaration cannot carry).
+FATAL_ERRORS: Tuple[Type[BaseException], ...] = (
+    CheckpointCorrupt,
+    ShardReadError,
+    TrainingDiverged,
+    ElasticPlacementError,
+)
 
 
 def _device_errors() -> Tuple[Type[BaseException], ...]:

@@ -28,17 +28,25 @@ the session's carry lives on that replica.  ``resize`` never drains a
 replica in ``protected`` (the runtime's session-pinned set) while another
 victim exists.
 
+**Live weights**: :meth:`ReplicaPool.hot_swap` runs the rollout
+machine: one replica at a time drains (``swap_drain``: never retired),
+takes the new weights through ``install(replica)`` once idle, and
+rejoins before the next one drains.  The machine advances from
+``_revive``, on every ordinary dispatch cycle.  Replicas in ``last``
+swap at the tail and those in ``swap_defer`` (the runtime's
+session-pinned set) wait; a replica grown mid-rollout joins with the new
+weights installed, one retired mid-rollout drops out of the order.
+
 Supervision is pull mode on the runtime's clock: ``beat`` when the
-forward starts, ``check`` when it returns.  Live-weight hot swap and its
-rollout machine need checkpoints (ROADMAP.md Queue 1 item 12); the
-parallel service model, quarantine and mesh-slice replicas are ROADMAP.md
-Queue 1 item 13.
+forward starts, ``check`` when it returns.  The parallel service model,
+quarantine, mesh-slice replicas and the compile-cost model of re-warming
+are ROADMAP.md Queue 1 item 13.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Set
 
 from analytics_zoo_tpu_torch.resilience.errors import ReplicaWedged, StallError
 from analytics_zoo_tpu_torch.resilience.watchdog import StallWatchdog
@@ -76,6 +84,9 @@ class Replica:
         self.service_hook = service_hook
         self.fence_budget_s = fence_budget_s
         self.state = "healthy"       # healthy|fenced|draining
+        #: draining for a live-weight swap, not for retirement: the
+        #: rollout machine re-admits it with the new weights installed
+        self.swap_drain = False
         self.restart_at: Optional[float] = None
         self.dispatches = 0
         self.wedges = 0
@@ -180,6 +191,14 @@ class ReplicaPool:
         self.replica_factory = replica_factory
         self._rr = 0
         self._rid_counter = max(r.rid for r in self.replicas) + 1
+        #: the active rollout (None between rollouts), see hot_swap
+        self._swap: Optional[Dict[str, Any]] = None
+        #: rids the rollout must not drain yet (the runtime refreshes it
+        #: with the session-pinned set every pump)
+        self.swap_defer: Set[int] = set()
+        self.swaps_completed = 0
+        self.swaps_started = 0
+        self.last_rollout: Optional[Dict[str, Any]] = None
         for r in self.replicas:
             self._adopt(r)
 
@@ -198,12 +217,14 @@ class ReplicaPool:
             if r.maybe_restart(now):
                 self._event({"kind": "replica_restarted",
                              "replica": r.rid, "t": round(now, 6)})
-            elif r.state == "draining" and r.inflight == 0:
+            elif r.state == "draining" and not r.swap_drain \
+                    and r.inflight == 0:
                 retired.append(r)
         for r in retired:
             self.replicas.remove(r)
             self._event({"kind": "replica_retired", "replica": r.rid,
                          "t": round(now, 6)})
+        self._step_rollout(now)
 
     def healthy(self) -> List[Replica]:
         self._revive()
@@ -261,9 +282,19 @@ class ReplicaPool:
             r = self.replica_factory(rid)
             self._adopt(r)
             self.replicas.append(r)
+            now = self.clock.now()
+            if self._swap is not None:
+                # growth mid-rollout joins with the new weights installed:
+                # it must not serve the retiring checkpoint, and the
+                # rollout must not drain it again
+                self._swap["install"](r)
+                self._swap["swapped"].append(rid)
+                self._event({"kind": "swap_installed", "replica": rid,
+                             "t": round(now, 6),
+                             "checkpoint": self._swap["checkpoint"],
+                             "grown": True})
             self._event({"kind": "replica_joined", "replica": rid,
-                         "t": round(self.clock.now(), 6),
-                         "state": r.state})
+                         "t": round(now, 6), "state": r.state})
             actions["grown"].append(rid)
         while self.size > n:
             # a fenced replica is the cheapest victim, unless sessions are
@@ -287,10 +318,139 @@ class ReplicaPool:
         self._revive()                  # idle victims retire at once
         return actions
 
-    def hot_swap(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ReplicaPool.hot_swap (live weights and the rollout machine) "
-            "needs checkpoints: ROADMAP.md Queue 1 item 12")
+    # -- live-weight hot swap (the rollout machine) ---------------------------
+    @property
+    def rollout_active(self) -> bool:
+        return self._swap is not None
+
+    def hot_swap(self, checkpoint: str, install: Callable[[Replica], None],
+                 warm_s: Optional[float] = None,
+                 last: Sequence[int] = (),
+                 verified: bool = False) -> Dict[str, Any]:
+        """Start a rollout: one replica at a time drains (``draining``
+        with the ``swap_drain`` mark), ``install(replica)`` swaps its
+        weights once it is idle, and it rejoins before the next one
+        drains.  ``checkpoint`` is the snapshot the weights came from;
+        its manifest is verified here unless the caller already did
+        (``verified=True``, as ``ServingRuntime.hot_swap`` after its
+        verified load), so a truncated publish never starts a drain.
+        ``last`` rids go to the tail of the order.
+        In-flight batches on a draining replica finish or take the
+        exactly-once failover: ``accounting()`` conserves every request.
+        ``warm_s`` is the reference's re-warm time, which needs the
+        compile-cost model (item 13): only ``None`` is accepted."""
+        if self._swap is not None:
+            raise RuntimeError(
+                f"hot_swap: rollout of {self._swap['checkpoint']!r} "
+                f"still in progress")
+        if warm_s is not None:
+            raise NotImplementedError(
+                "ReplicaPool.hot_swap(warm_s=...) needs the compile-cost "
+                "model of pre-warming, not ported yet (ROADMAP.md Queue 1 "
+                "item 13)")
+        if not verified:
+            from analytics_zoo_tpu_torch.parallel import checkpoint as ckpt
+
+            ckpt.verify_snapshot(checkpoint)
+        last_set = set(last)
+        order = sorted(r.rid for r in self.replicas
+                       if r.state != "draining" and r.rid not in last_set)
+        order += sorted(r.rid for r in self.replicas
+                        if r.state != "draining" and r.rid in last_set)
+        self._swap = {"checkpoint": checkpoint, "install": install,
+                      "pending": order, "current": None, "swapped": []}
+        self.swaps_started += 1
+        self._event({"kind": "swap_rollout_started",
+                     "checkpoint": checkpoint, "order": list(order),
+                     "t": round(self.clock.now(), 6)})
+        self._step_rollout(self.clock.now())
+        return dict(self._swap, install=None)
+
+    def _step_rollout(self, now: float) -> None:
+        """Advance the active rollout; idempotent, called from
+        ``_revive`` so the machine moves whenever pool state is read."""
+        sw = self._swap
+        if sw is None:
+            return
+        cur = self.replica_by_rid(sw["current"]) \
+            if sw["current"] is not None else None
+        if sw["current"] is not None and cur is None:
+            sw["current"] = None     # the victim retired mid-drain (resize)
+        if cur is not None:
+            if cur.state == "healthy":
+                # fenced mid-drain and restarted: resume the drain
+                cur.state = "draining"
+            if cur.state == "draining" and cur.inflight == 0:
+                sw["install"](cur)
+                cur.swap_drain = False
+                sw["swapped"].append(cur.rid)
+                self._event({"kind": "swap_installed", "replica": cur.rid,
+                             "t": round(now, 6),
+                             "checkpoint": sw["checkpoint"]})
+                cur.state = "healthy"
+                cur.watchdog.reset()
+                self._event({"kind": "swap_rejoined", "replica": cur.rid,
+                             "t": round(now, 6)})
+                sw["current"] = None
+            return              # one replica at a time
+        # the next victim (deferred rids wait, retired ones drop out)
+        while sw["pending"]:
+            rid = sw["pending"][0]
+            r = self.replica_by_rid(rid)
+            if r is None or (r.state == "draining" and not r.swap_drain):
+                sw["pending"].pop(0)    # retired or retiring
+                continue
+            if rid in self.swap_defer:
+                later = [x for x in sw["pending"]
+                         if x not in self.swap_defer
+                         and self.replica_by_rid(x) is not None]
+                if not later:
+                    return              # everything left is deferred
+                rid = later[0]
+                r = self.replica_by_rid(rid)
+                sw["pending"].remove(rid)
+            else:
+                sw["pending"].pop(0)
+            if r.state != "healthy":
+                # fenced: back to the head of the queue until it restarts
+                sw["pending"].insert(0, rid)
+                return
+            r.state = "draining"
+            r.swap_drain = True
+            sw["current"] = rid
+            self._event({"kind": "swap_drain", "replica": rid,
+                         "t": round(now, 6), "inflight": r.inflight})
+            self._step_rollout(now)     # an idle victim installs at once
+            return
+        self.swaps_completed += 1
+        self.last_rollout = {"checkpoint": sw["checkpoint"],
+                             "swapped": list(sw["swapped"])}
+        self._event({"kind": "swap_rollout_complete",
+                     "checkpoint": sw["checkpoint"],
+                     "swapped": list(sw["swapped"]), "t": round(now, 6)})
+        self._swap = None
+
+    def abort_rollout(self) -> List[int]:
+        """Stop the rollout (the rollback path): the draining victim is
+        re-admitted unswapped, and the rids that already took the new
+        weights are returned for the caller to revert.  Empty when no
+        rollout is active."""
+        sw = self._swap
+        if sw is None:
+            return []
+        cur = self.replica_by_rid(sw["current"]) \
+            if sw["current"] is not None else None
+        if cur is not None and cur.swap_drain:
+            cur.swap_drain = False
+            if cur.state == "draining":
+                cur.state = "healthy"
+                cur.watchdog.reset()
+        swapped = list(sw["swapped"])
+        self._event({"kind": "swap_rollout_aborted",
+                     "checkpoint": sw["checkpoint"], "swapped": swapped,
+                     "t": round(self.clock.now(), 6)})
+        self._swap = None
+        return swapped
 
     # -- dispatch with failover ----------------------------------------------
     def _fence(self, replica: Replica, err: ReplicaWedged) -> None:
@@ -355,9 +515,18 @@ class ReplicaPool:
         return replica.forward(batch)
 
     def snapshot(self) -> Dict[str, Any]:
-        return {
+        out = {
             "replicas": [{"rid": r.rid, "state": r.state,
                           "dispatches": r.dispatches, "wedges": r.wedges}
                          for r in self.replicas],
             "healthy": sum(r.state == "healthy" for r in self.replicas),
         }
+        if self.swaps_started:          # keyed in once a rollout ran
+            out["rollouts"] = {
+                "started": self.swaps_started,
+                "completed": self.swaps_completed,
+                "active": self._swap is not None,
+                "last": dict(self.last_rollout) if self.last_rollout
+                else None,
+            }
+        return out

@@ -44,19 +44,27 @@ Usage::
     rt.drain()                                    # flush everything queued
     print(rt.metrics.snapshot())
 
+**Live weights**: :meth:`ServingRuntime.hot_swap` rolls a published
+checkpoint out to the pool with no downtime: verify and load onto the
+card, a seeded canary mirror of live traffic judged by its own
+``SloEvaluator``, the pool's one-replica-at-a-time rollout, an
+exactly-once rollback to the previous weights (or ``serve-lkg``), and
+the ``serve-lkg`` promotion after clean decision windows.  A model swaps
+through its ``ModelConfig.weights_to_tiers``.
+
 Not ported, each refused where it is asked for: the parallel service
 model (``parallel_replicas``), mesh-slice replicas (``slice_width > 1``,
 ``device_budget``), the autoscaler, chaos injection, telemetry spans,
 the device-health sentinel and the compile-cost model of pre-warming
-(``compile_s``) (ROADMAP.md Queue 1 item 13); sharded serving
-(``specs=``) and live weight swaps (``hot_swap``,
-``ModelConfig.weights_to_tiers``) (item 12).
+(``compile_s``, a swap's ``warm_s``) (ROADMAP.md Queue 1 item 13);
+sharded serving (``specs=``) (item 12).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
 from typing import Any, Callable, Dict, List, Optional, Sequence, Set
 
 import numpy as np
@@ -113,8 +121,11 @@ class ModelConfig:
     rates drive its ladder and its dispatch weight.  ``streaming``: a
     session model, served through ``open_session``/``submit_chunk``,
     with ``chunk_deadline_s`` the per-chunk incremental deadline.
-    ``weights_to_tiers`` (live swaps from a checkpoint) is not ported
-    (ROADMAP.md Queue 1 item 12)."""
+    ``weights_to_tiers``: ``(loaded_state, rid) -> [ServingTier]``, how
+    :meth:`ServingRuntime.hot_swap` turns a checkpoint's state (loaded
+    onto the swap's device) into this model's tier stack for replica
+    ``rid``; ``rid == -1`` builds the canary mirror.  Without it the
+    model cannot live-swap."""
 
     name: str
     tiers: Sequence[ServingTier]
@@ -133,9 +144,6 @@ class ModelConfig:
     def __post_init__(self):
         if not self.tiers:
             raise ValueError(f"model {self.name!r} needs at least one tier")
-        if self.weights_to_tiers is not None:
-            _not_ported(f"ModelConfig({self.name!r}, weights_to_tiers=...) "
-                        f"(live weights from a checkpoint)", _ITEM_12)
         if self.streaming and self.tier_factory is None:
             raise ValueError(
                 f"streaming model {self.name!r} needs a tier_factory — "
@@ -250,6 +258,17 @@ class ServingRuntime:
         self.weight_cap = float(weight_cap)
         self.retain_requests = bool(retain_requests)
         self.metrics = ServingMetrics()
+        self._slo_params = dict(slo_params or {})
+        self._service_time = service_time
+        # live-weight swaps: one rollout at a time (canary, then the
+        # pool's machine); _swap_ctl is None between rollouts, _swap_log
+        # keeps the history, _lkg the pending serve-lkg hysteresis
+        self._swap_ctl: Optional[Dict[str, Any]] = None
+        self._swap_counter = 0
+        self._swap_log: List[Dict[str, Any]] = []
+        self._swap_stats = {"completed": 0, "rollbacks": 0, "trips": 0,
+                            "lkg_promotions": 0}
+        self._lkg: Optional[Dict[str, Any]] = None
         # the SLO engine: built from the models' declared SLOs when none
         # is passed; each SLO maps back to its model's ladder
         self._slo_model: Dict[str, str] = {
@@ -400,9 +419,270 @@ class ServingRuntime:
         self.queue.submit(req)          # may raise; _on_shed accounts it
         return req
 
-    def hot_swap(self, *args, **kwargs):
-        _not_ported("ServingRuntime.hot_swap (live weights from a "
-                    "checkpoint)", _ITEM_12)
+
+    # -- live weights: hot swap with canary and rollback ---------------------
+    def hot_swap(self, checkpoint_path: str, model: Optional[str] = None, *,
+                 canary_fraction: float = 0.25, canary_min: int = 32,
+                 divergence_budget: float = 1e-3,
+                 latency_budget_s: Optional[float] = None,
+                 canary_seed: int = 0, lkg_after: int = 2,
+                 warm_s: Optional[float] = None,
+                 device=None) -> Dict[str, Any]:
+        """Start a zero-downtime rollout of a published snapshot:
+
+        1. **verify and load**: the snapshot's sha256 manifest is
+           verified and its state loaded onto ``device`` (the GPU unless
+           ``device="cpu"``);
+        2. **canary**: a seeded ``canary_fraction`` of this model's live
+           requests is mirrored to the new weights (one extra forward per
+           touched batch, never in ``accounting()``); per-row divergence
+           and modeled latency go to rollout-labeled ``serve/canary/*``
+           metrics, and an ``SloEvaluator`` over ``canary_slos`` trips
+           the stage when either crosses its budget;
+        3. **rollout**: after ``canary_min`` clean mirrored requests the
+           pool's one-replica-at-a-time machine takes over
+           (session-pinned replicas last);
+        4. **rollback**: a tripped canary or a mid-rollout SLO trip
+           reverts to the previous weights exactly once; a healthy
+           rollout promotes the snapshot to ``serve-lkg`` after
+           ``lkg_after`` clean decision windows.
+
+        The old tier stacks stay alive in the rollout's stash until it
+        completes or rolls back.  Returns the rollout record.  Raises
+        :class:`CheckpointCorrupt` on a bad manifest before any drain.
+        ``warm_s`` needs the compile-cost model (item 13)."""
+        from analytics_zoo_tpu_torch.parallel import checkpoint as ckpt
+        from analytics_zoo_tpu_torch.utils.device import resolve_device
+
+        if warm_s is not None:
+            _not_ported("ServingRuntime.hot_swap(warm_s=...) (the "
+                        "compile-cost model of re-warming)", _ITEM_13)
+        cfg = self._resolve_model(model)
+        if cfg.weights_to_tiers is None:
+            raise ValueError(
+                f"model {cfg.name!r} declares no weights_to_tiers — the "
+                f"runtime cannot build its tier stack from a checkpoint")
+        if self.swap_active:
+            raise RuntimeError(
+                f"hot_swap: rollout of "
+                f"{self._swap_ctl['checkpoint']!r} still in progress")
+        now = self.clock.now()
+        dev = resolve_device(device)
+        state = ckpt.load(checkpoint_path, verify=True, device=dev)
+        mirror = list(cfg.weights_to_tiers(state, -1))
+        if len(mirror) != len(cfg.tiers):
+            raise ValueError(
+                f"model {cfg.name!r}: weights_to_tiers built "
+                f"{len(mirror)} tiers, template declares "
+                f"{len(cfg.tiers)}")
+        k = self._swap_counter
+        self._swap_counter += 1
+        from analytics_zoo_tpu_torch.obs.slo import canary_slos
+
+        window_params = {key: v for key, v in self._slo_params.items()
+                         if key in ("fast_window_s", "slow_window_s",
+                                    "time_scale", "timeline_cap")}
+        evaluator = SloEvaluator(
+            slos=canary_slos(cfg.name, divergence_budget,
+                             latency_budget_s, rollout=k),
+            registry=self.metrics.registry,
+            fast_burn=1.0, slow_burn=1.0, **window_params)
+        self._lkg = None        # a new rollout supersedes a pending one
+        self._swap_ctl = {
+            "phase": "canary", "model": cfg.name, "rollout": k,
+            "checkpoint": checkpoint_path, "state": state, "device": dev,
+            "mirror": mirror, "fraction": float(canary_fraction),
+            "min": int(canary_min), "seed": int(canary_seed),
+            "mirrored": 0, "evaluator": evaluator,
+            "lkg_after": int(lkg_after), "rolled_back": False,
+            "stash": {}, "t_started": now,
+        }
+        self.metrics.registry.counter("serve/swap/rollouts").inc()
+        record = {"rollout": k, "model": cfg.name,
+                  "checkpoint": checkpoint_path, "outcome": None,
+                  "t_started": round(now, 6)}
+        self._swap_log.append(record)
+        if canary_fraction <= 0 or canary_min <= 0:
+            self._begin_roll()          # canary disabled
+        return record
+
+    @property
+    def swap_active(self) -> bool:
+        """Whether a rollout is in flight (canary or rolling): one
+        rollout at a time."""
+        return (self._swap_ctl is not None
+                and self._swap_ctl["phase"] in ("canary", "rolling"))
+
+    @property
+    def lkg_pending(self) -> bool:
+        """Whether a completed rollout is still inside its serve-lkg
+        hysteresis; a ``hot_swap`` now supersedes the promotion."""
+        return self._lkg is not None
+
+    def _swap_install(self, replica: Replica) -> None:
+        """The rollout's install hook: stash the replica's live tier stack
+        of this model (the rollback inventory), then mount the tiers built
+        for this rid from the loaded state."""
+        ctl = self._swap_ctl
+        name = ctl["model"]
+        ctl["stash"][replica.rid] = (replica.forward_fns.get(name),
+                                     replica.tier_objs.get(name))
+        tiers = list(self.models[name].weights_to_tiers(ctl["state"],
+                                                        replica.rid))
+        replica.forward_fns[name] = [t.forward for t in tiers]
+        replica.tier_objs[name] = tiers
+        self.metrics.registry.counter("serve/swap/replicas_swapped").inc()
+
+    def _begin_roll(self) -> None:
+        ctl = self._swap_ctl
+        ctl["phase"] = "rolling"
+        self.pool.swap_defer = set(self._session_rids())
+        # the weights installed are the state loaded, and verified, above
+        self.pool.hot_swap(ctl["checkpoint"], install=self._swap_install,
+                           last=sorted(self._session_rids()), verified=True)
+
+    def _swap_tick(self) -> None:
+        """Once a pump: refresh the deferred (session-pinned) rids, step
+        the pool's machine and notice the rollout's completion, which
+        arms the serve-lkg hysteresis and drops the stash."""
+        ctl = self._swap_ctl
+        if ctl is None or ctl["phase"] != "rolling":
+            return
+        self.pool.swap_defer = set(self._session_rids())
+        self.pool.healthy()             # _revive steps the rollout
+        if self.pool.rollout_active:
+            return
+        ctl["phase"] = "complete"
+        ctl["stash"] = {}
+        self._swap_stats["completed"] += 1
+        self._swap_log[-1]["outcome"] = "complete"
+        self._lkg = {"ctl": ctl, "clean": 0, "after": ctl["lkg_after"]}
+
+    def _maybe_canary(self, batch: AssembledBatch, rows, now: float) -> None:
+        """Mirror a seeded fraction of this model's requests to the new
+        weights; their per-row divergence and modeled latency feed the
+        canary evaluator, which trips the stage on budget.  The mirror
+        never touches a request's lifecycle."""
+        ctl = self._swap_ctl
+        if ctl is None or ctl["phase"] != "canary" \
+                or batch.model != ctl["model"]:
+            return
+        gate = int(ctl["fraction"] * 1000)
+        sel = [i for i, r in enumerate(batch.requests)
+               if not r.finished
+               and (r.rid * 1_000_003 + ctl["seed"]) % 1000 < gate]
+        if not sel:
+            return
+        m, k = ctl["model"], ctl["rollout"]
+        reg = self.metrics.registry
+        reg.counter(f"serve/canary/mirrored/model={m}").inc(len(sel))
+        ctl["mirrored"] += len(sel)
+        div_h = reg.histogram(f"serve/canary/divergence/model={m}/swap={k}")
+        mirror_tier = ctl["mirror"][batch.tier]
+        try:
+            mrows = np.asarray(mirror_tier.forward(batch.batch))
+            for i in sel:
+                a, b = rows[i], mrows[i]
+                if isinstance(a, (str, bytes, np.str_)):
+                    div = 0.0 if a == b else 1.0
+                else:
+                    d = np.abs(np.asarray(a, dtype=np.float64)
+                               - np.asarray(b, dtype=np.float64))
+                    div = float(np.max(d)) if d.size else 0.0
+                div_h.observe(div)
+        except Exception:
+            # a crashing canary forward is itself a trip
+            div_h.observe(float("inf"))
+        if self._service_time is not None:
+            live = float(self._service_hook(batch, -1))
+            template = self.models[m].tiers[batch.tier]
+            ratio = (template.speed / mirror_tier.speed
+                     if getattr(mirror_tier, "speed", 0) else 1.0)
+            reg.histogram(f"serve/canary/latency_s/model={m}/swap={k}"
+                          ).observe(live * ratio)
+        ev = ctl["evaluator"]
+        ev.observe_registry(reg, now)
+        decision = ev.decide(now)
+        if decision.burning:
+            self._swap_stats["trips"] += 1
+            reg.counter("serve/canary/trips").inc()
+            self._swap_rollback("canary_trip: " + ",".join(decision.burning))
+        elif ctl["mirrored"] >= ctl["min"]:
+            self._begin_roll()
+
+    def _swap_rollback(self, reason: str) -> None:
+        """Revert the rollout to the previous weights exactly once (the
+        ``rolled_back`` latch).  Swapped replicas get their stashed tier
+        stacks back; one with no stash (grown mid-rollout) is rebuilt from
+        the verified ``serve-lkg`` snapshot when there is one."""
+        ctl = self._swap_ctl
+        if ctl is None or ctl["rolled_back"]:
+            return
+        ctl["rolled_back"] = True
+        swapped = self.pool.abort_rollout()
+        missing: List[int] = []
+        for rid in swapped:
+            r = self.pool.replica_by_rid(rid)
+            if r is None:
+                continue
+            stash = ctl["stash"].get(rid)
+            if stash is not None and stash[0] is not None:
+                r.forward_fns[ctl["model"]] = stash[0]
+                r.tier_objs[ctl["model"]] = stash[1]
+            else:
+                missing.append(rid)
+        if missing:
+            from analytics_zoo_tpu_torch.parallel import checkpoint as ckpt
+
+            base = os.path.dirname(os.path.abspath(ctl["checkpoint"]))
+            found = ckpt.tier_snapshot(base, "serve-lkg")
+            if found is not None:
+                state = ckpt.load(found[0], verify=False,
+                                  device=ctl["device"])
+                for rid in missing:
+                    r = self.pool.replica_by_rid(rid)
+                    tiers = list(self.models[ctl["model"]]
+                                 .weights_to_tiers(state, rid))
+                    r.forward_fns[ctl["model"]] = [t.forward for t in tiers]
+                    r.tier_objs[ctl["model"]] = tiers
+        ctl["phase"] = "rolled_back"
+        ctl["stash"] = {}
+        self._swap_stats["rollbacks"] += 1
+        self._swap_log[-1]["outcome"] = "rolled_back"
+        self._swap_log[-1]["reason"] = reason[:160]
+        self.metrics.registry.counter("serve/swap/rollbacks").inc()
+        self._lkg = None
+
+    def _maybe_promote_lkg(self, decision) -> None:
+        """The serve-lkg hysteresis: after a completed rollout,
+        ``lkg_after`` consecutive clean decision windows promote the
+        swapped snapshot into the ``serve-lkg`` slot; a window with the
+        model's SLOs burning restarts the count."""
+        pend = self._lkg
+        if pend is None:
+            return
+        model = pend["ctl"]["model"]
+        if any(self._slo_model.get(s) == model for s in decision.burning):
+            pend["clean"] = 0
+            return
+        pend["clean"] += 1
+        if pend["clean"] < pend["after"]:
+            return
+        from analytics_zoo_tpu_torch.parallel import checkpoint as ckpt
+        from analytics_zoo_tpu_torch.resilience.errors import (
+            CheckpointCorrupt)
+
+        snap = pend["ctl"]["checkpoint"]
+        base = os.path.dirname(os.path.abspath(snap))
+        self._lkg = None
+        try:
+            ckpt.promote_tier(base, snap, "serve-lkg")
+        except (CheckpointCorrupt, OSError):
+            # the trainer may have collected the step snapshot already: a
+            # missed promotion is not a serving fault
+            return
+        self._swap_stats["lkg_promotions"] += 1
+        self.metrics.registry.counter("serve/swap/lkg_promotions").inc()
 
     # -- streaming sessions --------------------------------------------------
     def open_session(self, model: Optional[str] = None) -> int:
@@ -557,6 +837,7 @@ class ServingRuntime:
         assemble and dispatch every flush-ready batch.  Returns the
         number of batches dispatched.  Call after submits and after the
         clock moves."""
+        self._swap_tick()
         dispatched = 0
         while True:
             batch = self.batcher.next_batch(self._tier_arg(), force=force)
@@ -605,6 +886,7 @@ class ServingRuntime:
             return
         now = self.clock.now()
         rows = np.asarray(out)
+        self._maybe_canary(batch, rows, now)
         for i, req in enumerate(batch.requests):
             if req.finished:            # a scrubbed dead-session row
                 continue
@@ -644,6 +926,17 @@ class ServingRuntime:
                 self._observe_multi(decision, detail)
             else:
                 self.ladder.observe_decision(decision, detail=detail)
+            # a fresh trip of the swapped model's SLOs while replicas are
+            # being swapped rolls the rollout back
+            ctl = self._swap_ctl
+            if ctl is not None and ctl["phase"] == "rolling" \
+                    and decision.new_trips:
+                hit = [s for s in decision.new_trips
+                       if self._slo_model.get(s) == ctl["model"]]
+                if hit:
+                    self._swap_rollback(
+                        "mid_rollout_anomaly: " + ",".join(hit))
+            self._maybe_promote_lkg(decision)
         elif self._multi:
             for name, ladder in self.ladders.items():
                 depth_high = ladder.policy.depth_high * self.max_batch
@@ -737,4 +1030,13 @@ class ServingRuntime:
             out["slo"] = {k: r[k] for k in
                           ("slos", "windows", "decisions", "trips",
                            "peak_burns")}
+        if self._swap_counter:          # keyed in once hot_swap was used
+            out["swap"] = {
+                "rollouts": self._swap_counter,
+                "completed": self._swap_stats["completed"],
+                "rollbacks": self._swap_stats["rollbacks"],
+                "trips": self._swap_stats["trips"],
+                "lkg_promotions": self._swap_stats["lkg_promotions"],
+                "history": [dict(h) for h in self._swap_log],
+            }
         return out

@@ -12,6 +12,9 @@ torch OIHW (a Dense kernel, and a 1-D convolution's (k, in, out), is
 transposed; an ``embedding`` table keeps its layout).  :func:`state_dict_to_flax` maps tensors named as the module's
 (parameters, buffers or their gradients) back onto a flax tree's names
 and layouts, so that two trainings compare leaf by leaf.
+:func:`train_state_from_jax` carries a whole reference ``TrainState``
+(weights, batch statistics, the optimizer's slots and the step) into
+the contents of a port checkpoint.
 """
 
 from __future__ import annotations
@@ -234,6 +237,57 @@ def ds2_params_from_jax(variables: Mapping, model: nn.Module
     transposed, ``bn_*/BatchNorm_0/{scale,bias,mean,var}``,
     ``birnn{i}/{fwd,bwd}/body/h2h``)."""
     return flax_variables_to_state_dict(variables, model)
+
+
+def _optax_slots(tree: Any) -> Optional[Dict[str, Any]]:
+    """The first Adam (``count``/``mu``/``nu``) or momentum (``trace``)
+    state inside an optax state tree as a checkpoint restores it raw
+    (``inject_hyperparams``' ``inner_state``, ``chain`` lists)."""
+    if isinstance(tree, Mapping):
+        if {"mu", "nu", "count"} <= set(tree) or "trace" in tree:
+            return dict(tree)
+        children = list(tree.values())
+    elif isinstance(tree, (list, tuple)):
+        children = list(tree)
+    else:
+        return None
+    for c in children:
+        found = _optax_slots(c)
+        if found is not None:
+            return found
+    return None
+
+
+def train_state_from_jax(raw: Mapping, model: nn.Module) -> Dict[str, Any]:
+    """A reference ``TrainState`` as its ``checkpoint.load`` returns it
+    (numpy leaves: ``step``, ``params``, ``model_state`` with the batch
+    statistics, the optax ``opt_state``) → the contents of the port's
+    ``Optimizer`` snapshot: ``{"model": state_dict, "step": int,
+    "opt_state": ...}``.  Adam's ``mu``/``nu``/``count`` or SGD's
+    momentum ``trace`` become the port's per-parameter slot lists, in
+    ``model.parameters()`` order and in torch layouts (the kernels' own
+    transposes); a state with neither becomes ``{}`` (plain SGD)."""
+    extra = dict(raw.get("model_state") or {})
+    model_sd = flax_variables_to_state_dict(
+        {"params": raw["params"], **extra}, model)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+
+    def per_param(tree) -> list:
+        sd = flax_variables_to_state_dict({"params": tree, **extra}, model)
+        return [sd[n] for n in names]
+
+    slots = _optax_slots(raw.get("opt_state"))
+    if slots is None:
+        opt_state: Dict[str, Any] = {}
+    elif "trace" in slots:
+        opt_state = {"trace": per_param(slots["trace"])}
+    else:
+        opt_state = {"count": torch.tensor(int(np.asarray(slots["count"])),
+                                           dtype=torch.int32),
+                     "mu": per_param(slots["mu"]),
+                     "nu": per_param(slots["nu"])}
+    return {"model": model_sd, "step": int(np.asarray(raw["step"])),
+            "opt_state": opt_state}
 
 
 def fraud_mlp_params_from_jax(params: Mapping, model: nn.Module

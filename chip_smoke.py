@@ -4,9 +4,10 @@ DeepSpeech2 CTC training path, its SSD300 training path, its SSD input
 path from JPEG records, SSD and DeepSpeech2 online serving through
 ``ServingRuntime``, DeepSpeech2 streaming sessions, the multiplexed
 pool, Faster-RCNN VGG16 serving and training, graphs built from Caffe
-deploy nets, the SSD AlexNet and MobileNet variants, and the fraud,
-recommendation and sentiment pipelines with their pool once on one
-NVIDIA GPU.
+deploy nets, the SSD AlexNet and MobileNet variants, the fraud,
+recommendation and sentiment pipelines with their pool, DeepSpeech2
+training checkpointed and resumed after a crash, and SSD serving across
+a live weight swap once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -315,6 +316,49 @@ Phases, one JSON line each; any failure exits non-zero:
    interleaved requests, none failed, no batch holding two models, the
    per-model accounting; then a ``timing`` line of the four phases'
    seconds;
+6k. ds2_resume: the 5c model (hidden 1760, 3 layers, "pallas") trained
+   through ``Optimizer`` on one epoch of ``RESUME_STEPS`` 5c batches of
+   8, snapshots every ``RESUME_EVERY`` iterations (``step_N``,
+   ``keep_last=2``): run A straight; run B under ``run_resilient`` from
+   the same seed and weights, a ``FaultInjector`` failing it before
+   batch ``RESUME_FAIL_AT``, the second attempt resuming from that
+   snapshot; K3's and K4's counts at 0 just before A and read after each
+   run: 6 each an executed step, ``RESUME_STEPS`` steps in each run (a
+   resume repeats none); a second straight run's spread from A, which
+   fails past ``RESUME_CEIL``; B's losses, parameters, batch statistics
+   and Adam slots against A's within ``RESUME_TOL``, or
+   ``RESUME_SPREAD`` times the spread, never past ``RESUME_CEIL``
+   (max-abs, max-relative and bit-equality printed); the newest snapshot
+   truncated, a fresh resume lands on the older one at its iteration,
+   takes no step and equals the crashed attempt's state bit for bit;
+   ``train_ssd`` with
+   ``TrainParams(checkpoint_path=...)`` for one epoch of 2 resident
+   synthetic batches of 8 writes a ``latest`` snapshot that verifies,
+   and ``set_resume`` restores it onto the card equal; the snapshot's
+   bytes, the save seconds by phase (device to host, ``torch.save``,
+   sha256, publish), verify and restore seconds and peak GB.  Then
+   ``ds2_legacy``: ``rnn_engine="legacy"`` against ``"blocked"`` on one
+   batch cut to ``LEGACY_FRAMES`` frames, 1 layer, the log-prob
+   max-abs difference within ``DS2_LOGP_TOL`` and each forward's ms;
+   ``ds2_loader``: ``load_asr_train_set(worker_processes=2)`` on this
+   host against the serial 5c batches, array for array;
+6l. ssd_swap: SSD300 (21 classes, seed 0) on ``ServingRuntime(models=
+   [ModelConfig(ssd_serving_tiers, weights_to_tiers=...)],
+   n_replicas=2, max_batch=8)``; seed-1 weights published with
+   ``checkpoint.save(step=1)`` and swapped in with a 0.25 canary
+   (``canary_min=8``, a divergence budget of 1e9, ``lkg_after=1``)
+   while ``SWAP_REQUESTS`` requests arrive, K1's and K2's counts at 0
+   just before and read after ``SWAP_REQUESTS`` more: the rollout
+   completes, both replicas installed once, every request done, the
+   rows afterwards equal ``SSDPredictor(seed-1 model)``'s, ``serve-lkg``
+   promoted, K2 launched for every live forward, the install warm-ups
+   and at least one mirrored forward, K1 never; a second publish with a
+   divergence budget of 1e-6 (every row mirrored) trips the canary and
+   rolls back before any drain, the rows still seed-1's; a corrupt
+   publish raises ``CheckpointCorrupt`` and starts no rollout;
+   load+verify and rollout seconds, each install's seconds, request
+   p50/p99 before, during and after, peak GB; then a ``timing`` line of
+   the two phases' seconds;
 7. the ``kernels`` line, then the device line last.
 
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -327,6 +371,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -814,16 +859,18 @@ def loss_and_grads(model, batch, criterion):
 
 
 def grads_err(got, want):
-    """Each gradient's relative L2 error: against its own norm, or the
-    model's largest for a bias in front of a BN (``conv1``, ``proj{i}``),
-    whose gradient is 0 up to rounding."""
-    top = max(g.norm().item() for g in want.values())
+    """Each tensor's relative L2 error: against its own norm, or the
+    largest of ``want``'s for a bias in front of a BN (``conv1``,
+    ``proj{i}``, past an Adam slot's ``mu.``/``nu.`` prefix), whose
+    gradient is 0 up to rounding."""
+    top = max(w.float().norm().item() for w in want.values())
     errs = {}
-    for k, g in want.items():
-        before_bn = k.endswith(".bias") and k.split(".")[0].startswith(
+    for k, w in want.items():
+        module = k.removeprefix("mu.").removeprefix("nu.")
+        before_bn = k.endswith(".bias") and module.startswith(
             ("conv1", "proj"))
-        errs[k] = (got[k] - g).norm().item() / (
-            top if before_bn else g.norm().item())
+        errs[k] = (got[k].float() - w.float()).norm().item() / (
+            top if before_bn else max(w.float().norm().item(), 1e-30))
     return errs
 
 
@@ -4340,6 +4387,499 @@ def zoo_pool_phase(dev, smi, fraud_model, rec_model, sent_model):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Checkpoints, resume and the live weight swap
+# ---------------------------------------------------------------------------
+
+# the straight run's and the crashed run's iterations, the snapshot
+# cadence and the fault's global batch index
+RESUME_STEPS = 6
+RESUME_EVERY = 2
+RESUME_FAIL_AT = 4
+# the resumed run against the straight one: each parameter, batch
+# statistic and Adam slot within K4's fp32 relative L2 error (against its
+# own norm, or the model's largest for a bias in front of a BN, whose
+# gradient is 0 up to rounding), or within RESUME_SPREAD times what a
+# second straight run differs by, where that is larger, and never past
+# RESUME_CEIL: on the card two straight runs are not bit-equal either
+# (PyTorch documents the CUDA CTC loss's backward as nondeterministic;
+# two straight runs on an H100 differed by 5.0e-3 to 7.7e-3), and a
+# spread past RESUME_CEIL fails the phase as a run-to-run fault
+RESUME_TOL = 1e-3
+RESUME_SPREAD = 4.0
+RESUME_CEIL = 2e-2
+# the frames of the legacy-against-blocked batch (the 5c cut)
+LEGACY_FRAMES = 600
+# requests through the swap, and after it
+SWAP_REQUESTS = 64
+
+
+def max_abs_rel(got, want):
+    """The largest absolute and relative difference over two dicts of
+    tensors, and whether every tensor is bit-equal."""
+    import torch
+
+    diffs = [(got[k].float() - w.float(), w.float()) for k, w in want.items()]
+    return (max(d.abs().max().item() for d, _ in diffs),
+            max((d.abs() / w.abs().clamp_min(1e-12)).max().item()
+                for d, w in diffs),
+            all(torch.equal(got[k], w) for k, w in want.items()))
+
+
+def ds2_resume_phase(dev, smi, train_batches, samples, sample_lengths,
+                     labels):
+    """DS2 training checkpointed and resumed after a crash on the card
+    (phase ``ds2_resume``), with the ``ds2_legacy`` and ``ds2_loader``
+    lines; returns K3's and K4's launches on the path."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.models.ssd import build_ssd_vgg
+    from analytics_zoo_tpu_torch.ops import pallas_rnn
+    from analytics_zoo_tpu_torch.parallel import (SGD, Adam, FaultInjector,
+                                                  Optimizer, Trigger,
+                                                  make_eval_step,
+                                                  run_resilient)
+    from analytics_zoo_tpu_torch.parallel import checkpoint as ckpt
+    from analytics_zoo_tpu_torch.pipelines.deepspeech2 import (
+        ds2_ctc_criterion, ds2_padding_metric, load_asr_train_set,
+        make_ds2_model)
+    from analytics_zoo_tpu_torch.pipelines.ssd import TrainParams, train_ssd
+
+    root = tempfile.mkdtemp()
+    try:
+        # one epoch of RESUME_STEPS batches, the same list every attempt
+        # (a reshuffled epoch would differ between the two runs)
+        epoch = (list(train_batches) * RESUME_STEPS)[:RESUME_STEPS]
+        criterion = ds2_ctc_criterion()
+
+        def optimizer(data, path, end=RESUME_STEPS):
+            opt = (Optimizer(make_ds2_model(
+                       hidden=DS2_HIDDEN, n_rnn_layers=3,
+                       rnn_engine="pallas", seed=0, device=dev),
+                       data, criterion, metric_fn=ds2_padding_metric)
+                   .set_optim_method(Adam(3e-4))
+                   .set_end_when(Trigger.max_iteration(end)))
+            if path is not None:
+                opt.set_checkpoint(path, Trigger.several_iteration(
+                    RESUME_EVERY), overwrite=False, keep_last=2)
+            return opt
+
+        def compare(got, want):
+            """Losses, state and slots of run ``got`` against ``want``."""
+            def parts(o):
+                names = [n for n, _ in o.model.named_parameters()]
+                return [o.model.state_dict()] + [
+                    {f"{k}.{n}": t for n, t in
+                     zip(names, o._last_state.opt_state[k])}
+                    for k in ("mu", "nu")]
+
+            (sd_g, *sl_g), (sd_w, *sl_w) = parts(got), parts(want)
+            errs = {}
+            for g, w in zip([sd_g, *sl_g], [sd_w, *sl_w]):
+                errs.update(grads_err(g, w))    # each kind against its own
+            la = [m["loss"].item() for m in want.history]
+            lb = [m["loss"].item() for m in got.history]
+            errs["loss"] = max(abs(a - b) / abs(a) for a, b in zip(la, lb))
+            top = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+            sd_abs, sd_rel, eq_sd = max_abs_rel(sd_g, sd_w)
+            sl_abs, sl_rel, eq_sl = max_abs_rel({**sl_g[0], **sl_g[1]},
+                                                {**sl_w[0], **sl_w[1]})
+            return {"worst_rel_l2": top[0][1], "worst": dict(top),
+                    "state_max_abs_diff": sd_abs,
+                    "state_max_rel_diff": sd_rel, "state_bit_equal": eq_sd,
+                    "slots_max_abs_diff": sl_abs,
+                    "slots_max_rel_diff": sl_rel, "slots_bit_equal": eq_sl,
+                    "losses_bit_equal": la == lb}
+
+        def counts():
+            torch.cuda.synchronize()
+            return {"persistent_rnn": pallas_rnn.persistent_rnn.launches,
+                    "persistent_rnn_bwd":
+                        pallas_rnn.persistent_rnn_bwd.launches}
+
+        torch.cuda.reset_peak_memory_stats()
+        dir_a, dir_b = os.path.join(root, "a"), os.path.join(root, "b")
+        # -- the main path: counts at 0 just before, read just after ------
+        torch.cuda.synchronize()
+        pallas_rnn.persistent_rnn.launches = 0
+        pallas_rnn.persistent_rnn_bwd.launches = 0
+        run_a = optimizer(epoch, dir_a)
+        run_a.optimize()
+        save_s = dict(ckpt.last_save_s)
+        launches_a = counts()
+        attempts = []
+
+        def build():
+            data = (FaultInjector(epoch, fail_at=RESUME_FAIL_AT)
+                    if not attempts else epoch)
+            opt = optimizer(data, dir_b)
+            attempts.append(opt)
+            return opt
+
+        run_resilient(build, dir_b, max_restarts=1)
+        launches_ab = counts()
+        launches_b = {k: launches_ab[k] - launches_a[k] for k in launches_a}
+        # a second straight run, no snapshots: the card's run-to-run spread
+        run_a2 = optimizer(epoch, None)
+        run_a2.optimize()
+        steps_a = len(run_a.history)
+        steps_b = sum(len(o.history) for o in attempts)
+        for name, steps, got in (("straight", steps_a, launches_a),
+                                 ("resumed", steps_b, launches_b)):
+            if steps != RESUME_STEPS or any(v != 6 * steps
+                                            for v in got.values()):
+                raise AssertionError(
+                    f"ds2_resume {name} run: {steps} executed steps "
+                    f"launched {got} (want {RESUME_STEPS} steps, 6 of "
+                    f"each a step)")
+        if [len(o.history) for o in attempts] != [
+                RESUME_FAIL_AT, RESUME_STEPS - RESUME_FAIL_AT]:
+            raise AssertionError(f"ds2_resume attempts ran "
+                                 f"{[len(o.history) for o in attempts]}")
+        # B against A: losses, parameters and batch statistics, slots
+        losses_a = [m["loss"].item() for m in run_a.history]
+        losses_b = [m["loss"].item() for o in attempts for m in o.history]
+        final = attempts[-1]
+        final.history = [m for o in attempts for m in o.history]
+        resumed = compare(final, run_a)
+        spread = compare(run_a2, run_a)
+        tol = min(RESUME_CEIL,
+                  max(RESUME_TOL, RESUME_SPREAD * spread["worst_rel_l2"]))
+        if (not all(np.isfinite(losses_a))
+                or spread["worst_rel_l2"] > RESUME_CEIL
+                or resumed["worst_rel_l2"] > tol):
+            raise AssertionError(
+                f"ds2_resume: resumed against straight {resumed}, two "
+                f"straight runs {spread} (tol {tol}); losses {losses_b} vs "
+                f"{losses_a}")
+        # the fallback: a truncated newest snapshot resumes from the older
+        newest, _man = ckpt.newest_intact(dir_b)
+        snap_bytes = sum(os.path.getsize(os.path.join(newest, f))
+                         for f in ("manifest.json", "data/state.pt"))
+        with open(os.path.join(newest, "data", "state.pt"), "r+b") as f:
+            f.truncate(os.path.getsize(f.name) // 2)
+        older, older_man = ckpt.newest_intact(dir_b)
+        t0 = time.perf_counter()
+        ckpt.verify_snapshot(older)
+        verify_s = time.perf_counter() - t0
+        # restore alone: the older snapshot onto the card beside run A's
+        # tensors (what a resume loads before it copies into the module)
+        target = {"model": run_a.model.state_dict(), "step": 0,
+                  "opt_state": run_a._last_state.opt_state}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.load(older, target=target, verify=False)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        # a resume that ends where it lands: the older snapshot restored,
+        # no step taken, bit-equal to the crashed attempt's state there
+        fallback = optimizer(epoch, dir_b, end=RESUME_FAIL_AT).set_resume()
+        fallback.optimize()
+        launches = counts()
+        resumed_at = older_man["meta"]["iteration"]
+        *_, fb_equal = max_abs_rel(fallback.model.state_dict(),
+                                   attempts[0].model.state_dict())
+        if (os.path.basename(newest) != f"step_{RESUME_STEPS}"
+                or os.path.basename(older) != f"step_{RESUME_FAIL_AT}"
+                or resumed_at != RESUME_FAIL_AT or fallback.history
+                or fallback._last_state.step != RESUME_FAIL_AT
+                or not fb_equal):
+            raise AssertionError(
+                f"ds2_resume fallback: newest {newest}, older {older} at "
+                f"iteration {resumed_at}, {len(fallback.history)} steps, "
+                f"restored bit-equal {fb_equal}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # the SSD entry point: train_ssd writes a snapshot every epoch and
+        # set_resume restores it onto the card
+        rng = np.random.RandomState(41)
+        ssd_batches = [ssd_batch(rng, BATCH) for _ in range(2)]
+        ssd_dir = os.path.join(root, "ssd")
+        ssd_model = train_ssd(ssd_batches, None, TrainParams(
+            max_epoch=1, checkpoint_path=ssd_dir),
+            model=build_ssd_vgg(21, 300, device=dev, seed=0))
+        ssd_snap, ssd_man = ckpt.newest_intact(ssd_dir)
+        ckpt.verify_snapshot(ssd_snap)
+        fresh = build_ssd_vgg(21, 300, device=dev, seed=5)
+        params = TrainParams()
+        (Optimizer(fresh, ssd_batches, lambda out, b: out[0].sum())
+         .set_optim_method(SGD(params.learning_rate,
+                               momentum=params.momentum,
+                               weight_decay=params.weight_decay))
+         .set_resume(ssd_dir).set_end_when(Trigger.max_epoch(1))
+         .optimize())
+        ssd_equal = all(
+            a.device.type == dev.type and torch.equal(a, b)
+            for a, b in zip(fresh.state_dict().values(),
+                            ssd_model.state_dict().values()))
+        if (os.path.basename(ssd_snap) != "latest"
+                or ssd_man["meta"]["iteration"] != 2 or not ssd_equal):
+            raise AssertionError(f"train_ssd checkpoint: {ssd_snap} "
+                                 f"{ssd_man['meta']}, restored equal "
+                                 f"{ssd_equal}")
+        emit("ds2_resume", nvidia_smi=smi, hidden=DS2_HIDDEN, layers=3,
+             batch=BATCH, steps=RESUME_STEPS, fail_at=RESUME_FAIL_AT,
+             checkpoint_every=RESUME_EVERY,
+             executed_steps={"straight": steps_a, "resumed": steps_b,
+                             "fallback": len(fallback.history)},
+             launches={"straight": launches_a, "resumed": launches_b,
+                       "path": launches},
+             losses_straight=losses_a, losses_resumed=losses_b,
+             resumed_vs_straight=resumed, straight_vs_straight=spread,
+             tolerance=tol,
+             fallback={"corrupted": os.path.basename(newest),
+                       "resumed_from": os.path.basename(older),
+                       "at_iteration": resumed_at,
+                       "restored_bit_equal": fb_equal},
+             snapshot_bytes=snap_bytes, save_s=save_s,
+             verify_s=verify_s, restore_s=restore_s, peak_gb=peak_gb,
+             ssd_entry={"snapshot": os.path.basename(ssd_snap),
+                        "meta_iteration": ssd_man["meta"]["iteration"],
+                        "restored_on_card_equal": ssd_equal})
+
+        # -- ds2_legacy: the per-step engine against blocked, 1 layer ----
+        feats = next(b for b in train_batches
+                     if b["input"][0].shape[1] == DS2_BUCKETS[-1])
+        x = torch.from_numpy(feats["input"][0][:, :LEGACY_FRAMES]).to(dev)
+        nets = {e: make_ds2_model(hidden=DS2_HIDDEN, n_rnn_layers=1,
+                                  rnn_engine=e, seed=1, device=dev)
+                for e in ("legacy", "blocked")}
+        steps = {e: make_eval_step(m) for e, m in nets.items()}
+        lp = {e: s(x) for e, s in steps.items()}
+        legacy_err = (lp["legacy"] - lp["blocked"]).abs().max().item()
+        ms = {e: cuda_ms(lambda s=s: s(x), 3, 1) for e, s in steps.items()}
+        if legacy_err > DS2_LOGP_TOL:
+            raise AssertionError(f"ds2_legacy: legacy vs blocked log-probs "
+                                 f"{legacy_err} (tol {DS2_LOGP_TOL})")
+        emit("ds2_legacy", nvidia_smi=smi, hidden=DS2_HIDDEN, layers=1,
+             batch=BATCH, frames=LEGACY_FRAMES,
+             logp_max_abs_diff=legacy_err, tolerance=DS2_LOGP_TOL,
+             forward_ms=ms)
+
+        # -- ds2_loader: two forked workers against the serial stream -----
+        t0 = time.perf_counter()
+        forked = list(load_asr_train_set(
+            samples, labels, sample_lengths=sample_lengths,
+            batch_size=BATCH, seed=0, bucket_edges=DS2_BUCKETS,
+            worker_processes=2))
+        forked_s = time.perf_counter() - t0
+        if len(forked) != len(train_batches):
+            raise AssertionError(f"ds2_loader: {len(forked)} batches from "
+                                 f"2 workers, {len(train_batches)} serial")
+        arrays = 0
+        for g, w in zip(forked, train_batches):
+            for k in w:
+                for a, b in zip(*(v if isinstance(v, tuple) else (v,)
+                                  for v in (g[k], w[k]))):
+                    if not np.array_equal(a, b):
+                        raise AssertionError(f"ds2_loader: {k} differs")
+                    arrays += 1
+        emit("ds2_loader", workers=2, batches=len(forked), arrays=arrays,
+             equal=True, seconds=forked_s)
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def ssd_swap_phase(dev, smi):
+    """SSD300 serving across live weight swaps on the card (phase
+    ``ssd_swap``); returns K1's and K2's launches on the path."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.models.ssd import build_ssd_vgg
+    from analytics_zoo_tpu_torch.obs.slo import model_slos
+    from analytics_zoo_tpu_torch.ops import pallas_detout, pallas_nms
+    from analytics_zoo_tpu_torch.parallel import checkpoint as ckpt
+    from analytics_zoo_tpu_torch.pipelines.ssd import (BGR_MEANS,
+                                                       PreProcessParam,
+                                                       SSDPredictor,
+                                                       ssd_serving_tiers)
+    from analytics_zoo_tpu_torch.resilience.errors import CheckpointCorrupt
+    from analytics_zoo_tpu_torch.serving import (ModelConfig,
+                                                 MonotonicClock,
+                                                 ServingRuntime)
+
+    rng = np.random.RandomState(43)
+    param = PreProcessParam(batch_size=BATCH, resolution=300)
+    installs = []
+
+    def images(n):
+        return [rng.randint(0, 256, (300, 300, 3)).astype(np.float32)
+                - np.float32(BGR_MEANS) for _ in range(n)]
+
+    def weights_to_tiers(state, rid):
+        """The rungs on a module that holds the loaded state, on the
+        card."""
+        t0 = time.perf_counter()
+        m = build_ssd_vgg(21, 300, device=dev, seed=0)
+        m.load_state_dict(state)
+        tiers = ssd_serving_tiers(m, param, device=dev)
+        k2 = pallas_detout.fused_detection_output.launches
+        for t in tiers:            # cuDNN / cuBLAS for the new module
+            t.forward({"input": warm})
+        torch.cuda.synchronize()
+        installs.append({"rid": rid, "s": time.perf_counter() - t0,
+                         "k2_warmup": pallas_detout.fused_detection_output
+                         .launches - k2})
+        return tiers
+
+    def serve(rt, xs):
+        """Submit one request at a time and pump: the swap advances
+        between batches.  Returns the requests."""
+        reqs = []
+        for x in xs:
+            reqs.append(rt.submit({"input": x}))
+            rt.pump()
+        rt.drain()
+        rt.pump(force=True)
+        return reqs
+
+    def latency_ms(reqs):
+        lat = sorted((r.completed_t - r.arrival_t) * 1e3 for r in reqs)
+        return {"p50": statistics.median(lat),
+                "p99": lat[min(len(lat) - 1, int(0.99 * len(lat)))]}
+
+    def counters():
+        torch.cuda.synchronize()
+        return {"nms_sweep": pallas_nms.nms_sweep.launches,
+                "fused_detection_output":
+                    pallas_detout.fused_detection_output.launches}
+
+    root = tempfile.mkdtemp()
+    try:
+        warm = np.stack(images(BATCH))
+        model0 = build_ssd_vgg(21, 300, device=dev, seed=0)
+        tiers0 = ssd_serving_tiers(model0, param, device=dev)
+        for t in tiers0:
+            t.forward({"input": warm})
+        cfg = ModelConfig(name="ssd", tiers=tiers0,
+                          weights_to_tiers=weights_to_tiers,
+                          length_key=None, max_batch=BATCH,
+                          default_deadline_s=3600.0,
+                          slos=model_slos("ssd", miss_budget=0.9,
+                                          shed_budget=0.9))
+        rt = ServingRuntime(models=[cfg], n_replicas=2, max_batch=BATCH,
+                            queue_capacity=4 * SWAP_REQUESTS,
+                            default_deadline_s=3600.0,
+                            clock=MonotonicClock())
+        base = os.path.join(root, "ssd")
+        model1 = build_ssd_vgg(21, 300, device=dev, seed=1)
+        snap1 = ckpt.save(base, model1.state_dict(), step=1)
+        t0 = time.perf_counter()        # what hot_swap does first
+        ckpt.load(snap1, verify=True, device=dev)
+        torch.cuda.synchronize()
+        load_verify_s = time.perf_counter() - t0
+        before = serve(rt, images(SWAP_REQUESTS))
+
+        # -- the main path: counts at 0 just before, read just after ------
+        torch.cuda.reset_peak_memory_stats()
+        pallas_nms.nms_sweep.launches = 0
+        pallas_detout.fused_detection_output.launches = 0
+        t0 = time.perf_counter()
+        rt.hot_swap(snap1, canary_fraction=0.25, canary_min=BATCH,
+                    divergence_budget=1e9, lkg_after=1, device=dev)
+        during = serve(rt, images(SWAP_REQUESTS))
+        rollout_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        probe = images(BATCH)
+        after = serve(rt, probe + images(SWAP_REQUESTS - BATCH))
+        launches = counters()
+        live = 2 * SWAP_REQUESTS // BATCH       # the "during" and "after"
+        warmups = sum(i["k2_warmup"] for i in installs)
+        mirror_forwards = launches["fused_detection_output"] - live - warmups
+        swap = rt.snapshot()["swap"]
+        acct = rt.accounting()
+        installed = [e["replica"] for e in rt.pool.events
+                     if e["kind"] == "swap_installed"]
+        mirrored = rt.metrics.registry.counter(
+            "serve/canary/mirrored/model=ssd").value
+        # the rows the fp rung serves: normalized detections of the batch
+        want = SSDPredictor(model1, param, device=dev).detect_normalized(
+            np.stack(probe)).cpu()
+        got = torch.from_numpy(np.stack([r.result for r in after[:BATCH]]))
+        new_err = rows_err(got, want)
+        lkg = ckpt.tier_snapshot(base, "serve-lkg")
+        if (swap["completed"] != 1 or swap["rollbacks"]
+                or sorted(installed) != [0, 1]
+                or acct["by_state"] != {"done": acct["submitted"]}
+                or acct["unaccounted"] or rt.snapshot()["metrics"]["failed"]
+                or swap["lkg_promotions"] != 1 or lkg is None
+                or not 1 <= mirror_forwards <= live
+                or launches["nms_sweep"]):
+            raise AssertionError(
+                f"ssd_swap rollout: {swap}, installed {installed}, "
+                f"accounting {acct}, launches {launches}, serve-lkg {lkg}")
+
+        # -- a tight divergence budget: the canary trips, rolls back ------
+        snap2 = ckpt.save(base, build_ssd_vgg(21, 300, device=dev,
+                                              seed=2).state_dict(), step=2)
+        drains = sum(e["kind"] == "swap_drain" for e in rt.pool.events)
+        # every row mirrored: the seeded 0.25 gate selects request ids in
+        # runs, and none of this window's
+        rt.hot_swap(snap2, canary_fraction=1.0, canary_min=BATCH,
+                    divergence_budget=1e-6, device=dev)
+        tripped = serve(rt, probe + images(SWAP_REQUESTS - BATCH))
+        swap2 = rt.snapshot()["swap"]
+        trip_err = rows_err(torch.from_numpy(
+            np.stack([r.result for r in tripped[:BATCH]])), want)
+        if (swap2["trips"] != 1 or swap2["rollbacks"] != 1
+                or swap2["history"][-1]["outcome"] != "rolled_back"
+                or sum(e["kind"] == "swap_drain" for e in rt.pool.events)
+                != drains):
+            raise AssertionError(f"ssd_swap canary trip: {swap2}")
+
+        # -- a corrupt publish is refused before any drain ----------------
+        snap3 = ckpt.save(base, model1.state_dict(), step=3)
+        full = os.path.join(snap3, "data", "state.pt")
+        with open(full, "r+b") as f:
+            f.seek(os.path.getsize(full) // 2)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        try:
+            rt.hot_swap(snap3, device=dev)
+        except CheckpointCorrupt as e:
+            corrupt = type(e).__name__
+        else:
+            raise AssertionError("ssd_swap: a corrupt publish was taken")
+        if rt.swap_active or rt.snapshot()["swap"]["rollouts"] != 2:
+            raise AssertionError("ssd_swap: the corrupt publish started a "
+                                 "rollout")
+        acct = rt.accounting()
+        if acct["by_state"] != {"done": acct["submitted"]}:
+            raise AssertionError(f"ssd_swap accounting {acct}")
+        emit("ssd_swap", nvidia_smi=smi, classes=21, batch=BATCH,
+             replicas=2, requests=acct["submitted"],
+             rollout={"completed": swap["completed"], "installed":
+                      installed, "mirrored": mirrored,
+                      "failed": rt.snapshot()["metrics"]["failed"],
+                      "lkg_promotions": swap["lkg_promotions"],
+                      "new_rows_max_abs_err": new_err},
+             canary_trip={"trips": swap2["trips"],
+                          "rollbacks": swap2["rollbacks"],
+                          "reason": swap2["history"][-1].get("reason"),
+                          "rows_max_abs_err_vs_previous": trip_err},
+             corrupt_publish=corrupt, launches=launches,
+             k2_live_forwards=live, k2_mirror_forwards=mirror_forwards,
+             k2_install_warmups=warmups,
+             load_verify_s=load_verify_s, rollout_s=rollout_s,
+             install_s=installs, latency_ms_before=latency_ms(before),
+             latency_ms_during=latency_ms(during),
+             latency_ms_after=latency_ms(after), peak_gb=peak_gb,
+             accounting=acct)
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -4989,14 +5529,27 @@ def main() -> int:
     def zoo_paths(name):
         return {path: counts[name] for path, counts in zoo.items()}
 
+    # -- 6k. DS2 training checkpointed, crashed and resumed: K3 and K4 ----
+    t0 = time.perf_counter()
+    resume = ds2_resume_phase(dev, smi, train_batches, samples,
+                              sample_lengths, labels)
+    resume_s = time.perf_counter() - t0
+
+    # -- 6l. SSD serving across live weight swaps: K2 ---------------------
+    swap = ssd_swap_phase(dev, smi)
+    emit("timing", nvidia_smi=smi, ds2_resume_phase_s=resume_s,
+         ssd_swap_phase_s=time.perf_counter() - t0 - resume_s)
+
     # -- 7. kernels, then the device line last ----------------------------
     kernels = [
         {"name": "nms_sweep", "route": "cuda",
          "source": "analytics_zoo_tpu_torch/csrc/nms_sweep.cu",
          "replaces": "analytics_zoo_tpu/ops/pallas_nms.py:91",
-         "launches": launches["nms_sweep"] + ssd_serving["k1_launches"],
+         "launches": (launches["nms_sweep"] + ssd_serving["k1_launches"]
+                      + swap["nms_sweep"]),
          "launches_by_path": {
              "ssd_serving": launches["nms_sweep"],
+             "ds2_resume": 0, "ssd_swap": swap["nms_sweep"],
              "ssd_serving_approx_topk": ssd_serving["k1_launches"],
              "frcnn_serving": frcnn["nms_sweep"],
              "frcnn_train": frcnn_train["nms_sweep"],
@@ -5011,9 +5564,11 @@ def main() -> int:
                       + ssd_train["k2_launches"] + ssd_input["validation"]
                       + ssd_input["predict"] + ssd_serving["k2_launches"]
                       + ds2_online["k2_fleet"] + caffe_graph["k2_launches"]
-                      + variants["k2_launches"]),
+                      + variants["k2_launches"]
+                      + swap["fused_detection_output"]),
          "launches_by_path": {
              "ssd_serving": launches["fused_detection_output"],
+             "ds2_resume": 0, "ssd_swap": swap["fused_detection_output"],
              "ssd_serving_runtime": ssd_serving["k2_launches"],
              "fleet": ds2_online["k2_fleet"],
              "ssd_train_validation": ssd_train["k2_launches"],
@@ -5030,9 +5585,12 @@ def main() -> int:
          "source": "analytics_zoo_tpu_torch/csrc/persistent_rnn.cu",
          "replaces": "analytics_zoo_tpu/ops/pallas_rnn.py:266",
          "launches": (k3_launches + train_launches["persistent_rnn"]
-                      + sum(ds2_online["k3"].values())),
+                      + sum(ds2_online["k3"].values())
+                      + resume["persistent_rnn"]),
          "launches_by_path": {"ds2_serving": k3_launches,
                               "ds2_train": train_launches["persistent_rnn"],
+                              "ds2_resume": resume["persistent_rnn"],
+                              "ssd_swap": 0,
                               **ds2_online["k3"],
                               "frcnn_serving": frcnn["persistent_rnn"],
                               "frcnn_train": frcnn_train["persistent_rnn"],
@@ -5047,9 +5605,11 @@ def main() -> int:
         {"name": "persistent_rnn_bwd", "route": "cuda",
          "source": "analytics_zoo_tpu_torch/csrc/persistent_rnn_bwd.cu",
          "replaces": "analytics_zoo_tpu/ops/pallas_rnn.py:434",
-         "launches": train_launches["persistent_rnn_bwd"],
+         "launches": (train_launches["persistent_rnn_bwd"]
+                      + resume["persistent_rnn_bwd"]),
          "launches_by_path": {
              "ds2_train": train_launches["persistent_rnn_bwd"],
+             "ds2_resume": resume["persistent_rnn_bwd"], "ssd_swap": 0,
              "frcnn_serving": frcnn["persistent_rnn_bwd"],
              "frcnn_train": frcnn_train["persistent_rnn_bwd"],
              **zoo_paths("persistent_rnn_bwd")},

@@ -439,11 +439,12 @@ def test_train_step_bf16_and_refusals():
         with pytest.raises(NotImplementedError, match=item):
             train.make_train_step(model, crit, optim.Adam(), **kw)
     opt = train.Optimizer(model, [batch], crit)
-    for call, item in ((opt.set_checkpoint, "item 12"),
-                       (opt.set_anomaly_policy, "item 13"),
+    for call, item in ((opt.set_anomaly_policy, "item 13"),
                        (opt.set_observability, "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    # checkpoints are served (tests/test_torch_resume.py)
+    assert opt.set_checkpoint("/nowhere", optim.Trigger.every_epoch()) is opt
     # the input path is ported: a device transform runs in the step, and
     # prefetch on a CPU model does nothing (pinning needs a card)
     seen = []
@@ -453,8 +454,6 @@ def test_train_step_bf16_and_refusals():
     step(train.create_train_state(model, optim.Adam()), batch)
     assert seen == [sorted(batch)]
     assert train.Optimizer(model, [batch], crit, prefetch=2).prefetch == 2
-    with pytest.raises(NotImplementedError, match="item 12"):
-        pipe.train_ds2(model, [batch], checkpoint_path="/nowhere")
     with pytest.raises(NotImplementedError, match="item 12"):
         pipe.train_ds2(model, [batch], sequence_parallel=True)
 
@@ -490,7 +489,8 @@ def _assert_batches_equal(got, want):
 @pytest.mark.parametrize("bucketed", [False, True])
 def test_load_asr_train_set_equals_jax(bucketed):
     """Plain (fixed ``utt_length``) and bucketed batches, two epochs (the
-    second reshuffled from ``seed + 1``), equal to the JAX package's."""
+    second reshuffled from ``seed + 1``), equal to the JAX package's, and
+    the first epoch's again from ``worker_processes=2``."""
     samples, labels, lengths = _waves(20, 0)
     kw = (dict(sample_lengths=lengths, bucket_edges=[30, 45, 60])
           if bucketed else dict(utt_length=50))
@@ -503,8 +503,11 @@ def test_load_asr_train_set_equals_jax(bucketed):
     with pytest.raises(ValueError, match="bucket_edges"):
         pipe.load_asr_train_set(samples, labels, sample_lengths=lengths,
                                 bucket_edges=[30])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        pipe.load_asr_train_set(samples, labels, worker_processes=2)
+    # the multiprocess loader: the same batches from two forked workers
+    forked = pipe.load_asr_train_set(samples, labels, batch_size=3, seed=7,
+                                     worker_processes=2, **kw)
+    _assert_batches_equal(list(forked), list(jax_pipe.load_asr_train_set(
+        samples, labels, batch_size=3, seed=7, **kw)))
 
 
 def test_train_ds2_matches_jax(monkeypatch):

@@ -624,15 +624,20 @@ def test_multiplexed_refused_keyword_names_its_item(kw, item):
 
 
 def test_still_refused_calls_name_their_item():
+    """Live swaps are served (``tests/test_torch_live_swap.py``); what
+    they still refuse is re-warming (``warm_s``, item 13), and a model
+    without ``weights_to_tiers`` cannot swap."""
     tier = tserving.ServingTier("fp", _fwd)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tserving.ModelConfig(name="x", tiers=[tier],
-                             weights_to_tiers=lambda v, rid: [tier])
+    cfg = tserving.ModelConfig(name="x", tiers=[tier],
+                               weights_to_tiers=lambda v, rid: [tier])
     rt = tserving.ServingRuntime(
-        models=[tserving.ModelConfig(name="x", tiers=[tier])])
-    for call in (rt.hot_swap, rt.pool.hot_swap):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            call("ckpt")
+        models=[cfg, tserving.ModelConfig(name="y", tiers=[tier])])
+    with pytest.raises(NotImplementedError, match="item 13"):
+        rt.hot_swap("ckpt", model="x", warm_s=1.0, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        rt.pool.hot_swap("ckpt", install=None, warm_s=1.0)
+    with pytest.raises(ValueError, match="weights_to_tiers"):
+        rt.hot_swap("ckpt", model="y", device="cpu")
 
 
 def test_models_and_slo_keywords_are_accepted():

@@ -86,6 +86,12 @@ def test_port_imports_pull_in_no_jax():
             "analytics_zoo_tpu_torch.pipelines.recommendation",
             "analytics_zoo_tpu_torch.pipelines.sentiment",
             "analytics_zoo_tpu_torch.pipelines.visualizer"} <= set(mods)
+    # the checkpoint slice: snapshots, the restart supervisor, preemption
+    # and the push-mode watchdog
+    assert {"analytics_zoo_tpu_torch.parallel.checkpoint",
+            "analytics_zoo_tpu_torch.parallel.elastic",
+            "analytics_zoo_tpu_torch.resilience.preempt",
+            "analytics_zoo_tpu_torch.resilience.errors"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "from analytics_zoo_tpu_torch.pipelines import (StreamingDS2, "
@@ -99,6 +105,12 @@ def test_port_imports_pull_in_no_jax():
             "SSDMobileNet\n"
             "from analytics_zoo_tpu_torch.pipelines import ("
             "run_fraud_pipeline, train_recommender, train_sentiment)\n"
+            "from analytics_zoo_tpu_torch.parallel import (run_resilient, "
+            "FaultInjector, DivergenceDetector)\n"
+            "from analytics_zoo_tpu_torch.parallel.checkpoint import "
+            "CheckpointWatcher\n"
+            "from analytics_zoo_tpu_torch.utils.convert import "
+            "train_state_from_jax\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")

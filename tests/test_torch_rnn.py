@@ -229,8 +229,12 @@ def test_engines_and_fresh_weights():
     cell = rnn.RnnCell(6, input_size=D_IN)
     with pytest.raises(ValueError, match="engine"):
         rnn.Recurrent(cell, engine="warp")
-    with pytest.raises(NotImplementedError, match="legacy"):
-        rnn.Recurrent(cell, engine="legacy")(torch.zeros(1, 2, D_IN))
+    # the legacy per-step engine runs, without length masking
+    with pytest.raises(ValueError, match="n_frames"):
+        rnn.Recurrent(cell, engine="legacy")(torch.zeros(1, 2, D_IN),
+                                             n_frames=torch.tensor([1]))
+    assert rnn.Recurrent(cell, engine="legacy")(
+        torch.zeros(1, 2, D_IN)).shape == (1, 2, 6)
     bi = rnn.BiRecurrent(cell)
     assert not torch.equal(bi.fwd.body.h2h.weight, bi.bwd.body.h2h.weight)
     gen = [torch.Generator().manual_seed(0) for _ in range(2)]

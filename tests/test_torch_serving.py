@@ -356,10 +356,13 @@ def test_defaults_of_refused_keywords_construct():
         parallel_replicas=False, slice_width=1, device_budget=None,
         slo=None, slo_params=None, autoscaler=None, chaos=None, obs=None,
         health=None, specs=None, compile_s=0.0)
-    for call, item in ((rt.hot_swap, "item 12"),
-                       (rt.pool.hot_swap, "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
+    # live swaps are served; re-warming (warm_s) needs item 13
+    for call in (lambda: rt.hot_swap("ckpt", warm_s=1.0),
+                 lambda: rt.pool.hot_swap("ckpt", install=None, warm_s=1.0)):
+        with pytest.raises(NotImplementedError, match="item 13"):
             call()
+    with pytest.raises(ValueError, match="weights_to_tiers"):
+        rt.hot_swap("ckpt", device="cpu")
     # sessions are served by a streaming model only, as in the reference
     with pytest.raises(ValueError, match="not a streaming"):
         rt.open_session()
@@ -374,6 +377,12 @@ def test_error_taxonomy_matches_reference():
         exc = getattr(terrors, name)("x")
         assert terrors.is_retryable(exc) == jerrors.is_retryable(
             getattr(jerrors, name)("x")) is True
+    # the training, checkpoint and input classes: the same verdicts
+    for name in ("Preempted", "PrefetchWorkerDied", "InjectedFault",
+                 "CheckpointCorrupt", "ShardReadError", "TrainingDiverged",
+                 "ElasticPlacementError"):
+        assert terrors.is_retryable(getattr(terrors, name)("x")) == \
+            jerrors.is_retryable(getattr(jerrors, name)("x")), name
     assert terrors.is_retryable(torch.cuda.OutOfMemoryError("oom"))
     assert not terrors.is_retryable(ValueError("bad shape"))
 
