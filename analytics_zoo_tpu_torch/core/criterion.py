@@ -25,6 +25,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from analytics_zoo_tpu_torch.utils.spmd import global_count, global_width
+
 
 class Criterion:
     """Base class; subclasses implement ``__call__(input, target) ->
@@ -40,7 +42,10 @@ def _reduce(x: torch.Tensor, mask=None, size_average: bool = True):
     if mask is not None:
         mask = torch.as_tensor(mask, dtype=x.dtype, device=x.device)
         x = x * mask
-        denom = torch.clamp(mask.sum(), min=1.0)
+        # over a data axis the count is the global batch's, and a rank's
+        # share of the mean is scaled so that the ranks' average is it
+        denom = torch.clamp(global_count(mask.sum()), min=1.0) \
+            / global_width()
     else:
         denom = x.numel()
     total = x.sum()

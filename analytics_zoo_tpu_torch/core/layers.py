@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from analytics_zoo_tpu_torch.utils.spmd import rows_rand
+
 IntPair = Union[int, Tuple[int, int]]
 
 
@@ -134,18 +136,21 @@ class SpatialConvolution(nn.Conv2d):
                          bias=use_bias)
         _xavier_(self, generator)
 
+    def pad_input(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` with flax's SAME padding (itself under other padding)."""
+        if not self.same:
+            return x
+        pads = []
+        for n, k, s, d in zip(reversed(x.shape[2:]),
+                              reversed(self.kernel_size),
+                              reversed(self.stride), reversed(self.dilation)):
+            out = -(-n // s)
+            total = max((out - 1) * s + d * (k - 1) + 1 - n, 0)
+            pads += [total // 2, total - total // 2]
+        return F.pad(x, pads)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.same:
-            pads = []
-            for n, k, s, d in zip(reversed(x.shape[2:]),
-                                  reversed(self.kernel_size),
-                                  reversed(self.stride),
-                                  reversed(self.dilation)):
-                out = -(-n // s)
-                total = max((out - 1) * s + d * (k - 1) + 1 - n, 0)
-                pads += [total // 2, total - total // 2]
-            x = F.pad(x, pads)
-        return super().forward(x)
+        return super().forward(self.pad_input(x))
 
 
 class SpatialDilatedConvolution(SpatialConvolution):
@@ -282,7 +287,8 @@ def dropout(x: torch.Tensor, rate: float,
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    # a data-parallel step's rank draws its rows of the global mask
+    mask = rows_rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 

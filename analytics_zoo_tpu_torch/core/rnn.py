@@ -37,6 +37,7 @@ from torch import nn
 
 from analytics_zoo_tpu_torch.core.layers import lecun_normal_
 from analytics_zoo_tpu_torch.ops.pallas_rnn import persistent_rnn
+from analytics_zoo_tpu_torch.utils.spmd import whole
 
 ENGINES = ("legacy", "blocked", "pallas")
 
@@ -228,19 +229,33 @@ def _pallas_cell_kind(cell) -> str:
 def _stack_recurrent_params(kind: str, cell):
     """Gate-stack a cell's h2h kernels and biases into the ``[H, k·H]`` /
     ``[k·H]`` layout of ``ops.pallas_rnn``, in each cell's ``project``
-    order; unbiased gates contribute zero bias columns."""
+    order; unbiased gates contribute zero bias columns.  A weight sharded
+    by tensor-parallel rules arrives gathered whole (its gradient sliced
+    back to the shard: ``utils.spmd.whole``)."""
     if kind == "vanilla":
-        return cell.h2h.weight.t(), cell.h2h.bias
+        return whole(cell.h2h.weight).t(), cell.h2h.bias
     if kind == "gru":
         g = cell.gru
-        w = torch.cat([g.hr.weight.t(), g.hz.weight.t(), g.hn.weight.t()], 1)
+        w = torch.cat([whole(g.hr.weight).t(), whole(g.hz.weight).t(),
+                       whole(g.hn.weight).t()], 1)
         b = torch.cat([g.hn.bias.new_zeros(2 * cell.hidden_size), g.hn.bias])
         return w, b
     lstm = cell.lstm
     names = ("hi", "hf", "hg", "ho")
-    w = torch.cat([getattr(lstm, k).weight.t() for k in names], 1)
+    w = torch.cat([whole(getattr(lstm, k).weight).t() for k in names], 1)
     b = torch.cat([getattr(lstm, k).bias for k in names])
     return w, b
+
+
+def _check_shards(shards: Optional[int]) -> Optional[int]:
+    """``pallas_data_shards``: the reference divides the jit-global batch
+    by it to price the kernel's VMEM.  A rank here sees its own rows and
+    the Hopper fit (``ops.pallas_rnn.check_hopper_fit``) does not depend
+    on the batch, so it is validated and kept, with no effect."""
+    if shards is not None and (not isinstance(shards, int) or shards < 1):
+        raise ValueError(f"pallas_data_shards={shards!r} must be None or a "
+                         f"positive int")
+    return shards
 
 
 def _masked_step(cell, carry, pre_t, m_t):
@@ -267,7 +282,8 @@ class Recurrent(nn.Module):
 
     def __init__(self, cell: nn.Module, reverse: bool = False,
                  engine: Optional[str] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 pallas_data_shards: Optional[int] = None):
         super().__init__()
         if engine not in (None,) + ENGINES:
             raise ValueError(f"engine={engine!r} not in {ENGINES}")
@@ -275,6 +291,7 @@ class Recurrent(nn.Module):
         self.body.reset_parameters(generator)
         self.reverse = reverse
         self.engine = engine
+        self.pallas_data_shards = _check_shards(pallas_data_shards)
 
     def _resolve_engine(self) -> str:
         return self.engine or "blocked"
@@ -374,14 +391,18 @@ class BiRecurrent(nn.Module):
 
     def __init__(self, cell: nn.Module, merge: str = "sum",
                  engine: Optional[str] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 pallas_data_shards: Optional[int] = None):
         super().__init__()
         if merge not in ("sum", "concat"):
             raise ValueError(f"merge={merge!r} not in ('sum', 'concat')")
         self.merge = merge
-        self.fwd = Recurrent(cell, engine=engine, generator=generator)
+        self.pallas_data_shards = _check_shards(pallas_data_shards)
+        self.fwd = Recurrent(cell, engine=engine, generator=generator,
+                             pallas_data_shards=pallas_data_shards)
         self.bwd = Recurrent(cell, reverse=True, engine=engine,
-                             generator=generator)
+                             generator=generator,
+                             pallas_data_shards=pallas_data_shards)
 
     def forward(self, x, n_frames=None):
         fwd = self.fwd(x, n_frames=n_frames)

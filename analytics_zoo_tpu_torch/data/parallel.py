@@ -26,9 +26,8 @@ processes, order-preserving and deterministically seeded.  Host code.
 
 ``replay_batches`` re-materialises a checkpointed run's batches and
 ``elastic_resume_coordinates`` turns a checkpoint's sample offset into
-loader terms.  ``make_input_pipeline`` takes a mesh and raises until the
-sharded runtime is ported (ROADMAP.md Queue 1 item 12); compose
-``ParallelLoader`` with ``data.prefetch.device_prefetch`` instead.
+loader terms.  ``make_input_pipeline`` gives each rank of a mesh its
+slices of the global batches, uploaded ahead of the step.
 """
 
 from __future__ import annotations
@@ -853,15 +852,78 @@ def elastic_resume_coordinates(epoch: int, samples_into_epoch: int,
     return int(epoch), samples_into_epoch // global_batch
 
 
+class _RankSlices:
+    """Each global batch of ``loader`` cut to this rank's rows
+    (``parallel.mesh.shard_batch``); ``close`` reaches the loader's
+    epoch."""
+
+    def __init__(self, loader, mesh, microbatches: int):
+        self.loader, self.mesh = loader, mesh
+        self.microbatches = microbatches
+
+    def __iter__(self):
+        from analytics_zoo_tpu_torch.parallel.mesh import shard_batch
+
+        it = iter(self.loader)
+        try:
+            for batch in it:
+                yield shard_batch(batch, self.mesh,
+                                  microbatches=self.microbatches)
+        finally:
+            if hasattr(it, "close"):
+                it.close()
+
+    def __len__(self):
+        return len(self.loader)
+
+
+class InputPipeline:
+    """The iterable :func:`make_input_pipeline` returns: each ``iter()``
+    one epoch of this rank's slices of the global batches, on the rank's
+    device, ``prefetch`` ahead on a card (pinned, side-stream uploads),
+    as they come on the CPU.  ``yields_local_slices`` tells the
+    ``Optimizer`` not to cut them again."""
+
+    yields_local_slices = True
+
+    def __init__(self, slices, device, prefetch: int):
+        from analytics_zoo_tpu_torch.data.prefetch import PrefetchDataSet
+
+        self.slices = slices
+        self.device = device
+        self._feed = (PrefetchDataSet(slices, device, size=prefetch)
+                      if device.type == "cuda" and prefetch > 0 else slices)
+
+    def __iter__(self):
+        return iter(self._feed)
+
+    def __len__(self):
+        return len(self.slices)
+
+
 def make_input_pipeline(dataset, mesh, num_workers: int = 0,
                         prefetch: int = 2, base_seed: int = 0,
-                        loader=None, **loader_kw):
-    """The reference's loader-to-mesh pipeline; on one device compose
-    ``ParallelLoader`` with ``PrefetchDataSet(loader, device)``."""
-    raise NotImplementedError(
-        "make_input_pipeline: mesh placement is not ported yet (ROADMAP.md "
-        "Queue 1 item 12); use data.prefetch.PrefetchDataSet(loader, "
-        "device)")
+                        loader: Optional["ParallelLoader"] = None,
+                        device=None, microbatches: int = 1,
+                        **loader_kw) -> InputPipeline:
+    """The host-to-device input pipeline of one rank: the global batches
+    of ``dataset`` through ``ParallelLoader`` (``num_workers`` forked
+    workers, seeded by ``base_seed``; or ``loader``), each cut to this
+    rank's rows over the mesh's ``data`` axis, uploaded by
+    ``data.prefetch.device_prefetch`` ``prefetch`` batches ahead of the
+    step on the rank's device (``utils.engine.device``, or ``device``).
+    ``microbatches``: the step's ``grad_accum`` (a rank keeps its share of
+    each microbatch).  Every rank builds the same pipeline over the same
+    dataset."""
+    from analytics_zoo_tpu_torch.utils import engine
+    from analytics_zoo_tpu_torch.utils.device import resolve_device
+
+    if loader is None:
+        loader = ParallelLoader(dataset, num_workers, base_seed=base_seed,
+                                **loader_kw)
+    return InputPipeline(_RankSlices(loader, mesh, microbatches),
+                         engine.device() if device is None
+                         else resolve_device(device), prefetch)
 
 
 def cuda_codec_stages(stages) -> List[Any]:

@@ -3,7 +3,8 @@
 host prep, device execution and readback.
 
 :func:`device_prefetch` takes the reference's mesh argument as a device
-(one card; sharded placement is ROADMAP.md Queue 1 item 12).  A worker
+(a rank's card: ``data.parallel.make_input_pipeline`` cuts each rank's
+rows before the upload).  A worker
 thread iterates the host batches, pins each one, copies it with
 ``non_blocking=True`` on a side CUDA stream and records an event; the
 consumer makes its current stream wait on that event and calls

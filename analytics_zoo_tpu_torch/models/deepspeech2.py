@@ -11,8 +11,10 @@ tree by name.
 
 In ``eval()`` mode sequence BN uses its running statistics; under
 ``train()`` it normalizes with the batch statistics of the valid frames
-(``n_frames``) and updates the running ones with flax's semantics.  The
-sequence-parallel forward is not ported (ROADMAP.md Queue 1 item 12).
+(``n_frames``) and updates the running ones with flax's semantics; in a
+data-parallel step (``utils.spmd.global_batch``) the statistics are the
+global batch's, their sums all-reduced with their gradient.  The
+sequence-parallel forward is not ported (ROADMAP.md Queue 1 item 12b).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from torch import nn
 
 from analytics_zoo_tpu_torch.core.layers import lecun_normal_
 from analytics_zoo_tpu_torch.core.rnn import BiRecurrent, Recurrent, RnnCell
+from analytics_zoo_tpu_torch.utils import spmd
 from analytics_zoo_tpu_torch.utils.device import resolve_device
 
 
@@ -59,7 +62,9 @@ class SequenceBN(nn.Module):
             return y.reshape(shape)
         xf = x.float()
         dims = tuple(range(x.dim() - 1))
-        if mask is None:
+        if spmd.global_width() > 1:
+            mean, mean2 = self._global_moments(xf, mask, dims)
+        elif mask is None:
             mean = xf.mean(dims)
             mean2 = (xf * xf).mean(dims)
         else:
@@ -69,6 +74,8 @@ class SequenceBN(nn.Module):
             mean = (xf * m).sum(dims) / count
             mean2 = (xf * xf * m).sum(dims) / count
         var = torch.clamp(mean2 - mean * mean, min=0.0)
+        # (every data rank sees the same global moments, so the running
+        # statistics move alike everywhere)
         with torch.no_grad():
             self.running_mean.mul_(self.MOMENTUM).add_(
                 (1.0 - self.MOMENTUM) * mean)
@@ -76,6 +83,20 @@ class SequenceBN(nn.Module):
                 (1.0 - self.MOMENTUM) * var)
         y = (xf - mean) * (torch.rsqrt(var + self.epsilon) * self.weight)
         return (y + self.bias).to(x.dtype)
+
+
+    @staticmethod
+    def _global_moments(xf: torch.Tensor, mask, dims):
+        """The first two moments over every data rank's valid frames of a
+        sharded step: the sums all-reduced with their gradient, the
+        count without."""
+        m = (torch.ones_like(xf[..., :1]) if mask is None else
+             torch.broadcast_to(torch.as_tensor(mask, device=xf.device),
+                                xf.shape[:-1] + (1,)).float())
+        count = spmd.global_count(m.sum(dims))
+        s1 = spmd.global_sum((xf * m).sum(dims))
+        s2 = spmd.global_sum((xf * xf * m).sum(dims))
+        return s1 / count, s2 / count
 
 
 def ds2_valid_out_frames(n_frames):
@@ -156,8 +177,10 @@ class DeepSpeech2(nn.Module):
                              "('blocked', 'pallas')")
         B = x.shape[0]
         pad = (0, 0) if streaming else (5, 0)
-        h = F.conv2d(x[:, None], self.conv1.weight, self.conv1.bias,
-                     stride=(2, 1), padding=pad)            # (B, 32, T', 1)
+        # (under tensor-parallel rules the conv's weight arrives whole)
+        h = F.conv2d(x[:, None], spmd.whole(self.conv1.weight),
+                     self.conv1.bias, stride=(2, 1), padding=pad)
+        # h: (B, 32, T', 1)
         # flax reshapes NHWC (B, T', 1, 32) to (B, T', 32): channels last
         h = h.permute(0, 2, 3, 1).reshape(B, h.shape[2], -1)
         out_n = bn_mask = None

@@ -20,9 +20,10 @@ lookups compute the same function (``LOOKUP_MODES``):
 
 :class:`SparseRows` keeps the reference's static-shape contract: ids
 sorted and padded with 0 up to ``size``, padded rows zero, ``count`` the
-valid entries.  ``parallel.train.sparse_adam_apply`` consumes it.  Row
-sharding of the tables (the reference's SpecSet rules) is ROADMAP.md
-Queue 1 item 12.
+valid entries.  ``parallel.train.sparse_adam_apply`` consumes it.  A
+table row-sharded by the SpecSet rules is ``parallel.tensor``'s to look
+up: placement gives its :class:`DedupEmbed` the masked local gather and
+the sum over the table's axis.
 """
 
 from __future__ import annotations
@@ -148,8 +149,8 @@ def sharded_embedding_lookup(table: torch.Tensor, ids, *,
                              mode: str = "dedup",
                              max_unique: Optional[int] = None
                              ) -> torch.Tensor:
-    """``ids (...,) → (..., dim)`` by ``mode`` (one of ``LOOKUP_MODES``).
-    Row sharding is ROADMAP.md Queue 1 item 12."""
+    """``ids (...,) → (..., dim)`` by ``mode`` (one of ``LOOKUP_MODES``)
+    over the rows ``table`` holds."""
     if mode == "dedup":
         return dedup_lookup(table, ids, max_unique=max_unique)
     if mode == "naive":

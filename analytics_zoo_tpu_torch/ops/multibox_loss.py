@@ -39,6 +39,7 @@ from torch.profiler import record_function
 
 from analytics_zoo_tpu_torch.core.criterion import Criterion, smooth_l1
 from analytics_zoo_tpu_torch.ops.bbox import encode_bbox, iou_matrix
+from analytics_zoo_tpu_torch.utils.spmd import global_count, global_width
 
 MINING = ("sort", "topk")
 
@@ -137,7 +138,10 @@ def multibox_loss(loc_pred: torch.Tensor, conf_logits: torch.Tensor,
     ce = -torch.take_along_dim(logp, matched_label[..., None], -1)[..., 0]
     neg = mine_hard_examples(logp, positive, best_iou, param)
     conf_loss = (ce * (pos_f + neg.float())).sum(-1)
-    total_pos = torch.clamp(pos_f.sum(), min=1.0)
+    # the positives of the whole batch (summed over the data ranks of a
+    # sharded step, whose average loss is then the global one)
+    total_pos = torch.clamp(global_count(pos_f.sum()), min=1.0) \
+        / global_width()
     return ((param.loc_weight * loc_loss).sum() + conf_loss.sum()) / total_pos
 
 

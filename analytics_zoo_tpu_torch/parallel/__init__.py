@@ -1,7 +1,8 @@
-"""Steps of the port: the train and eval steps, the one-device
-``Optimizer`` with its validation methods, checkpoints and resume, optim
-methods, Plateau, triggers, the row-sparse Adam apply and the restart
-supervisor."""
+"""Steps of the port: the train and eval steps, the ``Optimizer`` (one
+device, or a mesh of ranks) with its validation methods, checkpoints and
+resume, optim methods, Plateau, triggers, the row-sparse Adam apply, the
+restart supervisor, and the mesh, the tensor-parallel rules and the
+declared specs."""
 
 from analytics_zoo_tpu_torch.parallel.elastic import (RETRYABLE_ERRORS,
                                                       DivergenceDetector,
@@ -22,14 +23,36 @@ from analytics_zoo_tpu_torch.parallel.train import (MAE, Loss, Optimizer,
                                                     resolve_compute_dtype,
                                                     sparse_adam_apply,
                                                     validate)
-from analytics_zoo_tpu_torch.resilience.errors import (InjectedFault,
+from analytics_zoo_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
+                                                   SEQUENCE_AXIS,
+                                                   PartitionSpec, batch_spec,
+                                                   create_mesh, replicate,
+                                                   shard_batch)
+from analytics_zoo_tpu_torch.parallel.specs import (SpecSet, pipeline_specs,
+                                                    register_pipeline,
+                                                    registered_pipelines)
+from analytics_zoo_tpu_torch.parallel.tensor import (default_tp_rules,
+                                                     embedding_row_rules,
+                                                     megatron_tp_rules,
+                                                     shard_tree,
+                                                     sharded_param_count,
+                                                     spatial_input_spec,
+                                                     ssd_tp_rules)
+from analytics_zoo_tpu_torch.resilience.errors import (ElasticPlacementError,
+                                                       InjectedFault,
                                                        Preempted,
                                                        PrefetchWorkerDied,
                                                        ShardReadError,
                                                        StallError,
                                                        TrainingDiverged)
 
-__all__ = ["Adam", "AdamW", "DivergenceDetector", "FaultInjector",
+__all__ = ["Adam", "AdamW", "DATA_AXIS", "DivergenceDetector",
+           "ElasticPlacementError", "FaultInjector", "MODEL_AXIS",
+           "PartitionSpec", "SEQUENCE_AXIS", "SpecSet", "batch_spec",
+           "create_mesh", "default_tp_rules", "embedding_row_rules",
+           "megatron_tp_rules", "pipeline_specs", "register_pipeline",
+           "registered_pipelines", "replicate", "shard_batch", "shard_tree",
+           "sharded_param_count", "spatial_input_spec", "ssd_tp_rules",
            "InjectedFault", "Loss", "MAE", "OptimMethod", "Optimizer",
            "Plateau", "Preempted", "PrefetchWorkerDied", "RETRYABLE_ERRORS",
            "SGD", "ShardReadError", "StallError", "Top1Accuracy",

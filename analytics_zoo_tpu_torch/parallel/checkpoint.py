@@ -23,8 +23,8 @@ lists and tuples ride along; nothing else is pickled.
 
 Every snapshot the port writes has a manifest: a directory without one
 is a partial write, never a restore candidate's payload.
-``restore_elastic`` (re-placement under a ``SpecSet``) is not ported
-(ROADMAP.md Queue 1 item 12).
+``restore_elastic`` re-places a snapshot under a ``SpecSet`` of another
+width.
 """
 
 from __future__ import annotations
@@ -551,12 +551,43 @@ def load(path: str, target: Any = None, step: Optional[int] = None,
 
 
 def restore_elastic(path: str, target: Any, specs,
-                    step: Optional[int] = None, verify: bool = True) -> Any:
-    """Re-placement of a restored state under a ``SpecSet`` at another
-    world width: sharded state is not ported yet."""
-    raise NotImplementedError(
-        "restore_elastic (re-placing a checkpoint under a SpecSet) is not "
-        "ported yet (ROADMAP.md Queue 1 item 12)")
+                    step: Optional[int] = None, verify: bool = True,
+                    module=None, device=None) -> Any:
+    """Restore a snapshot saved at any world width and place it under
+    ``specs`` (a ``SpecSet``, possibly of another width W′).
+
+    Snapshots hold whole host tensors (``SpecSet.gather`` before the
+    save), so re-placement is one ``specs.place_state``: replicated
+    tensors as they are, a ``{name: tensor}`` state of ``module`` cut to
+    this rank's shards by the declared rules.  ``target`` (a state of the
+    same structure) fixes the structure and the device, as in
+    :func:`load`; without it the state lands on ``device``.
+
+    Raises ``ElasticPlacementError`` when the snapshot is intact but does
+    not match ``target``'s structure (the wrong model for this
+    checkpoint, not corruption), and propagates the same error from
+    ``place_state`` when the mesh cannot carry the declaration."""
+    from analytics_zoo_tpu_torch.resilience.errors import (
+        ElasticPlacementError)
+
+    try:
+        state = load(path, target=target, step=step, verify=verify,
+                     device=device)
+    except CheckpointCorrupt:
+        if target is None:
+            raise
+        raw = load(path, target=None, step=step, verify=verify,
+                   device="cpu")
+
+        def keys(tree):
+            return sorted(tree) if isinstance(tree, dict) else type(tree)
+
+        raise ElasticPlacementError(
+            f"restore_elastic: snapshot is intact but does not structure-"
+            f"match the target tree (snapshot top-level keys {keys(raw)}, "
+            f"target {keys(target)}) — wrong model for this checkpoint, "
+            f"not corruption")
+    return specs.place_state(state, module=module)
 
 
 def has_checkpoint(path: str) -> bool:

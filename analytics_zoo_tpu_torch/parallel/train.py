@@ -1,5 +1,5 @@
-"""Train and eval steps and a one-device ``Optimizer`` (counterpart of
-``parallel/train.py``).
+"""Train and eval steps and the ``Optimizer``, on one device or over a
+mesh of ranks (counterpart of ``parallel/train.py``).
 
 ``make_train_step`` builds the step the reference jits, here run
 eagerly: the module's forward in train mode (under bf16 autocast over
@@ -29,9 +29,15 @@ repeats no step.  ``set_preemption_handler``, ``set_stall_watchdog`` and
 ``set_failure_detector`` arm the resilience layer; ``parallel/elastic.py``
 supervises restarts.
 
-Not ported yet, and refused by name: the health sentinel and sharded
-steps (ROADMAP.md Queue 1 items 13 and 12); the anomaly sentinel and
-observability (item 13).
+Over a mesh (``mesh=``, ``specs=``, ``param_rules=``; ``parallel/
+specs.py``) every rank runs the same loop on the same global batches and
+trains on its rows: the step averages the gradients over the ``data``
+axis, the criteria and batch norms see the global batch
+(``utils/spmd.py::global_batch``), validation merges the ranks'
+results batch by batch, and rank 0 writes a snapshot gathered whole.
+
+Not ported yet, and refused by name: the health sentinel, the anomaly
+sentinel and observability (ROADMAP.md Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -49,10 +55,13 @@ from torch.profiler import record_function
 
 from analytics_zoo_tpu_torch.core.criterion import Criterion
 from analytics_zoo_tpu_torch.data.prefetch import device_prefetch
+from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+from analytics_zoo_tpu_torch.parallel import tensor as tensor_lib
 from analytics_zoo_tpu_torch.parallel.optim import (Adam, OptimMethod,
                                                     TrainingState, Trigger)
 from analytics_zoo_tpu_torch.resilience.errors import (CheckpointCorrupt,
                                                        Preempted, StallError)
+from analytics_zoo_tpu_torch.utils import spmd
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
 
@@ -104,7 +113,8 @@ def _forward(module: nn.Module, inputs, cdtype: Optional[torch.dtype],
     return cast_floating(out, torch.float32)
 
 
-def make_eval_step(module: nn.Module, compute_dtype=None) -> Callable:
+def make_eval_step(module: nn.Module, compute_dtype=None,
+                   specs=None) -> Callable:
     """``outputs = eval_step(inputs)``: the module's forward without
     autograd.  ``inputs`` is one tensor or a tuple of the forward's
     arguments (DS2's ``(features, n_frames)``).  ``compute_dtype='bf16'``
@@ -112,14 +122,31 @@ def make_eval_step(module: nn.Module, compute_dtype=None) -> Callable:
     floating inputs cast to bf16 and the outputs cast back to fp32,
     whatever their structure (SSD's ``(loc, conf)``, DS2's one tensor).
     The step reads the module's parameters at call time, so a later
-    ``load_state_dict`` takes effect."""
+    ``load_state_dict`` takes effect.
+
+    ``specs`` (a ``SpecSet``, the module placed by its ``place_state``):
+    the global batch's rows are cut over the ``data`` axis, each rank
+    runs its own, and the outputs are all-gathered back whole on every
+    rank; a batch whose dim 0 does not divide the data width runs whole
+    on every rank (``SpecSet.ragged_dispatch``).  Every rank calls it."""
     cdtype = resolve_compute_dtype(compute_dtype)
 
     def eval_step(inputs):
         with torch.inference_mode():
             return _forward(module, inputs, cdtype)
 
-    return eval_step
+    if specs is None or specs.data_axis_size == 1:
+        return eval_step
+    actx = tensor_lib.axis_ctx(specs.mesh, mesh_lib.data_axis(specs.mesh))
+
+    def annotated(inputs):
+        out = eval_step(specs.place_batch(inputs))
+        with torch.inference_mode():
+            return _tree_map(lambda y: tensor_lib.all_gather_dim(y, 0, actx)
+                             if isinstance(y, torch.Tensor) and y.ndim
+                             else y, out)
+
+    return specs.ragged_dispatch(annotated, eval_step)
 
 
 # ---------------------------------------------------------------------------
@@ -234,19 +261,44 @@ def make_train_step(module: nn.Module, criterion: Callable,
     ``forward_fn(module, inputs, train)`` (``train`` is True here)
     replaces ``module(*inputs)``: it gets the batch's ``"input"`` as it
     is, under the same casts, autocast and ranges, and returns the
-    criterion's output."""
+    criterion's output.
+
+    ``specs`` (a ``parallel.specs.SpecSet``; ``mesh=`` builds a
+    data-parallel one), with the module placed by ``specs.place_state``:
+    every rank runs the step on the same global batch and keeps its rows
+    (its share of each of the ``grad_accum`` microbatches, so a
+    microbatch is the one-device step's; ``step(state, batch,
+    placed=True)`` takes them already cut); the
+    forward and loss run in ``spmd.global_batch``, so counts and batch
+    statistics are the global batch's; the gradients are averaged over
+    the ``data`` axis in one flat all-reduce (a shard over its data
+    ranks); the loss that ``skip_loss_above`` and the metrics see is the
+    global one, and the clip norm is global (a shard's sum of squares
+    summed over its axis, a replicated parameter counted once).  The
+    range ``train_step.all_reduce`` holds the gradient all-reduce, after
+    which each parameter's ``.grad`` is the averaged gradient."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum={grad_accum} must be >= 1")
     if health_check:
         _not_ported("the health sentinel", "item 13")
-    if specs is not None or mesh is not None:
-        _not_ported("sharded steps (specs, mesh)", "item 12")
+    if specs is None and mesh is not None:
+        from analytics_zoo_tpu_torch.parallel.specs import SpecSet
+        specs = SpecSet(mesh)
     cdtype = resolve_compute_dtype(compute_dtype)
     params = [p for p in module.parameters() if p.requires_grad]
+    width = specs.data_axis_size if specs is not None else 1
+    data_group = specs.data_group() if specs is not None else None
+    index = (mesh_lib.axis_index(specs.mesh, mesh_lib.data_axis(specs.mesh))
+             if specs is not None else 0)
+
+    def scoped():
+        return spmd.global_batch(data_group, width, index)
 
     @record_function("train_step")
-    def step(state: TrainState, batch):
+    def step(state: TrainState, batch, placed: bool = False):
         dev = params[0].device
+        if specs is not None and not placed:
+            batch = specs.place_batch(batch, microbatches=grad_accum)
         with record_function("train_step.upload"):
             batch = to_device(batch, dev)
         if device_transform is not None:
@@ -259,12 +311,12 @@ def make_train_step(module: nn.Module, criterion: Callable,
             p.grad = None
         losses = []
         for mb in micro:
-            with record_function("train_step.forward_loss"):
+            with record_function("train_step.forward_loss"), scoped():
                 module.train()
                 loss = _call_criterion(
                     criterion, _forward(module, mb["input"], cdtype,
                                         forward_fn, train=True), mb)
-            with record_function("train_step.backward"):
+            with record_function("train_step.backward"), scoped():
                 loss.backward()
             losses.append(loss.detach())
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
@@ -275,9 +327,15 @@ def make_train_step(module: nn.Module, criterion: Callable,
                 inv = 1.0 / grad_accum
                 grads = [g * inv for g in grads]
                 loss = sum(losses[1:], losses[0]) * inv
+            if data_group is not None:
+                with record_function("train_step.all_reduce"):
+                    grads, loss = _average_over(grads, loss, data_group,
+                                                width)
+                # each .grad then holds the gradient the update uses
+                for p, g in zip(params, grads):
+                    p.grad = g
             if grad_clip_norm:
-                gnorm = torch.sqrt(sum((g.float() * g.float()).sum()
-                                       for g in grads))
+                gnorm = torch.sqrt(_global_sq_norm(params, grads))
                 scale = torch.clamp(grad_clip_norm / (gnorm + 1e-6), max=1.0)
                 grads = [g * scale for g in grads]
             keep = (None if skip_loss_above is None
@@ -291,6 +349,40 @@ def make_train_step(module: nn.Module, criterion: Callable,
                           opt_state=state.opt_state), metrics
 
     return step
+
+
+def _average_over(grads: List[torch.Tensor], loss: torch.Tensor, group,
+                  width: int):
+    """The gradients and the loss averaged over ``group``'s ``width``
+    ranks, in one flat fp32 all-reduce."""
+    flat = torch.cat([g.reshape(-1).float() for g in grads]
+                     + [loss.reshape(1).float()])
+    torch.distributed.all_reduce(flat, group=group)
+    flat /= width
+    out, i = [], 0
+    for g in grads:
+        out.append(flat[i:i + g.numel()].view_as(g).to(g.dtype))
+        i += g.numel()
+    return out, flat[i].to(loss.dtype)
+
+
+def _global_sq_norm(params: Sequence[torch.Tensor],
+                    grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Sum of squares of the whole gradient: a shard's sum summed over
+    its axis, a replicated gradient counted once."""
+    total = sum((g.float() * g.float()).sum() for p, g in zip(params, grads)
+                if not tensor_lib.is_sharded(p))
+    by_group: Dict[Any, torch.Tensor] = {}
+    for p, g in zip(params, grads):
+        if tensor_lib.is_sharded(p):
+            key = tensor_lib.shard_of(p).ctx.group
+            by_group[key] = by_group.get(key, 0.0) + (g.float() ** 2).sum()
+    for group, sq in by_group.items():
+        if group is not None:
+            sq = sq.clone()
+            torch.distributed.all_reduce(sq, group=group)
+        total = total + sq
+    return torch.as_tensor(total)
 
 
 # ---------------------------------------------------------------------------
@@ -404,22 +496,36 @@ def sparse_adam_apply(table: torch.Tensor, mu: torch.Tensor,
 
 
 def validate(module: nn.Module, dataset, methods: Sequence[Callable],
-             eval_step: Optional[Callable] = None) -> List[Any]:
+             eval_step: Optional[Callable] = None, specs=None) -> List[Any]:
     """Forward a dataset's ``"input"`` on the module's device and merge
-    each method's per-batch results (reference ``Validator.test``)."""
+    each method's per-batch results (reference ``Validator.test``).
+
+    With ``specs`` over a data axis wider than 1, each rank forwards its
+    rows of a batch (``eval_step`` is then the plain one) and the ranks'
+    results of that batch are merged in rank order, which is the batch's
+    row order, so every rank holds the one global score.  A batch whose
+    dim 0 does not divide the data width runs whole on every rank."""
     eval_step = eval_step or make_eval_step(module)
     dev = next(module.parameters()).device
+    width = specs.data_axis_size if specs is not None else 1
+    group = specs.data_group() if width > 1 else None
     totals: List[Any] = [None] * len(methods)
     for batch in dataset:
+        rows = _batch_size(batch)
+        split = group is not None and rows % width == 0
+        if split:
+            batch = specs.place_batch(batch)
         out = eval_step(to_device(batch["input"], dev))
-        for i, m in enumerate(methods):
-            r = m(out, batch)
-            totals[i] = r if totals[i] is None else totals[i] + r
+        results = [m(out, batch) for m in methods]
+        for rank_results in (mesh_lib.merge_over(results, group) if split
+                             else [results]):
+            for i, r in enumerate(rank_results):
+                totals[i] = r if totals[i] is None else totals[i] + r
     return [t for t in totals if t is not None]
 
 
 class Optimizer:
-    """The reference's ``Optimizer`` on one device::
+    """The reference's ``Optimizer``, on one device or over a mesh::
 
         model = (Optimizer(model, train_set, criterion)
                  .set_optim_method(SGD(lr, momentum=0.9, plateau=...))
@@ -448,18 +554,38 @@ class Optimizer:
 
     Each step and epoch boundary runs, in order: validation, the
     checkpoint, the stall check, the preemption check (one place, so the
-    two boundaries cannot drift apart)."""
+    two boundaries cannot drift apart).
+
+    ``mesh=`` (with ``param_rules=``) or ``specs=`` trains over the ranks
+    of a mesh: every rank builds the same ``Optimizer`` over the same
+    dataset of global batches (or of its own slices: a dataset with
+    ``yields_local_slices``, ``data.parallel.make_input_pipeline``),
+    ``optimize`` places the module (``SpecSet.place_state``) and each rank
+    trains on its rows; a snapshot's ``world_width`` is the data width."""
 
     def __init__(self, model: nn.Module, dataset, criterion,
                  mesh=None, skip_loss_above: Optional[float] = None,
                  grad_clip_norm: Optional[float] = None, compute_dtype=None,
                  prefetch: int = 0, grad_accum: int = 1, metric_fn=None,
                  specs=None, device_transform: Optional[Callable] = None,
-                 forward_fn: Optional[Callable] = None):
+                 forward_fn: Optional[Callable] = None, param_rules=None):
         if prefetch < 0:
             raise ValueError(f"prefetch={prefetch} must be >= 0")
-        if mesh is not None or specs is not None:
-            _not_ported("sharded training (mesh, specs)", "item 12")
+        if specs is not None:
+            if mesh is not None and mesh is not specs.mesh:
+                raise ValueError("pass mesh= OR specs= (the SpecSet "
+                                 "carries its mesh), not conflicting both")
+            if param_rules is not None:
+                raise ValueError("param_rules is the sugar for building a "
+                                 "SpecSet — declare it inside specs= "
+                                 "instead")
+        elif mesh is not None or param_rules is not None:
+            from analytics_zoo_tpu_torch.parallel.specs import SpecSet
+            specs = SpecSet(mesh if mesh is not None
+                            else mesh_lib.create_mesh(), rules=param_rules)
+        self.specs = specs
+        self.mesh = specs.mesh if specs is not None else None
+        self.param_rules = specs.rules if specs is not None else None
         self.model = model
         self.dataset = dataset
         self.criterion = criterion
@@ -475,7 +601,7 @@ class Optimizer:
             skip_loss_above=skip_loss_above, grad_clip_norm=grad_clip_norm,
             compute_dtype=compute_dtype, grad_accum=grad_accum,
             metric_fn=metric_fn, device_transform=device_transform,
-            forward_fn=forward_fn)
+            forward_fn=forward_fn, specs=specs)
         self.epoch_hook: Optional[Callable] = None
         self.history: List[Dict] = []
         self.val_history: List[Dict] = []
@@ -575,7 +701,33 @@ class Optimizer:
     def set_observability(self, *args, **kwargs):
         _not_ported("observability", "item 13")
 
+    def _global_rows(self, batch) -> int:
+        """Rows of the global batch ``batch`` stands for (a rank's slice
+        times the data width when the dataset yields slices)."""
+        n = _batch_size(batch)
+        if self.specs is not None and self._local_dataset():
+            n *= self.specs.data_axis_size
+        return n
+
+    def _local_dataset(self) -> bool:
+        """The dataset yields this rank's slices already
+        (``data.parallel.make_input_pipeline``)."""
+        return bool(getattr(self.dataset, "yields_local_slices", False))
+
+    def _placed(self, host_iter):
+        """This rank's rows of each global batch of ``host_iter``; closing
+        the generator closes ``host_iter``."""
+        try:
+            for batch in host_iter:
+                yield self.specs.place_batch(
+                    batch, microbatches=self._step_options["grad_accum"])
+        finally:
+            if hasattr(host_iter, "close"):
+                host_iter.close()
+
     def optimize(self) -> nn.Module:
+        if self.specs is not None:
+            self.specs.place_state(self.model)
         step = make_train_step(self.model, self.criterion, self.optim,
                                **self._step_options)
         eval_step = make_eval_step(self.model,
@@ -607,7 +759,7 @@ class Optimizer:
                     b = next(host_iter, sentinel)
                     if b is sentinel:
                         break
-                    n_skip = _batch_size(b)
+                    n_skip = self._global_rows(b)
                     if n_skip > self._skip_samples:
                         raise ValueError(
                             f"resume: the checkpointed sample offset leaves "
@@ -623,8 +775,11 @@ class Optimizer:
                     if b is sentinel:
                         break
                     self._skip_batches -= 1
-                    self._samples_in_epoch += _batch_size(b)
+                    self._samples_in_epoch += self._global_rows(b)
                     self._iter_in_epoch += 1
+                placed = self.specs is not None
+                if placed and not self._local_dataset():
+                    host_iter = self._placed(host_iter)
                 # close_source: the prefetch thread closes host_iter itself
                 batches = (device_prefetch(host_iter, dev, self.prefetch,
                                            close_source=True)
@@ -632,9 +787,10 @@ class Optimizer:
                            else host_iter)
                 try:
                     for batch in batches:
-                        state, metrics = step(state, batch)
+                        state, metrics = step(state, batch, placed=placed)
                         self.history.append(metrics)
-                        n = _batch_size(batch)
+                        n = (_batch_size(batch) * self.specs.data_axis_size
+                             if placed else _batch_size(batch))
                         loop.iteration += 1
                         self._iter_in_epoch += 1
                         self._samples_in_epoch += n
@@ -729,15 +885,64 @@ class Optimizer:
     def _snapshot_state(self, state: TrainState) -> Dict[str, Any]:
         """What a snapshot holds: the module's parameters and buffers, the
         step and the optimizer's slots (on their devices; ``checkpoint``
-        copies them to the host)."""
-        return {"model": self.model.state_dict(), "step": int(state.step),
-                "opt_state": state.opt_state}
+        copies them to the host).  Over a mesh: whole host tensors, every
+        shard gathered (``SpecSet.gather``, a collective every rank
+        runs), so a snapshot is width-agnostic."""
+        if self.specs is None:
+            return {"model": self.model.state_dict(), "step": int(state.step),
+                    "opt_state": state.opt_state}
+        model = self.specs.gather(self.model)
+        specs = self._slot_specs(state.opt_state)
+        slots = self.specs.gather(_flatten_slots(state.opt_state),
+                                  specs=specs)
+        as_t = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+                for k, v in slots.items()}
+        return {"model": {k: torch.from_numpy(v) for k, v in model.items()},
+                "step": int(state.step),
+                "opt_state": _unflatten_slots(state.opt_state, as_t)}
+
+    def _trainable(self) -> List[torch.Tensor]:
+        return [p for p in self.model.parameters() if p.requires_grad]
+
+    def _slot_specs(self, opt_state: Dict) -> Dict[str, Any]:
+        """The spec of every optimizer slot: its parameter's (a slot list
+        runs over the trainable parameters in order)."""
+        params = self._trainable()
+        out = {}
+        for key, value in _flatten_slots(opt_state).items():
+            name, _, i = key.rpartition("/")
+            if name and i.isdigit() and int(i) < len(params):
+                out[key] = tensor_lib.spec_of(params[int(i)])
+        return out
+
+    def _place_restored(self, restored: Dict[str, Any]) -> TrainState:
+        """A whole restored snapshot cut to this rank's shards: the
+        module's tensors loaded in place, the slots returned on the
+        module's device."""
+        mine = self.model.state_dict(keep_vars=True)
+        with torch.no_grad():
+            for k, t in mine.items():
+                full = restored["model"][k]
+                spec = tensor_lib.spec_of(t)
+                t.copy_(tensor_lib.shard_tensor(full, spec, self.mesh)
+                        if spec is not None else full)
+        dev = next(self.model.parameters()).device
+        specs = self._slot_specs(restored["opt_state"])
+        flat = {k: (tensor_lib.shard_tensor(v, specs[k], self.mesh)
+                    if specs.get(k) is not None else v).to(dev)
+                if isinstance(v, torch.Tensor) else v
+                for k, v in _flatten_slots(restored["opt_state"]).items()}
+        return TrainState(step=int(restored["step"]),
+                          opt_state=_unflatten_slots(restored["opt_state"],
+                                                     flat))
 
     def _resume_meta(self, loop: TrainingState) -> Dict[str, Any]:
         return {"epoch": loop.epoch, "iteration": loop.iteration,
                 "iter_in_epoch": self._iter_in_epoch,
                 "samples_in_epoch": self._samples_in_epoch,
-                "world_width": 1, "optim": self.optim.state_dict()}
+                "world_width": (self.specs.data_axis_size
+                                if self.specs is not None else 1),
+                "optim": self.optim.state_dict()}
 
     def _maybe_checkpoint(self, loop: TrainingState, state: TrainState,
                           force: bool = False) -> bool:
@@ -759,12 +964,20 @@ class Optimizer:
         self._last_ckpt_iter = loop.iteration
         from analytics_zoo_tpu_torch.parallel import checkpoint as ckpt
         tag = None if self.overwrite_checkpoint else loop.iteration
-        # the loop position and the optim method's host state ride in the
-        # snapshot's own manifest: a restore never pairs parameters with
-        # another snapshot's metadata
-        ckpt.save(self.checkpoint_path, self._snapshot_state(state),
-                  step=tag, keep_last=self.checkpoint_keep_last,
-                  meta=self._resume_meta(loop))
+        snapshot = self._snapshot_state(state)
+        # over several ranks rank 0 writes the gathered state; the others
+        # wait
+        spans = (self.specs is not None
+                 and mesh_lib.spans_processes(self.mesh))
+        if not spans or torch.distributed.get_rank() == 0:
+            # the loop position and the optim method's host state ride in
+            # the snapshot's own manifest: a restore never pairs
+            # parameters with another snapshot's metadata
+            ckpt.save(self.checkpoint_path, snapshot, step=tag,
+                      keep_last=self.checkpoint_keep_last,
+                      meta=self._resume_meta(loop))
+        if spans:
+            torch.distributed.barrier()
         return True
 
     def _apply_resume_meta(self, meta: Dict[str, Any],
@@ -798,9 +1011,12 @@ class Optimizer:
         # newest_intact checksummed this very directory already
         restored = ckpt.load(snap_dir, target=self._snapshot_state(state),
                              verify=False)
-        self.model.load_state_dict(restored["model"])
-        state = TrainState(step=int(restored["step"]),
-                           opt_state=restored["opt_state"])
+        if self.specs is not None:
+            state = self._place_restored(restored)
+        else:
+            self.model.load_state_dict(restored["model"])
+            state = TrainState(step=int(restored["step"]),
+                               opt_state=restored["opt_state"])
         self._apply_resume_meta(manifest.get("meta", {}), loop, state.step)
         logger.info("resumed from %s at epoch %d, iteration %d (skipping "
                     "%s in-epoch samples)", snap_dir, loop.epoch,
@@ -818,7 +1034,8 @@ class Optimizer:
         self.model.eval()
         try:
             results = validate(self.model, self.val_dataset,
-                               self.val_methods, eval_step=eval_step)
+                               self.val_methods, eval_step=eval_step,
+                               specs=self.specs)
         finally:
             self.model.train()
         metrics = {r.name: r.result() for r in results}
@@ -829,6 +1046,24 @@ class Optimizer:
         if self._score_name and self._score_name in metrics:
             loop.score = metrics[self._score_name]
             self.optim.on_validation({"score": loop.score, **metrics})
+
+
+def _flatten_slots(opt_state: Dict) -> Dict[str, Any]:
+    """``{"mu/3": tensor, "count": tensor, ...}``: a slot list's entries
+    keyed by their index."""
+    out = {}
+    for k, v in opt_state.items():
+        if isinstance(v, (list, tuple)):
+            out.update({f"{k}/{i}": x for i, x in enumerate(v)})
+        else:
+            out[k] = v
+    return out
+
+
+def _unflatten_slots(like: Dict, flat: Dict[str, Any]) -> Dict:
+    return {k: (type(v)(flat[f"{k}/{i}"] for i in range(len(v)))
+                if isinstance(v, (list, tuple)) else flat[k])
+            for k, v in like.items()}
 
 
 def _batch_size(batch) -> int:

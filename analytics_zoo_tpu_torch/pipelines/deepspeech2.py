@@ -93,7 +93,7 @@ class DeepSpeech2Pipeline:
         if sequence_mesh is not None:
             raise NotImplementedError(
                 "the sequence-parallel DS2 forward is not ported yet "
-                "(ROADMAP.md Queue 1 item 12)")
+                "(ROADMAP.md Queue 1 item 12b)")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.param = param
@@ -390,17 +390,26 @@ def train_ds2(model: DeepSpeech2, dataset, epochs: int = 10,
     and the loss mask; their metrics gain ``padding_efficiency``.  Adam at
     ``lr`` for ``epochs`` epochs, with a snapshot every epoch under
     ``checkpoint_path`` when given.  The recurrence engine is the model's:
-    ``make_ds2_model(rnn_engine="pallas")`` trains through K3 and K4."""
-    if mesh is not None or specs is not None or param_rules is not None:
-        raise NotImplementedError(
-            "train_ds2: sharded training (mesh, specs, param_rules) is not "
-            "ported yet (ROADMAP.md Queue 1 item 12)")
+    ``make_ds2_model(rnn_engine="pallas")`` trains through K3 and K4.
+
+    ``mesh`` (``parallel.mesh.create_mesh``) trains data parallel: every
+    rank runs this call on the same global batches and trains on its rows
+    (K3 and K4 on each rank's rows), the batch norms' statistics global;
+    ``param_rules`` (``parallel.tensor.default_tp_rules``) shards the
+    weights over a data × model mesh.  Both are sugar for ``specs=
+    pipeline_specs("ds2", mesh=mesh, param_rules=...)``.
+    ``sequence_parallel=True`` is ROADMAP.md Queue 1 item 12b."""
     if sequence_parallel:
         raise NotImplementedError(
             "train_ds2(sequence_parallel=True) is not ported yet "
-            "(ROADMAP.md Queue 1 item 12)")
+            "(ROADMAP.md Queue 1 item 12b)")
+    if specs is not None and (mesh is not None or param_rules is not None):
+        raise ValueError("pass specs= OR (mesh=, param_rules=), not both")
+    if specs is None and (mesh is not None or param_rules is not None):
+        from analytics_zoo_tpu_torch.parallel.specs import pipeline_specs
+        specs = pipeline_specs("ds2", mesh=mesh, param_rules=param_rules)
     opt = (Optimizer(model, dataset, ds2_ctc_criterion(blank_id=0),
-                     metric_fn=ds2_padding_metric)
+                     metric_fn=ds2_padding_metric, specs=specs)
            .set_optim_method(Adam(lr))
            .set_end_when(Trigger.max_epoch(epochs)))
     if checkpoint_path:
@@ -600,12 +609,12 @@ def ds2_serving_tiers(model: DeepSpeech2, param: Optional[DS2Param] = None,
     path.  With ``param.decoder == "greedy"`` the ladder is the one
     greedy tier.  ``device_program()`` gives ``(eval_step,
     example_args)``, the forward every rung shares.  Sharded serving
-    (``specs``) is ROADMAP.md Queue 1 item 12."""
+    (``specs``) is ROADMAP.md Queue 1 item 12b."""
     from analytics_zoo_tpu_torch.serving.ladder import ServingTier
 
     if specs is not None:
         raise NotImplementedError("ds2_serving_tiers(specs=...) is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 12)")
+                                  "ported yet (ROADMAP.md Queue 1 item 12b)")
     param = param or DS2Param()
     dev = resolve_device(device)
     model = model.to(dev).eval()

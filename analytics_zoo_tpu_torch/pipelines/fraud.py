@@ -10,7 +10,7 @@ with AUPRC, precision and recall.  :func:`fraud_serving_tiers` gives
 
 Training and serving run on the model's device (the GPU unless the
 caller passes ``device="cpu"``).  Sharded training and serving
-(``mesh=``, ``specs=``) are ROADMAP.md Queue 1 item 12, and refused.
+(``specs=``) is ROADMAP.md Queue 1 item 12b, and refused.
 """
 
 from __future__ import annotations
@@ -53,12 +53,22 @@ REC_INT8_SPEED = 1.27
 SENTIMENT_INT8_SPEED = 1.60
 
 
-def refuse_sharding(what: str, mesh=None, specs=None) -> None:
-    """Sharded training and serving are ROADMAP.md Queue 1 item 12."""
-    if mesh is not None or specs is not None:
+def refuse_sharding(what: str, specs=None) -> None:
+    """Sharded serving (a tier's ``specs=``) is ROADMAP.md Queue 1 item
+    12b."""
+    if specs is not None:
         raise NotImplementedError(
-            f"{what}: sharded training and serving (mesh=, specs=) are not "
-            "ported yet (ROADMAP.md Queue 1 item 12)")
+            f"{what}: sharded serving (specs=) is not ported yet "
+            "(ROADMAP.md Queue 1 item 12b)")
+
+
+def train_specs(name: str, mesh, **opts):
+    """The pipeline's declared ``SpecSet`` on ``mesh`` (``None`` without
+    one: a one-device ``Optimizer``)."""
+    if mesh is None:
+        return None
+    from analytics_zoo_tpu_torch.parallel.specs import pipeline_specs
+    return pipeline_specs(name, mesh=mesh, **opts)
 
 
 def fp_int8_tiers(model, to_inputs: Callable[[Dict, torch.device], tuple],
@@ -116,7 +126,7 @@ class MLPClassifier(Stage):
                  label_col: str = "label",
                  prediction_col: str = "prediction", mesh=None, seed: int = 0,
                  device=None):
-        refuse_sharding("MLPClassifier", mesh=mesh)
+        self.mesh = mesh
         self.in_features = in_features
         self.hidden = hidden
         self.n_classes = n_classes
@@ -143,7 +153,8 @@ class MLPClassifier(Stage):
                                hidden=self.hidden, n_classes=self.n_classes),
                       device=self.device)
         model.build(self.seed, np.zeros((1, x.shape[1]), np.float32))
-        (Optimizer(model, self._batches(x, y), ClassNLLCriterion())
+        (Optimizer(model, self._batches(x, y), ClassNLLCriterion(),
+                   specs=train_specs("fraud", self.mesh))
          .set_optim_method(Adam(self.lr))
          .set_end_when(Trigger.max_epoch(self.epochs))
          .optimize())
@@ -223,8 +234,8 @@ def run_fraud_pipeline(frame: Frame, feature_cols: Sequence[str],
                        device=None) -> FraudResult:
     """The reference flow (``BigDLKaggleFraud.scala``): preprocess → time
     split → ``Bagging`` of ``n_models`` MLPs over stratified samples →
-    threshold sweep (default ``n_models // 2 .. n_models``)."""
-    refuse_sharding("run_fraud_pipeline", mesh=mesh)
+    threshold sweep (default ``n_models // 2 .. n_models``).  ``mesh``
+    trains each MLP data parallel (every rank runs this call)."""
     if thresholds is None:
         thresholds = range(max(n_models // 2, 1), n_models + 1)
     else:
@@ -240,7 +251,7 @@ def run_fraud_pipeline(frame: Frame, feature_cols: Sequence[str],
     n_feat = np.asarray(frame["features"]).shape[1]
     bag = Bagging(
         base_fn=lambda: MLPClassifier(in_features=n_feat, epochs=epochs,
-                                      device=device),
+                                      mesh=mesh, device=device),
         n_models=n_models,
         sampler=StratifiedSampler({0: 1.0, 1: 10.0}, label_col=label_col),
         threshold=min(thresholds),

@@ -12,8 +12,9 @@ side scaled to ``resolution``, the rest padded bottom and right), and
 :func:`frcnn_serving_tiers` gives ``serving.ServingRuntime`` two rungs:
 fp and weight-only int8.  :func:`train_frcnn` trains the detector
 (approximate joint training, ``ops/frcnn_train.py``) through the
-``Optimizer`` with a ``forward_fn``; sharded serving and training
-(``specs=``, ``mesh=``) are ROADMAP.md Queue 1 item 12.
+``Optimizer`` with a ``forward_fn``, on one device or data parallel over
+a mesh (``mesh=``); sharded serving (``specs=``) is ROADMAP.md Queue 1
+item 12b.
 """
 
 from __future__ import annotations
@@ -173,12 +174,12 @@ def frcnn_serving_tiers(detector: nn.Module,
     unit-scale ``im_info``, so detections come back in canvas pixels,
     read back as numpy.  ``device_program()`` gives the rung's forward
     and example arguments of its shapes.  Sharded serving (``specs``) is
-    ROADMAP.md Queue 1 item 12."""
+    ROADMAP.md Queue 1 item 12b."""
     from analytics_zoo_tpu_torch.serving.ladder import ServingTier
 
     if specs is not None:
         raise NotImplementedError("frcnn_serving_tiers(specs=...) is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 12)")
+                                  "ported yet (ROADMAP.md Queue 1 item 12b)")
     full = FrcnnPredictor(detector, param=param,
                           aspect_preserving=aspect_preserving, device=device)
     int8 = FrcnnPredictor(detector, param=full.param,
@@ -272,17 +273,19 @@ def train_frcnn(model: Optional[nn.Module], dataset, resolution: int,
     unless ``device="cpu"``, when None; a given model trains where it
     lies); ``dataset`` yields SSD-style labeled batches with normalized
     gt (e.g. ``pipelines.ssd.load_train_set``), adapted by
-    :func:`frcnn_train_batches`.  ``mesh`` is refused (ROADMAP.md Queue 1
-    item 12)."""
+    :func:`frcnn_train_batches`.  ``mesh`` trains data parallel
+    (``pipeline_specs("frcnn", mesh)``): every rank runs this call on the
+    same global batches and trains on its rows; the loss is a mean over
+    images, so the averaged gradients are the one-device step's."""
     from analytics_zoo_tpu_torch.models.faster_rcnn import FasterRcnnVgg
     from analytics_zoo_tpu_torch.ops.frcnn_train import (FrcnnLossParam,
                                                          frcnn_training_loss)
     from analytics_zoo_tpu_torch.parallel import SGD, Optimizer, Trigger
 
+    specs = None
     if mesh is not None:
-        raise NotImplementedError(
-            "train_frcnn: sharded training (mesh) is not ported yet "
-            "(ROADMAP.md Queue 1 item 12)")
+        from analytics_zoo_tpu_torch.parallel.specs import pipeline_specs
+        specs = pipeline_specs("frcnn", mesh=mesh)
     loss_param = loss_param or FrcnnLossParam()
     if model is None:
         model = FasterRcnnVgg(device=device, seed=0)
@@ -292,7 +295,7 @@ def train_frcnn(model: Optional[nn.Module], dataset, resolution: int,
 
     opt = (Optimizer(model, frcnn_train_batches(dataset, resolution),
                      criterion, forward_fn=frcnn_forward_fn,
-                     grad_clip_norm=grad_clip_norm)
+                     grad_clip_norm=grad_clip_norm, specs=specs)
            .set_optim_method(SGD(lr, momentum=0.9, schedule=lr_schedule))
            .set_end_when(Trigger.max_epoch(epochs)))
     if epoch_hook is not None:

@@ -5,13 +5,14 @@ The reference's ``recommender-explicit-feedback.ipynb`` (user and item
 LookupTables → JoinTable → MLP → LogSoftMax over 5 rating classes) and
 the family's second architecture, Wide&Deep.  The models are dominated
 by ``(vocab, dim)`` tables, looked up by ``ops.embedding`` (``"dedup"`` by
-default).  Training is the one-device ``Optimizer`` with ``Adam`` and
+default).  Training is the ``Optimizer`` with ``Adam`` and
 ``ClassNLLCriterion`` over ``{"input": (users, items), "target":
 rating_class}`` batches; :func:`rec_serving_tiers` gives
 ``serving.ServingRuntime`` the fp and int8 rungs.
 
-``shard_tables`` has no effect without a mesh, as in the reference; a
-mesh (row-sharded tables) is ROADMAP.md Queue 1 item 12, and refused.
+``shard_tables`` has no effect without a mesh, as in the reference; with
+one, every table is row-sharded over the ``model`` axis.  Sharded serving
+(``specs=``) is ROADMAP.md Queue 1 item 12b, and refused.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from analytics_zoo_tpu_torch.models.simple import NeuralCF, WideAndDeep
 from analytics_zoo_tpu_torch.parallel import Adam, Optimizer, Trigger
 from analytics_zoo_tpu_torch.pipelines.fraud import (REC_INT8_SPEED,
                                                      fp_int8_tiers,
-                                                     refuse_sharding)
+                                                     refuse_sharding,
+                                                     train_specs)
 
 
 def _probe():
@@ -84,9 +86,12 @@ def train_recommender(model: Model, batches, epochs: int = 5,
                       lr: float = 1e-3, mesh=None,
                       shard_tables: bool = True) -> Model:
     """Train an NCF/Wide&Deep :class:`Model` on rating batches on its
-    device (``Adam(lr)``, ``ClassNLLCriterion``, ``epochs`` epochs)."""
-    refuse_sharding("train_recommender", mesh=mesh)
-    (Optimizer(model, batches, ClassNLLCriterion())
+    device (``Adam(lr)``, ``ClassNLLCriterion``, ``epochs`` epochs).
+    ``mesh`` trains data parallel with every lookup table row-sharded
+    over its ``model`` axis (``shard_tables``; ``pipeline_specs("rec")``;
+    every rank runs this call)."""
+    (Optimizer(model, batches, ClassNLLCriterion(),
+               specs=train_specs("rec", mesh, shard_tables=shard_tables))
      .set_optim_method(Adam(lr))
      .set_end_when(Trigger.max_epoch(epochs))
      .optimize())

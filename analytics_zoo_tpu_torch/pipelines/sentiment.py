@@ -7,7 +7,9 @@ BiLSTM, CNN or CNN-LSTM head → a binary sigmoid, trained with
 trainable table (vocab 20,000 × 100) dominates the parameters and is
 looked up by ``ops.embedding`` (``"dedup"`` by default);
 :func:`sentiment_serving_tiers` gives ``serving.ServingRuntime`` the fp
-and int8 rungs.  A mesh is ROADMAP.md Queue 1 item 12, and refused.
+and int8 rungs.  ``train_sentiment(mesh=)`` trains data parallel with
+the table row-sharded; sharded serving (``specs=``) is ROADMAP.md Queue 1
+item 12b, and refused.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from analytics_zoo_tpu_torch.models.simple import SentimentNet
 from analytics_zoo_tpu_torch.parallel import Adam, Optimizer, Trigger
 from analytics_zoo_tpu_torch.pipelines.fraud import (SENTIMENT_INT8_SPEED,
                                                      fp_int8_tiers,
-                                                     refuse_sharding)
+                                                     refuse_sharding,
+                                                     train_specs)
 
 
 def make_sentiment_model(vocab_size: int = 20000, embedding_dim: int = 100,
@@ -53,9 +56,12 @@ def train_sentiment(model: Model, batches, epochs: int = 5,
                     shard_tables: bool = True) -> Model:
     """Train a SentimentNet :class:`Model` on review batches on its device
     (``Adam(lr)``, ``BCECriterion``, dropout 0.2 from the model's
-    generator)."""
-    refuse_sharding("train_sentiment", mesh=mesh)
-    (Optimizer(model, batches, BCECriterion())
+    generator).  ``mesh`` trains data parallel with the table row-sharded
+    over its ``model`` axis (``shard_tables``; ``pipeline_specs(
+    "sentiment")``; every rank runs this call)."""
+    (Optimizer(model, batches, BCECriterion(),
+               specs=train_specs("sentiment", mesh,
+                                 shard_tables=shard_tables))
      .set_optim_method(Adam(lr))
      .set_end_when(Trigger.max_epoch(epochs))
      .optimize())

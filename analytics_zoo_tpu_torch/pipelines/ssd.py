@@ -21,8 +21,8 @@ batches in flight; :class:`Validator` and :class:`SSDMeanAveragePrecision`
 measure mAP; :func:`train_ssd` is the reference's training entry point.
 :func:`ssd_serving_tiers` gives ``serving.ServingRuntime`` its three
 rungs (fp, int8 weights, int8 with a smaller ``keep_topk``).  The yuv420
-wire and packed staging (deferred item e) and sharded serving or
-training (item 12) are not ported yet (ROADMAP.md, Queue 1).
+wire and packed staging (deferred item e) and sharded serving (item
+12b) are not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -598,12 +598,26 @@ def train_ssd(train_set, val_set, params: TrainParams,
     uploaded ahead of the step on a CUDA device (the ``Optimizer``'s
     ``prefetch``).  With ``params.checkpoint_path`` a snapshot is taken
     every epoch (one ``latest``, or ``step_N`` ones when
-    ``params.overwrite_checkpoint`` is false).  Refused by name: ``mesh``
-    and ``tp`` (item 12) and ``params.log_dir`` (item 13)."""
-    if mesh is not None or tp is not None:
+    ``params.overwrite_checkpoint`` is false).
+
+    ``mesh`` trains over ``parallel.mesh.create_mesh``'s ranks through
+    ``pipeline_specs("ssd", mesh, tp)``: every rank runs this call on the
+    same global batches and keeps its rows; ``tp=None`` is data parallel
+    (MultiBoxLoss normalised by the whole batch's positives, validation
+    through K2 on every rank's rows, merged), ``tp="megatron"`` shards
+    the weights by ``tensor.ssd_tp_rules`` over a ("data", "model") mesh.
+    Refused by name: ``tp="spatial"`` (item 12b) and ``params.log_dir``
+    (item 13)."""
+    if tp == "spatial":
         raise NotImplementedError(
-            "train_ssd: sharded training (mesh, tp) is not ported yet "
-            "(ROADMAP.md Queue 1 item 12)")
+            "train_ssd(tp='spatial'): image height over the model axis, "
+            "with its halo exchanges, is not ported yet (ROADMAP.md Queue 1 "
+            "item 12b)")
+    specs = None
+    if mesh is not None or tp is not None:
+        from analytics_zoo_tpu_torch.parallel.specs import pipeline_specs
+        specs = pipeline_specs("ssd", mesh=mesh, tp=tp,
+                               resolution=params.resolution)
     if params.log_dir:
         raise NotImplementedError(
             "train_ssd: summaries (TrainParams.log_dir) are not ported yet "
@@ -619,7 +633,7 @@ def train_ssd(train_set, val_set, params: TrainParams,
 
     def make_optimizer(optim_method, end_when):
         opt = (Optimizer(model, train_set, criterion, skip_loss_above=50.0,
-                         compute_dtype=params.compute_dtype,
+                         specs=specs, compute_dtype=params.compute_dtype,
                          prefetch=params.prefetch,
                          device_transform=device_transform)
                .set_optim_method(optim_method)
@@ -685,12 +699,12 @@ def ssd_serving_tiers(model: nn.Module, param: PreProcessParam,
     numpy, read back.  ``device_program()`` gives the rung's detect
     callable and example arguments of its shapes, its
     ``DetectionOutputParam`` last.  Sharded serving (``specs``) is
-    ROADMAP.md Queue 1 item 12."""
+    ROADMAP.md Queue 1 item 12b."""
     from analytics_zoo_tpu_torch.serving.ladder import ServingTier
 
     if specs is not None:
         raise NotImplementedError("ssd_serving_tiers(specs=...) is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 12)")
+                                  "ported yet (ROADMAP.md Queue 1 item 12b)")
     full = SSDPredictor(model, param, post=post, n_classes=n_classes,
                         compute_dtype=compute_dtype, device=device)
     int8 = SSDPredictor(model, param, post=post, n_classes=n_classes,

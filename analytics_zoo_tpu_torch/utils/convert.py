@@ -65,6 +65,40 @@ def _to_flax_layout(key: str, value: np.ndarray) -> np.ndarray:
     return np.transpose(value, (2, 3, 1, 0)) if value.ndim == 4 else value.T
 
 
+_KERNEL_OWNERS = (nn.Linear, nn.Conv1d, nn.Conv2d)
+
+
+def flax_key(module: nn.Module, name: str) -> str:
+    """The flax key of parameter ``name`` of ``module`` (the inverse of
+    :func:`_torch_name` for ``params``): a ``Linear``/``Conv`` weight is
+    a ``kernel``, a batch norm's weight its ``scale``, any other leaf
+    keeps its name (``vgg.conv1_1.weight`` → ``vgg/conv1_1/kernel``)."""
+    parts = name.split(".")
+    owner = module.get_submodule(".".join(parts[:-1]))
+    leaf = parts[-1]
+    if leaf == "weight":
+        if isinstance(owner, _KERNEL_OWNERS):
+            leaf = "kernel"
+        elif hasattr(owner, "running_mean"):
+            leaf = "scale"
+    return "/".join(parts[:-1] + [leaf])
+
+
+def flax_dim_order(key: str, ndim: int) -> Tuple[int, ...]:
+    """``order[d]`` is the torch dim of flax dim ``d`` of leaf ``key``:
+    a Dense kernel (in, out) is torch (out, in), a conv kernel (kh, kw,
+    cin, cout) torch (cout, cin, kh, kw), a 1-D one (k, in, out) torch
+    (out, in, k); every other leaf keeps its layout (the layouts of
+    :func:`_to_flax_layout`)."""
+    if key.split("/")[-1] != "kernel" or ndim < 2:
+        return tuple(range(ndim))
+    if ndim == 2:
+        return (1, 0)
+    if ndim == 3:
+        return (2, 1, 0)
+    return (2, 3, 1, 0)
+
+
 def state_dict_to_flax(tensors: Mapping[str, torch.Tensor],
                        like: Mapping) -> Dict[str, Dict[str, np.ndarray]]:
     """The inverse of :func:`flax_variables_to_state_dict`: tensors named

@@ -6,8 +6,9 @@ path from JPEG records, SSD and DeepSpeech2 online serving through
 pool, Faster-RCNN VGG16 serving and training, graphs built from Caffe
 deploy nets, the SSD AlexNet and MobileNet variants, the fraud,
 recommendation and sentiment pipelines with their pool, DeepSpeech2
-training checkpointed and resumed after a crash, and SSD serving across
-a live weight swap once on one NVIDIA GPU.
+training checkpointed and resumed after a crash, SSD serving across a
+live weight swap, and DeepSpeech2 and SSD300 trained data and tensor
+parallel by two ranks sharing the card, once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -359,6 +360,38 @@ Phases, one JSON line each; any failure exits non-zero:
    load+verify and rollout seconds, each install's seconds, request
    p50/p99 before, during and after, peak GB; then a ``timing`` line of
    the two phases' seconds;
+6m. dist_dp: ``DIST_WORLD`` ranks, each a process ``utils.engine.spawn``
+   starts (it and this script import the port only), on the one card
+   over gloo (``DIST_BACKEND``; NCCL refuses two ranks of a communicator
+   on one device); each rank first probes which collectives gloo takes
+   on CUDA tensors (printed; ``DIST_NEEDS`` must pass).  DS2 at the
+   widths above (``rnn_engine="pallas"``): ``train_ds2(mesh=
+   create_mesh((2,)))`` for ``DIST_DS2_STEPS`` steps on global batches
+   of 8 × ``DIST_DS2_FRAMES`` frames, counters at 0 just before and read
+   just after (6 K3 and 6 K4 launches a step on every rank), the first
+   step's loss against the one-process step on the same rows within
+   ``DIST_LOSS_TOL``, its gradients (each rank's averaged ``.grad``)
+   within ``DIST_GRAD_TOL`` as ``grads_err`` holds them, the step's ms
+   on each rank (host clock, the first step and the gradient tap left
+   out) against the one-process step's, and the flat gradient
+   all-reduce alone; SSD300 fp32: ``train_ssd`` for ``DIST_SSD_STEPS``
+   steps of ``DIST_SSD_BATCH`` with a validation of ``DIST_SSD_VAL``
+   images (K2 on every rank's rows, the results merged), the first
+   step's loss and gradients (as one vector) against the one-process
+   step's, the merged detections EQUAL to this process's of the same
+   halves, and against its batch of 8 (``DIST_MATCH_MIN``,
+   ``DIST_SCORE_TOL``; the mAP printed);
+6n. dist_tp: the choice (world ``DIST_TP_WORLD`` over gloo, whose
+   ``DIST_NEEDS`` dist_dp probed) printed; on a ("data", "model") mesh
+   of (1, 2): ``train_ssd(tp="megatron")`` for ``DIST_TP_STEPS`` steps
+   of ``DIST_TP_SSD_BATCH`` with a validation of ``DIST_SSD_VAL`` images
+   through K2, each rank's detections against the one-process
+   validation of the gathered weights (``DIST_MATCH_MIN``,
+   ``DIST_SCORE_TOL``), and ``train_ds2(param_rules=default_tp_rules())`` for
+   ``DIST_TP_STEPS`` steps (K3/K4 take the h2h weights gathered whole),
+   the first losses and gradients against the unsharded steps; then a
+   world-1 NCCL group: an all-reduce on the card and a data-parallel
+   step over the one-rank mesh;
 7. the ``kernels`` line, then the device line last.
 
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -4880,6 +4913,687 @@ def ssd_swap_phase(dev, smi):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# 6m/6n. data- and tensor-parallel training on torch.distributed
+# ---------------------------------------------------------------------------
+
+# ranks on the one card, each a process started by ``engine.spawn`` that
+# imports the port and this script only; they share the card over gloo
+# (NCCL refuses two ranks of one communicator on one device)
+DIST_WORLD = 2
+DIST_BACKEND = "gloo"
+# the collectives the port's sharded steps call on CUDA tensors: the
+# gradient and row-layer all_reduce, the weights' first placement a
+# broadcast, the column outputs' and gathered weights' all_gather
+# (parallel/tensor.py).  The card's gloo takes all three (probed in
+# dist_dp, and the phase fails if it does not), so dist_tp runs at
+# world 2 over gloo
+DIST_NEEDS = ("all_reduce", "broadcast", "all_gather")
+DIST_TP_WORLD = 2
+# DS2 at the widths above, 3 steps on global batches of 8 × 1000 frames
+DIST_DS2_FRAMES, DIST_DS2_STEPS = 1000, 3
+# SSD300, fp32: 2 steps of 32 (16 a rank), validation of 8 (4 a rank)
+DIST_SSD_BATCH, DIST_SSD_STEPS, DIST_SSD_VAL = 32, 2, 8
+# tensor parallel: SSD300 2 steps of 8, DS2 2 steps of the DS2 batches
+DIST_TP_SSD_BATCH, DIST_TP_STEPS = 8, 2
+# the first step's loss against the one-process step on the same rows,
+# relative; its gradients relative L2 (DS2 each tensor as grads_err
+# holds it, K4's fp32 tolerance; SSD all of them as one vector, as
+# SSD_GRAD_TOL holds a card step against the CPU's)
+DIST_LOSS_TOL = 1e-5
+DIST_GRAD_TOL = 1e-3
+# the merged validation against the one-process validation of the same
+# weights: the rows EQUAL (rows_err) to this process's detections of the
+# same rank-sized halves, in rank order; against the one-process batch of
+# 8, each image's rows matched greedily (class equal, box within
+# DIST_BOX_TOL), at least DIST_MATCH_MIN of them, their scores within
+# DIST_SCORE_TOL.  A forward of 4 images rounds some logits otherwise
+# than one of 8, which reorders near-equal scores of the random weights
+# at the keep_topk cut and in the greedy suppression (the first run: 196
+# of 200 rows of the worst image matched).  The megatron run's
+# detections of its 8 images (each rank forwards all of them: the data
+# axis is 1 wide) are held to the one-process batch of 8 the same way.
+# The mAP is printed, not held: on random weights it is 0 on both sides
+DIST_MATCH_MIN = 0.95
+DIST_SCORE_TOL = 1e-5
+DIST_BOX_TOL = 1e-4
+DIST_TIMEOUT = 300
+
+
+def dist_ds2_batches(seed):
+    """DIST_DS2_STEPS global batches of 8 utterances of at most 10 s,
+    bucketed at 1000 frames, with random labels."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.pipelines.deepspeech2 import (
+        load_asr_train_set)
+
+    samples, lengths, labels = ds2_train_set(seed)
+    short = np.nonzero(lengths <= 160 * DIST_DS2_FRAMES - 400)[0]
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(DIST_DS2_STEPS):
+        pick = rng.choice(short, BATCH, replace=False)
+        ds = load_asr_train_set(samples[pick], labels[pick],
+                                batch_size=BATCH, shuffle=False,
+                                sample_lengths=lengths[pick],
+                                bucket_edges=[DIST_DS2_FRAMES])
+        out.append(next(iter(ds)))
+    return out
+
+
+class GradTap:
+    """The batches of a list, one epoch each ``iter``; before the second
+    the model's ``.grad`` (the first step's gradient, averaged over the
+    data ranks) gathered whole to the host, and a synchronized host
+    stamp before each batch and after the last.  The tap comes before
+    the second stamp, so it falls in the first interval, which
+    ``stamps_ms`` leaves out with the first step."""
+
+    def __init__(self, batches, model, specs=None):
+        self.batches, self.model, self.specs = batches, model, specs
+        self.grads, self.stamps = None, []
+
+    def __iter__(self):
+        import torch
+
+        for i, b in enumerate(self.batches):
+            if i == 1:
+                self.grads = tap_grads(self.model, self.specs)
+            torch.cuda.synchronize()
+            self.stamps.append(time.perf_counter())
+            yield b
+        torch.cuda.synchronize()
+        self.stamps.append(time.perf_counter())
+
+
+def tap_grads(model, specs=None):
+    """Every parameter's ``.grad`` as whole host arrays (shards gathered,
+    a collective)."""
+    named = {k: p.grad for k, p in model.named_parameters()}
+    if specs is None:
+        return {k: g.detach().cpu().numpy() for k, g in named.items()}
+    from analytics_zoo_tpu_torch.parallel.tensor import spec_of
+
+    return specs.gather(named, specs={
+        k: spec_of(p) for k, p in model.named_parameters()})
+
+
+def stamps_ms(stamps) -> float:
+    """The median step of a ``GradTap``'s stamps in ms, the first
+    interval (the warm-up step and the gradient tap) left out when there
+    are others."""
+    import numpy as np
+
+    steps = 1e3 * np.diff(stamps)
+    return float(np.median(steps[1:] if len(steps) > 1 else steps))
+
+
+def vector_rel(got, want) -> float:
+    """All of ``got`` against all of ``want`` as one vector, relative L2."""
+    import numpy as np
+
+    num = sum(float(np.sum((got[k].astype(np.float64) - w) ** 2))
+              for k, w in want.items())
+    den = sum(float(np.sum(np.asarray(w, np.float64) ** 2))
+              for w in want.values())
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def probe_gloo():
+    """Which collectives this rank's gloo group takes on CUDA tensors:
+    ``{name: "ok" | the error}``."""
+    import torch
+    import torch.distributed as dist
+
+    from analytics_zoo_tpu_torch.parallel import tensor as tensor_lib
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    world = dist.get_world_size()
+    ctx = tensor_lib.AxisCtx(None, dist.get_rank(), world)
+    out = {}
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(torch.ones(4, device=dev)),
+        "broadcast": lambda: dist.broadcast(torch.ones(4, device=dev), 0),
+        # the call the parallel layers make
+        "all_gather": lambda: tensor_lib.all_gather_dim(
+            torch.ones(4, device=dev), 0, ctx),
+    }
+    for name in DIST_NEEDS:
+        try:
+            calls[name]()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:   # the probe's answer, printed; not a path
+            out[name] = f"{type(e).__name__}: {str(e)[:120]}"
+        dist.barrier()
+    return out
+
+
+def launch_counts():
+    return {k.__name__: k.launches for k in kernel_counters()}
+
+
+def dist_child(task, **kw):
+    """One rank of a multi-rank phase (``engine.spawn`` target)."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return {"dp": dist_dp_rank, "tp": dist_tp_rank,
+            "nccl": dist_nccl_rank}[task](**kw)
+
+
+class recording_optimizer:
+    """``with recording_optimizer(pipeline_module) as runs:`` — each
+    ``Optimizer`` the pipeline's entry point builds, kept in ``runs``."""
+
+    def __init__(self, module):
+        self.module, self.runs = module, []
+
+    def __enter__(self):
+        runs, base = self.runs, self.module.Optimizer
+
+        class Recording(base):
+            def optimize(self):
+                runs.append(self)
+                return super().optimize()
+
+        self.patched = base
+        self.module.Optimizer = Recording
+        return runs
+
+    def __exit__(self, *exc):
+        self.module.Optimizer = self.patched
+
+
+def dist_ds2_rank(batches, rules, mesh_shape, axes, seed):
+    """``train_ds2`` over a mesh on the DS2 batches: losses, the first
+    step's gathered gradients (rank 0), step stamps, K3/K4 launches, and
+    the flat gradient all-reduce alone (host clock, median of 3)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+    from analytics_zoo_tpu_torch.parallel import tensor as tensor_lib
+    from analytics_zoo_tpu_torch.parallel.specs import SpecSet
+    from analytics_zoo_tpu_torch.pipelines import deepspeech2 as ds2_pipe
+    from analytics_zoo_tpu_torch.utils import engine
+
+    mesh = mesh_lib.create_mesh(mesh_shape, axes)
+    param_rules = tensor_lib.default_tp_rules() if rules else None
+    model = ds2_pipe.make_ds2_model(hidden=DS2_HIDDEN, n_rnn_layers=3,
+                                    rnn_engine="pallas",
+                                    device=engine.device(), seed=seed)
+    specs = SpecSet(mesh, rules=param_rules)
+    tap = GradTap(batches, model, specs)
+    zero_kernel_counters()
+    with recording_optimizer(ds2_pipe) as runs:
+        ds2_pipe.train_ds2(model, tap, epochs=1, mesh=mesh,
+                           param_rules=param_rules)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    losses = [float(m["loss"]) for m in runs[0].history]
+    n_params = sum(p.numel() for p in model.parameters())
+    ar_ms = None
+    group = specs.data_group()
+    if group is not None:
+        flat = torch.zeros(n_params + 1, device=engine.device())
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.all_reduce(flat, group=group)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ar_ms = float(np.median(times))
+    sharded = tensor_lib.sharded_param_count(model)
+    grads = tap.grads if dist.get_rank() == 0 else None
+    del model, runs
+    torch.cuda.empty_cache()
+    return {"grads": grads, "stamps": tap.stamps, "launches": launches,
+            "all_reduce_ms": ar_ms, "n_params": n_params,
+            "sharded_params": sharded, "losses": losses}
+
+
+def dist_ssd_rank(train, val, tp, mesh_shape, axes):
+    """``train_ssd`` (fp32) over a mesh: losses, the first step's gathered
+    gradients and the trained weights (rank 0), this rank's validation
+    detections, the merged mAP, the launches, step stamps."""
+    import torch
+    import torch.distributed as dist
+
+    from analytics_zoo_tpu_torch.models.ssd import SSDVgg
+    from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+    from analytics_zoo_tpu_torch.parallel.specs import SpecSet
+    from analytics_zoo_tpu_torch.pipelines import ssd as ssd_pipe
+    from analytics_zoo_tpu_torch.utils import engine
+
+    mesh = mesh_lib.create_mesh(mesh_shape, axes)
+    model = SSDVgg(21, 300, device=engine.device(), seed=0)
+    specs = SpecSet(mesh)
+    tap = GradTap(train, model, specs)
+    params = ssd_pipe.TrainParams(max_epoch=1, compute_dtype=None,
+                                  prefetch=0)
+    opt, seen, launches, seconds = recorded_train_ssd(
+        tap, val, params, model, mesh=mesh, tp=tp)
+    weights = specs.gather(model)
+    rank0 = dist.get_rank() == 0
+    out = {"losses": [float(m["loss"]) for m in opt.history],
+           "grads": tap.grads if rank0 else None,
+           "weights": weights if rank0 else None,
+           "detections": [d.numpy() for _, _, d in seen],
+           "val_history": opt.val_history, "launches": launches,
+           "stamps": tap.stamps, "seconds": seconds}
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_dp_rank(ds2_batches, ssd_train, ssd_val, seed):
+    import torch.distributed as dist
+
+    probe = probe_gloo()
+    missing = [c for c in DIST_NEEDS if probe[c] != "ok"]
+    if missing:
+        raise AssertionError(f"gloo on CUDA tensors refuses {missing}: "
+                             f"{probe}")
+    out = {"probe": probe, "backend": dist.get_backend()}
+    out["ds2"] = dist_ds2_rank(ds2_batches, False, (DIST_WORLD,), ("data",),
+                               seed)
+    out["ssd"] = dist_ssd_rank(ssd_train, ssd_val, None, (DIST_WORLD,),
+                               ("data",))
+    return out
+
+
+def dist_tp_rank(ds2_batches, ssd_train, ssd_val, seed):
+    import torch.distributed as dist
+
+    shape, axes = (1, DIST_TP_WORLD), ("data", "model")
+    out = {"backend": dist.get_backend()}
+    out["ssd"] = dist_ssd_rank(ssd_train, ssd_val, "megatron", shape, axes)
+    out["ds2"] = dist_ds2_rank(ds2_batches, True, shape, axes, seed)
+    return out
+
+
+def dist_nccl_rank():
+    """World 1 over NCCL: the group starts, an all_reduce on the card,
+    and one data-parallel step of a small model over the one-rank mesh."""
+    import torch
+    import torch.distributed as dist
+    from torch import nn
+
+    from analytics_zoo_tpu_torch.parallel import SGD, mesh as mesh_lib
+    from analytics_zoo_tpu_torch.parallel.specs import SpecSet
+    from analytics_zoo_tpu_torch.parallel.train import (create_train_state,
+                                                        make_train_step)
+    from analytics_zoo_tpu_torch.core.criterion import MSECriterion
+    from analytics_zoo_tpu_torch.utils import engine
+
+    dev = engine.device()
+    x = torch.arange(4.0, device=dev)
+    dist.all_reduce(x)
+    mesh = mesh_lib.create_mesh((1,), ("data",))
+    model = nn.Linear(8, 2).to(dev)
+    optim = SGD(0.1)
+    step = make_train_step(model, MSECriterion(), optim,
+                           specs=SpecSet(mesh))
+    state, metrics = step(create_train_state(model, optim), {
+        "input": torch.ones(4, 8), "target": torch.zeros(4, 2)})
+    return {"backend": dist.get_backend(), "all_reduce": x.tolist(),
+            "loss": float(metrics["loss"])}
+
+
+def match_rows(got, want):
+    """Greedy match of two images' valid detection rows (class equal,
+    box within DIST_BOX_TOL, highest score first): (matched share of
+    ``want``'s rows, largest score difference over the matches)."""
+    import numpy as np
+
+    vg, vw = got[got[:, 1] > 0], want[want[:, 1] > 0]
+    used, diffs = set(), []
+    for row in vw:
+        for j, other in enumerate(vg):
+            if (j not in used and other[0] == row[0]
+                    and np.abs(other[2:] - row[2:]).max() <= DIST_BOX_TOL):
+                used.add(j)
+                diffs.append(abs(float(other[1] - row[1])))
+                break
+    return len(diffs) / max(len(vw), 1), max(diffs) if diffs else 0.0
+
+
+def match_images(got, want):
+    """``match_rows`` of every image: (the smallest matched share, the
+    mean share, the largest score difference)."""
+    import numpy as np
+
+    shares, score_err = [], 0.0
+    for g, w in zip(got, want):
+        share, d = match_rows(g, w)
+        shares.append(share)
+        score_err = max(score_err, d)
+    return min(shares), float(np.mean(shares)), score_err
+
+
+def dist_reference(dev, ds2_batches, ssd_train, seed, ssd_tp_batch=None):
+    """The one-process steps the multi-rank ones are held to: DS2's and
+    SSD300's first-step loss and gradients on the same global batches,
+    and one more DS2 step timed by the host clock."""
+    import torch
+
+    from analytics_zoo_tpu_torch.models.ssd import (SSDVgg, build_priors,
+                                                    config_for)
+    from analytics_zoo_tpu_torch.ops.multibox_loss import (MultiBoxLoss,
+                                                           MultiBoxLossParam)
+    from analytics_zoo_tpu_torch.parallel import (SGD, Adam,
+                                                  create_train_state,
+                                                  make_train_step)
+    from analytics_zoo_tpu_torch.pipelines import deepspeech2 as ds2_pipe
+
+    out = {}
+    model = ds2_pipe.make_ds2_model(hidden=DS2_HIDDEN, n_rnn_layers=3,
+                                    rnn_engine="pallas", device=dev,
+                                    seed=seed)
+    step = make_train_step(model, ds2_pipe.ds2_ctc_criterion(blank_id=0),
+                           Adam(3e-4), metric_fn=ds2_pipe.ds2_padding_metric)
+    state = create_train_state(model, Adam(3e-4))
+    state, metrics = step(state, ds2_batches[0])
+    out["ds2_loss"] = metrics["loss"].item()
+    out["ds2_grads"] = tap_grads(model)
+    times = []
+    for b in ds2_batches[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["ds2_step_ms"] = times
+    del model, state, step
+    priors, variances = build_priors(config_for(300))
+    crit = MultiBoxLoss(priors, variances, MultiBoxLossParam(n_classes=21))
+    for name, batch in (("ssd", ssd_train[0]), ("ssd_tp", ssd_tp_batch)):
+        if batch is None:
+            continue
+        model = SSDVgg(21, 300, device=dev, seed=0)
+        step = make_train_step(model, crit, SGD(1e-3, momentum=0.9),
+                               skip_loss_above=50.0)
+        state = create_train_state(model, SGD(1e-3, momentum=0.9))
+        state, metrics = step(state, batch)
+        out[f"{name}_loss"] = metrics["loss"].item()
+        out[f"{name}_grads"] = tap_grads(model)
+        # a second step, timed (the first picks the convolutions' kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        out[f"{name}_step_ms"] = (time.perf_counter() - t0) * 1e3
+        del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def one_process_validation(dev, weights, val):
+    """The trained weights validated in this process: (detections of every
+    image, the detections of each batch forwarded in DIST_WORLD halves,
+    mAP)."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.models.ssd import SSDVgg
+    from analytics_zoo_tpu_torch.parallel import make_eval_step, validate
+    from analytics_zoo_tpu_torch.pipelines.ssd import SSDMeanAveragePrecision
+
+    model = SSDVgg(21, 300, device=dev, seed=0)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           weights.items()})
+    model.eval()
+    method = SSDMeanAveragePrecision(n_classes=21, resolution=300)
+    eval_step = make_eval_step(model)
+    def detect(x):
+        return method.detect(eval_step(torch.from_numpy(x).to(dev))).cpu()
+
+    dets = [detect(b["input"]).numpy() for b in val]
+    halves = [torch.cat([detect(x) for x in np.split(b["input"],
+                                                     DIST_WORLD)])
+              for b in val]
+    (result,) = validate(model, val, [method])
+    return dets, halves, result.result()
+
+
+def check_losses(what, got, want):
+    err = abs(got - want) / max(abs(want), 1e-30)
+    if not err <= DIST_LOSS_TOL:
+        raise AssertionError(f"{what}: first-step loss {got} against the "
+                             f"one-process {want} (rel {err:.3g}, tol "
+                             f"{DIST_LOSS_TOL})")
+    return err
+
+
+def dist_dp_phase(dev, smi, seed=31):
+    """dist_dp: DS2 and SSD300 trained data parallel by DIST_WORLD ranks on
+    the one card over gloo, against the one-process steps."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.utils import engine
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(seed)
+    ds2_batches = dist_ds2_batches(seed)
+    ssd_train = [ssd_batch(rng, DIST_SSD_BATCH)
+                 for _ in range(DIST_SSD_STEPS)]
+    ssd_val = [ssd_batch(rng, DIST_SSD_VAL)]
+    t0 = time.perf_counter()
+    ranks = engine.spawn(os.path.abspath(__file__) + ":dist_child",
+                         DIST_WORLD, dict(task="dp", ds2_batches=ds2_batches,
+                                          ssd_train=ssd_train,
+                                          ssd_val=ssd_val, seed=seed),
+                         timeout=DIST_TIMEOUT, backend=DIST_BACKEND,
+                         local_ranks=[0] * DIST_WORLD)
+    spawn_s = time.perf_counter() - t0
+    ref = dist_reference(dev, ds2_batches, ssd_train, seed)
+    ds2 = [r["ds2"] for r in ranks]
+    ssd = [r["ssd"] for r in ranks]
+    # DS2: loss, gradients, K3/K4 on every rank's rows
+    ds2_loss_err = check_losses("dist_dp ds2", ds2[0]["losses"][0],
+                                ref["ds2_loss"])
+    if any(r["losses"] != ds2[0]["losses"] for r in ds2):
+        raise AssertionError(f"dist_dp ds2: the ranks' global losses differ "
+                             f"{[r['losses'] for r in ds2]}")
+    errs = grads_err({k: torch.from_numpy(v) for k, v in
+                      ds2[0]["grads"].items()},
+                     {k: torch.from_numpy(v) for k, v in
+                      ref["ds2_grads"].items()})
+    ds2_grad_err = max(errs.values())
+    if not ds2_grad_err <= DIST_GRAD_TOL:
+        worst = max(errs, key=errs.get)
+        raise AssertionError(f"dist_dp ds2: first-step gradient {worst} rel "
+                             f"L2 {ds2_grad_err:.3g} (tol {DIST_GRAD_TOL})")
+    want = 6 * DIST_DS2_STEPS
+    for r, x in enumerate(ds2):
+        if (x["launches"]["persistent_rnn"] != want
+                or x["launches"]["persistent_rnn_bwd"] != want):
+            raise AssertionError(f"dist_dp ds2 rank {r}: launches "
+                                 f"{x['launches']}, want {want} K3 and K4")
+    dp_ms = [stamps_ms(x["stamps"]) for x in ds2]
+    one_ms = float(np.median(ref["ds2_step_ms"]))
+    # SSD300: loss, gradients (one vector), the merged validation
+    ssd_loss_err = check_losses("dist_dp ssd", ssd[0]["losses"][0],
+                                ref["ssd_loss"])
+    ssd_grad_err = vector_rel(ssd[0]["grads"], ref["ssd_grads"])
+    if not ssd_grad_err <= DIST_GRAD_TOL:
+        raise AssertionError(f"dist_dp ssd: first-step gradients rel L2 "
+                             f"{ssd_grad_err:.3g} (tol {DIST_GRAD_TOL})")
+    per_tensor = max(
+        float(np.linalg.norm(ssd[0]["grads"][k] - w)
+              / max(np.linalg.norm(w), 1e-30))
+        for k, w in ref["ssd_grads"].items())
+    for r, x in enumerate(ssd):
+        if x["launches"]["fused_detection_output"] < 1 or any(
+                v for k, v in x["launches"].items()
+                if k != "fused_detection_output"):
+            raise AssertionError(f"dist_dp ssd rank {r}: validation "
+                                 f"launched {x['launches']}")
+        if (len(x["detections"]) != 1
+                or x["detections"][0].shape[0] != DIST_SSD_VAL // DIST_WORLD):
+            raise AssertionError(f"dist_dp ssd rank {r}: validated "
+                                 f"{[d.shape for d in x['detections']]}")
+    merged = np.concatenate([x["detections"][0] for x in ssd])
+    ref_dets, ref_halves, ref_map = one_process_validation(
+        dev, ssd[0]["weights"], ssd_val)
+    halves_err = rows_err(torch.from_numpy(merged), ref_halves[0])
+    match_min, match_mean, score_err = match_images(
+        merged, np.concatenate(ref_dets))
+    dp_map = [x["val_history"][-1] for x in ssd]
+    map_name = next(k for k in dp_map[0] if k != "iteration")
+    map_err = max(abs(m[map_name] - ref_map) for m in dp_map)
+    if match_min < DIST_MATCH_MIN or score_err > DIST_SCORE_TOL:
+        raise AssertionError(f"dist_dp ssd validation: matched {match_min}"
+                             f" (min {DIST_MATCH_MIN}), score err "
+                             f"{score_err} (tol {DIST_SCORE_TOL})")
+    ssd_dp_ms = [stamps_ms(x["stamps"]) for x in ssd]
+    k2 = sum(x["launches"]["fused_detection_output"] for x in ssd)
+    emit("dist_dp", nvidia_smi=smi, world=DIST_WORLD,
+         backend=ranks[0]["backend"], gloo_on_cuda=ranks[0]["probe"],
+         ds2_losses=ds2[0]["losses"], ds2_loss_rel_err=ds2_loss_err,
+         ds2_grad_rel_l2_max=ds2_grad_err,
+         ds2_launches_by_rank=[x["launches"] for x in ds2],
+         ds2_step_ms_by_rank=dp_ms, ds2_one_process_step_ms=one_ms,
+         ds2_all_reduce_ms=ds2[0]["all_reduce_ms"],
+         ds2_all_reduce_share=ds2[0]["all_reduce_ms"] / dp_ms[0],
+         ds2_grad_bytes=4 * (ds2[0]["n_params"] + 1),
+         ssd_losses=ssd[0]["losses"], ssd_loss_rel_err=ssd_loss_err,
+         ssd_grad_rel_l2=ssd_grad_err, ssd_grad_rel_l2_worst_tensor=per_tensor,
+         ssd_step_ms_by_rank=ssd_dp_ms,
+         ssd_one_process_step_ms=ref["ssd_step_ms"],
+         ssd_val_rows_vs_halves_err=halves_err,
+         ssd_val_matched_min=match_min, ssd_val_matched_mean=match_mean,
+         ssd_val_score_err=score_err,
+         ssd_val_map=dp_map[0][map_name], ssd_one_process_map=ref_map,
+         ssd_val_map_err=map_err,
+         ssd_launches_by_rank=[x["launches"] for x in ssd],
+         spawn_s=spawn_s, phase_s=time.perf_counter() - t_phase)
+    return {"persistent_rnn": sum(x["launches"]["persistent_rnn"]
+                                  for x in ds2),
+            "persistent_rnn_bwd": sum(x["launches"]["persistent_rnn_bwd"]
+                                      for x in ds2),
+            "fused_detection_output": k2,
+            "nms_sweep": sum(x["launches"]["nms_sweep"] for x in ssd + ds2)}
+
+
+def dist_tp_phase(dev, smi, seed=37):
+    """dist_tp: ``train_ssd(tp="megatron")`` and ``train_ds2(param_rules=
+    default_tp_rules())`` on a ("data", "model") mesh of (1,
+    DIST_TP_WORLD) over gloo, against the unsharded steps; then a world-1
+    NCCL group."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.utils import engine
+
+    t_phase = time.perf_counter()
+    print(json.dumps({"phase": "dist_tp_choice", "world": DIST_TP_WORLD,
+                      "backend": DIST_BACKEND, "collectives": DIST_NEEDS,
+                      "why": "the sharded steps' collectives are these, "
+                             "which dist_dp's probe found gloo takes on "
+                             "CUDA tensors"}), flush=True)
+    rng = np.random.RandomState(seed)
+    ds2_batches = dist_ds2_batches(seed)[:DIST_TP_STEPS]
+    ssd_train = [ssd_batch(rng, DIST_TP_SSD_BATCH)
+                 for _ in range(DIST_TP_STEPS)]
+    ssd_val = [ssd_batch(rng, DIST_SSD_VAL)]
+    ranks = engine.spawn(os.path.abspath(__file__) + ":dist_child",
+                         DIST_TP_WORLD, dict(task="tp",
+                                             ds2_batches=ds2_batches,
+                                             ssd_train=ssd_train,
+                                             ssd_val=ssd_val, seed=seed),
+                         timeout=DIST_TIMEOUT, backend=DIST_BACKEND,
+                         local_ranks=[0] * DIST_TP_WORLD)
+    ref = dist_reference(dev, ds2_batches, [ssd_train[0]], seed)
+    ds2 = [r["ds2"] for r in ranks]
+    ssd = [r["ssd"] for r in ranks]
+    ds2_loss_err = check_losses("dist_tp ds2", ds2[0]["losses"][0],
+                                ref["ds2_loss"])
+    errs = grads_err({k: torch.from_numpy(v) for k, v in
+                      ds2[0]["grads"].items()},
+                     {k: torch.from_numpy(v) for k, v in
+                      ref["ds2_grads"].items()})
+    ds2_grad_err = max(errs.values())
+    ssd_loss_err = check_losses("dist_tp ssd", ssd[0]["losses"][0],
+                                ref["ssd_loss"])
+    ssd_grad_err = vector_rel(ssd[0]["grads"], ref["ssd_grads"])
+    if not (ds2_grad_err <= DIST_GRAD_TOL and ssd_grad_err <= DIST_GRAD_TOL):
+        raise AssertionError(f"dist_tp: first-step gradients rel L2 ds2 "
+                             f"{ds2_grad_err:.3g}, ssd {ssd_grad_err:.3g} "
+                             f"(tol {DIST_GRAD_TOL})")
+    want = 6 * DIST_TP_STEPS
+    for r, x in enumerate(ds2):
+        if (x["launches"]["persistent_rnn"] != want
+                or x["launches"]["persistent_rnn_bwd"] != want
+                or x["sharded_params"] == 0):
+            raise AssertionError(f"dist_tp ds2 rank {r}: launches "
+                                 f"{x['launches']}, sharded "
+                                 f"{x['sharded_params']}")
+    for r, x in enumerate(ssd):
+        if x["launches"]["fused_detection_output"] < 1:
+            raise AssertionError(f"dist_tp ssd rank {r}: {x['launches']}")
+        if (len(x["detections"]) != 1
+                or x["detections"][0].shape[0] != DIST_SSD_VAL):
+            raise AssertionError(f"dist_tp ssd rank {r}: validated "
+                                 f"{[d.shape for d in x['detections']]}")
+    # the megatron validation: every rank's detections of all 8 images
+    # against this process's of the gathered weights
+    ref_dets, _, ref_map = one_process_validation(
+        dev, ssd[0]["weights"], ssd_val)
+    tp_match = [match_images(x["detections"][0], np.concatenate(ref_dets))
+                for x in ssd]
+    match_min = min(m[0] for m in tp_match)
+    score_err = max(m[2] for m in tp_match)
+    if match_min < DIST_MATCH_MIN or score_err > DIST_SCORE_TOL:
+        raise AssertionError(f"dist_tp ssd validation: matched {match_min} "
+                             f"(min {DIST_MATCH_MIN}), score err {score_err}"
+                             f" (tol {DIST_SCORE_TOL})")
+    ranks_diff = max(float(np.abs(x["detections"][0]
+                                  - ssd[0]["detections"][0]).max())
+                     for x in ssd)
+    tp_map = [x["val_history"][-1] for x in ssd]
+    map_name = next(k for k in tp_map[0] if k != "iteration")
+    t0 = time.perf_counter()
+    (nccl,) = engine.spawn(os.path.abspath(__file__) + ":dist_child", 1,
+                           dict(task="nccl"), timeout=DIST_TIMEOUT)
+    if nccl["backend"] != "nccl" or nccl["all_reduce"] != [0.0, 1.0, 2.0,
+                                                           3.0]:
+        raise AssertionError(f"dist_tp: world-1 NCCL gave {nccl}")
+    nccl_s = time.perf_counter() - t0
+    emit("dist_tp", nvidia_smi=smi, world=DIST_TP_WORLD,
+         mesh={"data": 1, "model": DIST_TP_WORLD},
+         backend=ranks[0]["backend"],
+         ds2_losses=ds2[0]["losses"], ds2_loss_rel_err=ds2_loss_err,
+         ds2_grad_rel_l2_max=ds2_grad_err,
+         ds2_sharded_params=ds2[0]["sharded_params"],
+         ds2_launches_by_rank=[x["launches"] for x in ds2],
+         ds2_step_ms_by_rank=[stamps_ms(x["stamps"]) for x in ds2],
+         ssd_losses=ssd[0]["losses"], ssd_loss_rel_err=ssd_loss_err,
+         ssd_grad_rel_l2=ssd_grad_err,
+         ssd_step_ms_by_rank=[stamps_ms(x["stamps"]) for x in ssd],
+         ssd_one_process_step_ms=ref["ssd_step_ms"],
+         ssd_val_matched_min=match_min,
+         ssd_val_matched_mean=min(m[1] for m in tp_match),
+         ssd_val_score_err=score_err, ssd_val_ranks_max_diff=ranks_diff,
+         ssd_val_map=tp_map[0][map_name], ssd_one_process_map=ref_map,
+         ssd_launches_by_rank=[x["launches"] for x in ssd],
+         nccl_world1=nccl, nccl_s=nccl_s,
+         phase_s=time.perf_counter() - t_phase)
+    return {"persistent_rnn": sum(x["launches"]["persistent_rnn"]
+                                  for x in ds2),
+            "persistent_rnn_bwd": sum(x["launches"]["persistent_rnn_bwd"]
+                                      for x in ds2),
+            "fused_detection_output": sum(
+                x["launches"]["fused_detection_output"] for x in ssd),
+            "nms_sweep": sum(x["launches"]["nms_sweep"] for x in ssd + ds2)}
+
+
 def main() -> int:
     import torch
 
@@ -5540,16 +6254,24 @@ def main() -> int:
     emit("timing", nvidia_smi=smi, ds2_resume_phase_s=resume_s,
          ssd_swap_phase_s=time.perf_counter() - t0 - resume_s)
 
+    # -- 6m. data-parallel DS2 (K3, K4) and SSD300 (K2) over two ranks ----
+    dist_dp = dist_dp_phase(dev, smi)
+
+    # -- 6n. tensor-parallel SSD300 and DS2 over two ranks; NCCL at 1 ----
+    dist_tp = dist_tp_phase(dev, smi)
+
     # -- 7. kernels, then the device line last ----------------------------
     kernels = [
         {"name": "nms_sweep", "route": "cuda",
          "source": "analytics_zoo_tpu_torch/csrc/nms_sweep.cu",
          "replaces": "analytics_zoo_tpu/ops/pallas_nms.py:91",
          "launches": (launches["nms_sweep"] + ssd_serving["k1_launches"]
-                      + swap["nms_sweep"]),
+                      + swap["nms_sweep"] + dist_dp["nms_sweep"]
+                      + dist_tp["nms_sweep"]),
          "launches_by_path": {
              "ssd_serving": launches["nms_sweep"],
              "ds2_resume": 0, "ssd_swap": swap["nms_sweep"],
+             "dist_dp": dist_dp["nms_sweep"], "dist_tp": dist_tp["nms_sweep"],
              "ssd_serving_approx_topk": ssd_serving["k1_launches"],
              "frcnn_serving": frcnn["nms_sweep"],
              "frcnn_train": frcnn_train["nms_sweep"],
@@ -5565,10 +6287,14 @@ def main() -> int:
                       + ssd_input["predict"] + ssd_serving["k2_launches"]
                       + ds2_online["k2_fleet"] + caffe_graph["k2_launches"]
                       + variants["k2_launches"]
-                      + swap["fused_detection_output"]),
+                      + swap["fused_detection_output"]
+                      + dist_dp["fused_detection_output"]
+                      + dist_tp["fused_detection_output"]),
          "launches_by_path": {
              "ssd_serving": launches["fused_detection_output"],
              "ds2_resume": 0, "ssd_swap": swap["fused_detection_output"],
+             "dist_dp": dist_dp["fused_detection_output"],
+             "dist_tp": dist_tp["fused_detection_output"],
              "ssd_serving_runtime": ssd_serving["k2_launches"],
              "fleet": ds2_online["k2_fleet"],
              "ssd_train_validation": ssd_train["k2_launches"],
@@ -5586,10 +6312,13 @@ def main() -> int:
          "replaces": "analytics_zoo_tpu/ops/pallas_rnn.py:266",
          "launches": (k3_launches + train_launches["persistent_rnn"]
                       + sum(ds2_online["k3"].values())
-                      + resume["persistent_rnn"]),
+                      + resume["persistent_rnn"] + dist_dp["persistent_rnn"]
+                      + dist_tp["persistent_rnn"]),
          "launches_by_path": {"ds2_serving": k3_launches,
                               "ds2_train": train_launches["persistent_rnn"],
                               "ds2_resume": resume["persistent_rnn"],
+                              "dist_dp": dist_dp["persistent_rnn"],
+                              "dist_tp": dist_tp["persistent_rnn"],
                               "ssd_swap": 0,
                               **ds2_online["k3"],
                               "frcnn_serving": frcnn["persistent_rnn"],
@@ -5606,10 +6335,14 @@ def main() -> int:
          "source": "analytics_zoo_tpu_torch/csrc/persistent_rnn_bwd.cu",
          "replaces": "analytics_zoo_tpu/ops/pallas_rnn.py:434",
          "launches": (train_launches["persistent_rnn_bwd"]
-                      + resume["persistent_rnn_bwd"]),
+                      + resume["persistent_rnn_bwd"]
+                      + dist_dp["persistent_rnn_bwd"]
+                      + dist_tp["persistent_rnn_bwd"]),
          "launches_by_path": {
              "ds2_train": train_launches["persistent_rnn_bwd"],
              "ds2_resume": resume["persistent_rnn_bwd"], "ssd_swap": 0,
+             "dist_dp": dist_dp["persistent_rnn_bwd"],
+             "dist_tp": dist_tp["persistent_rnn_bwd"],
              "frcnn_serving": frcnn["persistent_rnn_bwd"],
              "frcnn_train": frcnn_train["persistent_rnn_bwd"],
              **zoo_paths("persistent_rnn_bwd")},

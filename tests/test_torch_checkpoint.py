@@ -426,8 +426,15 @@ def test_load_needs_a_device_or_a_target(tmp_path):
 
 
 def test_save_timing_and_restore_elastic_refused(tmp_path):
+    """``restore_elastic`` is served now (``tests/test_torch_elastic_mesh.
+    py``): the snapshot comes back under a one-rank declaration."""
+    import torch_dist_scenarios as sc
+    from analytics_zoo_tpu_torch.parallel.specs import pipeline_specs
+
     tckpt.save(str(tmp_path / "c"), {"w": torch.ones(8)}, step=1)
     assert set(tckpt.last_save_s) == {"device_to_host", "serialize",
                                       "sha256", "publish"}
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tckpt.restore_elastic(str(tmp_path / "c"), None, None)
+    got = tckpt.restore_elastic(
+        str(tmp_path / "c"), {"w": torch.zeros(8)},
+        pipeline_specs("fraud", mesh=sc.StubMesh({"data": 1})))
+    assert torch.equal(got["w"], torch.ones(8))

@@ -163,7 +163,7 @@ def test_serving_tiers_describe_the_reference_ladder(param_kw):
         (t.name, t.speed, t.quality_note) for t in ref]
     fn, args = got[0].device_program()
     assert tuple(fn(*args).shape) == (1, 32, 29)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 12b"):
         pipe.ds2_serving_tiers(model, specs=object(), device="cpu")
     assert [t.name for t in pipe.ds2_serving_tiers(
         model, pipe.DS2Param(decoder="beam"), degraded_beam=2,

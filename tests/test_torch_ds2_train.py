@@ -417,7 +417,8 @@ def test_criterion_protocol_matches_jax():
 def test_train_step_bf16_and_refusals():
     """``compute_dtype="bf16"`` runs the forward under autocast over the
     fp32 parameters (the loss within 5% of fp32's); the options not
-    ported yet raise naming their ROADMAP item."""
+    ported yet raise naming their ROADMAP item; a step over a one-rank
+    mesh (``specs=``, ``mesh=``) is the plain step."""
     model = DeepSpeech2(hidden=16, n_rnn_layers=1, rnn_engine="pallas",
                         device="cpu")
     batch = _ctc_batch(6)
@@ -433,11 +434,21 @@ def test_train_step_bf16_and_refusals():
         losses[cd] = metrics["loss"].item()
         assert all(p.dtype == torch.float32 for p in m.parameters())
     assert abs(losses["bf16"] - losses[None]) <= 0.05 * abs(losses[None])
-    for kw, item in ((dict(specs=object()), "item 12"),
-                     (dict(health_check=True), "item 13"),
-                     (dict(mesh=object()), "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            train.make_train_step(model, crit, optim.Adam(), **kw)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        train.make_train_step(model, crit, optim.Adam(), health_check=True)
+    import torch_dist_scenarios as sc
+    from analytics_zoo_tpu_torch.parallel.specs import SpecSet
+    one = sc.StubMesh({"data": 1})
+    for kw in (None, dict(specs=SpecSet(one)), dict(mesh=one)):
+        m = DeepSpeech2(hidden=16, n_rnn_layers=1, rnn_engine="pallas",
+                        device="cpu")
+        step = train.make_train_step(m, crit, optim.Adam(1e-3), **(kw or {}))
+        _, metrics = step(train.create_train_state(m, optim.Adam(1e-3)),
+                          batch)
+        if kw is None:
+            plain = metrics["loss"].item()
+        else:
+            assert metrics["loss"].item() == plain
     opt = train.Optimizer(model, [batch], crit)
     for call, item in ((opt.set_anomaly_policy, "item 13"),
                        (opt.set_observability, "item 13")):
@@ -454,7 +465,7 @@ def test_train_step_bf16_and_refusals():
     step(train.create_train_state(model, optim.Adam()), batch)
     assert seen == [sorted(batch)]
     assert train.Optimizer(model, [batch], crit, prefetch=2).prefetch == 2
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 12b"):
         pipe.train_ds2(model, [batch], sequence_parallel=True)
 
 

@@ -4,7 +4,8 @@ with the JAX package, on the CPU (the reference's cases of
 backward against the reference's one-hot lookup on ragged, repeated
 Zipfian ids, ``max_unique``, ``SparseRows`` padding and ``count``, the
 gradient-rows round trip, ``sparse_adam_apply`` over two steps, the
-lookup statistics and the unknown mode.
+lookup statistics and the unknown mode; and row-sharded tables over two
+gloo ranks (``TestRowSharding``).
 
 Tolerances: lookups and table gradients within 1e-5 (gathers are exact;
 the one-hot product and the segment sums add in another order);
@@ -220,3 +221,106 @@ def test_lookup_stats_and_publish_equal_jax():
             jemb.publish_lookup_stats(jreg, ids)
     assert reg.snapshot() == jreg.snapshot()
     assert reg.snapshot()["counters"] == {"embed/lookups": 2}
+
+
+# -- row-sharded tables (the reference's TestRowSharding) --------------------
+
+
+class TestRowSharding:
+    """(vocab, dim) tables row-sharded over ``model``: the rules resolve as
+    the reference's, and over two gloo ranks of a (1, 2) mesh
+    (``torch_dist_scenarios``) each rank owns half the ids: every lookup
+    mode and the table's gradient equal the reference's one-hot lookup on
+    the whole table, and ``owned_rows`` + ``sparse_adam_apply`` on a shard
+    equal the reference's sparse Adam on those rows."""
+
+    @staticmethod
+    def _mesh():
+        import torch_dist_scenarios as sc
+        return sc.StubMesh({"data": 2, "model": 4})
+
+    def test_embedding_table_row_shards_under_default_rules(self):
+        from analytics_zoo_tpu_torch.parallel import tensor
+        from analytics_zoo_tpu_torch.parallel.mesh import PartitionSpec as P
+        rules = tensor.default_tp_rules()
+        mesh = self._mesh()
+        assert tensor.partition_spec("params/embed/embedding", (64, 16),
+                                     mesh, rules) == P("model", None)
+        # a Linear kernel keeps the column shard: (out, in) dim 0
+        assert tensor.partition_spec("params/dense/kernel", (16, 32),
+                                     mesh, rules) == P("model", None)
+        assert tensor.partition_spec("mu/embed/embedding", (64, 16), mesh,
+                                     rules) == P("model", None)
+        assert tensor.partition_spec("params/embed/embedding", (63, 16),
+                                     mesh, rules) == P(None, None)
+
+    def test_embedding_row_rules_only_touch_tables(self):
+        from analytics_zoo_tpu_torch.parallel import tensor
+        from analytics_zoo_tpu_torch.parallel.mesh import PartitionSpec as P
+        rules = tensor.embedding_row_rules()
+        assert tensor.partition_spec("params/e/embedding", (64, 16),
+                                     self._mesh(), rules) == P("model", None)
+        assert tensor.partition_spec("params/d/kernel", (16, 64),
+                                     self._mesh(), rules) == P()
+
+    def test_rec_pipeline_specs_row_shard_the_tables(self):
+        from analytics_zoo_tpu_torch.parallel.mesh import PartitionSpec as P
+        from analytics_zoo_tpu_torch.parallel.specs import pipeline_specs
+        from analytics_zoo_tpu_torch.pipelines.recommendation import (
+            make_ncf_model)
+        net = make_ncf_model(n_users=32, n_items=32, embedding_dim=8,
+                             mf_embedding_dim=4, hidden=(16, 8),
+                             device="cpu").module
+        specs = pipeline_specs("rec", mesh=self._mesh()).state_specs(net)
+        tables = {k: v for k, v in specs.items() if "embedding" in k}
+        assert len(tables) == 4
+        assert all(s == P("model", None) for s in tables.values())
+        plain = pipeline_specs("rec", mesh=self._mesh(),
+                               shard_tables=False).state_specs(net)
+        assert all(s == P() for s in plain.values())
+
+    @pytest.fixture(scope="class")
+    def ranks(self):
+        import torch_dist_scenarios as sc
+        from analytics_zoo_tpu_torch.utils import engine
+        rng = np.random.RandomState(9)
+        table = rng.randn(64, 8).astype(np.float32)
+        ids = _zipf_ids(rng, (6, 4), 64)
+        cot = rng.randn(6, 4, 8).astype(np.float32)
+        out = engine.spawn(sc.TARGET, 2, {"scenarios": {"rows": (
+            "embedding_rows", dict(table=table, ids=ids, cot=cot,
+                                   lr=1e-2))}}, device="cpu", timeout=120)
+        return table, ids, cot, [r["rows"] for r in out]
+
+    @pytest.mark.parametrize("mode", emb.LOOKUP_MODES)
+    def test_row_sharded_lookup_matches_replicated(self, ranks, mode):
+        table, ids, cot, got = ranks
+        ref = np.asarray(jemb.onehot_lookup(jnp.asarray(table),
+                                            jnp.asarray(ids)))
+        ref_g = np.asarray(jax.grad(lambda t: jnp.sum(
+            jemb.onehot_lookup(t, jnp.asarray(ids)) * cot))(
+            jnp.asarray(table)))
+        for r in got:
+            assert r["local_rows"] == 32
+            rows, grad = r[mode]
+            np.testing.assert_allclose(rows, ref, atol=ATOL)
+            np.testing.assert_allclose(grad, ref_g, atol=ATOL)
+
+    def test_shard_sparse_adam_matches_jax(self, ranks):
+        table, ids, cot, got = ranks
+        vocab, dim = table.shape
+        j = jax_sparse_adam(jnp.asarray(table), jnp.zeros((vocab, dim)),
+                            jnp.zeros((vocab, dim)), jnp.zeros((), jnp.int32),
+                            jemb.embedding_grad_rows(jnp.asarray(ids),
+                                                     jnp.asarray(cot)),
+                            learning_rate=1e-2)
+        touched = np.unique(ids)
+        for r in got:
+            adam = r["adam"]
+            for key, want in zip(("t", "mu", "nu"), j[:3]):
+                np.testing.assert_allclose(adam[key][touched],
+                                           np.asarray(want)[touched],
+                                           rtol=ADAM_RTOL, atol=1e-7)
+            untouched = np.setdiff1d(np.arange(vocab), touched)
+            np.testing.assert_array_equal(adam["t"][untouched],
+                                          table[untouched])

@@ -415,14 +415,15 @@ def test_training_and_sharding_refused(nets):
     _, _, tdet, x, info = nets
     xt = torch.from_numpy(x[:1])
     # training is ported (tests/test_torch_frcnn_train.py): the keywords
-    # run; sharded training is refused
+    # run, over a mesh too; sharded serving is refused
     with torch.no_grad():
         out = tdet.frcnn(xt, info[:1], train=True,
                          extra_rois=torch.zeros(1, 2, 4), train_outputs=True)
     assert out["rois"].shape == (1, 16 + 2, 4)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        pipe.train_frcnn(tdet.frcnn, [], SIZE, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 12"):
+    import torch_dist_scenarios as sc
+    assert pipe.train_frcnn(tdet.frcnn, [], SIZE, epochs=0,
+                            mesh=sc.StubMesh({"data": 1})) is tdet.frcnn
+    with pytest.raises(NotImplementedError, match="item 12b"):
         pipe.frcnn_serving_tiers(tdet, specs=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item e"):
         PreProcessParam(wire_format="yuv420")

@@ -10,7 +10,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "analytics_zoo_tpu")
 FILES = sorted((ROOT / "analytics_zoo_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_scenarios.py"]
 
 
 def imported_roots(path: Path):
@@ -26,6 +26,35 @@ def imported_roots(path: Path):
 def test_no_jax_imports(path):
     assert path.exists()
     bad = sorted(set(imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+# the sharding layer: what places, shards and runs a sharded weight
+SHARDING = ("analytics_zoo_tpu_torch.parallel.mesh",
+            "analytics_zoo_tpu_torch.parallel.tensor",
+            "analytics_zoo_tpu_torch.parallel.specs")
+LOWER = sorted(p for d in ("core", "ops", "models")
+               for p in (ROOT / "analytics_zoo_tpu_torch" / d).rglob("*.py"))
+
+
+def imported_modules(path: Path):
+    """Every module an import names, ``from a import b`` as ``a`` and
+    ``a.b``."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+            yield from (f"{node.module}.{a.name}" for a in node.names)
+
+
+@pytest.mark.parametrize("path", LOWER, ids=lambda p: str(p.relative_to(ROOT)))
+def test_layers_below_parallel_know_no_sharding(path):
+    """``core/``, ``ops/`` and ``models/`` import nothing of the sharding
+    layer: a step over a mesh reaches them through ``utils/spmd.py``'s
+    hooks and ``parallel/tensor.py``'s parallel subclasses."""
+    bad = sorted(m for m in set(imported_modules(path))
+                 if m.startswith(SHARDING))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
@@ -92,6 +121,13 @@ def test_port_imports_pull_in_no_jax():
             "analytics_zoo_tpu_torch.parallel.elastic",
             "analytics_zoo_tpu_torch.resilience.preempt",
             "analytics_zoo_tpu_torch.resilience.errors"} <= set(mods)
+    # the distribution slice: the engine, the mesh, the rules and the
+    # parallel layers, the declare-once specs
+    assert {"analytics_zoo_tpu_torch.utils.engine",
+            "analytics_zoo_tpu_torch.parallel.mesh",
+            "analytics_zoo_tpu_torch.parallel.tensor",
+            "analytics_zoo_tpu_torch.parallel.specs",
+            "analytics_zoo_tpu_torch.utils.spmd"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "from analytics_zoo_tpu_torch.pipelines import (StreamingDS2, "
@@ -111,6 +147,10 @@ def test_port_imports_pull_in_no_jax():
             "CheckpointWatcher\n"
             "from analytics_zoo_tpu_torch.utils.convert import "
             "train_state_from_jax\n"
+            "from analytics_zoo_tpu_torch.parallel import (SpecSet, "
+            "create_mesh, pipeline_specs, default_tp_rules)\n"
+            "from analytics_zoo_tpu_torch.data.parallel import "
+            "make_input_pipeline\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")

@@ -342,7 +342,7 @@ def test_scenarios_cover_what_they_claim():
     ({"slice_width": 2}, "item 13"), ({"device_budget": 4}, "item 13"),
     ({"autoscaler": object()}, "item 13"), ({"chaos": object()}, "item 13"),
     ({"obs": object()}, "item 13"), ({"health": object()}, "item 13"),
-    ({"specs": object()}, "item 12"), ({"compile_s": 0.5}, "item 13"),
+    ({"specs": object()}, "item 12b"), ({"compile_s": 0.5}, "item 13"),
 ], ids=lambda v: next(iter(v)) if isinstance(v, dict) else v)
 def test_refused_keyword_names_its_item(kw, item):
     tiers = [tserving.ServingTier("fp", Spy())]
@@ -484,7 +484,7 @@ def test_ssd_tiers_names_and_pins(ssd_tiers):
         200, 200, 50]
     fn, args = port[2].device_program()
     assert fn(*args).shape == (1, 50, 6)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 12b"):
         ssd_serving_tiers(preds[0].model, PreProcessParam(), specs=object(),
                           device="cpu")
 

@@ -402,8 +402,11 @@ def test_loader_refuses_a_cuda_codec_in_its_workers():
     with pytest.raises(ValueError, match="nvJPEG"):
         ParallelLoader(ds.transform(stage), 2)
     assert list(ParallelLoader(ds.transform(stage), 0)) == list(range(8))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        parallel.make_input_pipeline(ds, 0, 0)
+    # make_input_pipeline is served: each rank's slices (one rank here)
+    import torch_dist_scenarios as sc
+    pipe = parallel.make_input_pipeline(ds, sc.StubMesh({"data": 1}), 0,
+                                        device="cpu")
+    assert pipe.yields_local_slices and list(pipe) == list(range(8))
     # replay and the resume coordinates take no mesh: served
     assert parallel.replay_batches(ds.transform(stage), 0, [2]) == {2: 2}
     assert parallel.elastic_resume_coordinates(0, 0, 1) == (0, 0)

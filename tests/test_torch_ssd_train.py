@@ -682,10 +682,16 @@ def test_train_ssd_validates_each_epoch_and_drives_plateau(monkeypatch):
         ref.update(v["MeanAveragePrecision"])
     assert (plateau.best, plateau.num_bad, plateau.scale) == (
         ref.best, ref.num_bad, ref.scale) and ref.best is not None
-    for kw, item in ((dict(mesh=object()), "item 12"),
-                     (dict(tp="spatial"), "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            pipe.train_ssd([batch], None, params, model=model, **kw)
+    # over a one-rank mesh the first step is the plain run's
+    import torch_dist_scenarios as sc
+    seen.clear()
+    pipe.train_ssd([batch], None, dataclasses.replace(params, max_epoch=1),
+                   model=ssd.SSDVgg(21, 300, device="cpu", seed=0),
+                   mesh=sc.StubMesh({"data": 1}))
+    assert seen[0].history[0]["loss"].item() == \
+        opt.history[0]["loss"].item()
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        pipe.train_ssd([batch], None, params, model=model, tp="spatial")
     with pytest.raises(NotImplementedError, match="item 13"):
         pipe.train_ssd([batch], None, dataclasses.replace(
             params, log_dir="/nowhere"), model=model)

@@ -412,18 +412,23 @@ def test_rec_pair_requests_through_the_port_runtime():
 
 
 def test_mesh_and_specs_are_refused_naming_item_12():
+    """Training over a mesh is served (``tests/test_torch_dist_train.py``;
+    a one-rank mesh here); sharded serving stays refused, naming item
+    12b."""
+    import torch_dist_scenarios as sc
     _, tm = _rec_pair("ncf")
+    one = sc.StubMesh({"data": 1})
+    assert fraud.MLPClassifier(mesh=one).mesh is one
+    assert recommendation.train_recommender(tm, [], epochs=0,
+                                            mesh=one) is tm
+    assert sentiment.train_sentiment(tm, [], epochs=0, mesh=one) is tm
     calls = [
-        lambda: fraud.MLPClassifier(mesh=object()),
-        lambda: fraud.run_fraud_pipeline({}, [], mesh=object()),
         lambda: fraud.fraud_serving_tiers(tm, specs=object()),
-        lambda: recommendation.train_recommender(tm, [], mesh=object()),
         lambda: recommendation.rec_serving_tiers(tm, specs=object()),
-        lambda: sentiment.train_sentiment(tm, [], mesh=object()),
         lambda: sentiment.sentiment_serving_tiers(tm, specs=object()),
     ]
     for call in calls:
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(NotImplementedError, match="item 12b"):
             call()
 
 
