@@ -1,10 +1,19 @@
-"""Models of the port: SSD and its variants, DeepSpeech2, Faster-RCNN and
-the small families (fraud, recommendation, sentiment)."""
+"""Models of the port: SSD and its variants, DeepSpeech2, the attention
+models, Faster-RCNN and the small families (fraud, recommendation,
+sentiment)."""
 
+from analytics_zoo_tpu_torch.models.attention import (
+    AttentionASR,
+    LongContextEncoder,
+    MoEFeedForward,
+    MultiHeadSelfAttention,
+    TransformerBlock,
+)
 from analytics_zoo_tpu_torch.models.deepspeech2 import (
     DeepSpeech2,
     SequenceBN,
     ds2_valid_out_frames,
+    sequence_parallel_forward,
 )
 from analytics_zoo_tpu_torch.models.faster_rcnn import (
     FasterRcnnDetector,

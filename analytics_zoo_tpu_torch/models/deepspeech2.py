@@ -13,8 +13,13 @@ In ``eval()`` mode sequence BN uses its running statistics; under
 ``train()`` it normalizes with the batch statistics of the valid frames
 (``n_frames``) and updates the running ones with flax's semantics; in a
 data-parallel step (``utils.spmd.global_batch``) the statistics are the
-global batch's, their sums all-reduced with their gradient.  The
-sequence-parallel forward is not ported (ROADMAP.md Queue 1 item 12b).
+global batch's, their sums all-reduced with their gradient.
+
+:func:`sequence_parallel_forward` runs the same model with the time axis
+cut over a mesh's ``sequence`` axis (``parallel/sequence.py``): the conv
+on halo-extended blocks, each BiRNN layer as one pipelined chunk scan of
+both directions (K3 for a chunk under ``rnn_engine="pallas"``, K4 for
+its backward), the log-probs gathered back along T.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from torch import nn
 
 from analytics_zoo_tpu_torch.core.layers import lecun_normal_
 from analytics_zoo_tpu_torch.core.rnn import BiRecurrent, Recurrent, RnnCell
+from analytics_zoo_tpu_torch.ops.pallas_rnn import persistent_rnn
 from analytics_zoo_tpu_torch.utils import spmd
 from analytics_zoo_tpu_torch.utils.device import resolve_device
 
@@ -206,3 +212,139 @@ class DeepSpeech2(nn.Module):
         if return_carry:
             return out, {"h": tuple(new_h)}
         return out
+
+
+def _chunk_scan(engine: Optional[str], weight, bias):
+    """One direction's chunk recurrence ``(h, pre (B, Tb, H)) → (h_final,
+    ys)`` of the clipped-ReLU cell with h2h ``weight`` (out, in) and
+    ``bias``: one ``persistent_rnn`` call (K3; K4 under autograd) for
+    ``"pallas"``, else the blocked engine's loop over time."""
+    if engine == "pallas":
+        def chunk(h, pre):
+            ys, cf = persistent_rnn(pre, weight.t(), bias, h[None],
+                                    cell="vanilla", activation="clipped_relu")
+            return cf[0], ys
+        return chunk
+
+    def chunk(h, pre):
+        ys = []
+        for t in range(pre.shape[1]):
+            h = torch.clamp(pre[:, t] + F.linear(h, weight, bias), 0.0, 20.0)
+            ys.append(h)
+        return h, torch.stack(ys, 1)
+    return chunk
+
+
+def sequence_parallel_forward(model: DeepSpeech2, x, mesh,
+                              axis_name: str = "sequence",
+                              batch_axis: Optional[str] = None,
+                              train: bool = False) -> torch.Tensor:
+    """The DS2 forward with the time axis cut over the mesh's
+    ``axis_name`` (counterpart of the reference's
+    ``sequence_parallel_forward``); every rank of the axis calls it.
+
+    ``x``: this rank's rows (of a ``batch_axis``) of the (B, T, n_mels)
+    batch, whole in T; T must be divisible by 2·n_seq.  The rank keeps
+    its T-block: the stride-2 conv runs VALID on the block extended by a
+    5-frame halo each side (zeros at the ends: the global SAME padding),
+    the projections and the output head act per frame, and each BiRNN
+    layer is one n-round pipelined chunk scan of both directions
+    (``parallel.sequence.pipelined_scans``) whose chunk is one
+    ``persistent_rnn`` call under ``rnn_engine="pallas"`` (K3, and K4
+    for its backward) and the blocked loop otherwise; a rank runs its
+    chunks only in its own round.  Returns the (B, T/2, n_alphabet)
+    log-probs gathered back whole on every rank of the axis.
+
+    In eval the batch norms use their running statistics.  With
+    ``train=True`` they normalise with the global batch statistics
+    (sums all-reduced over the ``axis_name`` and ``batch_axis`` ranks,
+    with their gradient) and move the running statistics as
+    :class:`SequenceBN` does.  Gradients: the log-probs' gather hands
+    each rank its block's cotangent, and the parameters' gradients are
+    summed over the ``axis_name`` ranks, so every rank of a data
+    coordinate holds its rows' whole gradient."""
+    from analytics_zoo_tpu_torch.parallel import sequence as seq
+
+    if not model.bidirectional:
+        raise ValueError("the sequence-parallel forward runs the BiRNN "
+                         "model (bidirectional=True)")
+    seq_group, data_group = seq.sequence_groups(mesh, axis_name, batch_axis)
+    n_seq = seq.group_size(seq_group)
+    if x.shape[1] % (2 * n_seq):
+        raise ValueError(
+            f"T={x.shape[1]} must be divisible by 2·n_seq={2 * n_seq} "
+            "(even per-device chunks for the stride-2 conv front-end)")
+    dev = next(model.parameters()).device
+    x = torch.as_tensor(x, device=dev)
+    B, T, _ = x.shape
+    tb = T // n_seq
+    x_l = x.narrow(1, seq.group_rank(seq_group) * tb, tb)
+    names, tensors = zip(*model.named_parameters())
+    p = dict(zip(names, seq.summed_grads(tensors, seq_group)))
+    sums_over = [g for g in (data_group, seq_group) if g is not None]
+    n_rows = n_seq * seq.group_size(data_group)
+
+    def bn(name, h):
+        mod = getattr(model, name)
+        w, b = p[f"{name}.weight"], p[f"{name}.bias"]
+        if not train:
+            return F.batch_norm(h.reshape(-1, h.shape[-1]), mod.running_mean,
+                                mod.running_var, w, b, training=False,
+                                eps=mod.epsilon).reshape(h.shape)
+        hf = h.float()
+        s = torch.cat([hf.sum((0, 1)), (hf * hf).sum((0, 1))])
+        for g in sums_over:
+            s = spmd.all_reduce_sum(s, g)
+        mean, mean2 = (s / (h.shape[0] * h.shape[1] * n_rows)).chunk(2)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        with torch.no_grad():
+            mod.running_mean.mul_(mod.MOMENTUM).add_(
+                (1.0 - mod.MOMENTUM) * mean)
+            mod.running_var.mul_(mod.MOMENTUM).add_(
+                (1.0 - mod.MOMENTUM) * var)
+        y = (hf - mean) * (torch.rsqrt(var + mod.epsilon) * w)
+        return (y + b).to(h.dtype)
+
+    # conv1: kernel 11, pad 5, stride 2 → a 5-frame halo each side, VALID
+    ext = seq.halo_exchange(x_l[:, None], seq_group, 5, 5, time_axis=2)
+    h = F.conv2d(ext, p["conv1.weight"], p["conv1.bias"], stride=(2, 1))
+    h = h.permute(0, 2, 3, 1).reshape(B, h.shape[2], -1)
+    h = torch.clamp(bn("bn_conv1", h), 0.0, 20.0)
+    engine = model.rnn_engine
+    for i in range(model.n_rnn_layers):
+        h = bn(f"bn_rnn{i}", F.linear(h, p[f"proj{i}.weight"],
+                                      p[f"proj{i}.bias"]))
+        cells = [(p[f"birnn{i}.{d}.body.h2h.weight"],
+                  p[f"birnn{i}.{d}.body.h2h.bias"]) for d in ("fwd", "bwd")]
+        fwd, bwd = seq.pipelined_scans(
+            [(_chunk_scan(engine, *cells[0]), False),
+             (_chunk_scan(engine, *cells[1]), True)],
+            h.new_zeros((B, model.hidden)), h, seq_group,
+            params=[t for cell in cells for t in cell])
+        h = fwd + bwd
+    logits = F.linear(bn("bn_out", h), p["fc_out.weight"], p["fc_out.bias"])
+    return seq.gather_blocks(torch.log_softmax(logits, dim=-1), seq_group,
+                             axis=1)
+
+
+def make_sequence_parallel_forward_fn(model: DeepSpeech2, mesh,
+                                      axis_name: str = "sequence",
+                                      batch_axis: Optional[str] = "data"):
+    """A ``forward_fn(module, inputs, train)`` for ``make_train_step`` /
+    ``Optimizer``: :func:`sequence_parallel_forward` of ``model`` over
+    ``mesh`` (sequence-parallel CTC training on a ("data", "sequence")
+    mesh).  Length-bucketed ``(features, n_frames)`` inputs are refused:
+    the time-sharded forward has no ``n_frames`` masking."""
+
+    def forward_fn(module, inputs, train=False):
+        if isinstance(inputs, (tuple, list)):
+            raise ValueError(
+                "sequence-parallel DS2 has no n_frames masking and does "
+                "not support length-bucketed (features, n_frames) "
+                "batches — train with bucket_edges=None (pad to a fixed "
+                "utt_length) when sequence_parallel=True")
+        return sequence_parallel_forward(model, inputs, mesh,
+                                         axis_name=axis_name,
+                                         batch_axis=batch_axis, train=train)
+
+    return forward_fn

@@ -1,8 +1,8 @@
 """Steps of the port: the train and eval steps, the ``Optimizer`` (one
 device, or a mesh of ranks) with its validation methods, checkpoints and
 resume, optim methods, Plateau, triggers, the row-sparse Adam apply, the
-restart supervisor, and the mesh, the tensor-parallel rules and the
-declared specs."""
+restart supervisor, the mesh, the tensor-parallel rules and the declared
+specs, and sequence, pipeline and expert parallelism."""
 
 from analytics_zoo_tpu_torch.parallel.elastic import (RETRYABLE_ERRORS,
                                                       DivergenceDetector,
@@ -23,11 +23,18 @@ from analytics_zoo_tpu_torch.parallel.train import (MAE, Loss, Optimizer,
                                                     resolve_compute_dtype,
                                                     sparse_adam_apply,
                                                     validate)
-from analytics_zoo_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
+from analytics_zoo_tpu_torch.parallel.mesh import (DATA_AXIS, EXPERT_AXIS,
+                                                   MODEL_AXIS, PIPE_AXIS,
                                                    SEQUENCE_AXIS,
                                                    PartitionSpec, batch_spec,
                                                    create_mesh, replicate,
                                                    shard_batch)
+from analytics_zoo_tpu_torch.parallel.expert import (
+    moe_apply_dense, moe_apply_expert_parallel, route_top1)
+from analytics_zoo_tpu_torch.parallel.pipeline import (
+    carrier_decay_mask, flatten_stage_params, flatten_stage_params_grouped,
+    pipeline_forward, pipeline_forward_het, split_microbatches,
+    stack_stage_params, stage_carrier_slice, unflatten_stage)
 from analytics_zoo_tpu_torch.parallel.specs import (SpecSet, pipeline_specs,
                                                     register_pipeline,
                                                     registered_pipelines)
@@ -47,8 +54,14 @@ from analytics_zoo_tpu_torch.resilience.errors import (ElasticPlacementError,
                                                        TrainingDiverged)
 
 __all__ = ["Adam", "AdamW", "DATA_AXIS", "DivergenceDetector",
-           "ElasticPlacementError", "FaultInjector", "MODEL_AXIS",
-           "PartitionSpec", "SEQUENCE_AXIS", "SpecSet", "batch_spec",
+           "EXPERT_AXIS", "ElasticPlacementError", "FaultInjector",
+           "MODEL_AXIS", "PIPE_AXIS", "PartitionSpec", "SEQUENCE_AXIS",
+           "SpecSet", "batch_spec", "carrier_decay_mask",
+           "flatten_stage_params", "flatten_stage_params_grouped",
+           "moe_apply_dense", "moe_apply_expert_parallel",
+           "pipeline_forward", "pipeline_forward_het", "route_top1",
+           "split_microbatches", "stack_stage_params",
+           "stage_carrier_slice", "unflatten_stage",
            "create_mesh", "default_tp_rules", "embedding_row_rules",
            "megatron_tp_rules", "pipeline_specs", "register_pipeline",
            "registered_pipelines", "replicate", "shard_batch", "shard_tree",

@@ -9,11 +9,16 @@ reference's axis names, and each rank keeps its own slice of a batch.
 Axis conventions (any subset may be size 1):
   ``data``     — data parallel (batch dim)
   ``model``    — tensor parallel (hidden dims)
-  ``sequence`` — sequence parallel (time dim; ROADMAP.md Queue 1 item 12b)
+  ``sequence`` — sequence parallel (time dim, ``parallel/sequence.py``)
+  ``pipe``     — pipeline stages (``parallel/pipeline.py``)
+  ``expert``   — expert parallel (``parallel/expert.py``)
 
 A step over the ``data`` axis computes the one-device step through the
 global-batch scope of ``utils/spmd.py``, which ``parallel/train.py``
-opens around a step's forward and loss.
+opens around a step's forward and loss.  Ranks along ``model``,
+``sequence``, ``pipe`` and ``expert`` share the rows of their data
+coordinate: a mesh without a ``data`` axis whose first axis is one of
+them has one data replica.
 """
 
 from __future__ import annotations
@@ -29,6 +34,10 @@ from analytics_zoo_tpu_torch.utils import engine
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 SEQUENCE_AXIS = "sequence"
+PIPE_AXIS = "pipe"
+EXPERT_AXIS = "expert"
+# axes whose ranks share their data coordinate's rows
+SHARED_AXES = (MODEL_AXIS, SEQUENCE_AXIS, PIPE_AXIS, EXPERT_AXIS)
 
 
 class PartitionSpec(tuple):
@@ -94,9 +103,13 @@ def axis_group(mesh, name: str):
 
 
 def data_axis(mesh) -> str:
-    """The mesh axis carrying the batch dim (``data`` if present)."""
+    """The mesh axis carrying the batch dim: ``data`` if present, else
+    the first axis unless its ranks share rows (:data:`SHARED_AXES`),
+    else ``data`` (absent: one replica, width 1)."""
     names = axis_names(mesh)
-    return DATA_AXIS if DATA_AXIS in names else names[0]
+    if DATA_AXIS in names or names[0] in SHARED_AXES:
+        return DATA_AXIS
+    return names[0]
 
 
 def data_width(mesh) -> int:
@@ -115,7 +128,8 @@ def spans_processes(mesh) -> bool:
 
 def local_data_slice(global_batch: int, mesh) -> Tuple[int, int]:
     """(start, size) of this rank's rows of a global batch: its data
-    coordinate's share (ranks along ``model`` share the rows)."""
+    coordinate's share (ranks along ``model``, ``sequence``, ``pipe``
+    and ``expert`` share the rows)."""
     width = data_width(mesh)
     if global_batch % width:
         raise ValueError(f"global batch {global_batch} not divisible by "
@@ -142,11 +156,12 @@ def shard_batch(batch, mesh, overrides=None, microbatches: int = 1):
 
     ``overrides`` (per top-level key, a spec over more than dim 0 — the
     spatial ``tensor.spatial_input_spec``) is refused: spatial
-    partitioning is ROADMAP.md Queue 1 item 12b."""
+    partitioning is ROADMAP.md Queue 1 item 12b.3."""
     if overrides:
         raise NotImplementedError(
             "shard_batch(overrides=...): per-key batch specs (spatial "
-            "partitioning) are not ported yet (ROADMAP.md Queue 1 item 12b)")
+            "partitioning) are not ported yet (ROADMAP.md Queue 1 item "
+            "12b.3)")
     width = data_width(mesh)
     index = axis_index(mesh, data_axis(mesh))
 

@@ -63,7 +63,7 @@ def _leading_dim(tree) -> Optional[int]:
 class SpecSet:
     """One pipeline's declared sharding: mesh, state rules (``None``:
     everything replicated, pure data parallelism) and per-key batch
-    overrides (declared; placing with them raises, item 12b)."""
+    overrides (declared; placing with them raises, item 12b.3)."""
 
     mesh: Any
     rules: Optional[Sequence] = None
@@ -244,13 +244,14 @@ def _ssd_specs(mesh, tp: Optional[str] = None,
     """SSD training and serving: ``tp=None`` data parallel,
     ``"megatron"`` paired column/row weight sharding
     (``tensor.ssd_tp_rules``); ``"spatial"`` (image height over
-    ``model``) is ROADMAP.md Queue 1 item 12b."""
+    ``model``) is ROADMAP.md Queue 1 item 12b.3."""
     if tp is None:
         return SpecSet(mesh)
     if tp == "spatial":
         raise NotImplementedError(
             "ssd tp='spatial' (image height over the model axis, with its "
-            "halo exchanges) is not ported yet (ROADMAP.md Queue 1 item 12b)")
+            "halo exchanges) is not ported yet (ROADMAP.md Queue 1 item "
+            "12b.3)")
     if tp == "megatron":
         return SpecSet(mesh,
                        rules=tensor_lib.ssd_tp_rules(resolution=resolution))

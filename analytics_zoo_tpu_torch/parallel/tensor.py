@@ -149,7 +149,7 @@ def spatial_input_spec(axis: str = MODEL_AXIS,
                        data_axis_name: str = DATA_AXIS) -> P:
     """NHWC image batches with the height over ``axis`` (spatial
     partitioning).  Declared; placing a batch with it raises (its halo
-    exchanges are ROADMAP.md Queue 1 item 12b)."""
+    exchanges are ROADMAP.md Queue 1 item 12b.3)."""
     return P(data_axis_name, axis, None, None)
 
 

@@ -15,9 +15,10 @@ WITHOUT ``n_frames``, as in the reference.  The greedy, device-featurize
 path runs featurize → forward → argmax on the card for one batch and
 reads back only the (B, T') ids, with a window of batches in flight.
 
-Not ported yet (ROADMAP.md Queue 1 items 8, 9 and 12): the
-sequence-parallel forward and training, sharded training, the
-multiprocess loader and checkpoints.
+With ``sequence_mesh=`` the pipeline forwards through
+``models.deepspeech2.sequence_parallel_forward`` (the time axis cut over
+the mesh's ``sequence`` axis; every rank of the mesh runs the same
+call), and ``train_ds2(sequence_parallel=True)`` trains through it.
 """
 
 from __future__ import annotations
@@ -86,24 +87,65 @@ class DS2Param:
 
 class DeepSpeech2Pipeline:
     """segment → featurize → forward → decode → re-join.  The model is
-    moved to ``device`` (the GPU unless ``device="cpu"``)."""
+    moved to ``device`` (the GPU unless ``device="cpu"``).
+
+    ``sequence_mesh`` (a mesh with a ``sequence`` axis, every rank of it
+    running this pipeline on the same utterances) switches the forward
+    to ``models.deepspeech2.sequence_parallel_forward``: ``utt_length``
+    rounds up to a multiple of 2·n_seq, a ``data`` axis cuts each batch
+    (a short last batch padded to ``batch_size``) and gathers the
+    log-probs back, and the split (featurize, forward, decode) path
+    runs."""
 
     def __init__(self, model: nn.Module, param: DS2Param = DS2Param(),
                  sequence_mesh=None, device=None):
-        if sequence_mesh is not None:
-            raise NotImplementedError(
-                "the sequence-parallel DS2 forward is not ported yet "
-                "(ROADMAP.md Queue 1 item 12b)")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.param = param
         self.segmenter = TimeSegmenter(
             segment_size=SAMPLE_RATE * param.segment_seconds)
         self.utt_length = param.utt_length
-        self._eval_step = make_eval_step(self.model)
+        self._pad_to_batch = False
+        if sequence_mesh is not None:
+            self._eval_step = self._sequence_eval_step(sequence_mesh)
+        else:
+            self._eval_step = make_eval_step(self.model)
+        # the fused greedy path covers the one-rank forward
+        self._fused_ok = sequence_mesh is None
         self.vocab_decoder = (VocabDecoder(param.vocab)
                               if param.vocab else None)
         self._dev_featurizer = None      # built at first use
+
+    def _sequence_eval_step(self, mesh) -> Callable:
+        """The time-sharded forward of a batch: this rank's rows of a
+        ``data`` axis, the log-probs gathered back over it."""
+        from analytics_zoo_tpu_torch.models.deepspeech2 import (
+            sequence_parallel_forward)
+        from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+        from analytics_zoo_tpu_torch.parallel.sequence import gather_blocks
+
+        names = mesh_lib.axis_names(mesh)
+        if "sequence" not in names:
+            raise ValueError(f"sequence_mesh needs a 'sequence' axis, got "
+                             f"{names}")
+        # even chunks a rank for the stride-2 conv front-end
+        mult = 2 * mesh_lib.axis_size(mesh, "sequence")
+        self.utt_length = -(-self.utt_length // mult) * mult
+        batch_axis = "data" if "data" in names else None
+        # the data axis cuts each batch: a short one is padded
+        self._pad_to_batch = batch_axis is not None
+        data_group = mesh_lib.axis_group(mesh, "data")
+
+        @torch.no_grad()
+        def step(x):
+            x = torch.as_tensor(x, device=self.device)
+            start, per = mesh_lib.local_data_slice(x.shape[0], mesh)
+            out = sequence_parallel_forward(
+                self.model, x[start:start + per], mesh,
+                batch_axis=batch_axis)
+            return gather_blocks(out, data_group, axis=0)
+
+        return step
 
     def _make_featurizer(self) -> Callable:
         """The one construction site of the device featurizer: the split
@@ -178,7 +220,7 @@ class DeepSpeech2Pipeline:
         for audio_id, samples in utterances.items():
             segments.extend(self.segmenter.segment(samples, audio_id))
 
-        if (segments and self.param.device_featurize
+        if (segments and self._fused_ok and self.param.device_featurize
                 and self.param.decoder == "greedy"):
             texts = self._transcribe_fused(segments)
         else:
@@ -194,10 +236,15 @@ class DeepSpeech2Pipeline:
                     for s in segments])
             texts = []
             for i in range(0, len(segments), self.param.batch_size):
-                chunk = torch.from_numpy(
-                    feats[i:i + self.param.batch_size]).to(self.device)
-                log_probs = self._eval_step(chunk).cpu().numpy()
-                texts.extend(self._decode(lp) for lp in log_probs)
+                chunk = feats[i:i + self.param.batch_size]
+                n_real = chunk.shape[0]
+                if self._pad_to_batch and n_real < self.param.batch_size:
+                    pad = np.zeros((self.param.batch_size - n_real,)
+                                   + chunk.shape[1:], chunk.dtype)
+                    chunk = np.concatenate([chunk, pad])
+                log_probs = self._eval_step(
+                    torch.from_numpy(chunk).to(self.device)).cpu().numpy()
+                texts.extend(self._decode(lp) for lp in log_probs[:n_real])
 
         # re-join by (audio_id, audio_seq) (reference InferenceEvaluate
         # groupBy(audio_id).sort(audio_seq) concat)
@@ -398,18 +445,37 @@ def train_ds2(model: DeepSpeech2, dataset, epochs: int = 10,
     ``param_rules`` (``parallel.tensor.default_tp_rules``) shards the
     weights over a data × model mesh.  Both are sugar for ``specs=
     pipeline_specs("ds2", mesh=mesh, param_rules=...)``.
-    ``sequence_parallel=True`` is ROADMAP.md Queue 1 item 12b."""
-    if sequence_parallel:
-        raise NotImplementedError(
-            "train_ds2(sequence_parallel=True) is not ported yet "
-            "(ROADMAP.md Queue 1 item 12b)")
+
+    ``sequence_parallel=True`` (the mesh must carry a ``sequence`` axis,
+    e.g. ``create_mesh((2, 2), ("data", "sequence"))``) trains with the
+    time axis cut over it: the step's forward is
+    ``models.deepspeech2.sequence_parallel_forward`` with global-batch
+    BN statistics, and the CTC loss reads the log-probs gathered back
+    over T.  Batches are fixed-length (``bucket_edges=None``).
+
+    ``model`` may also be another CTC acoustic model (``models.attention
+    .AttentionASR``) called on the features alone."""
     if specs is not None and (mesh is not None or param_rules is not None):
         raise ValueError("pass specs= OR (mesh=, param_rules=), not both")
     if specs is None and (mesh is not None or param_rules is not None):
         from analytics_zoo_tpu_torch.parallel.specs import pipeline_specs
         specs = pipeline_specs("ds2", mesh=mesh, param_rules=param_rules)
+    forward_fn = None
+    if sequence_parallel:
+        from analytics_zoo_tpu_torch.models.deepspeech2 import (
+            make_sequence_parallel_forward_fn)
+        from analytics_zoo_tpu_torch.parallel.mesh import axis_names
+
+        names = axis_names(specs.mesh) if specs is not None else None
+        if names is None or "sequence" not in names:
+            raise ValueError("sequence_parallel=True needs a mesh with a "
+                             f"'sequence' axis, got {names}")
+        forward_fn = make_sequence_parallel_forward_fn(
+            model, specs.mesh, batch_axis="data" if "data" in names
+            else None)
     opt = (Optimizer(model, dataset, ds2_ctc_criterion(blank_id=0),
-                     metric_fn=ds2_padding_metric, specs=specs)
+                     metric_fn=ds2_padding_metric, specs=specs,
+                     forward_fn=forward_fn)
            .set_optim_method(Adam(lr))
            .set_end_when(Trigger.max_epoch(epochs)))
     if checkpoint_path:
@@ -609,12 +675,12 @@ def ds2_serving_tiers(model: DeepSpeech2, param: Optional[DS2Param] = None,
     path.  With ``param.decoder == "greedy"`` the ladder is the one
     greedy tier.  ``device_program()`` gives ``(eval_step,
     example_args)``, the forward every rung shares.  Sharded serving
-    (``specs``) is ROADMAP.md Queue 1 item 12b."""
+    (``specs``) is ROADMAP.md Queue 1 item 12b.4."""
     from analytics_zoo_tpu_torch.serving.ladder import ServingTier
 
     if specs is not None:
         raise NotImplementedError("ds2_serving_tiers(specs=...) is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 12b)")
+                                  "ported yet (ROADMAP.md Queue 1 item 12b.4)")
     param = param or DS2Param()
     dev = resolve_device(device)
     model = model.to(dev).eval()

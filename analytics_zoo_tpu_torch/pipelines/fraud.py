@@ -10,7 +10,7 @@ with AUPRC, precision and recall.  :func:`fraud_serving_tiers` gives
 
 Training and serving run on the model's device (the GPU unless the
 caller passes ``device="cpu"``).  Sharded training and serving
-(``specs=``) is ROADMAP.md Queue 1 item 12b, and refused.
+(``specs=``) is ROADMAP.md Queue 1 item 12b.4, and refused.
 """
 
 from __future__ import annotations
@@ -55,11 +55,11 @@ SENTIMENT_INT8_SPEED = 1.60
 
 def refuse_sharding(what: str, specs=None) -> None:
     """Sharded serving (a tier's ``specs=``) is ROADMAP.md Queue 1 item
-    12b."""
+    12b.4."""
     if specs is not None:
         raise NotImplementedError(
             f"{what}: sharded serving (specs=) is not ported yet "
-            "(ROADMAP.md Queue 1 item 12b)")
+            "(ROADMAP.md Queue 1 item 12b.4)")
 
 
 def train_specs(name: str, mesh, **opts):

@@ -14,7 +14,7 @@ fp and weight-only int8.  :func:`train_frcnn` trains the detector
 (approximate joint training, ``ops/frcnn_train.py``) through the
 ``Optimizer`` with a ``forward_fn``, on one device or data parallel over
 a mesh (``mesh=``); sharded serving (``specs=``) is ROADMAP.md Queue 1
-item 12b.
+item 12b.4.
 """
 
 from __future__ import annotations
@@ -174,12 +174,12 @@ def frcnn_serving_tiers(detector: nn.Module,
     unit-scale ``im_info``, so detections come back in canvas pixels,
     read back as numpy.  ``device_program()`` gives the rung's forward
     and example arguments of its shapes.  Sharded serving (``specs``) is
-    ROADMAP.md Queue 1 item 12b."""
+    ROADMAP.md Queue 1 item 12b.4."""
     from analytics_zoo_tpu_torch.serving.ladder import ServingTier
 
     if specs is not None:
         raise NotImplementedError("frcnn_serving_tiers(specs=...) is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 12b)")
+                                  "ported yet (ROADMAP.md Queue 1 item 12b.4)")
     full = FrcnnPredictor(detector, param=param,
                           aspect_preserving=aspect_preserving, device=device)
     int8 = FrcnnPredictor(detector, param=full.param,

@@ -12,7 +12,7 @@ rating_class}`` batches; :func:`rec_serving_tiers` gives
 
 ``shard_tables`` has no effect without a mesh, as in the reference; with
 one, every table is row-sharded over the ``model`` axis.  Sharded serving
-(``specs=``) is ROADMAP.md Queue 1 item 12b, and refused.
+(``specs=``) is ROADMAP.md Queue 1 item 12b.4, and refused.
 """
 
 from __future__ import annotations

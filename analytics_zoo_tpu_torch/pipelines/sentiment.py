@@ -9,7 +9,7 @@ looked up by ``ops.embedding`` (``"dedup"`` by default);
 :func:`sentiment_serving_tiers` gives ``serving.ServingRuntime`` the fp
 and int8 rungs.  ``train_sentiment(mesh=)`` trains data parallel with
 the table row-sharded; sharded serving (``specs=``) is ROADMAP.md Queue 1
-item 12b, and refused.
+item 12b.4, and refused.
 """
 
 from __future__ import annotations

@@ -22,7 +22,7 @@ measure mAP; :func:`train_ssd` is the reference's training entry point.
 :func:`ssd_serving_tiers` gives ``serving.ServingRuntime`` its three
 rungs (fp, int8 weights, int8 with a smaller ``keep_topk``).  The yuv420
 wire and packed staging (deferred item e) and sharded serving (item
-12b) are not ported yet (ROADMAP.md, Queue 1).
+12b.4) are not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -606,13 +606,13 @@ def train_ssd(train_set, val_set, params: TrainParams,
     (MultiBoxLoss normalised by the whole batch's positives, validation
     through K2 on every rank's rows, merged), ``tp="megatron"`` shards
     the weights by ``tensor.ssd_tp_rules`` over a ("data", "model") mesh.
-    Refused by name: ``tp="spatial"`` (item 12b) and ``params.log_dir``
+    Refused by name: ``tp="spatial"`` (item 12b.3) and ``params.log_dir``
     (item 13)."""
     if tp == "spatial":
         raise NotImplementedError(
             "train_ssd(tp='spatial'): image height over the model axis, "
             "with its halo exchanges, is not ported yet (ROADMAP.md Queue 1 "
-            "item 12b)")
+            "item 12b.3)")
     specs = None
     if mesh is not None or tp is not None:
         from analytics_zoo_tpu_torch.parallel.specs import pipeline_specs
@@ -699,12 +699,12 @@ def ssd_serving_tiers(model: nn.Module, param: PreProcessParam,
     numpy, read back.  ``device_program()`` gives the rung's detect
     callable and example arguments of its shapes, its
     ``DetectionOutputParam`` last.  Sharded serving (``specs``) is
-    ROADMAP.md Queue 1 item 12b."""
+    ROADMAP.md Queue 1 item 12b.4."""
     from analytics_zoo_tpu_torch.serving.ladder import ServingTier
 
     if specs is not None:
         raise NotImplementedError("ssd_serving_tiers(specs=...) is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 12b)")
+                                  "ported yet (ROADMAP.md Queue 1 item 12b.4)")
     full = SSDPredictor(model, param, post=post, n_classes=n_classes,
                         compute_dtype=compute_dtype, device=device)
     int8 = SSDPredictor(model, param, post=post, n_classes=n_classes,

@@ -57,7 +57,7 @@ model (``parallel_replicas``), mesh-slice replicas (``slice_width > 1``,
 ``device_budget``), the autoscaler, chaos injection, telemetry spans,
 the device-health sentinel and the compile-cost model of pre-warming
 (``compile_s``, a swap's ``warm_s``) (ROADMAP.md Queue 1 item 13);
-sharded serving (``specs=``) (item 12b).
+sharded serving (``specs=``) (item 12b.4).
 """
 
 from __future__ import annotations
@@ -84,7 +84,7 @@ from analytics_zoo_tpu_torch.serving.request import (DEFAULT_MODEL,
                                                      AdmissionQueue, Request)
 
 _ITEM_13 = "ROADMAP.md Queue 1 item 13"
-_ITEM_12B = "ROADMAP.md Queue 1 item 12b"
+_ITEM_12B = "ROADMAP.md Queue 1 item 12b.4"
 # keyword → what it is and the ROADMAP item that ports it; a non-default
 # value raises
 _REFUSED = {

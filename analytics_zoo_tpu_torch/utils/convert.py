@@ -4,8 +4,9 @@ importer uses.
 
 The port's own copy of ``flatten_params`` (``utils/convert.py`` of the
 JAX package) plus the bridges for SSD and its AlexNet and MobileNet
-variants, DeepSpeech2, Faster-RCNN, a Caffe graph and the small model
-families (the fraud MLP, NeuralCF, Wide&Deep, the sentiment heads): the
+variants, DeepSpeech2, AttentionASR, Faster-RCNN, a Caffe graph and the
+small model families (the fraud MLP, NeuralCF, Wide&Deep, the sentiment
+heads): the
 port names its modules after the flax ones, so ``vgg/conv1_1/kernel``
 becomes ``vgg.conv1_1.weight`` with the kernel moved from flax HWIO to
 torch OIHW (a Dense kernel, and a 1-D convolution's (k, in, out), is
@@ -271,6 +272,16 @@ def ds2_params_from_jax(variables: Mapping, model: nn.Module
     transposed, ``bn_*/BatchNorm_0/{scale,bias,mean,var}``,
     ``birnn{i}/{fwd,bwd}/body/h2h``)."""
     return flax_variables_to_state_dict(variables, model)
+
+
+def attention_asr_params_from_jax(params: Mapping, model: nn.Module
+                                  ) -> Dict[str, torch.Tensor]:
+    """A flax ``AttentionASR`` params tree → the port's ``AttentionASR``
+    ``state_dict``: ``conv1`` HWIO → OIHW, Dense kernels (``embed``,
+    ``attn/qkv``, ``attn/proj``, ``mlp1``, ``mlp2``, ``fc_out``)
+    transposed, LayerNorm ``scale`` → ``weight``, and a MoE block's
+    stacked ``w1/b1/w2/b2`` and ``gate`` in their flax layout."""
+    return flax_variables_to_state_dict({"params": params}, model)
 
 
 def _optax_slots(tree: Any) -> Optional[Dict[str, Any]]:

@@ -392,6 +392,32 @@ Phases, one JSON line each; any failure exits non-zero:
    the first losses and gradients against the unsharded steps; then a
    world-1 NCCL group: an all-reduce on the card and a data-parallel
    step over the one-rank mesh;
+6o. dist_seq: ``DIST_WORLD`` ranks on a ("sequence",) mesh, the probe
+   first (``DIST_NEEDS``, ``all_to_all`` the sequence exchanges' one
+   collective).  DS2 at the widths above (``rnn_engine="pallas"``):
+   ``sequence_parallel_forward`` of 8 × ``SEQ_FRAMES`` frames, counters
+   at 0 just before and read just after (K3 6 a rank: a chunk's kernel
+   runs in the rank's own round only), the log-probs against this
+   process's whole-T forward within ``SEQ_LOGP_TOL``;
+   ``DeepSpeech2Pipeline(sequence_mesh=)`` on one ``SEQ_UTT_S`` s
+   utterance, its transcript EQUAL to this process's;
+   ``train_ds2(sequence_parallel=True)`` for ``SEQ_TRAIN_STEPS`` steps of
+   8 × ``SEQ_TRAIN_FRAMES`` frames (K3 and K4 6 a step a rank), the first
+   loss within ``SEQ_LOSS_TOL`` and every gradient within
+   ``SEQ_GRAD_TOL`` of this process's; the ms of a forward and of a step
+   by rank against this process's, and one more step with every
+   collective synchronized and timed (the collectives' share);
+6p. dist_attn: ``AttentionASR`` at the reference's defaults on 8 ×
+   ``ATTN_FRAMES`` frames, the probe first: ``RingAttentionLayer`` on a
+   ("data", "sequence") mesh of (1, 2) against ``full_attention`` in
+   this process (``ATTN_RING_TOL``); ``make_pipeline_forward_fn`` on
+   ("pipe",) of 2 at depth ``ATTN_PIPE_DEPTH`` with ``ATTN_PIPE_MICRO``
+   microbatches against the unpipelined model (``ATTN_PIPE_TOL``) and
+   one training step's loss (``ATTN_LOSS_TOL``); two experts one a rank
+   on ("expert",) of 2 at a capacity that admits every token, the
+   routing (expert ids; slots, a sender's bucket offset by the earlier
+   senders' tokens) EQUAL to the dense path's and the log-probs within
+   ``ATTN_MOE_TOL``; no K1-K4 launch;
 7. the ``kernels`` line, then the device line last.
 
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -4925,10 +4951,12 @@ DIST_BACKEND = "gloo"
 # the collectives the port's sharded steps call on CUDA tensors: the
 # gradient and row-layer all_reduce, the weights' first placement a
 # broadcast, the column outputs' and gathered weights' all_gather
-# (parallel/tensor.py).  The card's gloo takes all three (probed in
-# dist_dp, and the phase fails if it does not), so dist_tp runs at
-# world 2 over gloo
-DIST_NEEDS = ("all_reduce", "broadcast", "all_gather")
+# (parallel/tensor.py), and the all_to_all_single with a split size a
+# peer under every exchange of parallel/sequence.py (ppermute, the halo,
+# the scans' carries, all_to_all).  The card's gloo takes all four
+# (probed in dist_dp, dist_seq and dist_attn, each failing if it does
+# not), so dist_tp, dist_seq and dist_attn run at world 2 over gloo
+DIST_NEEDS = ("all_reduce", "broadcast", "all_gather", "all_to_all")
 DIST_TP_WORLD = 2
 # DS2 at the widths above, 3 steps on global batches of 8 × 1000 frames
 DIST_DS2_FRAMES, DIST_DS2_STEPS = 1000, 3
@@ -5046,6 +5074,7 @@ def probe_gloo():
     import torch
     import torch.distributed as dist
 
+    from analytics_zoo_tpu_torch.parallel import sequence
     from analytics_zoo_tpu_torch.parallel import tensor as tensor_lib
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -5058,6 +5087,10 @@ def probe_gloo():
         # the call the parallel layers make
         "all_gather": lambda: tensor_lib.all_gather_dim(
             torch.ones(4, device=dev), 0, ctx),
+        # the sequence exchanges' call: uneven splits (rank 0 sends, the
+        # last receives, the others neither)
+        "all_to_all": lambda: sequence.ppermute(
+            torch.ones(4, device=dev), dist.group.WORLD, [(0, world - 1)]),
     }
     for name in DIST_NEEDS:
         try:
@@ -5081,7 +5114,8 @@ def dist_child(task, **kw):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return {"dp": dist_dp_rank, "tp": dist_tp_rank,
-            "nccl": dist_nccl_rank}[task](**kw)
+            "nccl": dist_nccl_rank, "seq": dist_seq_rank,
+            "attn": dist_attn_rank}[task](**kw)
 
 
 class recording_optimizer:
@@ -5191,15 +5225,20 @@ def dist_ssd_rank(train, val, tp, mesh_shape, axes):
     return out
 
 
-def dist_dp_rank(ds2_batches, ssd_train, ssd_val, seed):
-    import torch.distributed as dist
-
+def checked_probe():
+    """``probe_gloo()``, failing when gloo refuses one of DIST_NEEDS."""
     probe = probe_gloo()
     missing = [c for c in DIST_NEEDS if probe[c] != "ok"]
     if missing:
         raise AssertionError(f"gloo on CUDA tensors refuses {missing}: "
                              f"{probe}")
-    out = {"probe": probe, "backend": dist.get_backend()}
+    return probe
+
+
+def dist_dp_rank(ds2_batches, ssd_train, ssd_val, seed):
+    import torch.distributed as dist
+
+    out = {"probe": checked_probe(), "backend": dist.get_backend()}
     out["ds2"] = dist_ds2_rank(ds2_batches, False, (DIST_WORLD,), ("data",),
                                seed)
     out["ssd"] = dist_ssd_rank(ssd_train, ssd_val, None, (DIST_WORLD,),
@@ -5592,6 +5631,487 @@ def dist_tp_phase(dev, smi, seed=37):
             "fused_detection_output": sum(
                 x["launches"]["fused_detection_output"] for x in ssd),
             "nms_sweep": sum(x["launches"]["nms_sweep"] for x in ssd + ds2)}
+
+
+# ---------------------------------------------------------------------------
+# 6o/6p. sequence, pipeline and expert parallelism over two ranks
+# ---------------------------------------------------------------------------
+
+# DS2 on a ("sequence",) mesh: the forward of 8 × 30 s, one 60 s
+# utterance through the pipeline, 2 training steps of 8 × 1000 frames
+# (fixed length: the time-sharded forward takes no n_frames)
+SEQ_FRAMES, SEQ_UTT_S = 3000, 60
+SEQ_TRAIN_FRAMES, SEQ_TRAIN_STEPS = 1000, 2
+# the log-probs against one process's whole-T forward, max-abs (K3's
+# fp32 tolerance); each gradient, relative L2 (K4's fp32 tolerance, as
+# grads_err holds it); the first loss as DIST_LOSS_TOL holds it
+SEQ_LOGP_TOL = 1e-4
+SEQ_GRAD_TOL = 1e-3
+# AttentionASR at the reference's defaults on 8 × 3000 frames; the
+# pipeline at depth 2 over 2 stages; two experts, capacity factor 2 (the
+# per-pair capacity then holds every token of a rank's block)
+ATTN_KW = dict(dim=128, depth=4, num_heads=4, n_alphabet=29, n_mels=13,
+               conv_channels=32)
+ATTN_FRAMES = 3000
+ATTN_PIPE_DEPTH, ATTN_PIPE_MICRO = 2, 4
+ATTN_CAPACITY_FACTOR = 2.0
+# ring against full attention, the pipeline against the unpipelined
+# model, the MoE against the dense path: log-probs max-abs (the step's
+# loss as DIST_LOSS_TOL holds it)
+ATTN_RING_TOL = 2e-5
+ATTN_PIPE_TOL = 1e-5
+ATTN_MOE_TOL = 1e-5
+
+
+def seq_train_batches(seed):
+    """SEQ_TRAIN_STEPS fixed-length batches of 8 utterances of at most
+    10 s, featurized to SEQ_TRAIN_FRAMES frames, random labels."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.pipelines.deepspeech2 import (
+        load_asr_train_set)
+
+    samples, lengths, labels = ds2_train_set(seed)
+    short = np.nonzero(lengths <= 160 * SEQ_TRAIN_FRAMES - 400)[0]
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(SEQ_TRAIN_STEPS):
+        pick = rng.choice(short, BATCH, replace=False)
+        ds = load_asr_train_set(samples[pick], labels[pick],
+                                batch_size=BATCH, shuffle=False,
+                                utt_length=SEQ_TRAIN_FRAMES)
+        out.append(next(iter(ds)))
+    return out
+
+
+class collective_clock:
+    """``with collective_clock() as ms:`` — every ``all_to_all_single``,
+    ``all_gather_into_tensor`` and ``all_reduce`` of this process
+    synchronized on both sides and its host ms appended to ``ms``."""
+
+    NAMES = ("all_to_all_single", "all_gather_into_tensor", "all_reduce")
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+
+        self.ms, self.saved = [], {n: getattr(dist, n) for n in self.NAMES}
+
+        def timed(fn):
+            def call(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return call
+
+        for n, fn in self.saved.items():
+            setattr(dist, n, timed(fn))
+        return self.ms
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for n, fn in self.saved.items():
+            setattr(dist, n, fn)
+
+
+def timed_ms(fn, reps: int = 1):
+    """(the first result, the least host ms) of ``reps`` calls of
+    ``fn()``, each between two synchronizes."""
+    import torch
+
+    out, best = None, float("inf")
+    for i in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+        out = got if i == 0 else out
+    return out, best
+
+
+def dist_seq_rank(x, utt, batches, seed):
+    """DS2 over a ("sequence",) mesh: the forward (its K3 launches, a
+    second one timed), the pipeline's transcript, ``train_ds2`` with its
+    first loss, gradients (rank 0), stamps and launches, then one more
+    step with its collectives timed."""
+    import torch
+    import torch.distributed as dist
+
+    from analytics_zoo_tpu_torch.models.deepspeech2 import (
+        make_sequence_parallel_forward_fn, sequence_parallel_forward)
+    from analytics_zoo_tpu_torch.parallel import (Adam, create_train_state,
+                                                  make_train_step)
+    from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+    from analytics_zoo_tpu_torch.pipelines import deepspeech2 as ds2_pipe
+    from analytics_zoo_tpu_torch.utils import engine
+
+    probe = checked_probe()
+    dev = engine.device()
+    mesh = mesh_lib.create_mesh((DIST_WORLD,), ("sequence",))
+    model = ds2_pipe.make_ds2_model(hidden=DS2_HIDDEN, n_rnn_layers=3,
+                                    rnn_engine="pallas", device=dev,
+                                    seed=seed)
+    xd = torch.from_numpy(x).to(dev)
+    out = {"probe": probe, "backend": dist.get_backend()}
+    with torch.no_grad():
+        zero_kernel_counters()
+        logp = sequence_parallel_forward(model, xd, mesh)
+        out["forward_launches"] = launch_counts()
+        _, out["forward_ms"] = timed_ms(
+            lambda: sequence_parallel_forward(model, xd, mesh), 3)
+    out["logp"] = logp.cpu().numpy() if dist.get_rank() == 0 else None
+    zero_kernel_counters()
+    pipe = ds2_pipe.DeepSpeech2Pipeline(
+        model, ds2_pipe.DS2Param(segment_seconds=SEQ_UTT_S, batch_size=1),
+        sequence_mesh=mesh, device=dev)
+    out["text"] = pipe.transcribe_samples({"u": utt})["u"]
+    out["pipeline_launches"] = launch_counts()
+    out["utt_length"] = pipe.utt_length
+    tap = GradTap(batches, model)
+    zero_kernel_counters()
+    with recording_optimizer(ds2_pipe) as runs:
+        ds2_pipe.train_ds2(model, tap, epochs=1, mesh=mesh,
+                           sequence_parallel=True)
+    torch.cuda.synchronize()
+    out["train_launches"] = launch_counts()
+    out["losses"] = [float(m["loss"]) for m in runs[0].history]
+    out["grads"] = tap.grads if dist.get_rank() == 0 else None
+    out["stamps"] = tap.stamps
+    # one more step, every collective synchronized and timed
+    optim = Adam(3e-4)
+    step = make_train_step(
+        model, ds2_pipe.ds2_ctc_criterion(blank_id=0), optim, mesh=mesh,
+        forward_fn=make_sequence_parallel_forward_fn(model, mesh))
+    state = create_train_state(model, optim)
+    with collective_clock() as ms:
+        _, out["clocked_step_ms"] = timed_ms(lambda: step(state, batches[0]))
+    out["collective_ms"] = sum(ms)
+    out["collective_calls"] = len(ms)
+    del model, runs, step, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def route_recorder(expert_mod):
+    """Patch ``expert_mod.route_top1`` to record each call's (expert id,
+    slot) a token (-1 for a dropped token); returns (records, restore)."""
+    import torch
+
+    base, records = expert_mod.route_top1, []
+
+    def route(x, gate_kernel, capacity):
+        dispatch, scale = base(x, gate_kernel, capacity)
+        kept = dispatch.sum((1, 2)) > 0
+        ids = torch.where(kept, dispatch.sum(2).argmax(1), -1)
+        slots = torch.where(kept, dispatch.sum(1).argmax(1), -1)
+        records.append((ids.cpu().numpy(), slots.cpu().numpy()))
+        return dispatch, scale
+
+    expert_mod.route_top1 = route
+    return records, lambda: setattr(expert_mod, "route_top1", base)
+
+
+def attn_batch(seed):
+    """8 × ATTN_FRAMES frames of features and random labels."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(1, 29, (BATCH, 40)).astype(np.int32)
+    return {"input": rng.randn(BATCH, ATTN_FRAMES, 13).astype(np.float32),
+            "labels": labels,
+            "label_mask": np.ones(labels.shape, np.float32)}
+
+
+def dist_attn_rank(batch, seed):
+    """AttentionASR three ways over two ranks: ring attention on (1, 2)
+    ("data", "sequence"), GPipe on ("pipe",) with one training step, and
+    expert parallel MoE on ("expert",) with its routing recorded."""
+    import torch
+    import torch.distributed as dist
+
+    from analytics_zoo_tpu_torch.models.attention import (
+        AttentionASR, make_pipeline_forward_fn)
+    from analytics_zoo_tpu_torch.parallel import (Adam, create_train_state,
+                                                  expert, make_train_step)
+    from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+    from analytics_zoo_tpu_torch.parallel.sequence import RingAttentionLayer
+    from analytics_zoo_tpu_torch.pipelines.deepspeech2 import (
+        ds2_ctc_criterion)
+    from analytics_zoo_tpu_torch.utils import engine
+
+    probe = checked_probe()
+    dev = engine.device()
+    rank0 = dist.get_rank() == 0
+    x = torch.from_numpy(batch["input"]).to(dev)
+    out = {"probe": probe}
+    zero_kernel_counters()
+    mesh = mesh_lib.create_mesh((1, DIST_WORLD), ("data", "sequence"))
+    model = AttentionASR(**ATTN_KW, attention_fn=RingAttentionLayer(mesh),
+                         device=dev, seed=seed)
+    with torch.no_grad():
+        ring, out["ring_ms"] = timed_ms(lambda: model(x), 3)
+    out["ring"] = ring.cpu().numpy() if rank0 else None
+    pmesh = mesh_lib.create_mesh((DIST_WORLD,), ("pipe",))
+    pmodel = AttentionASR(**dict(ATTN_KW, depth=ATTN_PIPE_DEPTH),
+                          device=dev, seed=seed)
+    fwd = make_pipeline_forward_fn(pmodel, pmesh, n_micro=ATTN_PIPE_MICRO)
+    with torch.no_grad():
+        piped, out["pipe_ms"] = timed_ms(lambda: fwd(pmodel, x, False), 3)
+    out["pipe"] = piped.cpu().numpy() if rank0 else None
+    # the first step's loss; the least time of it and two more steps
+    optim = Adam(3e-4)
+    step = make_train_step(pmodel, ds2_ctc_criterion(blank_id=0), optim,
+                           mesh=pmesh, forward_fn=fwd)
+    state = create_train_state(pmodel, optim)
+    (_, metrics), out["pipe_step_ms"] = timed_ms(lambda: step(state, batch),
+                                                 3)
+    out["pipe_loss"] = float(metrics["loss"])
+    emesh = mesh_lib.create_mesh((DIST_WORLD,), ("expert",))
+    mmodel = AttentionASR(**ATTN_KW, n_experts=DIST_WORLD,
+                          expert_mesh=emesh,
+                          capacity_factor=ATTN_CAPACITY_FACTOR, device=dev,
+                          seed=seed)
+    records, restore = route_recorder(expert)
+    try:
+        with torch.no_grad():
+            moe = mmodel(x)
+    finally:
+        restore()
+    with torch.no_grad():
+        _, out["moe_ms"] = timed_ms(lambda: mmodel(x), 2)
+    out["moe"] = moe.cpu().numpy() if rank0 else None
+    out["routes"] = records
+    out["launches"] = launch_counts()
+    del model, pmodel, mmodel, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_seq_phase(dev, smi, seed=41):
+    """dist_seq: DS2 time-sharded over DIST_WORLD ranks on the one card
+    (gloo), against this process's whole-T forward, transcript and
+    training."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.pipelines import deepspeech2 as ds2_pipe
+    from analytics_zoo_tpu_torch.utils import engine
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(seed)
+    x = rng.randn(BATCH, SEQ_FRAMES, 13).astype(np.float32)
+    utt = synthetic_utterances((SEQ_UTT_S,), seed)["utt0"]
+    batches = seq_train_batches(seed)
+    t0 = time.perf_counter()
+    ranks = engine.spawn(os.path.abspath(__file__) + ":dist_child",
+                         DIST_WORLD, dict(task="seq", x=x, utt=utt,
+                                          batches=batches, seed=seed),
+                         timeout=DIST_TIMEOUT, backend=DIST_BACKEND,
+                         local_ranks=[0] * DIST_WORLD)
+    spawn_s = time.perf_counter() - t0
+    print(json.dumps({"phase": "dist_seq_probe",
+                      "gloo_on_cuda": ranks[0]["probe"],
+                      "backend": ranks[0]["backend"]}), flush=True)
+    # this process: the whole-T forward, the transcript, the training
+    model = ds2_pipe.make_ds2_model(hidden=DS2_HIDDEN, n_rnn_layers=3,
+                                    rnn_engine="pallas", device=dev,
+                                    seed=seed)
+    xd = torch.from_numpy(x).to(dev)
+    with torch.no_grad():
+        want, one_fwd_ms = timed_ms(lambda: model(xd), 4)
+    want = want.cpu().numpy()
+    one_text = ds2_pipe.DeepSpeech2Pipeline(
+        model, ds2_pipe.DS2Param(segment_seconds=SEQ_UTT_S, batch_size=1),
+        device=dev).transcribe_samples({"u": utt})["u"]
+    tap = GradTap(batches, model)
+    with recording_optimizer(ds2_pipe) as runs:
+        ds2_pipe.train_ds2(model, tap, epochs=1)
+    one_losses = [float(m["loss"]) for m in runs[0].history]
+    del model, runs
+    torch.cuda.empty_cache()
+    logp_err = float(np.abs(ranks[0]["logp"] - want).max())
+    if not logp_err <= SEQ_LOGP_TOL:
+        raise AssertionError(f"dist_seq: log-probs max-abs {logp_err:.3g} "
+                             f"(tol {SEQ_LOGP_TOL})")
+    want_k3 = 6
+    for r, x_r in enumerate(ranks):
+        got = x_r["forward_launches"]
+        if got["persistent_rnn"] != want_k3 or got["persistent_rnn_bwd"]:
+            raise AssertionError(f"dist_seq rank {r}: the forward launched "
+                                 f"{got}, want {want_k3} K3 and no K4")
+        got = x_r["pipeline_launches"]
+        if got["persistent_rnn"] != want_k3:
+            raise AssertionError(f"dist_seq rank {r}: the pipeline's one "
+                                 f"batch launched {got}")
+        got = x_r["train_launches"]
+        if (got["persistent_rnn"] != 6 * SEQ_TRAIN_STEPS
+                or got["persistent_rnn_bwd"] != 6 * SEQ_TRAIN_STEPS):
+            raise AssertionError(f"dist_seq rank {r}: training launched "
+                                 f"{got}, want {6 * SEQ_TRAIN_STEPS} K3 and "
+                                 f"K4")
+        if x_r["text"] != one_text:
+            raise AssertionError(f"dist_seq rank {r}: transcript differs "
+                                 f"from one process's: {x_r['text']!r} vs "
+                                 f"{one_text!r}")
+        if x_r["losses"] != ranks[0]["losses"]:
+            raise AssertionError(f"dist_seq: the ranks' losses differ "
+                                 f"{[y['losses'] for y in ranks]}")
+    loss_err = check_losses("dist_seq ds2", ranks[0]["losses"][0],
+                            one_losses[0])
+    errs = grads_err({k: torch.from_numpy(v) for k, v in
+                      ranks[0]["grads"].items()},
+                     {k: torch.from_numpy(v) for k, v in tap.grads.items()})
+    worst = max(errs, key=errs.get)
+    if not errs[worst] <= SEQ_GRAD_TOL:
+        raise AssertionError(f"dist_seq: first-step gradient {worst} rel L2 "
+                             f"{errs[worst]:.3g} (tol {SEQ_GRAD_TOL})")
+    step_ms = [stamps_ms(x_r["stamps"]) for x_r in ranks]
+    emit("dist_seq", nvidia_smi=smi, world=DIST_WORLD,
+         mesh={"sequence": DIST_WORLD}, frames=SEQ_FRAMES,
+         logp_max_abs_err=logp_err,
+         forward_launches_by_rank=[x_r["forward_launches"] for x_r in ranks],
+         forward_ms_by_rank=[x_r["forward_ms"] for x_r in ranks],
+         one_process_forward_ms=one_fwd_ms,
+         pipeline_utt_length=ranks[0]["utt_length"],
+         transcript_equal=True, transcript_chars=len(one_text),
+         losses=ranks[0]["losses"], one_process_losses=one_losses,
+         loss_rel_err=loss_err, grad_rel_l2_max=errs[worst],
+         grad_worst_tensor=worst,
+         train_launches_by_rank=[x_r["train_launches"] for x_r in ranks],
+         step_ms_by_rank=step_ms,
+         one_process_step_ms=stamps_ms(tap.stamps),
+         clocked_step_ms_by_rank=[x_r["clocked_step_ms"] for x_r in ranks],
+         collective_ms_by_rank=[x_r["collective_ms"] for x_r in ranks],
+         collective_share_by_rank=[x_r["collective_ms"] / x_r[
+             "clocked_step_ms"] for x_r in ranks],
+         collective_calls=ranks[0]["collective_calls"],
+         spawn_s=spawn_s, phase_s=time.perf_counter() - t_phase)
+    return {name: sum(x_r[k][name] for x_r in ranks
+                      for k in ("forward_launches", "pipeline_launches",
+                                "train_launches"))
+            for name in ranks[0]["train_launches"]}
+
+
+def routes_equal(dense, ep_by_rank):
+    """Each MoE call's dense routing against the expert-parallel ranks':
+    a token's expert equal, and its slot the rank-local slot plus the
+    tokens of earlier senders that chose the same expert."""
+    import numpy as np
+
+    for call, (ids, slots) in enumerate(dense):
+        parts = [ranks[call] for ranks in ep_by_rank]
+        if not np.array_equal(ids, np.concatenate([p[0] for p in parts])):
+            return False
+        offset = np.zeros(ids.max() + 2, np.int64)
+        want = []
+        for p_ids, p_slots in parts:
+            want.append(np.where(p_ids >= 0, p_slots + offset[p_ids], -1))
+            offset += np.bincount(p_ids[p_ids >= 0],
+                                  minlength=offset.size)[:offset.size]
+        if not np.array_equal(slots, np.concatenate(want)):
+            return False
+    return True
+
+
+def dist_attn_phase(dev, smi, seed=43):
+    """dist_attn: AttentionASR's ring attention, GPipe and expert-parallel
+    MoE over DIST_WORLD ranks on the one card, against this process's
+    full, unpipelined and dense runs."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.models.attention import AttentionASR
+    from analytics_zoo_tpu_torch.parallel import (Adam, create_train_state,
+                                                  expert, make_train_step)
+    from analytics_zoo_tpu_torch.pipelines.deepspeech2 import (
+        ds2_ctc_criterion)
+    from analytics_zoo_tpu_torch.utils import engine
+
+    t_phase = time.perf_counter()
+    batch = attn_batch(seed)
+    t0 = time.perf_counter()
+    ranks = engine.spawn(os.path.abspath(__file__) + ":dist_child",
+                         DIST_WORLD, dict(task="attn", batch=batch,
+                                          seed=seed),
+                         timeout=DIST_TIMEOUT, backend=DIST_BACKEND,
+                         local_ranks=[0] * DIST_WORLD)
+    spawn_s = time.perf_counter() - t0
+    print(json.dumps({"phase": "dist_attn_probe",
+                      "gloo_on_cuda": ranks[0]["probe"]}), flush=True)
+    x = torch.from_numpy(batch["input"]).to(dev)
+    with torch.no_grad():
+        model = AttentionASR(**ATTN_KW, device=dev, seed=seed)
+        full, full_ms = timed_ms(lambda: model(x), 3)
+        pmodel = AttentionASR(**dict(ATTN_KW, depth=ATTN_PIPE_DEPTH),
+                              device=dev, seed=seed)
+        plain, plain_ms = timed_ms(lambda: pmodel(x), 3)
+        mmodel = AttentionASR(**ATTN_KW, n_experts=DIST_WORLD,
+                              capacity_factor=ATTN_CAPACITY_FACTOR,
+                              device=dev, seed=seed)
+        records, restore = route_recorder(expert)
+        try:
+            dense = mmodel(x)
+        finally:
+            restore()
+        _, dense_ms = timed_ms(lambda: mmodel(x), 2)
+    optim = Adam(3e-4)
+    step = make_train_step(pmodel, ds2_ctc_criterion(blank_id=0), optim)
+    state = create_train_state(pmodel, optim)
+    (_, metrics), one_step_ms = timed_ms(lambda: step(state, batch), 3)
+    one_loss = float(metrics["loss"])
+    errs = {"ring": float(np.abs(ranks[0]["ring"] - full.cpu().numpy())
+                          .max()),
+            "pipe": float(np.abs(ranks[0]["pipe"] - plain.cpu().numpy())
+                          .max()),
+            "moe": float(np.abs(ranks[0]["moe"] - dense.cpu().numpy())
+                         .max())}
+    del model, pmodel, mmodel, step
+    torch.cuda.empty_cache()
+    tols = {"ring": ATTN_RING_TOL, "pipe": ATTN_PIPE_TOL,
+            "moe": ATTN_MOE_TOL}
+    for k, tol in tols.items():
+        if not errs[k] <= tol:
+            raise AssertionError(f"dist_attn {k}: log-probs max-abs "
+                                 f"{errs[k]:.3g} (tol {tol})")
+    loss_err = check_losses("dist_attn pipe", ranks[0]["pipe_loss"],
+                            one_loss)
+    if any(r["pipe_loss"] != ranks[0]["pipe_loss"] for r in ranks):
+        raise AssertionError("dist_attn pipe: the ranks' losses differ")
+    routed = routes_equal(records, [r["routes"] for r in ranks])
+    if not routed or len(records) != ATTN_KW["depth"]:
+        raise AssertionError(f"dist_attn moe: routing differs from the "
+                             f"dense path's ({len(records)} calls)")
+    dropped = int(sum((ids < 0).sum() for ids, _ in records))
+    for r, x_r in enumerate(ranks):
+        if any(x_r["launches"].values()):
+            raise AssertionError(f"dist_attn rank {r}: launched "
+                                 f"{x_r['launches']}")
+    emit("dist_attn", nvidia_smi=smi, world=DIST_WORLD, frames=ATTN_FRAMES,
+         model=ATTN_KW, ring_max_abs_err=errs["ring"],
+         ring_ms_by_rank=[r["ring_ms"] for r in ranks],
+         one_process_full_ms=full_ms,
+         pipe_depth=ATTN_PIPE_DEPTH, pipe_micro=ATTN_PIPE_MICRO,
+         pipe_max_abs_err=errs["pipe"],
+         pipe_ms_by_rank=[r["pipe_ms"] for r in ranks],
+         one_process_unpipelined_ms=plain_ms,
+         pipe_loss=ranks[0]["pipe_loss"], one_process_loss=one_loss,
+         pipe_loss_rel_err=loss_err,
+         pipe_step_ms_by_rank=[r["pipe_step_ms"] for r in ranks],
+         one_process_step_ms=one_step_ms,
+         moe_experts=DIST_WORLD, moe_capacity_factor=ATTN_CAPACITY_FACTOR,
+         moe_routing_equal=True, moe_calls=len(records),
+         moe_dropped_tokens=dropped, moe_max_abs_err=errs["moe"],
+         moe_ms_by_rank=[r["moe_ms"] for r in ranks],
+         one_process_dense_ms=dense_ms,
+         launches_by_rank=[r["launches"] for r in ranks],
+         spawn_s=spawn_s, phase_s=time.perf_counter() - t_phase)
+    return {name: sum(r["launches"][name] for r in ranks)
+            for name in ranks[0]["launches"]}
 
 
 def main() -> int:
@@ -6260,6 +6780,12 @@ def main() -> int:
     # -- 6n. tensor-parallel SSD300 and DS2 over two ranks; NCCL at 1 ----
     dist_tp = dist_tp_phase(dev, smi)
 
+    # -- 6o. DS2 time-sharded over two ranks: K3 a chunk, K4 under grad --
+    dist_seq = dist_seq_phase(dev, smi)
+
+    # -- 6p. AttentionASR: ring attention, GPipe, expert-parallel MoE -----
+    dist_attn = dist_attn_phase(dev, smi)
+
     # -- 7. kernels, then the device line last ----------------------------
     kernels = [
         {"name": "nms_sweep", "route": "cuda",
@@ -6272,6 +6798,8 @@ def main() -> int:
              "ssd_serving": launches["nms_sweep"],
              "ds2_resume": 0, "ssd_swap": swap["nms_sweep"],
              "dist_dp": dist_dp["nms_sweep"], "dist_tp": dist_tp["nms_sweep"],
+             "dist_seq": dist_seq["nms_sweep"],
+             "dist_attn": dist_attn["nms_sweep"],
              "ssd_serving_approx_topk": ssd_serving["k1_launches"],
              "frcnn_serving": frcnn["nms_sweep"],
              "frcnn_train": frcnn_train["nms_sweep"],
@@ -6295,6 +6823,8 @@ def main() -> int:
              "ds2_resume": 0, "ssd_swap": swap["fused_detection_output"],
              "dist_dp": dist_dp["fused_detection_output"],
              "dist_tp": dist_tp["fused_detection_output"],
+             "dist_seq": dist_seq["fused_detection_output"],
+             "dist_attn": dist_attn["fused_detection_output"],
              "ssd_serving_runtime": ssd_serving["k2_launches"],
              "fleet": ds2_online["k2_fleet"],
              "ssd_train_validation": ssd_train["k2_launches"],
@@ -6313,12 +6843,15 @@ def main() -> int:
          "launches": (k3_launches + train_launches["persistent_rnn"]
                       + sum(ds2_online["k3"].values())
                       + resume["persistent_rnn"] + dist_dp["persistent_rnn"]
-                      + dist_tp["persistent_rnn"]),
+                      + dist_tp["persistent_rnn"]
+                      + dist_seq["persistent_rnn"]),
          "launches_by_path": {"ds2_serving": k3_launches,
                               "ds2_train": train_launches["persistent_rnn"],
                               "ds2_resume": resume["persistent_rnn"],
                               "dist_dp": dist_dp["persistent_rnn"],
                               "dist_tp": dist_tp["persistent_rnn"],
+                              "dist_seq": dist_seq["persistent_rnn"],
+                              "dist_attn": dist_attn["persistent_rnn"],
                               "ssd_swap": 0,
                               **ds2_online["k3"],
                               "frcnn_serving": frcnn["persistent_rnn"],
@@ -6337,12 +6870,15 @@ def main() -> int:
          "launches": (train_launches["persistent_rnn_bwd"]
                       + resume["persistent_rnn_bwd"]
                       + dist_dp["persistent_rnn_bwd"]
-                      + dist_tp["persistent_rnn_bwd"]),
+                      + dist_tp["persistent_rnn_bwd"]
+                      + dist_seq["persistent_rnn_bwd"]),
          "launches_by_path": {
              "ds2_train": train_launches["persistent_rnn_bwd"],
              "ds2_resume": resume["persistent_rnn_bwd"], "ssd_swap": 0,
              "dist_dp": dist_dp["persistent_rnn_bwd"],
              "dist_tp": dist_tp["persistent_rnn_bwd"],
+             "dist_seq": dist_seq["persistent_rnn_bwd"],
+             "dist_attn": dist_attn["persistent_rnn_bwd"],
              "frcnn_serving": frcnn["persistent_rnn_bwd"],
              "frcnn_train": frcnn_train["persistent_rnn_bwd"],
              **zoo_paths("persistent_rnn_bwd")},

@@ -29,6 +29,7 @@ from analytics_zoo_tpu_torch.parallel.train import make_eval_step
 from analytics_zoo_tpu_torch.pipelines import deepspeech2 as pipe
 from analytics_zoo_tpu_torch.transform import audio
 from analytics_zoo_tpu_torch.utils.convert import ds2_params_from_jax
+from torch_dist_scenarios import StubMesh
 
 torch.set_num_threads(2)
 
@@ -309,9 +310,10 @@ def test_pipeline_files_evaluate_and_mesh(tmp_path):
     assert list(out) == [path] and set(out[path]) <= set(audio.ALPHABET)
     ev = tp.evaluate(UTTS, {"a": "hello", "b": "", "c": "speech"})
     assert 0.0 <= ev.cer and ev.words == 2
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        pipe.DeepSpeech2Pipeline(tp.model, sequence_mesh=object(),
-                                 device="cpu")
+    # a sequence mesh needs the axis (tests/test_torch_sequence_ds2.py)
+    with pytest.raises(ValueError, match="needs a 'sequence' axis"):
+        pipe.DeepSpeech2Pipeline(tp.model, sequence_mesh=StubMesh(
+            {"data": 1}), device="cpu")
     assert tp.transcribe_samples({}) == {}
 
 

@@ -128,6 +128,11 @@ def test_port_imports_pull_in_no_jax():
             "analytics_zoo_tpu_torch.parallel.tensor",
             "analytics_zoo_tpu_torch.parallel.specs",
             "analytics_zoo_tpu_torch.utils.spmd"} <= set(mods)
+    # sequence, pipeline and expert parallelism and the attention models
+    assert {"analytics_zoo_tpu_torch.parallel.sequence",
+            "analytics_zoo_tpu_torch.parallel.pipeline",
+            "analytics_zoo_tpu_torch.parallel.expert",
+            "analytics_zoo_tpu_torch.models.attention"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "from analytics_zoo_tpu_torch.pipelines import (StreamingDS2, "
@@ -151,6 +156,14 @@ def test_port_imports_pull_in_no_jax():
             "create_mesh, pipeline_specs, default_tp_rules)\n"
             "from analytics_zoo_tpu_torch.data.parallel import "
             "make_input_pipeline\n"
+            "from analytics_zoo_tpu_torch.parallel import (route_top1, "
+            "pipeline_forward, pipeline_forward_het)\n"
+            "from analytics_zoo_tpu_torch.parallel.sequence import ("
+            "ring_attention, RingAttentionLayer, halo_exchange)\n"
+            "from analytics_zoo_tpu_torch.models import (AttentionASR, "
+            "sequence_parallel_forward)\n"
+            "from analytics_zoo_tpu_torch.utils.convert import "
+            "attention_asr_params_from_jax\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")

@@ -291,9 +291,10 @@ def ssd_megatron_forward(weights, x, shape, axes, resolution):
 
 
 def ds2_train(weights, batches, shape, axes, rules, engine="blocked",
-              hidden=16, layers=1, epochs=1, lr=3e-4):
-    """``train_ds2(mesh=, param_rules=)`` on bridged weights: losses,
-    the trained state gathered whole."""
+              hidden=16, layers=1, epochs=1, lr=3e-4,
+              sequence_parallel=False):
+    """``train_ds2(mesh=, param_rules=, sequence_parallel=)`` on bridged
+    weights: losses, the trained state gathered whole."""
     from analytics_zoo_tpu_torch.parallel import tensor as tensor_lib
     from analytics_zoo_tpu_torch.parallel.specs import SpecSet
     from analytics_zoo_tpu_torch.pipelines import deepspeech2 as pipe
@@ -313,7 +314,8 @@ def ds2_train(weights, batches, shape, axes, rules, engine="blocked",
     try:
         pipe.train_ds2(model, batches, epochs=epochs, lr=lr, mesh=mesh,
                        param_rules=(tensor_lib.default_tp_rules()
-                                    if rules else None))
+                                    if rules else None),
+                       sequence_parallel=sequence_parallel)
     finally:
         pipe.Optimizer = base
     return {"losses": [float(m["loss"]) for m in runs[0].history],
@@ -712,3 +714,394 @@ def fail_on_rank(rank):
 def sleep(seconds):
     import time
     time.sleep(seconds)
+
+
+# ---------------------------------------------------------------------------
+# Sequence, pipeline and expert parallelism
+# ---------------------------------------------------------------------------
+
+
+def _coord(mesh, name):
+    from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+    return mesh_lib.axis_index(mesh, name)
+
+
+def _grad_of(loss, tensors):
+    loss.backward()
+    return [t.grad.numpy().copy() for t in tensors]
+
+
+def _leaf(a):
+    return torch.tensor(np.asarray(a), requires_grad=True)
+
+
+def seq_exchanges(x, cot, shape, axes, axis="sequence"):
+    """On the ``axis`` line: ``ppermute`` over the wrapping ring and the
+    non-wrapping chain, and ``all_to_all``; each with this rank's input
+    ``x[idx]`` and the gradient of ``sum(out · cot[idx])``."""
+    from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+    from analytics_zoo_tpu_torch.parallel import sequence as seq
+
+    mesh = _mesh(shape, axes)
+    group = mesh_lib.axis_group(mesh, axis)
+    n, idx = mesh_lib.axis_size(mesh, axis), _coord(mesh, axis)
+    out = {"idx": idx}
+    ops = {"ring": lambda t: seq.ppermute(
+               t, group, [(i, (i + 1) % n) for i in range(n)]),
+           "chain": lambda t: seq.ppermute(
+               t, group, [(i, i + 1) for i in range(n - 1)]),
+           "a2a": lambda t: seq.all_to_all(t, group, 0, 1)}
+    for name, op in ops.items():
+        xi = _leaf(x[idx])
+        y = op(xi)
+        g, = _grad_of((y * torch.from_numpy(cot[name][idx])).sum(), [xi])
+        out[name] = (y.detach().numpy(), g)
+    return out
+
+
+def seq_halo(x, shape, axes, left, right):
+    """This rank's block of ``x`` extended by ``halo_exchange``."""
+    from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+    from analytics_zoo_tpu_torch.parallel import sequence as seq
+
+    mesh = _mesh(shape, axes)
+    block = seq.shard_sequence(torch.from_numpy(x), mesh)
+    ext = seq.halo_exchange(block, mesh_lib.axis_group(mesh, "sequence"),
+                            left, right)
+    return {"idx": _coord(mesh, "sequence"), "ext": ext.numpy()}
+
+
+def seq_scan(x, kernel, bias, cot, shape, axes, batch_axis=None):
+    """``sequence_sharded_scan`` of the reference tests' tanh step, both
+    directions, on this rank's rows and block: outputs and the gradients
+    of ``sum(out · cot)`` for the block, the kernel and the bias (the
+    parameters' summed over the sequence ranks)."""
+    import torch.distributed as dist
+
+    from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+    from analytics_zoo_tpu_torch.parallel import sequence as seq
+
+    mesh = _mesh(shape, axes)
+    group = mesh_lib.axis_group(mesh, "sequence")
+    start, per = mesh_lib.local_data_slice(x.shape[0], mesh)
+    rows = slice(start, start + per)
+    out = {"idx": _coord(mesh, "sequence"), "rows": (start, per)}
+    for rev in (False, True):
+        k, b = _leaf(kernel), _leaf(bias)
+        eye = torch.eye(x.shape[-1], kernel.shape[0])
+
+        def step(h, x_t):
+            y = torch.tanh(x_t @ eye + h @ k + b)
+            return y, y
+
+        xb = seq.shard_sequence(torch.from_numpy(x[rows]), mesh).clone()
+        xb.requires_grad_(True)
+        ys = seq.sequence_sharded_scan(step, torch.zeros(per, kernel.shape[0]),
+                                       xb, mesh, reverse=rev,
+                                       batch_axis=batch_axis, params=(k, b))
+        c = seq.shard_sequence(torch.from_numpy(cot[rows]), mesh)
+        gx, gk, gb = _grad_of((ys * c).sum(), [xb, k, b])
+        sums = torch.from_numpy(np.concatenate([gk.ravel(), gb.ravel()]))
+        if group is not None:
+            dist.all_reduce(sums, group=group)
+        out[rev] = (ys.detach().numpy(), gx,
+                    sums[:gk.size].reshape(gk.shape).numpy(),
+                    sums[gk.size:].numpy())
+    return out
+
+
+def seq_ring(q, k, v, cot, shape, axes, causal):
+    """``ring_attention`` on this rank's blocks: the output block and the
+    gradients of ``sum(out · cot)`` for the q/k/v blocks."""
+    from analytics_zoo_tpu_torch.parallel import sequence as seq
+
+    mesh = _mesh(shape, axes)
+    blocks = [seq.shard_sequence(torch.from_numpy(t), mesh).clone()
+              .requires_grad_(True) for t in (q, k, v)]
+    o = seq.ring_attention(*blocks, mesh, causal=causal)
+    c = seq.shard_sequence(torch.from_numpy(cot), mesh)
+    grads = _grad_of((o * c).sum(), blocks)
+    return {"idx": _coord(mesh, "sequence"), "out": o.detach().numpy(),
+            "grads": grads}
+
+
+def _ds2_bridged(weights, hidden, layers, engine="blocked"):
+    model = _ds2_model(hidden, layers, engine=engine)
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in weights.items()})
+    return model
+
+
+def ds2_seq_forward(weights, x, shape, axes, batch_axis, hidden, layers):
+    """``sequence_parallel_forward`` (eval) on this rank's rows."""
+    from analytics_zoo_tpu_torch.models.deepspeech2 import (
+        sequence_parallel_forward)
+    from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh = _mesh(shape, axes)
+    model = _ds2_bridged(weights, hidden, layers)
+    start, per = mesh_lib.local_data_slice(x.shape[0], mesh)
+    with torch.no_grad():
+        out = sequence_parallel_forward(model, x[start:start + per], mesh,
+                                        batch_axis=batch_axis)
+    return {"rows": (start, per), "out": out.numpy()}
+
+
+def ds2_seq_step(weights, batch, shape, axes, hidden, layers):
+    """One ``make_train_step`` of a DS2 through
+    ``make_sequence_parallel_forward_fn`` with SGD at lr 0: the global
+    loss, every parameter's gradient (averaged over the data ranks) and
+    the batch statistics after the step."""
+    from analytics_zoo_tpu_torch.models.deepspeech2 import (
+        make_sequence_parallel_forward_fn)
+    from analytics_zoo_tpu_torch.parallel import (SGD, create_train_state,
+                                                  make_train_step)
+    from analytics_zoo_tpu_torch.pipelines.deepspeech2 import (
+        ds2_ctc_criterion)
+
+    mesh = _mesh(shape, axes)
+    model = _ds2_bridged(weights, hidden, layers)
+    optim = SGD(0.0)
+    step = make_train_step(
+        model, ds2_ctc_criterion(), optim, mesh=mesh,
+        forward_fn=make_sequence_parallel_forward_fn(model, mesh))
+    _, metrics = step(create_train_state(model, optim), batch)
+    return {"loss": float(metrics["loss"]),
+            "grads": {k: p.grad.numpy().copy()
+                      for k, p in model.named_parameters()},
+            "stats": {k: v.numpy().copy() for k, v in
+                      model.state_dict().items() if "running" in k}}
+
+
+def ds2_seq_pipeline(weights, utts, param_kw, shape, axes, hidden, layers):
+    """``DeepSpeech2Pipeline(sequence_mesh=)`` transcripts."""
+    from analytics_zoo_tpu_torch.pipelines import deepspeech2 as pipe
+
+    mesh = _mesh(shape, axes)
+    model = _ds2_bridged(weights, hidden, layers)
+    tp = pipe.DeepSpeech2Pipeline(model, pipe.DS2Param(**param_kw),
+                                  sequence_mesh=mesh, device="cpu")
+    return {"utt_length": tp.utt_length,
+            "texts": tp.transcribe_samples(utts)}
+
+
+def ds2_seq_refusals(weights, hidden, layers):
+    """The refusals' messages on a real mesh."""
+    from analytics_zoo_tpu_torch.models.deepspeech2 import (
+        make_sequence_parallel_forward_fn, sequence_parallel_forward)
+    from analytics_zoo_tpu_torch.pipelines import deepspeech2 as pipe
+
+    mesh = _mesh((-1,), ("sequence",))
+    model = _ds2_bridged(weights, hidden, layers)
+    out = {}
+    for name, call in {
+            "odd_t": lambda: sequence_parallel_forward(
+                model, torch.zeros(1, 12, 13), mesh),
+            "bucketed": lambda: make_sequence_parallel_forward_fn(
+                model, mesh)(model, (torch.zeros(1, 16, 13), None), True),
+            "no_axis": lambda: pipe.train_ds2(
+                model, [], mesh=_mesh((-1,), ("data",)),
+                sequence_parallel=True)}.items():
+        try:
+            call()
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def _block(p, x):
+    return x + torch.tanh(x @ p["fc"]["kernel"] + p["fc"]["bias"])
+
+
+def _wide_block(p, x):
+    h = torch.tanh(x @ p["in"]["kernel"] + p["in"]["bias"])
+    return x + h @ p["out"]["kernel"] + p["out"]["bias"]
+
+
+def _tree_leaf(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_leaf(v) for k, v in tree.items()}
+    return _leaf(tree)
+
+
+def _tree_grad(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_grad(v) for k, v in tree.items()}
+    return tree.grad.numpy().copy()
+
+
+def pipe_forward(stacked, x, n_micro, tgt, shape, axes, batch_axis=None):
+    """``pipeline_forward`` of the reference tests' residual tanh block:
+    the output and the gradients of ``mean((y − tgt)²)`` for the stack
+    and the input (this rank's rows of a ``batch_axis``)."""
+    from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+    from analytics_zoo_tpu_torch.parallel import pipeline
+
+    mesh = _mesh(shape, axes)
+    start, per = mesh_lib.local_data_slice(x.shape[0], mesh)
+    params = _tree_leaf(stacked)
+    xi = _leaf(x[start:start + per])
+    y = pipeline.pipeline_forward(
+        _block, params, pipeline.split_microbatches(xi, n_micro), mesh,
+        batch_axis=batch_axis)
+    loss = ((y.reshape(xi.shape) - torch.from_numpy(
+        tgt[start:start + per])) ** 2).mean()
+    loss.backward()
+    return {"rows": (start, per), "out": y.detach().numpy(),
+            "g_params": _tree_grad(params), "g_x": xi.grad.numpy()}
+
+
+def pipe_megatron(params, xs, shape, axes):
+    """``pipeline_forward(param_specs=)``: a Megatron column → row pair
+    in each stage (the kernels cut over ``model``, the pair closed by
+    ``replicated_sum`` over it), on a ("model", "pipe") mesh: the loss
+    ``mean(y²)`` and the kernels' gradients (whole on every rank)."""
+    from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+    from analytics_zoo_tpu_torch.parallel import pipeline
+    from analytics_zoo_tpu_torch.parallel.mesh import P
+    from analytics_zoo_tpu_torch.parallel.sequence import (replicated_sum,
+                                                           summed_grads)
+
+    mesh = _mesh(shape, axes)
+    group = mesh_lib.axis_group(mesh, "model")
+
+    def block(p, a):
+        a_in, = summed_grads([a], group)
+        return a + replicated_sum(torch.tanh(a_in @ p["w1"]) @ p["w2"],
+                                  group)
+
+    leaves = _tree_leaf(params)
+    y = pipeline.pipeline_forward(
+        block, leaves, torch.from_numpy(xs), mesh,
+        param_specs={"w1": P("pipe", None, "model"),
+                     "w2": P("pipe", "model", None)})
+    loss = (y ** 2).mean()
+    loss.backward()
+    return {"loss": float(loss), "grads": _tree_grad(leaves)}
+
+
+def pipe_het(params, x, n_micro, tgt, grouped):
+    """``pipeline_forward_het`` of the reference tests' wide blocks over
+    every rank, through the flat or the grouped carrier: the output and
+    the carrier's gradient of ``mean((y − tgt)²)``."""
+    from analytics_zoo_tpu_torch.parallel import pipeline
+
+    mesh = _mesh((-1,), ("pipe",))
+    trees = [_tree_leaf(p) for p in params]
+    flat = (pipeline.flatten_stage_params_grouped if grouped
+            else pipeline.flatten_stage_params)
+    carrier, metas = flat([{k: {n: t.detach() for n, t in v.items()}
+                            for k, v in tree.items()} for tree in trees])
+    carrier = ({k: v.requires_grad_(True) for k, v in carrier.items()}
+               if grouped else carrier.requires_grad_(True))
+    fns = [_wide_block] * len(params)
+    y = pipeline.pipeline_forward_het(
+        fns, carrier, metas, pipeline.split_microbatches(
+            torch.from_numpy(x), n_micro), mesh)
+    ((y.reshape(x.shape) - torch.from_numpy(tgt)) ** 2).mean().backward()
+    grad = ({k: v.grad.numpy() for k, v in carrier.items()} if grouped
+            else carrier.grad.numpy())
+    return {"out": y.detach().numpy(), "grad": grad}
+
+
+def _asr_model(weights, kw):
+    from analytics_zoo_tpu_torch.models.attention import AttentionASR
+
+    model = AttentionASR(**kw, device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in weights.items()})
+    return model
+
+
+def pipe_asr(weights, kw, batch, n_micro, shape, axes):
+    """``make_pipeline_forward_fn`` of an AttentionASR over a ("data",
+    "pipe") mesh: this rank's rows' log-probs (eval), then one
+    ``make_train_step`` (SGD at lr 0) through it: the global loss and the
+    gradients averaged over the data ranks."""
+    from analytics_zoo_tpu_torch.models.attention import (
+        make_pipeline_forward_fn)
+    from analytics_zoo_tpu_torch.parallel import (SGD, create_train_state,
+                                                  make_train_step)
+    from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+    from analytics_zoo_tpu_torch.pipelines.deepspeech2 import (
+        ds2_ctc_criterion)
+
+    mesh = _mesh(shape, axes)
+    model = _asr_model(weights, kw)
+    fwd = make_pipeline_forward_fn(model, mesh, n_micro=n_micro,
+                                   batch_axis="data")
+    start, per = mesh_lib.local_data_slice(batch["input"].shape[0], mesh)
+    with torch.no_grad():
+        out = fwd(model, torch.from_numpy(
+            batch["input"][start:start + per]), False)
+    optim = SGD(0.0)
+    step = make_train_step(model, ds2_ctc_criterion(), optim, mesh=mesh,
+                           forward_fn=fwd)
+    _, metrics = step(create_train_state(model, optim), batch)
+    return {"rows": (start, per), "out": out.numpy(),
+            "loss": float(metrics["loss"]),
+            "grads": {k: p.grad.numpy().copy()
+                      for k, p in model.named_parameters()}}
+
+
+def moe_ep(stacked, gate, x, cot, capacity):
+    """``moe_apply_expert_parallel`` over every rank on ``("expert",)``
+    with this rank's tokens: the output and the gradients of
+    ``sum(y · cot)`` for the tokens, the stack and the gate."""
+    from analytics_zoo_tpu_torch.parallel import expert
+
+    mesh = _mesh((-1,), ("expert",))
+    idx = _coord(mesh, "expert")
+    per = x.shape[0] // gate.shape[1]
+    rows = slice(idx * per, (idx + 1) * per)
+    params, gk, xi = _tree_leaf(stacked), _leaf(gate), _leaf(x[rows])
+
+    def apply(p, a):
+        return torch.nn.functional.gelu(
+            a @ p["w1"] + p["b1"], approximate="tanh") @ p["w2"] + p["b2"]
+
+    y = expert.moe_apply_expert_parallel(apply, params, gk, xi, mesh,
+                                         capacity=capacity)
+    (y * torch.from_numpy(cot[rows])).sum().backward()
+    return {"idx": idx, "out": y.detach().numpy(), "g_x": xi.grad.numpy(),
+            "g_params": _tree_grad(params), "g_gate": gk.grad.numpy()}
+
+
+def asr_parallel(weights, kw, x, labels, shape, axes, mode, batches=None):
+    """An AttentionASR whose attention runs over the ``sequence`` axis
+    (``mode="ring"``: ``RingAttentionLayer``) or whose MoE blocks run one
+    expert a rank (``mode="expert"``): the log-probs, the CTC loss's
+    gradients (every rank whole) and, with ``batches``, the losses of
+    ``train_ds2(mesh=)`` on them."""
+    from analytics_zoo_tpu_torch.core.criterion import CTCCriterion
+    from analytics_zoo_tpu_torch.parallel.sequence import RingAttentionLayer
+    from analytics_zoo_tpu_torch.pipelines import deepspeech2 as pipe
+
+    mesh = _mesh(shape, axes)
+    kw = dict(kw)
+    if mode == "ring":
+        kw["attention_fn"] = RingAttentionLayer(mesh)
+    else:
+        kw["expert_mesh"] = mesh
+    model = _asr_model(weights, kw)
+    lp = model(torch.from_numpy(x))
+    CTCCriterion(blank_id=0)(lp, torch.from_numpy(labels)).backward()
+    out = {"out": lp.detach().numpy(),
+           "grads": {k: p.grad.numpy().copy()
+                     for k, p in model.named_parameters()}}
+    if batches is not None:
+        runs = []
+
+        class Recording(pipe.Optimizer):
+            def optimize(self):
+                runs.append(self)
+                return super().optimize()
+
+        base, pipe.Optimizer = pipe.Optimizer, Recording
+        try:
+            pipe.train_ds2(model, batches, epochs=1, lr=2e-3, mesh=mesh)
+        finally:
+            pipe.Optimizer = base
+        out["losses"] = [float(m["loss"]) for m in runs[0].history]
+    return out
