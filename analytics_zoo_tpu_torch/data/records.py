@@ -39,11 +39,13 @@ class ReadStats:
     #                            truncation with skip_errors=True)
 
     def publish(self, registry, prefix: str = "data/read") -> None:
-        """Mirroring the counters into a metric registry needs the
-        observability layer, not ported yet."""
-        raise NotImplementedError(
-            "ReadStats.publish: the metric registry is not ported yet "
-            "(ROADMAP.md Queue 1 item 13)")
+        """Mirror the counters into an ``obs.MetricRegistry`` as
+        ``<prefix>/records`` and so on: gauges, set and not incremented,
+        so that publishing again (once an epoch, say) counts nothing
+        twice."""
+        for field in dataclasses.fields(self):
+            registry.gauge(f"{prefix}/{field.name}").set(
+                getattr(self, field.name))
 
 
 # ---------------------------------------------------------------------------

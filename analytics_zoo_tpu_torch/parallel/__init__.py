@@ -2,7 +2,8 @@
 device, or a mesh of ranks) with its validation methods, checkpoints and
 resume, optim methods, Plateau, triggers, the row-sparse Adam apply, the
 restart supervisor, the mesh, the tensor-parallel rules and the declared
-specs, and sequence, pipeline and expert parallelism."""
+specs, sequence, pipeline and expert parallelism, and the TensorBoard
+summaries."""
 
 from analytics_zoo_tpu_torch.parallel.elastic import (RETRYABLE_ERRORS,
                                                       DivergenceDetector,
@@ -35,6 +36,8 @@ from analytics_zoo_tpu_torch.parallel.pipeline import (
     carrier_decay_mask, flatten_stage_params, flatten_stage_params_grouped,
     pipeline_forward, pipeline_forward_het, split_microbatches,
     stack_stage_params, stage_carrier_slice, unflatten_stage)
+from analytics_zoo_tpu_torch.parallel.summary import (TrainSummary,
+                                                      ValidationSummary)
 from analytics_zoo_tpu_torch.parallel.specs import (SpecSet, pipeline_specs,
                                                     register_pipeline,
                                                     registered_pipelines)
@@ -45,6 +48,7 @@ from analytics_zoo_tpu_torch.parallel.tensor import (default_tp_rules,
                                                      sharded_param_count,
                                                      spatial_input_spec,
                                                      ssd_tp_rules)
+from analytics_zoo_tpu_torch.resilience.anomaly import AnomalyPolicy
 from analytics_zoo_tpu_torch.resilience.errors import (ElasticPlacementError,
                                                        InjectedFault,
                                                        Preempted,
@@ -53,7 +57,8 @@ from analytics_zoo_tpu_torch.resilience.errors import (ElasticPlacementError,
                                                        StallError,
                                                        TrainingDiverged)
 
-__all__ = ["Adam", "AdamW", "DATA_AXIS", "DivergenceDetector",
+__all__ = ["Adam", "AdamW", "AnomalyPolicy", "DATA_AXIS",
+           "DivergenceDetector", "TrainSummary", "ValidationSummary",
            "EXPERT_AXIS", "ElasticPlacementError", "FaultInjector",
            "MODEL_AXIS", "PIPE_AXIS", "PartitionSpec", "SEQUENCE_AXIS",
            "SpecSet", "batch_spec", "carrier_decay_mask",

@@ -17,7 +17,7 @@ lowered it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
@@ -124,10 +124,23 @@ class OptimMethod:
     def init(self, params: Sequence[torch.Tensor]) -> Dict:
         raise NotImplementedError  # pragma: no cover - interface
 
+    def step_values(self, params: Sequence[torch.Tensor],
+                    grads: Sequence[torch.Tensor], state: Dict, lr: float
+                    ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+        """One step as ``(destination, new value)`` pairs over the slots
+        and the parameters, nothing written: a caller that consumes them
+        one at a time (:meth:`update`) holds one parameter's temporaries
+        at a time; the health-checked step collects them all and commits
+        once the step's health word is known."""
+        raise NotImplementedError  # pragma: no cover - interface
+
+    @torch.no_grad()
     def update(self, params: Sequence[torch.Tensor],
                grads: Sequence[torch.Tensor], state: Dict, lr: float,
                keep: Optional[torch.Tensor] = None) -> None:
-        raise NotImplementedError  # pragma: no cover - interface
+        """Apply one step in place, only where ``keep`` when given."""
+        for dst, new in self.step_values(params, grads, state, lr):
+            _assign(dst, new, keep)
 
 
 def _assign(dst: torch.Tensor, new: torch.Tensor,
@@ -158,15 +171,15 @@ class SGD(OptimMethod):
         return {"trace": [torch.zeros_like(p) for p in params]}
 
     @torch.no_grad()
-    def update(self, params, grads, state, lr, keep=None):
+    def step_values(self, params, grads, state, lr):
         for i, (p, g) in enumerate(zip(params, grads)):
             if self.weight_decay:
                 g = g + self.weight_decay * p
             if self.momentum:
                 t = g + self.momentum * state["trace"][i]
-                _assign(state["trace"][i], t, keep)
+                yield state["trace"][i], t
                 g = g + self.momentum * t if self.nesterov else t
-            _assign(p, p + (-lr) * g, keep)
+            yield p, p + (-lr) * g
 
 
 class Adam(OptimMethod):
@@ -192,7 +205,7 @@ class Adam(OptimMethod):
                 "nu": [torch.zeros_like(p) for p in params]}
 
     @torch.no_grad()
-    def update(self, params, grads, state, lr, keep=None):
+    def step_values(self, params, grads, state, lr):
         count = state["count"] + 1
         c = count.float()
         bc1 = 1.0 - self.b1 ** c
@@ -202,10 +215,11 @@ class Adam(OptimMethod):
             v = (1.0 - self.b2) * (g * g) + self.b2 * nu
             u = self._direction(p, (m / bc1) / (torch.sqrt(v / bc2)
                                                 + self.eps))
-            _assign(mu, m, keep)
-            _assign(nu, v, keep)
-            _assign(p, p + (-lr) * u, keep)
-        _assign(state["count"], count, keep)
+            new_p = p + (-lr) * u
+            yield mu, m
+            yield nu, v
+            yield p, new_p
+        yield state["count"], count
 
     def _direction(self, p, u):
         return u

@@ -36,12 +36,21 @@ axis, the criteria and batch norms see the global batch
 (``utils/spmd.py::global_batch``), validation merges the ranks'
 results batch by batch, and rank 0 writes a snapshot gathered whole.
 
-Not ported yet, and refused by name: the health sentinel, the anomaly
-sentinel and observability (ROADMAP.md Queue 1 item 13).
+``Optimizer.set_anomaly_policy`` arms the anomaly ladder
+(``resilience/anomaly.py``): the step's health word, the in-step skip,
+rollback to the last-known-good snapshot with a re-seek of the stream,
+``TrainingDiverged`` when the rollbacks are spent, and a forensics
+bundle an episode.  ``set_observability`` arms the telemetry spine
+(``obs/``): a span a step at the loader's coordinates, checkpoint save
+and restore spans, ``train/dispatch/*`` and ``train/anomaly/*``
+metrics, and the flight recorder's dump on ``TrainingDiverged`` and on
+preemption.  ``set_train_summary``/``set_validation_summary`` write
+TensorBoard event files (``parallel/summary.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -58,9 +67,11 @@ from analytics_zoo_tpu_torch.data.prefetch import device_prefetch
 from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
 from analytics_zoo_tpu_torch.parallel import tensor as tensor_lib
 from analytics_zoo_tpu_torch.parallel.optim import (Adam, OptimMethod,
-                                                    TrainingState, Trigger)
+                                                    TrainingState, Trigger,
+                                                    _assign)
 from analytics_zoo_tpu_torch.resilience.errors import (CheckpointCorrupt,
-                                                       Preempted, StallError)
+                                                       Preempted, StallError,
+                                                       TrainingDiverged)
 from analytics_zoo_tpu_torch.utils import spmd
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
@@ -169,11 +180,6 @@ def create_train_state(module: nn.Module, optim: OptimMethod) -> TrainState:
         [p for p in module.parameters() if p.requires_grad]))
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
-                              f"Queue 1 {item})")
-
-
 def to_device(batch: Any, device: torch.device) -> Any:
     """A host batch (numpy arrays in dicts, tuples and lists) as tensors
     on ``device``; tensors are moved, other leaves kept."""
@@ -235,6 +241,7 @@ def make_train_step(module: nn.Module, criterion: Callable,
                     device_transform: Optional[Callable] = None,
                     forward_fn: Optional[Callable] = None,
                     health_check: bool = False,
+                    skip_unhealthy: bool = False,
                     metric_fn: Optional[Callable] = None, specs=None,
                     mesh=None) -> Callable:
     """``state, metrics = step(state, batch)`` on the module's device.
@@ -276,11 +283,23 @@ def make_train_step(module: nn.Module, criterion: Callable,
     global one, and the clip norm is global (a shard's sum of squares
     summed over its axis, a replicated parameter counted once).  The
     range ``train_step.all_reduce`` holds the gradient all-reduce, after
-    which each parameter's ``.grad`` is the averaged gradient."""
+    which each parameter's ``.grad`` is the averaged gradient.
+
+    ``health_check=True`` adds the anomaly sentinel's health word
+    (``resilience/anomaly.py``) as ``metrics["health"]``: an int32 tensor
+    on the device, never read back here, folding the finiteness of the
+    loss, the (clipped) gradients and the updated parameters, with a bit
+    a parameter section, and ``skip_loss_above`` as its spike bit.  The
+    update is then computed whole before any of it is written (one extra
+    copy of the parameters and slots), so that the word can cover the
+    updated parameters.  ``skip_unhealthy=True`` keeps the parameters,
+    the optimizer's slots and the module's buffers (batch statistics,
+    ``num_batches_tracked``) bit-equal to their pre-step values whenever
+    the word is not 0; the buffers are copied before the forward for
+    that.  Over a mesh the word is OR-ed over the ranks (range
+    ``train_step.health``)."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum={grad_accum} must be >= 1")
-    if health_check:
-        _not_ported("the health sentinel", "item 13")
     if specs is None and mesh is not None:
         from analytics_zoo_tpu_torch.parallel.specs import SpecSet
         specs = SpecSet(mesh)
@@ -294,9 +313,47 @@ def make_train_step(module: nn.Module, criterion: Callable,
     def scoped():
         return spmd.global_batch(data_group, width, index)
 
+    health = health_check or skip_unhealthy
+    if health:
+        from analytics_zoo_tpu_torch.resilience import anomaly
+        sections, groups = anomaly.section_groups(module)
+        param_index = {id(p): i for i, p in enumerate(params)}
+        buffers = list(module.buffers()) if skip_unhealthy else []
+
+    def checked_update(state: TrainState, grads, loss, lr):
+        """Compute the whole update, fold the health word over it, then
+        commit it (masked by the word under ``skip_unhealthy``)."""
+        pairs = list(optim.step_values(params, grads, state.opt_state, lr))
+        new_params: List[Any] = [None] * len(params)
+        for dst, new in pairs:
+            i = param_index.get(id(dst))
+            if i is not None:
+                new_params[i] = new
+        with record_function("train_step.health"):
+            word = anomaly.tree_health_word(
+                loss,
+                {s: [grads[i] for i in g] for s, g in zip(sections, groups)},
+                {s: [new_params[i] for i in g]
+                 for s, g in zip(sections, groups)},
+                sections, spike_loss_above=skip_loss_above)
+            if specs is not None and torch.distributed.is_initialized():
+                word = anomaly.word_over_ranks(word)
+        if skip_unhealthy:
+            keep = word == 0
+        else:
+            keep = (None if skip_loss_above is None
+                    else loss <= skip_loss_above)
+        for dst, new in pairs:
+            _assign(dst, new, keep)
+        return word, keep
+
     @record_function("train_step")
     def step(state: TrainState, batch, placed: bool = False):
         dev = params[0].device
+        # the forward updates the batch statistics in place before the
+        # word is known: keep their pre-step values to restore
+        before = ([b.detach().clone() for b in buffers] if skip_unhealthy
+                  else [])
         if specs is not None and not placed:
             batch = specs.place_batch(batch, microbatches=grad_accum)
         with record_function("train_step.upload"):
@@ -338,13 +395,21 @@ def make_train_step(module: nn.Module, criterion: Callable,
                 gnorm = torch.sqrt(_global_sq_norm(params, grads))
                 scale = torch.clamp(grad_clip_norm / (gnorm + 1e-6), max=1.0)
                 grads = [g * scale for g in grads]
-            keep = (None if skip_loss_above is None
-                    else loss <= skip_loss_above)
             lr = optim.lr_for_step(state.step, optim.lr_scale)
-            optim.update(params, grads, state.opt_state, lr, keep)
+            word = None
+            if health:
+                word, keep = checked_update(state, grads, loss, lr)
+                for b, old in zip(buffers, before):
+                    b.copy_(torch.where(keep, b, old))
+            else:
+                keep = (None if skip_loss_above is None
+                        else loss <= skip_loss_above)
+                optim.update(params, grads, state.opt_state, lr, keep)
         metrics = {"loss": loss, "lr": lr}
         if metric_fn is not None:
             metrics.update(metric_fn(batch))
+        if word is not None:
+            metrics["health"] = word
         return TrainState(step=state.step + 1,
                           opt_state=state.opt_state), metrics
 
@@ -614,6 +679,11 @@ class Optimizer:
         self.failure_detector = None
         self.preemption_handler = None
         self.stall_watchdog = None
+        self.anomaly_policy = None
+        self._anomaly = None        # AnomalySentinel, built per optimize()
+        self.obs = None             # obs.Observability
+        self.train_summary = None
+        self.val_summary = None
         self._skip_batches = 0          # mid-epoch resume fast-forward
         self._skip_samples: Optional[int] = None
         self._iter_in_epoch = 0
@@ -691,15 +761,59 @@ class Optimizer:
     def set_failure_detector(self, detector) -> "Optimizer":
         """A periodic loss-health check
         (``parallel.elastic.DivergenceDetector``); raises out of
-        ``optimize()``."""
+        ``optimize()``.  Not consulted while an anomaly policy is armed:
+        the sentinel discards bad steps, and the detector would read a
+        discarded step's NaN loss and raise before the ladder could roll
+        back."""
         self.failure_detector = detector
         return self
 
-    def set_anomaly_policy(self, *args, **kwargs):
-        _not_ported("the anomaly sentinel", "item 13")
+    def set_anomaly_policy(self, policy=None) -> "Optimizer":
+        """Arm the anomaly ladder (``resilience.anomaly``): the step folds
+        a health word over the loss, the gradients and the updated
+        parameters, an unhealthy step is discarded in the step, and the
+        host escalates: skip → rollback to the last-known-good snapshot
+        (and a re-seek of the stream past the bad batches) →
+        ``TrainingDiverged`` after ``max_rollbacks``.  A forensics bundle
+        (``anomaly_<step>.json``) is written on each episode's first bad
+        step.  A rollback needs ``set_checkpoint`` for the ``lkg`` slot.
+        Costs one device-to-host read a step: the word and the loss
+        together."""
+        from analytics_zoo_tpu_torch.resilience.anomaly import AnomalyPolicy
+        self.anomaly_policy = policy or AnomalyPolicy()
+        return self
 
-    def set_observability(self, *args, **kwargs):
-        _not_ported("observability", "item 13")
+    def set_observability(self, obs=None) -> "Optimizer":
+        """Arm the telemetry spine (:class:`analytics_zoo_tpu_torch.obs.
+        Observability`; ``None`` builds one): a ``train_step`` span a step
+        under trace ``train-e<epoch>-b<batch>`` (the loader's
+        coordinates), ``checkpoint_save``/``checkpoint_restore`` spans,
+        the ``train/dispatch/*`` metrics of a
+        :class:`~analytics_zoo_tpu_torch.utils.profiling.StepTimer`, the
+        anomaly ladder's counters, and the flight recorder's dump to
+        ``obs.dump_path`` on ``TrainingDiverged`` and on preemption.
+
+        The step span and ``train/dispatch/step_s`` cover the host
+        interval of the step call: CUDA launches are asynchronous, so
+        without the anomaly sentinel's per-step read this is the host's
+        dispatch, not the device's time.  Nothing here synchronizes the
+        card; a fenced split of input wait, dispatch and device is
+        :class:`analytics_zoo_tpu_torch.obs.StepProbe`'s."""
+        from analytics_zoo_tpu_torch.obs import Observability
+        self.obs = obs or Observability()
+        return self
+
+    def set_train_summary(self, summary) -> "Optimizer":
+        """A ``parallel.summary.TrainSummary``: the step's ``Loss`` and
+        ``LearningRate`` each iteration, under its triggers."""
+        self.train_summary = summary
+        return self
+
+    def set_validation_summary(self, summary) -> "Optimizer":
+        """A ``parallel.summary.ValidationSummary``: each validation
+        method's result at the iteration it ran."""
+        self.val_summary = summary
+        return self
 
     def _global_rows(self, batch) -> int:
         """Rows of the global batch ``batch`` stands for (a rank's slice
@@ -728,8 +842,14 @@ class Optimizer:
     def optimize(self) -> nn.Module:
         if self.specs is not None:
             self.specs.place_state(self.model)
+        options = dict(self._step_options)
+        policy = self.anomaly_policy
+        if policy is not None:
+            if policy.spike_loss_above is not None:
+                options["skip_loss_above"] = policy.spike_loss_above
+            options.update(health_check=True, skip_unhealthy=policy.skip)
         step = make_train_step(self.model, self.criterion, self.optim,
-                               **self._step_options)
+                               **options)
         eval_step = make_eval_step(self.model,
                                    compute_dtype=self.compute_dtype)
         state = create_train_state(self.model, self.optim)
@@ -739,6 +859,25 @@ class Optimizer:
             resume_base = self.resume_path or self.checkpoint_path
             if resume_base:
                 state = self._try_resume(resume_base, state, loop)
+        self._anomaly = None
+        if policy is not None:
+            from analytics_zoo_tpu_torch.parallel import checkpoint as ckpt
+            from analytics_zoo_tpu_torch.resilience.anomaly import (
+                AnomalySentinel, health_sections)
+            self._anomaly = AnomalySentinel(
+                policy, sections=health_sections(self.model))
+            if (policy.promote_initial and self.checkpoint_path is not None
+                    and ckpt.lkg_snapshot(self.checkpoint_path) is None):
+                # the starting state seeds the last-known-good slot, so a
+                # rollback always has a target
+                self._promote_lkg(loop, state)
+        # the spine's hot-path objects are None-checked: an un-armed loop
+        # pays nothing and synchronizes nothing
+        obs = self.obs
+        step_timer = None
+        if obs is not None:
+            from analytics_zoo_tpu_torch.utils.profiling import StepTimer
+            step_timer = StepTimer("train/dispatch", registry=obs.registry)
         t_epoch, records = time.perf_counter(), 0
         dev = next(self.model.parameters()).device
         ph, wd = self.preemption_handler, self.stall_watchdog
@@ -785,22 +924,74 @@ class Optimizer:
                                            close_source=True)
                            if self.prefetch and dev.type == "cuda"
                            else host_iter)
+                epoch_iter = iter(batches)
                 try:
-                    for batch in batches:
-                        state, metrics = step(state, batch, placed=placed)
-                        self.history.append(metrics)
+                    for batch in epoch_iter:
                         n = (_batch_size(batch) * self.specs.data_axis_size
                              if placed else _batch_size(batch))
+                        step_span = None
+                        if obs is not None:
+                            # the loader's coordinates are the trace id:
+                            # the same (epoch, batch) replays as the same
+                            # trace
+                            step_span = obs.tracer.start(
+                                "train_step",
+                                f"train-e{loop.epoch}-b{self._iter_in_epoch}",
+                                iteration=loop.iteration + 1,
+                                epoch=loop.epoch, batch=self._iter_in_epoch)
+                        try:
+                            with (step_timer.step(n) if step_timer is not None
+                                  else contextlib.nullcontext()):
+                                state, metrics = step(state, batch,
+                                                      placed=placed)
+                        except BaseException as e:
+                            # a span reaches the recorder when it ends: the
+                            # crashed step is what the black box is for
+                            if step_span is not None:
+                                step_span.end(
+                                    status="error",
+                                    error=f"{type(e).__name__}: {e}")
+                            raise
+                        self.history.append(metrics)
                         loop.iteration += 1
                         self._iter_in_epoch += 1
                         self._samples_in_epoch += n
                         loop.loss = metrics["loss"]
                         records += n
-                        if (self.failure_detector is not None
+                        if self._anomaly is not None:
+                            # may restore the lkg state, re-seek the stream
+                            # and clear loop.loss/health after a skip
+                            state = self._anomaly_step(
+                                loop, state, metrics, batch, epoch_iter,
+                                placed, step_span=step_span)
+                        elif (self.failure_detector is not None
                                 and self.failure_detector.should_check(
                                     loop.iteration)):
-                            self.failure_detector.check(
-                                float(metrics["loss"]), loop.iteration)
+                            try:
+                                self.failure_detector.check(
+                                    float(metrics["loss"]), loop.iteration)
+                            except Exception as e:
+                                if (step_span is not None
+                                        and not step_span.ended):
+                                    step_span.end(
+                                        status="error",
+                                        error=f"{type(e).__name__}: {e}")
+                                if obs is not None:
+                                    obs.recorder.note(
+                                        "training_diverged",
+                                        iteration=loop.iteration)
+                                    obs.dump("training_diverged")
+                                raise
+                        if step_span is not None and not step_span.ended:
+                            step_span.end(status="ok")
+                        if self.train_summary is not None:
+                            # tensors on the device: read back only where
+                            # the tag's trigger fires
+                            self.train_summary.add_scalar(
+                                "Loss", metrics["loss"], loop.iteration)
+                            self.train_summary.add_scalar(
+                                "LearningRate", metrics["lr"],
+                                loop.iteration)
                         self._boundary_checks(loop, state, eval_step, wd, ph)
                         if self.end_when(loop):
                             stop = True
@@ -874,12 +1065,20 @@ class Optimizer:
         saved = False
         if self.checkpoint_path is not None:
             saved = self._maybe_checkpoint(loop, state, force=True)
+        if self.obs is not None:
+            # the end of this run: the black box keeps the steps before
+            # the signal, as it does for a divergence
+            self.obs.recorder.note(
+                "preempted", iteration=loop.iteration, epoch=loop.epoch,
+                checkpoint_saved=saved)
+            if self.obs.dump_path:
+                self.obs.dump("preempted")
         raise Preempted(
             f"preemption signal received at iteration {loop.iteration}; "
             + ("final checkpoint written" if saved else
                "NO final checkpoint written (no path configured, or the "
-               "loss is non-finite): resume falls back to the previous "
-               "snapshot"))
+               "loss or the health word is bad): resume falls back to the "
+               "previous snapshot"))
 
     # -- checkpoint and resume ------------------------------------------------
     def _snapshot_state(self, state: TrainState) -> Dict[str, Any]:
@@ -944,46 +1143,73 @@ class Optimizer:
                                 if self.specs is not None else 1),
                 "optim": self.optim.state_dict()}
 
+    def _save(self, state: TrainState, meta: Dict[str, Any],
+              **kw) -> Optional[str]:
+        """Write a snapshot of ``state`` under the checkpoint path; over
+        several ranks rank 0 writes the gathered state and the others
+        wait.  Returns the published directory (``None`` on the other
+        ranks)."""
+        from analytics_zoo_tpu_torch.parallel import checkpoint as ckpt
+        snapshot = self._snapshot_state(state)
+        spans = (self.specs is not None
+                 and mesh_lib.spans_processes(self.mesh))
+        target = None
+        if not spans or torch.distributed.get_rank() == 0:
+            target = ckpt.save(self.checkpoint_path, snapshot, meta=meta,
+                               **kw)
+        if spans:
+            torch.distributed.barrier()
+        return target
+
     def _maybe_checkpoint(self, loop: TrainingState, state: TrainState,
                           force: bool = False) -> bool:
         """True when this iteration's state is persisted (saved now, or
-        already saved at this iteration).  A non-finite loss is never
-        saved."""
+        already saved at this iteration).  A non-finite loss, or a health
+        word that is not 0 (non-finite gradients or parameters with a
+        finite loss), is never saved."""
         if not force and (self.checkpoint_trigger is None
                           or not self.checkpoint_trigger(loop)):
             return False
         if self._last_ckpt_iter == loop.iteration:
             return True
         loss_now = float(loop.loss)
-        if not np.isfinite(loss_now):
-            logger.warning("skipping checkpoint at iteration %d: loss %s",
-                           loop.iteration, loss_now)
+        health_now = int(getattr(loop, "health", 0) or 0)
+        if health_now or not np.isfinite(loss_now):
+            logger.warning("skipping checkpoint at iteration %d: health "
+                           "word %#x, loss %s", loop.iteration, health_now,
+                           loss_now)
             return False
         # memoized only on an actual save: a skipped save must not make a
         # later forced call at this iteration report "already persisted"
         self._last_ckpt_iter = loop.iteration
-        from analytics_zoo_tpu_torch.parallel import checkpoint as ckpt
         tag = None if self.overwrite_checkpoint else loop.iteration
-        snapshot = self._snapshot_state(state)
-        # over several ranks rank 0 writes the gathered state; the others
-        # wait
-        spans = (self.specs is not None
-                 and mesh_lib.spans_processes(self.mesh))
-        if not spans or torch.distributed.get_rank() == 0:
+        t0 = time.perf_counter()
+        span = (self.obs.tracer.span(
+                    "checkpoint_save", f"ckpt-i{loop.iteration}",
+                    iteration=loop.iteration,
+                    tag="latest" if tag is None else f"step_{tag}")
+                if self.obs is not None else contextlib.nullcontext())
+        with span:
             # the loop position and the optim method's host state ride in
             # the snapshot's own manifest: a restore never pairs
             # parameters with another snapshot's metadata
-            ckpt.save(self.checkpoint_path, snapshot, step=tag,
-                      keep_last=self.checkpoint_keep_last,
-                      meta=self._resume_meta(loop))
-        if spans:
-            torch.distributed.barrier()
+            self._save(state, self._resume_meta(loop), step=tag,
+                       keep_last=self.checkpoint_keep_last)
+        if self.obs is not None:
+            self.obs.registry.histogram("checkpoint/save_s").observe(
+                time.perf_counter() - t0)
         return True
 
     def _apply_resume_meta(self, meta: Dict[str, Any],
                            loop: TrainingState, step: int) -> None:
         loop.epoch = int(meta.get("epoch", 0))
         loop.iteration = int(meta.get("iteration", step))
+        width = self.specs.data_axis_size if self.specs is not None else 1
+        saved_width = meta.get("world_width")
+        if (self.obs is not None and saved_width is not None
+                and int(saved_width) != width):
+            self.obs.registry.counter("elastic/restores").inc()
+            self.obs.registry.gauge("elastic/world_width").set(float(width))
         if meta.get("samples_in_epoch") is not None:
             # the same geometry consumes exactly iter_in_epoch batches
             self._skip_samples = int(meta["samples_in_epoch"])
@@ -1008,20 +1234,217 @@ class Optimizer:
         if found is None:
             raise CheckpointCorrupt(f"no intact snapshot under {base}")
         snap_dir, manifest = found
-        # newest_intact checksummed this very directory already
-        restored = ckpt.load(snap_dir, target=self._snapshot_state(state),
-                             verify=False)
-        if self.specs is not None:
-            state = self._place_restored(restored)
-        else:
-            self.model.load_state_dict(restored["model"])
-            state = TrainState(step=int(restored["step"]),
-                               opt_state=restored["opt_state"])
+        t0 = time.perf_counter()
+        span = (self.obs.tracer.span("checkpoint_restore", "ckpt-restore",
+                                     snapshot=os.path.basename(snap_dir))
+                if self.obs is not None else contextlib.nullcontext())
+        with span:
+            # newest_intact checksummed this very directory already
+            state, _ = self._restore(snap_dir, state)
+        if self.obs is not None:
+            self.obs.registry.histogram("checkpoint/restore_s").observe(
+                time.perf_counter() - t0)
         self._apply_resume_meta(manifest.get("meta", {}), loop, state.step)
         logger.info("resumed from %s at epoch %d, iteration %d (skipping "
                     "%s in-epoch samples)", snap_dir, loop.epoch,
                     loop.iteration, self._skip_samples)
         return state
+
+    def _restore(self, snap_dir: str, state: TrainState):
+        """Load a snapshot into the module (in place): returns its
+        ``TrainState`` and the loaded contents.  Over a mesh each rank
+        takes its shards."""
+        from analytics_zoo_tpu_torch.parallel import checkpoint as ckpt
+        restored = ckpt.load(snap_dir, target=self._snapshot_state(state),
+                             verify=False)
+        if self.specs is not None:
+            return self._place_restored(restored), restored
+        self.model.load_state_dict(restored["model"])
+        return TrainState(step=int(restored["step"]),
+                          opt_state=restored["opt_state"]), restored
+
+    # -- the anomaly ladder (resilience.anomaly) ------------------------------
+    def _anomaly_step(self, loop: TrainingState, state: TrainState,
+                      metrics, batch, epoch_iter, placed: bool,
+                      step_span=None) -> TrainState:
+        """Feed the step's health word to the sentinel: forensics on an
+        episode's first bad step, then skip, roll back or raise.  Closes
+        ``step_span`` with the verdict.  Returns the (possibly restored)
+        state."""
+        from analytics_zoo_tpu_torch.resilience import anomaly as anomaly_lib
+
+        sent = self._anomaly
+        obs = self.obs
+        # one device-to-host read for both scalars (the int32 word is
+        # exact in float64)
+        word_f, loss_host = torch.stack(
+            [metrics["health"].to(torch.float64),
+             metrics["loss"].detach().to(torch.float64)]).tolist()
+        word = int(word_f)
+        loop.health = word
+        sent.record_loss(loss_host)
+        action, first = sent.observe(word)
+        if step_span is not None:
+            step_span.end(status="ok" if word == 0 else "unhealthy",
+                          **({} if word == 0
+                             else {"health_word": word, "action": action}))
+        if obs is not None and word:
+            obs.registry.counter("train/anomaly/bad_steps").inc()
+        if word:
+            sent.note_skip(word, step=loop.iteration)
+            logger.warning(
+                "anomaly sentinel: unhealthy step at iteration %d (word "
+                "%#x, %d consecutive): %s", loop.iteration, word,
+                sent.consecutive_bad,
+                anomaly_lib.decode_health(word, sent.sections))
+        if first:
+            self._write_forensics(sent, word, loop, state, batch)
+        if action == "rollback":
+            if obs is not None:
+                obs.registry.counter("train/anomaly/rollbacks").inc()
+            state = self._anomaly_rollback(loop, state)
+            self._reseek(epoch_iter, sent.policy.reseek, placed)
+        elif action == "diverged":
+            if obs is not None:
+                # a terminal condition: the ring becomes the black box
+                obs.recorder.note(
+                    "training_diverged", iteration=loop.iteration,
+                    health_word=word, rollbacks=sent.rollbacks,
+                    consecutive_bad=sent.consecutive_bad)
+                obs.dump("training_diverged")
+            raise TrainingDiverged(
+                f"anomaly ladder exhausted at iteration {loop.iteration}: "
+                f"{sent.consecutive_bad} consecutive unhealthy steps with "
+                f"the rollback budget spent ({sent.rollbacks}/"
+                f"{sent.policy.max_rollbacks}); last health "
+                f"{anomaly_lib.decode_health(word, sent.sections)}; "
+                f"forensics bundles: {sent.forensics_paths or 'none'}")
+        elif (action == "ok" and sent.should_promote()
+                and self.checkpoint_path is not None):
+            self._promote_lkg(loop, state)
+        if word and action != "diverged" and sent.policy.skip:
+            # with the skip armed the live state after a bad step is
+            # clean (the update was discarded, or the lkg state restored):
+            # clear the word and take the last finite loss, so that the
+            # checkpoint guards do not refuse a clean state.  Without the
+            # skip the update did apply, and the guards keep refusing.
+            loop.health = 0
+            finite = [v for v in sent.loss_history if np.isfinite(v)]
+            if finite:
+                loop.loss = finite[-1]
+        return state
+
+    def _anomaly_rollback(self, loop: TrainingState,
+                          state: TrainState) -> TrainState:
+        """Restore the last-known-good slot (or, without one, the newest
+        intact regular snapshot, whose saves are health-guarded too)."""
+        from analytics_zoo_tpu_torch.parallel import checkpoint as ckpt
+
+        sent = self._anomaly
+        found, tier = None, "lkg"
+        if self.checkpoint_path is not None:
+            found = ckpt.lkg_snapshot(self.checkpoint_path)
+            if found is None:
+                found, tier = (ckpt.newest_intact(self.checkpoint_path),
+                               "regular")
+        if found is None:
+            raise TrainingDiverged(
+                f"anomaly rollback requested at iteration {loop.iteration} "
+                "but no last-known-good (or intact regular) snapshot "
+                "exists — configure set_checkpoint so the ladder has a "
+                "rollback target")
+        snap_dir, man = found
+        state, restored = self._restore(snap_dir, state)
+        # the live parameters against the snapshot's bytes
+        live = self._snapshot_state(state)["model"]
+        match = all(torch.equal(live[k].detach().cpu(), v.detach().cpu())
+                    for k, v in restored["model"].items())
+        self.optim.load_state_dict(
+            (man.get("meta", {}) or {}).get("optim", {}) or {})
+        sent.note_rollback(
+            iteration=loop.iteration, tier=tier,
+            snapshot=os.path.basename(snap_dir),
+            restored_step=int(state.step),
+            params_match_snapshot=bool(match),
+            reseek_batches=sent.policy.reseek)
+        logger.warning(
+            "anomaly sentinel: rollback %d/%d at iteration %d -> %s "
+            "(restored step %d, parameters equal to the snapshot: %s)",
+            sent.rollbacks, sent.policy.max_rollbacks, loop.iteration,
+            snap_dir, int(state.step), match)
+        return state
+
+    def _reseek(self, epoch_iter, n: int, placed: bool) -> None:
+        """Drop the stream's next ``n`` batches on the host: they count as
+        consumed for the resume position but train no step."""
+        done = object()
+        skipped = 0
+        for _ in range(max(n, 0)):
+            b = next(epoch_iter, done)
+            if b is done:
+                break
+            skipped += 1
+            self._iter_in_epoch += 1
+            self._samples_in_epoch += (
+                _batch_size(b) * self.specs.data_axis_size if placed
+                else _batch_size(b))
+        if skipped:
+            logger.warning("anomaly sentinel: re-sought the stream past %d "
+                           "batch(es) after rollback", skipped)
+
+    def _write_forensics(self, sent, word: int, loop: TrainingState,
+                         state: TrainState, batch) -> None:
+        from analytics_zoo_tpu_torch.resilience import anomaly as anomaly_lib
+
+        directory = (sent.policy.forensics_dir or self.checkpoint_path
+                     or os.getcwd())
+        batch_in_epoch = self._iter_in_epoch - 1
+        num_workers = getattr(self.dataset, "num_workers", None)
+        group_size = getattr(self.dataset, "group_size", None)
+        # the worker shards owning the groups this batch spans
+        worker_shards = None
+        if num_workers and group_size:
+            B = _batch_size(batch)
+            first = (batch_in_epoch * B) // group_size
+            last = ((batch_in_epoch + 1) * B - 1) // group_size
+            worker_shards = sorted({g % num_workers
+                                    for g in range(first, last + 1)})
+        payload = {
+            "bundle": "anomaly_forensics",
+            "format": 1,
+            "step": int(state.step),
+            "iteration": loop.iteration,
+            "epoch": loop.epoch,
+            "batch_in_epoch": batch_in_epoch,
+            "health_word": int(word),
+            "health": anomaly_lib.decode_health(word, sent.sections),
+            "sections": sent.sections,
+            "batch_hash": anomaly_lib.batch_fingerprint(batch),
+            # strict JSON: non-finite losses become strings
+            "loss_history": [v if np.isfinite(v) else repr(v)
+                             for v in sent.loss_history],
+            # the loader's coordinates of the batch
+            "rng": {
+                "base_seed": getattr(self.dataset, "base_seed", None),
+                "loader_epoch": getattr(self.dataset, "last_epoch", None),
+                "num_workers": num_workers,
+                "worker_shards": worker_shards,
+            },
+        }
+        if not (self.specs is not None
+                and mesh_lib.spans_processes(self.mesh)
+                and torch.distributed.get_rank() != 0):
+            sent.write_forensics(directory, payload)
+
+    def _promote_lkg(self, loop: TrainingState, state: TrainState) -> None:
+        meta = self._resume_meta(loop)
+        meta["health_word"] = 0
+        target = self._save(state, meta, tier="lkg")
+        self._anomaly.note_promoted(
+            step=loop.iteration,
+            snapshot=os.path.basename(target) if target else "lkg")
+        logger.info("anomaly sentinel: promoted the last-known-good "
+                    "snapshot at iteration %d", loop.iteration)
 
     def _maybe_validate(self, loop: TrainingState, eval_step) -> None:
         if self.val_trigger is None or not self.val_trigger(loop):
@@ -1042,6 +1465,8 @@ class Optimizer:
         for name, value in metrics.items():
             logger.info("Validation @ iter %d: %s = %.5f", loop.iteration,
                         name, value)
+            if self.val_summary is not None:
+                self.val_summary.add_scalar(name, value, loop.iteration)
         self.val_history.append({"iteration": loop.iteration, **metrics})
         if self._score_name and self._score_name in metrics:
             loop.score = metrics[self._score_name]

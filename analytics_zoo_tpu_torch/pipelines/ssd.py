@@ -48,6 +48,8 @@ from analytics_zoo_tpu_torch.ops.multibox_loss import (MultiBoxLoss,
                                                        MultiBoxLossParam)
 from analytics_zoo_tpu_torch.parallel.optim import (SGD, Adam, Plateau,
                                                     Trigger, multistep)
+from analytics_zoo_tpu_torch.parallel.summary import (TrainSummary,
+                                                      ValidationSummary)
 from analytics_zoo_tpu_torch.parallel.train import (Optimizer,
                                                     ValidationMethod,
                                                     make_eval_step)
@@ -555,8 +557,8 @@ class TrainParams:
     """Reference ``TrainParams`` (its ``Train.scala`` defaults), less the
     fields nothing in the port reads: ``batch_size`` and ``max_gt`` (the
     input path takes them from ``PreProcessParam``, and ``train_ssd``
-    trains at the batch ``train_set`` was built at) and ``job_name``
-    (item 13)."""
+    trains at the batch ``train_set`` was built at).  ``job_name`` names
+    the summaries' directory under ``log_dir``."""
 
     resolution: int = 300
     n_classes: int = 21
@@ -571,6 +573,7 @@ class TrainParams:
     checkpoint_path: Optional[str] = None
     overwrite_checkpoint: bool = True
     log_dir: Optional[str] = None
+    job_name: str = "ssd300"
     # fp32 master weights, the forward and backward under bf16 autocast;
     # None = fp32
     compute_dtype: Optional[str] = "bf16"
@@ -606,8 +609,10 @@ def train_ssd(train_set, val_set, params: TrainParams,
     (MultiBoxLoss normalised by the whole batch's positives, validation
     through K2 on every rank's rows, merged), ``tp="megatron"`` shards
     the weights by ``tensor.ssd_tp_rules`` over a ("data", "model") mesh.
-    Refused by name: ``tp="spatial"`` (item 12b.3) and ``params.log_dir``
-    (item 13)."""
+    ``params.log_dir`` writes the TensorBoard summaries of the run
+    (``Loss`` and ``LearningRate`` a step, the validation score) under
+    ``<log_dir>/<job_name>/{train,validation}``.  Refused by name:
+    ``tp="spatial"`` (item 12b.3)."""
     if tp == "spatial":
         raise NotImplementedError(
             "train_ssd(tp='spatial'): image height over the model axis, "
@@ -618,10 +623,6 @@ def train_ssd(train_set, val_set, params: TrainParams,
         from analytics_zoo_tpu_torch.parallel.specs import pipeline_specs
         specs = pipeline_specs("ssd", mesh=mesh, tp=tp,
                                resolution=params.resolution)
-    if params.log_dir:
-        raise NotImplementedError(
-            "train_ssd: summaries (TrainParams.log_dir) are not ported yet "
-            "(ROADMAP.md Queue 1 item 13)")
     priors, variances = build_priors(config_for(params.resolution))
     criterion = MultiBoxLoss(priors, variances,
                              MultiBoxLossParam(n_classes=params.n_classes))
@@ -643,6 +644,11 @@ def train_ssd(train_set, val_set, params: TrainParams,
         if params.checkpoint_path:
             opt.set_checkpoint(params.checkpoint_path, Trigger.every_epoch(),
                                overwrite=params.overwrite_checkpoint)
+        if params.log_dir:
+            opt.set_train_summary(TrainSummary(params.log_dir,
+                                               params.job_name))
+            opt.set_validation_summary(
+                ValidationSummary(params.log_dir, params.job_name))
         return opt
 
     if params.warm_up_map is not None and val_set is not None:

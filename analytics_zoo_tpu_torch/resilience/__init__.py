@@ -1,7 +1,12 @@
-"""The failure taxonomy, stall detection and graceful preemption
-(counterpart of ``resilience/``; the anomaly, chaos and device-health
-modules are ROADMAP.md Queue 1 item 13)."""
+"""The failure taxonomy, stall detection, graceful preemption and the
+training anomaly sentinel (counterpart of ``resilience/``; the chaos and
+device-health modules are ROADMAP.md Queue 1 item 13)."""
 
+from analytics_zoo_tpu_torch.resilience.anomaly import (AnomalyPolicy,
+                                                        AnomalySentinel,
+                                                        batch_fingerprint,
+                                                        decode_health,
+                                                        health_sections)
 from analytics_zoo_tpu_torch.resilience.errors import (
     FATAL_ERRORS, CheckpointCorrupt, ElasticPlacementError, InjectedFault,
     Preempted, PrefetchWorkerDied, ReplicaWedged, RequestTimeout,
@@ -10,7 +15,9 @@ from analytics_zoo_tpu_torch.resilience.errors import (
 from analytics_zoo_tpu_torch.resilience.preempt import PreemptionHandler
 from analytics_zoo_tpu_torch.resilience.watchdog import StallWatchdog
 
-__all__ = ["FATAL_ERRORS", "CheckpointCorrupt", "ElasticPlacementError",
+__all__ = ["AnomalyPolicy", "AnomalySentinel", "batch_fingerprint",
+           "decode_health", "health_sections",
+           "FATAL_ERRORS", "CheckpointCorrupt", "ElasticPlacementError",
            "InjectedFault", "Preempted", "PreemptionHandler",
            "PrefetchWorkerDied", "ReplicaWedged", "RequestTimeout",
            "ServerOverloaded", "ShardReadError", "StallError",

@@ -173,20 +173,24 @@ class Replica:
 class ReplicaPool:
     """Round-robin dispatch over healthy replicas with fence and
     exactly-once failover, plus :meth:`resize`.  ``events`` is the
-    deterministic log of the pool.  ``fence_budget_s`` is given to every
-    replica without its own; ``replica_factory(rid)`` builds growth
-    replicas."""
+    deterministic log of the pool; ``observer`` (set by the runtime) sees
+    each event as it is appended (the flight recorder hangs off it).
+    ``fence_budget_s`` is given to every replica without its own;
+    ``replica_factory(rid)`` builds growth replicas."""
 
     def __init__(self, replicas: Sequence[Replica], clock,
                  restart_s: float = 5.0,
                  fence_budget_s: Optional[float] = None,
-                 replica_factory: Optional[Callable[[int], Replica]] = None):
+                 replica_factory: Optional[Callable[[int], Replica]] = None,
+                 observer: Optional[Callable[[Dict[str, Any]], None]]
+                 = None):
         if not replicas:
             raise ValueError("need at least one replica")
         self.replicas = list(replicas)
         self.clock = clock
         self.restart_s = float(restart_s)
         self.events: List[Dict[str, Any]] = []
+        self.observer = observer
         self.fence_budget_s = fence_budget_s
         self.replica_factory = replica_factory
         self._rr = 0
@@ -208,6 +212,8 @@ class ReplicaPool:
 
     def _event(self, ev: Dict[str, Any]) -> None:
         self.events.append(ev)
+        if self.observer is not None:
+            self.observer(ev)
 
     # -- selection -----------------------------------------------------------
     def _revive(self) -> None:

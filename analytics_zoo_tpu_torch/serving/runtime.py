@@ -52,12 +52,24 @@ exactly-once rollback to the previous weights (or ``serve-lkg``), and
 the ``serve-lkg`` promotion after clean decision windows.  A model swaps
 through its ``ModelConfig.weights_to_tiers``.
 
+**Telemetry**: ``obs=`` (an :class:`~analytics_zoo_tpu_torch.obs.
+Observability`, which follows the runtime's clock) records each
+request's trace ``req-<rid>`` (a ``request`` root opened at submit, its
+``queue`` span until the batch is assembled, its ``dispatch`` span
+until the batch returns), a ``batch-<n>`` trace a dispatch, every pool
+event (fences, failovers, restarts, swaps), sessions opened, closed and
+failed, swaps and SLO decisions in the flight recorder; the runtime's
+metrics go to the bundle's registry, and a replica fence dumps the
+black box when ``obs.dump_path`` is set.
+:class:`~analytics_zoo_tpu_torch.obs.trace.TraceStore` splits each
+request's latency over the recording.
+
 Not ported, each refused where it is asked for: the parallel service
 model (``parallel_replicas``), mesh-slice replicas (``slice_width > 1``,
-``device_budget``), the autoscaler, chaos injection, telemetry spans,
-the device-health sentinel and the compile-cost model of pre-warming
-(``compile_s``, a swap's ``warm_s``) (ROADMAP.md Queue 1 item 13);
-sharded serving (``specs=``) (item 12b.4).
+``device_budget``), the autoscaler, chaos injection, the device-health
+sentinel and the compile-cost model of pre-warming (``compile_s``, a
+swap's ``warm_s``) (ROADMAP.md Queue 1 item 13); sharded serving
+(``specs=``) (item 12b.4).
 """
 
 from __future__ import annotations
@@ -93,7 +105,6 @@ _REFUSED = {
     "device_budget": ("mesh-slice replicas", _ITEM_13),
     "autoscaler": ("the autoscaler", _ITEM_13),
     "chaos": ("chaos injection", _ITEM_13),
-    "obs": ("telemetry spans", _ITEM_13),
     "health": ("the device-health sentinel", _ITEM_13),
     "compile_s": ("the per-geometry compile cost of pre-warming",
                   _ITEM_13),
@@ -190,8 +201,11 @@ class ServingRuntime:
     ``fence_budget_s`` bounds wedge detection (see
     :mod:`~analytics_zoo_tpu_torch.serving.replica`).
     ``retain_requests=False`` drops request objects once terminal;
-    the accounting stays exact through counters.  The keywords of the
-    parts not ported (module docstring) accept only their defaults."""
+    the accounting stays exact through counters.  ``obs``: an
+    :class:`~analytics_zoo_tpu_torch.obs.Observability` (module
+    docstring, "Telemetry"); its registry then holds the metrics.  The
+    keywords of the parts not ported (module docstring) accept only
+    their defaults."""
 
     def __init__(self, tiers: Optional[Sequence[ServingTier]] = None,
                  n_replicas: int = 2,
@@ -223,7 +237,7 @@ class ServingRuntime:
         given = {"parallel_replicas": parallel_replicas,
                  "slice_width": slice_width != 1,
                  "device_budget": device_budget, "autoscaler": autoscaler,
-                 "chaos": chaos, "obs": obs, "health": health,
+                 "chaos": chaos, "health": health,
                  "specs": specs, "compile_s": compile_s != 0}
         for key, value in given.items():
             if value is not None and value is not False:
@@ -257,7 +271,13 @@ class ServingRuntime:
         self.wedge_timeout_s = float(wedge_timeout_s)
         self.weight_cap = float(weight_cap)
         self.retain_requests = bool(retain_requests)
-        self.metrics = ServingMetrics()
+        # the telemetry spine: request spans into the flight recorder,
+        # metrics into the bundle's registry
+        self.obs = obs
+        if obs is not None:
+            obs.adopt_clock(self.clock)
+        self.metrics = ServingMetrics(
+            registry=obs.registry if obs is not None else None)
         self._slo_params = dict(slo_params or {})
         self._service_time = service_time
         # live-weight swaps: one rollout at a time (canary, then the
@@ -281,6 +301,8 @@ class ServingRuntime:
         self.slo = slo
         self.requests: List[Request] = []      # every request submitted
         self._rid = itertools.count()
+        self._spans: Dict[int, Dict[str, Any]] = {}   # rid -> open spans
+        self._dispatch_idx = 0
         self._window_shed = 0
         self._window_shed_by: Dict[str, int] = {}
         self._since_decision = 0
@@ -324,7 +346,8 @@ class ServingRuntime:
             [self._make_replica(r) for r in range(n_replicas)],
             self.clock, restart_s=restart_s,
             fence_budget_s=fence_budget_s,
-            replica_factory=self._make_replica)
+            replica_factory=self._make_replica,
+            observer=self._on_pool_event)
         self.ladders: Dict[str, DegradationLadder] = {
             name: DegradationLadder(len(cfg.tiers),
                                     cfg.ladder_policy or ladder_policy)
@@ -353,6 +376,40 @@ class ServingRuntime:
         replica.tier_objs = tier_objs
         return replica
 
+    # -- telemetry -----------------------------------------------------------
+    def _note(self, kind: str, **fields: Any) -> None:
+        """A point event in the flight recorder, at the runtime's time."""
+        if self.obs is not None:
+            self.obs.recorder.note(kind, t=round(self.clock.now(), 6),
+                                   **fields)
+
+    def _on_pool_event(self, ev: Dict[str, Any]) -> None:
+        """Every pool event lands in the flight recorder; a fence is a
+        terminal condition and dumps the black box when one is armed."""
+        if self.obs is None:
+            return
+        self.obs.recorder.record(ev)
+        if ev["kind"] == "replica_fenced" and self.obs.dump_path:
+            self.obs.dump("replica_fenced")
+
+    def _end_request_spans(self, req: Request, status: str,
+                           at: Optional[float] = None,
+                           **attrs: Any) -> None:
+        """Close a request's dispatch span and its root at one instant
+        (one clock read), so that its critical path tiles the root span
+        on a real clock too."""
+        if self.obs is None:
+            return
+        spans = self._spans.pop(req.rid, None)
+        if spans is None:
+            return
+        if at is None:
+            at = self.clock.now()
+        d = spans.get("dispatch")
+        if d is not None:
+            d.end(status=status, at=at, **attrs)
+        spans["root"].end(status=status, at=at)
+
     # -- shed observer -------------------------------------------------------
     def _on_shed(self, req: Request, cause: str) -> None:
         self.metrics.on_shed(cause, model=req.model if self._multi
@@ -364,7 +421,14 @@ class ServingRuntime:
         if req.session is not None:
             # a gap in the chunk stream would corrupt the session's carry:
             # a shed chunk fails the whole session
-            self._kill_session(req)
+            self._kill_session(req, f"chunk shed ({cause})")
+        if self.obs is not None:
+            spans = self._spans.pop(req.rid, None)
+            if spans is not None:
+                q = spans.get("queue")
+                if q is not None:
+                    q.end(status=cause)
+                spans["root"].end(status=req.state, cause=cause)
 
     def _account_terminal(self, req: Request) -> None:
         self._by_state[req.state] = self._by_state.get(req.state, 0) + 1
@@ -416,7 +480,18 @@ class ServingRuntime:
         if self.retain_requests:
             self.requests.append(req)
         self.metrics.on_submit(model=model if self._multi else None)
+        if self.obs is not None:
+            # the root of this request's trace, closed at whatever
+            # terminal state it reaches
+            root = self.obs.tracer.start(
+                "request", f"req-{req.rid}", rid=req.rid,
+                deadline_s=round(req.deadline_t - now, 6))
+            self._spans[req.rid] = {"root": root}
         self.queue.submit(req)          # may raise; _on_shed accounts it
+        if self.obs is not None and req.rid in self._spans:
+            spans = self._spans[req.rid]
+            spans["queue"] = self.obs.tracer.start(
+                "queue", spans["root"].trace_id, parent=spans["root"])
         return req
 
 
@@ -452,6 +527,8 @@ class ServingRuntime:
         :class:`CheckpointCorrupt` on a bad manifest before any drain.
         ``warm_s`` needs the compile-cost model (item 13)."""
         from analytics_zoo_tpu_torch.parallel import checkpoint as ckpt
+        from analytics_zoo_tpu_torch.resilience.errors import (
+            CheckpointCorrupt)
         from analytics_zoo_tpu_torch.utils.device import resolve_device
 
         if warm_s is not None:
@@ -468,7 +545,12 @@ class ServingRuntime:
                 f"{self._swap_ctl['checkpoint']!r} still in progress")
         now = self.clock.now()
         dev = resolve_device(device)
-        state = ckpt.load(checkpoint_path, verify=True, device=dev)
+        try:
+            state = ckpt.load(checkpoint_path, verify=True, device=dev)
+        except CheckpointCorrupt as e:
+            self._note("swap_rejected", checkpoint=checkpoint_path,
+                       error=str(e)[:160])
+            raise
         mirror = list(cfg.weights_to_tiers(state, -1))
         if len(mirror) != len(cfg.tiers):
             raise ValueError(
@@ -498,6 +580,11 @@ class ServingRuntime:
             "stash": {}, "t_started": now,
         }
         self.metrics.registry.counter("serve/swap/rollouts").inc()
+        self._note("swap_started", model=cfg.name, rollout=k,
+                   checkpoint=checkpoint_path,
+                   canary_fraction=float(canary_fraction),
+                   canary_min=int(canary_min),
+                   divergence_budget=divergence_budget)
         record = {"rollout": k, "model": cfg.name,
                   "checkpoint": checkpoint_path, "outcome": None,
                   "t_started": round(now, 6)}
@@ -540,6 +627,8 @@ class ServingRuntime:
         # the weights installed are the state loaded, and verified, above
         self.pool.hot_swap(ctl["checkpoint"], install=self._swap_install,
                            last=sorted(self._session_rids()), verified=True)
+        self._note("swap_rolling", model=ctl["model"],
+                   rollout=ctl["rollout"], mirrored=ctl["mirrored"])
 
     def _swap_tick(self) -> None:
         """Once a pump: refresh the deferred (session-pinned) rids, step
@@ -557,6 +646,10 @@ class ServingRuntime:
         self._swap_stats["completed"] += 1
         self._swap_log[-1]["outcome"] = "complete"
         self._lkg = {"ctl": ctl, "clean": 0, "after": ctl["lkg_after"]}
+        self._note("swap_complete", model=ctl["model"],
+                   rollout=ctl["rollout"],
+                   replicas=list((self.pool.last_rollout or {})
+                                 .get("swapped", [])))
 
     def _maybe_canary(self, batch: AssembledBatch, rows, now: float) -> None:
         """Mirror a seeded fraction of this model's requests to the new
@@ -590,9 +683,11 @@ class ServingRuntime:
                                - np.asarray(b, dtype=np.float64))
                     div = float(np.max(d)) if d.size else 0.0
                 div_h.observe(div)
-        except Exception:
+        except Exception as err:
             # a crashing canary forward is itself a trip
             div_h.observe(float("inf"))
+            self._note("canary_error", model=m, rollout=k,
+                       error=f"{type(err).__name__}: {err}"[:160])
         if self._service_time is not None:
             live = float(self._service_hook(batch, -1))
             template = self.models[m].tiers[batch.tier]
@@ -606,6 +701,9 @@ class ServingRuntime:
         if decision.burning:
             self._swap_stats["trips"] += 1
             reg.counter("serve/canary/trips").inc()
+            self._note("canary_trip", model=m, rollout=k,
+                       burning=list(decision.burning),
+                       mirrored=ctl["mirrored"])
             self._swap_rollback("canary_trip: " + ",".join(decision.burning))
         elif ctl["mirrored"] >= ctl["min"]:
             self._begin_roll()
@@ -631,12 +729,14 @@ class ServingRuntime:
                 r.tier_objs[ctl["model"]] = stash[1]
             else:
                 missing.append(rid)
+        lkg_path = None
         if missing:
             from analytics_zoo_tpu_torch.parallel import checkpoint as ckpt
 
             base = os.path.dirname(os.path.abspath(ctl["checkpoint"]))
             found = ckpt.tier_snapshot(base, "serve-lkg")
             if found is not None:
+                lkg_path = found[0]
                 state = ckpt.load(found[0], verify=False,
                                   device=ctl["device"])
                 for rid in missing:
@@ -652,6 +752,11 @@ class ServingRuntime:
         self._swap_log[-1]["reason"] = reason[:160]
         self.metrics.registry.counter("serve/swap/rollbacks").inc()
         self._lkg = None
+        self._note("swap_rollback", model=ctl["model"],
+                   rollout=ctl["rollout"], reason=reason[:160],
+                   reverted=list(swapped), lkg=lkg_path)
+        if self.obs is not None and self.obs.dump_path:
+            self.obs.dump("swap_rollback")
 
     def _maybe_promote_lkg(self, decision) -> None:
         """The serve-lkg hysteresis: after a completed rollout,
@@ -676,13 +781,17 @@ class ServingRuntime:
         base = os.path.dirname(os.path.abspath(snap))
         self._lkg = None
         try:
-            ckpt.promote_tier(base, snap, "serve-lkg")
-        except (CheckpointCorrupt, OSError):
+            target = ckpt.promote_tier(base, snap, "serve-lkg")
+        except (CheckpointCorrupt, OSError) as e:
             # the trainer may have collected the step snapshot already: a
             # missed promotion is not a serving fault
+            self._note("swap_lkg_failed", checkpoint=snap,
+                       error=str(e)[:160])
             return
         self._swap_stats["lkg_promotions"] += 1
         self.metrics.registry.counter("serve/swap/lkg_promotions").inc()
+        self._note("swap_lkg_promoted", checkpoint=snap, tier=target,
+                   rollout=pend["ctl"]["rollout"])
 
     # -- streaming sessions --------------------------------------------------
     def open_session(self, model: Optional[str] = None) -> int:
@@ -710,6 +819,8 @@ class ServingRuntime:
         self.metrics.registry.counter("serve/sessions/opened").inc()
         self.metrics.registry.gauge("serve/sessions_open").set(
             float(self._open_sessions))
+        self._note("session_opened", session=sid, model=cfg.name,
+                   replica=rid)
         return sid
 
     def submit_chunk(self, sid: int, payload: Any,
@@ -756,6 +867,7 @@ class ServingRuntime:
         self._close_session_books(sess)
         self._release_session(sid)
         self._evict(sess["replica"], sess["model"], sid)
+        self._note("session_closed", session=sid)
 
     def _evict(self, rid: Optional[int], model: str, sid: int) -> None:
         replica = (self.pool.replica_by_rid(rid) if rid is not None
@@ -792,7 +904,7 @@ class ServingRuntime:
         else:
             self._session_load.pop(rid, None)
 
-    def _kill_session(self, req: Request) -> None:
+    def _kill_session(self, req: Request, reason: str) -> None:
         """A chunk died unserved (shed, failed dispatch, replica lost):
         the session's carry has a gap, so the whole session fails — books
         closed, entry released, the pinned replica's store entry evicted.
@@ -806,6 +918,7 @@ class ServingRuntime:
         self._release_session(sid)
         self._sessions_failed += 1
         self._evict(req.affinity, req.model, sid)
+        self._note("session_failed", session=sid, reason=reason[:160])
 
     def _scrub_dead_session_rows(self, batch: AssembledBatch) -> None:
         """Fail a killed session's chunks that were admitted before the
@@ -822,6 +935,7 @@ class ServingRuntime:
             self._account_terminal(req)
             self.metrics.on_fail(model=batch.model if self._multi
                                  else None)
+            self._end_request_spans(req, "failed", attempts=req.attempts)
             batch.batch["session"][i] = -1
             batch.batch["final"][i] = 0
 
@@ -861,13 +975,36 @@ class ServingRuntime:
         raise RuntimeError("drain did not converge")
 
     # -- internals -----------------------------------------------------------
+    def _open_batch_spans(self, batch: AssembledBatch):
+        """The batch's own trace (it belongs to all its requests); each
+        member's ``queue`` span closes and its ``dispatch`` span opens."""
+        if self.obs is None:
+            return None
+        batch_span = self.obs.tracer.start(
+            "batch", f"batch-{self._dispatch_idx}",
+            requests=[r.rid for r in batch.requests],
+            edge=str(batch.edge), n_valid=batch.n_valid, tier=batch.tier)
+        for req in batch.requests:
+            spans = self._spans.get(req.rid)
+            if spans is None:
+                continue
+            q = spans.pop("queue", None)
+            if q is not None:
+                q.end(status="assembled", edge=str(batch.edge))
+            spans["dispatch"] = self.obs.tracer.start(
+                "dispatch", spans["root"].trace_id, parent=spans["root"],
+                tier=batch.tier, batch=self._dispatch_idx)
+        return batch_span
+
     def _dispatch(self, batch: AssembledBatch) -> None:
         self._scrub_dead_session_rows(batch)
+        self._dispatch_idx += 1
         self.metrics.on_batch(batch.n_valid,
                               self.batcher.model_batch(batch.model),
                               self.queue.depth)
         model_label = batch.model if self._multi else None
         t0 = self.clock.now()
+        batch_span = self._open_batch_spans(batch)
         try:
             out = self.pool.dispatch(batch)
         except ReplicaWedged as err:
@@ -878,10 +1015,15 @@ class ServingRuntime:
                 req.finish("failed", now, error=err)
                 self._account_terminal(req)
                 self.metrics.on_fail(model=model_label)
+                self._end_request_spans(req, "failed",
+                                        attempts=req.attempts)
                 if req.session is not None:
                     # the pinned replica is gone or wedged: the session's
                     # carry is lost
-                    self._kill_session(req)
+                    self._kill_session(req, str(err))
+            if batch_span is not None:
+                batch_span.end(status="failed",
+                               redispatched=batch.redispatched)
             self._after_dispatch(batch, t0, failed=True)
             return
         now = self.clock.now()
@@ -894,11 +1036,15 @@ class ServingRuntime:
             req.finish("done", now,
                        result=rows[i] if self.retain_requests else None)
             self._account_terminal(req)
+            missed = now > req.deadline_t
             self.metrics.on_complete(now - req.arrival_t, batch.tier,
-                                     missed=now > req.deadline_t,
-                                     model=model_label)
+                                     missed=missed, model=model_label)
+            self._end_request_spans(req, "done", attempts=req.attempts,
+                                    missed=missed)
             if req.final and req.session is not None:
                 self._release_session(req.session)
+        if batch_span is not None:
+            batch_span.end(status="done", redispatched=batch.redispatched)
         self._after_dispatch(batch, t0, failed=False)
 
     def _after_dispatch(self, batch: AssembledBatch, t0: float,
@@ -922,6 +1068,15 @@ class ServingRuntime:
             now = self.clock.now()
             self.slo.observe_registry(self.metrics.registry, now)
             decision = self.slo.decide(now)
+            if self.obs is not None:
+                # the decision lands in the black box beside its effects
+                self.obs.recorder.note(
+                    "slo_decision", t=round(now, 6),
+                    overloaded=decision.overloaded,
+                    burning=list(decision.burning),
+                    new_trips=list(decision.new_trips),
+                    recovered=list(decision.recovered),
+                    scale_hint=decision.scale_hint)
             if self._multi:
                 self._observe_multi(decision, detail)
             else:

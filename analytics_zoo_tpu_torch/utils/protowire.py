@@ -10,8 +10,9 @@ Wire types: 0 = varint, 1 = 64-bit, 2 = length-delimited, 5 = 32-bit.
 Packed repeated scalars arrive as one length-delimited field; Caffe's
 blob ``data`` is packed floats, bulk-decoded with ``np.frombuffer``.
 
-The encoder lets tests write byte-exact caffemodel files and exports
-weights back to Caffe's format.
+The encoder lets tests write byte-exact caffemodel files, exports
+weights back to Caffe's format, and writes the ``Event``/``Summary``
+messages of TensorBoard's event files (``parallel/summary.py``).
 """
 
 from __future__ import annotations
@@ -105,6 +106,11 @@ def fixed32_float(value: int) -> float:
     return struct.unpack("<f", struct.pack("<I", value))[0]
 
 
+def fixed64_double(value: int) -> float:
+    """A ``double`` field (wire type 1)."""
+    return struct.unpack("<d", struct.pack("<Q", value))[0]
+
+
 # ---------------------------------------------------------------------------
 # encoding
 # ---------------------------------------------------------------------------
@@ -151,6 +157,16 @@ class Encoder:
 
     def packed_varints(self, field: int, values) -> "Encoder":
         return self.bytes(field, b"".join(_varint(int(v)) for v in values))
+
+    def packed_doubles(self, field: int, values) -> "Encoder":
+        return self.bytes(
+            field, np.ascontiguousarray(values, dtype="<f8").tobytes())
+
+    def double(self, field: int, value: float) -> "Encoder":
+        """A ``double`` field (wire type 1)."""
+        self._parts.append(_varint(field << 3 | WIRETYPE_64BIT))
+        self._parts.append(struct.pack("<d", value))
+        return self
 
     def float32(self, field: int, value: float) -> "Encoder":
         """Un-packed float element (wire type 5)."""

@@ -418,6 +418,36 @@ Phases, one JSON line each; any failure exits non-zero:
    routing (expert ids; slots, a sender's bucket offset by the earlier
    senders' tokens) EQUAL to the dense path's and the log-probs within
    ``ATTN_MOE_TOL``; no K1-K4 launch;
+6q. telemetry: the telemetry spine and the anomaly ladder.  DS2 at the
+   widths above (``rnn_engine="pallas"``, Adam) on ``TELEMETRY_STEPS``
+   batches of 8 × ``DIST_DS2_FRAMES`` frames, those at
+   ``TELEMETRY_NAN`` with a seeded NaN feature: first one step of
+   ``make_train_step(skip_unhealthy=True)`` on a poisoned batch leaves
+   the parameters, Adam's slots and every buffer bit-equal on the card,
+   its word naming sections; then ``Optimizer`` with ``set_checkpoint``,
+   ``set_anomaly_policy(AnomalyPolicy(rollback_after=2,
+   promote_after=1))`` and ``set_observability``, counters at 0 just
+   before and read just after: one skip, a rollback to the ``lkg`` slot
+   (the parameters equal to the snapshot's) after the two-batch episode,
+   the forensics bundles' batch fingerprints equal to the host batches',
+   ``span_conservation`` clean over the ``train-`` traces, one
+   ``train_step`` span an executed step and the checkpoint's spans, 6 K3
+   and 6 K4 launches an executed step; a second run with
+   ``max_rollbacks=0`` raises ``TrainingDiverged`` and writes the black
+   box; a clean step's ms and peak GB armed (sentinel and spans) against
+   un-armed, in interleaved windows.  SSD300 on ``ServingRuntime(
+   n_replicas=2, max_batch=8, obs=Observability())``:
+   ``TELEMETRY_REQUESTS`` requests with one replica's forward crashing
+   once (a fence, the black-box dump, a failover): every completed
+   request's critical path tiles its root span within
+   ``CONSERVATION_TOL_S``, the ``TraceStore``'s served, shed and failed
+   counts equal ``ServingMetrics``', every registry name renders in
+   ``render_prometheus`` and resolves in ``CATALOG``, K2 once a batch;
+   p50/p99 with ``obs=`` and without in interleaved windows (K2 equal),
+   and the tail-attribution rows.  ``train_ssd`` with
+   ``TrainParams(log_dir=...)``: 2 steps of ``TELEMETRY_SSD_BATCH`` and
+   one validation batch of 8 (K2), the event files read back (tags,
+   steps, values equal to the run's);
 7. the ``kernels`` line, then the device line last.
 
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -4988,9 +5018,9 @@ DIST_BOX_TOL = 1e-4
 DIST_TIMEOUT = 300
 
 
-def dist_ds2_batches(seed):
-    """DIST_DS2_STEPS global batches of 8 utterances of at most 10 s,
-    bucketed at 1000 frames, with random labels."""
+def dist_ds2_batches(seed, steps=None):
+    """``steps`` (``DIST_DS2_STEPS``) global batches of 8 utterances of
+    at most 10 s, bucketed at 1000 frames, with random labels."""
     import numpy as np
 
     from analytics_zoo_tpu_torch.pipelines.deepspeech2 import (
@@ -5000,7 +5030,7 @@ def dist_ds2_batches(seed):
     short = np.nonzero(lengths <= 160 * DIST_DS2_FRAMES - 400)[0]
     rng = np.random.RandomState(seed)
     out = []
-    for _ in range(DIST_DS2_STEPS):
+    for _ in range(steps or DIST_DS2_STEPS):
         pick = rng.choice(short, BATCH, replace=False)
         ds = load_asr_train_set(samples[pick], labels[pick],
                                 batch_size=BATCH, shuffle=False,
@@ -6113,6 +6143,447 @@ def dist_attn_phase(dev, smi, seed=43):
     return {name: sum(r["launches"][name] for r in ranks)
             for name in ranks[0]["launches"]}
 
+# -- 6q. the telemetry spine and the anomaly ladder ---------------------------
+
+TELEMETRY_STEPS = 8
+TELEMETRY_NAN = (2, 4, 5)       # batches 3, 5 and 6: a skip, then a rollback
+TELEMETRY_WINDOWS = 3           # interleaved timing windows a side
+TELEMETRY_WINDOW_STEPS = 4
+TELEMETRY_REQUESTS = 64
+TELEMETRY_BURST = 16            # requests submitted between pumps
+TELEMETRY_SSD_BATCH = 32
+
+
+def poison_ds2(batch, rng):
+    """``batch`` with one seeded feature of one valid frame NaN (a copy)."""
+    import numpy as np
+
+    feats, n = batch["input"]
+    feats = feats.copy()
+    i = rng.randint(feats.shape[0])
+    feats[i, rng.randint(int(n[i])), rng.randint(feats.shape[2])] = np.nan
+    return dict(batch, input=(feats, n))
+
+
+def ds2_ladder_run(dev, batches, root, policy, obs):
+    """``Optimizer`` over ``batches`` with a checkpoint every 4
+    iterations, ``policy`` and ``obs`` armed, the counters at 0 just
+    before and read just after.  Returns (the optimizer, the raised
+    ``TrainingDiverged`` or None, the launches, seconds)."""
+    import torch
+
+    from analytics_zoo_tpu_torch.parallel.optim import Adam, Trigger
+    from analytics_zoo_tpu_torch.parallel.train import Optimizer
+    from analytics_zoo_tpu_torch.pipelines.deepspeech2 import (
+        ds2_ctc_criterion, make_ds2_model)
+    from analytics_zoo_tpu_torch.resilience.errors import TrainingDiverged
+
+    model = make_ds2_model(hidden=DS2_HIDDEN, n_rnn_layers=3,
+                           rnn_engine="pallas", seed=0, device=dev)
+    opt = (Optimizer(model, batches, ds2_ctc_criterion())
+           .set_optim_method(Adam(3e-4))
+           .set_checkpoint(os.path.join(root, "ckpt"),
+                           Trigger.several_iteration(4))
+           .set_anomaly_policy(policy).set_observability(obs)
+           .set_end_when(Trigger.max_epoch(1)))
+    torch.cuda.synchronize()
+    zero_kernel_counters()
+    err = None
+    t0 = time.perf_counter()
+    try:
+        opt.optimize()
+    except TrainingDiverged as e:
+        err = e
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (opt, err, {k.__name__: k.launches for k in kernel_counters()},
+            seconds)
+
+
+def telemetry_phase(dev, smi, seed=47):
+    """The telemetry spine and the anomaly ladder on the card (phase
+    ``telemetry``): DS2 training under the ladder (K3, K4), SSD300
+    serving with spans (K2), ``train_ssd`` with summaries (K2).  Returns
+    each kernel's launches on the path."""
+    import json
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.models.ssd import build_ssd_vgg
+    from analytics_zoo_tpu_torch.obs import (Observability, TraceStore,
+                                             attribution_rows, lookup,
+                                             render_prometheus,
+                                             span_conservation)
+    from analytics_zoo_tpu_torch.obs.exporters import _prom_name
+    from analytics_zoo_tpu_torch.obs.trace import CONSERVATION_TOL_S
+    from analytics_zoo_tpu_torch.ops import pallas_detout
+    from analytics_zoo_tpu_torch.parallel.optim import Adam, Trigger
+    from analytics_zoo_tpu_torch.parallel.summary import read_events
+    from analytics_zoo_tpu_torch.parallel.train import (Optimizer,
+                                                        create_train_state,
+                                                        make_train_step)
+    from analytics_zoo_tpu_torch.pipelines.deepspeech2 import (
+        ds2_ctc_criterion, make_ds2_model)
+    from analytics_zoo_tpu_torch.pipelines.ssd import (BGR_MEANS,
+                                                       PreProcessParam,
+                                                       TrainParams,
+                                                       ssd_serving_tiers,
+                                                       train_ssd)
+    from analytics_zoo_tpu_torch.resilience.anomaly import (
+        AnomalyPolicy, batch_fingerprint, decode_health, health_sections)
+    from analytics_zoo_tpu_torch.serving import (MonotonicClock,
+                                                 ServingRuntime)
+    from analytics_zoo_tpu_torch.serving.request import DEFAULT_MODEL
+
+    rng = np.random.RandomState(seed)
+    clean = dist_ds2_batches(seed, steps=TELEMETRY_STEPS)
+    batches = [poison_ds2(b, rng) if k in TELEMETRY_NAN else b
+               for k, b in enumerate(clean)]
+    criterion = ds2_ctc_criterion()
+    root = tempfile.mkdtemp()
+    try:
+        # -- 1. one skipped step, bit for bit on the card ------------------
+        model = make_ds2_model(hidden=DS2_HIDDEN, n_rnn_layers=3,
+                               rnn_engine="pallas", seed=0, device=dev)
+        sections = health_sections(model)
+        adam = Adam(3e-4)
+        step = make_train_step(model, criterion, adam, skip_unhealthy=True)
+        state, m = step(create_train_state(model, adam), batches[0])
+        word0 = int(m["health"])
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        slots = {k: ([t.clone() for t in v] if isinstance(v, list)
+                     else v.clone()) for k, v in state.opt_state.items()}
+        state, m = step(state, batches[TELEMETRY_NAN[0]])
+        word = int(m["health"])
+        health = decode_health(word, sections)
+        after = model.state_dict()
+        unequal = [k for k, v in before.items()
+                   if not torch.equal(v, after[k])]
+        unequal += [f"{k}/{i}" for k, v in slots.items()
+                    for i, (a, b) in enumerate(
+                        zip(v, state.opt_state[k]) if isinstance(v, list)
+                        else [(v, state.opt_state[k])])
+                    if not torch.equal(a, b)]
+        if (word0 or not word or unequal or not health["bad_sections"]
+                or not set(health["bad_sections"]) <= set(sections)):
+            raise AssertionError(f"telemetry skip: words {word0}, {word} "
+                                 f"({health}), changed {unequal}")
+        del model, state, step, before, slots, after
+
+        # -- 2. the ladder: a skip, then a rollback to the lkg slot --------
+        box = os.path.join(root, "blackbox.jsonl")
+        obs = Observability(dump_path=box)
+        policy = AnomalyPolicy(rollback_after=2, promote_after=1,
+                               forensics_dir=os.path.join(root, "f"))
+        opt, err, launches, ladder_s = ds2_ladder_run(
+            dev, batches, os.path.join(root, "ladder"), policy, obs)
+        sent = opt._anomaly
+        stats = sent.stats()
+        steps = len(opt.history)
+        rollbacks = [e for e in sent.events if e["kind"] == "rollback"]
+        bundles = []
+        for path in sent.forensics_paths:
+            with open(path) as f:
+                bundles.append(json.load(f))
+        want_hash = [batch_fingerprint(batches[TELEMETRY_NAN[0]]),
+                     batch_fingerprint(batches[TELEMETRY_NAN[1]])]
+        spans = obs.recorder.events("span")
+        train_spans = [e for e in spans if e["name"] == "train_step"]
+        saves = [e for e in spans if e["name"] == "checkpoint_save"]
+        cons = span_conservation(obs.recorder.events(),
+                                 trace_prefix="train-")
+        finite = all(torch.isfinite(p).all().item()
+                     for p in opt.model.parameters())
+        counters = obs.registry.snapshot()["counters"]
+        if (err is not None or steps != TELEMETRY_NAN[2] + 1
+                or stats["bad_steps"] != 3 or stats["rollbacks"] != 1
+                or len(rollbacks) != 1 or rollbacks[0]["tier"] != "lkg"
+                or rollbacks[0]["params_match_snapshot"] is not True
+                or [b["batch_hash"] for b in bundles] != want_hash
+                or any(not b["health"]["bad_sections"] for b in bundles)
+                or not cons["ok"] or len(train_spans) != steps
+                or len(saves) != 1 or not finite
+                or counters.get("train/anomaly/rollbacks") != 1
+                or counters.get("train/dispatch/steps") != steps
+                or launches["persistent_rnn"] != 6 * steps
+                or launches["persistent_rnn_bwd"] != 6 * steps
+                or launches["nms_sweep"]
+                or launches["fused_detection_output"]):
+            raise AssertionError(
+                f"telemetry ladder: error {err}, {steps} steps, stats "
+                f"{stats}, rollbacks {rollbacks}, bundles "
+                f"{[b['batch_hash'] for b in bundles]} vs {want_hash}, "
+                f"conservation {cons}, {len(train_spans)} step spans, "
+                f"{len(saves)} saves, finite {finite}, counters "
+                f"{counters}, launches {launches}")
+        ds2_launches = dict(launches)
+        ladder = {"steps": steps, "stats": stats,
+                  "events": [e["kind"] for e in sent.events],
+                  "rollback": rollbacks[0],
+                  "forensics": [{k: b[k] for k in (
+                      "step", "iteration", "batch_in_epoch", "health_word",
+                      "batch_hash")} | {"bad_sections": sorted(
+                          b["health"]["bad_sections"])} for b in bundles],
+                  "span_statuses": [e["status"] for e in train_spans],
+                  "checkpoint_spans": len(saves), "conservation": cons,
+                  "counters": counters, "launches": launches,
+                  "seconds": ladder_s}
+        del opt
+
+        # -- 3. an empty rollback budget: diverged, the black box written --
+        box2 = os.path.join(root, "diverged.jsonl")
+        obs2 = Observability(dump_path=box2)
+        policy2 = AnomalyPolicy(rollback_after=2, promote_after=1,
+                                max_rollbacks=0,
+                                forensics_dir=os.path.join(root, "f2"))
+        diverge = [batches[0], batches[TELEMETRY_NAN[1]],
+                   batches[TELEMETRY_NAN[2]], batches[1]]
+        opt2, err2, launches2, _ = ds2_ladder_run(
+            dev, diverge, os.path.join(root, "diverge"), policy2, obs2)
+        steps2 = len(opt2.history)
+        with open(box2) as f:
+            last = json.loads(f.read().splitlines()[-1])
+        if (err2 is None or steps2 != 3
+                or [d["reason"] for d in obs2.recorder.dumps]
+                != ["training_diverged"]
+                or last["kind"] != "training_diverged"
+                or launches2["persistent_rnn"] != 6 * steps2
+                or launches2["persistent_rnn_bwd"] != 6 * steps2):
+            raise AssertionError(f"telemetry diverge: {err2!r} after "
+                                 f"{steps2} steps, dumps "
+                                 f"{obs2.recorder.dumps}, last {last}, "
+                                 f"launches {launches2}")
+        for k, v in launches2.items():
+            ds2_launches[k] += v
+        del opt2
+
+        # -- 4. a clean step armed against un-armed, interleaved -----------
+        model = make_ds2_model(hidden=DS2_HIDDEN, n_rnn_layers=3,
+                               rnn_engine="pallas", seed=0, device=dev)
+        window = [b for k, b in enumerate(clean)
+                  if k not in TELEMETRY_NAN][:TELEMETRY_WINDOW_STEPS]
+
+        def timed(armed):
+            opt = (Optimizer(model, window, criterion)
+                   .set_optim_method(Adam(3e-4))
+                   .set_end_when(Trigger.max_epoch(1)))
+            if armed:
+                opt.set_anomaly_policy(AnomalyPolicy())
+                opt.set_observability(Observability())
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            opt.optimize()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / len(window)
+            if armed and any(int(h["health"]) for h in opt.history):
+                raise AssertionError("telemetry timing: a clean step's "
+                                     "word is not 0")
+            return ms, torch.cuda.max_memory_allocated() / 1e9
+
+        timed(False)                            # warm-up
+        step_ms = {"unarmed": [], "armed": []}
+        peak_gb = {"unarmed": [], "armed": []}
+        for w in range(TELEMETRY_WINDOWS):
+            for armed in ((False, True) if w % 2 == 0 else (True, False)):
+                ms, gb = timed(armed)
+                key = "armed" if armed else "unarmed"
+                step_ms[key].append(ms)
+                peak_gb[key].append(gb)
+        del model
+        emit("telemetry", nvidia_smi=smi, part="ds2_ladder",
+             hidden=DS2_HIDDEN, layers=3, batch=BATCH,
+             frames=DIST_DS2_FRAMES, batches=TELEMETRY_STEPS,
+             nan_batches=list(TELEMETRY_NAN), skip_word=word,
+             skip_health=health, skip_bit_equal=True, sections=sections,
+             ladder=ladder, diverged=str(err2)[:200],
+             diverged_steps=steps2, black_box_events=len(
+                 obs2.recorder.events()),
+             step_ms=step_ms, peak_gb=peak_gb,
+             armed_over_unarmed=statistics.median(step_ms["armed"])
+             / statistics.median(step_ms["unarmed"]),
+             launches=ds2_launches)
+
+        # -- 5. SSD300 serving with spans -----------------------------------
+        ssd = build_ssd_vgg(21, 300, device=dev, seed=0)
+        tiers = ssd_serving_tiers(
+            ssd, PreProcessParam(batch_size=BATCH, resolution=300),
+            device=dev)
+        requests = [rng.randint(0, 256, (300, 300, 3)).astype(np.float32)
+                    - np.float32(BGR_MEANS)
+                    for _ in range(TELEMETRY_REQUESTS)]
+        for t in tiers:
+            t.forward({"input": np.stack(requests[:BATCH])})
+
+        def serve(obs, crash=False):
+            rt = ServingRuntime(tiers, n_replicas=2, max_batch=BATCH,
+                                queue_capacity=2 * TELEMETRY_REQUESTS,
+                                default_deadline_s=3600.0,
+                                clock=MonotonicClock(), obs=obs)
+            if crash:
+                # replica 1's forward crashes on its second batch: a fence
+                # and a failover to replica 0
+                fns = rt.pool.replica_by_rid(1).forward_fns[DEFAULT_MODEL]
+                fwd, calls = fns[0], [0]
+
+                def crashing(batch):
+                    calls[0] += 1
+                    if calls[0] == 2:
+                        raise RuntimeError("injected forward crash")
+                    return fwd(batch)
+
+                fns[0] = crashing
+            torch.cuda.synchronize()
+            pallas_detout.fused_detection_output.launches = 0
+            for i in range(0, TELEMETRY_REQUESTS, TELEMETRY_BURST):
+                for x in requests[i:i + TELEMETRY_BURST]:
+                    rt.submit({"input": x})
+                rt.pump()
+            rt.drain()
+            torch.cuda.synchronize()
+            k2 = pallas_detout.fused_detection_output.launches
+            lat = sorted((r.completed_t - r.arrival_t) * 1e3
+                         for r in rt.requests)
+            return rt, k2, lat
+
+        ssd_box = os.path.join(root, "serving.jsonl")
+        obs3 = Observability(dump_path=ssd_box)
+        zero_kernel_counters()
+        rt, k2, _ = serve(obs3, crash=True)
+        serve_launches = {k.__name__: k.launches for k in kernel_counters()}
+        metrics = rt.metrics.snapshot()
+        store = TraceStore.from_recorder(obs3.recorder)
+        cons3 = store.critical_path_conservation(CONSERVATION_TOL_S)
+        by_status = {st: len(store.requests(st))
+                     for st in ("done", "shed", "timeout", "failed")}
+        prom = render_prometheus(obs3.registry)
+        names = sorted(obs3.registry.metrics())
+        series = {line.split("{")[0].split(" ")[0]
+                  for line in prom.splitlines() if not line.startswith("#")}
+        unrendered = [n for n in names if not series & {
+            _prom_name(n)[0] + suffix
+            for suffix in ("", "_total", "_sum", "_count")}]
+        uncatalogued = [n for n in names if not lookup(n)]
+        fences = store.events_of("replica_fenced")
+        failovers = store.events_of("failover")
+        if (not cons3["ok"] or cons3["checked"] != TELEMETRY_REQUESTS
+                or by_status["done"] != metrics["completed"]
+                or by_status["shed"] + by_status["timeout"]
+                != metrics["shed_total"]
+                or by_status["failed"] != metrics["failed"]
+                or metrics["completed"] != TELEMETRY_REQUESTS
+                or len(fences) != 1 or len(failovers) != 1
+                or "replica_fenced" not in [d["reason"]
+                                            for d in obs3.recorder.dumps]
+                or not os.path.exists(ssd_box) or unrendered
+                or uncatalogued or k2 != metrics["batches"]
+                or serve_launches["nms_sweep"]
+                or serve_launches["persistent_rnn"]):
+            raise AssertionError(
+                f"telemetry serving: conservation {cons3}, by status "
+                f"{by_status}, metrics {metrics}, fences {fences}, "
+                f"failovers {failovers}, dumps {obs3.recorder.dumps}, "
+                f"unrendered {unrendered}, uncatalogued {uncatalogued}, "
+                f"K2 {k2} for {metrics['batches']} batches")
+        moved = [store.critical_path(f"req-{r}")
+                 for r in failovers[0]["requests"]]
+        k2_serving = k2
+        # obs= on against off, interleaved windows
+        lat = {"on": [], "off": []}
+        k2_by = {"on": [], "off": []}
+        for w in range(TELEMETRY_WINDOWS):
+            for on in ((False, True) if w % 2 == 0 else (True, False)):
+                ob = Observability() if on else None
+                rt_w, k2_w, lat_w = serve(ob)
+                key = "on" if on else "off"
+                lat[key].append({"p50": lat_w[len(lat_w) // 2],
+                                 "p99": lat_w[min(len(lat_w) - 1, int(
+                                     0.99 * len(lat_w)))]})
+                k2_by[key].append(k2_w)
+                k2_serving += k2_w
+                if on:
+                    last_store = TraceStore.from_recorder(ob.recorder)
+        if len(set(k2_by["on"] + k2_by["off"])) != 1:
+            raise AssertionError(f"telemetry serving: K2 launches with obs "
+                                 f"{k2_by['on']}, without {k2_by['off']}")
+        report = last_store.tail_attribution()
+        emit("telemetry", nvidia_smi=smi, part="ssd_serving",
+             requests=TELEMETRY_REQUESTS, burst=TELEMETRY_BURST,
+             replicas=2, max_batch=BATCH, by_status=by_status,
+             metrics={k: metrics[k] for k in ("completed", "failed",
+                                              "shed_total", "batches",
+                                              "redispatched_batches")},
+             conservation=cons3, fence_dump=obs3.recorder.dumps,
+             failover_paths=[{"trace": cp["trace"],
+                              "segments_ms": {k: v * 1e3 for k, v in
+                                              cp["segments"].items()}}
+                             for cp in moved[:2]],
+             prometheus_lines=len(prom.splitlines()),
+             metric_names=len(names), latency_ms=lat, k2_by_window=k2_by,
+             tail_attribution=report,
+             attribution_rows=[r for _, r in attribution_rows(report)])
+        for _, row in attribution_rows(report):
+            print(f"telemetry attribution ({smi}): {row}", flush=True)
+        del tiers, ssd
+
+        # -- 6. train_ssd with summaries -------------------------------------
+        train_set = [ssd_batch(rng, TELEMETRY_SSD_BATCH) for _ in range(2)]
+        val_set = [ssd_batch(rng, BATCH)]
+        params = TrainParams(max_epoch=1, log_dir=os.path.join(root, "tb"))
+        seen = []
+        run = Optimizer.optimize
+
+        def optimize(self):
+            seen.append(self)
+            return run(self)
+
+        Optimizer.optimize = optimize
+        try:
+            torch.cuda.synchronize()
+            zero_kernel_counters()
+            t0 = time.perf_counter()
+            train_ssd(train_set, val_set, params,
+                      model=build_ssd_vgg(21, 300, device=dev, seed=0))
+            torch.cuda.synchronize()
+            tb_s = time.perf_counter() - t0
+            tb_launches = {k.__name__: k.launches
+                           for k in kernel_counters()}
+        finally:
+            Optimizer.optimize = run
+        (opt3,) = seen
+        logs = os.path.join(root, "tb", params.job_name)
+        got = [(e["step"], t, v) for e in read_events(
+            os.path.join(logs, "train")) for t, v in e["scalars"].items()]
+        want = [(i + 1, t, np.float32(v)) for i, mm in enumerate(
+            opt3.history) for t, v in (("Loss", mm["loss"].item()),
+                                       ("LearningRate", mm["lr"]))]
+        val = [(e["step"], e["scalars"]) for e in read_events(
+            os.path.join(logs, "validation")) if e["scalars"]]
+        if ([(s, t, np.float32(v)) for s, t, v in got] != want
+                or len(got) != 4 or len(val) != 1 or val[0][0] != 2
+                or "MeanAveragePrecision" not in val[0][1]
+                or tb_launches["fused_detection_output"] != len(val_set)
+                or tb_launches["persistent_rnn"]):
+            raise AssertionError(f"telemetry train_ssd summaries: {got} "
+                                 f"vs {want}, validation {val}, launches "
+                                 f"{tb_launches}")
+        emit("telemetry", nvidia_smi=smi, part="train_ssd_summaries",
+             batch=TELEMETRY_SSD_BATCH, steps=len(opt3.history),
+             train_tags=sorted({t for _, t, _ in got}),
+             train_steps=sorted({s for s, _, _ in got}),
+             validation=val, seconds=tb_s, launches=tb_launches)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"nms_sweep": 0,
+            "fused_detection_output": k2_serving
+            + tb_launches["fused_detection_output"],
+            "persistent_rnn": ds2_launches["persistent_rnn"],
+            "persistent_rnn_bwd": ds2_launches["persistent_rnn_bwd"]}
+
 
 def main() -> int:
     import torch
@@ -6786,6 +7257,13 @@ def main() -> int:
     # -- 6p. AttentionASR: ring attention, GPipe, expert-parallel MoE -----
     dist_attn = dist_attn_phase(dev, smi)
 
+    # -- 6q. telemetry: DS2 under the anomaly ladder (K3, K4), SSD300
+    # serving with spans and train_ssd with summaries (K2) ---------------
+    t0 = time.perf_counter()
+    telemetry = telemetry_phase(dev, smi)
+    emit("timing", nvidia_smi=smi,
+         telemetry_phase_s=time.perf_counter() - t0)
+
     # -- 7. kernels, then the device line last ----------------------------
     kernels = [
         {"name": "nms_sweep", "route": "cuda",
@@ -6800,6 +7278,7 @@ def main() -> int:
              "dist_dp": dist_dp["nms_sweep"], "dist_tp": dist_tp["nms_sweep"],
              "dist_seq": dist_seq["nms_sweep"],
              "dist_attn": dist_attn["nms_sweep"],
+             "telemetry": telemetry["nms_sweep"],
              "ssd_serving_approx_topk": ssd_serving["k1_launches"],
              "frcnn_serving": frcnn["nms_sweep"],
              "frcnn_train": frcnn_train["nms_sweep"],
@@ -6817,7 +7296,8 @@ def main() -> int:
                       + variants["k2_launches"]
                       + swap["fused_detection_output"]
                       + dist_dp["fused_detection_output"]
-                      + dist_tp["fused_detection_output"]),
+                      + dist_tp["fused_detection_output"]
+                      + telemetry["fused_detection_output"]),
          "launches_by_path": {
              "ssd_serving": launches["fused_detection_output"],
              "ds2_resume": 0, "ssd_swap": swap["fused_detection_output"],
@@ -6825,6 +7305,7 @@ def main() -> int:
              "dist_tp": dist_tp["fused_detection_output"],
              "dist_seq": dist_seq["fused_detection_output"],
              "dist_attn": dist_attn["fused_detection_output"],
+             "telemetry": telemetry["fused_detection_output"],
              "ssd_serving_runtime": ssd_serving["k2_launches"],
              "fleet": ds2_online["k2_fleet"],
              "ssd_train_validation": ssd_train["k2_launches"],
@@ -6844,7 +7325,8 @@ def main() -> int:
                       + sum(ds2_online["k3"].values())
                       + resume["persistent_rnn"] + dist_dp["persistent_rnn"]
                       + dist_tp["persistent_rnn"]
-                      + dist_seq["persistent_rnn"]),
+                      + dist_seq["persistent_rnn"]
+                      + telemetry["persistent_rnn"]),
          "launches_by_path": {"ds2_serving": k3_launches,
                               "ds2_train": train_launches["persistent_rnn"],
                               "ds2_resume": resume["persistent_rnn"],
@@ -6852,6 +7334,7 @@ def main() -> int:
                               "dist_tp": dist_tp["persistent_rnn"],
                               "dist_seq": dist_seq["persistent_rnn"],
                               "dist_attn": dist_attn["persistent_rnn"],
+                              "telemetry": telemetry["persistent_rnn"],
                               "ssd_swap": 0,
                               **ds2_online["k3"],
                               "frcnn_serving": frcnn["persistent_rnn"],
@@ -6871,7 +7354,8 @@ def main() -> int:
                       + resume["persistent_rnn_bwd"]
                       + dist_dp["persistent_rnn_bwd"]
                       + dist_tp["persistent_rnn_bwd"]
-                      + dist_seq["persistent_rnn_bwd"]),
+                      + dist_seq["persistent_rnn_bwd"]
+                      + telemetry["persistent_rnn_bwd"]),
          "launches_by_path": {
              "ds2_train": train_launches["persistent_rnn_bwd"],
              "ds2_resume": resume["persistent_rnn_bwd"], "ssd_swap": 0,
@@ -6879,6 +7363,7 @@ def main() -> int:
              "dist_tp": dist_tp["persistent_rnn_bwd"],
              "dist_seq": dist_seq["persistent_rnn_bwd"],
              "dist_attn": dist_attn["persistent_rnn_bwd"],
+             "telemetry": telemetry["persistent_rnn_bwd"],
              "frcnn_serving": frcnn["persistent_rnn_bwd"],
              "frcnn_train": frcnn_train["persistent_rnn_bwd"],
              **zoo_paths("persistent_rnn_bwd")},

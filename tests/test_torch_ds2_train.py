@@ -416,9 +416,10 @@ def test_criterion_protocol_matches_jax():
 
 def test_train_step_bf16_and_refusals():
     """``compute_dtype="bf16"`` runs the forward under autocast over the
-    fp32 parameters (the loss within 5% of fp32's); the options not
-    ported yet raise naming their ROADMAP item; a step over a one-rank
-    mesh (``specs=``, ``mesh=``) is the plain step."""
+    fp32 parameters (the loss within 5% of fp32's); ``health_check``
+    gives a clean step's word 0 and the Optimizer takes the anomaly
+    policy and observability (``tests/test_torch_anomaly.py``); a step
+    over a one-rank mesh (``specs=``, ``mesh=``) is the plain step."""
     model = DeepSpeech2(hidden=16, n_rnn_layers=1, rnn_engine="pallas",
                         device="cpu")
     batch = _ctc_batch(6)
@@ -434,8 +435,12 @@ def test_train_step_bf16_and_refusals():
         losses[cd] = metrics["loss"].item()
         assert all(p.dtype == torch.float32 for p in m.parameters())
     assert abs(losses["bf16"] - losses[None]) <= 0.05 * abs(losses[None])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        train.make_train_step(model, crit, optim.Adam(), health_check=True)
+    step = train.make_train_step(model, crit, optim.Adam(1e-3),
+                                 health_check=True)
+    _, metrics = step(train.create_train_state(model, optim.Adam(1e-3)),
+                      batch)
+    assert metrics["health"].dtype == torch.int32
+    assert int(metrics["health"]) == 0
     import torch_dist_scenarios as sc
     from analytics_zoo_tpu_torch.parallel.specs import SpecSet
     one = sc.StubMesh({"data": 1})
@@ -450,10 +455,8 @@ def test_train_step_bf16_and_refusals():
         else:
             assert metrics["loss"].item() == plain
     opt = train.Optimizer(model, [batch], crit)
-    for call, item in ((opt.set_anomaly_policy, "item 13"),
-                       (opt.set_observability, "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    assert opt.set_anomaly_policy() is opt and opt.anomaly_policy.skip
+    assert opt.set_observability() is opt and opt.obs is not None
     # checkpoints are served (tests/test_torch_resume.py)
     assert opt.set_checkpoint("/nowhere", optim.Trigger.every_epoch()) is opt
     # the input path is ported: a device transform runs in the step, and

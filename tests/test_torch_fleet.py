@@ -613,7 +613,7 @@ def test_model_config_validation(pkg):
     ({"parallel_replicas": True}, "item 13"),
     ({"slice_width": 2}, "item 13"), ({"device_budget": 4}, "item 13"),
     ({"autoscaler": object()}, "item 13"), ({"chaos": object()}, "item 13"),
-    ({"obs": object()}, "item 13"), ({"health": object()}, "item 13"),
+    ({"health": object()}, "item 13"),
     ({"compile_s": 0.5}, "item 13"), ({"specs": object()}, "item 12b"),
 ], ids=lambda v: next(iter(v)) if isinstance(v, dict) else v)
 def test_multiplexed_refused_keyword_names_its_item(kw, item):

@@ -341,7 +341,7 @@ def test_scenarios_cover_what_they_claim():
     ({"parallel_replicas": True}, "item 13"),
     ({"slice_width": 2}, "item 13"), ({"device_budget": 4}, "item 13"),
     ({"autoscaler": object()}, "item 13"), ({"chaos": object()}, "item 13"),
-    ({"obs": object()}, "item 13"), ({"health": object()}, "item 13"),
+    ({"health": object()}, "item 13"),
     ({"specs": object()}, "item 12b"), ({"compile_s": 0.5}, "item 13"),
 ], ids=lambda v: next(iter(v)) if isinstance(v, dict) else v)
 def test_refused_keyword_names_its_item(kw, item):

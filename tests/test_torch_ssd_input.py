@@ -137,7 +137,9 @@ class _Flaky:
 def test_read_records_retries_as_the_reference(tmp_path, fail_on, retries):
     (path,) = records.write_ssd_records(_recs(5), str(tmp_path / "r"), 1)
     outcome = []
-    for mod in (records, jax_records):
+    published = []
+    for mod, obs in ((records, "analytics_zoo_tpu_torch.obs"),
+                     (jax_records, "analytics_zoo_tpu.obs")):
         stats = mod.ReadStats()
         try:
             got = list(mod.read_records(path, retries=retries,
@@ -146,9 +148,15 @@ def test_read_records_retries_as_the_reference(tmp_path, fail_on, retries):
             outcome.append((got, stats.records, stats.retries))
         except mod.ShardReadError as e:
             outcome.append(("raised", str(e).split(":")[-1]))
+        # the counters as gauges, the same after a second publish
+        registry = __import__(obs, fromlist=["MetricRegistry"]) \
+            .MetricRegistry()
+        stats.publish(registry)
+        stats.publish(registry)
+        published.append(registry.snapshot())
     assert outcome[0] == outcome[1]
-    with pytest.raises(NotImplementedError, match="item 13"):
-        records.ReadStats().publish(None)
+    assert published[0] == published[1]
+    assert published[0]["gauges"]["data/read/retries"] == stats.retries
 
 
 def test_read_ssd_records_skips_a_truncated_shard(tmp_path):

@@ -652,11 +652,13 @@ def test_ssd300_step_at_train_params_lr_overshoots_in_both():
     assert np.median(list(moved.values())) > 1e-3
 
 
-def test_train_ssd_validates_each_epoch_and_drives_plateau(monkeypatch):
+def test_train_ssd_validates_each_epoch_and_drives_plateau(monkeypatch,
+                                                           tmp_path):
     """``train_ssd`` on the CPU, fp32, 2 epochs of one SSD300 batch with a
     one-image ``val_set``: the SGD Optimizer validates after each epoch,
-    its mAP becomes ``loop.score`` and reaches the Plateau; the arguments
-    of later items are refused by name (``checkpoint_path`` is served:
+    its mAP becomes ``loop.score`` and reaches the Plateau, and
+    ``log_dir`` gets the run's TensorBoard summaries; ``tp="spatial"``
+    is refused by name (``checkpoint_path`` is served:
     ``tests/test_torch_resume.py``)."""
     seen = []
     run = train.Optimizer.optimize
@@ -666,7 +668,8 @@ def test_train_ssd_validates_each_epoch_and_drives_plateau(monkeypatch):
         return run(self)
 
     monkeypatch.setattr(train.Optimizer, "optimize", optimize)
-    params = pipe.TrainParams(max_epoch=2, compute_dtype=None)
+    params = pipe.TrainParams(max_epoch=2, compute_dtype=None,
+                              log_dir=str(tmp_path / "tb"))
     batch = _ssd_batch(13)
     model = pipe.train_ssd([batch], [_ssd_batch(14)], params, device="cpu")
     assert not model.training
@@ -682,6 +685,19 @@ def test_train_ssd_validates_each_epoch_and_drives_plateau(monkeypatch):
         ref.update(v["MeanAveragePrecision"])
     assert (plateau.best, plateau.num_bad, plateau.scale) == (
         ref.best, ref.num_bad, ref.scale) and ref.best is not None
+    from analytics_zoo_tpu_torch.parallel.summary import read_events
+    logs = tmp_path / "tb" / params.job_name
+    scalars = [(e["step"], tag, v) for e in read_events(str(logs / "train"))
+               for tag, v in e["scalars"].items()]
+    assert scalars == [
+        (i + 1, tag, pytest.approx(v, rel=1e-6))
+        for i, m in enumerate(opt.history)
+        for tag, v in (("Loss", m["loss"].item()), ("LearningRate",
+                                                    m["lr"]))]
+    assert [(e["step"], e["scalars"]) for e in read_events(
+        str(logs / "validation")) if e["scalars"]] == [
+        (v["iteration"], {"MeanAveragePrecision": pytest.approx(
+            v["MeanAveragePrecision"], rel=1e-6)}) for v in opt.val_history]
     # over a one-rank mesh the first step is the plain run's
     import torch_dist_scenarios as sc
     seen.clear()
@@ -692,9 +708,6 @@ def test_train_ssd_validates_each_epoch_and_drives_plateau(monkeypatch):
         opt.history[0]["loss"].item()
     with pytest.raises(NotImplementedError, match="item 12b"):
         pipe.train_ssd([batch], None, params, model=model, tp="spatial")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pipe.train_ssd([batch], None, dataclasses.replace(
-            params, log_dir="/nowhere"), model=model)
 
 
 def test_validator_matches_validation_method():

@@ -80,6 +80,7 @@ def ranks():
                 ("dp", (4,), ("data",), None),
                 ("tp", (2, 2), ("data", "model"), "default"),
                 ("megatron", (2, 2), ("data", "model"), "megatron"))}
+    runs["word_or"] = ("health_word_over_ranks", {})
     runs["ssd"] = ("ssd_megatron_forward", dict(
         weights=_ssd_weights(), x=x, shape=(2, 2), axes=("data", "model"),
         resolution=300))
@@ -180,6 +181,13 @@ class TestMegatronRules:
         np.testing.assert_allclose(ranks[0]["megatron"]["forward"],
                                    np.asarray(jm.forward(_data()[0]["input"])),
                                    rtol=RTOL, atol=ATOL)
+
+
+def test_health_word_is_or_over_ranks(ranks):
+    """A health word over a mesh is every rank's bits OR-ed (a shard's
+    finiteness is its rank's own): each of the 4 ranks ends with them
+    all."""
+    assert [r["word_or"] for r in ranks] == [0b1111 | (1 << 29)] * 4
 
 
 class TestShardTree:

@@ -265,6 +265,17 @@ def mlp_train(weights, data, shape, axes, rules, epochs=3):
             "weights": opt.specs.gather(model)}
 
 
+def health_word_over_ranks():
+    """``resilience.anomaly.word_over_ranks`` of a word whose bits differ
+    by rank (bit ``rank`` and bit 29 on rank 0): every rank's result."""
+    from analytics_zoo_tpu_torch.resilience import anomaly
+
+    rank = _rank()
+    word = torch.tensor((1 << rank) | ((1 << 29) if rank == 0 else 0),
+                        dtype=torch.int32)
+    return int(anomaly.word_over_ranks(word))
+
+
 def ssd_megatron_forward(weights, x, shape, axes, resolution):
     """An SSD's (loc, conf) under ``ssd_tp_rules`` placement, and every
     row layer's input taken as it came (sharded or sliced)."""
