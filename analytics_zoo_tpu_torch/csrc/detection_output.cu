@@ -100,10 +100,10 @@ __device__ __forceinline__ float4 decode(const float4 d, const float4 pr,
   float4 o = make_float4(cx - w * 0.5f, cy - h * 0.5f, cx + w * 0.5f,
                          cy + h * 0.5f);
   if (clip) {
-    o.x = fminf(fmaxf(o.x, 0.f), 1.f);
-    o.y = fminf(fmaxf(o.y, 0.f), 1.f);
-    o.z = fminf(fmaxf(o.z, 0.f), 1.f);
-    o.w = fminf(fmaxf(o.w, 0.f), 1.f);
+    o.x = nms::nan_min(nms::nan_max(o.x, 0.f), 1.f);
+    o.y = nms::nan_min(nms::nan_max(o.y, 0.f), 1.f);
+    o.z = nms::nan_min(nms::nan_max(o.z, 0.f), 1.f);
+    o.w = nms::nan_min(nms::nan_max(o.w, 0.f), 1.f);
   }
   return o;
 }

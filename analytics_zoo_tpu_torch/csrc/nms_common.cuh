@@ -91,15 +91,25 @@ struct Threshold {
   }
 };
 
+// torch.maximum / torch.minimum: a NaN operand gives NaN (fmaxf and
+// fminf return the other operand); the same result on numbers.
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return a != a ? a : b != b ? b : fmaxf(a, b);
+}
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return a != a ? a : b != b ? b : fminf(a, b);
+}
+
 // The reference's intersection and union of the lane box q (area_q) and
-// the kept box b (area_b), op for op.
+// the kept box b (area_b), op for op; a NaN coordinate makes both NaN,
+// so that the box neither suppresses nor is suppressed.
 __device__ __forceinline__ void overlap(const float4 q, float area_q,
                                         const float4 b, float area_b,
                                         float off, float& inter, float& uni) {
-  const float ix1 = fmaxf(q.x, b.x), iy1 = fmaxf(q.y, b.y);
-  const float ix2 = fminf(q.z, b.z), iy2 = fminf(q.w, b.w);
-  inter = fmaxf(ix2 - ix1 + off, 0.f) * fmaxf(iy2 - iy1 + off, 0.f);
-  uni = fmaxf(area_q + area_b - inter, 1e-12f);
+  const float ix1 = nan_max(q.x, b.x), iy1 = nan_max(q.y, b.y);
+  const float ix2 = nan_min(q.z, b.z), iy2 = nan_min(q.w, b.w);
+  inter = nan_max(ix2 - ix1 + off, 0.f) * nan_max(iy2 - iy1 + off, 0.f);
+  uni = nan_max(area_q + area_b - inter, 1e-12f);
 }
 
 __device__ __forceinline__ float box_area(const float4 b, float off) {

@@ -492,6 +492,8 @@ __device__ __forceinline__ float cell_forward(int cell, int act,
                                               float cold, float* cnew) {
   if (cell == kVanilla) {
     const float z = pv[0] + hh[0];
+    // torch.clamp propagates a NaN z; fmaxf would map it to 0
+    if (z != z) return z;
     return act == kRelu          ? fmaxf(z, 0.f)
            : act == kClippedRelu ? fminf(fmaxf(z, 0.f), 20.f)
                                  : tanhf(z);

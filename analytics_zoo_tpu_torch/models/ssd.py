@@ -26,6 +26,7 @@ from analytics_zoo_tpu_torch.ops.detection_output import (
     DetectionOutputParam, detection_output)
 from analytics_zoo_tpu_torch.ops.priorbox import (PriorBoxParam,
                                                   concat_priors, prior_box)
+from analytics_zoo_tpu_torch.utils import spmd
 from analytics_zoo_tpu_torch.utils.device import resolve_device
 
 
@@ -134,6 +135,17 @@ def _add_convs(module: nn.Module, spec) -> None:
                                           dilation=d))
 
 
+# the trunk, read by VGGBase.forward and spatial_forward: a conv (ReLU
+# after it), a max pool (kernel, stride, padding, ceil mode), or the
+# conv4_3 source.  Caffe's pool3 is ceil mode (75 → 38: the reference
+# pads (0, 1) with -inf, which is what ceil mode does); pool5 is 3x3,
+# stride 1, padding 1.
+_TRUNK = ("conv1_1", "conv1_2", (2, 2, 0, False), "conv2_1", "conv2_2",
+          (2, 2, 0, False), "conv3_1", "conv3_2", "conv3_3", (2, 2, 0, True),
+          "conv4_1", "conv4_2", "conv4_3", "source", (2, 2, 0, False),
+          "conv5_1", "conv5_2", "conv5_3", (3, 1, 1, False), "fc6", "fc7")
+
+
 class VGGBase(nn.Module):
     """VGG16 trunk through conv5_3 + dilated fc6/fc7.  Returns (conv4_3,
     fc7) feature maps."""
@@ -143,26 +155,14 @@ class VGGBase(nn.Module):
         _add_convs(self, _VGG)
 
     def forward(self, x):
-        for name in ("conv1_1", "conv1_2"):
-            x = F.relu(getattr(self, name)(x))
-        x = F.max_pool2d(x, 2, 2)
-        for name in ("conv2_1", "conv2_2"):
-            x = F.relu(getattr(self, name)(x))
-        x = F.max_pool2d(x, 2, 2)
-        for name in ("conv3_1", "conv3_2", "conv3_3"):
-            x = F.relu(getattr(self, name)(x))
-        # Caffe pool3 is ceil mode (75 → 38): the reference pads (0,1)
-        # with -inf, which is what ceil_mode does
-        x = F.max_pool2d(x, 2, 2, ceil_mode=True)
-        for name in ("conv4_1", "conv4_2", "conv4_3"):
-            x = F.relu(getattr(self, name)(x))
-        conv4_3 = x
-        x = F.max_pool2d(x, 2, 2)
-        for name in ("conv5_1", "conv5_2", "conv5_3"):
-            x = F.relu(getattr(self, name)(x))
-        x = F.max_pool2d(x, 3, 1, padding=1)     # pool5: 3x3 stride 1 pad 1
-        x = F.relu(self.fc6(x))
-        x = F.relu(self.fc7(x))
+        for op in _TRUNK:
+            if op == "source":
+                conv4_3 = x
+            elif isinstance(op, tuple):
+                k, stride, pad, ceil = op
+                x = F.max_pool2d(x, k, stride, pad, ceil_mode=ceil)
+            else:
+                x = F.relu(getattr(self, op)(x))
         return conv4_3, x
 
 
@@ -255,10 +255,116 @@ class SSDVgg(nn.Module):
                 m.bias.zero_()
 
     def forward(self, x: torch.Tensor):
+        group = spmd.row_group()
+        if group is not None:
+            return spatial_forward(self, x, group)
         x = x.permute(0, 3, 1, 2)
         conv4_3, fc7 = self.vgg(x)
         sources = [self.conv4_3_norm(conv4_3), fc7] + self.extra(fc7)
         return multibox_heads(self, sources, self.num_classes)
+
+
+class _RowBlocks:
+    """An NCHW activation cut by rows over a group: this rank's block
+    ``t`` of a ``height``-row map whose ranks hold ``parts``."""
+
+    def __init__(self, t, parts, height, group):
+        self.t, self.parts, self.height, self.group = t, parts, height, group
+
+    def layer(self, fn, k: int, s: int, p: int, d: int = 1,
+              ceil: bool = False, fill: float = 0.0) -> "_RowBlocks":
+        """``fn`` (a conv or a pool with no padding along H) on the rows
+        that this rank's output block needs, fetched from their owners
+        (``fill`` past the image's edges).  The output's rows are
+        ``row_blocks`` of its height.  An empty output block runs ``fn``
+        on ``fill`` rows and keeps none, so that every rank's autograd
+        graph holds the same operations."""
+        from analytics_zoo_tpu_torch.parallel.sequence import (
+            fetch_rows, group_rank, row_blocks)
+
+        span = d * (k - 1) + 1
+        h = self.height + 2 * p - span
+        out_h = (-(-h // s) if ceil else h // s) + 1
+        if ceil and (out_h - 1) * s >= self.height + p:
+            out_h -= 1
+        out = row_blocks(out_h, len(self.parts))
+        wants = [(a * s - p, (b - 1) * s - p + span) if b > a else (0, 0)
+                 for a, b in out]
+        x = fetch_rows(self.t, self.group, self.parts, wants, fill)
+        a, b = out[group_rank(self.group)]
+        short = list(x.shape)
+        short[2] = span - x.shape[2] if b == a else 0
+        x = torch.cat([x, x.new_full(short, fill)], 2)
+        return _RowBlocks(fn(x).narrow(2, 0, b - a), out, out_h, self.group)
+
+    def conv(self, conv: nn.Conv2d, relu: bool = True) -> "_RowBlocks":
+        (k, _), (s, sw), (p, pw), (d, dw) = (conv.kernel_size, conv.stride,
+                                             conv.padding, conv.dilation)
+
+        def fn(x):
+            y = F.conv2d(x, conv.weight, conv.bias, (s, sw), (0, pw),
+                         (d, dw))
+            return F.relu(y) if relu else y
+
+        return self.layer(fn, k, s, p, d)
+
+    def pool(self, k: int, s: int, p: int, ceil: bool) -> "_RowBlocks":
+        return self.layer(lambda x: F.max_pool2d(x, k, s, (0, p),
+                                                 ceil_mode=ceil),
+                          k, s, p, ceil=ceil, fill=float("-inf"))
+
+    def whole(self) -> torch.Tensor:
+        """The whole map on every rank, rows in the global order."""
+        from analytics_zoo_tpu_torch.parallel.sequence import gather_rows
+        return gather_rows(self.t, self.group, self.parts, 2)
+
+
+def spatial_forward(model: "SSDVgg", x: torch.Tensor, group
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:class:`SSDVgg`'s forward on this rank's block of the image rows
+    (``x`` NHWC, rows ``row_blocks(resolution, n)[rank]`` of the
+    ``group``'s ``n`` ranks), weights whole on every rank: each conv and
+    pool fetches the input rows its output rows need (its kernel,
+    stride, padding and dilation decide which; zeros, or ``-inf`` under
+    a pool, past the edges) and runs with no padding along H; the
+    heads' outputs are gathered along H and flattened as the unsharded
+    forward flattens them.  Returns the whole ``(loc, conf)`` on every
+    rank; a rank's parameter gradients are its rows' share (the step
+    sums them over ``group``)."""
+    from analytics_zoo_tpu_torch.parallel.sequence import (group_rank,
+                                                           group_size,
+                                                           row_blocks)
+
+    parts = row_blocks(model.resolution, group_size(group))
+    a, b = parts[group_rank(group)]
+    if x.shape[1] != b - a:
+        raise ValueError(f"spatial forward: rows {a}..{b} of "
+                         f"{model.resolution} expected on this rank, got "
+                         f"{x.shape[1]}")
+    rows = _RowBlocks(x.permute(0, 3, 1, 2), parts, model.resolution, group)
+    sources = []
+    for op in _TRUNK:
+        if op == "source":
+            sources.append(_RowBlocks(model.conv4_3_norm(rows.t), rows.parts,
+                                      rows.height, group))
+        elif isinstance(op, tuple):
+            rows = rows.pool(*op)
+        else:
+            rows = rows.conv(getattr(model.vgg, op))
+    sources.append(rows)
+    for name, *_ in model.extra.spec:
+        rows = rows.conv(getattr(model.extra, name))
+        if name in _EXTRA_SOURCES:
+            sources.append(rows)
+    B = x.shape[0]
+    locs, confs = [], []
+    for i, src in enumerate(sources):
+        loc = src.conv(getattr(model, f"loc_{i}"), relu=False).whole()
+        conf = src.conv(getattr(model, f"conf_{i}"), relu=False).whole()
+        locs.append(loc.permute(0, 2, 3, 1).reshape(B, -1, 4))
+        confs.append(conf.permute(0, 2, 3, 1).reshape(B, -1,
+                                                      model.num_classes))
+    return torch.cat(locs, dim=1), torch.cat(confs, dim=1)
 
 
 def build_ssd_vgg(num_classes: int = 21, resolution: int = 300,

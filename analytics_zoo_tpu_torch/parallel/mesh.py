@@ -146,6 +146,13 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+def row_block(size: int, width: int, index: int) -> Tuple[int, int]:
+    """Rows ``[a, b)`` of rank ``index`` of ``width`` in a ``size``-row
+    dim, from ``index * size // width``: uneven, or empty where ``size <
+    width`` (spatial partitioning's partition of every layer)."""
+    return index * size // width, (index + 1) * size // width
+
+
 def shard_batch(batch, mesh, overrides=None, microbatches: int = 1):
     """This rank's rows of a host batch: dim 0 of every leaf cut over the
     ``data`` axis (0-d leaves and non-arrays are kept whole).  Dim 0
@@ -154,14 +161,12 @@ def shard_batch(batch, mesh, overrides=None, microbatches: int = 1):
     share of each of the N consecutive microbatches, in order, so that
     cutting its rows into N gives its part of each global microbatch.
 
-    ``overrides`` (per top-level key, a spec over more than dim 0 — the
-    spatial ``tensor.spatial_input_spec``) is refused: spatial
-    partitioning is ROADMAP.md Queue 1 item 12b.3."""
-    if overrides:
-        raise NotImplementedError(
-            "shard_batch(overrides=...): per-key batch specs (spatial "
-            "partitioning) are not ported yet (ROADMAP.md Queue 1 item "
-            "12b.3)")
+    ``overrides`` (per top-level key of a dict batch, a spec over more
+    than dim 0, such as ``tensor.spatial_input_spec``'s ``("data",
+    "model", None, None)``): dim 0 is cut as above, and every later dim
+    that names an axis is cut to this rank's block of it
+    (:func:`row_block`: the image height over ``model``, blocks uneven
+    or empty where the dim does not divide)."""
     width = data_width(mesh)
     index = axis_index(mesh, data_axis(mesh))
 
@@ -188,6 +193,24 @@ def shard_batch(batch, mesh, overrides=None, microbatches: int = 1):
         return x[torch.from_numpy(rows) if isinstance(x, torch.Tensor)
                  else rows]
 
+    def cut_spec(spec):
+        def fn(x):
+            x = cut(x)
+            if not isinstance(x, (np.ndarray, torch.Tensor)) or x.ndim == 0:
+                return x
+            for dim, ax in enumerate(tuple(spec)[1:x.ndim], start=1):
+                if ax is None:
+                    continue
+                a, b = row_block(x.shape[dim], axis_size(mesh, ax),
+                                 axis_index(mesh, ax))
+                x = (x.narrow(dim, a, b - a) if isinstance(x, torch.Tensor)
+                     else np.take(x, np.arange(a, b), axis=dim))
+            return x
+        return fn
+
+    if overrides and isinstance(batch, dict):
+        return {k: _tree_map(cut_spec(overrides[k]) if k in overrides
+                             else cut, v) for k, v in batch.items()}
     return _tree_map(cut, batch)
 
 

@@ -45,7 +45,8 @@ import torch.distributed as dist
 
 from analytics_zoo_tpu_torch.parallel.mesh import (SEQUENCE_AXIS,
                                                    axis_group, axis_index,
-                                                   axis_names, axis_size)
+                                                   axis_names, axis_size,
+                                                   row_block)
 from analytics_zoo_tpu_torch.utils.spmd import all_reduce_sum
 
 NEG_INF = -1e30
@@ -354,6 +355,106 @@ def halo_exchange(x: torch.Tensor, group, left: int, right: int,
     got = _exchange_ad(group, items) if items else []
     parts = ([got[0]] if left else []) + [x] + ([got[-1]] if right else [])
     return torch.cat(parts, time_axis)
+
+
+# ---------------------------------------------------------------------------
+# Rows of an image over a group (spatial partitioning)
+# ---------------------------------------------------------------------------
+
+
+def row_blocks(height: int, n: int) -> List[Tuple[int, int]]:
+    """The row partition of a ``height``-row activation over ``n`` ranks,
+    ``mesh.row_block`` of each: uneven, and empty where ``height < n``."""
+    return [row_block(height, n, r) for r in range(n)]
+
+
+def fetch_rows(x: torch.Tensor, group, parts: Sequence[Tuple[int, int]],
+               wants: Sequence[Tuple[int, int]], fill: float = 0.0,
+               axis: int = 2) -> torch.Tensor:
+    """Global rows ``[lo, hi)`` = ``wants[me]`` of an activation held by
+    rows over ``group``: ``parts[r]`` is the block rank ``r`` holds
+    (``x`` is this rank's, along ``axis``) and ``wants[r]`` the range
+    rank ``r`` asks for (any width: a halo may reach past a neighbour,
+    or an empty range ask for nothing).  Rows outside ``[0, height)``
+    are ``fill`` (0 under a convolution, ``-inf`` under a max pool).
+    Every rank calls it with the same ``parts`` and ``wants``; the rows
+    move in one :func:`exchange` (differentiable: a received row's
+    cotangent goes back to its owner)."""
+    n, me = group_size(group), group_rank(group)
+    a, b = parts[me]
+    lo, hi = wants[me]
+    height = parts[-1][1]
+    items = [(x.narrow(axis, 0, 0), None, None)]   # an exchange of nothing
+    recv_at = {}
+    for p in range(n):
+        if p == me:
+            continue
+        s, e = max(a, wants[p][0]), min(b, wants[p][1])
+        if e > s:
+            items.append((x.narrow(axis, s - a, e - s).contiguous(), p, None))
+    for p in range(n):
+        s, e = max(parts[p][0], lo), min(parts[p][1], hi)
+        if p != me and e > s:
+            shape = list(x.shape)
+            shape[axis] = e - s
+            recv_at[p] = len(items)
+            items.append((x.new_empty(shape), None, p))
+    # every rank reads the same parts and wants: all skip, or all call
+    moves = any(max(parts[q][0], wants[p][0]) < min(parts[q][1], wants[p][1])
+                for p in range(n) for q in range(n) if p != q)
+    got = _exchange_ad(group, items) if moves else None
+
+    def filled(rows):
+        shape = list(x.shape)
+        shape[axis] = rows
+        return torch.full(shape, fill, dtype=x.dtype, device=x.device)
+
+    # the exchange's output of nothing joins the result on every rank, so
+    # that a rank which only sends still runs the exchange's backward
+    pieces = [got[0]] if moves else []
+    if lo < min(0, hi):
+        pieces.append(filled(min(0, hi) - lo))
+    for p in range(n):
+        s, e = max(parts[p][0], lo), min(parts[p][1], hi)
+        if e <= s:
+            continue
+        pieces.append(x.narrow(axis, s - a, e - s) if p == me
+                      else got[recv_at[p]])
+    if hi > max(height, lo):
+        pieces.append(filled(hi - max(height, lo)))
+    return torch.cat(pieces, axis) if pieces else x.narrow(axis, 0, 0)
+
+
+class _GatherRows(torch.autograd.Function):
+    """The ranks' row blocks (uneven, maybe empty) concatenated along
+    ``axis`` in rank order; the backward hands each rank its own block
+    of the (whole, identical) cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group, parts, axis):
+        n, me = group_size(group), group_rank(group)
+        ctx.axis, ctx.block = axis, parts[me]
+        m = max(e - s for s, e in parts)
+        pad = list(x.shape)
+        pad[axis] = m - x.shape[axis]
+        xp = torch.cat([x, x.new_zeros(pad)], axis) if pad[axis] else x
+        whole = _all_gather_cat(xp.movedim(axis, 0), group, 0)
+        out = [whole.narrow(0, p * m, e - s) for p, (s, e) in enumerate(parts)]
+        return torch.cat(out, 0).movedim(0, axis).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        s, e = ctx.block
+        return g.narrow(ctx.axis, s, e - s), None, None, None
+
+
+def gather_rows(x: torch.Tensor, group, parts: Sequence[Tuple[int, int]],
+                axis: int = 2) -> torch.Tensor:
+    """The whole activation from the ranks' row blocks ``parts`` (every
+    rank then uses it whole: each gets its own block's cotangent)."""
+    if group is None:
+        return x
+    return _GatherRows.apply(x, group, tuple(parts), axis)
 
 
 # ---------------------------------------------------------------------------

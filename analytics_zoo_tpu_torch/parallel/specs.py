@@ -23,6 +23,7 @@ Registry::
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Sequence
 
@@ -34,6 +35,7 @@ from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
 from analytics_zoo_tpu_torch.parallel import tensor as tensor_lib
 from analytics_zoo_tpu_torch.parallel.mesh import PartitionSpec as P
 from analytics_zoo_tpu_torch.resilience.errors import ElasticPlacementError
+from analytics_zoo_tpu_torch.utils import spmd
 
 
 def _spec_axes(spec) -> set:
@@ -63,7 +65,8 @@ def _leading_dim(tree) -> Optional[int]:
 class SpecSet:
     """One pipeline's declared sharding: mesh, state rules (``None``:
     everything replicated, pure data parallelism) and per-key batch
-    overrides (declared; placing with them raises, item 12b.3)."""
+    overrides (a dim past 0 over an axis: the image rows over ``model``,
+    spatial partitioning)."""
 
     mesh: Any
     rules: Optional[Sequence] = None
@@ -107,6 +110,32 @@ class SpecSet:
         """The process group along ``data`` (``None`` at width 1)."""
         return mesh_lib.axis_group(self.mesh, mesh_lib.data_axis(self.mesh))
 
+    @property
+    def row_axis(self) -> Optional[str]:
+        """The axis a batch override cuts a dim past 0 over (the image
+        rows of spatial partitioning), or ``None``."""
+        axes = {ax for spec in (self.batch_overrides or {}).values()
+                for part in tuple(spec)[1:] if part is not None
+                for ax in (part if isinstance(part, tuple) else (part,))}
+        if len(axes) > 1:
+            raise ValueError(f"batch overrides cut rows over {sorted(axes)}"
+                             ": one axis at most")
+        return next(iter(axes), None)
+
+    def row_group(self):
+        """The group the rows are cut over (``None``: no override, or a
+        one-rank axis).  A replicated parameter's gradient is a sum of
+        its ranks' rows' shares over it."""
+        axis = self.row_axis
+        return None if axis is None else mesh_lib.axis_group(self.mesh, axis)
+
+    def row_scope(self):
+        """``utils.spmd.row_shards`` over :meth:`row_group` (nothing
+        without one): the scope a forward on placed rows runs in."""
+        group = self.row_group()
+        return (contextlib.nullcontext() if group is None
+                else spmd.row_shards(group))
+
     def ragged_dispatch(self, annotated: Callable, plain: Callable
                         ) -> Callable:
         """``dispatch(*args)`` runs ``annotated`` when the first
@@ -122,6 +151,35 @@ class SpecSet:
             return plain(*args)
 
         return dispatch
+
+    def row_sharded(self, fn: Callable) -> Callable:
+        """``fn(*args)`` run on this rank's rows of every batch-major
+        argument (dim 0 over ``data``, and under a spatial declaration
+        the image rows of its block, ``batch_overrides["input"]``; other
+        arguments whole) in :meth:`row_scope`, its tensor outputs
+        all-gathered back along dim 0 in rank order: a program's rows
+        over the data ranks (a forward and its post-processing alike).
+        A ragged batch runs whole on every rank
+        (:meth:`ragged_dispatch`); with neither a data width nor a row
+        axis, ``fn`` itself.  Every rank calls it with the same
+        arguments; an exception in a rank's placement or ``fn`` fails
+        the call on every rank (:func:`gather_rows_guarded`), so that no
+        rank is left waiting in the gather."""
+        if self.data_axis_size == 1 and self.row_group() is None:
+            return fn
+        ctx = tensor_lib.axis_ctx(self.mesh, mesh_lib.data_axis(self.mesh))
+
+        def local(args):
+            placed = self.place_batch({"input": args})["input"]
+            with self.row_scope():
+                return fn(*placed)
+
+        def annotated(*args):
+            if ctx.size == 1:
+                return local(args)
+            return gather_rows_guarded(lambda: local(args), ctx)
+
+        return self.ragged_dispatch(annotated, fn)
 
     # -- elastic resize ---------------------------------------------------
     def declared_axes(self) -> frozenset:
@@ -210,6 +268,65 @@ class SpecSet:
         return out
 
 
+def gather_rows_guarded(local: Callable[[], Any], ctx) -> Any:
+    """``local()`` (a rank's rows through a program with no collective
+    over ``ctx`` of its own), then its tensor outputs all-gathered along
+    dim 0 over ``ctx`` (a ``tensor.AxisCtx``), in rank order.  The ranks
+    first all-gather a header, whether ``local()`` returned and the
+    bytes of its outputs: if one raised, every rank raises (that rank
+    its own error), and no rank enters a gather that a peer will never
+    join.  The outputs then travel as one gather of their bytes, which
+    every rank cuts back into tensors of its own outputs' shapes."""
+    from analytics_zoo_tpu_torch.utils import engine
+
+    try:
+        out, err = local(), None
+    except Exception as e:          # noqa: BLE001 - re-raised below
+        out, err = None, e
+    ys: list = []
+    if err is None:
+        mesh_lib._tree_map(lambda y: ys.append(y) if _gathered(y) else y,
+                           out)
+    with torch.inference_mode():
+        payload = (torch.cat([y.detach().reshape(-1).view(torch.uint8)
+                              for y in ys]) if ys
+                   else torch.empty(0, dtype=torch.uint8))
+        # a gloo group gathers the header on the host: no device sync
+        hdev = ("cpu" if torch.distributed.get_backend(ctx.group) == "gloo"
+                else engine.device())
+        header = torch.tensor([int(err is not None), payload.numel()],
+                              dtype=torch.int64, device=hdev)
+        headers = header.new_empty(ctx.size * 2)
+        tensor_lib._all_gather(headers, header, group=ctx.group)
+        failed, sizes = headers.view(-1, 2).T.tolist()
+        if err is not None:
+            raise err
+        if any(failed):
+            raise RuntimeError("sharded call: a peer rank failed its rows "
+                               "of this batch")
+        if len(set(sizes)) > 1:
+            raise ValueError(f"sharded call: the ranks' outputs differ in "
+                             f"size ({sizes} bytes)")
+        whole = payload.new_empty(ctx.size * payload.numel())
+        tensor_lib._all_gather(whole, payload, group=ctx.group)
+        whole = whole.view(ctx.size, -1)
+        at = [0]
+
+        def cut(y):
+            if not _gathered(y):
+                return y
+            n = y.numel() * y.element_size()
+            part = whole[:, at[0]:at[0] + n].contiguous().view(y.dtype)
+            at[0] += n
+            return part.reshape((ctx.size * y.shape[0],) + y.shape[1:])
+
+        return mesh_lib._tree_map(cut, out)
+
+
+def _gathered(y) -> bool:
+    return isinstance(y, torch.Tensor) and y.ndim > 0
+
+
 # ---------------------------------------------------------------------------
 # Pipeline registry
 # ---------------------------------------------------------------------------
@@ -242,16 +359,15 @@ def pipeline_specs(name: str, mesh=None, **opts: Any) -> SpecSet:
 def _ssd_specs(mesh, tp: Optional[str] = None,
                resolution: int = 300) -> SpecSet:
     """SSD training and serving: ``tp=None`` data parallel,
-    ``"megatron"`` paired column/row weight sharding
-    (``tensor.ssd_tp_rules``); ``"spatial"`` (image height over
-    ``model``) is ROADMAP.md Queue 1 item 12b.3."""
+    ``"spatial"`` the image height over ``model`` with the parameters
+    replicated (``tensor.spatial_input_spec``; the forward fetches its
+    halos, ``models.ssd.spatial_forward``), ``"megatron"`` paired
+    column/row weight sharding (``tensor.ssd_tp_rules``)."""
     if tp is None:
         return SpecSet(mesh)
     if tp == "spatial":
-        raise NotImplementedError(
-            "ssd tp='spatial' (image height over the model axis, with its "
-            "halo exchanges) is not ported yet (ROADMAP.md Queue 1 item "
-            "12b.3)")
+        return SpecSet(mesh, batch_overrides={
+            "input": tensor_lib.spatial_input_spec()})
     if tp == "megatron":
         return SpecSet(mesh,
                        rules=tensor_lib.ssd_tp_rules(resolution=resolution))

@@ -148,8 +148,10 @@ def ssd_tp_rules(axis: str = MODEL_AXIS,
 def spatial_input_spec(axis: str = MODEL_AXIS,
                        data_axis_name: str = DATA_AXIS) -> P:
     """NHWC image batches with the height over ``axis`` (spatial
-    partitioning).  Declared; placing a batch with it raises (its halo
-    exchanges are ROADMAP.md Queue 1 item 12b.3)."""
+    partitioning), the parameters replicated: ``shard_batch`` keeps a
+    rank's block of the rows (``mesh.row_block``), and the forward runs
+    in ``utils.spmd.row_shards``, fetching each layer's halo rows
+    (``models.ssd.spatial_forward``)."""
     return P(data_axis_name, axis, None, None)
 
 

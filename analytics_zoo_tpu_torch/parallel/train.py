@@ -139,25 +139,17 @@ def make_eval_step(module: nn.Module, compute_dtype=None,
     the global batch's rows are cut over the ``data`` axis, each rank
     runs its own, and the outputs are all-gathered back whole on every
     rank; a batch whose dim 0 does not divide the data width runs whole
-    on every rank (``SpecSet.ragged_dispatch``).  Every rank calls it."""
+    on every rank (``SpecSet.ragged_dispatch``).  Every rank calls it.
+    Under a spatial declaration (``SpecSet.row_axis``) a rank also keeps
+    its block of the image rows, and the forward runs in the
+    declaration's ``row_scope``."""
     cdtype = resolve_compute_dtype(compute_dtype)
 
     def eval_step(inputs):
         with torch.inference_mode():
             return _forward(module, inputs, cdtype)
 
-    if specs is None or specs.data_axis_size == 1:
-        return eval_step
-    actx = tensor_lib.axis_ctx(specs.mesh, mesh_lib.data_axis(specs.mesh))
-
-    def annotated(inputs):
-        out = eval_step(specs.place_batch(inputs))
-        with torch.inference_mode():
-            return _tree_map(lambda y: tensor_lib.all_gather_dim(y, 0, actx)
-                             if isinstance(y, torch.Tensor) and y.ndim
-                             else y, out)
-
-    return specs.ragged_dispatch(annotated, eval_step)
+    return eval_step if specs is None else specs.row_sharded(eval_step)
 
 
 # ---------------------------------------------------------------------------
@@ -283,7 +275,10 @@ def make_train_step(module: nn.Module, criterion: Callable,
     global one, and the clip norm is global (a shard's sum of squares
     summed over its axis, a replicated parameter counted once).  The
     range ``train_step.all_reduce`` holds the gradient all-reduce, after
-    which each parameter's ``.grad`` is the averaged gradient.
+    which each parameter's ``.grad`` is the averaged gradient.  Under a
+    spatial declaration (``specs.row_axis``: the image rows over
+    ``model``) the forward runs in ``specs.row_scope()``, and a rank's
+    gradients, its rows' share, are first summed over the rows' axis.
 
     ``health_check=True`` adds the anomaly sentinel's health word
     (``resilience/anomaly.py``) as ``metrics["health"]``: an int32 tensor
@@ -310,8 +305,26 @@ def make_train_step(module: nn.Module, criterion: Callable,
     index = (mesh_lib.axis_index(specs.mesh, mesh_lib.data_axis(specs.mesh))
              if specs is not None else 0)
 
+    row_group = specs.row_group() if specs is not None else None
+    grad_group, row_width = data_group, 1
+    if row_group is not None:
+        # each rank's gradient is its rows' share and the rows' ranks
+        # hold one loss: one sum over the whole mesh, divided by the data
+        # width, averages over data what the rows' ranks sum
+        row_width = mesh_lib.axis_size(specs.mesh, specs.row_axis)
+        if width * row_width != torch.distributed.get_world_size():
+            raise ValueError(
+                f"a row cut over {specs.row_axis!r} takes a mesh of the "
+                f"data and the rows' axes alone, over every rank; got "
+                f"axes {mesh_lib.axis_names(specs.mesh)}")
+        grad_group = torch.distributed.group.WORLD
+
+    @contextlib.contextmanager
     def scoped():
-        return spmd.global_batch(data_group, width, index)
+        with spmd.global_batch(data_group, width, index), (
+                specs.row_scope() if specs is not None
+                else contextlib.nullcontext()):
+            yield
 
     health = health_check or skip_unhealthy
     if health:
@@ -384,10 +397,10 @@ def make_train_step(module: nn.Module, criterion: Callable,
                 inv = 1.0 / grad_accum
                 grads = [g * inv for g in grads]
                 loss = sum(losses[1:], losses[0]) * inv
-            if data_group is not None:
+            if grad_group is not None:
                 with record_function("train_step.all_reduce"):
-                    grads, loss = _average_over(grads, loss, data_group,
-                                                width)
+                    grads, loss = _average_over(grads, loss / row_width,
+                                                grad_group, width)
                 # each .grad then holds the gradient the update uses
                 for p, g in zip(params, grads):
                     p.grad = g
@@ -569,7 +582,10 @@ def validate(module: nn.Module, dataset, methods: Sequence[Callable],
     rows of a batch (``eval_step`` is then the plain one) and the ranks'
     results of that batch are merged in rank order, which is the batch's
     row order, so every rank holds the one global score.  A batch whose
-    dim 0 does not divide the data width runs whole on every rank."""
+    dim 0 does not divide the data width runs whole on every rank.
+    Under a spatial declaration each rank also keeps its block of the
+    rows, and the forward runs in ``specs.row_scope()``: a data
+    coordinate's results count once, whatever the ranks along ``model``."""
     eval_step = eval_step or make_eval_step(module)
     dev = next(module.parameters()).device
     width = specs.data_axis_size if specs is not None else 1
@@ -577,10 +593,15 @@ def validate(module: nn.Module, dataset, methods: Sequence[Callable],
     totals: List[Any] = [None] * len(methods)
     for batch in dataset:
         rows = _batch_size(batch)
-        split = group is not None and rows % width == 0
-        if split:
+        placed = (specs is not None and rows % width == 0
+                  and (group is not None or specs.row_group() is not None))
+        split = placed and group is not None
+        scope = contextlib.nullcontext()
+        if placed:
             batch = specs.place_batch(batch)
-        out = eval_step(to_device(batch["input"], dev))
+            scope = specs.row_scope()
+        with scope:
+            out = eval_step(to_device(batch["input"], dev))
         results = [m(out, batch) for m in methods]
         for rank_results in (mesh_lib.merge_over(results, group) if split
                              else [results]):

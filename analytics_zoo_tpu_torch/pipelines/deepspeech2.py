@@ -674,17 +674,20 @@ def ds2_serving_tiers(model: DeepSpeech2, param: Optional[DS2Param] = None,
     beam (``degraded_beam``, default ``max(4, width // 4)``), greedy best
     path.  With ``param.decoder == "greedy"`` the ladder is the one
     greedy tier.  ``device_program()`` gives ``(eval_step,
-    example_args)``, the forward every rung shares.  Sharded serving
-    (``specs``) is ROADMAP.md Queue 1 item 12b.4."""
+    example_args)``, the forward every rung shares.  ``specs`` (e.g.
+    ``pipeline_specs("ds2", mesh=mesh)``): the model is placed by
+    ``specs.place_state`` and the forward is ``make_eval_step(specs=)``'s,
+    each rank running its rows (K3 on them) and the log-probs gathered
+    back; every rank builds the tiers and calls a rung with the same
+    batch, and decodes the whole batch."""
     from analytics_zoo_tpu_torch.serving.ladder import ServingTier
 
-    if specs is not None:
-        raise NotImplementedError("ds2_serving_tiers(specs=...) is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 12b.4)")
     param = param or DS2Param()
     dev = resolve_device(device)
     model = model.to(dev).eval()
-    eval_step = make_eval_step(model)
+    if specs is not None:
+        specs.place_state(model)
+    eval_step = make_eval_step(model, specs=specs)
 
     def device_program(edge: int = 64):
         return eval_step, ((torch.zeros((1, edge, param.n_mels),

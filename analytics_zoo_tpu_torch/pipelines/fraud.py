@@ -9,12 +9,13 @@ with AUPRC, precision and recall.  :func:`fraud_serving_tiers` gives
 ``serving.ServingRuntime`` the fp and int8 rungs over a trained model.
 
 Training and serving run on the model's device (the GPU unless the
-caller passes ``device="cpu"``).  Sharded training and serving
-(``specs=``) is ROADMAP.md Queue 1 item 12b.4, and refused.
+caller passes ``device="cpu"``); ``specs=`` serves the ``fp`` rung over a
+mesh's data ranks.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -53,15 +54,6 @@ REC_INT8_SPEED = 1.27
 SENTIMENT_INT8_SPEED = 1.60
 
 
-def refuse_sharding(what: str, specs=None) -> None:
-    """Sharded serving (a tier's ``specs=``) is ROADMAP.md Queue 1 item
-    12b.4."""
-    if specs is not None:
-        raise NotImplementedError(
-            f"{what}: sharded serving (specs=) is not ported yet "
-            "(ROADMAP.md Queue 1 item 12b.4)")
-
-
 def train_specs(name: str, mesh, **opts):
     """The pipeline's declared ``SpecSet`` on ``mesh`` (``None`` without
     one: a one-device ``Optimizer``)."""
@@ -73,15 +65,24 @@ def train_specs(name: str, mesh, **opts):
 
 def fp_int8_tiers(model, to_inputs: Callable[[Dict, torch.device], tuple],
                   example: Dict, notes: Sequence[str], int8_speed: float,
-                  device=None) -> List:
+                  device=None, specs=None) -> List:
     """Two ``ServingTier`` s over one model, cheapest last: ``fp`` (the
     eval step) and ``int8`` (``quantize_params`` weights through the
     weight-only ``make_quantized_forward``).  ``to_inputs(batch, device)``
     makes the forward's arguments from a batch; rows come back as numpy;
     ``example`` is a batch of the served shapes for ``device_program``.
     The model (a ``core.module.Model`` or a module) serves where it is,
-    or on ``device`` when given (it is moved there)."""
+    or on ``device`` when given (it is moved there).
+
+    ``specs`` (the pipeline's ``SpecSet``): rank 0's weights go to every
+    rank, and the ``fp`` rung is ``make_eval_step(specs=)`` over a copy
+    placed by ``specs.place_state`` (its tables row-sharded where the
+    rules say so), each rank running its rows and the outputs gathered
+    back; the ``int8`` rung runs whole on every rank, as the reference's
+    un-annotated quantized forward does.  Every rank builds the tiers and
+    calls a rung with the same batch."""
     from analytics_zoo_tpu_torch.parallel import make_eval_step
+    from analytics_zoo_tpu_torch.parallel.mesh import replicate
     from analytics_zoo_tpu_torch.serving.ladder import ServingTier
     from analytics_zoo_tpu_torch.utils.quantize import (
         make_quantized_forward, quantize_params)
@@ -92,7 +93,13 @@ def fp_int8_tiers(model, to_inputs: Callable[[Dict, torch.device], tuple],
     module.to(dev).eval()
     if isinstance(model, Model):
         model.device = dev
-    eval_step = make_eval_step(module)
+    fp_module = module
+    if specs is not None:
+        if specs.rules is not None:     # the int8 rung keeps whole tables
+            replicate(module, specs.mesh)
+            fp_module = copy.deepcopy(module)
+        specs.place_state(fp_module)
+    eval_step = make_eval_step(fp_module, specs=specs)
     qparams = quantize_params(module)
     qfwd = make_quantized_forward(module)
 
@@ -179,8 +186,8 @@ def fraud_serving_tiers(model, specs=None, device=None) -> List:
     ``int8`` (weight-only; FraudMLP's layers are below the 4096-element
     floor, so that rung quantizes nothing, as in the reference).
     Requests carry one assembled and scaled feature row (``{"input":
-    (in_features,) float32}``, the batcher's FIXED bucket)."""
-    refuse_sharding("fraud_serving_tiers", specs=specs)
+    (in_features,) float32}``, the batcher's FIXED bucket).  ``specs``:
+    the ``fp`` rung over the data ranks (``fp_int8_tiers``)."""
 
     def to_inputs(batch: Dict, dev) -> tuple:
         return (torch.as_tensor(np.asarray(batch["input"], np.float32),
@@ -191,7 +198,7 @@ def fraud_serving_tiers(model, specs=None, device=None) -> List:
     return fp_int8_tiers(model, to_inputs, example,
                          ("fp32 weights, eval step",
                           "weight-only int8 (quantize_params)"),
-                         FRAUD_INT8_SPEED, device)
+                         FRAUD_INT8_SPEED, device, specs)
 
 
 def auprc(labels: np.ndarray, scores: np.ndarray) -> float:

@@ -13,8 +13,7 @@ side scaled to ``resolution``, the rest padded bottom and right), and
 fp and weight-only int8.  :func:`train_frcnn` trains the detector
 (approximate joint training, ``ops/frcnn_train.py``) through the
 ``Optimizer`` with a ``forward_fn``, on one device or data parallel over
-a mesh (``mesh=``); sharded serving (``specs=``) is ROADMAP.md Queue 1
-item 12b.4.
+a mesh (``mesh=``); ``specs=`` serves over a mesh's data ranks.
 """
 
 from __future__ import annotations
@@ -65,13 +64,15 @@ class FrcnnPredictor:
     ``quantize``: ``False``, ``True`` / ``"weight"`` (int8 weights
     dequantized in the forward) or ``"int8"`` (int8 × int8 products), as
     ``SSDPredictor``'s; a quantized predictor serves a quantized copy of
-    ``detector``."""
+    ``detector``.  ``specs``: as ``SSDPredictor``'s, each rank forwarding
+    its rows (proposal and post-processing included), the detections
+    gathered back."""
 
     def __init__(self, detector: nn.Module,
                  param: Optional[PreProcessParam] = None,
                  aspect_preserving: bool = True,
                  swap_default_means: bool = True, quantize=False,
-                 device=None):
+                 specs=None, device=None):
         if quantize not in (False, True, "weight", "int8"):
             raise ValueError(f"quantize must be False, True, 'weight' or "
                              f"'int8', got {quantize!r}")
@@ -93,6 +94,8 @@ class FrcnnPredictor:
                         "(swap_default_means=False keeps them)")
             param = dataclasses.replace(param, pixel_means=FRCNN_BGR_MEANS)
         self.device = resolve_device(device)
+        if specs is not None:
+            specs.place_state(detector.to(self.device))
         if quantize:
             from analytics_zoo_tpu_torch.utils.quantize import quantize_model
 
@@ -104,6 +107,8 @@ class FrcnnPredictor:
         self.aspect_preserving = aspect_preserving
         self._means = torch.as_tensor(param.pixel_means, dtype=torch.float32,
                                       device=self.device)
+        if specs is not None:
+            self._forward = specs.row_sharded(self._forward)
 
     def _forward(self, x, info) -> torch.Tensor:
         """NHWC pixels (uint8, or float32 mean-subtracted) and (B, 3)
@@ -173,18 +178,17 @@ def frcnn_serving_tiers(detector: nn.Module,
     bucket, as for the SSD tiers); the forward gives the whole canvas a
     unit-scale ``im_info``, so detections come back in canvas pixels,
     read back as numpy.  ``device_program()`` gives the rung's forward
-    and example arguments of its shapes.  Sharded serving (``specs``) is
-    ROADMAP.md Queue 1 item 12b.4."""
+    and example arguments of its shapes.  ``specs``: both rungs are
+    ``FrcnnPredictor(specs=)``, each rank detecting its rows; every rank
+    builds the tiers and calls a rung with the same batch."""
     from analytics_zoo_tpu_torch.serving.ladder import ServingTier
 
-    if specs is not None:
-        raise NotImplementedError("frcnn_serving_tiers(specs=...) is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 12b.4)")
     full = FrcnnPredictor(detector, param=param,
-                          aspect_preserving=aspect_preserving, device=device)
+                          aspect_preserving=aspect_preserving, specs=specs,
+                          device=device)
     int8 = FrcnnPredictor(detector, param=full.param,
                           swap_default_means=False, quantize=True,
-                          device=device)
+                          specs=specs, device=device)
     res = full.param.resolution
 
     def fwd(pred: FrcnnPredictor) -> Callable[[Dict], np.ndarray]:

@@ -11,8 +11,8 @@ rating_class}`` batches; :func:`rec_serving_tiers` gives
 ``serving.ServingRuntime`` the fp and int8 rungs.
 
 ``shard_tables`` has no effect without a mesh, as in the reference; with
-one, every table is row-sharded over the ``model`` axis.  Sharded serving
-(``specs=``) is ROADMAP.md Queue 1 item 12b.4, and refused.
+one, every table is row-sharded over the ``model`` axis, in training and
+in the ``fp`` serving rung (``specs=``).
 """
 
 from __future__ import annotations
@@ -28,7 +28,6 @@ from analytics_zoo_tpu_torch.models.simple import NeuralCF, WideAndDeep
 from analytics_zoo_tpu_torch.parallel import Adam, Optimizer, Trigger
 from analytics_zoo_tpu_torch.pipelines.fraud import (REC_INT8_SPEED,
                                                      fp_int8_tiers,
-                                                     refuse_sharding,
                                                      train_specs)
 
 
@@ -131,11 +130,13 @@ def rec_serving_tiers(model, specs=None, device=None) -> List:
     carries one pair (``{"input": (user, item)}``; the batcher stacks the
     batch into ``(B, 2)``), or a batch is given directly as ``{"input":
     ((B,) users, (B,) items)}``.  The int8 rung serves every table of at
-    least 4096 entries as int8, dequantized before its lookup."""
-    refuse_sharding("rec_serving_tiers", specs=specs)
+    least 4096 entries as int8, dequantized before its lookup.
+    ``specs`` (``pipeline_specs("rec", mesh=mesh)``): the ``fp`` rung
+    over the data ranks, its tables row-sharded over ``model``
+    (``fp_int8_tiers``)."""
     example = {"input": np.zeros((1, 2), np.int32)}
     return fp_int8_tiers(model, rec_pair, example,
                          ("fp32 tables, dedup'd gather, eval step",
                           "weight-only int8 lookup tables "
                           "(quantize_params embedding pattern)"),
-                         REC_INT8_SPEED, device)
+                         REC_INT8_SPEED, device, specs)

@@ -8,8 +8,8 @@ trainable table (vocab 20,000 × 100) dominates the parameters and is
 looked up by ``ops.embedding`` (``"dedup"`` by default);
 :func:`sentiment_serving_tiers` gives ``serving.ServingRuntime`` the fp
 and int8 rungs.  ``train_sentiment(mesh=)`` trains data parallel with
-the table row-sharded; sharded serving (``specs=``) is ROADMAP.md Queue 1
-item 12b.4, and refused.
+the table row-sharded, and ``sentiment_serving_tiers(specs=)`` serves the
+``fp`` rung so over a mesh's data ranks.
 """
 
 from __future__ import annotations
@@ -25,7 +25,6 @@ from analytics_zoo_tpu_torch.models.simple import SentimentNet
 from analytics_zoo_tpu_torch.parallel import Adam, Optimizer, Trigger
 from analytics_zoo_tpu_torch.pipelines.fraud import (SENTIMENT_INT8_SPEED,
                                                      fp_int8_tiers,
-                                                     refuse_sharding,
                                                      train_specs)
 
 
@@ -81,11 +80,12 @@ def sentiment_serving_tiers(model, specs=None, seq_len: int = 128,
     batcher's FIXED bucket); a row of the result is its probability.  The
     int8 rung serves the trainable table, the convolution and the cells'
     dense kernels of at least 4096 entries as int8 (a frozen table stays
-    fp32)."""
-    refuse_sharding("sentiment_serving_tiers", specs=specs)
+    fp32).  ``specs`` (``pipeline_specs("sentiment", mesh=mesh)``): the
+    ``fp`` rung over the data ranks, the table row-sharded over
+    ``model`` (``fp_int8_tiers``)."""
     example = {"input": np.zeros((1, seq_len), np.int32)}
     return fp_int8_tiers(model, _tokens, example,
                          ("fp32 table and head, dedup'd gather, eval step",
                           "weight-only int8 table and kernels "
                           "(quantize_params)"),
-                         SENTIMENT_INT8_SPEED, device)
+                         SENTIMENT_INT8_SPEED, device, specs)

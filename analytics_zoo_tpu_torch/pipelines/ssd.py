@@ -20,9 +20,9 @@ on the device for one batch; :func:`run_serving_loop` keeps a window of
 batches in flight; :class:`Validator` and :class:`SSDMeanAveragePrecision`
 measure mAP; :func:`train_ssd` is the reference's training entry point.
 :func:`ssd_serving_tiers` gives ``serving.ServingRuntime`` its three
-rungs (fp, int8 weights, int8 with a smaller ``keep_topk``).  The yuv420
-wire and packed staging (deferred item e) and sharded serving (item
-12b.4) are not ported yet (ROADMAP.md, Queue 1).
+rungs (fp, int8 weights, int8 with a smaller ``keep_topk``), over a
+mesh's data ranks with ``specs=``.  The yuv420 wire and packed staging
+(deferred item e) are not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -377,16 +377,27 @@ class SSDPredictor:
     per-tensor activation scales); see ``utils.quantize``.  A quantized
     predictor serves a quantized copy of ``model`` (``quantize_model``)
     and keeps no reference to ``model``, so the caller can release the
-    fp32 weights."""
+    fp32 weights.
+
+    ``specs`` (a ``parallel.specs.SpecSet``, e.g. ``pipeline_specs("ssd",
+    mesh=mesh)``): every rank builds the predictor (``model`` placed by
+    ``specs.place_state``: rank 0's weights on every rank) and calls it
+    with the same batch; each rank runs its rows through the forward and
+    the DetectionOutput (K2 on the card), and the detections are
+    all-gathered back (``SpecSet.row_sharded``; a batch that does not
+    divide the data width runs whole on every rank)."""
 
     def __init__(self, model: nn.Module, param: PreProcessParam,
                  post: Optional[DetectionOutputParam] = None,
                  n_classes: int = 21, compute_dtype=None, quantize=False,
-                 device=None):
+                 specs=None, device=None):
         if quantize not in (False, True, "weight", "int8"):
             raise ValueError(f"quantize must be False, True, 'weight' or "
                              f"'int8', got {quantize!r}")
         self.device = resolve_device(device)
+        self.specs = specs
+        if specs is not None:
+            specs.place_state(model.to(self.device))
         # the model's own priors (an SSD variant's), else SSD-VGG's at
         # the param's resolution
         config = getattr(model, "config", None)
@@ -408,6 +419,8 @@ class SSDPredictor:
                                       device=self.device)
         self._eval_step = make_eval_step(self.model,
                                          compute_dtype=compute_dtype)
+        if specs is not None:
+            self._detect = specs.row_sharded(self._detect)
 
     def set_top_k(self, k: int) -> "SSDPredictor":
         """A predictor serving ``keep_topk=k``; the receiver is unchanged
@@ -608,16 +621,15 @@ def train_ssd(train_set, val_set, params: TrainParams,
     same global batches and keeps its rows; ``tp=None`` is data parallel
     (MultiBoxLoss normalised by the whole batch's positives, validation
     through K2 on every rank's rows, merged), ``tp="megatron"`` shards
-    the weights by ``tensor.ssd_tp_rules`` over a ("data", "model") mesh.
-    ``params.log_dir`` writes the TensorBoard summaries of the run
-    (``Loss`` and ``LearningRate`` a step, the validation score) under
-    ``<log_dir>/<job_name>/{train,validation}``.  Refused by name:
-    ``tp="spatial"`` (item 12b.3)."""
-    if tp == "spatial":
-        raise NotImplementedError(
-            "train_ssd(tp='spatial'): image height over the model axis, "
-            "with its halo exchanges, is not ported yet (ROADMAP.md Queue 1 "
-            "item 12b.3)")
+    the weights by ``tensor.ssd_tp_rules`` over a ("data", "model") mesh,
+    and ``tp="spatial"`` cuts the image height over ``model`` with the
+    weights replicated (``models.ssd.spatial_forward`` fetches each
+    layer's halo rows; the gradients are summed over ``model``; the
+    validation runs the same way, through K2 on every rank, each data
+    coordinate's rows counted once).  ``params.log_dir`` writes the
+    TensorBoard summaries of the run (``Loss`` and ``LearningRate`` a
+    step, the validation score) under
+    ``<log_dir>/<job_name>/{train,validation}``."""
     specs = None
     if mesh is not None or tp is not None:
         from analytics_zoo_tpu_torch.parallel.specs import pipeline_specs
@@ -704,18 +716,20 @@ def ssd_serving_tiers(model: nn.Module, param: PreProcessParam,
     bucket), and a rung's forward returns the batch's (B, K, 6) rows as
     numpy, read back.  ``device_program()`` gives the rung's detect
     callable and example arguments of its shapes, its
-    ``DetectionOutputParam`` last.  Sharded serving (``specs``) is
-    ROADMAP.md Queue 1 item 12b.4."""
+    ``DetectionOutputParam`` last.  ``specs`` (e.g.
+    ``pipeline_specs("ssd", mesh=mesh)``): every rung is an
+    ``SSDPredictor(specs=)``, each rank detecting its rows of the batch,
+    the rows gathered back; every rank builds the tiers and calls a rung
+    with the same batch (``ServingRuntime(specs=)`` on rank 0 and
+    ``serve_follower`` on the others arrange that)."""
     from analytics_zoo_tpu_torch.serving.ladder import ServingTier
 
-    if specs is not None:
-        raise NotImplementedError("ssd_serving_tiers(specs=...) is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 12b.4)")
     full = SSDPredictor(model, param, post=post, n_classes=n_classes,
-                        compute_dtype=compute_dtype, device=device)
+                        compute_dtype=compute_dtype, specs=specs,
+                        device=device)
     int8 = SSDPredictor(model, param, post=post, n_classes=n_classes,
                         compute_dtype=compute_dtype, quantize=True,
-                        device=device)
+                        specs=specs, device=device)
     low = int8.set_top_k(degraded_topk)
 
     def fwd(pred: SSDPredictor) -> Callable[[Dict], np.ndarray]:

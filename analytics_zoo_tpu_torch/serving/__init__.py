@@ -17,7 +17,9 @@ predictable latency.
 - :mod:`runtime`: :class:`ServingRuntime`, the synchronous scheduler
   over them, serial; ``models=[ModelConfig(...)]`` multiplexes several
   models on one pool, with per-model ladders and SLOs, weighted-EDF
-  dispatch and session-affine streaming sessions.
+  dispatch and session-affine streaming sessions;
+- :mod:`follower`: :func:`serve_follower`, the other ranks' half of a
+  ``ServingRuntime(specs=)`` over tiers sharded across processes.
 """
 
 from analytics_zoo_tpu_torch.serving.autoscale import OCCUPANCY_KNEE, Reshape
@@ -26,6 +28,8 @@ from analytics_zoo_tpu_torch.serving.batcher import (FIXED, AssembledBatch,
                                                      ModelPlan)
 from analytics_zoo_tpu_torch.serving.clock import (Clock, MonotonicClock,
                                                    VirtualClock)
+from analytics_zoo_tpu_torch.serving.follower import (FollowerFailed,
+                                                      serve_follower)
 from analytics_zoo_tpu_torch.serving.ladder import (DegradationLadder,
                                                     LadderPolicy, ServingTier)
 from analytics_zoo_tpu_torch.serving.metrics import ServingMetrics, percentile

@@ -1,0 +1,245 @@
+"""Sharded serving across processes: the runtime on one rank, followers
+on the others (the multi-controller counterpart of the reference's one
+controller over a mesh).
+
+A tier built with ``specs=`` (``ssd_serving_tiers(specs=...)`` and the
+others) runs collectives: every rank of the mesh must call it with the
+same batch, in the same order.  Runtimes on each rank would batch
+differently (a ``MonotonicClock`` reads each process's own time) and the
+ranks would wait on each other forever.  So one rank, the mesh's first,
+runs :class:`~analytics_zoo_tpu_torch.serving.runtime.ServingRuntime`
+with ``specs=`` and every other rank runs :func:`serve_follower` over the
+same tiers:
+
+- each dispatch of a sharded tier on the leader first broadcasts what to
+  run (the tier set, the rung, the batch); each follower looks the rung
+  up, and the ranks agree that every follower found its work before
+  any rank runs it, so that a rank which fails before the tier's
+  collectives fails the dispatch on every rank instead of leaving its
+  peers waiting in them;
+- a hot swap's tier build (``ModelConfig.weights_to_tiers``) broadcasts
+  the loaded state, and every follower builds the same tiers from it (a
+  sharded tier's build places the weights with ``specs.place_state``);
+- after each command every rank reports its outcome: a follower's
+  exception becomes that dispatch's failure on the leader, which fences
+  or fails over as for any failed forward;
+- :meth:`ServingRuntime.close` sends the followers ``stop``.
+
+Every wait of the control plane (a command, the agreement, an outcome)
+runs on a gloo group of its own whose waits end after :data:`TIMEOUT_S`.
+Inside a sharded tier, a rank's placement and forward run before the
+ranks' first collective of the call (``parallel.specs.gather_rows_guarded``),
+which fails the call on every rank when one rank raised.  A hot swap's
+build places the weights on the mesh's own groups, whose waits the
+process group's timeout bounds.
+"""
+
+from __future__ import annotations
+
+import datetime
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+#: the bound of a control-plane wait, seconds
+TIMEOUT_S = 600.0
+
+
+class FollowerFailed(RuntimeError):
+    """A follower rank raised in a command the leader sent."""
+
+
+def _ranks(specs) -> List[int]:
+    return [int(r) for r in specs.mesh.mesh.flatten().tolist()]
+
+
+def _control_group(specs):
+    """The mesh's ranks in a gloo group of their own (every rank of the
+    world calls this, at the same point) whose waits end after
+    :data:`TIMEOUT_S`."""
+    return dist.new_group(_ranks(specs), backend="gloo",
+                          timeout=datetime.timedelta(seconds=TIMEOUT_S))
+
+
+def _cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cpu(v) for v in tree)
+    return tree
+
+
+def _to(tree, device):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree
+
+
+class _Channel:
+    """The control plane: the leader's commands, every rank's outcome."""
+
+    def __init__(self, specs):
+        self.ranks = _ranks(specs)
+        self.leader = self.ranks[0]
+        self.group = _control_group(specs)
+
+    def command(self, cmd=None):
+        """Broadcast ``cmd`` from the leader; a follower gets it."""
+        box = [cmd]
+        dist.broadcast_object_list(box, src=self.leader, group=self.group)
+        return box[0]
+
+    def agree(self, ready: bool) -> bool:
+        """Whether every rank is ready to run the last command."""
+        flag = torch.tensor([0 if ready else 1], dtype=torch.int32)
+        dist.all_reduce(flag, group=self.group)
+        return not flag.item()
+
+    def outcomes(self, err: Optional[str]) -> List[Optional[str]]:
+        """Every rank's outcome of the last command (``None``: done)."""
+        out: List[Optional[str]] = [None] * len(self.ranks)
+        dist.all_gather_object(out, err, group=self.group)
+        return out
+
+
+def _describe(e: BaseException) -> str:
+    return f"{type(e).__name__}: {e}"[:400]
+
+
+class Leader:
+    """The leader's half (``ServingRuntime(specs=)`` builds it): the tier
+    sets the followers mirror, numbered in the order both sides register
+    them."""
+
+    def __init__(self, specs):
+        self.channel = _Channel(specs)
+        self.n_sets = 0
+
+    def _run(self, cmd, local: Callable[[], Any]):
+        """Send ``cmd``, run ``local()`` here once every follower is
+        ready to run it too, then collect the outcomes: this rank's
+        exception is raised, else a follower's."""
+        self.channel.command(cmd)
+        out = err = None
+        if self.channel.agree(True):
+            try:
+                out = local()
+            except Exception as e:      # noqa: BLE001 - re-raised below
+                err = e
+        errs = self.channel.outcomes(None if err is None else _describe(err))
+        if err is not None:
+            raise err
+        bad = [(r, e) for r, e in zip(self.channel.ranks, errs) if e]
+        if bad:
+            raise FollowerFailed("; ".join(f"rank {r}: {e}" for r, e in bad))
+        return out
+
+    def register(self, tiers: Sequence, handle: Optional[int] = None
+                 ) -> List:
+        """The tiers with each forward announced to the followers first
+        (as set ``handle``, by default the followers' next)."""
+        import dataclasses
+
+        if handle is None:
+            handle = self.n_sets
+            self.n_sets += 1
+
+        def wrap(i, forward):
+            def run(batch):
+                return self._run(("run", handle, i, batch),
+                                 lambda: forward(batch))
+            return run
+
+        return [dataclasses.replace(t, forward=wrap(i, t.forward))
+                for i, t in enumerate(tiers)]
+
+    def builder(self, model: str, build: Callable) -> Callable:
+        """``weights_to_tiers`` whose every call is mirrored: the state
+        goes to the followers (as host tensors), each builds its tiers
+        from it, and the tiers come back registered."""
+        def weights_to_tiers(state, rid):
+            handle = self.n_sets          # the followers' next, built or not
+            self.n_sets += 1
+            tiers = self._run(("build", model, rid, _cpu(state)),
+                              lambda: list(build(state, rid)))
+            return self.register(tiers, handle)
+        return weights_to_tiers
+
+    def stop(self) -> None:
+        self.channel.command(("stop",))
+
+
+def _prepare(cmd, sets: List, builders: Dict[str, Callable], device
+             ) -> Callable[[], None]:
+    """What a follower runs for ``cmd`` (the rung looked up, a hot swap's
+    state moved to ``device``): every failure that can come before a
+    tier's collectives comes here, before the ranks agree to run."""
+    if cmd[0] == "run":
+        _, handle, i, batch = cmd
+        forward = sets[handle][i]
+        return lambda: forward(batch)
+    if cmd[0] == "build":
+        _, model, rid, state = cmd
+        slot = len(sets)
+        sets.append(None)           # the leader numbers it, built or not
+        build = builders[model]
+        if device is not None:
+            state = _to(state, device)
+
+        def run():
+            sets[slot] = [t.forward for t in build(state, rid)]
+        return run
+    raise ValueError(f"unknown command {cmd[0]!r}")
+
+
+def serve_follower(specs, tiers: Optional[Sequence] = None,
+                   models: Optional[Sequence] = None, *, device=None
+                   ) -> Dict[str, int]:
+    """Serve as a follower rank until the leader's runtime closes.
+
+    ``tiers`` (or ``models``, ``ModelConfig`` s in the leader's order)
+    are this rank's copies of what the leader's ``ServingRuntime(specs=
+    specs)`` serves, built the same way with the same ``specs``.  Each
+    command runs the named rung on the leader's batch, or builds a
+    model's tiers from the state of a hot swap (on ``device``, default
+    the state's), and reports its outcome; an exception is reported, not
+    raised, and the loop goes on.  A control-plane wait longer than
+    :data:`TIMEOUT_S` (the leader lost) raises.  Returns the counts of
+    runs, builds and failures."""
+    if (tiers is None) == (models is None):
+        raise ValueError("pass tiers= OR models=")
+    channel = _Channel(specs)
+    if models is None:
+        sets: List[Optional[List[Callable]]] = [
+            [t.forward for t in tiers]]
+        builders: Dict[str, Callable] = {}
+    else:
+        sets = [[t.forward for t in cfg.tiers] for cfg in models]
+        builders = {cfg.name: cfg.weights_to_tiers for cfg in models}
+    counts = {"run": 0, "build": 0, "failed": 0}
+    while True:
+        cmd = channel.command()
+        if cmd[0] == "stop":
+            return counts
+        if cmd[0] in counts:
+            counts[cmd[0]] += 1
+        err = job = None
+        try:
+            job = _prepare(cmd, sets, builders, device)
+        except Exception as e:          # noqa: BLE001 - reported
+            err = _describe(e)
+        if channel.agree(err is None) and job is not None:
+            try:
+                job()
+            except Exception as e:      # noqa: BLE001 - reported
+                err = _describe(e)
+        if err is not None:
+            counts["failed"] += 1
+        channel.outcomes(err)

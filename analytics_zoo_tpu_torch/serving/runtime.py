@@ -64,12 +64,21 @@ black box when ``obs.dump_path`` is set.
 :class:`~analytics_zoo_tpu_torch.obs.trace.TraceStore` splits each
 request's latency over the recording.
 
+**Sharded tiers**: ``specs=`` (the ``SpecSet`` the tiers were built
+with, ``ssd_serving_tiers(specs=...)`` and the others) runs this runtime
+on the mesh's first rank and :func:`~analytics_zoo_tpu_torch.serving.
+follower.serve_follower` on every other rank: each dispatch announces
+its rung and batch to the followers before it runs, a hot swap's tier
+builds send them the loaded state, a follower's exception fails the
+dispatch here (fenced or failed over as any failed forward), and
+:meth:`ServingRuntime.close` stops them (``serving/follower.py``).
+``snapshot()["mesh"]`` records the mesh.
+
 Not ported, each refused where it is asked for: the parallel service
 model (``parallel_replicas``), mesh-slice replicas (``slice_width > 1``,
 ``device_budget``), the autoscaler, chaos injection, the device-health
 sentinel and the compile-cost model of pre-warming (``compile_s``, a
-swap's ``warm_s``) (ROADMAP.md Queue 1 item 13); sharded serving
-(``specs=``) (item 12b.4).
+swap's ``warm_s``) (ROADMAP.md Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -96,7 +105,6 @@ from analytics_zoo_tpu_torch.serving.request import (DEFAULT_MODEL,
                                                      AdmissionQueue, Request)
 
 _ITEM_13 = "ROADMAP.md Queue 1 item 13"
-_ITEM_12B = "ROADMAP.md Queue 1 item 12b.4"
 # keyword → what it is and the ROADMAP item that ports it; a non-default
 # value raises
 _REFUSED = {
@@ -108,7 +116,6 @@ _REFUSED = {
     "health": ("the device-health sentinel", _ITEM_13),
     "compile_s": ("the per-geometry compile cost of pre-warming",
                   _ITEM_13),
-    "specs": ("sharded serving", _ITEM_12B),
 }
 
 
@@ -238,7 +245,7 @@ class ServingRuntime:
                  "slice_width": slice_width != 1,
                  "device_budget": device_budget, "autoscaler": autoscaler,
                  "chaos": chaos, "health": health,
-                 "specs": specs, "compile_s": compile_s != 0}
+                 "compile_s": compile_s != 0}
         for key, value in given.items():
             if value is not None and value is not False:
                 what, where = _REFUSED[key]
@@ -264,6 +271,10 @@ class ServingRuntime:
                 bucket_edges=bucket_edges, pad_key=pad_key,
                 length_key=length_key)}
             self._multi = False
+        self.specs = specs
+        self._leader = None
+        if specs is not None:
+            self._lead(specs)
         self.clock = clock or MonotonicClock()
         self.default_deadline_s = float(default_deadline_s)
         self.max_batch = int(max_batch)
@@ -357,6 +368,38 @@ class ServingRuntime:
                        else None)
 
     # -- construction helpers ------------------------------------------------
+    def _lead(self, specs) -> None:
+        """Over ranks of several processes: this rank leads, each model's
+        tiers and tier builder announced to the followers
+        (``serving/follower.py``)."""
+        from analytics_zoo_tpu_torch.parallel.mesh import spans_processes
+        from analytics_zoo_tpu_torch.serving.follower import Leader
+
+        if not spans_processes(specs.mesh):
+            return
+        for cfg in self.models.values():
+            if cfg.tier_factory is not None:
+                raise ValueError(
+                    f"model {cfg.name!r}: per-replica tiers (tier_factory) "
+                    "hold per-replica state and cannot be sharded "
+                    "(specs=)")
+        self._leader = Leader(specs)
+        for name, cfg in list(self.models.items()):
+            self.models[name] = dataclasses.replace(
+                cfg, tiers=self._leader.register(cfg.tiers),
+                weights_to_tiers=(None if cfg.weights_to_tiers is None
+                                  else self._leader.builder(
+                                      name, cfg.weights_to_tiers)))
+        if not self._multi:
+            self.tiers = self.models[DEFAULT_MODEL].tiers
+
+    def close(self) -> None:
+        """Stop the follower ranks (``specs=`` over several processes;
+        nothing otherwise).  The runtime dispatches nothing after it."""
+        if self._leader is not None:
+            self._leader.stop()
+            self._leader = None
+
     def _make_replica(self, rid: int) -> Replica:
         """Build one replica (also the pool's growth factory): the
         per-model tier table, with per-replica tier instances where a
@@ -1153,8 +1196,17 @@ class ServingRuntime:
                 "unaccounted": self._submitted - terminal}
 
     def snapshot(self) -> Dict[str, Any]:
+        mesh_info = None
+        if self.specs is not None:
+            from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+            names = mesh_lib.axis_names(self.specs.mesh)
+            mesh_info = {
+                "axes": {n: mesh_lib.axis_size(self.specs.mesh, n)
+                         for n in names},
+                "data_axis_size": self.specs.data_axis_size,
+            }
         out = {
-            "mesh": None,
+            "mesh": mesh_info,
             "metrics": self.metrics.snapshot(),
             "queue": self.queue.snapshot(),
             "replicas": self.pool.snapshot(),

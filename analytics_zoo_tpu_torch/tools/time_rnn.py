@@ -12,9 +12,10 @@ tree since K4's port has.  Inputs are seeded: B=8, T=1500, H=1760,
 clipped ReLU, fp32, all steps valid, ``time_block`` 8.  Prints one JSON
 line: the package's directory, the card's name and power limit, K3 and
 K4 in ms (CUDA events, the mean of 5 launches after one), and the norm
-of each output, by which two trees' results can be told apart.
+and a sha256 of each output, equal across trees when the results are.
 """
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -73,11 +74,15 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    norms = {k: v.double().norm().item() for k, v in zip(
-        ("ys", "d_pre", "d_w", "d_b", "d_h0"), (ys,) + tuple(grads))}
+    outs = dict(zip(("ys", "d_pre", "d_w", "d_b", "d_h0"),
+                    (ys,) + tuple(grads)))
+    norms = {k: v.double().norm().item() for k, v in outs.items()}
+    sha = {k: hashlib.sha256(v.detach().cpu().contiguous().numpy()
+                             .tobytes()).hexdigest()[:16]
+           for k, v in outs.items()}
     print(json.dumps({"package": analytics_zoo_tpu_torch.__path__[0],
                       "nvidia_smi": smi, "k3_ms": k3_ms, "k4_ms": k4_ms,
-                      "norms": norms}), flush=True)
+                      "norms": norms, "sha256": sha}), flush=True)
     return 0
 
 

@@ -13,6 +13,10 @@ draw.  The convention: a rank's loss, averaged over the data ranks, is
 the global loss, and the step averages the gradients.  Outside a scope
 every hook is the identity of the one-process step.
 
+The image rows.  Under spatial partitioning a rank holds a block of
+the image height; the step opens :func:`row_shards` with the group the
+rows are cut over, and a model reads it with :func:`row_group`.
+
 A parameter's whole value.  A weight that tensor-parallel placement
 (``parallel.tensor.shard_module``) cut to this rank's shard and that a
 layer reads directly rather than through its own forward (the persistent
@@ -104,6 +108,28 @@ def rows_rand(shape, generator=None, device=None) -> torch.Tensor:
     full = torch.rand((shape[0] * width,) + shape[1:], generator=generator,
                       device=device)
     return full.narrow(0, _SCOPE[-1][2] * shape[0], shape[0])
+
+
+# the group of each open row scope, innermost last
+_ROWS: list = []
+
+
+@contextlib.contextmanager
+def row_shards(group):
+    """Run a forward whose image rows are cut over ``group`` (spatial
+    partitioning): the input holds this rank's block of the height, and
+    a model that knows how (``models.ssd.SSDVgg``) runs its layers on
+    row blocks and returns its outputs whole.  ``None``: one rank."""
+    _ROWS.append(group)
+    try:
+        yield
+    finally:
+        _ROWS.pop()
+
+
+def row_group():
+    """The group of the running row scope (``None`` outside one)."""
+    return _ROWS[-1] if _ROWS else None
 
 
 # parameter → how to gather its whole value (set by tensor-parallel

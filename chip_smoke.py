@@ -435,7 +435,10 @@ Phases, one JSON line each; any failure exits non-zero:
    and 6 K4 launches an executed step; a second run with
    ``max_rollbacks=0`` raises ``TrainingDiverged`` and writes the black
    box; a clean step's ms and peak GB armed (sentinel and spans) against
-   un-armed, in interleaved windows.  SSD300 on ``ServingRuntime(
+   un-armed, in interleaved windows.  The poisoned batch's health word
+   on the card equals the word one step of the same model on the CPU
+   gives for it (K3 and K4 propagate a NaN as their plain versions do).
+   SSD300 on ``ServingRuntime(
    n_replicas=2, max_batch=8, obs=Observability())``:
    ``TELEMETRY_REQUESTS`` requests with one replica's forward crashing
    once (a fence, the black-box dump, a failover): every completed
@@ -448,6 +451,24 @@ Phases, one JSON line each; any failure exits non-zero:
    ``TrainParams(log_dir=...)``: 2 steps of ``TELEMETRY_SSD_BATCH`` and
    one validation batch of 8 (K2), the event files read back (tags,
    steps, values equal to the run's);
+6r. dist_spatial: ``train_ssd(tp="spatial")`` on a ("data", "model")
+   mesh of (1, 2), the image rows over the two ranks (each layer's halo
+   rows fetched from the rank that holds them), SSD300 at batch
+   ``SPATIAL_SSD_BATCH``, 2 steps and a validation of 8 through K2 on
+   every rank: the first step's loss and gradients against one
+   process's (``DIST_LOSS_TOL``, ``DIST_GRAD_TOL``), the validation rows
+   ``SPATIAL_MATCH_MIN`` matched; ms a step by rank, the row fetches' ms
+   and share of a step, K2's launches by rank;
+6s. dist_serve: on a ("data",) mesh of 2, SSD300 ``detect_batch`` of 8
+   (K2 on each rank's 4 rows) and DS2's 8 × 30 s (K3 six times a rank),
+   each rank's rows EQUAL to this process's of its half and the
+   transcripts EQUAL; then ``SERVE_REQUESTS`` SSD requests through
+   ``ServingRuntime(specs=)`` on rank 0 with ``serve_follower`` on rank
+   1 and a hot swap half-way: 0 failed, the swap built on both ranks,
+   the rows matched to a one-process runtime's (``DIST_MATCH_MIN``),
+   p50/p99 against it; the launches by rank; the sharded calls'
+   guarded gather against a gather per output on the same rows
+   (``guarded_gather_ms``);
 7. the ``kernels`` line, then the device line last.
 
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -5145,7 +5166,8 @@ def dist_child(task, **kw):
     torch.backends.cuda.matmul.allow_tf32 = False
     return {"dp": dist_dp_rank, "tp": dist_tp_rank,
             "nccl": dist_nccl_rank, "seq": dist_seq_rank,
-            "attn": dist_attn_rank}[task](**kw)
+            "attn": dist_attn_rank, "spatial": dist_spatial_rank,
+            "serve": dist_serve_rank}[task](**kw)
 
 
 class recording_optimizer:
@@ -5330,6 +5352,25 @@ def match_rows(got, want):
                 diffs.append(abs(float(other[1] - row[1])))
                 break
     return len(diffs) / max(len(vw), 1), max(diffs) if diffs else 0.0
+
+
+def settled_share(got, want, margin):
+    """The share of ``want``'s valid rows scored more than ``margin``
+    above its image's lowest kept score (where ``keep_topk`` cut the
+    image's rows; every row otherwise) that ``match_rows`` finds in
+    ``got``, over the images: the rows a perturbation of the scores by
+    less than ``margin`` cannot push past the cut."""
+    import numpy as np
+
+    hits = total = 0
+    for g, w in zip(got, want):
+        vw = w[w[:, 1] > 0]
+        cut = vw[:, 1].min() if len(vw) == len(w) else -np.inf
+        settled = vw[vw[:, 1] > cut + margin]
+        share, _ = match_rows(g, settled)
+        hits += share * len(settled)
+        total += len(settled)
+    return hits / max(total, 1)
 
 
 def match_images(got, want):
@@ -5716,16 +5757,20 @@ def seq_train_batches(seed):
 
 class collective_clock:
     """``with collective_clock() as ms:`` — every ``all_to_all_single``,
-    ``all_gather_into_tensor`` and ``all_reduce`` of this process
-    synchronized on both sides and its host ms appended to ``ms``."""
+    ``all_gather_into_tensor`` and ``all_reduce`` of this process (or the
+    collectives ``names`` names) synchronized on both sides and its host
+    ms appended to ``ms``."""
 
     NAMES = ("all_to_all_single", "all_gather_into_tensor", "all_reduce")
+
+    def __init__(self, names=NAMES):
+        self.names = names
 
     def __enter__(self):
         import torch
         import torch.distributed as dist
 
-        self.ms, self.saved = [], {n: getattr(dist, n) for n in self.NAMES}
+        self.ms, self.saved = [], {n: getattr(dist, n) for n in self.names}
 
         def timed(fn):
             def call(*args, **kwargs):
@@ -6143,6 +6188,608 @@ def dist_attn_phase(dev, smi, seed=43):
     return {name: sum(r["launches"][name] for r in ranks)
             for name in ranks[0]["launches"]}
 
+# ---------------------------------------------------------------------------
+# 6r/6s. SSD over a mesh: spatial training, sharded serving, two ranks
+# ---------------------------------------------------------------------------
+
+# train_ssd(tp="spatial") on a ("data", "model") mesh of (1, 2): the image
+# rows over the two ranks, SSD300 at batch 32, fp32, 2 steps, a validation
+# of 8 through K2 on every rank; the first step's loss and gradients as
+# dist_tp holds megatron's (DIST_LOSS_TOL, DIST_GRAD_TOL), each rank's
+# validation rows against this process's: at least SPATIAL_MATCH_MIN
+# matched a image, the scores within DIST_SCORE_TOL
+SPATIAL_SSD_BATCH, SPATIAL_STEPS, SPATIAL_VAL = 32, 2, 8
+SPATIAL_MATCH_MIN = 0.995
+# the steps' learning rate: at TrainParams' 0.0035 two steps from random
+# weights saturate the scores (every kept score >= 0.9958 in a CPU
+# rehearsal at batch 2) and blow up the loc logits, so that a logit
+# perturbation of 1e-6 moves decoded boxes by up to 4e-3 and the
+# validation would measure the conditioning of a diverged model
+SPATIAL_LR = 1e-4
+# the validation's logits on each rank against this process's forward of
+# the same weights, max-abs over the largest: each layer convolves a
+# block of rows (cuDNN may pick another algorithm for it); two steps at
+# TrainParams' lr make the weights jumpy, so this is the 1e-4 that
+# tests/test_torch_ssd_train.py holds such steps to.  The rows: each
+# rank's K2 rows EQUAL to the plain version on its own logits; against
+# this process's validation, SPATIAL_MATCH_MIN of the rows scored more
+# than DIST_SCORE_TOL above their image's keep_topk cut matched
+# (settled_share: on random weights many scores tie near the cut, and a
+# logit perturbation of 1e-6 reorders them there), the whole rows'
+# shares printed
+SPATIAL_LOGIT_TOL = 1e-4
+# sharded serving on a ("data",) mesh of 2: SSD300 batch 8 (K2 on each
+# rank's 4 rows), DS2 8 × 30 s (K3 six times a rank), then SERVE_REQUESTS
+# SSD requests through ServingRuntime(specs=) with the follower and one
+# hot swap; the rows EQUAL (rows_err) to this process's of the same
+# halves, and against the whole batch matched as DIST_MATCH_MIN; the DS2
+# log-probs within DS2_LOGP_TOL of this process's halves, the transcripts
+# EQUAL
+SERVE_DS2_FRAMES = 3000
+SERVE_REQUESTS = 64
+
+
+def dist_spatial_rank(train, val):
+    """``train_ssd(tp="spatial")`` (fp32) on (1, DIST_TP_WORLD): losses,
+    the first step's gradients and trained weights (rank 0), the
+    validation rows, launches, stamps; then one more step with its row
+    fetches (every ``all_to_all_single``, forward and backward) and all
+    its collectives timed."""
+    import torch
+    import torch.distributed as dist
+
+    from analytics_zoo_tpu_torch.models.ssd import (SSDVgg, build_priors,
+                                                    config_for)
+    from analytics_zoo_tpu_torch.ops.multibox_loss import (MultiBoxLoss,
+                                                           MultiBoxLossParam)
+    from analytics_zoo_tpu_torch.parallel import (SGD, create_train_state,
+                                                  make_train_step)
+    from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+    from analytics_zoo_tpu_torch.parallel.specs import (SpecSet,
+                                                        pipeline_specs)
+    from analytics_zoo_tpu_torch.pipelines import ssd as ssd_pipe
+    from analytics_zoo_tpu_torch.utils import engine
+
+    mesh = mesh_lib.create_mesh((1, DIST_TP_WORLD), ("data", "model"))
+    model = SSDVgg(21, 300, device=engine.device(), seed=0)
+    tap = GradTap(train, model, SpecSet(mesh))
+    params = ssd_pipe.TrainParams(max_epoch=1, compute_dtype=None,
+                                  prefetch=0, learning_rate=SPATIAL_LR)
+    opt, seen, launches, seconds = recorded_train_ssd(
+        tap, val, params, model, mesh=mesh, tp="spatial")
+    rank0 = dist.get_rank() == 0
+    out = {"losses": [float(m["loss"]) for m in opt.history],
+           "grads": tap.grads if rank0 else None,
+           "weights": SpecSet(mesh).gather(model) if rank0 else None,
+           "detections": [d.numpy() for _, _, d in seen],
+           "validation": [tuple(t.numpy() for t in v) for v in seen],
+           "val_history": opt.val_history, "launches": launches,
+           "stamps": tap.stamps, "seconds": seconds}
+    specs = pipeline_specs("ssd", mesh=mesh, tp="spatial")
+    out["rows"] = int(specs.place_batch(train[0])["input"].shape[1])
+    priors, variances = build_priors(config_for(300))
+    crit = MultiBoxLoss(priors, variances, MultiBoxLossParam(n_classes=21))
+    step = make_train_step(model, crit, SGD(1e-3, momentum=0.9),
+                           skip_loss_above=50.0, specs=specs)
+    state = create_train_state(model, SGD(1e-3, momentum=0.9))
+    with collective_clock(("all_to_all_single",)) as fetch_ms:
+        _, out["fetch_clocked_step_ms"] = timed_ms(
+            lambda: step(state, train[0]))
+    with collective_clock() as all_ms:
+        _, out["clocked_step_ms"] = timed_ms(lambda: step(state, train[0]))
+    out["fetch_ms"], out["fetch_calls"] = sum(fetch_ms), len(fetch_ms)
+    out["collective_ms"], out["collective_calls"] = sum(all_ms), len(all_ms)
+    del model, opt, step, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def one_process_logits(dev, weights, batch):
+    """(loc, probs) of ``batch`` by this process's SSD300 on ``weights``."""
+    import torch
+
+    from analytics_zoo_tpu_torch.models.ssd import SSDVgg
+    from analytics_zoo_tpu_torch.parallel import make_eval_step
+
+    model = SSDVgg(21, 300, device=dev, seed=0)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           weights.items()})
+    loc, conf = make_eval_step(model.eval())(
+        torch.from_numpy(batch["input"]).to(dev))
+    return (loc.cpu().numpy(), torch.softmax(conf, -1).cpu().numpy())
+
+
+def plain_detections(dev, loc, probs):
+    """K2's plain version on the given logits, on the card."""
+    import torch
+
+    from analytics_zoo_tpu_torch.models.ssd import build_priors, config_for
+    from analytics_zoo_tpu_torch.ops import pallas_detout
+    from analytics_zoo_tpu_torch.ops.detection_output import (
+        DetectionOutputParam)
+
+    pri, var = (torch.from_numpy(a).to(dev)
+                for a in build_priors(config_for(300)))
+    return pallas_detout.fused_detection_output_plain(
+        torch.from_numpy(loc).to(dev), torch.from_numpy(probs).to(dev),
+        pri, var, DetectionOutputParam(n_classes=21))
+
+
+def dist_spatial_phase(dev, smi, seed=53):
+    """dist_spatial: ``train_ssd(tp="spatial")`` on a ("data", "model")
+    mesh of (1, DIST_TP_WORLD) over gloo, against the unsharded step and
+    validation."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.models.ssd import (SSDVgg, build_priors,
+                                                    config_for)
+    from analytics_zoo_tpu_torch.ops.multibox_loss import (MultiBoxLoss,
+                                                           MultiBoxLossParam)
+    from analytics_zoo_tpu_torch.parallel import (SGD, create_train_state,
+                                                  make_train_step)
+    from analytics_zoo_tpu_torch.utils import engine
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(seed)
+    train = [ssd_batch(rng, SPATIAL_SSD_BATCH) for _ in range(SPATIAL_STEPS)]
+    val = [ssd_batch(rng, SPATIAL_VAL)]
+    ranks = engine.spawn(os.path.abspath(__file__) + ":dist_child",
+                         DIST_TP_WORLD, dict(task="spatial", train=train,
+                                             val=val),
+                         timeout=DIST_TIMEOUT, backend=DIST_BACKEND,
+                         local_ranks=[0] * DIST_TP_WORLD)
+    # this process: the first step's loss and gradients, a second step
+    # timed
+    priors, variances = build_priors(config_for(300))
+    crit = MultiBoxLoss(priors, variances, MultiBoxLossParam(n_classes=21))
+    model = SSDVgg(21, 300, device=dev, seed=0)
+    step = make_train_step(model, crit, SGD(1e-3, momentum=0.9),
+                           skip_loss_above=50.0)
+    state = create_train_state(model, SGD(1e-3, momentum=0.9))
+    state, m = step(state, train[0])
+    ref_loss, ref_grads = m["loss"].item(), tap_grads(model)
+    _, ref_step_ms = timed_ms(lambda: step(state, train[0]))
+    del model, step, state
+    torch.cuda.empty_cache()
+    loss_err = check_losses("dist_spatial", ranks[0]["losses"][0], ref_loss)
+    grad_err = vector_rel(ranks[0]["grads"], ref_grads)
+    if not grad_err <= DIST_GRAD_TOL:
+        raise AssertionError(f"dist_spatial: first-step gradients rel L2 "
+                             f"{grad_err:.3g} (tol {DIST_GRAD_TOL})")
+    for r, x in enumerate(ranks):
+        if x["losses"] != ranks[0]["losses"]:
+            raise AssertionError(f"dist_spatial rank {r}: losses "
+                                 f"{x['losses']} against rank 0's "
+                                 f"{ranks[0]['losses']}")
+        if (x["launches"]["fused_detection_output"] < 1
+                or x["launches"]["nms_sweep"]
+                or len(x["detections"]) != 1
+                or x["detections"][0].shape[0] != SPATIAL_VAL):
+            raise AssertionError(f"dist_spatial rank {r}: launches "
+                                 f"{x['launches']}, validated "
+                                 f"{[d.shape for d in x['detections']]}")
+    ref_dets, _, ref_map = one_process_validation(dev, ranks[0]["weights"],
+                                                  val)
+    # the logits each rank's K2 read against this process's forward of the
+    # same weights, and K2's rows against its plain version on them
+    ref_logits = one_process_logits(dev, ranks[0]["weights"], val[0])
+    logit_err, k2_err = 0.0, 0.0
+    for x in ranks:
+        (loc, probs, dets), = x["validation"]
+        for got, want in ((loc, ref_logits[0]), (probs, ref_logits[1])):
+            logit_err = max(logit_err, float(
+                np.abs(got - want).max() / np.abs(want).max()))
+        k2_err = max(k2_err, rows_err(torch.from_numpy(dets),
+                                      plain_detections(dev, loc, probs)))
+    want = np.concatenate(ref_dets)
+    match = [match_images(x["detections"][0], want) for x in ranks]
+    match_min = min(m[0] for m in match)
+    match_mean = min(m[1] for m in match)
+    score_err = max(m[2] for m in match)
+    settled = min(settled_share(x["detections"][0], want, DIST_SCORE_TOL)
+                  for x in ranks)
+    if (not logit_err <= SPATIAL_LOGIT_TOL or settled < SPATIAL_MATCH_MIN
+            or score_err > DIST_SCORE_TOL):
+        raise AssertionError(f"dist_spatial validation: logits rel "
+                             f"{logit_err:.3g} (tol {SPATIAL_LOGIT_TOL}), "
+                             f"settled rows matched {settled} (min "
+                             f"{SPATIAL_MATCH_MIN}), all rows min "
+                             f"{match_min}, mean {match_mean}, score err "
+                             f"{score_err} (tol {DIST_SCORE_TOL})")
+    sp_map = ranks[0]["val_history"][-1]
+    map_name = next(k for k in sp_map if k != "iteration")
+    emit("dist_spatial", nvidia_smi=smi, world=DIST_TP_WORLD,
+         mesh={"data": 1, "model": DIST_TP_WORLD},
+         rows_by_rank=[x["rows"] for x in ranks],
+         losses=ranks[0]["losses"], loss_rel_err=loss_err,
+         grad_rel_l2=grad_err,
+         step_ms_by_rank=[stamps_ms(x["stamps"]) for x in ranks],
+         one_process_step_ms=ref_step_ms,
+         fetch_ms_by_rank=[x["fetch_ms"] for x in ranks],
+         fetch_calls=ranks[0]["fetch_calls"],
+         fetch_share_by_rank=[x["fetch_ms"] / x["fetch_clocked_step_ms"]
+                              for x in ranks],
+         fetch_clocked_step_ms_by_rank=[x["fetch_clocked_step_ms"]
+                                        for x in ranks],
+         collective_ms_by_rank=[x["collective_ms"] for x in ranks],
+         collective_calls=ranks[0]["collective_calls"],
+         collective_share_by_rank=[x["collective_ms"] / x["clocked_step_ms"]
+                                   for x in ranks],
+         val_logits_rel_err=logit_err, val_k2_rows_err_vs_plain=k2_err,
+         val_settled_matched=settled,
+         val_matched_min=match_min, val_matched_mean=match_mean,
+         val_score_err=score_err, val_map=sp_map[map_name],
+         one_process_map=ref_map,
+         launches_by_rank=[x["launches"] for x in ranks],
+         phase_s=time.perf_counter() - t_phase)
+    return {k: sum(x["launches"][k] for x in ranks)
+            for k in ranks[0]["launches"]}
+
+
+def dist_serve_rank(ssd_input, ssd_info, ds2_x, ds2_n, requests, seed):
+    """Sharded serving on a ("data",) mesh of DIST_WORLD: SSD300's
+    ``detect_batch`` and DS2's log-probs and greedy transcripts, each
+    with its launches; then rank 0 serves ``requests`` through
+    ``ServingRuntime(specs=)`` over ``ssd_serving_tiers(specs=)`` with a
+    hot swap half-way, the others ``serve_follower``."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from analytics_zoo_tpu_torch.models.ssd import SSDVgg
+    from analytics_zoo_tpu_torch.parallel import checkpoint as ckpt
+    from analytics_zoo_tpu_torch.parallel import make_eval_step
+    from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+    from analytics_zoo_tpu_torch.parallel.specs import pipeline_specs
+    from analytics_zoo_tpu_torch.pipelines import deepspeech2 as ds2_pipe
+    from analytics_zoo_tpu_torch.pipelines.ssd import (PreProcessParam,
+                                                       SSDPredictor,
+                                                       ssd_serving_tiers)
+    from analytics_zoo_tpu_torch.serving import (ModelConfig,
+                                                 MonotonicClock,
+                                                 ServingRuntime)
+    from analytics_zoo_tpu_torch.serving.follower import serve_follower
+    from analytics_zoo_tpu_torch.utils import engine
+
+    dev = engine.device()
+    mesh = mesh_lib.create_mesh((DIST_WORLD,), ("data",))
+    lead = dist.get_rank() == 0
+    out = {"backend": dist.get_backend()}
+    param = PreProcessParam(batch_size=BATCH, resolution=300)
+    ssd_specs = pipeline_specs("ssd", mesh=mesh)
+    # -- SSD300 detect_batch: K2 on this rank's rows ----------------------
+    pred = SSDPredictor(SSDVgg(21, 300, device=dev, seed=0), param,
+                        specs=ssd_specs, device=dev)
+    batch = {"input": ssd_input, "im_info": ssd_info}
+    pred.detect_batch(batch)                # cuDNN's choice, K2 warm
+    torch.cuda.synchronize()
+    zero_kernel_counters()
+    out["ssd_rows"], out["ssd_ms"] = timed_ms(
+        lambda: pred.detect_batch(batch))
+    out["ssd_launches"] = launch_counts()
+    del pred
+    out["gather_ms"] = guarded_gather_ms(mesh, seed)
+    # -- DS2 8 × 30 s: K3 on this rank's rows -----------------------------
+    model = ds2_pipe.make_ds2_model(hidden=DS2_HIDDEN, n_rnn_layers=3,
+                                    rnn_engine="pallas", device=dev,
+                                    seed=seed)
+    ds2_specs = pipeline_specs("ds2", mesh=mesh)
+    ds2_specs.place_state(model)
+    eval_step = make_eval_step(model, specs=ds2_specs)
+    args = (torch.from_numpy(ds2_x).to(dev), torch.from_numpy(ds2_n).to(dev))
+    zero_kernel_counters()
+    logp = eval_step(args)
+    torch.cuda.synchronize()
+    out["ds2_launches"] = launch_counts()
+    _, out["ds2_ms"] = timed_ms(lambda: eval_step(args), 3)
+    out["ds2_logp"] = logp.cpu().numpy() if lead else None
+    (greedy,) = ds2_pipe.ds2_serving_tiers(
+        model, ds2_pipe.DS2Param(decoder="greedy"), specs=ds2_specs,
+        device=dev)
+    out["ds2_texts"] = greedy.forward({"input": ds2_x, "n_frames": ds2_n})
+    del model, eval_step, greedy, logp
+    torch.cuda.empty_cache()
+    # -- SSD requests through ServingRuntime(specs=), a hot swap ----------
+    warm = np.stack(requests[:BATCH])
+
+    def weights_to_tiers(state, rid):
+        m = SSDVgg(21, 300, device=dev, seed=0)
+        m.load_state_dict(state)
+        tiers = ssd_serving_tiers(m, param, specs=ssd_specs, device=dev)
+        return tiers
+
+    tiers0 = ssd_serving_tiers(SSDVgg(21, 300, device=dev, seed=0), param,
+                               specs=ssd_specs, device=dev)
+    for t in tiers0:                  # cuDNN's choice on each rank
+        t.forward({"input": warm})
+    cfg = ModelConfig(name="ssd", tiers=tiers0,
+                      weights_to_tiers=weights_to_tiers, length_key=None,
+                      max_batch=BATCH, default_deadline_s=3600.0)
+    torch.cuda.synchronize()
+    zero_kernel_counters()
+    if not lead:
+        out["follower"] = serve_follower(ssd_specs, models=[cfg],
+                                         device=dev)
+        torch.cuda.synchronize()
+        out["runtime_launches"] = launch_counts()
+        return out
+    root = tempfile.mkdtemp()
+    try:
+        snap = ckpt.save(os.path.join(root, "ssd"),
+                         SSDVgg(21, 300, device=dev, seed=1).state_dict(),
+                         step=1)
+        rt = ServingRuntime(models=[cfg], n_replicas=2, max_batch=BATCH,
+                            queue_capacity=4 * len(requests),
+                            default_deadline_s=3600.0, specs=ssd_specs,
+                            clock=MonotonicClock())
+        reqs = []
+        half = len(requests) // 2
+        t0 = time.perf_counter()
+        for k, x in enumerate(requests):
+            if k == half:
+                rt.hot_swap(snap, canary_fraction=0.0, device=dev)
+            reqs.append(rt.submit({"input": x}, model="ssd"))
+            if len(reqs) % BATCH == 0:
+                rt.pump(force=True)
+        rt.drain()
+        for _ in range(10):
+            rt.pump(force=True)
+            if not rt.swap_active:
+                break
+        out["runtime_s"] = time.perf_counter() - t0
+        rt.close()
+        torch.cuda.synchronize()
+        out["runtime_launches"] = launch_counts()
+        lat = sorted((r.completed_t - r.arrival_t) * 1e3 for r in reqs)
+        out["latency_ms"] = {"p50": statistics.median(lat),
+                             "p99": lat[min(len(lat) - 1,
+                                            int(0.99 * len(lat)))]}
+        out["rows"] = [np.asarray(r.result) if r.result is not None
+                       else None for r in reqs]
+        out["accounting"] = rt.accounting()
+        out["failed"] = rt.snapshot()["metrics"]["failed"]
+        out["swap"] = rt.snapshot()["swap"]
+        out["mesh"] = rt.snapshot()["mesh"]
+        out["installed"] = [e["replica"] for e in rt.pool.events
+                            if e["kind"] == "swap_installed"]
+        out["swap_at"] = half
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def guarded_gather_ms(mesh, seed):
+    """The sharded calls' guarded gather (``gather_rows_guarded``: a
+    header of each rank's failure flag and byte count, then the outputs'
+    bytes in one gather) against a gather per output, on this rank's
+    rows of SSD300's two sharded programs at BATCH: K2's detections
+    (rows, 200, 6) and the eval step's (loc, conf).  Both must give the
+    same tensors; the least ms of 20 calls, in the order plain, guarded,
+    guarded, plain."""
+    import torch
+
+    from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+    from analytics_zoo_tpu_torch.parallel import tensor as tensor_lib
+    from analytics_zoo_tpu_torch.parallel.specs import gather_rows_guarded
+    from analytics_zoo_tpu_torch.utils import engine
+
+    dev = engine.device()
+    ctx = tensor_lib.axis_ctx(mesh, mesh_lib.data_axis(mesh))
+    gen = torch.Generator(device=dev).manual_seed(seed + ctx.index)
+    rows = BATCH // DIST_WORLD
+    cases = {"detections": [(rows, 200, 6)],
+             "loc_conf": [(rows, 8732, 4), (rows, 8732, 21)]}
+    out = {}
+    for name, shapes in cases.items():
+        ys = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+        runs = {"plain": lambda: [tensor_lib.all_gather_dim(y, 0, ctx)
+                                  for y in ys],
+                "guarded": lambda: gather_rows_guarded(lambda: ys, ctx)}
+        for a, b in zip(runs["plain"](), runs["guarded"]()):
+            if not torch.equal(a, b):
+                raise AssertionError(f"guarded gather of {name} differs "
+                                     f"from the plain gather")
+        ms = {"plain": [], "guarded": []}
+        for k in ("plain", "guarded", "guarded", "plain"):
+            ms[k].append(timed_ms(runs[k], 20)[1])
+        out[name] = {k + "_ms": min(v) for k, v in ms.items()}
+    return out
+
+
+def dist_serve_phase(dev, smi, seed=59):
+    """dist_serve: SSD300 and DS2 served by DIST_WORLD ranks on the one
+    card over gloo (each rank its rows, the rows gathered back), and SSD
+    requests through ``ServingRuntime(specs=)`` with the follower and a
+    hot swap, against this process."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.models.ssd import SSDVgg
+    from analytics_zoo_tpu_torch.parallel import make_eval_step
+    from analytics_zoo_tpu_torch.pipelines import deepspeech2 as ds2_pipe
+    from analytics_zoo_tpu_torch.pipelines.ssd import (BGR_MEANS,
+                                                       PreProcessParam,
+                                                       SSDPredictor,
+                                                       ssd_serving_tiers)
+    from analytics_zoo_tpu_torch.serving import (ModelConfig,
+                                                 MonotonicClock,
+                                                 ServingRuntime)
+    from analytics_zoo_tpu_torch.utils import engine
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(seed)
+
+    def images(n):
+        return [rng.randint(0, 256, (300, 300, 3)).astype(np.float32)
+                - np.float32(BGR_MEANS) for _ in range(n)]
+
+    ssd_input = np.stack(images(BATCH))
+    ssd_info = np.tile(np.float32([[300, 300, 1.0, 1.0]]), (BATCH, 1))
+    ds2_x = rng.randn(BATCH, SERVE_DS2_FRAMES, 13).astype(np.float32)
+    ds2_n = np.full(BATCH, SERVE_DS2_FRAMES, np.int32)
+    requests = images(SERVE_REQUESTS)
+    ranks = engine.spawn(os.path.abspath(__file__) + ":dist_child",
+                         DIST_WORLD, dict(task="serve", ssd_input=ssd_input,
+                                          ssd_info=ssd_info, ds2_x=ds2_x,
+                                          ds2_n=ds2_n, requests=requests,
+                                          seed=seed),
+                         timeout=DIST_TIMEOUT, backend=DIST_BACKEND,
+                         local_ranks=[0] * DIST_WORLD)
+    lead = ranks[0]
+    param = PreProcessParam(batch_size=BATCH, resolution=300)
+    # -- SSD300: each rank's rows against this process's of its half -----
+    pred = SSDPredictor(SSDVgg(21, 300, device=dev, seed=0), param,
+                        device=dev)
+    half = BATCH // DIST_WORLD
+    halves = np.concatenate([pred.detect_batch(
+        {"input": ssd_input[i:i + half], "im_info": ssd_info[i:i + half]})
+        for i in range(0, BATCH, half)])
+    pred.detect_batch({"input": ssd_input, "im_info": ssd_info})
+    whole, ssd_one_ms = timed_ms(lambda: pred.detect_batch(
+        {"input": ssd_input, "im_info": ssd_info}))
+    del pred
+    def normalized(rows):           # detect_batch's boxes are in pixels
+        rows = np.array(rows, np.float32)
+        rows[..., 2:] /= 300.0
+        return torch.from_numpy(rows)
+
+    ssd_err = max(rows_err(normalized(x["ssd_rows"]), normalized(halves))
+                  for x in ranks)
+    ssd_match = match_images(normalized(lead["ssd_rows"]).numpy(),
+                             normalized(whole).numpy())
+    if ssd_match[0] < DIST_MATCH_MIN or ssd_match[2] > DIST_SCORE_TOL:
+        raise AssertionError(f"dist_serve ssd against the whole batch: "
+                             f"{ssd_match}")
+    for r, x in enumerate(ranks):
+        if (x["ssd_launches"]["fused_detection_output"] != 1
+                or x["ssd_launches"]["nms_sweep"]
+                or x["ds2_launches"]["persistent_rnn"] != 6):
+            raise AssertionError(f"dist_serve rank {r}: ssd launches "
+                                 f"{x['ssd_launches']}, ds2 "
+                                 f"{x['ds2_launches']}")
+    # -- DS2: the log-probs of each half, the transcripts -----------------
+    model = ds2_pipe.make_ds2_model(hidden=DS2_HIDDEN, n_rnn_layers=3,
+                                    rnn_engine="pallas", device=dev,
+                                    seed=seed)
+    eval_step = make_eval_step(model)
+    x_d = torch.from_numpy(ds2_x).to(dev)
+    n_d = torch.from_numpy(ds2_n).to(dev)
+    want_logp = torch.cat([eval_step((x_d[i:i + half], n_d[i:i + half]))
+                           for i in range(0, BATCH, half)]).cpu().numpy()
+    _, ds2_one_ms = timed_ms(lambda: eval_step((x_d, n_d)), 3)
+    logp_err = float(np.abs(lead["ds2_logp"] - want_logp).max())
+    (greedy,) = ds2_pipe.ds2_serving_tiers(
+        model, ds2_pipe.DS2Param(decoder="greedy"), device=dev)
+    want_texts = greedy.forward({"input": ds2_x, "n_frames": ds2_n})
+    del model, eval_step, greedy
+    torch.cuda.empty_cache()
+    if not logp_err <= DS2_LOGP_TOL or any(
+            x["ds2_texts"] != want_texts for x in ranks):
+        raise AssertionError(f"dist_serve ds2: log-probs max-abs "
+                             f"{logp_err} (tol {DS2_LOGP_TOL}), texts "
+                             f"equal {[x['ds2_texts'] == want_texts for x in ranks]}")
+    # -- the runtime: every request done, rows as one process's ----------
+    acct = lead["accounting"]
+    follower = ranks[1]["follower"]
+    if (acct["by_state"] != {"done": SERVE_REQUESTS} or lead["failed"]
+            or lead["swap"]["completed"] != 1 or lead["swap"]["rollbacks"]
+            or sorted(lead["installed"]) != [0, 1] or follower["failed"]
+            or follower["build"] != 3):
+        raise AssertionError(f"dist_serve runtime: accounting {acct}, "
+                             f"failed {lead['failed']}, swap "
+                             f"{lead['swap']}, follower {follower}")
+    # the one-process runtime on the same requests, the same swap
+    tiers0 = ssd_serving_tiers(SSDVgg(21, 300, device=dev, seed=0), param,
+                               device=dev)
+    warm = np.stack(requests[:BATCH])
+    for t in tiers0:
+        t.forward({"input": warm})
+
+    def weights_to_tiers(state, rid):
+        m = SSDVgg(21, 300, device=dev, seed=0)
+        m.load_state_dict(state)
+        return ssd_serving_tiers(m, param, device=dev)
+
+    import shutil
+    import tempfile
+
+    from analytics_zoo_tpu_torch.parallel import checkpoint as ckpt
+    root = tempfile.mkdtemp()
+    try:
+        snap = ckpt.save(os.path.join(root, "ssd"),
+                         SSDVgg(21, 300, device=dev, seed=1).state_dict(),
+                         step=1)
+        rt = ServingRuntime(models=[ModelConfig(
+            name="ssd", tiers=tiers0, weights_to_tiers=weights_to_tiers,
+            length_key=None, max_batch=BATCH, default_deadline_s=3600.0)],
+            n_replicas=2, max_batch=BATCH,
+            queue_capacity=4 * SERVE_REQUESTS, default_deadline_s=3600.0,
+            clock=MonotonicClock())
+        reqs = []
+        for k, x in enumerate(requests):
+            if k == lead["swap_at"]:
+                rt.hot_swap(snap, canary_fraction=0.0, device=dev)
+            reqs.append(rt.submit({"input": x}, model="ssd"))
+            if len(reqs) % BATCH == 0:
+                rt.pump(force=True)
+        rt.drain()
+        for _ in range(10):
+            rt.pump(force=True)
+            if not rt.swap_active:
+                break
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    lat = sorted((r.completed_t - r.arrival_t) * 1e3 for r in reqs)
+    one_latency = {"p50": statistics.median(lat),
+                   "p99": lat[min(len(lat) - 1, int(0.99 * len(lat)))]}
+    want_rows = np.stack([np.asarray(r.result) for r in reqs])
+    got_rows = np.stack(lead["rows"])
+    rt_match = match_images(got_rows, want_rows)
+    if rt_match[0] < DIST_MATCH_MIN or rt_match[2] > DIST_SCORE_TOL:
+        raise AssertionError(f"dist_serve runtime rows against one "
+                             f"process's: {rt_match}")
+    rt_equal = float(np.mean([np.array_equal(g, w) for g, w
+                              in zip(got_rows, want_rows)]))
+    emit("dist_serve", nvidia_smi=smi, world=DIST_WORLD,
+         mesh={"data": DIST_WORLD}, backend=lead["backend"],
+         ssd_batch=BATCH, ssd_rows_err_vs_halves=ssd_err,
+         ssd_matched_vs_whole_min=ssd_match[0],
+         ssd_score_err_vs_whole=ssd_match[2],
+         ssd_ms_by_rank=[x["ssd_ms"] for x in ranks],
+         ssd_one_process_ms=ssd_one_ms,
+         gather_ms_by_rank=[x["gather_ms"] for x in ranks],
+         ds2_batch=BATCH, ds2_frames=SERVE_DS2_FRAMES,
+         ds2_logp_max_abs_err_vs_halves=logp_err,
+         ds2_texts_equal=True,
+         ds2_ms_by_rank=[x["ds2_ms"] for x in ranks],
+         ds2_one_process_ms=ds2_one_ms,
+         runtime_requests=SERVE_REQUESTS, runtime_accounting=acct,
+         runtime_failed=lead["failed"], runtime_swap={
+             "completed": lead["swap"]["completed"],
+             "installed": lead["installed"], "at_request": lead["swap_at"]},
+         runtime_mesh=lead["mesh"], follower=follower,
+         runtime_rows_matched_min=rt_match[0],
+         runtime_rows_score_err=rt_match[2],
+         runtime_rows_equal_share=rt_equal,
+         latency_ms=lead["latency_ms"], one_process_latency_ms=one_latency,
+         runtime_s=lead["runtime_s"],
+         ssd_launches_by_rank=[x["ssd_launches"] for x in ranks],
+         ds2_launches_by_rank=[x["ds2_launches"] for x in ranks],
+         runtime_launches_by_rank=[x["runtime_launches"] for x in ranks],
+         phase_s=time.perf_counter() - t_phase)
+    return {k: sum(x[part][k] for x in ranks
+                   for part in ("ssd_launches", "ds2_launches",
+                                "runtime_launches"))
+            for k in lead["ssd_launches"]}
+
+
 # -- 6q. the telemetry spine and the anomaly ladder ---------------------------
 
 TELEMETRY_STEPS = 8
@@ -6273,6 +6920,24 @@ def telemetry_phase(dev, smi, seed=47):
             raise AssertionError(f"telemetry skip: words {word0}, {word} "
                                  f"({health}), changed {unequal}")
         del model, state, step, before, slots, after
+        # the poisoned batch's word on the card and on the CPU: one step
+        # of the same seeded model (K3/K4 there, their plain versions here)
+        nan_words = {}
+        for where in (dev, torch.device("cpu")):
+            model = make_ds2_model(hidden=DS2_HIDDEN, n_rnn_layers=3,
+                                   rnn_engine="pallas", seed=0, device=where)
+            step = make_train_step(model, criterion, Adam(3e-4),
+                                   health_check=True)
+            _, m = step(create_train_state(model, Adam(3e-4)),
+                        batches[TELEMETRY_NAN[0]])
+            nan_words[where.type] = int(m["health"])
+            del model, step, m
+        if not nan_words["cuda"] == nan_words["cpu"] == word:
+            raise AssertionError(
+                f"telemetry: the NaN batch's word on the card "
+                f"{nan_words['cuda']:#x} "
+                f"({decode_health(nan_words['cuda'], sections)}), on the "
+                f"CPU {nan_words['cpu']:#x}, the skipped step's {word:#x}")
 
         # -- 2. the ladder: a skip, then a rollback to the lkg slot --------
         box = os.path.join(root, "blackbox.jsonl")
@@ -6399,6 +7064,7 @@ def telemetry_phase(dev, smi, seed=47):
              hidden=DS2_HIDDEN, layers=3, batch=BATCH,
              frames=DIST_DS2_FRAMES, batches=TELEMETRY_STEPS,
              nan_batches=list(TELEMETRY_NAN), skip_word=word,
+             nan_word_card=nan_words["cuda"], nan_word_cpu=nan_words["cpu"],
              skip_health=health, skip_bit_equal=True, sections=sections,
              ladder=ladder, diverged=str(err2)[:200],
              diverged_steps=steps2, black_box_events=len(
@@ -7257,6 +7923,13 @@ def main() -> int:
     # -- 6p. AttentionASR: ring attention, GPipe, expert-parallel MoE -----
     dist_attn = dist_attn_phase(dev, smi)
 
+    # -- 6r. SSD300 trained with its image rows over two ranks (K2) -----
+    dist_spatial = dist_spatial_phase(dev, smi)
+
+    # -- 6s. SSD300 (K2) and DS2 (K3) served over two ranks; the runtime
+    # with its follower ------------------------------------------------
+    dist_serve = dist_serve_phase(dev, smi)
+
     # -- 6q. telemetry: DS2 under the anomaly ladder (K3, K4), SSD300
     # serving with spans and train_ssd with summaries (K2) ---------------
     t0 = time.perf_counter()
@@ -7276,6 +7949,8 @@ def main() -> int:
              "ssd_serving": launches["nms_sweep"],
              "ds2_resume": 0, "ssd_swap": swap["nms_sweep"],
              "dist_dp": dist_dp["nms_sweep"], "dist_tp": dist_tp["nms_sweep"],
+             "dist_spatial": dist_spatial["nms_sweep"],
+             "dist_serve": dist_serve["nms_sweep"],
              "dist_seq": dist_seq["nms_sweep"],
              "dist_attn": dist_attn["nms_sweep"],
              "telemetry": telemetry["nms_sweep"],
@@ -7297,12 +7972,16 @@ def main() -> int:
                       + swap["fused_detection_output"]
                       + dist_dp["fused_detection_output"]
                       + dist_tp["fused_detection_output"]
+                      + dist_spatial["fused_detection_output"]
+                      + dist_serve["fused_detection_output"]
                       + telemetry["fused_detection_output"]),
          "launches_by_path": {
              "ssd_serving": launches["fused_detection_output"],
              "ds2_resume": 0, "ssd_swap": swap["fused_detection_output"],
              "dist_dp": dist_dp["fused_detection_output"],
              "dist_tp": dist_tp["fused_detection_output"],
+             "dist_spatial": dist_spatial["fused_detection_output"],
+             "dist_serve": dist_serve["fused_detection_output"],
              "dist_seq": dist_seq["fused_detection_output"],
              "dist_attn": dist_attn["fused_detection_output"],
              "telemetry": telemetry["fused_detection_output"],
@@ -7326,6 +8005,7 @@ def main() -> int:
                       + resume["persistent_rnn"] + dist_dp["persistent_rnn"]
                       + dist_tp["persistent_rnn"]
                       + dist_seq["persistent_rnn"]
+                      + dist_serve["persistent_rnn"]
                       + telemetry["persistent_rnn"]),
          "launches_by_path": {"ds2_serving": k3_launches,
                               "ds2_train": train_launches["persistent_rnn"],
@@ -7333,6 +8013,8 @@ def main() -> int:
                               "dist_dp": dist_dp["persistent_rnn"],
                               "dist_tp": dist_tp["persistent_rnn"],
                               "dist_seq": dist_seq["persistent_rnn"],
+                              "dist_spatial": dist_spatial["persistent_rnn"],
+                              "dist_serve": dist_serve["persistent_rnn"],
                               "dist_attn": dist_attn["persistent_rnn"],
                               "telemetry": telemetry["persistent_rnn"],
                               "ssd_swap": 0,
@@ -7362,6 +8044,8 @@ def main() -> int:
              "dist_dp": dist_dp["persistent_rnn_bwd"],
              "dist_tp": dist_tp["persistent_rnn_bwd"],
              "dist_seq": dist_seq["persistent_rnn_bwd"],
+             "dist_spatial": dist_spatial["persistent_rnn_bwd"],
+             "dist_serve": dist_serve["persistent_rnn_bwd"],
              "dist_attn": dist_attn["persistent_rnn_bwd"],
              "telemetry": telemetry["persistent_rnn_bwd"],
              "frcnn_serving": frcnn["persistent_rnn_bwd"],

@@ -163,8 +163,15 @@ def test_serving_tiers_describe_the_reference_ladder(param_kw):
         (t.name, t.speed, t.quality_note) for t in ref]
     fn, args = got[0].device_program()
     assert tuple(fn(*args).shape) == (1, 32, 29)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        pipe.ds2_serving_tiers(model, specs=object(), device="cpu")
+    # specs= is served (item 12b.4): over a one-rank mesh, the same rungs
+    import torch_dist_scenarios as sc
+    from analytics_zoo_tpu_torch.parallel.specs import SpecSet
+    sharded = pipe.ds2_serving_tiers(model, pipe.DS2Param(**param_kw),
+                                     specs=SpecSet(sc.StubMesh({"data": 1})),
+                                     device="cpu")
+    assert [t.name for t in sharded] == [t.name for t in got]
+    fn, args = sharded[0].device_program()
+    assert tuple(fn(*args).shape) == (1, 32, 29)
     assert [t.name for t in pipe.ds2_serving_tiers(
         model, pipe.DS2Param(decoder="beam"), degraded_beam=2,
         device="cpu")] == ["beam16", "beam2", "greedy"]

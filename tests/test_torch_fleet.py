@@ -614,13 +614,31 @@ def test_model_config_validation(pkg):
     ({"slice_width": 2}, "item 13"), ({"device_budget": 4}, "item 13"),
     ({"autoscaler": object()}, "item 13"), ({"chaos": object()}, "item 13"),
     ({"health": object()}, "item 13"),
-    ({"compile_s": 0.5}, "item 13"), ({"specs": object()}, "item 12b"),
+    ({"compile_s": 0.5}, "item 13"),
 ], ids=lambda v: next(iter(v)) if isinstance(v, dict) else v)
 def test_multiplexed_refused_keyword_names_its_item(kw, item):
     cfg = tserving.ModelConfig(name="x",
                                tiers=[tserving.ServingTier("fp", _fwd)])
     with pytest.raises(NotImplementedError, match=item):
         tserving.ServingRuntime(models=[cfg], **kw)
+
+
+def test_multiplexed_specs_on_one_rank_serves():
+    """``specs=`` is served on the multiplexed path too (item 12b.4): over
+    a one-rank mesh the model's tiers run as given; a per-replica
+    ``tier_factory`` is refused only over several processes."""
+    import torch_dist_scenarios as sc
+    from analytics_zoo_tpu_torch.parallel.specs import SpecSet
+
+    cfg = tserving.ModelConfig(name="x",
+                               tiers=[tserving.ServingTier("fp", _fwd)])
+    rt = tserving.ServingRuntime(models=[cfg], n_replicas=1,
+                                 specs=SpecSet(sc.StubMesh({"data": 1})))
+    rt.submit({"input": np.ones(3, np.float32)}, model="x")
+    rt.drain()
+    rt.close()
+    assert rt.accounting()["by_state"] == {"done": 1}
+    assert rt.snapshot()["mesh"]["data_axis_size"] == 1
 
 
 def test_still_refused_calls_name_their_item():

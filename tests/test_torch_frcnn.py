@@ -423,8 +423,11 @@ def test_training_and_sharding_refused(nets):
     import torch_dist_scenarios as sc
     assert pipe.train_frcnn(tdet.frcnn, [], SIZE, epochs=0,
                             mesh=sc.StubMesh({"data": 1})) is tdet.frcnn
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        pipe.frcnn_serving_tiers(tdet, specs=object(), device="cpu")
+    # sharded serving is served (item 12b.4): a one-rank mesh's rungs
+    from analytics_zoo_tpu_torch.parallel.specs import SpecSet
+    assert [t.name for t in pipe.frcnn_serving_tiers(
+        tdet, specs=SpecSet(sc.StubMesh({"data": 1})), device="cpu")] == [
+            "fp", "int8"]
     with pytest.raises(NotImplementedError, match="item e"):
         PreProcessParam(wire_format="yuv420")
     yuv = PreProcessParam()

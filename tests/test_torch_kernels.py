@@ -675,6 +675,71 @@ def test_persistent_rnn_bwd_kernel_bf16_weights():
         assert ((g - r).norm() / r.norm()).item() <= 2e-2
 
 
+def _nan_close(got, want, tol, name=""):
+    """NaN where the plain version has NaN, position for position, and the
+    other entries within ``tol`` of it, relative to its largest."""
+    got, want = got.float().cpu(), want.float().cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(want)), name
+    fin = ~torch.isnan(want)
+    if fin.any():
+        assert _rel_err(got[fin], want[fin]) <= tol, name
+
+
+def _nan_pre(pre, B, T):
+    """NaN pre-activations at a few (row, step, column) positions of the
+    first rows; the last row stays finite."""
+    pre = pre.clone()
+    rng = np.random.RandomState(5)
+    for r in range(B - 1):
+        pre[r, rng.randint(T), rng.randint(pre.shape[-1])] = float("nan")
+    return pre
+
+
+@pytest.mark.parametrize("act", ["relu", "clipped_relu"])
+def test_persistent_rnn_kernel_propagates_nan(act):
+    """K3 (and K4, from the carries K3 saved) on pre-activations with NaN
+    entries: NaN where the plain versions give NaN (``torch.clamp``
+    propagates it), the rest as the plain versions (ROADMAP F5)."""
+    B, T, H = 4, 24, 96
+    cfg, (pre, w, b, h0, n, g_ys, g_cf) = _k4_case(
+        13, "vanilla", act, B, T, H, False, 8)
+    pre = _nan_pre(pre, B, T)
+    ys, cf, cs = pallas_rnn.persistent_rnn_fwd(cfg, pre, w, b, h0, n,
+                                               save_residuals=True)
+    want_ys, want_cf, want_cs = pallas_rnn.persistent_rnn_plain(
+        cfg, pre, w, b, h0, n, save_residuals=True)
+    assert torch.isnan(want_ys).any() and not torch.isnan(want_ys[-1]).any()
+    _nan_close(ys, want_ys, 1e-4, "ys")
+    _nan_close(cf, want_cf, 1e-4, "carry")
+    got = pallas_rnn.persistent_rnn_bwd(cfg, pre, w, b, n, cs, g_ys, g_cf)
+    want = pallas_rnn.persistent_rnn_bwd_plain(cfg, pre, w, b, n, cs, g_ys,
+                                               g_cf)
+    for name, g, r in zip(("d_pre", "d_w", "d_b", "d_h0"), got, want):
+        _nan_close(g, r, 1e-4, name)
+
+
+@pytest.mark.parametrize("clip", [False, True])
+def test_fused_kernel_propagates_nan_loc(clip):
+    """K2 on a loc with NaN rows: a NaN box is NaN in the rows as in the
+    plain version (``torch.clamp`` and ``torch.maximum`` propagate it, so
+    its IoU is NaN: it neither suppresses nor is suppressed), and every
+    other row as the plain version's (ROADMAP F5)."""
+    dev = _cuda()
+    loc, conf = _detout_inputs(3, 300, 6, "trained")
+    loc[:, ::7] = float("nan")
+    pri, var = _priors(4, 300)
+    p = DetectionOutputParam(n_classes=6, nms_topk=64, keep_topk=32,
+                             clip_boxes=clip)
+    args = [t.to(dev) for t in (loc, conf, pri, var)]
+    got = pallas_detout.fused_detection_output(*args, param=p).cpu()
+    want = pallas_detout.fused_detection_output_plain(*args, p).cpu()
+    assert torch.isnan(want[..., 2:]).any()
+    torch.testing.assert_close(got[..., :2], want[..., :2], rtol=0,
+                               atol=1e-6)
+    torch.testing.assert_close(got[..., 2:], want[..., 2:], rtol=0,
+                               atol=1e-5, equal_nan=True)
+
+
 @pytest.mark.parametrize("cell", ["vanilla", "gru", "lstm"])
 def test_saved_carries_kernel(cell):
     """K3's ``cs`` against the plain version's, and each saved h equal to

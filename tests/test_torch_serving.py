@@ -341,13 +341,32 @@ def test_scenarios_cover_what_they_claim():
     ({"parallel_replicas": True}, "item 13"),
     ({"slice_width": 2}, "item 13"), ({"device_budget": 4}, "item 13"),
     ({"autoscaler": object()}, "item 13"), ({"chaos": object()}, "item 13"),
-    ({"health": object()}, "item 13"),
-    ({"specs": object()}, "item 12b"), ({"compile_s": 0.5}, "item 13"),
+    ({"health": object()}, "item 13"), ({"compile_s": 0.5}, "item 13"),
 ], ids=lambda v: next(iter(v)) if isinstance(v, dict) else v)
 def test_refused_keyword_names_its_item(kw, item):
     tiers = [tserving.ServingTier("fp", Spy())]
     with pytest.raises(NotImplementedError, match=item):
         tserving.ServingRuntime(tiers, **kw)
+
+
+def test_specs_on_one_rank_serves_and_records_the_mesh():
+    """``specs=`` is served (item 12b.4; its multi-rank runs are in
+    ``tests/test_torch_specs.py``): over a one-rank mesh no follower is
+    needed, the tiers run as given, and ``snapshot()["mesh"]`` records
+    the mesh's axes."""
+    import torch_dist_scenarios as sc
+    from analytics_zoo_tpu_torch.parallel.specs import SpecSet
+
+    spy = Spy()
+    rt = tserving.ServingRuntime(
+        [tserving.ServingTier("fp", spy)], n_replicas=1, max_batch=2,
+        specs=SpecSet(sc.StubMesh({"data": 1, "model": 1})))
+    rt.submit({"input": np.ones(3, np.float32)})
+    rt.drain()
+    rt.close()
+    assert rt.accounting()["by_state"] == {"done": 1} and spy.calls
+    assert rt.snapshot()["mesh"] == {"axes": {"data": 1, "model": 1},
+                                     "data_axis_size": 1}
 
 
 def test_defaults_of_refused_keywords_construct():
@@ -484,9 +503,15 @@ def test_ssd_tiers_names_and_pins(ssd_tiers):
         200, 200, 50]
     fn, args = port[2].device_program()
     assert fn(*args).shape == (1, 50, 6)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        ssd_serving_tiers(preds[0].model, PreProcessParam(), specs=object(),
-                          device="cpu")
+    # specs= is served (item 12b.4): over a one-rank mesh, the same rungs
+    import torch_dist_scenarios as sc
+    from analytics_zoo_tpu_torch.parallel.specs import SpecSet
+    sharded = ssd_serving_tiers(preds[0].model, PreProcessParam(),
+                                specs=SpecSet(sc.StubMesh({"data": 1})),
+                                device="cpu")
+    assert [t.name for t in sharded] == [t.name for t in port]
+    fn, args = sharded[2].device_program()
+    assert fn(*args).shape == (1, 50, 6)
 
 
 def test_ssd_rungs_through_both_runtimes(ssd_tiers):

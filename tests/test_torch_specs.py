@@ -12,6 +12,27 @@ against the JAX package's (``tests/test_specs.py``).
 3. **The annotated step**: ``make_eval_step(specs=)`` equals the plain
    forward, a ragged batch included; ``place_batch`` keeps a rank's rows,
    scalars whole; the batch spec trees.
+4. **Sharded serving** (two ranks on a ``("data",)`` mesh of 2): the six
+   tier families built with ``specs=`` (SSD300 and Faster-RCNN through
+   the DetectionOutput on each rank's rows, DS2, fraud, rec, sentiment)
+   give every rank, for an even batch, the one-process rungs' rows of
+   each rank's half in rank order, and for a ragged batch the
+   one-process rows of the whole (it runs whole on every rank):
+   transcripts EQUAL, classes EQUAL, numbers within 1e-5 and
+   Faster-RCNN's pixel boxes within 1e-2 px, ``tests/test_torch_frcnn.py``'s
+   tolerance (one intra-op thread in the ranks, several here); every
+   family's rungs equal the JAX package's rungs built with ``specs=``
+   on a 2-device CPU mesh from the same weights (rows within 1e-5, the
+   detectors' classes EQUAL, scores within 1e-5 and boxes within 1e-4
+   normalized or 1e-2 px, the transcripts EQUAL).  ``ServingRuntime(specs=)`` on rank 0 with
+   ``serve_follower`` on rank 1, under a ``VirtualClock`` and a
+   ``MonotonicClock``: every request done, its rows those of the
+   one-process rung within 1e-6; a follower whose forward raises once
+   fails that dispatch, which fails over (nothing hangs); a follower
+   that fails before its tier runs (a rung it lacks, a fault in its
+   placement of the rows) fails that call on the leader, and the next
+   call serves; a hot swap
+   builds the new tiers on both ranks and serves the new weights' rows.
 """
 
 import jax
@@ -108,13 +129,90 @@ def _torch_spec(jspec, key, ndim):
     return tuple(out)
 
 
+SERVE_FAMILIES = ("ssd", "frcnn", "ds2", "fraud", "rec", "sentiment")
+SERVE_ROW_ATOL = 1e-5       # against the JAX rungs (the zoo's ROW_ATOL)
+RUNTIME_ATOL = 1e-6         # the runtime's rows against one process's
+FRCNN_BOX_TOL_PX = 1e-2     # test_torch_frcnn.py's BOX_TOL_PX
+# the detectors' rows against the JAX rungs (classes EQUAL): scores,
+# boxes; SSD's normalized boxes as test_torch_serving.py holds them,
+# Faster-RCNN's pixel boxes as test_torch_frcnn.py does
+JAX_DET_TOL = {"ssd": (1e-5, 1e-4), "frcnn": (1e-5, FRCNN_BOX_TOL_PX)}
+
+
+def _serve_models():
+    """Each family's JAX model (where the JAX rungs are held too) and port
+    model (bridged from it), and its batches: an even one (4 rows; 2 for
+    the detectors) and a ragged one (3; 1)."""
+    from analytics_zoo_tpu.models import faster_rcnn as jax_frcnn
+    from analytics_zoo_tpu.models import SSDVgg as JSSD
+    from analytics_zoo_tpu_torch.models import faster_rcnn
+    from analytics_zoo_tpu_torch.models.ssd import SSDVgg
+    from test_torch_ds2 import _jax_ds2, _port
+    from test_torch_frcnn import _params as frcnn_params
+    from test_torch_frcnn import _seeded_params as frcnn_seeded
+    from test_torch_ssd import seeded_flax_params
+    from test_torch_zoo_pipelines import (_fraud_models, _rec_pair,
+                                          _sent_models)
+
+    rng = np.random.RandomState(5)
+    out = {}
+
+    def images(res, n, means):
+        return (rng.randint(0, 256, (n, res, res, 3)).astype(np.float32)
+                - np.float32(means))
+
+    jssd = JSSD(num_classes=4, resolution=300)
+    params = seeded_flax_params(jssd, 300, seed=2)
+    ssd = SSDVgg(4, 300, device="cpu")
+    ssd.load_state_dict(convert.ssd_params_from_jax(params, ssd))
+    out["ssd"] = (JaxModel(jssd, {"params": params}), ssd,
+                  [{"input": images(300, n, [104, 117, 123])}
+                   for n in (2, 1)])
+    jdet = jax_frcnn.FasterRcnnDetector(param=frcnn_params(jax_frcnn))
+    params = frcnn_seeded(jdet)
+    det = faster_rcnn.FasterRcnnDetector(frcnn_params(faster_rcnn),
+                                         device="cpu")
+    det.load_state_dict(convert.frcnn_params_from_jax(params, det))
+    out["frcnn"] = ((jdet, {"params": params}), det,
+                    [{"input": images(128, n, [102, 115, 122])}
+                     for n in (2, 1)])
+    module, variables = _jax_ds2(16, 1, T=50)
+    out["ds2"] = (JaxModel(module, variables),
+                  _port(variables, 16, 1, "blocked"),
+                  [{"input": rng.randn(n, 40, 13).astype(np.float32),
+                    "n_frames": np.array([40, 31, 17, 40][:n], np.int32)}
+                   for n in (4, 3)])
+    out["fraud"] = _fraud_models() + ([
+        {"input": rng.randn(n, 29).astype(np.float32)} for n in (4, 3)],)
+    out["rec"] = _rec_pair("ncf", n_users=600) + ([
+        {"input": (rng.randint(0, 600, n).astype(np.int32),
+                   rng.randint(0, 30, n).astype(np.int32))}
+        for n in (4, 3)],)
+    out["sentiment"] = _sent_models() + ([
+        {"input": rng.randint(0, 400, (n, 12)).astype(np.int32)}
+        for n in (4, 3)],)
+    return out
+
+
+def _state_np(model):
+    module = model.module if isinstance(model, Model) else model
+    return {k: v.detach().numpy().copy()
+            for k, v in module.state_dict().items()}
+
+
+@pytest.fixture(scope="module")
+def serve_models():
+    return _serve_models()
+
+
 @pytest.fixture(scope="module", autouse=True)
-def group():
+def group(serve_models, tmp_path_factory):
     """Two ranks' scenarios, started with the module (a future: they run
     while the structure tests compute the JAX side)."""
     rng = np.random.RandomState(1)
     batches = [rng.randn(16, 29).astype(np.float32),
                rng.randn(5, 29).astype(np.float32)]
+    fraud = _state_np(serve_models["fraud"][1])
     return sc.spawn_async(2, {
         "facts": ("engine_facts", {}),
         "rt_dp": ("roundtrip", dict(shape=(2,), axes=("data",),
@@ -122,7 +220,16 @@ def group():
         "rt_tp": ("roundtrip", dict(shape=(1, 2), axes=("data", "model"),
                                     rules=True)),
         "eval": ("eval_and_batches", dict(batches=batches)),
-    }, timeout=120)
+        "tiers": ("serve_tiers", dict(
+            families={f: (_state_np(m), b)
+                      for f, (_, m, b) in serve_models.items()},
+            shape=(2,), axes=("data",))),
+        "runtime": ("serve_runtime", dict(
+            weights=fraud, rows=rng.randn(10, 29).astype(np.float32),
+            new_weights={k: v * 1.5 for k, v in fraud.items()},
+            snap_dir=str(tmp_path_factory.mktemp("swap")),
+            shape=(2,), axes=("data",))),
+    }, timeout=240)
 
 
 @pytest.fixture
@@ -169,13 +276,24 @@ class TestRegistryStructureMatch:
             specs_lib.pipeline_specs("nope", mesh=sc.StubMesh({"data": 1}))
 
     def test_spatial_refused_naming_item_12b(self):
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            specs_lib.pipeline_specs("ssd", mesh=sc.StubMesh({"data": 1}),
-                                     tp="spatial")
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            mesh_lib.shard_batch({"input": np.zeros((2, 4))},
-                                 sc.StubMesh({"data": 1}),
-                                 overrides={"input": P("data", "model")})
+        """Once refused, now served: ``tp="spatial"`` declares the image
+        rows over ``model`` (the reference's ``spatial_input_spec``),
+        parameters replicated, and ``shard_batch`` keeps a rank's block
+        of the overridden dims (rank 0 of 2: rows 0..2 of 5), the other
+        keys cut by rows only."""
+        mesh = sc.StubMesh({"data": 1, "model": 2})
+        specs = specs_lib.pipeline_specs("ssd", mesh=mesh, tp="spatial")
+        assert specs.rules is None and specs.row_axis == "model"
+        assert specs.batch_overrides == {
+            "input": P("data", "model", None, None)}
+        x = np.arange(2 * 5 * 3).reshape(2, 5, 3)
+        got = mesh_lib.shard_batch({"input": x, "target": x}, mesh,
+                                   overrides={"input": P("data", "model")})
+        assert np.array_equal(got["input"], x[:, :2])
+        assert np.array_equal(got["target"], x)
+        assert specs_lib.pipeline_specs(
+            "ssd", mesh=sc.StubMesh({"data": 1}), tp="spatial").row_axis \
+            == "model"
 
 
 class TestRoundtrip:
@@ -253,3 +371,154 @@ class TestAnnotatedStep:
         assert tree["labels"] == P("data", None)
         assert tree["scale"] == P()
         assert specs.data_axis_size == 2
+
+
+def _part(batch, rows):
+    """``batch`` with every array leaf cut to ``rows`` along dim 0."""
+    def cut(v):
+        if isinstance(v, tuple):
+            return tuple(cut(x) for x in v)
+        return v[rows]
+    return {k: cut(v) for k, v in batch.items()}
+
+
+def _rows_close(got, want, family):
+    """Transcripts EQUAL; numeric rows within SERVE_ROW_ATOL, and
+    Faster-RCNN's pixel boxes within FRCNN_BOX_TOL_PX (the ranks run on
+    one intra-op thread, this process on several: a convolution's sums
+    round otherwise in the last bits)."""
+    if isinstance(want, list):
+        assert got == want
+    elif family == "frcnn":
+        np.testing.assert_array_equal(got[..., 0], want[..., 0])
+        np.testing.assert_allclose(got[..., 1], want[..., 1], rtol=0,
+                                   atol=SERVE_ROW_ATOL)
+        np.testing.assert_allclose(got[..., 2:], want[..., 2:], rtol=0,
+                                   atol=FRCNN_BOX_TOL_PX)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=SERVE_ROW_ATOL)
+
+
+def _joined(outs):
+    return (sum(outs, []) if isinstance(outs[0], list)
+            else np.concatenate([np.asarray(o) for o in outs]))
+
+
+class TestShardedServing:
+    @pytest.mark.parametrize("family", SERVE_FAMILIES)
+    def test_tiers_over_two_ranks_equal_one_process(self, ranks,
+                                                    serve_models, family):
+        _, model, batches = serve_models[family]
+        plain = sc.family_tiers(family, model)
+        for r in ranks:
+            got = r["tiers"][family]
+            assert len(got) == len(plain)
+            for tier, rows in zip(plain, got):
+                even, ragged = batches
+                half = len(_part(even, slice(None))["input"]) // 2
+                if isinstance(even["input"], tuple):
+                    half = len(even["input"][0]) // 2
+                want = _joined([sc._rows(tier.forward(_part(even, s)))
+                                for s in (slice(0, half),
+                                          slice(half, 2 * half))])
+                _rows_close(_joined([rows[0]]), want, family)
+                _rows_close(_joined([rows[1]]),
+                            _joined([sc._rows(tier.forward(ragged))]),
+                            family)
+
+    @pytest.mark.parametrize("family", SERVE_FAMILIES)
+    def test_tiers_over_two_ranks_equal_jax_on_two_devices(
+            self, ranks, serve_models, family):
+        from analytics_zoo_tpu.ops.detection_output import (
+            DetectionOutputParam as JaxPost)
+        from analytics_zoo_tpu.pipelines import deepspeech2 as jds2
+        from analytics_zoo_tpu.pipelines import fraud as jfraud
+        from analytics_zoo_tpu.pipelines import frcnn as jfrcnn
+        from analytics_zoo_tpu.pipelines import recommendation as jrec
+        from analytics_zoo_tpu.pipelines import sentiment as jsent
+        from analytics_zoo_tpu.pipelines import ssd as jssd
+
+        jm, _, batches = serve_models[family]
+        specs = jax_pipeline_specs(family, mesh=jax_mesh(
+            (2,), axis_names=("data",), devices=jax.devices()[:2]))
+        ref = {"ssd": lambda: jssd.ssd_serving_tiers(
+                   jm, jssd.PreProcessParam(batch_size=2),
+                   post=JaxPost(**sc.SSD_SERVE_POST), n_classes=4,
+                   degraded_topk=5, specs=specs),
+               "frcnn": lambda: jfrcnn.frcnn_serving_tiers(
+                   *jm, jssd.PreProcessParam(batch_size=2, resolution=128),
+                   specs=specs),
+               "ds2": lambda: jds2.ds2_serving_tiers(
+                   jm, jds2.DS2Param(decoder="beam", beam_width=4),
+                   specs=specs),
+               "fraud": lambda: jfraud.fraud_serving_tiers(jm, specs=specs),
+               "rec": lambda: jrec.rec_serving_tiers(jm, specs=specs),
+               "sentiment": lambda: jsent.sentiment_serving_tiers(
+                   jm, specs=specs, seq_len=12)}[family]()
+        got = ranks[0]["tiers"][family]
+        for tier, rows in zip(ref, got):
+            want = tier.forward(batches[0])
+            if family == "ds2":
+                assert rows[0] == [str(t) for t in want], tier.name
+            elif family in JAX_DET_TOL:
+                got, want = np.asarray(rows[0]), np.asarray(want)
+                score_tol, box_tol = JAX_DET_TOL[family]
+                np.testing.assert_array_equal(got[..., 0], want[..., 0])
+                np.testing.assert_allclose(got[..., 1], want[..., 1],
+                                           rtol=0, atol=score_tol)
+                np.testing.assert_allclose(got[..., 2:], want[..., 2:],
+                                           rtol=0, atol=box_tol)
+            else:
+                np.testing.assert_allclose(rows[0], np.asarray(want),
+                                           atol=SERVE_ROW_ATOL,
+                                           err_msg=tier.name)
+
+    def test_runtime_with_a_follower(self, ranks, serve_models):
+        lead, follower = ranks[0]["runtime"], ranks[1]["runtime"]
+        _, model, _ = serve_models["fraud"]
+        rows = np.random.RandomState(1)
+        rows.randn(16, 29), rows.randn(5, 29)
+        rows = rows.randn(10, 29).astype(np.float32)
+        fp = sc.family_tiers("fraud", model)[0]
+        want = np.asarray(fp.forward({"input": rows}))
+        for run in ("virtual", "monotonic", "fault"):
+            got = lead[run]
+            assert got["accounting"]["by_state"] == {"done": 10}, run
+            np.testing.assert_allclose(got["rows"], want, atol=RUNTIME_ATOL,
+                                       err_msg=run)
+            assert got["mesh"] == {"axes": {"data": 2},
+                                   "data_axis_size": 2}
+            assert follower[run]["run"] >= 3
+        # the follower's one fault failed its dispatch, which failed over
+        assert follower["fault"]["failed"] == 1
+        assert "failover" in lead["fault"]["events"]
+        assert follower["virtual"]["failed"] == 0
+        # the swap: both ranks built the new tiers, then served them
+        swap = lead["swap"]
+        assert swap["accounting"]["by_state"] == {"done": 20}
+        assert follower["swap"]["build"] >= 2
+        new = sc._family_model("fraud", {k: v * 1.5 for k, v in
+                                         _state_np(model).items()})
+        want_new = np.asarray(sc.family_tiers("fraud", new)[0].forward(
+            {"input": rows}))
+        np.testing.assert_allclose(swap["rows"][:10], want,
+                                   atol=RUNTIME_ATOL)
+        np.testing.assert_allclose(swap["rows"][10:], want_new,
+                                   atol=RUNTIME_ATOL)
+
+    def test_follower_failing_before_its_tier_fails_the_dispatch(
+            self, ranks, serve_models):
+        lead, follower = ranks[0]["runtime"], ranks[1]["runtime"]
+        _, model, _ = serve_models["fraud"]
+        rows = np.random.RandomState(1)
+        rows.randn(16, 29), rows.randn(5, 29)
+        rows = rows.randn(10, 29).astype(np.float32)[:4]
+        # the rung the follower lacks fails at its lookup, before any
+        # rank runs it; its placement's fault fails inside the guard
+        assert lead["before"]["caught"] == ["FollowerFailed",
+                                            "RuntimeError", None]
+        assert follower["before"] == {"run": 4, "build": 0, "failed": 2}
+        want = np.asarray(sc.family_tiers("fraud", model)[0].forward(
+            {"input": rows}))
+        np.testing.assert_allclose(lead["before"]["rows"], want,
+                                   atol=RUNTIME_ATOL)

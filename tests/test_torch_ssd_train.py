@@ -706,8 +706,13 @@ def test_train_ssd_validates_each_epoch_and_drives_plateau(monkeypatch,
                    mesh=sc.StubMesh({"data": 1}))
     assert seen[0].history[0]["loss"].item() == \
         opt.history[0]["loss"].item()
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        pipe.train_ssd([batch], None, params, model=model, tp="spatial")
+    # tp="spatial" over a one-rank model axis is the plain run too
+    seen.clear()
+    pipe.train_ssd([batch], None, dataclasses.replace(params, max_epoch=1),
+                   model=ssd.SSDVgg(21, 300, device="cpu", seed=0),
+                   mesh=sc.StubMesh({"data": 1, "model": 1}), tp="spatial")
+    assert seen[0].history[0]["loss"].item() == \
+        opt.history[0]["loss"].item()
 
 
 def test_validator_matches_validation_method():

@@ -412,24 +412,34 @@ def test_rec_pair_requests_through_the_port_runtime():
 
 
 def test_mesh_and_specs_are_refused_naming_item_12():
-    """Training over a mesh is served (``tests/test_torch_dist_train.py``;
-    a one-rank mesh here); sharded serving stays refused, naming item
-    12b."""
+    """Once refused, now served: training over a mesh
+    (``tests/test_torch_dist_train.py``; a one-rank mesh here) and sharded
+    serving (item 12b.4; two ranks in ``tests/test_torch_specs.py``): over
+    a one-rank mesh the ``specs=`` rungs give the plain rungs' rows."""
     import torch_dist_scenarios as sc
+    from analytics_zoo_tpu_torch.parallel.specs import pipeline_specs
     _, tm = _rec_pair("ncf")
     one = sc.StubMesh({"data": 1})
     assert fraud.MLPClassifier(mesh=one).mesh is one
     assert recommendation.train_recommender(tm, [], epochs=0,
                                             mesh=one) is tm
     assert sentiment.train_sentiment(tm, [], epochs=0, mesh=one) is tm
-    calls = [
-        lambda: fraud.fraud_serving_tiers(tm, specs=object()),
-        lambda: recommendation.rec_serving_tiers(tm, specs=object()),
-        lambda: sentiment.sentiment_serving_tiers(tm, specs=object()),
-    ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            call()
+    users, items, _ = _ratings(16, 8, n_users=600)
+    rng = np.random.RandomState(17)
+    cases = (
+        ("fraud", fraud.fraud_serving_tiers, _fraud_models()[1], {},
+         {"input": rng.randn(8, 29).astype(np.float32)}),
+        ("rec", recommendation.rec_serving_tiers,
+         _rec_pair("ncf", n_users=600)[1], {}, {"input": (users, items)}),
+        ("sentiment", sentiment.sentiment_serving_tiers, _sent_models()[1],
+         {"seq_len": 12},
+         {"input": rng.randint(0, 400, (8, 12)).astype(np.int32)}))
+    for family, build, model, kw, batch in cases:
+        plain = build(model, device="cpu", **kw)
+        sharded = build(model, specs=pipeline_specs(family, mesh=one),
+                        device="cpu", **kw)
+        for p, q in zip(plain, sharded):
+            np.testing.assert_array_equal(q.forward(batch), p.forward(batch))
 
 
 def test_run_fraud_pipeline_on_the_cpu():

@@ -296,6 +296,45 @@ def ssd_megatron_forward(weights, x, shape, axes, resolution):
             "conf_0": tuple(model.conf_0.weight.shape)}
 
 
+def ssd_spatial_forward(weights, x, cot, shape, axes):
+    """SSD300's ``(loc, conf)`` with the image rows over ``model``
+    (``tp="spatial"``'s placement and row scope; ``x``'s dtype), and
+    unless ``cot`` is ``None`` the
+    gradients of ``sum(loc * cot[0]) + sum(conf * cot[1])`` summed over
+    ``model`` as the step sums them (then over ``data``: the whole
+    batch's), and the rows this rank held."""
+    import torch.distributed as dist
+
+    from analytics_zoo_tpu_torch.models.ssd import SSDVgg
+    from analytics_zoo_tpu_torch.parallel.specs import pipeline_specs
+
+    mesh = _mesh(shape, axes)
+    dtype = torch.from_numpy(x).dtype
+    model = SSDVgg(4, 300, device="cpu", seed=0).to(dtype)
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in weights.items()})
+    specs = pipeline_specs("ssd", mesh=mesh, tp="spatial")
+    specs.place_state(model)
+    block = torch.from_numpy(specs.place_batch({"input": x})["input"])
+    cot = specs.place_batch(list(cot)) if cot is not None else None
+    with specs.row_scope(), torch.set_grad_enabled(cot is not None):
+        loc, conf = model(block)
+    out = {"loc": loc.detach().numpy(), "conf": conf.detach().numpy(),
+           "rows": int(block.shape[1])}
+    if cot is None:
+        return out
+    ((loc * torch.from_numpy(cot[0])).sum()
+     + (conf * torch.from_numpy(cot[1])).sum()).backward()
+    grads = {}
+    for name, p in model.named_parameters():
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        for group in (specs.row_group(), specs.data_group()):
+            if group is not None:
+                dist.all_reduce(g, group=group)
+        grads[name] = g.numpy()
+    return dict(out, grads=grads)
+
+
 # ---------------------------------------------------------------------------
 # Training entry points over a mesh
 # ---------------------------------------------------------------------------
@@ -1115,4 +1154,241 @@ def asr_parallel(weights, kw, x, labels, shape, axes, mode, batches=None):
         finally:
             pipe.Optimizer = base
         out["losses"] = [float(m["loss"]) for m in runs[0].history]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Sharded serving: the tiers over the data ranks, the runtime's follower
+# ---------------------------------------------------------------------------
+
+
+def _family_model(family, weights):
+    """The port model of a serving family (the test's widths) on the
+    CPU, loaded with ``weights`` (a state dict of numpy arrays)."""
+    from analytics_zoo_tpu_torch.core.module import Model
+    from analytics_zoo_tpu_torch.models import simple
+    from analytics_zoo_tpu_torch.pipelines import (deepspeech2,
+                                                   recommendation, sentiment)
+
+    if family == "ssd":
+        from analytics_zoo_tpu_torch.models.ssd import SSDVgg
+        model = SSDVgg(4, 300, device="cpu")
+    elif family == "ds2":
+        model = deepspeech2.make_ds2_model(hidden=16, n_rnn_layers=1,
+                                           device="cpu")
+    elif family == "frcnn":
+        from analytics_zoo_tpu_torch.models import faster_rcnn
+        from analytics_zoo_tpu_torch.ops.proposal import ProposalParam
+        model = faster_rcnn.FasterRcnnDetector(
+            faster_rcnn.FrcnnParam(num_classes=4,
+                                   proposal=ProposalParam(64, 16)),
+            device="cpu", seed=0)
+    elif family == "fraud":
+        model = Model(simple.FraudMLP(), device="cpu")
+    elif family == "rec":
+        model = recommendation.make_ncf_model(600, 30, embedding_dim=8,
+                                              mf_embedding_dim=4,
+                                              hidden=(16, 8), device="cpu")
+    else:
+        model = sentiment.make_sentiment_model(
+            vocab_size=400, embedding_dim=16, hidden=64, head="cnn",
+            seq_len=12, device="cpu")
+    module = model.module if isinstance(model, Model) else model
+    module.load_state_dict({k: torch.from_numpy(v)
+                            for k, v in weights.items()})
+    return model
+
+
+# the SSD rungs' post-processing in the sharded-serving tests: a
+# confidence floor above the random weights' near-tied scores
+SSD_SERVE_POST = dict(n_classes=4, conf_thresh=0.4)
+
+
+def family_tiers(family, model, specs=None):
+    """A family's serving rungs over ``model`` (the test's widths)."""
+    from analytics_zoo_tpu_torch.ops.detection_output import (
+        DetectionOutputParam)
+    from analytics_zoo_tpu_torch.pipelines import (deepspeech2, fraud, frcnn,
+                                                   recommendation, sentiment,
+                                                   ssd)
+
+    if family == "ssd":
+        return ssd.ssd_serving_tiers(
+            model, ssd.PreProcessParam(batch_size=2),
+            post=DetectionOutputParam(**SSD_SERVE_POST), n_classes=4,
+            degraded_topk=5, specs=specs, device="cpu")
+    if family == "ds2":
+        return deepspeech2.ds2_serving_tiers(
+            model, deepspeech2.DS2Param(decoder="beam", beam_width=4),
+            specs=specs, device="cpu")
+    if family == "frcnn":
+        return frcnn.frcnn_serving_tiers(
+            model, ssd.PreProcessParam(resolution=128), specs=specs,
+            device="cpu")
+    build = {"fraud": fraud.fraud_serving_tiers,
+             "rec": recommendation.rec_serving_tiers,
+             "sentiment": sentiment.sentiment_serving_tiers}[family]
+    kw = {"seq_len": 12} if family == "sentiment" else {}
+    return build(model, specs=specs, device="cpu", **kw)
+
+
+def _rows(out):
+    return [str(x) for x in out] if isinstance(out, list) else np.asarray(out)
+
+
+def serve_tiers(families, shape, axes):
+    """Each family's rungs with ``specs`` of its pipeline on the mesh,
+    every rung on each of its batches: the rows each rank got back."""
+    from analytics_zoo_tpu_torch.parallel.specs import pipeline_specs
+
+    mesh = _mesh(shape, axes)
+    out = {}
+    for family, (weights, batches) in families.items():
+        specs = pipeline_specs(family, mesh=mesh)
+        tiers = family_tiers(family, _family_model(family, weights), specs)
+        out[family] = [[_rows(t.forward(b)) for b in batches] for t in tiers]
+    return out
+
+
+def _runtime(tiers, clock, specs, n_replicas=2, models=None):
+    from analytics_zoo_tpu_torch import serving
+
+    kw = dict(n_replicas=n_replicas, clock=clock, max_batch=4,
+              length_key=None, default_deadline_s=60.0,
+              wedge_timeout_s=60.0, specs=specs)
+    if isinstance(clock, serving.VirtualClock):
+        kw["service_time"] = ((lambda m, e, n, t: 0.01) if models
+                              else (lambda e, n, t: 0.01))
+    if models is not None:
+        return serving.ServingRuntime(models=models, **kw)
+    return serving.ServingRuntime(tiers, **kw)
+
+
+def _fail_before_the_tier(specs, tiers, rows, lead):
+    """A follower failing before its tier's forward, through the
+    leader's half alone: the leader calls the ``int8`` rung, which the
+    follower lacks (its lookup fails), then the ``fp`` rung twice, the
+    follower's first placement of the rows raising.  The leader returns
+    the exception each call raised (``None``: none) and a last call's
+    rows; the follower its counts."""
+    from analytics_zoo_tpu_torch.parallel.specs import SpecSet
+    from analytics_zoo_tpu_torch.serving.follower import (Leader,
+                                                          serve_follower)
+
+    if not lead:
+        place = SpecSet.place_batch
+        calls = [0]
+
+        def flaky(self, *args, **kw):
+            calls[0] += 1
+            if calls[0] == 1:
+                raise RuntimeError("follower placement fault")
+            return place(self, *args, **kw)
+
+        SpecSet.place_batch = flaky
+        try:
+            return serve_follower(specs, tiers=tiers[:1])
+        finally:
+            SpecSet.place_batch = place
+    leader = Leader(specs)
+    fp, int8 = leader.register(tiers)
+    caught = []
+    for tier in (int8, fp, fp):
+        try:
+            tier.forward({"input": rows})
+            caught.append(None)
+        except Exception as e:          # noqa: BLE001 - recorded
+            caught.append(type(e).__name__)
+    got = np.asarray(fp.forward({"input": rows}))
+    leader.stop()
+    return {"caught": caught, "rows": got}
+
+
+def serve_runtime(weights, rows, new_weights, snap_dir, shape, axes):
+    """``ServingRuntime(specs=)`` over the fraud rungs sharded on the
+    mesh: rank 0 runs the runtime, the others ``serve_follower``.
+    ``virtual`` and ``monotonic``: the rows through each clock;
+    ``fault``: the follower's forward raises on its first batch;
+    ``before``: the follower fails before its tier runs
+    (:func:`_fail_before_the_tier`); ``swap``: a hot swap to ``new_weights`` (published by rank 0), then
+    the rows again.  Rank 0 returns each run's request rows, accounting,
+    pool events and snapshot's mesh; a follower its counts."""
+    from analytics_zoo_tpu_torch import serving
+    from analytics_zoo_tpu_torch.models import simple
+    from analytics_zoo_tpu_torch.parallel import checkpoint as ckpt
+    from analytics_zoo_tpu_torch.parallel.specs import pipeline_specs
+    from analytics_zoo_tpu_torch.serving.follower import serve_follower
+
+    mesh = _mesh(shape, axes)
+    specs = pipeline_specs("fraud", mesh=mesh)
+    lead = _rank() == 0
+    out = {}
+
+    def tiers_from(w):
+        return family_tiers("fraud", _family_model("fraud", w), specs)
+
+    def serve(run, tiers, clock, models=None):
+        if not lead:
+            return serve_follower(specs, tiers=None if models else tiers,
+                                  models=models)
+        rt = _runtime(tiers, clock, specs, models=models)
+        for r in rows:
+            rt.submit({"input": r}, **({"model": "fraud"} if models
+                                       else {}))
+        rt.drain()
+        if run is not None:
+            run(rt)
+        rt.close()
+        return {"rows": np.stack([np.asarray(r.result)
+                                  if r.result is not None
+                                  else np.full(2, np.nan)
+                                  for r in rt.requests]),
+                "accounting": rt.accounting(),
+                "events": [e["kind"] for e in rt.pool.events],
+                "mesh": rt.snapshot()["mesh"]}
+
+    out["virtual"] = serve(None, tiers_from(weights), serving.VirtualClock())
+    out["monotonic"] = serve(None, tiers_from(weights),
+                             serving.MonotonicClock())
+    tiers = tiers_from(weights)
+    if not lead:
+        fc1 = simple.FraudMLP.forward
+        calls = [0]
+
+        def flaky(self, x):
+            calls[0] += 1
+            if calls[0] == 1:
+                raise RuntimeError("follower fault")
+            return fc1(self, x)
+
+        simple.FraudMLP.forward = flaky
+    try:
+        out["fault"] = serve(None, tiers, serving.MonotonicClock())
+    finally:
+        if not lead:
+            simple.FraudMLP.forward = fc1
+    out["before"] = _fail_before_the_tier(specs, tiers, rows[:4], lead)
+
+    def weights_to_tiers(state, rid):
+        return tiers_from({k: v.numpy() for k, v in state.items()})
+
+    models = [serving.ModelConfig(name="fraud", tiers=tiers_from(weights),
+                                  weights_to_tiers=weights_to_tiers,
+                                  length_key=None)]
+    if lead:
+        snap = ckpt.save(os.path.join(snap_dir, "fraud"),
+                         {k: torch.from_numpy(v)
+                          for k, v in new_weights.items()}, step=1)
+
+    def swap(rt):
+        rt.hot_swap(snap, canary_fraction=0.0, device="cpu")
+        for _ in range(50):
+            rt.pump(force=True)
+            if not rt.swap_active:
+                break
+        for r in rows:
+            rt.submit({"input": r}, model="fraud")
+        rt.drain()
+
+    out["swap"] = serve(swap, None, serving.MonotonicClock(), models=models)
     return out
