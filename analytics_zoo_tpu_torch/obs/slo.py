@@ -26,7 +26,7 @@ Consumers: the runtime feeds :meth:`SloEvaluator.decide` to
 observe_decision` and, multiplexed, sets each model's weighted-EDF
 weight from its fast burn.  :attr:`SloDecision.scale_hint` (+1 while an
 SLO burns, -1 when every burn is far under budget, else 0) is the
-autoscaler's input (ROADMAP.md Queue 1 item 13); the burns are mirrored
+autoscaler's input (``serving/autoscale.py``); the burns are mirrored
 into the registry (``slo/fast_burn/slo=*`` gauges, ``slo/trips/slo=*``
 counters).
 

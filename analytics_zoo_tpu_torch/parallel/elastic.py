@@ -12,6 +12,12 @@
   intact checkpoint, up to ``max_restarts`` times.  Rebuilding matters on
   the card: after a failed launch the old module and its buffers are not
   to be trusted; a fresh ``Optimizer`` reloads them from the snapshot.
+  A chaos schedule (``resilience.chaos.ChaosMonkey``) rides along when
+  the factory wraps every attempt's dataset with the same monkey: its
+  batch counter runs across attempts, so each fault fires once.
+- :func:`resume_after_quarantine`: after ``DeviceQuarantine`` the
+  survivors go on without the named device, from the last-known-good
+  tier, at the smaller width.
 - :class:`FaultInjector`: a dataset wrapper that raises once, at a
   chosen global batch index.
 """
@@ -109,6 +115,57 @@ def run_resilient(build_optimizer: Callable[[], "object"],
                            type(e).__name__, e, attempt, max_restarts)
             if on_restart is not None:
                 on_restart(attempt, e)
+
+
+def resume_after_quarantine(err, mesh, checkpoint_path: str, new_root: str,
+                            build_optimizer: Callable,
+                            new_width: Optional[int] = None):
+    """The eviction after a ``DeviceQuarantine`` ``err`` raised on every
+    rank of ``mesh``: every rank calls this at the same point.  The named
+    rank is evicted (``health.evict_device``, a mesh and groups over the
+    survivors); it gets ``None`` back and must leave without another
+    collective.  The survivors' first rank publishes the last-known-good
+    tier of ``checkpoint_path`` as ``new_root``'s ``latest`` (its exact
+    bytes, whose manifest carries the saved width and sample offset),
+    and each survivor returns ``build_optimizer(mesh, new_root)`` set to
+    resume from it: the resume re-places the whole tensors at the new
+    width (as ``checkpoint.restore_elastic``) and re-seeks the stream by
+    samples.  Raises ``CheckpointCorrupt`` when there is no
+    last-known-good snapshot to go on from."""
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    from analytics_zoo_tpu_torch.parallel import checkpoint as ckpt
+    from analytics_zoo_tpu_torch.resilience.errors import CheckpointCorrupt
+    from analytics_zoo_tpu_torch.resilience.health import evict_device
+
+    device = getattr(err, "device", None)
+    if device is None:
+        raise ValueError(f"{type(err).__name__} names no device to evict")
+    survivors = evict_device(mesh, int(device), new_width=new_width)
+    if survivors is None:
+        logger.warning("rank %d evicted as device %s: leaving the run",
+                       dist.get_rank(), device)
+        return None
+    found = ckpt.lkg_snapshot(checkpoint_path)
+    if found is None:
+        raise CheckpointCorrupt(
+            f"no last-known-good snapshot under {checkpoint_path} to "
+            f"resume the survivors from")
+    ranks = [int(r) for r in survivors.mesh.flatten().tolist()]
+    if dist.get_rank() == ranks[0]:
+        latest = os.path.join(os.path.abspath(new_root), "latest")
+        if os.path.isdir(latest):
+            shutil.rmtree(latest)
+        os.makedirs(os.path.dirname(latest), exist_ok=True)
+        shutil.copytree(found[0], latest)
+    if len(ranks) > 1:
+        dist.barrier(group=survivors.get_group(
+            survivors.mesh_dim_names[0]))
+    opt = build_optimizer(survivors, new_root)
+    return opt.set_resume(new_root)
 
 
 class FaultInjector:

@@ -223,6 +223,25 @@ def _tensors_of(tree):
     return out
 
 
+def mesh_group(mesh):
+    """The process group of every rank of ``mesh``: ``None`` (the default
+    group) when the mesh holds every rank of the world, else the group of
+    a one-axis mesh over some of them (the survivors of an eviction, a
+    serving slice)."""
+    if int(mesh.size()) == dist.get_world_size():
+        return None
+    if len(axis_names(mesh)) == 1:
+        return mesh.get_group(axis_names(mesh)[0])
+    raise ValueError("a mesh of several axes over part of the world has "
+                     "no group of all its ranks")
+
+
+def first_rank(mesh) -> int:
+    """The global rank of the mesh's first position (the one that writes
+    what the ranks share)."""
+    return int(mesh.mesh.flatten()[0])
+
+
 def replicate(tree, mesh):
     """Broadcast every tensor of ``tree`` (a module's parameters and
     buffers, or a tree of tensors) from rank 0, in place: the one-time
@@ -231,11 +250,11 @@ def replicate(tree, mesh):
     from analytics_zoo_tpu_torch.parallel.tensor import is_sharded
 
     if spans_processes(mesh):
-        src = int(mesh.mesh.flatten()[0])
+        src, group = first_rank(mesh), mesh_group(mesh)
         with torch.no_grad():
             for t in _tensors_of(tree):
                 if not is_sharded(t):
-                    dist.broadcast(t.data, src)
+                    dist.broadcast(t.data, src, group=group)
     return tree
 
 

@@ -46,6 +46,13 @@ and restore spans, ``train/dispatch/*`` and ``train/anomaly/*``
 metrics, and the flight recorder's dump on ``TrainingDiverged`` and on
 preemption.  ``set_train_summary``/``set_validation_summary`` write
 TensorBoard event files (``parallel/summary.py``).
+
+``Optimizer.set_health_policy`` arms the device-health sentinel
+(``resilience/health.py``): every ``audit_every`` steps each rank folds
+its parameters into one word and the ranks' words are compared (a
+minority rank raises ``DeviceQuarantine`` on every rank, an ambiguous
+split ``SdcDetected``); every ``shadow_every`` steps the ranks recompute
+one microbatch's forward and compare its fingerprints.
 """
 
 from __future__ import annotations
@@ -350,7 +357,8 @@ def make_train_step(module: nn.Module, criterion: Callable,
                  for s, g in zip(sections, groups)},
                 sections, spike_loss_above=skip_loss_above)
             if specs is not None and torch.distributed.is_initialized():
-                word = anomaly.word_over_ranks(word)
+                word = anomaly.word_over_ranks(
+                    word, group=mesh_lib.mesh_group(specs.mesh))
         if skip_unhealthy:
             keep = word == 0
         else:
@@ -702,6 +710,10 @@ class Optimizer:
         self.stall_watchdog = None
         self.anomaly_policy = None
         self._anomaly = None        # AnomalySentinel, built per optimize()
+        self.health_policy = None
+        self._health = None         # HealthSentinel, built per optimize()
+        self._audit_fn = None       # the parity audit, built lazily
+        self._shadow_fn = None      # the shadow forward, built lazily
         self.obs = None             # obs.Observability
         self.train_summary = None
         self.val_summary = None
@@ -804,6 +816,25 @@ class Optimizer:
         self.anomaly_policy = policy or AnomalyPolicy()
         return self
 
+    def set_health_policy(self, policy=None) -> "Optimizer":
+        """Arm the device-health sentinel (``resilience.health``): every
+        ``audit_every`` steps the ranks' parameter fingerprints are
+        compared (data-parallel ranks hold bit-identical parameters after
+        the gradient all-reduce, so a divergence proves silent data
+        corruption and the minority names the device); every
+        ``shadow_every`` steps the ranks recompute one microbatch's
+        forward and compare its fingerprints (a third rank breaks a tie).
+        A named suspect raises the retryable ``DeviceQuarantine`` on
+        every rank (pair with ``set_anomaly_policy`` and
+        ``set_checkpoint``, so that the survivors resume from the
+        last-known-good tier: ``parallel.elastic.
+        resume_after_quarantine``); an unattributable divergence raises
+        the fatal ``SdcDetected``.  The default policy audits every 8
+        steps."""
+        from analytics_zoo_tpu_torch.resilience.health import HealthPolicy
+        self.health_policy = policy or HealthPolicy(audit_every=8)
+        return self
+
     def set_observability(self, obs=None) -> "Optimizer":
         """Arm the telemetry spine (:class:`analytics_zoo_tpu_torch.obs.
         Observability`; ``None`` builds one): a ``train_step`` span a step
@@ -888,10 +919,23 @@ class Optimizer:
             self._anomaly = AnomalySentinel(
                 policy, sections=health_sections(self.model))
             if (policy.promote_initial and self.checkpoint_path is not None
-                    and ckpt.lkg_snapshot(self.checkpoint_path) is None):
+                    and self._agreed(ckpt.lkg_snapshot(
+                        self.checkpoint_path) is None)):
                 # the starting state seeds the last-known-good slot, so a
                 # rollback always has a target
                 self._promote_lkg(loop, state)
+        # the audit and shadow programs close over the mesh and the
+        # forward: a reused Optimizer may have swapped either (the elastic
+        # replace_mesh path), so they rebuild each optimize()
+        self._health = self._audit_fn = self._shadow_fn = None
+        if (self.health_policy is not None
+                and (self.health_policy.audit_every > 0
+                     or self.health_policy.shadow_every > 0)):
+            from analytics_zoo_tpu_torch.resilience.health import (
+                HealthSentinel)
+            self._health = HealthSentinel(
+                self.health_policy,
+                registry=self.obs.registry if self.obs is not None else None)
         # the spine's hot-path objects are None-checked: an un-armed loop
         # pays nothing and synchronizes nothing
         obs = self.obs
@@ -1003,6 +1047,25 @@ class Optimizer:
                                         iteration=loop.iteration)
                                     obs.dump("training_diverged")
                                 raise
+                        if self._health is not None:
+                            # the audit and shadow at their cadences: a
+                            # named device raises DeviceQuarantine (the
+                            # survivors go on without it), unattributable
+                            # corruption SdcDetected
+                            try:
+                                self._health_step(loop, batch)
+                            except Exception as e:
+                                if (step_span is not None
+                                        and not step_span.ended):
+                                    step_span.end(
+                                        status="error",
+                                        error=f"{type(e).__name__}: {e}")
+                                if obs is not None:
+                                    obs.recorder.note(
+                                        "device_health",
+                                        iteration=loop.iteration)
+                                    obs.dump("device_health")
+                                raise
                         if step_span is not None and not step_span.ended:
                             step_span.end(status="ok")
                         if self.train_summary is not None:
@@ -1101,6 +1164,19 @@ class Optimizer:
                "loss or the health word is bad): resume falls back to the "
                "previous snapshot"))
 
+    def _agreed(self, flag: bool) -> bool:
+        """``flag`` as the mesh's ranks agree on it (true when any rank
+        saw it true): a decision read from the shared disk, taken before
+        any rank writes, so that a rank which reads after another's
+        write cannot skip the save's collectives."""
+        if self.specs is None or not mesh_lib.spans_processes(self.mesh):
+            return flag
+        dev = next(self.model.parameters()).device
+        t = torch.tensor([int(flag)], dtype=torch.int32, device=dev)
+        torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX,
+                                     group=mesh_lib.mesh_group(self.mesh))
+        return bool(t.item())
+
     # -- checkpoint and resume ------------------------------------------------
     def _snapshot_state(self, state: TrainState) -> Dict[str, Any]:
         """What a snapshot holds: the module's parameters and buffers, the
@@ -1167,19 +1243,20 @@ class Optimizer:
     def _save(self, state: TrainState, meta: Dict[str, Any],
               **kw) -> Optional[str]:
         """Write a snapshot of ``state`` under the checkpoint path; over
-        several ranks rank 0 writes the gathered state and the others
-        wait.  Returns the published directory (``None`` on the other
+        several ranks the mesh's first rank writes the gathered state and
+        the others wait.  Returns the published directory (``None`` on the other
         ranks)."""
         from analytics_zoo_tpu_torch.parallel import checkpoint as ckpt
         snapshot = self._snapshot_state(state)
         spans = (self.specs is not None
                  and mesh_lib.spans_processes(self.mesh))
         target = None
-        if not spans or torch.distributed.get_rank() == 0:
+        if not spans or (torch.distributed.get_rank()
+                         == mesh_lib.first_rank(self.mesh)):
             target = ckpt.save(self.checkpoint_path, snapshot, meta=meta,
                                **kw)
         if spans:
-            torch.distributed.barrier()
+            torch.distributed.barrier(group=mesh_lib.mesh_group(self.mesh))
         return target
 
     def _maybe_checkpoint(self, loop: TrainingState, state: TrainState,
@@ -1283,6 +1360,99 @@ class Optimizer:
         self.model.load_state_dict(restored["model"])
         return TrainState(step=int(restored["step"]),
                           opt_state=restored["opt_state"]), restored
+
+    # -- the device-health sentinel (resilience.health) -----------------------
+    def _health_step(self, loop: TrainingState, batch) -> None:
+        """The armed detectors at their cadences.  Every rank runs them
+        at the same iteration and reaches the same verdict (the words are
+        all-gathered), so every rank raises the same error."""
+        from analytics_zoo_tpu_torch.resilience import health as health_lib
+        from analytics_zoo_tpu_torch.resilience.errors import (
+            DeviceQuarantine, SdcDetected)
+
+        pol, sent = self.health_policy, self._health
+        step = loop.iteration
+        target, element, bit = health_lib.active_bit_flip() or (-1, 0, 0)
+        if pol.audit_every > 0 and step % pol.audit_every == 0:
+            if self._audit_fn is None:
+                self._audit_fn = health_lib.make_audit_fn(self.mesh)
+            fps = self._audit_fn(self.model, target, element, bit)
+            verdict = sent.observe_audit(step, fps)
+            self._health_verdict(loop, verdict, "parity audit",
+                                 DeviceQuarantine, SdcDetected)
+        if pol.shadow_every > 0 and step % pol.shadow_every == 0 \
+                and self.mesh is not None and self.specs.data_axis_size >= 2:
+            verdict = self._shadow_check(step, batch, (target, element, bit))
+            self._health_verdict(loop, verdict, "shadow recompute",
+                                 DeviceQuarantine, SdcDetected)
+
+    def _health_verdict(self, loop, verdict, what, quarantine_cls,
+                        sdc_cls) -> None:
+        if verdict.ok:
+            return
+        pol, sent = self.health_policy, self._health
+        if verdict.ambiguous:
+            raise sdc_cls(
+                f"{what} diverged at iteration {loop.iteration} with no "
+                f"attributable minority device (fingerprints "
+                f"{list(verdict.fingerprints)}); corruption is proven "
+                f"but eviction has no target — triage the hardware")
+        if pol.evict and sent.eviction_budget_left:
+            sent.note_quarantine(verdict.suspect, what.replace(" ", "_"))
+            raise quarantine_cls(
+                f"{what} named device {verdict.suspect} as corrupt at "
+                f"iteration {loop.iteration} (fingerprints "
+                f"{list(verdict.fingerprints)}); quarantining — rebuild "
+                f"on the surviving devices and resume from the LKG tier",
+                device=verdict.suspect)
+        logger.error("health: %s named device %s at iteration %d but "
+                     "eviction is %s — continuing (detect-only)", what,
+                     verdict.suspect, loop.iteration,
+                     "off" if not pol.evict else "budget-exhausted")
+
+    def _shadow_check(self, step: int, batch, flip):
+        """Every rank of the data group recomputes the forward of the
+        first rank's microbatch input (broadcast to all) on its own
+        device and copy; the words are all-gathered, rank 0's is the
+        primary, ``shadow_device``'s the shadow, a third rank's the
+        tiebreak on a mismatch."""
+        import torch.distributed as dist
+
+        from analytics_zoo_tpu_torch.resilience import health as health_lib
+
+        pol, sent = self.health_policy, self._health
+        axis = mesh_lib.data_axis(self.mesh)
+        group = mesh_lib.axis_group(self.mesh, axis)
+        me = mesh_lib.axis_index(self.mesh, axis)
+        width = self.specs.data_axis_size
+        if self._shadow_fn is None:
+            fwd = self._step_options.get("forward_fn")
+            cdtype = resolve_compute_dtype(self.compute_dtype)
+            self._shadow_fn = health_lib.make_shadow_fn(
+                self.model, forward_fn=lambda m, x: _forward(
+                    m, x, cdtype, forward_fn=fwd))
+        box = [mesh_lib._tree_map(
+            lambda x: x.detach().cpu() if isinstance(x, torch.Tensor)
+            else x, batch["input"] if isinstance(batch, dict) else batch)]
+        ranks = [int(r) for r in self.mesh.mesh.flatten().tolist()]
+        dist.broadcast_object_list(box, src=ranks[0], group=group)
+        dev = next(self.model.parameters()).device
+        target, element, bit = flip
+        word = self._shadow_fn({"input": to_device(box[0], dev)}, element,
+                               bit, on=target == me)
+        out = [torch.zeros(1, dtype=torch.int64) for _ in range(width)]
+        dist.all_gather(out, torch.tensor([word], dtype=torch.int64),
+                        group=group)
+        words = [int(t.item()) for t in out]
+        shadow_i = min(pol.shadow_device, width - 1)
+        tiebreak = None
+        if words[0] != words[shadow_i]:
+            third = next((j for j in range(width)
+                          if j not in (0, shadow_i)), None)
+            if third is not None:
+                tiebreak = words[third]
+        return sent.observe_shadow(step, words[0], words[shadow_i],
+                                   device=shadow_i, tiebreak_fp=tiebreak)
 
     # -- the anomaly ladder (resilience.anomaly) ------------------------------
     def _anomaly_step(self, loop: TrainingState, state: TrainState,
@@ -1454,7 +1624,8 @@ class Optimizer:
         }
         if not (self.specs is not None
                 and mesh_lib.spans_processes(self.mesh)
-                and torch.distributed.get_rank() != 0):
+                and torch.distributed.get_rank()
+                != mesh_lib.first_rank(self.mesh)):
             sent.write_forensics(directory, payload)
 
     def _promote_lkg(self, loop: TrainingState, state: TrainState) -> None:

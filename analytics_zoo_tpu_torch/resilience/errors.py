@@ -10,8 +10,8 @@ sits in exactly one of the two tuples: the serving classes, the training
 supervisor's (``Preempted``, ``InjectedFault``, ``TrainingDiverged``),
 the checkpoint's (``CheckpointCorrupt``), the input path's
 (``PrefetchWorkerDied``, ``ShardReadError``, which ``data.prefetch`` and
-``data.records`` import from here) and ``ElasticPlacementError``, raised
-by the still-refused elastic restore.
+``data.records`` import from here), the device-health sentinel's
+(``DeviceQuarantine``, ``SdcDetected``) and ``ElasticPlacementError``.
 
 ``retryable_errors()`` adds torch's CUDA errors in place of the
 reference's jaxlib runtime error: ``torch.cuda.OutOfMemoryError`` and
@@ -83,6 +83,29 @@ class ReplicaWedged(RuntimeError):
     if that dispatch also fails do the requests fail with this error)."""
 
 
+class DeviceQuarantine(RuntimeError):
+    """The device-health sentinel (``resilience/health.py``) confirmed a
+    device as unhealthy (a parity-audit minority, a shadow recompute
+    outvoted by a tiebreak, or a persistent straggler) and quarantined
+    it.  ``device`` names the rank of the data group (or the replica id)
+    being evicted.  Retryable: the culprit is attributed, so the
+    survivors rebuild without it (``health.evict_device``, the
+    last-known-good tier and the elastic resume) and the narrower
+    restart does not re-create the fault."""
+
+    def __init__(self, message: str, device=None):
+        super().__init__(message)
+        self.device = device
+
+
+class SdcDetected(RuntimeError):
+    """Silent data corruption was proven (the ranks' fingerprints
+    diverged, or a shadow recompute disagreed with the primary) but not
+    attributed to one device: a two-way split, several divergers, or no
+    tiebreak.  Fatal: with no culprit there is nothing to evict, and a
+    restart lands on the same silicon."""
+
+
 class ElasticPlacementError(ValueError):
     """A restored state cannot be placed under the declared sharding.
     Fatal: a configuration error that a restart re-creates."""
@@ -97,16 +120,18 @@ _RETRYABLE_CLASSES: Tuple[Type[BaseException], ...] = (
     ServerOverloaded,
     RequestTimeout,
     ReplicaWedged,
+    DeviceQuarantine,
 )
 
 #: Fatal: restarting cannot fix these (no intact snapshot left; a shard
 #: that stays unreadable; a run whose loss keeps diverging; a placement
-#: the declaration cannot carry).
+#: the declaration cannot carry; corruption with no culprit).
 FATAL_ERRORS: Tuple[Type[BaseException], ...] = (
     CheckpointCorrupt,
     ShardReadError,
     TrainingDiverged,
     ElasticPlacementError,
+    SdcDetected,
 )
 
 

@@ -22,6 +22,19 @@ clock: every sleep inside a supervised forward goes through
 (a new replica joins healthy: eager PyTorch has no per-shape compile to
 pre-warm); shrinking drains a replica and retires it once idle.
 
+**Mesh slices and the device budget**: a :class:`ReplicaSlice` occupies
+``width`` devices (a sub-mesh of its own); ``ReplicaPool(device_budget=
+...)`` clamps growth so that the width of the non-draining replicas never
+exceeds it, and :meth:`ReplicaPool.quarantine` (the device-health
+eviction) drains a replica, retires it and lowers the budget by its
+width, once.
+
+**The parallel service model**: a runtime on a virtual clock can give
+each replica a busy horizon (``busy_until``): replicas serve
+concurrently, each one batch at a time, and :meth:`ReplicaPool.pick_free`,
+:meth:`~ReplicaPool.least_busy` and :meth:`~ReplicaPool.next_event_t`
+schedule on those horizons.
+
 **Sessions**: a batch with an ``affinity`` (a streaming session's
 chunks) runs on its pinned replica or fails; it never fails over, since
 the session's carry lives on that replica.  ``resize`` never drains a
@@ -38,9 +51,8 @@ session-pinned set) wait; a replica grown mid-rollout joins with the new
 weights installed, one retired mid-rollout drops out of the order.
 
 Supervision is pull mode on the runtime's clock: ``beat`` when the
-forward starts, ``check`` when it returns.  The parallel service model,
-quarantine, mesh-slice replicas and the compile-cost model of re-warming
-are ROADMAP.md Queue 1 item 13.
+forward starts, ``check`` when it returns.  The compile-cost model of
+pre-warming is not ported (eager PyTorch compiles nothing per shape).
 """
 
 from __future__ import annotations
@@ -69,6 +81,10 @@ class Replica:
     ServingTier` instances this replica serves, through which a dead
     session's state is evicted."""
 
+    #: devices this replica occupies (a :class:`ReplicaSlice` sets its
+    #: sub-mesh width): the unit of the pool's ``device_budget``
+    width: int = 1
+
     def __init__(self, rid: int, forward_fns, clock,
                  wedge_timeout_s: float,
                  service_hook: Optional[Callable[..., float]] = None,
@@ -91,6 +107,9 @@ class Replica:
         self.dispatches = 0
         self.wedges = 0
         self.inflight = 0            # batches currently on this replica
+        #: the parallel service model: the instant this replica's last
+        #: assigned batch completes
+        self.busy_until = 0.0
         self._fence_t: Optional[float] = None
         self.watchdog = StallWatchdog(timeout_s=wedge_timeout_s,
                                       name=f"replica-{rid}", clock=clock)
@@ -119,8 +138,11 @@ class Replica:
                 f"at the {self.fence_budget_s:.3f}s fence budget")
         self.clock.sleep(seconds)
 
-    def forward(self, batch: AssembledBatch) -> Any:
-        """Run one batch under stall supervision.  Raises
+    def forward(self, batch: AssembledBatch,
+                fault: Optional[Callable[["Replica"], None]] = None) -> Any:
+        """Run one batch under stall supervision.  ``fault`` (chaos) runs
+        just before the tier: it may raise (a crash) or advance the
+        clock through :meth:`sleep_guarded` (a slow forward).  Raises
         :class:`ReplicaWedged` on a crash or a deadline overrun; the pool
         owns fencing and failover."""
         self.watchdog.beat()
@@ -130,6 +152,8 @@ class Replica:
         self._fence_t = (t0 + self.fence_budget_s
                          if self.fence_budget_s is not None else None)
         try:
+            if fault is not None:
+                fault(self)
             out = self._fn_for(batch)(batch.batch)
             if self.service_hook is not None:
                 self.sleep_guarded(float(self.service_hook(batch,
@@ -170,20 +194,39 @@ class Replica:
         return False
 
 
+class ReplicaSlice(Replica):
+    """A replica that is a mesh slice: its tiers run over a width-``w``
+    sub-mesh (``specs``, the tiers' ``SpecSet`` on that sub-mesh through
+    ``SpecSet.replace_mesh``), so one pool entry occupies ``w`` devices.
+    A width-1 slice behaves as a plain :class:`Replica`."""
+
+    def __init__(self, rid: int, forward_fns, clock,
+                 wedge_timeout_s: float, width: int = 1,
+                 specs: Optional[Any] = None, **kwargs):
+        if width < 1:
+            raise ValueError(f"slice width must be >= 1, got {width}")
+        super().__init__(rid, forward_fns, clock, wedge_timeout_s,
+                         **kwargs)
+        self.width = int(width)
+        self.specs = specs
+
+
 class ReplicaPool:
     """Round-robin dispatch over healthy replicas with fence and
     exactly-once failover, plus :meth:`resize`.  ``events`` is the
     deterministic log of the pool; ``observer`` (set by the runtime) sees
     each event as it is appended (the flight recorder hangs off it).
     ``fence_budget_s`` is given to every replica without its own;
-    ``replica_factory(rid)`` builds growth replicas."""
+    ``replica_factory(rid)`` builds growth replicas; ``device_budget``
+    caps the devices the non-draining replicas occupy."""
 
     def __init__(self, replicas: Sequence[Replica], clock,
                  restart_s: float = 5.0,
                  fence_budget_s: Optional[float] = None,
                  replica_factory: Optional[Callable[[int], Replica]] = None,
                  observer: Optional[Callable[[Dict[str, Any]], None]]
-                 = None):
+                 = None,
+                 device_budget: Optional[int] = None):
         if not replicas:
             raise ValueError("need at least one replica")
         self.replicas = list(replicas)
@@ -193,6 +236,9 @@ class ReplicaPool:
         self.observer = observer
         self.fence_budget_s = fence_budget_s
         self.replica_factory = replica_factory
+        #: the device ceiling: growth stops where the non-draining
+        #: replicas' width would exceed it; a quarantine lowers it
+        self.device_budget = device_budget
         self._rr = 0
         self._rid_counter = max(r.rid for r in self.replicas) + 1
         #: the active rollout (None between rollouts), see hot_swap
@@ -224,7 +270,7 @@ class ReplicaPool:
                 self._event({"kind": "replica_restarted",
                              "replica": r.rid, "t": round(now, 6)})
             elif r.state == "draining" and not r.swap_drain \
-                    and r.inflight == 0:
+                    and r.inflight == 0 and r.busy_until <= now:
                 retired.append(r)
         for r in retired:
             self.replicas.remove(r)
@@ -242,6 +288,12 @@ class ReplicaPool:
         (healthy, or fenced with a restart pending)."""
         return sum(r.state != "draining" for r in self.replicas)
 
+    @property
+    def devices_used(self) -> int:
+        """Devices the non-draining replicas occupy (their widths)."""
+        return sum(r.width for r in self.replicas
+                   if r.state != "draining")
+
     def pick(self, exclude: Optional[int] = None) -> Optional[Replica]:
         """Deterministic round-robin over healthy replicas, skipping
         ``exclude`` (the replica that just failed this batch)."""
@@ -258,20 +310,72 @@ class ReplicaPool:
                 return r
         return None
 
+    def quarantine(self, rid: int, reason: str = "device_health") -> bool:
+        """Evict a replica's devices from the fleet: drain then retire
+        (in-flight work finishes or fails over once) and lower
+        ``device_budget`` by its width, so that nothing is seated on the
+        quarantined devices again.  False when ``rid`` is unknown or
+        already draining (the budget is lowered exactly once)."""
+        r = self.replica_by_rid(rid)
+        if r is None or r.state == "draining":
+            return False
+        width = r.width
+        r.state = "draining"
+        if self.device_budget is not None:
+            self.device_budget = max(self.device_budget - width, 0)
+        self._event({"kind": "replica_quarantined", "replica": rid,
+                     "reason": reason, "width": width,
+                     "device_budget": self.device_budget,
+                     "t": round(self.clock.now(), 6)})
+        logger.warning("pool: replica %d quarantined (%s) — draining; "
+                       "device budget now %s", rid, reason,
+                       self.device_budget)
+        return True
+
+    # -- the parallel service model -----------------------------------------
+    def any_free(self, now: float) -> bool:
+        return any(r.busy_until <= now for r in self.healthy())
+
+    def pick_free(self, now: float,
+                  exclude: Optional[int] = None) -> Optional[Replica]:
+        """Round-robin over the healthy replicas free at ``now``."""
+        ready = [r for r in self.healthy()
+                 if r.busy_until <= now and r.rid != exclude]
+        if not ready:
+            return None
+        r = ready[self._rr % len(ready)]
+        self._rr += 1
+        return r
+
+    def least_busy(self) -> Optional[Replica]:
+        """The healthy replica with the earliest busy horizon (where a
+        forced drain queues work when none is free)."""
+        ready = self.healthy()
+        if not ready:
+            return None
+        return min(ready, key=lambda r: (r.busy_until, r.rid))
+
     def next_event_t(self, now: float) -> Optional[float]:
-        """The next instant pool state changes (a restart completes)."""
-        ts = [r.restart_at for r in self.replicas
-              if r.state == "fenced" and r.restart_at is not None
-              and r.restart_at > now]
+        """The next instant pool state changes: a busy replica frees or a
+        restart completes."""
+        ts: List[float] = []
+        for r in self.replicas:
+            if r.busy_until > now:
+                ts.append(r.busy_until)
+            if r.state == "fenced" and r.restart_at is not None \
+                    and r.restart_at > now:
+                ts.append(r.restart_at)
         return min(ts) if ts else None
 
     # -- resize --------------------------------------------------------------
-    def resize(self, n: int, protected: Sequence[int] = ()
-               ) -> Dict[str, List[int]]:
+    def resize(self, n: int, prewarm: bool = True,
+               protected: Sequence[int] = ()) -> Dict[str, List[int]]:
         """Grow or shrink the pool to ``n`` non-draining replicas.
 
         Growth builds replicas through ``replica_factory``; they join
-        healthy.  Shrinking drains victims (fenced first, then the
+        healthy (``prewarm`` is recorded in the event), and growth stops
+        where ``device_budget`` would be exceeded (a
+        ``resize_budget_clamped`` event).  Shrinking drains victims (fenced first, then the
         highest-rid healthy replica; never one in ``protected``, the
         session-pinned replicas) and retires them once idle.  Returns
         the rids acted on."""
@@ -286,6 +390,17 @@ class ReplicaPool:
             rid = self._rid_counter
             self._rid_counter += 1
             r = self.replica_factory(rid)
+            if self.device_budget is not None \
+                    and self.devices_used + r.width > self.device_budget:
+                # clamped at the actuator, whatever the policy asked
+                self._rid_counter -= 1
+                self._event({"kind": "resize_budget_clamped",
+                             "t": round(self.clock.now(), 6),
+                             "requested": int(n), "size": self.size,
+                             "devices_used": self.devices_used,
+                             "width": r.width,
+                             "device_budget": self.device_budget})
+                break
             self._adopt(r)
             self.replicas.append(r)
             now = self.clock.now()
@@ -300,7 +415,8 @@ class ReplicaPool:
                              "checkpoint": self._swap["checkpoint"],
                              "grown": True})
             self._event({"kind": "replica_joined", "replica": rid,
-                         "t": round(now, 6), "state": r.state})
+                         "t": round(now, 6), "prewarm": bool(prewarm),
+                         "state": r.state})
             actions["grown"].append(rid)
         while self.size > n:
             # a fenced replica is the cheapest victim, unless sessions are
@@ -344,7 +460,8 @@ class ReplicaPool:
         In-flight batches on a draining replica finish or take the
         exactly-once failover: ``accounting()`` conserves every request.
         ``warm_s`` is the reference's re-warm time, which needs the
-        compile-cost model (item 13): only ``None`` is accepted."""
+        compile-cost model (a Known deviation of item 13): only ``None``
+        is accepted."""
         if self._swap is not None:
             raise RuntimeError(
                 f"hot_swap: rollout of {self._swap['checkpoint']!r} "
@@ -352,8 +469,8 @@ class ReplicaPool:
         if warm_s is not None:
             raise NotImplementedError(
                 "ReplicaPool.hot_swap(warm_s=...) needs the compile-cost "
-                "model of pre-warming, not ported yet (ROADMAP.md Queue 1 "
-                "item 13)")
+                "model of pre-warming, which eager PyTorch does not have "
+                "(ROADMAP.md Known deviations, item 13)")
         if not verified:
             from analytics_zoo_tpu_torch.parallel import checkpoint as ckpt
 
@@ -386,7 +503,8 @@ class ReplicaPool:
             if cur.state == "healthy":
                 # fenced mid-drain and restarted: resume the drain
                 cur.state = "draining"
-            if cur.state == "draining" and cur.inflight == 0:
+            if cur.state == "draining" and cur.inflight == 0 \
+                    and cur.busy_until <= now:
                 sw["install"](cur)
                 cur.swap_drain = False
                 sw["swapped"].append(cur.rid)
@@ -459,8 +577,12 @@ class ReplicaPool:
         return swapped
 
     # -- dispatch with failover ----------------------------------------------
-    def _fence(self, replica: Replica, err: ReplicaWedged) -> None:
-        t = self.clock.now()
+    def _fence(self, replica: Replica, err: ReplicaWedged,
+               at: Optional[float] = None) -> None:
+        """Fence ``replica``; ``at`` pins the fence instant (the parallel
+        service model detects a failure on the replica's own horizon,
+        which the clock has not reached)."""
+        t = self.clock.now() if at is None else float(at)
         restart_at = t + self.restart_s
         replica.fence(restart_at)
         self._event({"kind": "replica_fenced", "replica": replica.rid,
@@ -470,13 +592,16 @@ class ReplicaPool:
         logger.warning("serving: fenced replica %d (%s); restart at t=%.3f",
                        replica.rid, err, restart_at)
 
-    def dispatch(self, batch: AssembledBatch) -> Any:
+    def dispatch(self, batch: AssembledBatch,
+                 fault_for: Optional[Callable[[Replica], Optional[
+                     Callable[[Replica], None]]]] = None) -> Any:
         """Run ``batch`` on a healthy replica; on :class:`ReplicaWedged`
         fence the replica and re-dispatch exactly once.  Raises
         :class:`ReplicaWedged` when the retry is spent or no healthy
         replica remains.  A batch with an ``affinity`` runs on that
         replica or fails: failing over would decode its sessions from
-        zeroed state."""
+        zeroed state.  ``fault_for(replica)`` (chaos) gives the fault
+        hook of a dispatch to ``replica``, or None."""
         if batch.affinity is not None:
             self._revive()
             replica = self.replica_by_rid(batch.affinity)
@@ -485,8 +610,9 @@ class ReplicaPool:
                     f"session replica {batch.affinity} unavailable "
                     f"(state: {replica.state if replica else 'retired'})"
                     f" — session state lost")
+            fault = fault_for(replica) if fault_for is not None else None
             try:
-                return self.dispatch_on(replica, batch)
+                return self.dispatch_on(replica, batch, fault)
             except ReplicaWedged as err:
                 self._fence(replica, err)
                 raise
@@ -494,7 +620,8 @@ class ReplicaPool:
         if replica is None:
             raise ReplicaWedged("no healthy replica available")
         try:
-            return self.dispatch_on(replica, batch)
+            fault = fault_for(replica) if fault_for is not None else None
+            return self.dispatch_on(replica, batch, fault)
         except ReplicaWedged as err:
             self._fence(replica, err)
             if batch.redispatched:
@@ -509,16 +636,19 @@ class ReplicaPool:
                          "to": backup.rid,
                          "t": round(self.clock.now(), 6),
                          "requests": [r.rid for r in batch.requests]})
+            fault = fault_for(backup) if fault_for is not None else None
             try:
-                return self.dispatch_on(backup, batch)
+                return self.dispatch_on(backup, batch, fault)
             except ReplicaWedged as err2:
                 self._fence(backup, err2)
                 raise
 
-    def dispatch_on(self, replica: Replica, batch: AssembledBatch) -> Any:
+    def dispatch_on(self, replica: Replica, batch: AssembledBatch,
+                    fault: Optional[Callable[[Replica], None]] = None
+                    ) -> Any:
         for req in batch.requests:
             req.attempts += 1
-        return replica.forward(batch)
+        return replica.forward(batch, fault=fault)
 
     def snapshot(self) -> Dict[str, Any]:
         out = {

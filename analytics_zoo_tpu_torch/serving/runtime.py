@@ -74,25 +74,45 @@ dispatch here (fenced or failed over as any failed forward), and
 :meth:`ServingRuntime.close` stops them (``serving/follower.py``).
 ``snapshot()["mesh"]`` records the mesh.
 
-Not ported, each refused where it is asked for: the parallel service
-model (``parallel_replicas``), mesh-slice replicas (``slice_width > 1``,
-``device_budget``), the autoscaler, chaos injection, the device-health
-sentinel and the compile-cost model of pre-warming (``compile_s``, a
-swap's ``warm_s``) (ROADMAP.md Queue 1 item 13).
+**The fleet**: ``parallel_replicas=True`` (with a ``service_time``
+model on a virtual clock) serves the replicas concurrently, each batch
+completing on its replica's own busy horizon while the real forwards
+run; ``autoscaler=`` (an :class:`~analytics_zoo_tpu_torch.serving.
+autoscale.Autoscaler`) turns each SLO decision's ``scale_hint`` into
+``ReplicaPool.resize`` calls (shrink drains, session-pinned replicas
+are spared) or a width :class:`~analytics_zoo_tpu_torch.serving.
+autoscale.Reshape`; ``chaos=`` (a :class:`~analytics_zoo_tpu_torch.
+resilience.chaos.ChaosMonkey`) applies its ``slow_forward``,
+``replica_crash`` and ``slow_device`` windows by dispatch index;
+``health=`` (a :class:`~analytics_zoo_tpu_torch.resilience.health.
+HealthSentinel`) takes each parallel completion's service time (never a
+chaos delay) into its straggler ladder, and a flagged replica is
+quarantined (drained, retired, ``device_budget`` lowered by its width).
+``slice_width=w`` makes each replica a
+:class:`~analytics_zoo_tpu_torch.serving.replica.ReplicaSlice` of ``w``
+devices; over processes each slice is a sub-mesh of its own, cut by
+:class:`~analytics_zoo_tpu_torch.serving.follower.SliceLayout` on every
+rank (``serving/follower.py``).
+
+Not ported: the compile-cost model of pre-warming (``compile_s``, a
+swap's ``warm_s``): eager PyTorch compiles nothing per shape, so both
+are refused (ROADMAP.md Known deviations, item 13).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import logging
 import os
-from typing import Any, Callable, Dict, List, Optional, Sequence, Set
+from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
 from analytics_zoo_tpu_torch.obs.slo import SloEvaluator
 from analytics_zoo_tpu_torch.resilience.errors import (ReplicaWedged,
                                                        ServerOverloaded)
+from analytics_zoo_tpu_torch.serving.autoscale import OCCUPANCY_KNEE, Reshape
 from analytics_zoo_tpu_torch.serving.batcher import (AssembledBatch,
                                                      DeadlineBatcher,
                                                      ModelPlan)
@@ -100,27 +120,25 @@ from analytics_zoo_tpu_torch.serving.clock import Clock, MonotonicClock
 from analytics_zoo_tpu_torch.serving.ladder import (DegradationLadder,
                                                     LadderPolicy, ServingTier)
 from analytics_zoo_tpu_torch.serving.metrics import ServingMetrics
-from analytics_zoo_tpu_torch.serving.replica import Replica, ReplicaPool
+from analytics_zoo_tpu_torch.serving.replica import (Replica, ReplicaPool,
+                                                     ReplicaSlice)
 from analytics_zoo_tpu_torch.serving.request import (DEFAULT_MODEL,
                                                      AdmissionQueue, Request)
 
-_ITEM_13 = "ROADMAP.md Queue 1 item 13"
-# keyword → what it is and the ROADMAP item that ports it; a non-default
+logger = logging.getLogger("analytics_zoo_tpu_torch")
+
+_ITEM_13 = "ROADMAP.md Known deviations, item 13"
+# keyword → what it is and where the deviation is recorded; a non-default
 # value raises
 _REFUSED = {
-    "parallel_replicas": ("the parallel service model", _ITEM_13),
-    "slice_width": ("mesh-slice replicas", _ITEM_13),
-    "device_budget": ("mesh-slice replicas", _ITEM_13),
-    "autoscaler": ("the autoscaler", _ITEM_13),
-    "chaos": ("chaos injection", _ITEM_13),
-    "health": ("the device-health sentinel", _ITEM_13),
     "compile_s": ("the per-geometry compile cost of pre-warming",
                   _ITEM_13),
 }
 
 
 def _not_ported(what: str, where: str):
-    raise NotImplementedError(f"{what} is not ported yet ({where})")
+    raise NotImplementedError(f"{what} is not served: eager PyTorch has "
+                              f"no per-shape compile cost ({where})")
 
 
 @dataclasses.dataclass
@@ -185,7 +203,9 @@ class ModelConfig:
 
 
 class ServingRuntime:
-    """Deadline-aware serving over N supervised replicas.
+    """Deadline-aware serving over N supervised replicas (module docstring:
+    "The fleet" for ``parallel_replicas``, ``autoscaler``, ``chaos``,
+    ``health``, ``slice_width`` and ``device_budget``).
 
     ``tiers``: degradation rungs, cheapest last (``pipelines.ssd.
     ssd_serving_tiers``, ``pipelines.deepspeech2.ds2_serving_tiers``):
@@ -210,9 +230,8 @@ class ServingRuntime:
     ``retain_requests=False`` drops request objects once terminal;
     the accounting stays exact through counters.  ``obs``: an
     :class:`~analytics_zoo_tpu_torch.obs.Observability` (module
-    docstring, "Telemetry"); its registry then holds the metrics.  The
-    keywords of the parts not ported (module docstring) accept only
-    their defaults."""
+    docstring, "Telemetry"); its registry then holds the metrics.
+    ``compile_s`` accepts only 0 (module docstring)."""
 
     def __init__(self, tiers: Optional[Sequence[ServingTier]] = None,
                  n_replicas: int = 2,
@@ -241,15 +260,9 @@ class ServingRuntime:
                  slice_width: int = 1,
                  device_budget: Optional[int] = None,
                  health=None):
-        given = {"parallel_replicas": parallel_replicas,
-                 "slice_width": slice_width != 1,
-                 "device_budget": device_budget, "autoscaler": autoscaler,
-                 "chaos": chaos, "health": health,
-                 "compile_s": compile_s != 0}
-        for key, value in given.items():
-            if value is not None and value is not False:
-                what, where = _REFUSED[key]
-                _not_ported(f"ServingRuntime({key}=...) ({what})", where)
+        if compile_s != 0:
+            what, where = _REFUSED["compile_s"]
+            _not_ported(f"ServingRuntime(compile_s=...) ({what})", where)
         if models is not None:
             if tiers is not None:
                 raise ValueError("pass tiers= OR models=, not both")
@@ -272,9 +285,15 @@ class ServingRuntime:
                 length_key=length_key)}
             self._multi = False
         self.specs = specs
-        self._leader = None
+        self._leaders: Dict[int, Any] = {}
+        if slice_width < 1:
+            raise ValueError(f"slice_width must be >= 1, got {slice_width}")
+        self.slice_width = int(slice_width)
+        self._layout = None
+        self._slice_of: Dict[int, int] = {}     # rid -> slice of the layout
+        self._dead_slices: Set[int] = set()     # slices quarantined
         if specs is not None:
-            self._lead(specs)
+            self._lead(specs, device_budget)
         self.clock = clock or MonotonicClock()
         self.default_deadline_s = float(default_deadline_s)
         self.max_batch = int(max_batch)
@@ -282,6 +301,17 @@ class ServingRuntime:
         self.wedge_timeout_s = float(wedge_timeout_s)
         self.weight_cap = float(weight_cap)
         self.retain_requests = bool(retain_requests)
+        self.chaos = chaos
+        # the device-health sentinel: parallel completions feed its
+        # straggler ladder; a flagged replica is quarantined
+        self.health = health
+        # the parallel service model: a batch goes to a free replica and
+        # completes on that replica's busy horizon; replicas serve
+        # concurrently, so the pool's size is its capacity
+        self.parallel = bool(parallel_replicas)
+        if self.parallel and service_time is None:
+            raise ValueError("parallel_replicas needs a service_time "
+                             "model (it is a virtual-time mode)")
         # the telemetry spine: request spans into the flight recorder,
         # metrics into the bundle's registry
         self.obs = obs
@@ -300,6 +330,16 @@ class ServingRuntime:
         self._swap_stats = {"completed": 0, "rollbacks": 0, "trips": 0,
                             "lkg_promotions": 0}
         self._lkg: Optional[Dict[str, Any]] = None
+        self.autoscaler = autoscaler
+        if autoscaler is not None and autoscaler.registry is None:
+            autoscaler.registry = self.metrics.registry
+        # each model's current slice width (a reshape moves one wider);
+        # the service model divides by the occupancy-limited speedup
+        self._model_width: Dict[str, int] = {
+            name: self.slice_width for name in self.models}
+        #: per-model batch-fill EWMA, the autoscaler's saturation signal
+        self._fill_ewma: Dict[str, float] = {}
+        self._reshape_log: List[Dict[str, Any]] = []
         # the SLO engine: built from the models' declared SLOs when none
         # is passed; each SLO maps back to its model's ladder
         self._slo_model: Dict[str, str] = {
@@ -347,9 +387,16 @@ class ServingRuntime:
 
         def service_hook(batch: AssembledBatch, rid: int) -> float:
             if self._multi:
-                return service_time(batch.model, batch.edge, batch.n_valid,
-                                    batch.tier)
-            return service_time(batch.edge, batch.n_valid, batch.tier)
+                s = service_time(batch.model, batch.edge, batch.n_valid,
+                                 batch.tier)
+            else:
+                s = service_time(batch.edge, batch.n_valid, batch.tier)
+            w = self._model_width.get(batch.model, 1)
+            if w > 1:
+                # a width-w slice serves the batch w ways, only as fast
+                # as per-device occupancy allows
+                s = s / self._width_speedup(batch.n_valid, w)
+            return s
 
         self._service_hook = (service_hook if service_time is not None
                               else None)
@@ -358,7 +405,7 @@ class ServingRuntime:
             self.clock, restart_s=restart_s,
             fence_budget_s=fence_budget_s,
             replica_factory=self._make_replica,
-            observer=self._on_pool_event)
+            observer=self._on_pool_event, device_budget=device_budget)
         self.ladders: Dict[str, DegradationLadder] = {
             name: DegradationLadder(len(cfg.tiers),
                                     cfg.ladder_policy or ladder_policy)
@@ -368,12 +415,17 @@ class ServingRuntime:
                        else None)
 
     # -- construction helpers ------------------------------------------------
-    def _lead(self, specs) -> None:
+    def _lead(self, specs, device_budget) -> None:
         """Over ranks of several processes: this rank leads, each model's
         tiers and tier builder announced to the followers
-        (``serving/follower.py``)."""
+        (``serving/follower.py``).  With ``slice_width > 1`` each slice
+        of the layout :class:`~analytics_zoo_tpu_torch.serving.follower.
+        SliceLayout` cut has its own leader: the slice holding this rank
+        runs the tiers here too, another slice is driven remotely over a
+        control group of this rank and the slice's ranks."""
         from analytics_zoo_tpu_torch.parallel.mesh import spans_processes
-        from analytics_zoo_tpu_torch.serving.follower import Leader
+        from analytics_zoo_tpu_torch.serving.follower import (Leader,
+                                                              layout_of)
 
         if not spans_processes(specs.mesh):
             return
@@ -383,30 +435,71 @@ class ServingRuntime:
                     f"model {cfg.name!r}: per-replica tiers (tier_factory) "
                     "hold per-replica state and cannot be sharded "
                     "(specs=)")
-        self._leader = Leader(specs)
-        for name, cfg in list(self.models.items()):
-            self.models[name] = dataclasses.replace(
-                cfg, tiers=self._leader.register(cfg.tiers),
-                weights_to_tiers=(None if cfg.weights_to_tiers is None
-                                  else self._leader.builder(
-                                      name, cfg.weights_to_tiers)))
+        templates = dict(self.models)
+        if self.slice_width == 1:
+            leaders = {0: Leader(specs)}
+        else:
+            layout = layout_of(specs)
+            if layout is None or layout.width != self.slice_width:
+                raise ValueError(
+                    f"slice_width={self.slice_width} over processes: cut "
+                    f"the mesh with serving.follower.SliceLayout(specs, "
+                    f"{self.slice_width}) on every rank and pass this "
+                    f"rank's slice specs")
+            if device_budget is None \
+                    or device_budget > layout.n_slices * layout.width:
+                raise ValueError(
+                    f"slices over processes need device_budget <= the "
+                    f"{layout.n_slices * layout.width} ranks the layout "
+                    f"holds (a replica beyond them has no slice)")
+            self._layout = layout
+            leaders = {k: Leader(layout.slices[k], channel=layout.channel(k))
+                       for k in range(layout.n_slices)}
+        self._leaders = leaders
+        self._slice_cfgs = {}
+        for k, leader in leaders.items():
+            self._slice_cfgs[k] = {
+                name: dataclasses.replace(
+                    cfg, tiers=leader.register(cfg.tiers),
+                    weights_to_tiers=(None if cfg.weights_to_tiers is None
+                                      else leader.builder(
+                                          name, cfg.weights_to_tiers,
+                                          template=cfg.tiers)))
+                for name, cfg in templates.items()}
+        self.models = dict(self._slice_cfgs[0])
         if not self._multi:
             self.tiers = self.models[DEFAULT_MODEL].tiers
 
     def close(self) -> None:
         """Stop the follower ranks (``specs=`` over several processes;
         nothing otherwise).  The runtime dispatches nothing after it."""
-        if self._leader is not None:
-            self._leader.stop()
-            self._leader = None
+        for leader in self._leaders.values():
+            leader.stop()
+        self._leaders = {}
+
+    def _free_slice(self) -> Optional[int]:
+        """The lowest slice of the layout that no live replica holds and
+        no quarantine retired."""
+        held = set(self._slice_of.values()) | self._dead_slices
+        return next((k for k in range(self._layout.n_slices)
+                     if k not in held), None)
 
     def _make_replica(self, rid: int) -> Replica:
         """Build one replica (also the pool's growth factory): the
         per-model tier table, with per-replica tier instances where a
-        model declares a ``tier_factory``."""
+        model declares a ``tier_factory``; a :class:`ReplicaSlice` of
+        ``slice_width`` devices when that is above 1 (over processes, on
+        the lowest free slice of the layout; with none free its tiers
+        raise, and the pool's ``device_budget`` keeps it from joining)."""
+        models = self.models
+        k = None
+        if self._layout is not None:
+            k = self._free_slice()
+            if k is not None:
+                models = self._slice_cfgs[k]
         fwd: Dict[str, List[Callable]] = {}
         tier_objs: Dict[str, List[ServingTier]] = {}
-        for name, cfg in self.models.items():
+        for name, cfg in models.items():
             t = cfg.tier_factory(rid) if cfg.tier_factory else cfg.tiers
             if len(t) != len(cfg.tiers):
                 raise ValueError(
@@ -414,10 +507,39 @@ class ServingRuntime:
                     f"template declares {len(cfg.tiers)}")
             fwd[name] = [tier.forward for tier in t]
             tier_objs[name] = list(t)
-        replica = Replica(rid, fwd, self.clock, self.wedge_timeout_s,
-                          service_hook=self._service_hook)
+        if self.slice_width > 1:
+            specs = self.specs
+            if self._layout is not None:
+                specs = self._layout.slices[k] if k is not None else None
+                if k is None:
+                    def no_slice(batch, _rid=rid):
+                        raise ReplicaWedged(f"replica {_rid}: no free mesh "
+                                            "slice")
+                    fwd = {name: [no_slice] * len(f)
+                           for name, f in fwd.items()}
+            replica = ReplicaSlice(rid, fwd, self.clock,
+                                   self.wedge_timeout_s,
+                                   width=self.slice_width, specs=specs,
+                                   service_hook=self._service_hook)
+            if k is not None:
+                self._slice_of[rid] = k
+        else:
+            replica = Replica(rid, fwd, self.clock, self.wedge_timeout_s,
+                              service_hook=self._service_hook)
         replica.tier_objs = tier_objs
         return replica
+
+    @staticmethod
+    def _width_speedup(n_valid: int, width: int) -> float:
+        """The occupancy-limited speedup of a width-``width`` slice on a
+        batch of ``n_valid``: each shard serves ``n_valid / width`` rows
+        at ``min(1, rows / knee)`` occupancy, against the width-1
+        baseline's ``min(1, n_valid / knee)``; exactly ``width`` when
+        saturated, exactly 1 below the knee (:data:`OCCUPANCY_KNEE`)."""
+        n = max(float(n_valid), 1.0)
+        base = min(1.0, n / OCCUPANCY_KNEE)
+        wide = min(1.0, (n / width) / OCCUPANCY_KNEE) * width
+        return wide / base
 
     # -- telemetry -----------------------------------------------------------
     def _note(self, kind: str, **fields: Any) -> None:
@@ -428,7 +550,14 @@ class ServingRuntime:
 
     def _on_pool_event(self, ev: Dict[str, Any]) -> None:
         """Every pool event lands in the flight recorder; a fence is a
-        terminal condition and dumps the black box when one is armed."""
+        terminal condition and dumps the black box when one is armed.
+        A retired replica frees its mesh slice, a quarantined one's
+        slice is never seated again."""
+        if ev["kind"] == "replica_retired":
+            self._slice_of.pop(ev["replica"], None)
+        elif ev["kind"] == "replica_quarantined" \
+                and ev["replica"] in self._slice_of:
+            self._dead_slices.add(self._slice_of[ev["replica"]])
         if self.obs is None:
             return
         self.obs.recorder.record(ev)
@@ -568,7 +697,8 @@ class ServingRuntime:
         The old tier stacks stay alive in the rollout's stash until it
         completes or rolls back.  Returns the rollout record.  Raises
         :class:`CheckpointCorrupt` on a bad manifest before any drain.
-        ``warm_s`` needs the compile-cost model (item 13)."""
+        ``warm_s`` needs the compile-cost model (a Known deviation of item
+        13)."""
         from analytics_zoo_tpu_torch.parallel import checkpoint as ckpt
         from analytics_zoo_tpu_torch.resilience.errors import (
             CheckpointCorrupt)
@@ -623,6 +753,10 @@ class ServingRuntime:
             "stash": {}, "t_started": now,
         }
         self.metrics.registry.counter("serve/swap/rollouts").inc()
+        if self.autoscaler is not None:
+            # a canary's verdict must not be masked by fresh capacity:
+            # the loop observes, its actuations are swallowed
+            self.autoscaler.hold = True
         self._note("swap_started", model=cfg.name, rollout=k,
                    checkpoint=checkpoint_path,
                    canary_fraction=float(canary_fraction),
@@ -670,6 +804,8 @@ class ServingRuntime:
         # the weights installed are the state loaded, and verified, above
         self.pool.hot_swap(ctl["checkpoint"], install=self._swap_install,
                            last=sorted(self._session_rids()), verified=True)
+        if self.autoscaler is not None:
+            self.autoscaler.hold = False
         self._note("swap_rolling", model=ctl["model"],
                    rollout=ctl["rollout"], mirrored=ctl["mirrored"])
 
@@ -795,6 +931,8 @@ class ServingRuntime:
         self._swap_log[-1]["reason"] = reason[:160]
         self.metrics.registry.counter("serve/swap/rollbacks").inc()
         self._lkg = None
+        if self.autoscaler is not None:
+            self.autoscaler.hold = False
         self._note("swap_rollback", model=ctl["model"],
                    rollout=ctl["rollout"], reason=reason[:160],
                    reverted=list(swapped), lkg=lkg_path)
@@ -997,6 +1135,12 @@ class ServingRuntime:
         self._swap_tick()
         dispatched = 0
         while True:
+            if self.parallel and not force \
+                    and not self.pool.any_free(self.clock.now()):
+                # every replica is busy: assembling a batch now would
+                # only burn its members' slack (expiry still runs)
+                self.queue.expire()
+                break
             batch = self.batcher.next_batch(self._tier_arg(), force=force)
             if batch is None:
                 break
@@ -1005,8 +1149,9 @@ class ServingRuntime:
         return dispatched
 
     def next_event_t(self) -> Optional[float]:
-        """The next instant the pool changes state on its own (a restart
-        completes)."""
+        """The next instant the pool changes state on its own (a busy
+        replica frees, a restart completes): where an event-driven load
+        loop advances the clock when :meth:`pump` has nothing to do."""
         return self.pool.next_event_t(self.clock.now())
 
     def drain(self, max_batches: int = 10_000_000) -> None:
@@ -1039,17 +1184,67 @@ class ServingRuntime:
                 tier=batch.tier, batch=self._dispatch_idx)
         return batch_span
 
+    def _fault_for(self, replica: Replica) -> Optional[Callable]:
+        """The chaos hooks aimed at ``replica`` at the current dispatch
+        index (None when nothing is due): a ``slow_forward`` sleeps
+        through the replica's fence-budget guard, a ``replica_crash``
+        raises."""
+        if self.chaos is None:
+            return None
+        idx = self._dispatch_idx
+        hooks: List[Callable] = []
+        spec = self.chaos.serving_active("slow_forward", idx, consume=False)
+        if spec is not None and spec.detail.get(
+                "replica", replica.rid) == replica.rid:
+            self.chaos.serving_active("slow_forward", idx)  # record+consume
+            delay = float(spec.detail.get("delay_s", 2.0))
+            hooks.append(lambda r: r.sleep_guarded(delay))
+        spec = self.chaos.serving_active("replica_crash", idx, consume=False)
+        if spec is not None and spec.detail.get(
+                "replica", replica.rid) == replica.rid:
+            self.chaos.serving_active("replica_crash", idx)
+
+            def crash(r):
+                from analytics_zoo_tpu_torch.resilience.errors import (
+                    InjectedFault)
+
+                raise InjectedFault(
+                    f"chaos: replica {r.rid} killed mid-batch")
+
+            hooks.append(crash)
+        if not hooks:
+            return None
+
+        def fault(r):
+            for h in hooks:
+                h(r)
+
+        return fault
+
+    def _note_fill(self, batch: AssembledBatch) -> None:
+        """The per-model batch-fill EWMA (0..1 of the model's batch), the
+        autoscaler's saturation signal."""
+        cap = max(self.batcher.model_batch(batch.model), 1)
+        fill = min(1.0, batch.n_valid / cap)
+        prev = self._fill_ewma.get(batch.model)
+        self._fill_ewma[batch.model] = (
+            fill if prev is None else 0.8 * prev + 0.2 * fill)
+
     def _dispatch(self, batch: AssembledBatch) -> None:
         self._scrub_dead_session_rows(batch)
+        if self.parallel:
+            self._dispatch_parallel(batch)
+            return
         self._dispatch_idx += 1
         self.metrics.on_batch(batch.n_valid,
                               self.batcher.model_batch(batch.model),
                               self.queue.depth)
+        self._note_fill(batch)
         model_label = batch.model if self._multi else None
         t0 = self.clock.now()
         batch_span = self._open_batch_spans(batch)
         try:
-            out = self.pool.dispatch(batch)
+            out = self.pool.dispatch(batch, fault_for=self._fault_for)
         except ReplicaWedged as err:
             now = self.clock.now()
             for req in batch.requests:
@@ -1089,6 +1284,230 @@ class ServingRuntime:
         if batch_span is not None:
             batch_span.end(status="done", redispatched=batch.redispatched)
         self._after_dispatch(batch, t0, failed=False)
+
+    def _parallel_fault(self, replica: Replica
+                        ) -> Tuple[bool, float, float]:
+        """The chaos windows at the current dispatch index against
+        ``replica`` under the parallel service model: ``(crash, delay_s,
+        slow_x)``, applied to the replica's own busy horizon.
+        ``slow_x`` (``slow_device``) stretches the service itself and is
+        not chaotic: no wedge check sees it, only the straggler ladder."""
+        if self.chaos is None:
+            return False, 0.0, 1.0
+        idx = self._dispatch_idx
+        delay = 0.0
+        spec = self.chaos.serving_active("slow_forward", idx, consume=False)
+        if spec is not None and spec.detail.get(
+                "replica", replica.rid) == replica.rid:
+            self.chaos.serving_active("slow_forward", idx)  # record+consume
+            delay = float(spec.detail.get("delay_s", 2.0))
+        crash = False
+        spec = self.chaos.serving_active("replica_crash", idx, consume=False)
+        if spec is not None and spec.detail.get(
+                "replica", replica.rid) == replica.rid:
+            self.chaos.serving_active("replica_crash", idx)
+            crash = True
+        slow_x = 1.0
+        spec = self.chaos.serving_active("slow_device", idx, consume=False)
+        if spec is not None and spec.detail.get(
+                "replica", replica.rid) == replica.rid:
+            self.chaos.serving_active("slow_device", idx)
+            slow_x = float(spec.detail.get("slow_x", 4.0))
+        return crash, delay, slow_x
+
+    def _dispatch_parallel(self, batch: AssembledBatch) -> None:
+        """Parallel-service dispatch: the batch goes to a free replica
+        (a session's pinned one; with none free under a forced drain, the
+        least busy), its forward runs now and its completion lands at
+        ``start + delay + service`` on that replica's busy horizon while
+        the clock stands still.  A chaos crash or wedge fences the
+        replica at the instant computed on its horizon and the batch
+        fails over exactly once (``redispatched``), as in the serial
+        path; request spans end at the computed instants."""
+        self._dispatch_idx += 1
+        self.metrics.on_batch(batch.n_valid,
+                              self.batcher.model_batch(batch.model),
+                              self.queue.depth)
+        self._note_fill(batch)
+        now = self.clock.now()
+        model_label = batch.model if self._multi else None
+        batch_span = self._open_batch_spans(batch)
+
+        def window_done() -> None:
+            if batch.redispatched:
+                self.metrics.redispatches += 1
+            self._since_decision += 1
+            if self._since_decision >= self.decision_every:
+                self._decide_window()
+
+        def fail_batch(err: BaseException, at: float) -> None:
+            for req in batch.requests:
+                if req.finished:        # a scrubbed dead-session row
+                    continue
+                req.finish("failed", at, error=err)
+                self._account_terminal(req)
+                self.metrics.on_fail(model=model_label)
+                self._end_request_spans(req, "failed", at=at,
+                                        attempts=req.attempts)
+                if req.session is not None:
+                    self._kill_session(req, str(err))
+            if batch_span is not None:
+                batch_span.end(status="failed", at=at,
+                               redispatched=batch.redispatched)
+            window_done()
+
+        def complete(replica: Replica, out: Any, start: float,
+                     elapsed: float, service: float) -> None:
+            completion = start + elapsed
+            replica.busy_until = completion
+            if self.health is not None:
+                # the service component only: a chaos delay is not the
+                # device's speed, and eviction cannot be undone
+                self._note_device_health(replica, service)
+            rows = np.asarray(out)
+            self._maybe_canary(batch, rows, now)
+            for i, req in enumerate(batch.requests):
+                if req.finished:        # a scrubbed dead-session row
+                    continue
+                req.tier = batch.tier
+                req.finish("done", completion,
+                           result=rows[i] if self.retain_requests
+                           else None)
+                self._account_terminal(req)
+                missed = completion > req.deadline_t
+                self.metrics.on_complete(completion - req.arrival_t,
+                                         batch.tier, missed=missed,
+                                         model=model_label)
+                self._end_request_spans(req, "done", at=completion,
+                                        attempts=req.attempts,
+                                        missed=missed)
+                if req.final and req.session is not None:
+                    self._release_session(req.session)
+            if batch_span is not None:
+                batch_span.end(status="done", at=completion,
+                               redispatched=batch.redispatched)
+            window_done()
+
+        def wedge(replica: Replica, err: ReplicaWedged, at: float,
+                  is_backup: bool) -> None:
+            replica.busy_until = at
+            self.pool._fence(replica, err, at=at)
+            failover(replica, err, at, is_backup)
+
+        def fenced_at_budget(replica: Replica) -> ReplicaWedged:
+            return ReplicaWedged(
+                f"replica {replica.rid}: forward wedged mid-flight — "
+                f"fenced at the {replica.fence_budget_s:.3f}s fence budget")
+
+        def serve_on(replica: Replica, t_avail: float,
+                     is_backup: bool) -> None:
+            """One attempt on ``replica``'s horizon, in the serial
+            forward's order: the injected delay, the tier, the service;
+            the fence budget cuts the elapsed time where
+            ``sleep_guarded`` would."""
+            for req in batch.requests:
+                req.attempts += 1
+            replica.dispatches += 1
+            crash, delay, slow_x = self._parallel_fault(replica)
+            start = max(t_avail, replica.busy_until)
+            budget = replica.fence_budget_s
+            chaotic = crash or delay > 0
+            if chaotic and budget is not None and delay > budget:
+                # the injected stall alone crosses the budget
+                wedge(replica, fenced_at_budget(replica), start + budget,
+                      is_backup)
+                return
+            if crash:
+                # the slow_forward hook sleeps first, then the crash
+                wedge(replica, ReplicaWedged(
+                    f"replica {replica.rid}: forward crashed mid-batch "
+                    f"(InjectedFault: chaos: replica {replica.rid} "
+                    f"killed mid-batch)"), start + delay, is_backup)
+                return
+            try:
+                out = replica._fn_for(batch)(batch.batch)
+            except Exception as e:
+                err = e if isinstance(e, ReplicaWedged) else ReplicaWedged(
+                    f"replica {replica.rid}: forward crashed mid-batch "
+                    f"({type(e).__name__}: {e})")
+                fail_batch(err, start)
+                return
+            service = float(self._service_hook(batch, replica.rid)) * slow_x
+            elapsed = delay + service
+            if chaotic and budget is not None and elapsed > budget:
+                wedge(replica, fenced_at_budget(replica), start + budget,
+                      is_backup)
+                return
+            if chaotic and elapsed > replica.watchdog.timeout_s:
+                # no budget: the wedge is seen when the forward returns
+                wedge(replica, ReplicaWedged(
+                    f"replica {replica.rid}: forward wedged "
+                    f"({elapsed:.3f}s > "
+                    f"{replica.watchdog.timeout_s:.3f}s deadline)"),
+                    start + elapsed, is_backup)
+                return
+            complete(replica, out, start, elapsed, service)
+
+        def failover(failed: Replica, err: ReplicaWedged,
+                     t_detect: float, is_backup: bool) -> None:
+            if is_backup or batch.redispatched \
+                    or batch.affinity is not None:
+                # the latch is spent, or a session batch (its carry was
+                # on the failed replica)
+                fail_batch(err, t_detect)
+                return
+            batch.redispatched = True
+            backup = self.pool.pick_free(t_detect, exclude=failed.rid)
+            if backup is None:
+                backup = self.pool.least_busy()
+            if backup is None:
+                fail_batch(ReplicaWedged(
+                    f"batch failover from replica {failed.rid}: no "
+                    f"healthy replica left"), t_detect)
+                return
+            self.pool._event({"kind": "failover", "from": failed.rid,
+                              "to": backup.rid, "t": round(t_detect, 6),
+                              "requests": [r.rid for r in batch.requests]})
+            serve_on(backup, t_detect, is_backup=True)
+
+        if batch.affinity is not None:
+            self.pool._revive()
+            replica = self.pool.replica_by_rid(batch.affinity)
+            if replica is None or replica.state != "healthy":
+                replica = None
+        else:
+            replica = self.pool.pick_free(now)
+            if replica is None:
+                # a forced drain: queue on the least busy replica
+                replica = self.pool.least_busy()
+        if replica is None:
+            fail_batch(ReplicaWedged(
+                f"no replica available for model {batch.model!r}"
+                + (f" (session pinned to {batch.affinity})"
+                   if batch.affinity is not None else "")), now)
+            return
+        serve_on(replica, now, is_backup=False)
+
+    def _note_device_health(self, replica: Replica, elapsed: float) -> None:
+        """Feed one completion's service time into the straggler ladder;
+        a flagged replica is quarantined (drained, retired, the device
+        budget lowered by its width) while the eviction budget lasts."""
+        flagged = self.health.observe_step_time(replica.rid, float(elapsed))
+        if flagged is None:
+            return
+        pol = self.health.policy
+        if not (pol.evict and self.health.eviction_budget_left):
+            logger.warning("health: replica %d flagged as straggler but "
+                           "eviction is %s — serving continues degraded",
+                           flagged,
+                           "off" if not pol.evict else "budget-exhausted")
+            return
+        victim = self.pool.replica_by_rid(flagged)
+        width = victim.width if victim is not None else 1
+        if self.pool.quarantine(flagged, reason="straggler"):
+            self.health.note_quarantine(flagged, "straggler")
+            if self.autoscaler is not None:
+                self.autoscaler.note_quarantine(flagged, width)
 
     def _after_dispatch(self, batch: AssembledBatch, t0: float,
                         failed: bool) -> None:
@@ -1135,6 +1554,8 @@ class ServingRuntime:
                     self._swap_rollback(
                         "mid_rollout_anomaly: " + ",".join(hit))
             self._maybe_promote_lkg(decision)
+            if self.autoscaler is not None:
+                self._actuate(decision)
         elif self._multi:
             for name, ladder in self.ladders.items():
                 depth_high = ladder.policy.depth_high * self.max_batch
@@ -1178,6 +1599,49 @@ class ServingRuntime:
             self.batcher.set_model_weight(name, w)
             self.metrics.registry.gauge(
                 f"serve/model_weight/model={name}").set(w)
+
+    def _actuate(self, decision) -> None:
+        """The autoscaler's loop, then the actuation: a target resizes
+        the pool (shrink drains, session-pinned replicas and a rollout's
+        current victim spared); a :class:`Reshape` moves a model onto
+        wider slices."""
+        target = self.autoscaler.observe_decision(
+            decision, self.pool.size,
+            saturation=dict(self._fill_ewma) or None,
+            widths=dict(self._model_width))
+        if target is None:
+            return
+        if isinstance(target, Reshape):
+            self._do_reshape(target)
+            return
+        protected = self._session_rids()
+        if self.pool._swap is not None \
+                and self.pool._swap["current"] is not None:
+            protected.add(self.pool._swap["current"])
+        actions = self.pool.resize(target,
+                                   prewarm=self.autoscaler.policy.prewarm,
+                                   protected=sorted(protected))
+        self._note("autoscale", target=target, grown=actions["grown"],
+                   drained=actions["drained"],
+                   burning=list(decision.burning))
+
+    def _do_reshape(self, decision: Reshape) -> None:
+        """A width reshape: the model's service model moves to
+        ``to_width``-way slices (eager PyTorch holds no per-geometry
+        programs to drop, so ``geometries_dropped`` is 0)."""
+        self._model_width[decision.model] = decision.to_width
+        ev = {"kind": "autoscale_reshape", "model": decision.model,
+              "from_width": decision.from_width,
+              "to_width": decision.to_width,
+              "fill": round(decision.fill, 6),
+              "geometries_dropped": 0,
+              "t": round(self.clock.now(), 6),
+              "rationale": decision.rationale}
+        self._reshape_log.append(ev)
+        self.pool._event(ev)
+        self._note("autoscale", reshape=decision.model,
+                   to_width=decision.to_width,
+                   fill=round(decision.fill, 6))
 
     # -- observability -------------------------------------------------------
     def accounting(self) -> Dict[str, Any]:
@@ -1227,11 +1691,25 @@ class ServingRuntime:
                 "open": self._open_sessions,
                 "failed": self._sessions_failed,
             }
+            if self.autoscaler is not None:
+                out["autoscale"] = self.autoscaler.snapshot()
+                out["pool_size"] = self.pool.size
+                # the reference's count of cold compiles: none in eager
+                # PyTorch
+                out["cold_compiles"] = 0
         else:
             out["ladder"] = self.ladder.snapshot()
             out["tiers"] = [{"name": t.name, "speed": t.speed,
                              "quality_note": t.quality_note}
                             for t in self.tiers]
+        if self.slice_width > 1 or self._reshape_log:
+            out["slices"] = {
+                "slice_width": self.slice_width,
+                "devices_used": self.pool.devices_used,
+                "device_budget": self.pool.device_budget,
+                "model_width": dict(sorted(self._model_width.items())),
+                "reshapes": [dict(e) for e in self._reshape_log],
+            }
         if self.slo is not None:
             r = self.slo.report()
             out["slo"] = {k: r[k] for k in

@@ -5167,7 +5167,8 @@ def dist_child(task, **kw):
     return {"dp": dist_dp_rank, "tp": dist_tp_rank,
             "nccl": dist_nccl_rank, "seq": dist_seq_rank,
             "attn": dist_attn_rank, "spatial": dist_spatial_rank,
-            "serve": dist_serve_rank}[task](**kw)
+            "serve": dist_serve_rank, "sdc": dist_sdc_rank,
+            "slice": dist_slice_rank}[task](**kw)
 
 
 class recording_optimizer:
@@ -7251,6 +7252,637 @@ def telemetry_phase(dev, smi, seed=47):
             "persistent_rnn_bwd": ds2_launches["persistent_rnn_bwd"]}
 
 
+# -- 6t. the serving fleet under chaos, the SDC sentinel, mesh slices ---------
+
+# the fleet: SSD300 (batch 8, K2) and DS2 at hidden 1760 (K3; greedy) on
+# one multiplexed runtime in the parallel service model: replicas serve
+# concurrently on a virtual clock whose service model is a uniform
+# FLEET_SERVICE_S a batch (the real forwards run on the card, their
+# card time is printed beside), a burst of FLEET_BURST requests at
+# FLEET_BURST_RATE a second (one DS2 utterance of up to 30 s in every
+# FLEET_DS2_EVERY), then a quiet SSD tail of FLEET_TAIL at FLEET_TAIL_RATE
+FLEET_SERVICE_S = 0.03
+FLEET_BURST, FLEET_BURST_RATE, FLEET_DS2_EVERY = 96, 1500.0, 6
+FLEET_TAIL, FLEET_TAIL_RATE = 160, 40.0
+FLEET_DEADLINE_S = {"ssd": 0.25, "ds2": 1.0}
+# the drive's clock step while nothing is due: the batcher flushes a
+# batch that is not full only once it is urgent, so the clock may not
+# jump over that instant
+FLEET_TICK_S = 0.005
+# the rows of a served SSD batch against the same batch through its rung
+# again (the same kernels on the same input), max-abs
+FLEET_ROWS_TOL = 1e-5
+# dist_sdc: DS2 at hidden 1760 data parallel over SDC_WORLD ranks on the
+# one card (gloo), global batches of SDC_ROWS utterances of 10 s (3 and
+# 2 ranks both divide them); the audit every step; un-armed for
+# SDC_CLEAN steps, then a bit flipped on rank 2 before batch SDC_FLIP_AT
+SDC_WORLD, SDC_ROWS, SDC_CLEAN, SDC_FLIP_AT = 3, 6, 2, 2
+SDC_AUDIT_REPS = 5
+# dist_slice: SSD300 served by one width-2 slice of the 2 ranks
+SLICE_REQUESTS = 64
+
+
+def fleet_service(model, edge, n, tier):
+    return FLEET_SERVICE_S
+
+
+def fleet_drive(rt, clock, images, ds2_feats):
+    """The fleet's traffic on ``rt`` (a parallel-service runtime on
+    ``clock``): the burst, then the quiet tail, each request submitted at
+    its arrival instant, the clock advanced toward the next arrival or
+    pool event (by at most FLEET_TICK_S) when nothing is due; then a
+    drain.  Returns the requests."""
+    arrivals, t, ds2_i = [], 0.0, 0
+    for i in range(FLEET_BURST):
+        t += 1.0 / FLEET_BURST_RATE
+        if i % FLEET_DS2_EVERY == FLEET_DS2_EVERY - 1 \
+                and ds2_i < len(ds2_feats):
+            arrivals.append((t, "ds2", ds2_i))
+            ds2_i += 1
+        else:
+            arrivals.append((t, "ssd", i % len(images)))
+    for i in range(FLEET_TAIL):
+        t += 1.0 / FLEET_TAIL_RATE
+        arrivals.append((t, "ssd", i % len(images)))
+    reqs, i = [], 0
+    while i < len(arrivals):
+        now = clock.now()
+        if now < arrivals[i][0]:
+            if rt.pump() == 0:
+                ev = rt.next_event_t()
+                target = (arrivals[i][0] if ev is None
+                          else min(ev, arrivals[i][0]))
+                clock.advance(max(min(target - now, FLEET_TICK_S), 1e-9))
+            continue
+        while i < len(arrivals) and clock.now() >= arrivals[i][0]:
+            _, model, k = arrivals[i]
+            if model == "ssd":
+                payload, length = {"input": images[k]}, None
+            else:
+                payload = {"input": ds2_feats[k]}
+                length = ds2_feats[k].shape[0]
+            reqs.append(rt.submit(payload, model=model, length=length,
+                                  deadline_s=FLEET_DEADLINE_S[model]))
+            i += 1
+        rt.pump()
+    for _ in range(100_000):
+        if len(rt.queue) == 0:
+            break
+        if rt.pump() == 0:
+            ev = rt.next_event_t()
+            clock.advance(max(min((ev - clock.now()) if ev is not None
+                                  else FLEET_TICK_S, FLEET_TICK_S), 1e-9))
+    rt.drain()
+    return reqs
+
+
+def fleet_runtime(ssd_tiers, ds2_tiers):
+    """The fleet's runtime: SSD and DS2 on 2 replicas under a device
+    budget of 4, the autoscaler, the chaos schedule (replica 0 crashes
+    and then wedges in the burst, replica 1 turns into a slow device
+    from the 17th dispatch on) and the health sentinel's straggler
+    ladder."""
+    from analytics_zoo_tpu_torch.obs import model_slos
+    from analytics_zoo_tpu_torch.resilience.chaos import (ChaosMonkey,
+                                                          FaultSpec)
+    from analytics_zoo_tpu_torch.resilience.health import (HealthPolicy,
+                                                           HealthSentinel)
+    from analytics_zoo_tpu_torch.serving import (Autoscaler,
+                                                 AutoscalePolicy,
+                                                 ModelConfig, ServingRuntime,
+                                                 VirtualClock)
+
+    clock = VirtualClock()
+    monkey = ChaosMonkey([
+        FaultSpec("replica_crash", 3, batches=3, detail={"replica": 0}),
+        FaultSpec("slow_forward", 10, batches=6,
+                  detail={"replica": 0, "delay_s": 2.0}),
+        FaultSpec("slow_device", 16, batches=10 ** 6,
+                  detail={"replica": 1, "slow_x": 5.0})])
+    sentinel = HealthSentinel(HealthPolicy(
+        straggler_factor=2.0, straggler_alpha=0.5, flag_after=2,
+        warmup_obs=1, max_evictions=1))
+    scaler = Autoscaler(AutoscalePolicy(min_replicas=2, max_replicas=4,
+                                        grow_after=1, shrink_after=4,
+                                        cooldown=1, device_budget=4))
+    rt = ServingRuntime(
+        models=[ModelConfig("ssd", tiers=ssd_tiers, length_key=None,
+                            slos=model_slos("ssd")),
+                ModelConfig("ds2", tiers=ds2_tiers,
+                            bucket_edges=list(DS2_BUCKETS),
+                            slos=model_slos("ds2"))],
+        n_replicas=2, max_batch=BATCH, queue_capacity=512, clock=clock,
+        service_time=fleet_service, parallel_replicas=True,
+        fence_budget_s=0.5, restart_s=0.2, decision_every=1,
+        autoscaler=scaler, chaos=monkey, health=sentinel, device_budget=4,
+        slo_params=dict(fast_window_s=0.25, slow_window_s=1.0,
+                        time_scale=1.0))
+    return rt, clock, monkey, sentinel, scaler
+
+
+def record_inputs(rt):
+    """Wrap ``rt._dispatch`` to keep each batch's model, tier, rids and a
+    copy of its input dict."""
+    import numpy as np
+
+    seen = []
+    orig = rt._dispatch
+
+    def record(batch):
+        seen.append({"model": batch.model, "tier": batch.tier,
+                     "rids": [r.rid for r in batch.requests],
+                     "batch": {k: np.array(v, copy=True)
+                               for k, v in batch.batch.items()}})
+        orig(batch)
+
+    rt._dispatch = record
+    return seen
+
+
+def fleet_check(rt, reqs, seen, monkey, sentinel, scaler, what):
+    """The fleet's invariants: every request terminal and none failed
+    (each chaos failure fails over once; a request whose deadline passes
+    in the queue is shed, not failed), the slow device quarantined with
+    the budget lowered once, the pool grown and shrunk, every served row
+    in a recorded batch; returns the summary."""
+    acct = rt.accounting()
+    snap = rt.snapshot()
+    kinds = [e["kind"] for e in rt.pool.events]
+    quarantined = [e for e in rt.pool.events
+                   if e["kind"] == "replica_quarantined"]
+    fenced = sorted({e["replica"] for e in rt.pool.events
+                     if e["kind"] == "replica_fenced"})
+    if acct["unaccounted"] or acct["by_state"].get("failed", 0) \
+            or snap["metrics"]["failed"]:
+        raise AssertionError(f"{what}: accounting {acct}")
+    if [e["replica"] for e in quarantined] != [1] \
+            or quarantined[0]["device_budget"] != 3 \
+            or rt.pool.device_budget != 3 \
+            or sentinel.stats()["quarantines"] != 1 \
+            or scaler.evicted_devices != 1:
+        raise AssertionError(f"{what}: quarantines {quarantined}, budget "
+                             f"{rt.pool.device_budget}, sentinel "
+                             f"{sentinel.stats()}")
+    if fenced != [0] or kinds.count("failover") < 2 \
+            or sorted(monkey.fired_kinds()) != ["replica_crash",
+                                                "slow_device",
+                                                "slow_forward"]:
+        raise AssertionError(f"{what}: fenced {fenced}, pool {kinds}, chaos "
+                             f"{monkey.fired_kinds()}")
+    if scaler.grows < 1 or scaler.shrinks < 1:
+        raise AssertionError(f"{what}: autoscaler {scaler.snapshot()}")
+    if sum(len(b["rids"]) for b in seen) != acct["by_state"].get("done"):
+        raise AssertionError(f"{what}: {len(seen)} batches held "
+                             f"{sum(len(b['rids']) for b in seen)} rows "
+                             f"for {acct['by_state']}")
+    return {"accounting": acct, "grows": scaler.grows,
+            "shrinks": scaler.shrinks, "decisions": scaler.decisions,
+            "quarantined": [e["replica"] for e in quarantined],
+            "fenced": fenced, "failovers": kinds.count("failover"),
+            "pool_size": rt.pool.size, "device_budget":
+                rt.pool.device_budget,
+            "batches": {m: sum(b["model"] == m for b in seen)
+                        for m in ("ssd", "ds2")},
+            "tiers": sorted({(b["model"], b["tier"]) for b in seen}),
+            "chaos_events": len(monkey.events),
+            "health": sentinel.stats(),
+            "health_events": [e["kind"] for e in sentinel.events]}
+
+
+def fleet_latency(reqs):
+    import numpy as np
+
+    lat = {}
+    for m in ("ssd", "ds2"):
+        x = [r.completed_t - r.arrival_t for r in reqs if r.model == m]
+        lat[m] = {"p50_s": float(np.percentile(x, 50)),
+                  "p99_s": float(np.percentile(x, 99)), "n": len(x)}
+    return lat
+
+
+def fleet_chaos_phase(dev, smi, seed=67):
+    """fleet_chaos: SSD300 (K2) and DS2 at hidden 1760 (K3) on one
+    multiplexed runtime in the parallel service model, with the
+    autoscaler, chaos, the health sentinel and a device budget; each
+    served batch's rows against the same batch through its rung again.
+    Returns the launches of K2 and K3 in the drive."""
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.models.ssd import build_ssd_vgg
+    from analytics_zoo_tpu_torch.ops import pallas_detout, pallas_rnn
+    from analytics_zoo_tpu_torch.pipelines.deepspeech2 import (
+        DS2Param, ds2_serving_tiers, make_ds2_model)
+    from analytics_zoo_tpu_torch.pipelines.ssd import (BGR_MEANS,
+                                                       PreProcessParam,
+                                                       ssd_serving_tiers)
+    from analytics_zoo_tpu_torch.transform.audio import featurize
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(seed)
+    ssd_tiers = ssd_serving_tiers(build_ssd_vgg(21, 300, device=dev, seed=0),
+                                  PreProcessParam(batch_size=BATCH,
+                                                  resolution=300),
+                                  device=dev)
+    ds2 = make_ds2_model(hidden=DS2_HIDDEN, n_rnn_layers=3,
+                         rnn_engine="pallas", seed=0, device=dev)
+    ds2_tiers = ds2_serving_tiers(ds2, DS2Param(decoder="greedy"),
+                                  device=dev)
+    images = [rng.randint(0, 256, (300, 300, 3)).astype(np.float32)
+              - np.float32(BGR_MEANS) for _ in range(2 * BATCH)]
+    n_ds2 = FLEET_BURST // FLEET_DS2_EVERY
+    seconds = [float(s) for s in rng.uniform(3, 30, n_ds2)]
+    ds2_feats = [featurize(x) for x in synthetic_utterances(
+        seconds, seed=seed).values()]
+    for t in ssd_tiers:                     # cuDNN's choice on every rung
+        t.forward({"input": np.stack(images[:BATCH])})
+    for e in DS2_BUCKETS:
+        ds2_tiers[0].forward({"input": np.zeros((BATCH, e, 13), np.float32),
+                              "n_frames": np.full(BATCH, e, np.int32)})
+    rt, clock, monkey, sentinel, scaler = fleet_runtime(ssd_tiers, ds2_tiers)
+    seen = record_inputs(rt)
+    torch.cuda.synchronize()
+    zero_kernel_counters()
+    t0 = time.perf_counter()
+    reqs = fleet_drive(rt, clock, images, ds2_feats)
+    torch.cuda.synchronize()
+    drive_s = time.perf_counter() - t0
+    launches = launch_counts()
+    summary = fleet_check(rt, reqs, seen, monkey, sentinel, scaler,
+                          "fleet_chaos")
+    n_ssd, n_ds2b = summary["batches"]["ssd"], summary["batches"]["ds2"]
+    if launches["fused_detection_output"] != n_ssd \
+            or launches["persistent_rnn"] != 6 * n_ds2b \
+            or launches["nms_sweep"] or launches["persistent_rnn_bwd"]:
+        raise AssertionError(f"fleet_chaos: {n_ssd} SSD and {n_ds2b} DS2 "
+                             f"batches launched {launches}")
+    # each batch's rows against the same batch through its rung again
+    by_rid = {r.rid: r for r in rt.requests}
+    tiers = {"ssd": ssd_tiers, "ds2": ds2_tiers}
+    rows_err, texts_equal, fwd_ms = 0.0, 0, {"ssd": [], "ds2": []}
+    for b in seen:
+        t1 = time.perf_counter()
+        again = tiers[b["model"]][b["tier"]].forward(dict(b["batch"]))
+        fwd_ms[b["model"]].append((time.perf_counter() - t1) * 1e3)
+        for i, rid in enumerate(b["rids"]):
+            got = by_rid[rid].result
+            if b["model"] == "ds2":
+                if str(got) != str(again[i]):
+                    raise AssertionError(f"fleet_chaos request {rid}: the "
+                                         "served transcript differs")
+                texts_equal += 1
+            else:
+                err = float(np.abs(np.asarray(got, np.float64)
+                                   - np.asarray(again[i], np.float64)).max())
+                rows_err = max(rows_err, err)
+    if rows_err > FLEET_ROWS_TOL:
+        raise AssertionError(f"fleet_chaos: SSD rows differ from the same "
+                             f"batch again by {rows_err} (tol "
+                             f"{FLEET_ROWS_TOL})")
+    emit("fleet_chaos", nvidia_smi=smi, models=["ssd", "ds2"],
+         ssd_batch=BATCH, ds2_hidden=DS2_HIDDEN,
+         ds2_seconds_max=max(seconds), requests=len(reqs),
+         service_model_s=FLEET_SERVICE_S, burst=FLEET_BURST,
+         burst_rate=FLEET_BURST_RATE, tail=FLEET_TAIL,
+         tail_rate=FLEET_TAIL_RATE, virtual_latency=fleet_latency(reqs),
+         launches=launches, rows_max_abs_err=rows_err,
+         rows_tolerance=FLEET_ROWS_TOL, ds2_texts_equal=texts_equal,
+         card_forward_ms_median={m: float(np.median(v)) if v else None
+                                 for m, v in fwd_ms.items()},
+         drive_s=drive_s, phase_s=time.perf_counter() - t_phase, **summary)
+    return launches
+
+
+def sdc_batches(seed):
+    """Global DS2 batches of SDC_ROWS utterances of 10 s (1000 frames),
+    with random labels."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(SDC_CLEAN + 6):
+        n = np.full(SDC_ROWS, 1000, np.int32)
+        labels = rng.randint(1, 29, (SDC_ROWS, 40)).astype(np.int32)
+        mask = (np.arange(40)[None]
+                < rng.randint(20, 41, SDC_ROWS)[:, None])
+        out.append({"input": (rng.randn(SDC_ROWS, 1000, 13)
+                              .astype(np.float32), n),
+                    "n_frames": n, "labels": labels,
+                    "label_mask": mask.astype(np.float32)})
+    return out
+
+
+def sdc_optimizer(mesh, root, data, steps):
+    from analytics_zoo_tpu_torch.parallel import SGD, Optimizer, Trigger
+    from analytics_zoo_tpu_torch.pipelines.deepspeech2 import (
+        ds2_ctc_criterion, make_ds2_model)
+    from analytics_zoo_tpu_torch.resilience.anomaly import AnomalyPolicy
+    from analytics_zoo_tpu_torch.resilience.health import HealthPolicy
+    from analytics_zoo_tpu_torch.utils import engine
+
+    model = make_ds2_model(hidden=DS2_HIDDEN, n_rnn_layers=3,
+                           rnn_engine="pallas", seed=0,
+                           device=engine.device())
+    return (Optimizer(model, data, ds2_ctc_criterion(), mesh=mesh)
+            .set_optim_method(SGD(1e-4))
+            .set_checkpoint(root, Trigger.several_iteration(2),
+                            overwrite=False, keep_last=2)
+            .set_anomaly_policy(AnomalyPolicy(rollback_after=3,
+                                              promote_after=2,
+                                              max_rollbacks=2))
+            .set_health_policy(HealthPolicy(audit_every=1))
+            .set_end_when(Trigger.max_iteration(steps)))
+
+
+def dist_sdc_rank(batches, root):
+    """One rank of dist_sdc: the audit over the un-armed steps, then the
+    armed run to its DeviceQuarantine, the eviction, and the survivors'
+    steps from the last-known-good tier; each part's launches."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from analytics_zoo_tpu_torch.parallel import checkpoint as ckpt
+    from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+    from analytics_zoo_tpu_torch.parallel.elastic import (
+        resume_after_quarantine)
+    from analytics_zoo_tpu_torch.resilience.chaos import (ChaosMonkey,
+                                                          FaultSpec)
+    from analytics_zoo_tpu_torch.resilience.errors import DeviceQuarantine
+
+    mesh = mesh_lib.create_mesh((SDC_WORLD,), ("data",))
+    out = {"rank": dist.get_rank()}
+    zero_kernel_counters()
+    clean = sdc_optimizer(mesh, os.path.join(root, "clean"), batches,
+                          SDC_CLEAN)
+    clean.optimize()
+    torch.cuda.synchronize()
+    out["clean"] = clean._health.stats()
+    out["clean_launches"] = launch_counts()
+    # the audit's time at this width: the fold on the card and the gather
+    audit = clean._audit_fn
+    ms = []
+    for _ in range(SDC_AUDIT_REPS):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        audit(clean.model)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["audit_ms"] = statistics.median(ms)
+    out["params"] = sum(p.numel() for p in clean.model.parameters())
+    del clean
+    armed_root = os.path.join(root, "armed")
+    monkey = ChaosMonkey([FaultSpec("bit_flip", SDC_FLIP_AT,
+                                    detail={"replica": 2, "bit": 7})])
+    opt = sdc_optimizer(mesh, armed_root, monkey.dataset(batches), 50)
+    zero_kernel_counters()
+    err = None
+    with monkey:
+        try:
+            opt.optimize()
+        except DeviceQuarantine as e:
+            err = e
+    torch.cuda.synchronize()
+    out["armed_launches"] = launch_counts()
+    out["raised"] = [type(err).__name__, getattr(err, "device", None)]
+    out["divergence"] = [e for e in opt._health.events
+                         if e["kind"] == "audit_divergence"]
+    lkg = ckpt.lkg_snapshot(armed_root)
+    out["lkg_iteration"] = int(lkg[1]["meta"]["iteration"]) if lkg else None
+    del opt
+    zero_kernel_counters()
+    survivors = resume_after_quarantine(
+        err, mesh, armed_root, os.path.join(root, "evicted"),
+        lambda m, r: sdc_optimizer(m, r, batches,
+                                   out["lkg_iteration"] + 2))
+    if survivors is None:
+        out["evicted"] = True
+        return out
+    survivors.optimize()
+    torch.cuda.synchronize()
+    out["evicted"] = False
+    out["width"] = survivors.specs.data_axis_size
+    out["survivor_steps"] = len(survivors.history)
+    out["survivor_losses"] = [float(m["loss"]) for m in survivors.history]
+    out["survivor_audits"] = survivors._health.stats()
+    out["survivor_launches"] = launch_counts()
+    return out
+
+
+def dist_sdc_phase(dev, smi, seed=71):
+    """dist_sdc: DS2 at hidden 1760 data parallel on SDC_WORLD ranks
+    under the parity audit: un-armed every audit ok, then a bit flip on
+    rank 2 raises DeviceQuarantine(device=2) on every rank, rank 2 leaves
+    and ranks 0-1 take two steps from the last-known-good tier."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.utils import engine
+
+    t_phase = time.perf_counter()
+    batches = sdc_batches(seed)
+    root = tempfile.mkdtemp()
+    try:
+        ranks = engine.spawn(os.path.abspath(__file__) + ":dist_child",
+                             SDC_WORLD, dict(task="sdc", batches=batches,
+                                             root=root),
+                             timeout=DIST_TIMEOUT, backend=DIST_BACKEND,
+                             local_ranks=[0] * SDC_WORLD)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for r in ranks:
+        div = r["divergence"]
+        if (r["clean"]["audits"] != SDC_CLEAN
+                or r["clean"]["audit_divergences"]
+                or r["raised"] != ["DeviceQuarantine", 2]
+                or len(div) != 1 or div[0]["minority"] != [2]
+                or len(set(div[0]["fingerprints"])) != 2):
+            raise AssertionError(f"dist_sdc rank {r['rank']}: clean "
+                                 f"{r['clean']}, raised {r['raised']}, "
+                                 f"divergence {div}")
+        if r["clean_launches"]["persistent_rnn"] != 6 * SDC_CLEAN \
+                or r["clean_launches"]["persistent_rnn_bwd"] \
+                != 6 * SDC_CLEAN:
+            raise AssertionError(f"dist_sdc rank {r['rank']}: clean launches "
+                                 f"{r['clean_launches']}")
+    if [r["evicted"] for r in ranks] != [False, False, True]:
+        raise AssertionError(f"dist_sdc: evicted {[r['evicted'] for r in ranks]}")
+    for r in ranks[:2]:
+        if (r["width"] != 2 or r["survivor_steps"] != 2
+                or r["survivor_audits"]["audit_divergences"]
+                or r["survivor_audits"]["audits"] != 2
+                or not all(np.isfinite(r["survivor_losses"]))
+                or r["survivor_launches"]["persistent_rnn"] != 12
+                or r["survivor_launches"]["persistent_rnn_bwd"] != 12):
+            raise AssertionError(f"dist_sdc survivor {r['rank']}: {r}")
+    if ranks[0]["survivor_losses"] != ranks[1]["survivor_losses"]:
+        raise AssertionError("dist_sdc: the survivors' losses differ")
+    emit("dist_sdc", nvidia_smi=smi, world=SDC_WORLD, hidden=DS2_HIDDEN,
+         rows=SDC_ROWS, frames=1000, params=ranks[0]["params"],
+         clean_audits=ranks[0]["clean"],
+         detected_at_step=ranks[0]["divergence"][0]["step"],
+         flip_armed_before_batch=SDC_FLIP_AT,
+         fingerprints=ranks[0]["divergence"][0]["fingerprints"],
+         raised=[r["raised"] for r in ranks],
+         lkg_iteration=ranks[0]["lkg_iteration"],
+         survivors_width=ranks[0]["width"],
+         survivor_losses=ranks[0]["survivor_losses"],
+         audit_ms_by_rank=[r["audit_ms"] for r in ranks],
+         launches_by_rank=[{part: r.get(part + "_launches")
+                            for part in ("clean", "armed", "survivor")}
+                           for r in ranks],
+         phase_s=time.perf_counter() - t_phase)
+    total = {k: 0 for k in ranks[0]["clean_launches"]}
+    for r in ranks:
+        for part in ("clean", "armed", "survivor"):
+            for k, v in (r.get(part + "_launches") or {}).items():
+                total[k] += v
+    return total
+
+
+def dist_slice_rank(requests):
+    """One rank of dist_slice: SSD300's rungs on this rank's slice (the
+    whole 2-rank mesh, one width-2 replica); rank 0 serves the requests
+    through ``ServingRuntime(slice_width=2, device_budget=2)``, tries a
+    second slice, and returns the rows; rank 1 follows."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from analytics_zoo_tpu_torch.models.ssd import SSDVgg
+    from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+    from analytics_zoo_tpu_torch.parallel.specs import pipeline_specs
+    from analytics_zoo_tpu_torch.pipelines.ssd import (PreProcessParam,
+                                                       ssd_serving_tiers)
+    from analytics_zoo_tpu_torch.serving import (MonotonicClock,
+                                                 ServingRuntime,
+                                                 serve_follower,
+                                                 SliceLayout)
+    from analytics_zoo_tpu_torch.utils import engine
+
+    dev = engine.device()
+    mesh = mesh_lib.create_mesh((DIST_WORLD,), ("data",))
+    layout = SliceLayout(pipeline_specs("ssd", mesh=mesh), DIST_WORLD)
+    tiers = ssd_serving_tiers(SSDVgg(21, 300, device=dev, seed=0),
+                              PreProcessParam(batch_size=BATCH,
+                                              resolution=300),
+                              specs=layout.specs, device=dev)
+    warm = np.stack(requests[:BATCH])
+    for t in tiers:                 # every rank: cuDNN's choice, each rung
+        t.forward({"input": warm})
+    torch.cuda.synchronize()
+    zero_kernel_counters()
+    if dist.get_rank() != 0:
+        out = {"follower": serve_follower(layout.specs, tiers=tiers)}
+        torch.cuda.synchronize()
+        out["launches"] = launch_counts()
+        return out
+    rt = ServingRuntime(tiers, n_replicas=1, max_batch=BATCH,
+                        queue_capacity=4 * len(requests), length_key=None,
+                        default_deadline_s=3600.0, clock=MonotonicClock(),
+                        wedge_timeout_s=DS2_WEDGE_S,
+                        specs=layout.specs, slice_width=DIST_WORLD,
+                        device_budget=DIST_WORLD)
+    reqs = []
+    t0 = time.perf_counter()
+    for x in requests:
+        reqs.append(rt.submit({"input": x}))
+        if len(reqs) % BATCH == 0:
+            rt.pump(force=True)
+    rt.drain()
+    served_s = time.perf_counter() - t0
+    acts = rt.pool.resize(2)
+    snap = rt.snapshot()
+    rt.close()
+    torch.cuda.synchronize()
+    return {"rows": [np.asarray(r.result) for r in reqs],
+            "accounting": rt.accounting(), "failed": snap["metrics"]["failed"],
+            "grown": acts["grown"],
+            "clamped": [e for e in rt.pool.events
+                        if e["kind"] == "resize_budget_clamped"],
+            "slices": snap["slices"], "served_s": served_s,
+            "kinds": [type(r).__name__ for r in rt.pool.replicas],
+            "first_error": next((e["error"] for e in rt.pool.events
+                                 if e["kind"] == "replica_fenced"), None),
+            "launches": launch_counts()}
+
+
+def dist_slice_phase(dev, smi, seed=73):
+    """dist_slice: SSD300 requests through one width-2 mesh slice of the
+    2 ranks under device_budget=2; a second slice refused by the budget;
+    the rows against one process's runtime over the same requests."""
+    import numpy as np
+
+    from analytics_zoo_tpu_torch.models.ssd import SSDVgg
+    from analytics_zoo_tpu_torch.pipelines.ssd import (BGR_MEANS,
+                                                       PreProcessParam,
+                                                       ssd_serving_tiers)
+    from analytics_zoo_tpu_torch.serving import (MonotonicClock,
+                                                 ServingRuntime)
+    from analytics_zoo_tpu_torch.utils import engine
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(seed)
+    requests = [rng.randint(0, 256, (300, 300, 3)).astype(np.float32)
+                - np.float32(BGR_MEANS) for _ in range(SLICE_REQUESTS)]
+    ranks = engine.spawn(os.path.abspath(__file__) + ":dist_child",
+                         DIST_WORLD, dict(task="slice", requests=requests),
+                         timeout=DIST_TIMEOUT, backend=DIST_BACKEND,
+                         local_ranks=[0] * DIST_WORLD)
+    lead, follower = ranks[0], ranks[1]["follower"]
+    clamped = lead["clamped"]
+    if (lead["accounting"]["by_state"] != {"done": SLICE_REQUESTS}
+            or lead["failed"] or lead["grown"] or len(clamped) != 1
+            or clamped[0]["device_budget"] != DIST_WORLD
+            or clamped[0]["width"] != DIST_WORLD
+            or lead["kinds"] != ["ReplicaSlice"]
+            or lead["slices"]["devices_used"] != DIST_WORLD
+            or follower["failed"] or follower["run"] < 1):
+        raise AssertionError(f"dist_slice: {lead['accounting']}, clamped "
+                             f"{clamped}, slices {lead['slices']}, follower "
+                             f"{follower}, first error {lead['first_error']}")
+    tiers = ssd_serving_tiers(SSDVgg(21, 300, device=dev, seed=0),
+                              PreProcessParam(batch_size=BATCH,
+                                              resolution=300), device=dev)
+    for t in tiers:
+        t.forward({"input": np.stack(requests[:BATCH])})
+    rt = ServingRuntime(tiers, n_replicas=1, max_batch=BATCH,
+                        queue_capacity=4 * SLICE_REQUESTS, length_key=None,
+                        default_deadline_s=3600.0, clock=MonotonicClock(),
+                        wedge_timeout_s=DS2_WEDGE_S)
+    reqs = []
+    for x in requests:
+        reqs.append(rt.submit({"input": x}))
+        if len(reqs) % BATCH == 0:
+            rt.pump(force=True)
+    rt.drain()
+    want = np.stack([np.asarray(r.result) for r in reqs])
+    got = np.stack(lead["rows"])
+    matched = match_images(got, want)
+    if matched[0] < DIST_MATCH_MIN or matched[2] > DIST_SCORE_TOL:
+        raise AssertionError(f"dist_slice rows against one process's: "
+                             f"{matched}")
+    launches = {k: lead["launches"][k] + ranks[1]["launches"][k]
+                for k in lead["launches"]}
+    if launches["fused_detection_output"] < 1:
+        raise AssertionError(f"dist_slice: launches {launches}")
+    emit("dist_slice", nvidia_smi=smi, world=DIST_WORLD,
+         slice_width=DIST_WORLD, device_budget=DIST_WORLD,
+         requests=SLICE_REQUESTS, accounting=lead["accounting"],
+         resize_refused=clamped[0], slices=lead["slices"],
+         follower=follower, rows_matched_min=matched[0],
+         rows_matched_mean=matched[1], rows_score_err=matched[2],
+         rows_equal_share=float(np.mean([np.array_equal(g, w)
+                                         for g, w in zip(got, want)])),
+         served_s=lead["served_s"],
+         launches_by_rank=[lead["launches"], ranks[1]["launches"]],
+         phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -7937,6 +8569,23 @@ def main() -> int:
     emit("timing", nvidia_smi=smi,
          telemetry_phase_s=time.perf_counter() - t0)
 
+    # -- 6t. the serving fleet under chaos (K2, K3), the SDC sentinel over
+    # three ranks (K3, K4), a width-2 mesh slice serving SSD300 (K2) ------
+    t0 = time.perf_counter()
+    fleet_chaos = fleet_chaos_phase(dev, smi)
+    fleet_s = time.perf_counter() - t0
+    dist_sdc = dist_sdc_phase(dev, smi)
+    sdc_s = time.perf_counter() - t0 - fleet_s
+    dist_slice = dist_slice_phase(dev, smi)
+    emit("timing", nvidia_smi=smi, fleet_chaos_phase_s=fleet_s,
+         dist_sdc_phase_s=sdc_s,
+         dist_slice_phase_s=time.perf_counter() - t0 - fleet_s - sdc_s)
+    fleet_paths = {"fleet_chaos": fleet_chaos, "dist_sdc": dist_sdc,
+                   "dist_slice": dist_slice}
+
+    def fleet_counts(name):
+        return {path: counts[name] for path, counts in fleet_paths.items()}
+
     # -- 7. kernels, then the device line last ----------------------------
     kernels = [
         {"name": "nms_sweep", "route": "cuda",
@@ -7944,7 +8593,8 @@ def main() -> int:
          "replaces": "analytics_zoo_tpu/ops/pallas_nms.py:91",
          "launches": (launches["nms_sweep"] + ssd_serving["k1_launches"]
                       + swap["nms_sweep"] + dist_dp["nms_sweep"]
-                      + dist_tp["nms_sweep"]),
+                      + dist_tp["nms_sweep"]
+                      + sum(fleet_counts("nms_sweep").values())),
          "launches_by_path": {
              "ssd_serving": launches["nms_sweep"],
              "ds2_resume": 0, "ssd_swap": swap["nms_sweep"],
@@ -7957,7 +8607,7 @@ def main() -> int:
              "ssd_serving_approx_topk": ssd_serving["k1_launches"],
              "frcnn_serving": frcnn["nms_sweep"],
              "frcnn_train": frcnn_train["nms_sweep"],
-             **zoo_paths("nms_sweep")},
+             **zoo_paths("nms_sweep"), **fleet_counts("nms_sweep")},
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
@@ -7974,7 +8624,9 @@ def main() -> int:
                       + dist_tp["fused_detection_output"]
                       + dist_spatial["fused_detection_output"]
                       + dist_serve["fused_detection_output"]
-                      + telemetry["fused_detection_output"]),
+                      + telemetry["fused_detection_output"]
+                      + sum(fleet_counts("fused_detection_output")
+                            .values())),
          "launches_by_path": {
              "ssd_serving": launches["fused_detection_output"],
              "ds2_resume": 0, "ssd_swap": swap["fused_detection_output"],
@@ -7994,7 +8646,8 @@ def main() -> int:
              "ssd_variants": variants["k2_launches"],
              "frcnn_serving": frcnn["fused_detection_output"],
              "frcnn_train": frcnn_train["fused_detection_output"],
-             **zoo_paths("fused_detection_output")},
+             **zoo_paths("fused_detection_output"),
+             **fleet_counts("fused_detection_output")},
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
         {"name": "persistent_rnn", "route": "cuda",
@@ -8006,7 +8659,8 @@ def main() -> int:
                       + dist_tp["persistent_rnn"]
                       + dist_seq["persistent_rnn"]
                       + dist_serve["persistent_rnn"]
-                      + telemetry["persistent_rnn"]),
+                      + telemetry["persistent_rnn"]
+                      + sum(fleet_counts("persistent_rnn").values())),
          "launches_by_path": {"ds2_serving": k3_launches,
                               "ds2_train": train_launches["persistent_rnn"],
                               "ds2_resume": resume["persistent_rnn"],
@@ -8021,7 +8675,8 @@ def main() -> int:
                               **ds2_online["k3"],
                               "frcnn_serving": frcnn["persistent_rnn"],
                               "frcnn_train": frcnn_train["persistent_rnn"],
-                              **zoo_paths("persistent_rnn")},
+                              **zoo_paths("persistent_rnn"),
+                              **fleet_counts("persistent_rnn")},
          "max_abs_err": k3_err, "ms": k3_ms,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
          # no PyTorch call computes a clipped-ReLU recurrence; cuDNN's
@@ -8037,7 +8692,8 @@ def main() -> int:
                       + dist_dp["persistent_rnn_bwd"]
                       + dist_tp["persistent_rnn_bwd"]
                       + dist_seq["persistent_rnn_bwd"]
-                      + telemetry["persistent_rnn_bwd"]),
+                      + telemetry["persistent_rnn_bwd"]
+                      + sum(fleet_counts("persistent_rnn_bwd").values())),
          "launches_by_path": {
              "ds2_train": train_launches["persistent_rnn_bwd"],
              "ds2_resume": resume["persistent_rnn_bwd"], "ssd_swap": 0,
@@ -8050,7 +8706,8 @@ def main() -> int:
              "telemetry": telemetry["persistent_rnn_bwd"],
              "frcnn_serving": frcnn["persistent_rnn_bwd"],
              "frcnn_train": frcnn_train["persistent_rnn_bwd"],
-             **zoo_paths("persistent_rnn_bwd")},
+             **zoo_paths("persistent_rnn_bwd"),
+             **fleet_counts("persistent_rnn_bwd")},
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
          "bound_ms": k4_bound, "bound_by": k4_by,
          # no PyTorch call computes this backward; cuDNN's relu RNN

@@ -9,8 +9,16 @@ as such.  The width-change matrix: for every registered pipeline, a
 state placed, gathered and saved by 4 gloo ranks restores onto 2 and 1
 ranks with the saved bytes, and one step from it equals, bit for bit,
 the step from a never-resized placement at that width.  The serving
-half (replica slices, the width-vs-count policy) waits for ROADMAP.md
-Queue 1 items 12b and 13.
+half's policy and pool scenarios are ``tests/test_torch_autoscale.py``'s.
+
+The 4-rank group also runs the fleet's multi-rank cases: two
+``slice_width=2`` replicas (slice 1 driven remotely from rank 0) serving
+the fraud rungs equal to one process's, a third slice refused by the
+device budget; and a tiny DS2 under the parity audit, un-armed every
+audit ``ok``, then a ``bit_flip`` on rank 2 raising
+``DeviceQuarantine(device=2)`` on every rank, rank 2 leaving, and the 3
+survivors' step from the last-known-good tier bit-equal to a straight
+width-3 run from the same snapshot.
 """
 
 import jax
@@ -99,14 +107,19 @@ def matrix(tmp_path_factory):
     base = tmp_path_factory.mktemp("elastic")
     names = sorted(registered_pipelines())
 
-    def group(world, restore):
+    def group(world, restore, extra=None):
         return engine.spawn(sc.TARGET, world, {"scenarios": {
-            n: ("elastic_matrix", dict(name=n, base=str(base / n),
-                                       restore=restore)) for n in names}},
-            device="cpu", timeout=120)
+            **{n: ("elastic_matrix", dict(name=n, base=str(base / n),
+                                          restore=restore))
+               for n in names}, **(extra or {})}},
+            device="cpu", timeout=180)
 
-    group(SAVE_W, False)
-    return {w: group(w, True) for w in RESTORE_WS}
+    # the fleet's cases after the matrix: the eviction last (its evicted
+    # rank leaves the run)
+    four = group(SAVE_W, False, {
+        "slices": ("serve_slices", {}),
+        "sdc": ("sdc_eviction", dict(base=str(base / "sdc")))})
+    return {SAVE_W: four, **{w: group(w, True) for w in RESTORE_WS}}
 
 
 class TestWidthChangeMatrix:
@@ -124,3 +137,33 @@ class TestWidthChangeMatrix:
                 assert loss == want_loss, (name, w)
                 for k, v in want_state.items():
                     assert np.array_equal(state[k], v), (name, w, k)
+
+
+class TestFleetOnFourRanks:
+    def test_two_slices_serve_equal_to_one_process(self, matrix):
+        got = matrix[SAVE_W][0]["slices"]
+        assert got["layout"] == [[0, 1], [2, 3]]
+        assert got["max_diff"] <= 1e-6
+        assert got["accounting"]["unaccounted"] == 0
+        assert got["accounting"]["by_state"] == {"done": 24}
+        assert all(n > 0 for n in got["dispatches"].values())
+        assert got["grown"] == [] and got["clamped"][0]["width"] == 2
+        assert got["slices"]["devices_used"] == 4
+        assert got["slices"]["device_budget"] == 4
+        for follower in matrix[SAVE_W][1:]:
+            counts = follower["slices"]
+            assert counts["run"] > 0 and counts["failed"] == 0
+
+    def test_audit_quarantine_and_survivors(self, matrix):
+        ranks = [r["sdc"] for r in matrix[SAVE_W]]
+        for r in ranks:
+            assert r["clean"]["audits"] == 3
+            assert r["clean"]["audit_divergences"] == 0
+            assert r["raised"] == ("DeviceQuarantine", 2)
+            assert r["divergence"][0]["minority"] == [2]
+            assert r["divergence"][0]["step"] == 5
+        assert [r["evicted"] for r in ranks] == [False, False, True, False]
+        for r in (ranks[0], ranks[1], ranks[3]):
+            assert r["width"] == 3 and r["equal"]
+            assert r["losses"][0] == r["losses"][1]
+            assert r["stats"]["audit_divergences"] == 0

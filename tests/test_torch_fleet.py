@@ -2,7 +2,8 @@
 against the JAX package's, on the CPU.
 
 The scenarios of ``tests/test_autoscale.py``'s ``TestMultiplexedBatching``,
-``TestMultiplexedRuntime`` (less the autoscaler, not ported) and
+``TestMultiplexedRuntime`` (the autoscaler's in
+``tests/test_torch_autoscale.py``) and
 ``TestStreamingSessions`` run through both packages on a ``VirtualClock``
 with spy tiers: per-(model, edge, tier) service estimates, models never
 sharing a batch, weighted EDF, per-model batch sizes, SLO burn driving the
@@ -609,18 +610,55 @@ def test_model_config_validation(pkg):
     assert rt.accounting()["by_state"] == {"done": 1}
 
 
+def _mux_keyword_runtime(pkg, **kw):
+    st = kw.pop("service_time")
+    kw.pop("_extra", None)
+    if st is None:
+        kw["service_time"] = None
+    return _mux_runtime(pkg, kw.pop("clock"), **kw)
+
+
+def _mux_submit(pkg, rt):
+    _overload(pkg, rt, rt.clock, 120, rate=300.0)
+
+
 @pytest.mark.parametrize("kw,item", [
     ({"parallel_replicas": True}, "item 13"),
-    ({"slice_width": 2}, "item 13"), ({"device_budget": 4}, "item 13"),
-    ({"autoscaler": object()}, "item 13"), ({"chaos": object()}, "item 13"),
-    ({"health": object()}, "item 13"),
+    ({"slice_width": 0}, "item 13"), ({"device_budget": 4}, "item 13"),
+    ({"autoscaler": "Autoscaler"}, "item 13"),
+    ({"chaos": "ChaosMonkey"}, "item 13"),
+    ({"health": "HealthSentinel"}, "item 13"),
     ({"compile_s": 0.5}, "item 13"),
 ], ids=lambda v: next(iter(v)) if isinstance(v, dict) else v)
 def test_multiplexed_refused_keyword_names_its_item(kw, item):
-    cfg = tserving.ModelConfig(name="x",
-                               tiers=[tserving.ServingTier("fp", _fwd)])
-    with pytest.raises(NotImplementedError, match=item):
-        tserving.ServingRuntime(models=[cfg], **kw)
+    """The keywords of ROADMAP.md item 13 on the multiplexed path:
+    ``compile_s`` is still refused (a Known deviation); each of the
+    others is served, and the runtime's validation error or its
+    requests, pool events and snapshot under an overload are EQUAL to
+    the reference's (``test_torch_serving.keyword_case``)."""
+    import analytics_zoo_tpu.resilience.chaos as jchaos
+    import analytics_zoo_tpu.resilience.health as jhealth
+    import analytics_zoo_tpu_torch.resilience.chaos as tchaos
+    import analytics_zoo_tpu_torch.resilience.health as thealth
+    from test_torch_serving import keyword_case
+
+    key, value = next(iter(kw.items()))
+    if key == "compile_s":
+        cfg = tserving.ModelConfig(name="x",
+                                   tiers=[tserving.ServingTier("fp", _fwd)])
+        with pytest.raises(NotImplementedError, match=item):
+            tserving.ServingRuntime(models=[cfg], **kw)
+        return
+    pkgs = {"reference": types.SimpleNamespace(
+                s=jserving, c=jchaos, h=jhealth, errors=jerrors, slo=jslo),
+            "port": types.SimpleNamespace(
+                s=tserving, c=tchaos, h=thealth, errors=terrors, slo=tslo)}
+    got = {name: _jsonable(keyword_case(pkg, key, value,
+                                        _mux_keyword_runtime, _mux_submit))
+           for name, pkg in pkgs.items()}
+    assert got["port"] == got["reference"]
+    if key == "autoscaler":
+        assert got["port"]["snapshot"]["autoscale"]["decisions"] > 0
 
 
 def test_multiplexed_specs_on_one_rank_serves():
@@ -643,8 +681,8 @@ def test_multiplexed_specs_on_one_rank_serves():
 
 def test_still_refused_calls_name_their_item():
     """Live swaps are served (``tests/test_torch_live_swap.py``); what
-    they still refuse is re-warming (``warm_s``, item 13), and a model
-    without ``weights_to_tiers`` cannot swap."""
+    they still refuse is re-warming (``warm_s``, a Known deviation of
+    item 13), and a model without ``weights_to_tiers`` cannot swap."""
     tier = tserving.ServingTier("fp", _fwd)
     cfg = tserving.ModelConfig(name="x", tiers=[tier],
                                weights_to_tiers=lambda v, rid: [tier])

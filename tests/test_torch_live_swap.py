@@ -7,11 +7,12 @@ model (``ones(1, D) @ full((D, D), v)`` makes the served weights
 visible): a full rollout, the serve-lkg hysteresis, a canary trip, a
 mid-rollout rollback, a corrupt publish, one rollout at a time, a model
 without ``weights_to_tiers``, a resize during a rollout and a
-session-pinned replica swapped last.  Each scenario's own assertions hold
-on both, and the records (the swap history, the pool's events with the
-installed order, the mirrored count, ``accounting()`` and the whole
-``snapshot()``) are EQUAL, checkpoint paths aside.  The mid-swap replica
-crash needs ``parallel_replicas`` and chaos (ROADMAP.md Queue 1 item 13).
+session-pinned replica swapped last; and, under the parallel service
+model with a ``ChaosMonkey``, a replica crash in the middle of the
+rollout (``TestSwapUnderChaosAndResize``).  Each scenario's own
+assertions hold on both, and the records (the swap history, the pool's
+events with the installed order, the mirrored count, ``accounting()``
+and the whole ``snapshot()``) are EQUAL, checkpoint paths aside.
 
 Then a tiny SSD's ``ssd_serving_tiers`` swapped through
 ``weights_to_tiers`` on the CPU serves the new weights' rows.
@@ -25,10 +26,12 @@ import pytest
 import torch
 
 import analytics_zoo_tpu.obs.slo as jslo
+import analytics_zoo_tpu.resilience.chaos as jchaos
 import analytics_zoo_tpu.serving as jserving
 from analytics_zoo_tpu.parallel import checkpoint as jckpt
 from analytics_zoo_tpu.resilience import errors as jerrors
 import analytics_zoo_tpu_torch.obs.slo as tslo
+import analytics_zoo_tpu_torch.resilience.chaos as tchaos
 import analytics_zoo_tpu_torch.serving as tserving
 from analytics_zoo_tpu_torch.parallel import checkpoint as tckpt
 from analytics_zoo_tpu_torch.resilience import errors as terrors
@@ -40,10 +43,11 @@ D = 4   # toy feature dim: ones(1, D) @ full((D, D), v) == a row of D * v
 
 PKGS = {
     "reference": types.SimpleNamespace(s=jserving, slo=jslo, ckpt=jckpt,
-                                       errors=jerrors, load_kw={},
+                                       errors=jerrors, chaos=jchaos,
+                                       load_kw={},
                                        swap_kw={}),
     "port": types.SimpleNamespace(s=tserving, slo=tslo, ckpt=tckpt,
-                                  errors=terrors,
+                                  errors=terrors, chaos=tchaos,
                                   load_kw={"device": "cpu"},
                                   swap_kw={"device": "cpu"}),
 }
@@ -110,10 +114,7 @@ def _record(rt, base, **extra):
             return os.path.relpath(x, base)
         return x
 
-    # the port's resize has no pre-warm (item 13): its join events carry
-    # no "prewarm" flag
-    events = [{k: v for k, v in e.items() if k != "prewarm"}
-              for e in rt.pool.events]
+    events = rt.pool.events
     return _jsonable(rel({
         "snapshot": rt.snapshot(),
         "pool_events": events,
@@ -357,10 +358,65 @@ def session_swapped_last(P, base):
     return _record(rt, base)
 
 
+def _settle(rt, clock, limit=20_000):
+    """A parallel-mode drain: advance the clock through the pool's event
+    horizon until every request is terminal and no rollout is running."""
+    for _ in range(limit):
+        if rt.pump(force=True):
+            continue
+        if rt.accounting()["unaccounted"] == 0 and not rt.swap_active \
+                and not rt.pool.rollout_active:
+            return
+        nxt = rt.next_event_t()
+        step = (nxt - clock.now()) if nxt is not None else 0.01
+        clock.advance(max(step, 1e-6))
+    raise RuntimeError("parallel runtime did not settle")
+
+
+def crash_mid_rollout(P, base):
+    """A replica crash during the rollout, on the parallel service model:
+    the crashed batches fail over once each, the fenced replica restarts
+    and is swapped on its turn, and the rollout completes with no request
+    lost or dispatched more than twice."""
+    monkey = P.chaos.ChaosMonkey([])
+    rt, clock = _runtime(P, _state(1.0), n_replicas=3,
+                         parallel_replicas=True,
+                         service_time=lambda m, e, n, t: 0.01,
+                         fence_budget_s=0.5, restart_s=0.5, chaos=monkey)
+    snap = P.ckpt.save(os.path.join(base, "m"), _state(2.0), step=1)
+    _feed(rt, clock, 8, dt=0.02)
+    rt.hot_swap(snap, canary_fraction=0.0, **P.swap_kw)
+    sw = rt.pool._swap
+    assert sw is not None and sw["pending"]
+    victim = sw["pending"][-1]     # an unswapped, non-draining rid
+    monkey.arm(P.chaos.FaultSpec("replica_crash", rt._dispatch_idx + 1,
+                                 batches=200, detail={"replica": victim}))
+    _feed(rt, clock, 80, dt=0.02)
+    _settle(rt, clock)
+    fences = [e for e in rt.pool.events if e["kind"] == "replica_fenced"]
+    assert any(e["replica"] == victim for e in fences)
+    assert sum(e["kind"] == "failover" for e in rt.pool.events) >= 1
+    swap = rt.snapshot()["swap"]
+    assert swap["completed"] == 1 and swap["rollbacks"] == 0
+    installed = sorted(e["replica"] for e in rt.pool.events
+                       if e["kind"] == "swap_installed")
+    assert installed == [0, 1, 2]
+    acct = rt.accounting()
+    assert acct["unaccounted"] == 0
+    assert acct["by_state"].get("failed", 0) == 0
+    assert all(r.attempts <= 2 for r in rt.requests)
+    assert any(r.attempts == 2 for r in rt.requests)
+    served = _served_value(rt)
+    assert served == pytest.approx(D * 2.0)
+    return _record(rt, base, served=served, chaos=monkey.events,
+                   attempts=[(r.rid, r.attempts, r.completed_t)
+                             for r in rt.requests])
+
+
 SCENARIOS = {f.__name__: f for f in (
     full_rollout, lkg_hysteresis, canary_trip, mid_rollout_rollback,
     corrupt_publish, one_rollout_at_a_time, missing_weights_to_tiers,
-    resize_interleave, session_swapped_last)}
+    resize_interleave, session_swapped_last, crash_mid_rollout)}
 
 
 @pytest.mark.parametrize("name", sorted(SCENARIOS))

@@ -11,7 +11,7 @@ method's state, no snapshot at a non-finite loss, a kill mid-save, a
 corrupt newest snapshot at resume, SIGTERM with a graceful checkpoint,
 the stall watchdog alone and with the preemption handler.  The
 reference's chaos faults are written out here as small dataset wrappers
-(its ``ChaosMonkey`` is not ported, ROADMAP.md Queue 1 item 13).
+(the port's ``ChaosMonkey`` runs them in ``tests/test_torch_chaos.py``).
 
 Then the two packages side by side: a tiny DS2 (hidden 32, 2 layers,
 the "blocked" and "pallas" engines, the latter on the plain K3/K4) and

@@ -14,7 +14,9 @@ the pool's events, and the whole ``snapshot()``.
 
 Then ``ssd_serving_tiers`` on bridged SSD300 weights through each
 runtime, ``approx_topk`` against the reference's "pallas" rows, and the
-refusals of what the port does not serve yet.
+fleet keywords (``parallel_replicas``, ``slice_width``, ``device_budget``,
+``autoscaler``, ``chaos``, ``health``) held against the reference's, with
+``compile_s`` still refused.
 """
 
 import dataclasses
@@ -334,19 +336,130 @@ def test_scenarios_cover_what_they_claim():
             < scenario_wedge(port)["pool"][0]["t"])
 
 
-# -- refusals ----------------------------------------------------------------
+# -- the fleet keywords, once refused ----------------------------------------
+
+
+def keyword_case(pkg, key, value, make, submit):
+    """One keyword of the fleet through ``pkg``: what the runtime that
+    ``make(pkg, **kw)`` builds does with it, as a record to hold against
+    the other package (a refused value's error class and message; a
+    served one's requests, pool events, and snapshot).  ``submit(pkg,
+    rt)`` feeds it."""
+    S = pkg.s
+    clock = S.VirtualClock()
+    base = dict(clock=clock, service_time=True)
+
+    def run(**kw):
+        kw = {**base, **kw}
+        try:
+            rt = make(pkg, **kw)
+        except Exception as e:          # noqa: BLE001 - recorded
+            return {"error": (type(e).__name__, str(e))}
+        extra = kw.get("_extra")
+        submit(pkg, rt)
+        rt.drain()
+        if extra is not None:
+            extra(rt)
+        return {"requests": [(r.rid, r.state, r.completed_t, r.attempts,
+                              type(r.error).__name__ if r.error else None)
+                             for r in rt.requests],
+                "pool": rt.pool.events, "snapshot": rt.snapshot()}
+
+    if key == "parallel_replicas":
+        return {"no_model": run(parallel_replicas=value,
+                                service_time=None),
+                "served": run(parallel_replicas=value)}
+    if key == "slice_width":
+        return {"refused": run(slice_width=value),
+                "served": run(slice_width=2, device_budget=4)}
+    if key == "device_budget":
+        return {"served": run(device_budget=value, _extra=lambda rt: [
+            rt.pool.resize(value + 2)])}
+    if key == "autoscaler":
+        scaler = S.Autoscaler(S.AutoscalePolicy(max_replicas=4))
+        out = run(autoscaler=scaler)
+        out["attached"] = scaler.registry is not None
+        out["scaler"] = scaler.snapshot()
+        return out
+    if key == "chaos":
+        monkey = pkg.c.ChaosMonkey([
+            pkg.c.FaultSpec("replica_crash", 1, detail={"replica": 0}),
+            pkg.c.FaultSpec("slow_forward", 2,
+                            detail={"replica": 1, "delay_s": 5.0})])
+        out = run(chaos=monkey, fence_budget_s=0.5)
+        out["chaos"] = monkey.events
+        return out
+    if key == "health":
+        sentinel = pkg.h.HealthSentinel(pkg.h.HealthPolicy(warmup_obs=0,
+                                                           flag_after=1))
+        out = run(health=sentinel, parallel_replicas=True)
+        out["health"] = (sentinel.stats(), sentinel.events)
+        return out
+    raise ValueError(key)
+
+
+def _spy_tiers(pkg, **kw):
+    st = kw.pop("service_time")
+    if st is True:
+        kw["service_time"] = lambda e, n, t: 0.05
+    elif st is not None:
+        kw["service_time"] = st
+    kw.pop("_extra", None)
+    kw.setdefault("n_replicas", 2)
+    return pkg.s.ServingRuntime([pkg.s.ServingTier("fp", Spy())],
+                                max_batch=2, default_deadline_s=30.0,
+                                **kw)
+
+
+def _submit_rows(pkg, rt):
+    for i in range(8):
+        rt.submit({"input": np.full((1, 3), i, np.float32)})
+        rt.pump()
 
 
 @pytest.mark.parametrize("kw,item", [
     ({"parallel_replicas": True}, "item 13"),
-    ({"slice_width": 2}, "item 13"), ({"device_budget": 4}, "item 13"),
-    ({"autoscaler": object()}, "item 13"), ({"chaos": object()}, "item 13"),
-    ({"health": object()}, "item 13"), ({"compile_s": 0.5}, "item 13"),
+    ({"slice_width": 0}, "item 13"), ({"device_budget": 4}, "item 13"),
+    ({"autoscaler": "Autoscaler"}, "item 13"),
+    ({"chaos": "ChaosMonkey"}, "item 13"),
+    ({"health": "HealthSentinel"}, "item 13"), ({"compile_s": 0.5}, "item 13"),
 ], ids=lambda v: next(iter(v)) if isinstance(v, dict) else v)
 def test_refused_keyword_names_its_item(kw, item):
-    tiers = [tserving.ServingTier("fp", Spy())]
-    with pytest.raises(NotImplementedError, match=item):
-        tserving.ServingRuntime(tiers, **kw)
+    """The keywords of ROADMAP.md item 13, once refused: ``compile_s``
+    still is (a Known deviation); each of the others is served, and what
+    a runtime does with it (its validation error, or its requests, pool
+    events and snapshot) is EQUAL to the reference's."""
+    import analytics_zoo_tpu.resilience.chaos as jchaos
+    import analytics_zoo_tpu.resilience.health as jhealth
+    import analytics_zoo_tpu_torch.resilience.chaos as tchaos
+    import analytics_zoo_tpu_torch.resilience.health as thealth
+
+    key, value = next(iter(kw.items()))
+    if key == "compile_s":
+        with pytest.raises(NotImplementedError, match=item):
+            tserving.ServingRuntime([tserving.ServingTier("fp", Spy())],
+                                    **kw)
+        return
+    pkgs = {"reference": types.SimpleNamespace(s=jserving, c=jchaos,
+                                               h=jhealth),
+            "port": types.SimpleNamespace(s=tserving, c=tchaos, h=thealth)}
+    got = {name: _jsonable(keyword_case(pkg, key, value, _spy_tiers,
+                                        _submit_rows))
+           for name, pkg in pkgs.items()}
+    assert got["port"] == got["reference"]
+    port = got["port"]
+    if key in ("parallel_replicas",):
+        assert port["no_model"]["error"][0] == "ValueError"
+    if key == "slice_width":
+        assert port["refused"]["error"][0] == "ValueError"
+    if key == "device_budget":
+        assert any(e["kind"] == "resize_budget_clamped"
+                   for e in port["served"]["pool"])
+    if key == "chaos":
+        assert [e["kind"] for e in port["chaos"]] == ["replica_crash",
+                                                      "slow_forward"]
+        assert sum(e["kind"] == "replica_fenced" for e in port["pool"]) == 2
+        assert any(e["kind"] == "failover" for e in port["pool"])
 
 
 def test_specs_on_one_rank_serves_and_records_the_mesh():
@@ -375,7 +488,7 @@ def test_defaults_of_refused_keywords_construct():
         parallel_replicas=False, slice_width=1, device_budget=None,
         slo=None, slo_params=None, autoscaler=None, chaos=None, obs=None,
         health=None, specs=None, compile_s=0.0)
-    # live swaps are served; re-warming (warm_s) needs item 13
+    # live swaps are served; re-warming (warm_s) stays refused (item 13)
     for call in (lambda: rt.hot_swap("ckpt", warm_s=1.0),
                  lambda: rt.pool.hot_swap("ckpt", install=None, warm_s=1.0)):
         with pytest.raises(NotImplementedError, match="item 13"):

@@ -1392,3 +1392,155 @@ def serve_runtime(weights, rows, new_weights, snap_dir, shape, axes):
 
     out["swap"] = serve(swap, None, serving.MonotonicClock(), models=models)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The fleet: slices of replicas over the mesh, the parity audit, eviction
+# ---------------------------------------------------------------------------
+
+
+def serve_slices(n_rows=24):
+    """``ServingRuntime(slice_width=2, device_budget=)`` over the fraud
+    rungs on a mesh of 2 slices of 2 ranks: rank 0 runs the runtime and
+    slice 0 with rank 1; slice 1 (ranks 2 and 3) is driven remotely.
+    Rank 0 returns the rows' largest difference to one process's
+    unsharded rungs, each replica's dispatches, the accounting, the
+    budget's refusal of a third slice and the slice records; a follower
+    its counts."""
+    from analytics_zoo_tpu_torch import serving
+    from analytics_zoo_tpu_torch.core.module import Model
+    from analytics_zoo_tpu_torch.models import simple
+    from analytics_zoo_tpu_torch.parallel.specs import pipeline_specs
+
+    mesh = _mesh((-1,), ("data",))
+    layout = serving.SliceLayout(pipeline_specs("fraud", mesh=mesh), 2)
+    torch.manual_seed(3)
+    weights = _state(Model(simple.FraudMLP(), device="cpu").module)
+    tiers = family_tiers("fraud", _family_model("fraud", weights),
+                         layout.specs)
+    if _rank() != 0:
+        return serving.serve_follower(layout.specs, tiers=tiers)
+    rng = np.random.RandomState(4)
+    rows = rng.randn(n_rows, 29).astype(np.float32)
+    rt = serving.ServingRuntime(
+        tiers, n_replicas=2, clock=serving.MonotonicClock(), max_batch=4,
+        length_key=None, default_deadline_s=600.0, wedge_timeout_s=600.0,
+        specs=layout.specs, slice_width=2, device_budget=4)
+    for r in rows:
+        rt.submit({"input": r})
+        rt.pump()
+    rt.drain()
+    grown = rt.pool.resize(3)
+    rt.close()
+    alone = family_tiers("fraud", _family_model("fraud", weights))[0]
+    want = np.asarray(alone.forward({"input": rows}))
+    got = np.stack([np.asarray(r.result) for r in rt.requests])
+    snap = rt.snapshot()
+    return {"max_diff": float(np.abs(got - want).max()),
+            "dispatches": {r.rid: r.dispatches for r in rt.pool.replicas},
+            "accounting": rt.accounting(), "grown": grown["grown"],
+            "clamped": [e for e in rt.pool.events
+                        if e["kind"] == "resize_budget_clamped"],
+            "slices": snap["slices"], "layout": layout.groups}
+
+
+def _sdc_batches(n=8, rows=12):
+    """Global DS2 batches of 12 rows (4 and 3 ranks both divide them)."""
+    rng = np.random.RandomState(7)
+    out = []
+    for _ in range(n):
+        frames = rng.randint(9, 17, rows).astype(np.int32)
+        labels = rng.randint(1, 29, (rows, 4)).astype(np.int32)
+        mask = (np.arange(4)[None] < rng.randint(1, 5, rows)[:, None])
+        out.append({"input": (rng.randn(rows, 16, 13).astype(np.float32),
+                              frames),
+                    "n_frames": frames, "labels": labels,
+                    "label_mask": mask.astype(np.float32)})
+    return out
+
+
+def _sdc_optimizer(mesh, root, data, steps, health=True):
+    from analytics_zoo_tpu_torch.parallel import SGD, Optimizer, Trigger
+    from analytics_zoo_tpu_torch.pipelines.deepspeech2 import (
+        ds2_ctc_criterion)
+    from analytics_zoo_tpu_torch.resilience.anomaly import AnomalyPolicy
+    from analytics_zoo_tpu_torch.resilience.health import HealthPolicy
+
+    opt = (Optimizer(_ds2_model(), data, ds2_ctc_criterion(), mesh=mesh)
+           .set_optim_method(SGD(0.05))
+           .set_checkpoint(root, Trigger.several_iteration(2),
+                           overwrite=False, keep_last=4)
+           .set_anomaly_policy(AnomalyPolicy(rollback_after=3,
+                                             promote_after=2,
+                                             max_rollbacks=2))
+           .set_end_when(Trigger.max_iteration(steps)))
+    if health:
+        opt.set_health_policy(HealthPolicy(audit_every=1))
+    return opt
+
+
+def sdc_eviction(base, flip_at=4):
+    """A tiny DS2 trained data parallel on 4 ranks under the parity audit
+    (``audit_every=1``): un-armed, every audit ``ok``; then a chaos
+    ``bit_flip`` on rank 2 (armed before batch ``flip_at``): every rank
+    raises ``DeviceQuarantine(device=2)``, rank 2 leaves, and the 3
+    survivors take one step from the last-known-good tier, held against
+    a straight width-3 run (no sentinel, no eviction) from a copy of the
+    same snapshot."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from analytics_zoo_tpu_torch.parallel import checkpoint as ckpt_lib
+    from analytics_zoo_tpu_torch.parallel.elastic import (
+        resume_after_quarantine)
+    from analytics_zoo_tpu_torch.parallel.specs import SpecSet
+    from analytics_zoo_tpu_torch.resilience.chaos import (ChaosMonkey,
+                                                          FaultSpec)
+    from analytics_zoo_tpu_torch.resilience.errors import DeviceQuarantine
+
+    mesh = _mesh((-1,), ("data",))
+    data = _sdc_batches()
+    clean = _sdc_optimizer(mesh, os.path.join(base, "clean"), data, 3)
+    clean.optimize()
+    out = {"clean": clean._health.stats()}
+    root = os.path.join(base, "armed")
+    monkey = ChaosMonkey([FaultSpec("bit_flip", flip_at,
+                                    detail={"replica": 2, "bit": 5})])
+    opt = _sdc_optimizer(mesh, root, monkey.dataset(data), 8)
+    err = None
+    with monkey:
+        try:
+            opt.optimize()
+        except DeviceQuarantine as e:
+            err = e
+    out["raised"] = (type(err).__name__, getattr(err, "device", None))
+    out["divergence"] = [e for e in opt._health.events
+                         if e["kind"] == "audit_divergence"]
+    lkg = ckpt_lib.lkg_snapshot(root)
+    out["lkg_iteration"] = int(lkg[1]["meta"]["iteration"])
+    survivors = resume_after_quarantine(
+        err, mesh, root, os.path.join(base, "evicted"),
+        lambda m, r: _sdc_optimizer(m, r, data, out["lkg_iteration"] + 1))
+    if survivors is None:
+        out["evicted"] = True
+        return out
+    survivors.optimize()
+    mesh3 = survivors.mesh
+    ctrl_root = os.path.join(base, "control")
+    if _rank() == 0:
+        shutil.copytree(lkg[0], os.path.join(ctrl_root, "latest"))
+    dist.barrier(group=mesh3.get_group("data"))
+    control = _sdc_optimizer(mesh3, ctrl_root, data,
+                             out["lkg_iteration"] + 1,
+                             health=False).set_resume(ctrl_root)
+    control.optimize()
+    out["evicted"] = False
+    out["width"] = survivors.specs.data_axis_size
+    out["losses"] = ([float(m["loss"]) for m in survivors.history],
+                     [float(m["loss"]) for m in control.history])
+    spec3 = SpecSet(mesh3)
+    a, b = spec3.gather(survivors.model), spec3.gather(control.model)
+    out["equal"] = all(np.array_equal(a[k], b[k]) for k in b)
+    out["stats"] = survivors._health.stats()
+    return out
