@@ -5,6 +5,16 @@ runs on one rank with ``parallel.sequence.full_attention`` or over the
 
 ``AttentionASR`` is DeepSpeech2 with its BiRNN stack replaced by
 transformer blocks: the same stride-2 conv front-end and CTC head.
+
+Over a ``sequence`` axis of n > 1 ranks (a ``RingAttentionLayer``) the
+encoder runs on this rank's T-block from its entry to its exit: the
+embedding at the block's offset, every block (LayerNorms, projections,
+the ring's block entry, the MLP or the MoE), the final LayerNorm, and
+for ``AttentionASR`` the head; the block is taken once at the entry
+and the output gathered once at the exit.  Each rank's backward then
+sees its block's tokens only, so every parameter those layers read has
+its gradient summed over the axis (``parallel.sequence.
+summed_parameters``); the conv front-end runs whole on every rank.
 ``MoEFeedForward`` swaps a block's MLP for top-1-routed experts, dense
 on one rank or expert parallel over an ``expert`` axis
 (``parallel/expert.py``); :func:`make_pipeline_forward_fn` runs the
@@ -21,15 +31,22 @@ biases, LayerNorm scale 1 (flax's ε 1e-6), and flax's tanh GELU.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import functools
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 
 from analytics_zoo_tpu_torch.core.layers import lecun_normal_
-from analytics_zoo_tpu_torch.parallel.sequence import full_attention
+from analytics_zoo_tpu_torch.parallel.sequence import (full_attention,
+                                                       gather_blocks,
+                                                       group_rank,
+                                                       sequence_group_of,
+                                                       summed_parameters,
+                                                       take_block)
 from analytics_zoo_tpu_torch.utils.device import resolve_device
 
 LN_EPS = 1e-6                  # flax LayerNorm's epsilon
@@ -48,9 +65,20 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
+def _call_with(module: nn.Module, params: Dict[str, torch.Tensor],
+               name: str, *args):
+    """``module``'s child ``name`` run on ``params`` (``module``'s
+    parameters by name) instead of its own."""
+    pre = name + "."
+    return functional_call(module.get_submodule(name),
+                           {k[len(pre):]: v for k, v in params.items()
+                            if k.startswith(pre)}, args)
+
+
 class MultiHeadSelfAttention(nn.Module):
     """QKV projection around a pluggable ``attention_fn(q, k, v)`` over
-    (B, T, H, D_head)."""
+    (B, T, H, D_head).  With a ring over more than one rank, ``x`` is
+    this rank's T-block and the ring's block entry runs."""
 
     def __init__(self, dim: int, num_heads: int = 4,
                  attention_fn: Callable = full_attention, *,
@@ -65,8 +93,10 @@ class MultiHeadSelfAttention(nn.Module):
         B, T, _ = x.shape
         q, k, v = self.qkv(x).split(self.dim, -1)
         shape = (B, T, self.num_heads, self.dim // self.num_heads)
-        out = self.attention_fn(q.reshape(shape), k.reshape(shape),
-                                v.reshape(shape))
+        attend = self.attention_fn
+        if sequence_group_of(attend) is not None:
+            attend = attend.block
+        out = attend(q.reshape(shape), k.reshape(shape), v.reshape(shape))
         return self.proj(out.reshape(B, T, self.dim))
 
 
@@ -78,7 +108,9 @@ class MoEFeedForward(nn.Module):
     tokens and gathers the outputs).  Routing is the same on both paths;
     the dense capacity is global, the expert-parallel one per (sender,
     expert) pair, so outputs agree when the capacity admits every
-    token."""
+    token.  Given a ``sequence_group``, ``x`` is this rank's T-block and
+    the tokens route as the whole batch's would
+    (``expert.moe_apply_dense_blocks`` / ``moe_apply_expert_blocks``)."""
 
     def __init__(self, dim: int, n_experts: int = 8, mlp_ratio: int = 4,
                  capacity_factor: float = 1.25, expert_mesh=None, *,
@@ -104,7 +136,7 @@ class MoEFeedForward(nn.Module):
     def _expert(p, a):
         return _gelu(a @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
 
-    def forward(self, x):
+    def forward(self, x, sequence_group=None):
         from analytics_zoo_tpu_torch.parallel import expert
 
         B, T, D = x.shape
@@ -113,6 +145,14 @@ class MoEFeedForward(nn.Module):
                              f"dim {self.dim}")
         stacked = {"w1": self.w1, "b1": self.b1, "w2": self.w2,
                    "b2": self.b2}
+        if sequence_group is not None:
+            if self.expert_mesh is not None:
+                return expert.moe_apply_expert_blocks(
+                    self._expert, stacked, self.gate, x, sequence_group,
+                    self.expert_mesh, self.capacity_factor)
+            return expert.moe_apply_dense_blocks(
+                self._expert, stacked, self.gate, x, sequence_group,
+                self.capacity_factor)
         toks = x.reshape(B * T, D)
         if self.expert_mesh is not None:
             y = expert.moe_apply_whole(self._expert, stacked, self.gate,
@@ -152,7 +192,8 @@ class TransformerBlock(nn.Module):
         x = x + self.attn(self.ln1(x))
         h = self.ln2(x)
         if self.n_experts > 0:
-            return x + self.moe(h)
+            return x + self.moe(h, sequence_group_of(
+                self.attn.attention_fn))
         return x + self.mlp2(_gelu(self.mlp1(h)))
 
 
@@ -170,7 +211,11 @@ class LongContextEncoder(nn.Module):
     positions, ``depth`` blocks, a final LayerNorm.  ``embed_in`` and
     ``finalize`` are the non-block parts, shared with the pipelined
     schedule (:func:`make_pipeline_forward_fn`).  (flax infers the
-    embedding's input width; a torch module is given it.)"""
+    embedding's input width; a torch module is given it.)
+
+    With a ring over more than one rank, ``forward`` takes the whole
+    batch on every rank, runs :meth:`block_forward` on this rank's
+    T-block and gathers the blocks once at the exit."""
 
     def __init__(self, dim: int = 128, depth: int = 4, num_heads: int = 4,
                  attention_fn: Callable = full_attention, n_experts: int = 0,
@@ -180,6 +225,7 @@ class LongContextEncoder(nn.Module):
         super().__init__()
         gen = generator or torch.Generator().manual_seed(seed)
         self.dim, self.depth = dim, depth
+        self.attention_fn = attention_fn
         self.embed = _dense(in_features, dim, gen)
         for i in range(depth):
             self.add_module(f"block{i}", TransformerBlock(
@@ -194,26 +240,61 @@ class LongContextEncoder(nn.Module):
     def blocks(self):
         return [getattr(self, f"block{i}") for i in range(self.depth)]
 
-    def embed_in(self, x):
-        h = self.embed(x)
-        pe = torch.from_numpy(_sinusoid(x.shape[1], self.dim))
+    @property
+    def sequence_group(self):
+        """The ring's group (``None``: every rank holds the whole T)."""
+        return sequence_group_of(self.attention_fn)
+
+    def embed_in(self, x, offset: int = 0):
+        """The embedding and the sinusoids of positions ``offset`` …
+        ``offset + T − 1`` (a T-block's global positions)."""
+        return self._positioned(self.embed(x), offset)
+
+    def _positioned(self, h, offset: int):
+        pe = torch.from_numpy(_sinusoid(offset + h.shape[1],
+                                        self.dim)[offset:])
         return h + pe.to(h.device, h.dtype)
 
     def finalize(self, h):
         return self.ln_out(h)
 
     def forward(self, x):
+        group = self.sequence_group
+        if group is not None:
+            return gather_blocks(self.block_forward(take_block(x, group)),
+                                 group)
         h = self.embed_in(x)
         for block in self.blocks:
             h = block(h)
         return self.finalize(h)
 
+    def block_forward(self, x):
+        """This rank's (B, T/n, in_features) T-block
+        (``parallel.sequence.shard_sequence``) in, its (B, T/n, dim)
+        block out, as the reference's encoder maps a T-sharded batch;
+        the parameters' gradients summed over the axis.  Without a ring,
+        :meth:`forward`."""
+        group = self.sequence_group
+        if group is None:
+            return self(x)
+        return self.on_block(x, summed_parameters(self, group), group)
+
+    def on_block(self, x, params: Dict[str, torch.Tensor], group):
+        """The encoder on this rank's T-block ``x`` with ``params`` (the
+        encoder's parameters by name) in place of its own."""
+        call = functools.partial(_call_with, self, params)
+        h = self._positioned(call("embed", x), group_rank(group) * x.shape[1])
+        for i in range(self.depth):
+            h = call(f"block{i}", h)
+        return call("ln_out", h)
+
 
 class AttentionASR(nn.Module):
     """DS2 with attention: conv front-end (stride 2 in time) → transformer
     encoder → CTC log-probs (B, T/2, n_alphabet).  Swap ``attention_fn``
-    for ``RingAttentionLayer(mesh)`` to run the attention over the
-    ``sequence`` axis.  Built on ``device`` (the GPU unless
+    for ``RingAttentionLayer(mesh)`` to run the encoder and the head on
+    this rank's block of the ``sequence`` axis (whole features in, whole
+    log-probs out on every rank).  Built on ``device`` (the GPU unless
     ``device="cpu"``), in eval mode, from ``seed``."""
 
     def __init__(self, dim: int = 128, depth: int = 4, num_heads: int = 4,
@@ -238,18 +319,33 @@ class AttentionASR(nn.Module):
         self.to(resolve_device(device))
         self.eval()
 
-    def frontend(self, x):
-        """Conv front-end, clipped ReLU and the encoder's embedding."""
+    def conv(self, x):
+        """Conv front-end and clipped ReLU: (B, T, n_mels) → (B, T/2, C)."""
         B = x.shape[0]
         h = self.conv1(x[:, None])                   # (B, C, T', 1)
         h = h.permute(0, 2, 3, 1).reshape(B, h.shape[2], -1)
-        return self.encoder.embed_in(torch.clamp(h, 0.0, 20.0))
+        return torch.clamp(h, 0.0, 20.0)
+
+    def frontend(self, x):
+        """Conv front-end, clipped ReLU and the encoder's embedding."""
+        return self.encoder.embed_in(self.conv(x))
 
     def head(self, h):
         """Final LayerNorm and the CTC log-probs."""
         return torch.log_softmax(self.fc_out(self.encoder.finalize(h)), -1)
 
     def forward(self, x):
+        group = self.encoder.sequence_group
+        if group is not None:
+            # the conv runs whole (its 11-frame window would need a halo
+            # on a block); the rest on this rank's block, gathered once
+            p = summed_parameters(self, group, skip=("conv1",))
+            enc = {k[len("encoder."):]: v for k, v in p.items()
+                   if k.startswith("encoder.")}
+            h = self.encoder.on_block(take_block(self.conv(x), group), enc,
+                                      group)
+            return gather_blocks(torch.log_softmax(
+                _call_with(self, p, "fc_out", h), -1), group)
         h = self.frontend(x)
         for block in self.encoder.blocks:
             h = block(h)

@@ -26,18 +26,21 @@ zeros, as ``lax.ppermute`` gives them.  A group of ``None`` is one rank.
   a rank runs its chunk only in its own round (the rounds' exchanges run
   on every rank), and the backward runs the rounds in reverse;
 - :func:`ring_attention` (blocks in, block out), :func:`full_attention`
-  and :class:`RingAttentionLayer` (a model's ``attention_fn``: whole
-  q/k/v in, whole output out, the attention itself over the ring).
+  and :class:`RingAttentionLayer` (a model's ``attention_fn``: its
+  ``block`` entry takes this rank's q/k/v blocks, as a model on T-blocks
+  calls it; called on whole q/k/v it keeps the rank's block and gathers
+  the output).
 
 Values that every rank holds whole (a replicated weight, a replicated
 activation) and that each rank uses for its own part carry the
 convention of the reference's ``shard_map`` transpose: their gradient is
-the sum of the ranks' parts, on every rank (:func:`summed_grads`).
+the sum of the ranks' parts, on every rank (:func:`summed_grads`,
+:func:`summed_parameters`).
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -296,6 +299,18 @@ def summed_grads(tensors: Sequence[torch.Tensor], group
             t.requires_grad for t in tensors):
         return tensors
     return list(_SummedGrads.apply(group, *tensors))
+
+
+def summed_parameters(module: torch.nn.Module, group,
+                      skip: Sequence[str] = ()) -> Dict[str, torch.Tensor]:
+    """``module``'s parameters by name (less those of the children named
+    in ``skip``), their gradients summed over ``group`` in one
+    all-reduce: the weights of a forward that each rank runs on its own
+    block of the tokens."""
+    named = [(k, t) for k, t in module.named_parameters()
+             if k.split(".", 1)[0] not in skip]
+    return dict(zip([k for k, _ in named],
+                    summed_grads([t for _, t in named], group)))
 
 
 class _ReplicatedSum(torch.autograd.Function):
@@ -634,14 +649,13 @@ def sequence_sharded_scan(step_fn: Callable, h0, xs, mesh,
 # ---------------------------------------------------------------------------
 
 
-def _ring_attention_local(q, k, v, group, causal: bool,
-                          scale: Optional[float]):
-    """Per-rank body: q/k/v are this rank's (B, Tb, H, D) blocks.  The
-    online softmax over the ring: K/V rotate one hop a round, n − 1
-    rotations (the reference's last rotation is discarded)."""
+def _ring_forward(q, k, v, group, causal: bool, scale: float):
+    """The online softmax over the ring on this rank's (B, Tb, H, D)
+    q/k/v blocks: K/V rotate one hop a round, n − 1 rotations (the
+    reference's last rotation is discarded).  Returns the output block
+    and the rows' log-sum-exp (B, H, Tb) in fp32."""
     B, Tb, H, D = q.shape
     n, me = group_size(group), group_rank(group)
-    scale = scale if scale is not None else 1.0 / np.sqrt(D)
     o = q.new_zeros((B, H, Tb, D))
     l = q.new_zeros((B, H, Tb), dtype=torch.float32)
     m = q.new_full((B, H, Tb), NEG_INF, dtype=torch.float32)
@@ -666,8 +680,65 @@ def _ring_attention_local(q, k, v, group, causal: bool,
         m = new_m
         if r < n - 1:
             k_cur, v_cur = ring_shift((k_cur, v_cur), group)
-    out = o / torch.clamp(l, min=1e-20)[..., None].to(o.dtype)
-    return out.permute(0, 2, 1, 3)
+    l = torch.clamp(l, min=1e-20)
+    out = o / l[..., None].to(o.dtype)
+    return out.permute(0, 2, 1, 3), m + torch.log(l)
+
+
+class _RingAttention(torch.autograd.Function):
+    """Ring attention on this rank's blocks, saving only q, k, v, the
+    output and the rows' log-sum-exp: the backward recomputes each
+    round's probabilities from them, K/V and their gradients' partial
+    sums rotating round the ring (n − 1 hops, then one more that brings
+    each rank's dK/dV home)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, group, causal, scale):
+        out, lse = _ring_forward(q, k, v, group, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.group, ctx.causal, ctx.scale = group, causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        group, scale = ctx.group, ctx.scale
+        n, me = group_size(group), group_rank(group)
+        Tb = q.shape[1]
+        ar = torch.arange(Tb, device=q.device)
+        q_pos = me * Tb + ar
+        g = g.contiguous()
+        delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1)
+        dq = torch.zeros_like(q)
+        k_cur, v_cur = k, v
+        dk_cur, dv_cur = torch.zeros_like(k), torch.zeros_like(v)
+        for r in range(n):
+            src = (me - r) % n
+            s = torch.einsum("bqhd,bkhd->bhqk", q, k_cur).float() * scale
+            if ctx.causal:
+                mask = q_pos[:, None] >= (src * Tb + ar)[None, :]
+                s = torch.where(mask[None, None], s, s.new_tensor(NEG_INF))
+            p = torch.exp(s - lse[..., None])
+            dv_cur = dv_cur + torch.einsum("bhqk,bqhd->bkhd",
+                                           p.to(g.dtype), g)
+            dp = torch.einsum("bqhd,bkhd->bhqk", g, v_cur).float()
+            ds = (p * (dp - delta[..., None]) * scale).to(q.dtype)
+            dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds, k_cur)
+            dk_cur = dk_cur + torch.einsum("bhqk,bqhd->bkhd", ds, q)
+            if r < n - 1:
+                k_cur, v_cur, dk_cur, dv_cur = ring_shift(
+                    (k_cur, v_cur, dk_cur, dv_cur), group)
+        dk, dv = ring_shift((dk_cur, dv_cur), group)
+        return dq, dk, dv, None, None, None
+
+
+def _ring_attention_local(q, k, v, group, causal: bool,
+                          scale: Optional[float]):
+    """Per-rank body: q/k/v are this rank's (B, Tb, H, D) blocks."""
+    scale = scale if scale is not None else 1.0 / np.sqrt(q.shape[-1])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _RingAttention.apply(q, k, v, group, causal, scale)
+    return _ring_forward(q, k, v, group, causal, scale)[0]
 
 
 def ring_attention(q, k, v, mesh, axis_name: str = SEQUENCE_AXIS,
@@ -698,13 +769,14 @@ def full_attention(q, k, v, causal: bool = False,
 
 
 class RingAttentionLayer:
-    """A model's ``attention_fn`` over the ring: called with whole
-    (B, T, H, D) q/k/v (every rank of the axis holds them), it keeps this
-    rank's T-block, runs :func:`ring_attention` and gathers the output
-    blocks back, so the model around it is unchanged; the q/k/v
-    gradients come back whole on every rank.  The reference's partitioner
-    also splits the pointwise layers around it over T; here they run
-    whole on each rank of the axis."""
+    """A model's ``attention_fn`` over the ring.  A model whose layers
+    hold this rank's T-block (``models.attention.LongContextEncoder``
+    and ``AttentionASR`` over an axis of more than one rank) calls
+    :meth:`block` with its (B, T/n, H, D) q/k/v blocks and gets its
+    output block.  Called with whole (B, T, H, D) q/k/v (every rank of
+    the axis holds them), as the reference's layer is, it keeps this
+    rank's block, runs the ring and gathers the output blocks back; the
+    q/k/v gradients then come back whole on every rank."""
 
     def __init__(self, mesh, axis_name: str = SEQUENCE_AXIS,
                  causal: bool = False):
@@ -712,12 +784,33 @@ class RingAttentionLayer:
         self.axis_name = axis_name
         self.causal = causal
 
+    @property
+    def group(self):
+        """The axis' process group (``None``: one rank, no ring)."""
+        return axis_group(self.mesh, self.axis_name)
+
+    def block(self, q, k, v):
+        """This rank's q/k/v blocks in, its output block out: causal
+        masking at the blocks' global offsets."""
+        group = self.group
+        if group is None:
+            return full_attention(q, k, v, self.causal)
+        return _ring_attention_local(q, k, v, group, self.causal, None)
+
     def __call__(self, q, k, v):
-        group = axis_group(self.mesh, self.axis_name)
+        group = self.group
         if group is None:
             return full_attention(q, k, v, self.causal)
         qkv = take_block(torch.stack((q, k, v)), group, axis=2)
-        out = _ring_attention_local(qkv[0], qkv[1], qkv[2], group,
-                                    self.causal, None)
-        return gather_blocks(out, group, axis=1)
+        return gather_blocks(self.block(qkv[0], qkv[1], qkv[2]), group,
+                             axis=1)
 
+
+def sequence_group_of(attention_fn):
+    """The group over which ``attention_fn`` runs a ring (a
+    :class:`RingAttentionLayer` over an axis of more than one rank), else
+    ``None``.  With a group, a model built on it holds its activations
+    by T-block between its entry and its exit."""
+    if isinstance(attention_fn, RingAttentionLayer):
+        return attention_fn.group
+    return None

@@ -410,7 +410,12 @@ Phases, one JSON line each; any failure exits non-zero:
 6p. dist_attn: ``AttentionASR`` at the reference's defaults on 8 ×
    ``ATTN_FRAMES`` frames, the probe first: ``RingAttentionLayer`` on a
    ("data", "sequence") mesh of (1, 2) against ``full_attention`` in
-   this process (``ATTN_RING_TOL``); ``make_pipeline_forward_fn`` on
+   this process (``ATTN_RING_TOL``), the encoder and head on a rank's
+   T-block (one gather a forward, at the exit, and one hop a layer,
+   counted), its ms and peak GB by rank; ``ATTN_RING_STEPS`` ring
+   training steps (``make_train_step`` on that mesh), the first loss
+   against this process's whole step (``DIST_LOSS_TOL``), ms and peak GB
+   by rank against this process's; ``make_pipeline_forward_fn`` on
    ("pipe",) of 2 at depth ``ATTN_PIPE_DEPTH`` with ``ATTN_PIPE_MICRO``
    microbatches against the unpipelined model (``ATTN_PIPE_TOL``) and
    one training step's loss (``ATTN_LOSS_TOL``); two experts one a rank
@@ -5727,6 +5732,10 @@ ATTN_KW = dict(dim=128, depth=4, num_heads=4, n_alphabet=29, n_mels=13,
 ATTN_FRAMES = 3000
 ATTN_PIPE_DEPTH, ATTN_PIPE_MICRO = 2, 4
 ATTN_CAPACITY_FACTOR = 2.0
+# the ring model's training steps on the (1, 2) ("data", "sequence")
+# mesh (the encoder and head on a rank's T-block), and this process's
+# whole steps: the first loss as DIST_LOSS_TOL holds it
+ATTN_RING_STEPS = 3
 # ring against full attention, the pipeline against the unpipelined
 # model, the MoE against the dense path: log-probs max-abs (the step's
 # loss as DIST_LOSS_TOL holds it)
@@ -5792,6 +5801,20 @@ class collective_clock:
 
         for n, fn in self.saved.items():
             setattr(dist, n, fn)
+
+
+def peak_gb(fn):
+    """``(fn(), the peak GB this process's allocator held while it ran,
+    above what it held when ``fn`` began)``: tensors that earlier phases
+    left alive do not count."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 1e9
 
 
 def timed_ms(fn, reps: int = 1):
@@ -5880,8 +5903,8 @@ def route_recorder(expert_mod):
 
     base, records = expert_mod.route_top1, []
 
-    def route(x, gate_kernel, capacity):
-        dispatch, scale = base(x, gate_kernel, capacity)
+    def route(x, gate_kernel, capacity, *earlier):
+        dispatch, scale = base(x, gate_kernel, capacity, *earlier)
         kept = dispatch.sum((1, 2)) > 0
         ids = torch.where(kept, dispatch.sum(2).argmax(1), -1)
         slots = torch.where(kept, dispatch.sum(1).argmax(1), -1)
@@ -5905,7 +5928,8 @@ def attn_batch(seed):
 
 def dist_attn_rank(batch, seed):
     """AttentionASR three ways over two ranks: ring attention on (1, 2)
-    ("data", "sequence"), GPipe on ("pipe",) with one training step, and
+    ("data", "sequence") (a forward with its peak and collectives, then
+    training steps), GPipe on ("pipe",) with one training step, and
     expert parallel MoE on ("expert",) with its routing recorded."""
     import torch
     import torch.distributed as dist
@@ -5930,8 +5954,24 @@ def dist_attn_rank(batch, seed):
     model = AttentionASR(**ATTN_KW, attention_fn=RingAttentionLayer(mesh),
                          device=dev, seed=seed)
     with torch.no_grad():
-        ring, out["ring_ms"] = timed_ms(lambda: model(x), 3)
+        (ring, out["ring_ms"]), out["ring_peak_gb"] = peak_gb(
+            lambda: timed_ms(lambda: model(x), 3))
+        with collective_clock(("all_gather_into_tensor",)) as gathers, \
+                collective_clock(("all_to_all_single",)) as hops:
+            model(x)
+    out["ring_forward_gathers"], out["ring_forward_hops"] = (len(gathers),
+                                                            len(hops))
     out["ring"] = ring.cpu().numpy() if rank0 else None
+    # the ring's training step: the first loss, the least ms of
+    # ATTN_RING_STEPS steps and their peak
+    optim = Adam(3e-4)
+    step = make_train_step(model, ds2_ctc_criterion(blank_id=0), optim,
+                           mesh=mesh)
+    state = create_train_state(model, optim)
+    ((_, metrics), out["ring_step_ms"]), out["ring_step_peak_gb"] = peak_gb(
+        lambda: timed_ms(lambda: step(state, batch), ATTN_RING_STEPS))
+    out["ring_loss"] = float(metrics["loss"])
+    del step, state
     pmesh = mesh_lib.create_mesh((DIST_WORLD,), ("pipe",))
     pmodel = AttentionASR(**dict(ATTN_KW, depth=ATTN_PIPE_DEPTH),
                           device=dev, seed=seed)
@@ -6120,9 +6160,20 @@ def dist_attn_phase(dev, smi, seed=43):
     print(json.dumps({"phase": "dist_attn_probe",
                       "gloo_on_cuda": ranks[0]["probe"]}), flush=True)
     x = torch.from_numpy(batch["input"]).to(dev)
+    zero_kernel_counters()
     with torch.no_grad():
         model = AttentionASR(**ATTN_KW, device=dev, seed=seed)
-        full, full_ms = timed_ms(lambda: model(x), 3)
+        (full, full_ms), full_peak = peak_gb(
+            lambda: timed_ms(lambda: model(x), 3))
+    optim = Adam(3e-4)
+    step = make_train_step(model, ds2_ctc_criterion(blank_id=0), optim)
+    state = create_train_state(model, optim)
+    ((_, metrics), full_step_ms), full_step_peak = peak_gb(
+        lambda: timed_ms(lambda: step(state, batch), ATTN_RING_STEPS))
+    full_loss = float(metrics["loss"])
+    no_kernel_launches("dist_attn one-process steps")
+    del step, state
+    with torch.no_grad():
         pmodel = AttentionASR(**dict(ATTN_KW, depth=ATTN_PIPE_DEPTH),
                               device=dev, seed=seed)
         plain, plain_ms = timed_ms(lambda: pmodel(x), 3)
@@ -6158,6 +6209,20 @@ def dist_attn_phase(dev, smi, seed=43):
                             one_loss)
     if any(r["pipe_loss"] != ranks[0]["pipe_loss"] for r in ranks):
         raise AssertionError("dist_attn pipe: the ranks' losses differ")
+    ring_loss_err = check_losses("dist_attn ring step",
+                                 ranks[0]["ring_loss"], full_loss)
+    if any(r["ring_loss"] != ranks[0]["ring_loss"] for r in ranks):
+        raise AssertionError("dist_attn ring step: the ranks' losses "
+                             "differ")
+    hops = ATTN_KW["depth"] * (DIST_WORLD - 1)
+    for r, x_r in enumerate(ranks):
+        if (x_r["ring_forward_gathers"], x_r["ring_forward_hops"]) != (1,
+                                                                       hops):
+            raise AssertionError(
+                f"dist_attn rank {r}: the ring forward ran "
+                f"{x_r['ring_forward_gathers']} gathers and "
+                f"{x_r['ring_forward_hops']} hops, want 1 (the exit's) and "
+                f"{hops}")
     routed = routes_equal(records, [r["routes"] for r in ranks])
     if not routed or len(records) != ATTN_KW["depth"]:
         raise AssertionError(f"dist_attn moe: routing differs from the "
@@ -6170,7 +6235,16 @@ def dist_attn_phase(dev, smi, seed=43):
     emit("dist_attn", nvidia_smi=smi, world=DIST_WORLD, frames=ATTN_FRAMES,
          model=ATTN_KW, ring_max_abs_err=errs["ring"],
          ring_ms_by_rank=[r["ring_ms"] for r in ranks],
-         one_process_full_ms=full_ms,
+         ring_peak_gb_by_rank=[r["ring_peak_gb"] for r in ranks],
+         one_process_full_ms=full_ms, one_process_full_peak_gb=full_peak,
+         ring_forward_gathers=ranks[0]["ring_forward_gathers"],
+         ring_forward_hops=ranks[0]["ring_forward_hops"],
+         ring_steps=ATTN_RING_STEPS, ring_loss=ranks[0]["ring_loss"],
+         one_process_full_loss=full_loss, ring_loss_rel_err=ring_loss_err,
+         ring_step_ms_by_rank=[r["ring_step_ms"] for r in ranks],
+         ring_step_peak_gb_by_rank=[r["ring_step_peak_gb"] for r in ranks],
+         one_process_full_step_ms=full_step_ms,
+         one_process_full_step_peak_gb=full_step_peak,
          pipe_depth=ATTN_PIPE_DEPTH, pipe_micro=ATTN_PIPE_MICRO,
          pipe_max_abs_err=errs["pipe"],
          pipe_ms_by_rank=[r["pipe_ms"] for r in ranks],

@@ -7,12 +7,18 @@ blocks, and ``LongContextEncoder``, forward within 2e-4; two
 ``train_ds2`` steps of an AttentionASR against the JAX package's (losses
 1e-5 relative).  One group of two spawned ranks (``torch_dist_scenarios``,
 no JAX) runs the same AttentionASR with ``RingAttentionLayer`` on a
-(1, 2) ``("data", "sequence")`` mesh and with its MoE blocks expert
-parallel on a (2,) ``("expert",)`` mesh (capacity factor 8, so no token
-drops on either path): the log-probs within 2e-4 of the reference's full
-and dense-MoE forwards, the CTC loss's gradients (whole on every rank)
-within 2e-4 relative of JAX's, and two ``train_ds2(mesh=)`` steps with
-ring attention equal within 1e-5 to this process's one-rank run.
+(1, 2) ``("data", "sequence")`` mesh (the encoder and head on the rank's
+T-block), with its MoE blocks expert parallel on a (2,) ``("expert",)``
+mesh (capacity factor 8, so no token drops on either path), and both
+with MoE blocks at capacity factor 0.75, where tokens drop: dense on the
+ring, and expert parallel over the ring's ranks.  The log-probs within
+2e-4 of the reference's (full, dense-MoE, and its ring model with
+``expert_mesh``), the CTC loss's gradients (whole on every rank) within
+2e-4 relative of JAX's, and two ``train_ds2(mesh=)`` steps with ring
+attention equal within 1e-5 to this process's one-rank run.  The causal
+ring ``LongContextEncoder`` fed each rank's ``shard_sequence`` block
+through ``block_forward`` is held to the reference's causal encoder, and
+a ring rank's saved activations are counted against one rank's.
 """
 
 import functools
@@ -28,6 +34,7 @@ from analytics_zoo_tpu.core.criterion import CTCCriterion as JaxCTC
 from analytics_zoo_tpu.core.module import Model as JaxModel
 from analytics_zoo_tpu.models import attention as jatt
 from analytics_zoo_tpu.parallel import create_mesh
+from analytics_zoo_tpu.parallel import sequence as jseq
 from analytics_zoo_tpu.parallel import train as jax_train
 from analytics_zoo_tpu.pipelines import deepspeech2 as jax_pipe
 from analytics_zoo_tpu_torch.models import attention as att
@@ -39,7 +46,17 @@ TOL = 2e-4
 LOSS_RTOL = 1e-5
 KW = dict(dim=16, depth=2, num_heads=2)
 MOE_KW = dict(KW, n_experts=2, capacity_factor=8.0)
+# 12 slots an expert for the 32 tokens (dense), 6 a (sender, expert) pair
+# for a sender's 16 (expert parallel): tokens drop on both paths
+DROP_KW = dict(KW, n_experts=2, capacity_factor=0.75)
+KINDS = {"full": KW, "moe": MOE_KW, "moe_drop": DROP_KW}
 B, T = 2, 32
+# a ring rank's saved activation bytes over one rank's in the encoder's
+# forward at KW, B, T (this file's ``test_ring_rank_saves_part_of_the_
+# activations``), on the tree before the encoder ran on T-blocks: every
+# layer whole on each rank, the ring's probabilities saved a round
+PRESENT_SAVED_RATIO = 1.0155
+SAVED_RATIO_MAX = 0.65
 
 
 def _x(seed=3):
@@ -58,8 +75,7 @@ def _batches():
 
 @functools.lru_cache(maxsize=None)
 def _jax(kind):
-    kw = MOE_KW if kind == "moe" else KW
-    model = jatt.AttentionASR(**kw)
+    model = jatt.AttentionASR(**KINDS[kind])
     params = jax.tree_util.tree_map(np.asarray, model.init(
         jax.random.PRNGKey(0), jnp.asarray(_x()))["params"])
     return model, params
@@ -67,8 +83,7 @@ def _jax(kind):
 
 def _port(kind, **extra):
     model, params = _jax(kind)
-    kw = MOE_KW if kind == "moe" else KW
-    port = att.AttentionASR(**kw, **extra, device="cpu")
+    port = att.AttentionASR(**KINDS[kind], **extra, device="cpu")
     port.load_state_dict(convert.attention_asr_params_from_jax(params, port))
     return port
 
@@ -77,22 +92,82 @@ def _weights(kind):
     return {k: v.numpy() for k, v in _port(kind).state_dict().items()}
 
 
+def _encoder_x(seed=5):
+    return np.random.RandomState(seed).randn(2, 64, 8).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_encoder(causal):
+    enc = jatt.LongContextEncoder(**KW, attention_fn=functools.partial(
+        jseq.full_attention, causal=causal))
+    params = jax.tree_util.tree_map(np.asarray, enc.init(
+        jax.random.PRNGKey(0), jnp.asarray(_encoder_x()))["params"])
+    return enc, params
+
+
+def _encoder_weights(causal):
+    _, params = _jax_encoder(causal)
+    port = att.LongContextEncoder(**KW, in_features=8, device="cpu")
+    port.load_state_dict(convert.flax_variables_to_state_dict(
+        {"params": params}, port))
+    return {k: v.numpy() for k, v in port.state_dict().items()}
+
+
+def _encoder_cot():
+    return np.random.RandomState(6).randn(2, 64, KW["dim"]).astype(
+        np.float32)
+
+
+def _saved_encoder():
+    """The encoder whose saved activations are counted: the port's own
+    seeded weights at KW, fed ``_x()``."""
+    return att.LongContextEncoder(**KW, in_features=13, device="cpu")
+
+
 @pytest.fixture(scope="module")
 def ranks():
+    ring = dict(x=_x(), labels=LABELS, shape=(1, 2),
+                axes=("data", "sequence"))
     return sc.spawn_async(WORLD, {
         "ring": ("asr_parallel", dict(
-            weights=_weights("full"), kw=KW, x=_x(), labels=LABELS,
-            shape=(1, 2), axes=("data", "sequence"), mode="ring",
+            ring, weights=_weights("full"), kw=KW, mode="ring",
             batches=_batches())),
         "expert": ("asr_parallel", dict(
             weights=_weights("moe"), kw=MOE_KW, x=_x(), labels=LABELS,
             shape=(2,), axes=("expert",), mode="expert")),
+        "ring_moe": ("asr_parallel", dict(
+            ring, weights=_weights("moe_drop"), kw=DROP_KW, mode="ring")),
+        "ring_expert": ("asr_parallel", dict(
+            ring, weights=_weights("moe_drop"), kw=DROP_KW,
+            mode="ring_expert")),
+        "encoder": ("encoder_ring", dict(
+            weights=_encoder_weights(True), kw=KW, x=_encoder_x(),
+            causal=True, cot=_encoder_cot())),
+        "saved": ("encoder_ring", dict(
+            weights={k: v.numpy() for k, v in
+                     _saved_encoder().state_dict().items()},
+            kw=KW, x=_x(), causal=False)),
     })
+
+
+def _jax_model(kind):
+    """The reference model of ``kind`` and its parameters; "ring_expert"
+    is the dropping MoE model with ``RingAttentionLayer`` and
+    ``expert_mesh`` over the same two of the 8 CPU devices."""
+    if kind != "ring_expert":
+        return _jax(kind)
+    _, params = _jax("moe_drop")
+    devices = jax.devices()[:WORLD]
+    model = jatt.AttentionASR(
+        **DROP_KW, attention_fn=jseq.RingAttentionLayer(create_mesh(
+            (1, WORLD), ("data", "sequence"), devices=devices)),
+        expert_mesh=create_mesh((WORLD,), ("expert",), devices=devices))
+    return model, params
 
 
 @functools.lru_cache(maxsize=None)
 def _jax_out_and_grads(kind):
-    model, params = _jax(kind)
+    model, params = _jax_model(kind)
     ctc = JaxCTC(blank_id=0)
 
     def loss(p):
@@ -178,19 +253,29 @@ def test_train_ds2_trains_attention_asr(monkeypatch):
     np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
 
 
-@pytest.mark.parametrize("mode", ["ring", "expert"])
+# scenario → the reference it is held to
+REFERENCE_OF = {"ring": "full", "expert": "moe", "ring_moe": "moe_drop",
+                "ring_expert": "ring_expert"}
+
+
+@pytest.mark.parametrize("mode", ["ring", "expert", "ring_moe",
+                                  "ring_expert"])
 def test_parallel_attention_asr_matches_reference(ranks, mode):
-    """Ring attention over the 2-rank sequence axis, and the MoE blocks'
-    two experts one a rank: every rank's log-probs within 2e-4 of the
-    reference's one-device forward (full attention; the dense MoE path,
-    which routes alike when nothing drops), and the CTC loss's gradients,
-    whole on every rank, within 2e-4 relative of JAX's.  With ring
+    """Ring attention over the 2-rank sequence axis, the MoE blocks' two
+    experts one a rank, and the dropping MoE blocks on the ring (dense,
+    and expert parallel over the ring's ranks): every rank's log-probs
+    within 2e-4 of the reference's one-device forward (full attention;
+    the dense MoE path, which routes alike when nothing drops; the
+    dense path at the dropping capacity; the reference's own ring model
+    with ``expert_mesh``), and the CTC loss's gradients, whole on every
+    rank, within 2e-4 relative of JAX's.  On the ring, one float gather
+    a forward (the exit's) and one ring hop a layer.  With ring
     attention, two ``train_ds2`` steps over the mesh give this process's
     one-rank losses within 1e-5."""
-    kind = "full" if mode == "ring" else "moe"
+    kind = REFERENCE_OF[mode]
     want, grads = _jax_out_and_grads(kind)
     got = [r[mode] for r in ranks.result()]
-    _, params = _jax(kind)
+    _, params = _jax_model(kind)
     for r in got:
         np.testing.assert_allclose(r["out"], want, rtol=TOL, atol=TOL)
         g = convert.state_dict_to_flax(
@@ -200,7 +285,59 @@ def test_parallel_attention_asr_matches_reference(ranks, mode):
         for k, v in grads.items():
             scale = max(float(np.abs(v).max()), 1e-3)
             np.testing.assert_allclose(g[k], v, atol=TOL * scale, err_msg=k)
+        if mode.startswith("ring"):
+            calls = r["collectives"]
+            assert calls["all_gather_into_tensor/float32"] == 1, calls
+            assert calls["all_to_all_single/float32"] >= KW["depth"], calls
     if mode == "ring":
         one = _port_train(_port("full"))
         for r in got:
             np.testing.assert_allclose(r["losses"], one, rtol=LOSS_RTOL)
+
+
+def test_ring_encoder_block_entry_matches_reference(ranks):
+    """The causal ring ``LongContextEncoder`` on each rank's
+    ``shard_sequence`` block through ``block_forward`` (positions at the
+    block's offset), gathered: within 2e-4 of the reference's encoder
+    with causal ``full_attention`` (as the reference's own
+    ``test_encoder_ring_vs_full``), the whole forward too, and the
+    gradients of ``sum(y · cot)`` within 2e-4 relative of JAX's.  The
+    whole forward runs one ring hop a layer and gathers once."""
+    enc, params = _jax_encoder(True)
+    x, cot = jnp.asarray(_encoder_x()), jnp.asarray(_encoder_cot())
+
+    def loss(p):
+        y = enc.apply({"params": p}, x)
+        return jnp.sum(y * cot), y
+
+    (_, want), g_want = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        jax.tree_util.tree_map(jnp.asarray, params))
+    want, g_want = np.asarray(want), convert.flatten_params(g_want)
+    for r in (res["encoder"] for res in ranks.result()):
+        np.testing.assert_allclose(r["out"], want, rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(r["whole"], want, rtol=TOL, atol=TOL)
+        g = convert.state_dict_to_flax(
+            {k: torch.from_numpy(v) for k, v in r["grads"].items()},
+            {"params": params})["params"]
+        assert sorted(g) == sorted(g_want)
+        for k, v in g_want.items():
+            scale = max(float(np.abs(v).max()), 1e-3)
+            np.testing.assert_allclose(g[k], v, atol=TOL * scale, err_msg=k)
+        assert r["collectives"] == {
+            "all_to_all_single/float32": KW["depth"] * (WORLD - 1),
+            "all_gather_into_tensor/float32": 1}, r["collectives"]
+
+
+def test_ring_rank_saves_part_of_the_activations(ranks):
+    """The bytes autograd saves in the ring encoder's forward on a rank
+    of two, over this process's one-rank forward on the same weights and
+    input: at most 0.65, and below the ratio of the tree where every
+    layer but the attention ran whole on each rank (1.0155)."""
+    enc = _saved_encoder()
+    want, one = sc.saved_bytes(lambda: enc(torch.from_numpy(_x())))
+    for r in (res["saved"] for res in ranks.result()):
+        np.testing.assert_allclose(r["whole"], want.detach().numpy(),
+                                   rtol=TOL, atol=TOL)
+        ratio = r["saved_bytes"] / one
+        assert ratio <= SAVED_RATIO_MAX, (r["saved_bytes"], one, ratio)
+        assert ratio < PRESENT_SAVED_RATIO, ratio

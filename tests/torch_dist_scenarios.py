@@ -1118,26 +1118,71 @@ def moe_ep(stacked, gate, x, cot, capacity):
             "g_params": _tree_grad(params), "g_gate": gk.grad.numpy()}
 
 
+@contextlib.contextmanager
+def collective_calls():
+    """Count the collectives this rank calls (by name and dtype, e.g.
+    ``"all_gather_into_tensor/float32"``) while the block runs."""
+    import torch.distributed as dist
+
+    calls: Dict[str, int] = {}
+    names = ("all_gather_into_tensor", "all_to_all_single", "all_reduce")
+    saved = {name: getattr(dist, name) for name in names}
+
+    def counted(name):
+        def call(tensor, *args, **kwargs):
+            key = f"{name}/{str(tensor.dtype).replace('torch.', '')}"
+            calls[key] = calls.get(key, 0) + 1
+            return saved[name](tensor, *args, **kwargs)
+        return call
+
+    for name in names:
+        setattr(dist, name, counted(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def saved_bytes(fn):
+    """``(fn(), bytes of the tensors autograd saved while it ran)``."""
+    total = [0]
+
+    def pack(t):
+        total[0] += t.numel() * t.element_size()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return out, total[0]
+
+
 def asr_parallel(weights, kw, x, labels, shape, axes, mode, batches=None):
     """An AttentionASR whose attention runs over the ``sequence`` axis
-    (``mode="ring"``: ``RingAttentionLayer``) or whose MoE blocks run one
-    expert a rank (``mode="expert"``): the log-probs, the CTC loss's
-    gradients (every rank whole) and, with ``batches``, the losses of
-    ``train_ds2(mesh=)`` on them."""
+    (``mode="ring"``: ``RingAttentionLayer``; with MoE blocks in ``kw``
+    their dense path), whose MoE blocks run one expert a rank
+    (``mode="expert"``), or both over the same ranks
+    (``mode="ring_expert"``: the ring on the mesh, the experts on
+    ``("expert",)`` of the world): the log-probs, the forward's
+    collectives, the CTC loss's gradients (every rank whole) and, with
+    ``batches``, the losses of ``train_ds2(mesh=)`` on them."""
     from analytics_zoo_tpu_torch.core.criterion import CTCCriterion
     from analytics_zoo_tpu_torch.parallel.sequence import RingAttentionLayer
     from analytics_zoo_tpu_torch.pipelines import deepspeech2 as pipe
 
     mesh = _mesh(shape, axes)
     kw = dict(kw)
-    if mode == "ring":
+    if mode in ("ring", "ring_expert"):
         kw["attention_fn"] = RingAttentionLayer(mesh)
-    else:
+    if mode == "expert":
         kw["expert_mesh"] = mesh
+    elif mode == "ring_expert":
+        kw["expert_mesh"] = _mesh((-1,), ("expert",))
     model = _asr_model(weights, kw)
-    lp = model(torch.from_numpy(x))
+    with collective_calls() as calls:
+        lp = model(torch.from_numpy(x))
     CTCCriterion(blank_id=0)(lp, torch.from_numpy(labels)).backward()
-    out = {"out": lp.detach().numpy(),
+    out = {"out": lp.detach().numpy(), "collectives": calls,
            "grads": {k: p.grad.numpy().copy()
                      for k, p in model.named_parameters()}}
     if batches is not None:
@@ -1154,6 +1199,35 @@ def asr_parallel(weights, kw, x, labels, shape, axes, mode, batches=None):
         finally:
             pipe.Optimizer = base
         out["losses"] = [float(m["loss"]) for m in runs[0].history]
+    return out
+
+
+def encoder_ring(weights, kw, x, causal, cot=None):
+    """``LongContextEncoder`` with ``RingAttentionLayer(causal=)`` on a
+    (1, n) ("data", "sequence") mesh: the whole forward under autograd
+    (its output, the bytes autograd saved, its collectives); with
+    ``cot``, the block entry on this rank's ``shard_sequence(x)``
+    gathered back, and the gradients of ``sum(y · cot)``."""
+    from analytics_zoo_tpu_torch.models.attention import LongContextEncoder
+    from analytics_zoo_tpu_torch.parallel.sequence import (
+        RingAttentionLayer, shard_sequence, unshard_sequence)
+
+    mesh = _mesh((1, -1), ("data", "sequence"))
+    enc = LongContextEncoder(**kw, attention_fn=RingAttentionLayer(
+        mesh, causal=causal), in_features=x.shape[-1], device="cpu")
+    enc.load_state_dict({k: torch.from_numpy(v) for k, v in weights.items()})
+    with collective_calls() as calls:
+        whole, n_saved = saved_bytes(lambda: enc(torch.from_numpy(x)))
+    out = {"whole": whole.detach().numpy(), "saved_bytes": n_saved,
+           "collectives": calls}
+    if cot is not None:
+        enc.zero_grad()
+        y = unshard_sequence(enc.block_forward(
+            torch.from_numpy(shard_sequence(x, mesh))), mesh)
+        (y * torch.from_numpy(cot)).sum().backward()
+        out["out"] = y.detach().numpy()
+        out["grads"] = {k: p.grad.numpy().copy()
+                        for k, p in enc.named_parameters()}
     return out
 
 
