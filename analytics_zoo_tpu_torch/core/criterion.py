@@ -22,6 +22,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -205,18 +206,21 @@ class CTCCriterion(Criterion):
         label_mask = (torch.ones(labels.shape, device=dev)
                       if label_mask is None
                       else torch.as_tensor(label_mask, device=dev).float())
-        in_len = logit_mask.sum(1).long()
-        lab_len = label_mask.sum(1).long()
-        lp = torch.log_softmax(log_probs.float(), -1)
-        per_seq = F.ctc_loss(lp.transpose(0, 1), labels, in_len, lab_len,
-                             blank=self.blank_id, reduction="none",
-                             zero_infinity=True)
         # an alignment needs a frame a label, plus a blank between repeats
         repeats = ((labels[:, 1:] == labels[:, :-1])
                    & (label_mask[:, 1:] > 0)).sum(1)
+        # torch's ctc_loss reads its lengths on the host: one copy a call
+        # brings them and the repeats back together
+        in_len, lab_len, repeats = torch.stack(
+            [logit_mask.sum(1).long(), label_mask.sum(1).long(),
+             repeats]).cpu().numpy()
+        lp = torch.log_softmax(log_probs.float(), -1)
+        per_seq = F.ctc_loss(lp.transpose(0, 1), labels, in_len.tolist(),
+                             lab_len.tolist(), blank=self.blank_id,
+                             reduction="none", zero_infinity=True)
         infeasible = in_len < lab_len + repeats
-        if bool(infeasible.any()):
-            rows = infeasible.nonzero()[:, 0]
+        if infeasible.any():
+            rows = torch.from_numpy(np.flatnonzero(infeasible)).to(dev)
             plain = ctc_loss_plain(log_probs[rows], 1.0 - logit_mask[rows],
                                    labels[rows], 1.0 - label_mask[rows],
                                    self.blank_id)

@@ -44,6 +44,7 @@ class ReadStats:
         so that publishing again (once an epoch, say) counts nothing
         twice."""
         for field in dataclasses.fields(self):
+            # az-allow: registered-metric-names — prefix-parameterized mirror; the canonical data/read/* family is declared in obs/names.py
             registry.gauge(f"{prefix}/{field.name}").set(
                 getattr(self, field.name))
 

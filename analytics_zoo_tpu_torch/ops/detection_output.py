@@ -41,7 +41,7 @@ import torch
 from analytics_zoo_tpu_torch.ops.bbox import decode_bbox
 from analytics_zoo_tpu_torch.ops.nms import nms_batched, topk_stable
 from analytics_zoo_tpu_torch.ops.pallas_detout import (
-    SELECT_SMEM_BYTES, foreground_ids, fused_detection_output,
+    SELECT_SMEM_BYTES, fused_detection_output,
     select_smem_bytes, select_tile)
 from analytics_zoo_tpu_torch.ops.pallas_nms import _round_up, nms_sweep
 from analytics_zoo_tpu_torch.utils.device import tensor_device
@@ -116,11 +116,15 @@ def sweep_candidates(loc, conf, priors, variances, param):
     B, P, C = conf.shape
     dev = conf.device
     decoded = decode_bbox(priors, variances, loc, clip=param.clip_boxes)
-    fg_ids = torch.as_tensor(foreground_ids(C, param.background_id),
-                             device=dev)
+    # made on the device, as the constants of the reference's program:
+    # no copy from the host a call
+    fg_ids = torch.arange(C, device=dev)
+    if 0 <= param.background_id < C:
+        fg_ids = torch.cat([fg_ids[:param.background_id],
+                            fg_ids[param.background_id + 1:]])
     Cf = fg_ids.numel()
     scores = conf.index_select(2, fg_ids).transpose(1, 2)   # (B,Cf,P)
-    neg = torch.tensor(float("-inf"), device=dev)
+    neg = torch.full((), float("-inf"), device=dev)
     masked = torch.where(scores > param.conf_thresh, scores, neg)
     k = min(_round_up(param.nms_topk, 128), _round_up(P, 128))
     kk = min(k, P)

@@ -77,17 +77,25 @@ def _size(ids: torch.Tensor, max_unique: Optional[int]) -> int:
 
 def _unique(flat: torch.Tensor, size: int):
     """Static-size unique: sorted ids padded with 0 to ``size``, the
-    inverse map and the valid count.  More unique ids than ``size``
-    raises (the reference's clamped gather would read a wrong row)."""
-    uids, inv = torch.unique(flat, sorted=True, return_inverse=True)
-    n = uids.shape[0]
-    if n > size:
-        raise ValueError(f"max_unique={size} is smaller than the batch's "
-                         f"{n} unique ids")
-    if n < size:
-        uids = torch.cat([uids, uids.new_zeros(size - n)])
-    return uids, inv.reshape(-1), torch.tensor(n, dtype=torch.int32,
-                                               device=flat.device)
+    inverse map and the valid count, without reading a device value on
+    the host (the reference's ``jnp.unique(size=)``,
+    ``ops/embedding.py:74-80``).  When ``size`` is below the batch's
+    positions, more unique ids than ``size`` raises (the reference's
+    clamped gather would read a wrong row): only that check reads the
+    count back."""
+    sorted_ids, order = torch.sort(flat, stable=True)
+    new = torch.ones_like(sorted_ids, dtype=torch.bool)
+    new[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    slot = torch.cumsum(new, 0) - 1
+    count = new.sum().to(torch.int32)
+    if size < flat.numel():
+        n = int(count)
+        if n > size:
+            raise ValueError(f"max_unique={size} is smaller than the "
+                             f"batch's {n} unique ids")
+    uids = sorted_ids.new_zeros(size).scatter_(0, slot, sorted_ids)
+    inv = torch.empty_like(slot).scatter_(0, order, slot)
+    return uids, inv, count
 
 
 def _segment_rows(g: torch.Tensor, inv: torch.Tensor,
@@ -96,7 +104,8 @@ def _segment_rows(g: torch.Tensor, inv: torch.Tensor,
     order: ``(size, dim)``, zero past the valid ids."""
     gf = g.reshape(-1, g.shape[-1])
     order = torch.argsort(inv, stable=True)
-    lengths = torch.bincount(inv, minlength=size)
+    lengths = torch.zeros(size, dtype=torch.int64, device=inv.device
+                          ).index_add_(0, inv, torch.ones_like(inv))
     return torch.segment_reduce(gf[order], "sum", lengths=lengths, axis=0)
 
 

@@ -96,7 +96,7 @@ def rpn_targets(anchors, gt, gt_mask, im_h, im_w, fg_scores,
     pos = inside & ((max_iou >= p.rpn_pos_iou) | is_best)
     neg = inside & (max_iou < p.rpn_neg_iou) & ~pos
 
-    ninf = torch.tensor(float("-inf"), device=dev)
+    ninf = torch.full((), float("-inf"), device=dev)
     n_pos_cap = int(p.rpn_sample * p.rpn_pos_frac)
     sel_pos = pos & (_rank_desc(torch.where(pos, max_iou, ninf)) < n_pos_cap)
     n_pos = sel_pos.sum(dim=-1, keepdim=True)
@@ -129,7 +129,7 @@ def head_targets(rois, roi_mask, gt, gt_labels, gt_mask, bg_scores,
     fg = valid & (max_iou >= p.head_fg_iou)
     bg = valid & ~fg
 
-    ninf = torch.tensor(float("-inf"), device=dev)
+    ninf = torch.full((), float("-inf"), device=dev)
     n_fg_cap = int(p.head_sample * p.head_pos_frac)
     sel_fg = fg & (_rank_desc(torch.where(fg, max_iou, ninf)) < n_fg_cap)
     n_fg = sel_fg.sum(dim=-1, keepdim=True)

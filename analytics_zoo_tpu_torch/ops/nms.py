@@ -39,7 +39,7 @@ def nms_batched(boxes: torch.Tensor, scores: torch.Tensor,
     — indices into the ORIGINAL N boxes.  ``eta`` is nmsFast's adaptive
     threshold: after each kept box ``thresh *= eta`` while thresh > 0.5."""
     n = scores.shape[-1]
-    neg = torch.tensor(NEG_INF, dtype=scores.dtype, device=scores.device)
+    neg = torch.full((), NEG_INF, dtype=scores.dtype, device=scores.device)
     active = torch.where(scores > score_threshold, scores, neg)
     if valid_mask is not None:
         active = torch.where(valid_mask > 0, active, neg)

@@ -201,6 +201,7 @@ def block_phases_us(loc, conf, priors, variances, param, planes) -> dict:
     return split
 
 
+@cuda_build.kernel_op("K2")
 def fused_detection_output(loc: torch.Tensor, conf: torch.Tensor,
                            priors: torch.Tensor, variances: torch.Tensor, *,
                            param) -> torch.Tensor:

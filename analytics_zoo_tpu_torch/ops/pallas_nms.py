@@ -133,6 +133,7 @@ def _launch_nms_sweep(planes, keep, iou_threshold: float, off: float,
     cuda_build.check_launch("nms_sweep", code, "nms_sweep kernel")
 
 
+@cuda_build.kernel_op("K1")
 def nms_sweep(x1, y1, x2, y2, valid, iou_threshold: float = 0.45,
               normalized: bool = True) -> torch.Tensor:
     """(C, K) sorted per-row candidates → (C, K) keep mask.

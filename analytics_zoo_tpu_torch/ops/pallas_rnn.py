@@ -506,6 +506,7 @@ def _check_device(cell: str, pre, w, backward: bool):
                      w.element_size())
 
 
+@cuda_build.kernel_op("K3")
 def persistent_rnn_fwd(cfg: RnnKernelConfig, pre, w, b, h0, n,
                        save_residuals: bool = False):
     """K3 (the reference's ``_run_kernel``) on a CUDA tensor, its plain
@@ -538,6 +539,7 @@ def persistent_rnn_fwd(cfg: RnnKernelConfig, pre, w, b, h0, n,
     return out + (cs,) if save_residuals else out
 
 
+@cuda_build.kernel_op("K4")
 def persistent_rnn_bwd(cfg: RnnKernelConfig, pre, w, b, n, cs, g_ys, g_cf
                        ) -> Tuple[torch.Tensor, ...]:
     """K4: the transposed persistent backward of one direction.  Takes

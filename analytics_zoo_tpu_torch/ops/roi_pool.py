@@ -89,10 +89,12 @@ def roi_pool_batch(feat: torch.Tensor, rois: torch.Tensor,
     table = _range_max_table(feat)
     Lh, Lw = table.shape[1], table.shape[2]
     table = table.reshape(-1, C)
-    # floor(log2(n)) for n = 1 … max(H, W)
+    # floor(log2(n)) for n = 1 … max(H, W) (n = 0 maps to 0), counted on
+    # the device: the powers of two from 2 up to n
     n = max(H, W)
-    log2 = torch.tensor([max(i, 1).bit_length() - 1 for i in range(n + 1)],
-                        dtype=torch.int64, device=feat.device)
+    powers = 2 ** torch.arange(1, max(n.bit_length(), 1), device=feat.device)
+    log2 = (torch.arange(n + 1, device=feat.device)[:, None]
+            >= powers[None]).sum(1)
     hlen = torch.clamp(he - hs, min=1).long()
     wlen = torch.clamp(we - ws, min=1).long()
     kh, kw = log2[hlen], log2[wlen]

@@ -84,6 +84,7 @@ def iter_records(buf: bytes) -> Iterator[bytes]:
 
 def _event(step: int, summary: Optional[protowire.Encoder] = None,
            file_version: Optional[str] = None) -> bytes:
+    # az-allow: one-clock — TensorBoard's Event.wall_time is wall-clock seconds by the format's definition; written, never compared
     ev = protowire.Encoder().double(1, time.time())     # wall_time
     if step:
         ev.varint(2, int(step))
@@ -192,6 +193,7 @@ class EventFileWriter:
 
     def __init__(self, log_dir: str):
         os.makedirs(log_dir, exist_ok=True)
+        # az-allow: one-clock — TensorBoard names its event file by wall-clock seconds; the name orders runs and decides nothing
         self.path = os.path.join(
             log_dir, f"events.out.tfevents.{int(time.time()):010d}."
                      f"{socket.gethostname()}.{os.getpid()}")

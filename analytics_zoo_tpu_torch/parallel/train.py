@@ -1175,6 +1175,7 @@ class Optimizer:
         t = torch.tensor([int(flag)], dtype=torch.int32, device=dev)
         torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX,
                                      group=mesh_lib.mesh_group(self.mesh))
+        # az-allow: no-host-sync-in-hot-path — the ranks' agreement before a checkpoint write: every rank must know it on the host, once per save, not per step
         return bool(t.item())
 
     # -- checkpoint and resume ------------------------------------------------
@@ -1443,6 +1444,7 @@ class Optimizer:
         out = [torch.zeros(1, dtype=torch.int64) for _ in range(width)]
         dist.all_gather(out, torch.tensor([word], dtype=torch.int64),
                         group=group)
+        # az-allow: no-host-sync-in-hot-path — the shadow check's decision boundary: the gathered words are host tensors over gloo, read once per shadow check, not per step
         words = [int(t.item()) for t in out]
         shadow_i = min(pol.shadow_device, width - 1)
         tiebreak = None

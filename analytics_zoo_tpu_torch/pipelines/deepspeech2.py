@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -98,8 +97,13 @@ class DeepSpeech2Pipeline:
     runs."""
 
     def __init__(self, model: nn.Module, param: DS2Param = DS2Param(),
-                 sequence_mesh=None, device=None):
+                 sequence_mesh=None, device=None, clock=None):
+        from analytics_zoo_tpu_torch.utils.clock import as_now_fn
+
         self.device = resolve_device(device)
+        # eval timing reads the one injected clock, as the reference's
+        # (pipelines/deepspeech2.py:82)
+        self._now = as_now_fn(clock)
         self.model = model.to(self.device).eval()
         self.param = param
         self.segmenter = TimeSegmenter(
@@ -272,12 +276,12 @@ class DeepSpeech2Pipeline:
     def evaluate(self, utterances: Dict[str, np.ndarray],
                  transcripts: Dict[str, str]) -> ASREvaluator:
         """WER/CER over labeled utterances (reference InferenceEvaluate)."""
-        t0 = time.monotonic()
+        t0 = self._now()
         hyps = self.transcribe_samples(utterances)
         ev = ASREvaluator()
         for audio_id, ref in transcripts.items():
             ev.add(ref.upper(), hyps.get(audio_id, ""))
-        dt = time.monotonic() - t0
+        dt = self._now() - t0
         logger.info("DS2 eval: %d utterances in %.2fs (%.2f utt/sec), "
                     "WER=%.4f CER=%.4f", len(transcripts), dt,
                     len(transcripts) / max(dt, 1e-9), ev.wer, ev.cer)

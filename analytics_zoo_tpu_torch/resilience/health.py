@@ -135,16 +135,16 @@ def _as_u32(x) -> torch.Tensor:
     return x.to(torch.int64) & _MASK
 
 
-def _leaf_sum(u: torch.Tensor) -> int:
-    """``sum(u * w) mod 2^32`` with the odd Knuth position weights ``w``:
-    each product over the 16-bit halves of ``u`` so that no int64 term
-    overflows."""
+def _leaf_sum(u: torch.Tensor) -> torch.Tensor:
+    """``sum(u * w) mod 2^32`` with the odd Knuth position weights ``w``,
+    an int64 scalar on ``u``'s device: each product over the 16-bit
+    halves of ``u`` so that no int64 term overflows."""
     w = (torch.arange(u.numel(), dtype=torch.int64, device=u.device)
          * _KNUTH & _MASK) | 1
     lo = u & 0xFFFF
     hi = u >> 16
     terms = (lo * w + (((hi * w) & 0xFFFF) << 16)) & _MASK
-    return int(terms.sum().item()) & _MASK
+    return terms.sum() & _MASK
 
 
 def tree_fingerprint(tree, flip: Optional[Tuple[int, int, bool]] = None
@@ -156,8 +156,12 @@ def tree_fingerprint(tree, flip: Optional[Tuple[int, int, bool]] = None
 
     ``flip`` (optional) ``(element, bit, on)``: when ``on``, flat
     ``element`` (clipped) of the first leaf has ``bit`` flipped in this
-    view before folding, the chaos ``bit_flip`` injection point."""
-    word = _BASIS
+    view before folding, the chaos ``bit_flip`` injection point.
+
+    The word folds on the first leaf's device and is fetched once, at
+    the end (the reference folds in-graph and fetches at the decision
+    boundary, ``resilience/health.py:121-160``)."""
+    word = None
     for k, leaf in enumerate(_leaves(tree)):
         u = _as_u32(leaf)
         if flip is not None and k == 0 and flip[2] and u.numel():
@@ -165,8 +169,12 @@ def tree_fingerprint(tree, flip: Optional[Tuple[int, int, bool]] = None
             idx = min(max(element, 0), u.numel() - 1)
             u = u.clone()
             u[idx] = u[idx] ^ (1 << bit)
-        word = (word * _PRIME + (2 * k + 1) + _leaf_sum(u)) & _MASK
-    return word
+        if word is None:
+            word = torch.tensor(_BASIS, dtype=torch.int64, device=u.device)
+        word = (word * _PRIME + (2 * k + 1)
+                + _leaf_sum(u).to(word.device)) & _MASK
+    # az-allow: no-host-sync-in-hot-path — the one fetch a fingerprint, at the decision boundary where the reference fetches its word
+    return _BASIS if word is None else int(word.item())
 
 
 def _params_of(model) -> List[torch.Tensor]:
@@ -212,6 +220,7 @@ def make_audit_fn(mesh):
         out = [torch.zeros(1, dtype=torch.int64)
                for _ in range(dist.get_world_size(group))]
         dist.all_gather(out, mine, group=group)
+        # az-allow: no-host-sync-in-hot-path — the decision boundary: the all_gather's words are host tensors over gloo, read once per audit for the sentinel's verdict
         return [int(t.item()) for t in out]
 
     return audit
@@ -270,6 +279,7 @@ def evict_device(mesh, device_index: int, new_width: Optional[int] = None):
                              f"[1, {len(survivors)}]")
         survivors = survivors[:new_width]
     names = mesh_lib.axis_names(mesh)
+    # az-allow: one-placement-site — eviction by a new group (ROADMAP Known deviations): torch.distributed cannot drop a rank from a group, so the survivors' mesh is built here, by every rank at the same point
     sub = DeviceMesh(mesh.device_type, survivors,
                      mesh_dim_names=(names[0],) if len(names) == 1
                      else (mesh_lib.data_axis(mesh),))
@@ -364,6 +374,7 @@ class HealthSentinel:
 
     def _count(self, name: str) -> None:
         if self.registry is not None:
+            # az-allow: registered-metric-names — sentinel-internal helper; every caller passes a literal from the health/* family declared in obs/names.py
             self.registry.counter(name).inc()
 
     # -- parity audit ------------------------------------------------------

@@ -155,6 +155,7 @@ class SliceLayout:
             if group == ranks:
                 self.slices.append(specs)
                 continue
+            # az-allow: one-placement-site — a slice over processes is a sub-mesh cut by SliceLayout on every rank (ROADMAP Known deviations); the SpecSet takes it through replace_mesh
             sub = DeviceMesh(specs.mesh.device_type, group,
                              mesh_dim_names=(axis,))
             self.slices.append(specs.replace_mesh(sub))

@@ -83,6 +83,7 @@ class ServingMetrics:
 
     # -- read ----------------------------------------------------------------
     def _count(self, name: str) -> int:
+        # az-allow: registered-metric-names — read-side accessor over names this class itself registered (all declared serve/* entries)
         return self._r.counter(name).value
 
     @property

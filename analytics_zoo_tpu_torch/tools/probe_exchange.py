@@ -53,7 +53,8 @@ def child():
         return y.tolist()
 
     def timed():
-        x = torch.randn(8 * 1760, device=dev)
+        x = torch.randn(8 * 1760, device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
         y = torch.empty_like(x)
         ms = []
         for _ in range(5):

@@ -8,11 +8,17 @@ header rebuilds.  :func:`build_kernels` starts one
 ``nvcc`` per missing source, all at once, and waits for all of them.
 
 Nothing is downloaded; a missing ``nvcc`` or a failed compile raises.
+
+:func:`kernel_op` marks the four kernels' entry points, where the port
+chooses between a kernel and its plain version, so that a recorded
+program (``analysis/program.py``) holds each call as one op on either
+device, as a jaxpr holds each ``pallas_call`` as one equation.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -51,6 +57,27 @@ def link_flags(name: str) -> tuple:
     return ()
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+#: the program recorder of an audit in progress (``analysis/program.py``
+#: sets it for one recorded run), else ``None``
+RECORDER = None
+
+
+def kernel_op(name: str):
+    """Decorate a kernel's entry point: while an audit records, the call
+    is one op named ``name`` with its tensors' dtypes and devices, and
+    the ops inside it (the plain version's, on the CPU) are not recorded:
+    on the card the kernel stands in their place.  The call itself, its
+    kernel and its result are unchanged; with no audit recording the
+    cost is one module-level check."""
+    def mark(fn):
+        @functools.wraps(fn)
+        def entry(*args, **kwargs):
+            if RECORDER is None:
+                return fn(*args, **kwargs)
+            return RECORDER.kernel(name, fn, args, kwargs)
+        return entry
+    return mark
 
 
 def find_nvcc() -> str:

@@ -210,6 +210,7 @@ def spawn(target: str, world: int, kwargs: Optional[Dict[str, Any]] = None,
                device or "", backend or ""]
         procs.append(subprocess.Popen(cmd, env=child_env, stdout=log,
                                       stderr=subprocess.STDOUT))
+    # az-allow: one-clock — the spawned ranks' deadline is on the host's real time: a virtual clock cannot time out real child processes
     deadline = time.monotonic() + timeout
     failed = None
     try:
@@ -221,6 +222,7 @@ def spawn(target: str, world: int, kwargs: Optional[Dict[str, Any]] = None,
                 break
             if all(c == 0 for c in codes):
                 break
+            # az-allow: one-clock — the spawned ranks' deadline is on the host's real time: a virtual clock cannot time out real child processes
             if time.monotonic() > deadline:
                 failed = f"the group did not finish within {timeout:.0f} s"
                 break

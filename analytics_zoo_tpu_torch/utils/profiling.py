@@ -74,13 +74,16 @@ class StepTimer:
         self._t0 = None
         self.times.append(dt)
         if self.registry is not None:
+            # az-allow: registered-metric-names — timer-name-prefixed; the Optimizer's canonical train/dispatch/* family is declared in obs/names.py
             self.registry.histogram(f"{self.name}/step_s").observe(dt)
+            # az-allow: registered-metric-names — timer-name-prefixed steps counter, same train/dispatch/* family as the step histogram
             self.registry.counter(f"{self.name}/steps").inc()
 
     def step(self, n_records: int = 0):
         """Use as ``with timer.step(n):``, counting records too."""
         self.records += n_records
         if self.registry is not None and n_records:
+            # az-allow: registered-metric-names — timer-name-prefixed records counter, same train/dispatch/* family as the step histogram
             self.registry.counter(f"{self.name}/records").inc(n_records)
         return self
 

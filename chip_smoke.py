@@ -5311,6 +5311,53 @@ def dist_tp_rank(ds2_batches, ssd_train, ssd_val, seed):
     out = {"backend": dist.get_backend()}
     out["ssd"] = dist_ssd_rank(ssd_train, ssd_val, "megatron", shape, axes)
     out["ds2"] = dist_ds2_rank(ds2_batches, True, shape, axes, seed)
+    out["analyze"] = dist_tp_analyze_rank(ds2_batches[0], shape, axes, seed)
+    return out
+
+
+def dist_tp_analyze_rank(batch, shape, axes, seed):
+    """The program engine's collective inventory in dist_tp's group: one
+    tensor-parallel DS2 step (``default_tp_rules``, K3 and K4) audited
+    against its own ``SpecSet``, and the same step against a ``SpecSet``
+    declared over a data-only mesh.  Host round-trips are not held here
+    (``hot=False``): gloo takes CUDA tensors through the host by design.
+    ``{"declared": [...], "data_only": [...]}`` of ``(rule, waived,
+    message)``."""
+    from analytics_zoo_tpu_torch.analysis.program import (AuditProgram,
+                                                          BuiltProgram,
+                                                          audit_program)
+    from analytics_zoo_tpu_torch.parallel import Adam
+    from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+    from analytics_zoo_tpu_torch.parallel import tensor as tensor_lib
+    from analytics_zoo_tpu_torch.parallel.specs import SpecSet
+    from analytics_zoo_tpu_torch.parallel.train import (create_train_state,
+                                                        make_train_step,
+                                                        to_device)
+    from analytics_zoo_tpu_torch.pipelines import deepspeech2 as ds2_pipe
+    from analytics_zoo_tpu_torch.utils import engine
+
+    dev = engine.device()
+    tp_mesh = mesh_lib.create_mesh(shape, axes)
+    data_only = SpecSet(mesh_lib.create_mesh((DIST_TP_WORLD,), ("data",)))
+    batch = to_device(batch, dev)
+
+    model = ds2_pipe.make_ds2_model(hidden=DS2_HIDDEN, n_rnn_layers=3,
+                                    rnn_engine="pallas", device=dev,
+                                    seed=seed)
+    specs = SpecSet(tp_mesh, rules=tensor_lib.default_tp_rules())
+    specs.place_state(model)
+    optim = Adam(1e-4)
+    step = make_train_step(model, ds2_pipe.ds2_ctc_criterion(), optim,
+                           specs=specs)
+    state = create_train_state(model, optim)
+    out = {}
+    # the same step twice: against its own declaration, then a data-only one
+    for key, declared in (("declared", specs), ("data_only", data_only)):
+        got = audit_program(AuditProgram(
+            f"ds2-tp/train:{key}",
+            lambda: BuiltProgram(fn=step, args=(state, batch),
+                                 specs=declared, hot=False)))
+        out[key] = [(v.rule, v.waived, v.message) for v in got]
     return out
 
 
@@ -5707,7 +5754,8 @@ def dist_tp_phase(dev, smi, seed=37):
                                       for x in ds2),
             "fused_detection_output": sum(
                 x["launches"]["fused_detection_output"] for x in ssd),
-            "nms_sweep": sum(x["launches"]["nms_sweep"] for x in ssd + ds2)}
+            "nms_sweep": sum(x["launches"]["nms_sweep"] for x in ssd + ds2),
+            "analyze": [r["analyze"] for r in ranks]}
 
 
 # ---------------------------------------------------------------------------
@@ -7957,6 +8005,71 @@ def dist_slice_phase(dev, smi, seed=73):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 6u. az-analyze on the card: the source rules, and the program audit of
+# the kernel-bearing targets with the sync debug mode armed
+# ---------------------------------------------------------------------------
+
+
+def analyze_phase(dev, smi, dist_tp):
+    """analyze: ``run_source_engine`` over the port, then the program
+    engine over ``analysis.targets.kernel_audit_suite`` on the card (each
+    program run once, the sync debug mode armed): every target must
+    record its kernels (K1 in ``ssd/serve:*``, K2 in ``ssd-fused/serve:*``,
+    K3 in ``ds2/serve:*``, K3 and K4 in ``ds2-pallas/train``), and no
+    violation may stand un-waived.  ``dist_tp``'s ranks audited the
+    collective inventory of their tensor-parallel DS2 step: clean against
+    its own ``SpecSet``, firing against a data-only one.  Returns the
+    phase's kernel launches."""
+    import torch
+
+    from analytics_zoo_tpu_torch.analysis import (format_violation,
+                                                  run_source_engine)
+    from analytics_zoo_tpu_torch.analysis.program import run_program_engine
+    from analytics_zoo_tpu_torch.analysis.targets import (KERNEL_TARGETS,
+                                                          expected_kernels,
+                                                          kernel_audit_suite)
+
+    t0 = time.perf_counter()
+    source = run_source_engine()
+    source_s = time.perf_counter() - t0
+    zero_kernel_counters()
+    results = {}
+    program = run_program_engine(kernel_audit_suite(device=dev), results)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    violations = source + program
+    unwaived = [format_violation(v) for v in violations if not v.waived]
+    missing = {name: sorted(set(expected_kernels(name)) - set(r.kernels))
+               for name, r in results.items()
+               if set(expected_kernels(name)) - set(r.kernels)}
+    absent = [p for p in KERNEL_TARGETS
+              if not any(n.startswith(p) for n in results)]
+    tp = dist_tp["analyze"]
+    tp_declared = [f for r in tp for f in r["declared"]]
+    tp_fired = [sorted({rule for rule, _, _ in r["data_only"]}) for r in tp]
+    print(json.dumps({"analyze": {
+        "programs": len(results),
+        "violations": {"unwaived": unwaived,
+                       "waived": [format_violation(v) for v in violations
+                                  if v.waived]},
+        "kernels": {n: r.kernels for n, r in results.items()},
+        "sync_debug": {n: r.debug_syncs for n, r in results.items()},
+        "launches": launches,
+        "dist_tp_collectives": {"declared": tp_declared,
+                                "data_only_rules": tp_fired},
+        "source_s": source_s, "phase_s": time.perf_counter() - t0,
+        "nvidia_smi": smi}}), flush=True)
+    if unwaived or missing or absent:
+        raise AssertionError(f"analyze: un-waived {unwaived}, kernels "
+                             f"missing {missing}, targets absent {absent}")
+    if tp_declared or tp_fired != [["collective-inventory"]] * len(tp):
+        raise AssertionError(f"analyze: dist_tp's collective inventory "
+                             f"{tp_declared} on the declared mesh, rules "
+                             f"{tp_fired} on the data-only one")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -8656,6 +8769,10 @@ def main() -> int:
          dist_slice_phase_s=time.perf_counter() - t0 - fleet_s - sdc_s)
     fleet_paths = {"fleet_chaos": fleet_chaos, "dist_sdc": dist_sdc,
                    "dist_slice": dist_slice}
+
+    # -- 6u. az-analyze on the card (K1-K4 in their targets' programs) ---
+    analyze = analyze_phase(dev, smi, dist_tp)
+    fleet_paths["analyze"] = analyze
 
     def fleet_counts(name):
         return {path: counts[name] for path, counts in fleet_paths.items()}

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_dist_scenarios as sc
 from analytics_zoo_tpu.models import faster_rcnn as jax_frcnn
 from analytics_zoo_tpu.ops.proposal import ProposalParam as JaxProposalParam
 from analytics_zoo_tpu.utils import caffe as jax_caffe
@@ -322,10 +323,9 @@ def test_frcnn_caffemodel_same_detections_through_both_loaders(tmp_path):
     jnew, jreport = jax_caffe.load_frcnn_vgg_caffe(zeros, path,
                                                    pooled=POOLED)
     assert not jreport["missing"] and not jreport["unused"]
-    tdet = faster_rcnn.FasterRcnnDetector(faster_rcnn.FrcnnParam(
+    tdet = sc.unfilled(faster_rcnn.FasterRcnnDetector, faster_rcnn.FrcnnParam(
         num_classes=CLASSES, pooled=POOLED,
-        proposal=ProposalParam(pre_nms_topn=64, post_nms_topn=16)),
-        device="cpu")
+        proposal=ProposalParam(pre_nms_topn=64, post_nms_topn=16)))
     new, report = caffe.load_frcnn_vgg_caffe(tdet, path, pooled=POOLED)
     assert not report["missing"] and not report["unused"]
     assert len(report["loaded"]) == len(tdet.state_dict()) == 40

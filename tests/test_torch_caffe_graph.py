@@ -28,6 +28,7 @@ import pytest
 import torch
 
 import chip_smoke
+import torch_dist_scenarios as sc
 from analytics_zoo_tpu.utils import caffe as jax_caffe
 from analytics_zoo_tpu_torch.models import faster_rcnn
 from analytics_zoo_tpu_torch.models.ssd import (SSDVgg, build_priors,
@@ -368,8 +369,8 @@ def test_frcnn_vgg16_deploy_graph_matches_faster_rcnn_vgg(tmp_path):
     g.load_state_dict(new)
     assert "rpn_conv/3x3.weight" in new
 
-    model = faster_rcnn.FasterRcnnVgg(faster_rcnn.FrcnnParam(
-        num_classes=classes, pooled=FRCNN_POOLED), device="cpu")
+    model = sc.unfilled(faster_rcnn.FasterRcnnVgg, faster_rcnn.FrcnnParam(
+        num_classes=classes, pooled=FRCNN_POOLED))
     new, report = caffe.load_frcnn_vgg_caffe(model, path,
                                              pooled=FRCNN_POOLED)
     assert not report["missing"] and not report["unused"]

@@ -190,10 +190,8 @@ def frcnn_group(jax_frcnn_init):
     from analytics_zoo_tpu_torch.models import faster_rcnn
     from analytics_zoo_tpu_torch.ops.proposal import ProposalParam
 
-    net = faster_rcnn.FasterRcnnVgg(
-        faster_rcnn.FrcnnParam(num_classes=3, pooled=2,
-                               proposal=ProposalParam(128, 32)),
-        device="cpu", seed=0)
+    net = sc.unfilled(faster_rcnn.FasterRcnnVgg, faster_rcnn.FrcnnParam(
+        num_classes=3, pooled=2, proposal=ProposalParam(128, 32)), seed=0)
     w = {k: v.numpy() for k, v in convert.frcnn_params_from_jax(
         jax_frcnn_init["params"], net).items()}
     return sc.spawn_async(2, {

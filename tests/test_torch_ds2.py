@@ -12,6 +12,8 @@ conv, three projections and the recurrences).
 
 import wave
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -137,7 +139,14 @@ def test_read_wav_equals_jax(tmp_path, width, channels):
 
 def _jax_ds2(hidden, layers, T, bidirectional=True, seed=0):
     """A flax DS2 with random running statistics, so that every BN does
-    work."""
+    work; initialized once a module for each set of arguments (each call
+    gets its own containers over the same immutable arrays)."""
+    module, variables = _jax_ds2_init(hidden, layers, T, bidirectional, seed)
+    return module, jax.tree_util.tree_map(lambda a: a, variables)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_ds2_init(hidden, layers, T, bidirectional, seed):
     module = JaxDS2(hidden=hidden, n_rnn_layers=layers,
                     bidirectional=bidirectional, rnn_engine="blocked")
     kw = {} if bidirectional else {"return_carry": True}

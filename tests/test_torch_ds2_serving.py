@@ -22,6 +22,8 @@ tiny models (hidden 16, 1-2 layers).
   and ``transpose_flip`` equal to the reference's on seeded inputs.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -48,8 +50,10 @@ CHUNK_PLANS = [
 ]
 
 
+@functools.lru_cache(maxsize=None)
 def _models(layers, engine, bidirectional=False, seed=0):
-    """The reference's model and the port's on the same weights."""
+    """The reference's model and the port's on the same weights, built
+    once a module for each set of arguments (no test changes either)."""
     module, variables = _jax_ds2(16, layers, T=50,
                                  bidirectional=bidirectional, seed=seed)
     return (Model(module, variables),
@@ -145,12 +149,23 @@ def test_streaming_reset_reuse_and_block_shapes():
 
 # -- ds2_serving_tiers -----------------------------------------------------------
 
+_TIER_PAIRS = {}
+
+
 def _tier_pairs(param_kw, layers=2):
-    jmodel, model = _models(layers, "pallas", bidirectional=True, seed=2)
-    ref = jax_pipe.ds2_serving_tiers(jmodel, jax_pipe.DS2Param(**param_kw))
-    got = pipe.ds2_serving_tiers(model, pipe.DS2Param(**param_kw),
-                                 device="cpu")
-    return jmodel, model, ref, got
+    """Both packages' ladders for ``param_kw``, built once a module for
+    each (a runtime only calls a rung's forward, so the cases of one
+    ladder share its rungs and the reference's compiled programs)."""
+    key = (tuple(sorted(param_kw.items())), layers)
+    if key not in _TIER_PAIRS:
+        jmodel, model = _models(layers, "pallas", bidirectional=True,
+                                seed=2)
+        ref = jax_pipe.ds2_serving_tiers(jmodel,
+                                         jax_pipe.DS2Param(**param_kw))
+        got = pipe.ds2_serving_tiers(model, pipe.DS2Param(**param_kw),
+                                     device="cpu")
+        _TIER_PAIRS[key] = (jmodel, model, ref, got)
+    return _TIER_PAIRS[key]
 
 
 @pytest.mark.parametrize("param_kw", [
@@ -205,6 +220,15 @@ def _serve(pkg, tiers, feats, service_time, tier=None, **kw):
     return rt
 
 
+@functools.lru_cache(maxsize=None)
+def _served_utterances(seed, n):
+    """``_utterances(seed, n)`` and the reference's masked log-probs of
+    them on ``_tier_pairs``' model, once a module."""
+    feats = _utterances(seed, n)
+    jmodel = _models(2, "pallas", bidirectional=True, seed=2)[0]
+    return feats, _masked_reference(jmodel, feats)
+
+
 def _masked_reference(jmodel, feats):
     """The reference model's valid log-probs of each utterance, forwarded
     with its ``n_frames`` (padded to the last edge: one program)."""
@@ -226,7 +250,7 @@ def _masked_reference(jmodel, feats):
 ], ids=["greedy", "beam8_forced", "beam2_forced", "beam8_ladder"])
 def test_serving_tiers_through_both_runtimes(param_kw, tier):
     jmodel, model, ref_tiers, tiers = _tier_pairs(param_kw)
-    feats = _utterances(7, 14)
+    feats, masked = _served_utterances(7, 14)
     # service time by edge and tier: the ladder steps down under the
     # load of the un-forced case
     st = (lambda e, n, t: (0.2 if t == 0 else 0.05) * e / 120.0)
@@ -247,8 +271,7 @@ def test_serving_tiers_through_both_runtimes(param_kw, tier):
         assert got.accounting()["by_state"].get("timeout")
     decoders = [t.name for t in tiers]
     n_done = 0
-    for f, lp, g, r in zip(feats, _masked_reference(jmodel, feats),
-                           got.requests, ref.requests):
+    for f, lp, g, r in zip(feats, masked, got.requests, ref.requests):
         if g.state != "done":
             continue
         n_done += 1

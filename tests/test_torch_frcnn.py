@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_dist_scenarios as sc
 import analytics_zoo_tpu.serving as jserving
 from analytics_zoo_tpu.data import records as jax_records
 from analytics_zoo_tpu.models import faster_rcnn as jax_frcnn
@@ -327,8 +328,8 @@ def nets():
     and two images with different ``im_info``."""
     jdet = jax_frcnn.FasterRcnnDetector(param=_params(jax_frcnn))
     params = _seeded_params(jdet)
-    tdet = faster_rcnn.FasterRcnnDetector(_params(faster_rcnn), device="cpu",
-                                          seed=3)
+    tdet = sc.unfilled(faster_rcnn.FasterRcnnDetector, _params(faster_rcnn),
+                       seed=3)
     tdet.load_state_dict(frcnn_params_from_jax(params, tdet))
     rng = np.random.RandomState(1)
     x = (rng.rand(2, SIZE, SIZE, 3) * 255 - 120).astype(np.float32)

@@ -36,6 +36,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import torch_dist_scenarios as sc
 from analytics_zoo_tpu.models import faster_rcnn as jax_frcnn
 from analytics_zoo_tpu.ops import frcnn_train as jft
 from analytics_zoo_tpu_torch.core import layers
@@ -280,10 +281,8 @@ def net():
         return v.astype(np.float32)
 
     params = jax.tree_util.tree_map_with_path(fill, shapes["params"])
-    tnet = faster_rcnn.FasterRcnnVgg(
-        faster_rcnn.FrcnnParam(num_classes=CLASSES,
-                               proposal=ProposalParam(64, 16)),
-        device="cpu", seed=1)
+    tnet = sc.unfilled(faster_rcnn.FasterRcnnVgg, faster_rcnn.FrcnnParam(
+        num_classes=CLASSES, proposal=ProposalParam(64, 16)), seed=1)
     tnet.load_state_dict(frcnn_params_from_jax(params, tnet))
     x = (rng.rand(B, SIZE, SIZE, 3) * 255 - 120).astype(np.float32)
     batch = _gt_batch(rng, span=80.0)
@@ -391,7 +390,7 @@ def test_dropout_rate_scale_and_seeded_repeat(net):
         "target": {k: v[:1] for k, v in batch["target"].items()}}))
     twins = []
     for _ in range(2):
-        m = faster_rcnn.FasterRcnnVgg(tnet.param, device="cpu", seed=5)
+        m = sc.unfilled(faster_rcnn.FasterRcnnVgg, tnet.param, seed=5)
         m.load_state_dict(tnet.state_dict())
         twins.append(m)
 

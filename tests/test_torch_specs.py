@@ -170,8 +170,8 @@ def _serve_models():
                    for n in (2, 1)])
     jdet = jax_frcnn.FasterRcnnDetector(param=frcnn_params(jax_frcnn))
     params = frcnn_seeded(jdet)
-    det = faster_rcnn.FasterRcnnDetector(frcnn_params(faster_rcnn),
-                                         device="cpu")
+    det = sc.unfilled(faster_rcnn.FasterRcnnDetector,
+                      frcnn_params(faster_rcnn))
     det.load_state_dict(convert.frcnn_params_from_jax(params, det))
     out["frcnn"] = ((jdet, {"params": params}), det,
                     [{"input": images(128, n, [102, 115, 122])}

@@ -70,6 +70,16 @@ def _ssd_weights():
                                             seed=2).state_dict().items()}
 
 
+def _ds2_batch(B=4, T=32, seed=5):
+    """A DS2 batch of the program audit's sizes (hidden 16, T 32)."""
+    rng = np.random.RandomState(seed)
+    n = np.full((B,), T, np.int32)
+    return {"input": (rng.randn(B, T, 13).astype(np.float32), n),
+            "n_frames": n,
+            "labels": rng.randint(1, 29, (B, 4)).astype(np.int32),
+            "label_mask": np.ones((B, 4), np.float32)}
+
+
 @pytest.fixture(scope="module")
 def ranks():
     w = _bridged(_jax_mlp())
@@ -81,6 +91,7 @@ def ranks():
                 ("tp", (2, 2), ("data", "model"), "default"),
                 ("megatron", (2, 2), ("data", "model"), "megatron"))}
     runs["word_or"] = ("health_word_over_ranks", {})
+    runs["analyze"] = ("analyze_programs", dict(batch=_ds2_batch()))
     runs["ssd"] = ("ssd_megatron_forward", dict(
         weights=_ssd_weights(), x=x, shape=(2, 2), axes=("data", "model"),
         resolution=300))
@@ -188,6 +199,36 @@ def test_health_word_is_or_over_ranks(ranks):
     finiteness is its rank's own): each of the 4 ranks ends with them
     all."""
     assert [r["word_or"] for r in ranks] == [0b1111 | (1 << 29)] * 4
+
+
+class TestAnalyzeOverRanks:
+    """The program engine's collective inventory on real ranks
+    (``analytics_zoo_tpu_torch/analysis/program.py``): a tensor-parallel
+    DS2 step on a (2, 2) ("data", "model") mesh is clean against its own
+    ``SpecSet`` and fires against one declared over a data-only mesh;
+    the fraud rungs of each rank's width-2 slice run clean."""
+
+    def test_collective_inventory_clean_on_the_declared_mesh(self, ranks):
+        for r in ranks:
+            assert r["analyze"]["tp"] == []
+
+    def test_collective_inventory_fires_on_a_misdeclared_specset(self,
+                                                                 ranks):
+        for r in ranks:
+            got = r["analyze"]["tp_data_only"]
+            assert {rule for rule, _, _ in got} == {"collective-inventory"}
+            assert not any(waived for _, waived, _ in got)
+            assert all("declares mesh axes ['data']" in m for _, _, m in got)
+            # the model axis's group and the data axis's of the 2-D mesh
+            assert len(got) == 2
+
+    def test_fraud_slice_w2_rungs_audit_clean(self, ranks):
+        for r in ranks:
+            names = r["analyze"]["slice_names"]
+            assert names == ["fraud-slice-w2/serve:fp",
+                             "fraud-slice-w2/serve:int8"]
+            for name in names:
+                assert r["analyze"][name] == [], name
 
 
 class TestShardTree:

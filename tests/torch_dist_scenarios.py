@@ -14,6 +14,7 @@ resolution in the test process, which starts no process group).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 from typing import Dict
 
@@ -40,6 +41,16 @@ class StubMesh:
 
     def get_group(self, name):
         return None
+
+
+def unfilled(cls, *args, **kwargs):
+    """``cls(*args, **kwargs)`` on the CPU with its weights not drawn:
+    built on the meta device and given empty storage, for a model whose
+    weights the caller loads next (a Faster-RCNN's seeded draw of its
+    137M parameters takes seconds and would be overwritten)."""
+    with torch.device("meta"):
+        module = cls(*args, **{**kwargs, "device": "meta"})
+    return module.to_empty(device="cpu")
 
 
 def spawn_async(world, scenarios, timeout=240):
@@ -263,6 +274,48 @@ def mlp_train(weights, data, shape, axes, rules, epochs=3):
             "losses": [float(m["loss"]) for m in opt.history],
             "sharded": tensor_lib.sharded_param_count(model),
             "weights": opt.specs.gather(model)}
+
+
+def analyze_programs(batch):
+    """The program engine over ranks: a tensor-parallel DS2 step on a
+    ("data", "model") mesh of (2, 2) audited against its own ``SpecSet``
+    and then, run again, against one declared over a data-only mesh, and
+    the fraud tiers of this rank's width-2 replica slice (the
+    ``fraud-slice-w2`` targets).  ``{target: [(rule, waived, message)]}``
+    and the slice targets' names."""
+    from analytics_zoo_tpu_torch.analysis import targets
+    from analytics_zoo_tpu_torch.analysis.program import (AuditProgram,
+                                                          audit_program)
+    from analytics_zoo_tpu_torch.parallel import Adam, pipeline_specs
+    from analytics_zoo_tpu_torch.parallel import tensor as tensor_lib
+    from analytics_zoo_tpu_torch.parallel.specs import SpecSet
+    from analytics_zoo_tpu_torch.pipelines.deepspeech2 import (
+        ds2_ctc_criterion)
+
+    tp_mesh = _mesh((2, 2), ("data", "model"))
+    data_only = SpecSet(_mesh((-1,), ("data",)))
+
+    specs = pipeline_specs("ds2", mesh=tp_mesh,
+                           param_rules=tensor_lib.default_tp_rules())
+    built = targets._train(targets._ds2_model("cpu"), ds2_ctc_criterion(),
+                           Adam(1e-3),
+                           {k: (tuple(torch.from_numpy(x) for x in v)
+                                if isinstance(v, tuple)
+                                else torch.from_numpy(v))
+                            for k, v in batch.items()}, specs)
+
+    def audit(name, build):
+        return [(v.rule, v.waived, v.message)
+                for v in audit_program(AuditProgram(name, build))]
+
+    out = {"tp": audit("ds2-tp/train", lambda: built),
+           "tp_data_only": audit("ds2-tp/train", lambda: dataclasses.replace(
+               built, specs=data_only))}
+    slice_targets = targets._fraud_slice_serving(data_only.mesh, "cpu")
+    out["slice_names"] = [t.name for t in slice_targets]
+    for t in slice_targets:
+        out[t.name] = audit(t.name, t.build)
+    return out
 
 
 def health_word_over_ranks():
