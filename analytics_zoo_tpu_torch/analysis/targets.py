@@ -45,6 +45,15 @@ KERNEL_TARGETS = {
 }
 
 
+#: the programs the card's sync gate holds at zero debug-mode syncs: those
+#: where the sync debug mode found host syncs the reference's programs do
+#: not have (ROADMAP Queue 3, F6), with ``ssd/validate``, the validation
+#: metric's detection over the eval step's logits (K2 on the card)
+SYNC_TARGETS = ("ssd/train", "ssd/eval", "ssd/validate", "rec/train",
+                "rec-wd/train", "sentiment/train", "frcnn/train",
+                "frcnn/serve:int8")
+
+
 def expected_kernels(name: str) -> Sequence[str]:
     """The kernel ops target ``name`` must record (none for most)."""
     for prefix, kernels in KERNEL_TARGETS.items():
@@ -324,6 +333,28 @@ def _ssd(mesh, dev) -> List[AuditProgram]:
 
     return [AuditProgram("ssd/train", build_train),
             AuditProgram("ssd/eval", build_eval)]
+
+
+def _ssd_validate(mesh, dev) -> AuditProgram:
+    """The eval step and ``SSDMeanAveragePrecision.detect`` on its
+    logits, as the ``Optimizer``'s validation runs them a batch (not in
+    the reference's suite: its metric's priors are a program constant)."""
+    def build() -> BuiltProgram:
+        from analytics_zoo_tpu_torch.parallel import pipeline_specs
+        from analytics_zoo_tpu_torch.parallel.train import make_eval_step
+        from analytics_zoo_tpu_torch.pipelines.ssd import (
+            SSDMeanAveragePrecision)
+
+        specs = pipeline_specs("ssd", mesh=mesh)
+        module = _ssd_model(dev)
+        specs.place_state(module)
+        step = make_eval_step(module, specs=specs)
+        metric = SSDMeanAveragePrecision(n_classes=SSD_NCLS,
+                                         resolution=SSD_RES)
+        x = _uniform((specs.data_axis_size, SSD_RES, SSD_RES, 3), dev, 17)
+        return BuiltProgram(fn=lambda inputs: metric.detect(step(inputs)),
+                            args=(x,), specs=specs)
+    return AuditProgram("ssd/validate", build)
 
 
 FRCNN_RES, FRCNN_NCLS, FRCNN_G = 128, 4, 8
@@ -620,3 +651,23 @@ def kernel_audit_suite(mesh=None, device=None) -> List[AuditProgram]:
     return (_guarded_tiers("ssd", _ssd_serving, mesh, dev)
             + _guarded_tiers("ds2", _ds2_serving, mesh, dev)
             + [t for t in _ds2(mesh, dev) if expected_kernels(t.name)])
+
+
+def sync_audit_suite(mesh=None, device=None,
+                     names: Sequence[str] = SYNC_TARGETS
+                     ) -> List[AuditProgram]:
+    """The targets of :data:`SYNC_TARGETS` (those among ``names``), at
+    the suite's sizes."""
+    from analytics_zoo_tpu_torch.parallel import mesh as mesh_lib
+    from analytics_zoo_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    mesh = mesh or mesh_lib.create_mesh()
+    shared: dict = {}
+    targets = (_ssd(mesh, dev) + [_ssd_validate(mesh, dev)]
+               + _rec(mesh, dev) + _sentiment(mesh, dev)
+               + _frcnn(mesh, dev, shared))
+    if any(n.startswith("frcnn/serve:") for n in names):
+        targets += _guarded_tiers("frcnn", _frcnn_serving, mesh, dev,
+                                  shared=shared)
+    return [t for t in targets if t.name in names]

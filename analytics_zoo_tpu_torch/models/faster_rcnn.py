@@ -49,7 +49,7 @@ from analytics_zoo_tpu_torch.ops.frcnn import (FrcnnPostParam,
                                                frcnn_postprocess)
 from analytics_zoo_tpu_torch.ops.proposal import ProposalParam, proposal
 from analytics_zoo_tpu_torch.ops.roi_pool import roi_pool_batch
-from analytics_zoo_tpu_torch.utils.device import resolve_device
+from analytics_zoo_tpu_torch.utils.device import host_constant, resolve_device
 
 # (name, in, out) of the 3x3 pad-1 convs, a 2x2 max pool after each stage
 _STAGES = (
@@ -141,14 +141,17 @@ class FasterRcnnVgg(nn.Module):
 
     def anchors(self, h: int, w: int, device) -> torch.Tensor:
         """The (h·w·A, 4) anchors of an h × w feature map, on
-        ``device`` (a host constant, copied once a shape)."""
+        ``device`` (a host constant, copied once a shape, no host
+        sync)."""
         key = (h, w, str(device))
         if key not in self._anchors:
             p = self.param
-            self._anchors[key] = torch.as_tensor(shift_anchors(
+            # a constant of the reference's program
+            # (models/faster_rcnn.py:135), copied without a host sync
+            self._anchors[key] = host_constant(shift_anchors(
                 generate_base_anchors(ratios=p.anchor_ratios,
                                       scales=p.anchor_scales),
-                h, w, p.feat_stride), device=device)
+                h, w, p.feat_stride), device)
         return self._anchors[key]
 
     def _rpn(self, feat: torch.Tensor):

@@ -11,8 +11,10 @@ lookups compute the same function (``LOOKUP_MODES``):
   the inverse map, sums each unique id's segment in order
   (``torch.segment_reduce``, so a seeded step repeats bit for bit on the
   card, where an ``index_add_`` over duplicated indices would add in a
-  varying order), and lands the per-unique rows in the table's gradient
-  with one ``index_add_`` over unique ids;
+  varying order; ``unsafe=True`` skips its checks of the lengths, which
+  read them on the host, so the backward runs without a host sync), and
+  lands the per-unique rows in the table's gradient with one
+  ``index_add_`` over unique ids;
 * ``"naive"`` — one row fetch per batch position (autograd's own
   scatter-add backward);
 * ``"onehot"`` — the reference semantics ``one_hot(ids) @ table``, the
@@ -101,12 +103,16 @@ def _unique(flat: torch.Tensor, size: int):
 def _segment_rows(g: torch.Tensor, inv: torch.Tensor,
                   size: int) -> torch.Tensor:
     """The flattened cotangent's rows summed per unique id, in sorted
-    order: ``(size, dim)``, zero past the valid ids."""
+    order: ``(size, dim)``, zero past the valid ids.  The lengths are
+    valid by construction (non-negative, summing to the rows), so
+    ``segment_reduce`` is told not to check them: the check reads them on
+    the host (the reference's segment sum runs inside its program)."""
     gf = g.reshape(-1, g.shape[-1])
     order = torch.argsort(inv, stable=True)
     lengths = torch.zeros(size, dtype=torch.int64, device=inv.device
                           ).index_add_(0, inv, torch.ones_like(inv))
-    return torch.segment_reduce(gf[order], "sum", lengths=lengths, axis=0)
+    return torch.segment_reduce(gf[order], "sum", lengths=lengths, axis=0,
+                                unsafe=True)
 
 
 def naive_lookup(table: torch.Tensor, ids) -> torch.Tensor:

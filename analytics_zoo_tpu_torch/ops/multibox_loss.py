@@ -39,6 +39,7 @@ from torch.profiler import record_function
 
 from analytics_zoo_tpu_torch.core.criterion import Criterion, smooth_l1
 from analytics_zoo_tpu_torch.ops.bbox import encode_bbox, iou_matrix
+from analytics_zoo_tpu_torch.utils.device import host_constant
 from analytics_zoo_tpu_torch.utils.spmd import global_count, global_width
 
 MINING = ("sort", "topk")
@@ -150,8 +151,8 @@ class MultiBoxLoss(Criterion):
     ``(loc (B,P,4), conf (B,P,C))``, target ``{"bboxes": (B,G,4),
     "labels": (B,G), "mask": (B,G)}`` (the padded form of the reference's
     ragged gt rows).  The priors move to the output's device on first
-    use there.  The call is the ``torch.profiler`` range
-    ``multibox_loss``."""
+    use there, once, without a host sync (``host_constant``).  The call
+    is the ``torch.profiler`` range ``multibox_loss``."""
 
     def __init__(self, priors, variances,
                  param: MultiBoxLossParam = MultiBoxLossParam()):
@@ -164,8 +165,8 @@ class MultiBoxLoss(Criterion):
 
     def _geometry(self, device: torch.device):
         if device not in self._on:
-            self._on[device] = (self.priors.to(device),
-                                self.variances.to(device))
+            self._on[device] = (host_constant(self.priors, device),
+                                host_constant(self.variances, device))
         return self._on[device]
 
     @record_function("multibox_loss")

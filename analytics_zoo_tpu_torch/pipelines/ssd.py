@@ -63,7 +63,7 @@ from analytics_zoo_tpu_torch.transform.vision import (BytesToMat,
                                                       RandomSampler, Resize,
                                                       RoiExpand, RoiHFlip,
                                                       RoiLabel, RoiNormalize)
-from analytics_zoo_tpu_torch.utils.device import resolve_device
+from analytics_zoo_tpu_torch.utils.device import host_constant, resolve_device
 
 logger = logging.getLogger("analytics_zoo_tpu_torch")
 
@@ -534,7 +534,8 @@ class SSDMeanAveragePrecision(ValidationMethod):
     ``(loc, conf)`` logits of ``SSDVgg``: :meth:`detect` (softmax, then
     ``detection_output`` on the logits' device: with the default
     ``backend="auto"`` kernel K2 on the card), then VOC (or COCO) mAP on
-    the host."""
+    the host.  The priors go to a device once, the first time a batch's
+    logits arrive there, without a host sync (``host_constant``)."""
 
     def __init__(self, n_classes: int = 21, resolution: int = 300,
                  post: Optional[DetectionOutputParam] = None,
@@ -550,6 +551,7 @@ class SSDMeanAveragePrecision(ValidationMethod):
         priors, variances = build_priors(config_for(resolution))
         self._priors = torch.as_tensor(priors)
         self._variances = torch.as_tensor(variances)
+        self._on: Dict[torch.device, tuple] = {}
         self.name = self.inner.name
 
     def detect(self, output) -> torch.Tensor:
@@ -557,9 +559,11 @@ class SSDMeanAveragePrecision(ValidationMethod):
         detections, on the logits' device."""
         loc, conf = output
         dev = loc.device
+        if dev not in self._on:
+            self._on[dev] = (host_constant(self._priors, dev),
+                             host_constant(self._variances, dev))
         probs = torch.softmax(conf, dim=-1)
-        return detection_output(loc, probs, self._priors.to(dev),
-                                self._variances.to(dev), self.post)
+        return detection_output(loc, probs, *self._on[dev], self.post)
 
     def __call__(self, output, batch) -> "DetectionResult | MultiIoUResult":
         return self.inner(self.detect(output).cpu().numpy(), batch)

@@ -1,15 +1,15 @@
 """Detection visualization (counterpart of ``pipelines/visualizer.py``;
 reference ``common/dataset/roiimage/Visualizer.scala:31,85``): draw
 class and score boxes on images with cv2, and a text dump of detections.
-Host only; it imports cv2, so nothing on the card's path imports it (the
-``pipelines`` package does not)."""
+Host only.  Only :func:`vis_detection` needs cv2, and imports it when
+called (the card's machine may lack it): the text dump imports without
+it."""
 
 from __future__ import annotations
 
 import os
 from typing import Optional, Sequence
 
-import cv2
 import numpy as np
 
 from analytics_zoo_tpu_torch.pipelines.voc import VOC_CLASSES
@@ -25,7 +25,10 @@ def vis_detection(image: np.ndarray, detections: np.ndarray,
                   conf_thresh: float = 0.3,
                   out_path: Optional[str] = None) -> np.ndarray:
     """Draw (K, 6) detections (cls, score, x1, y1, x2, y2 in pixels) on a
-    BGR image; optionally save (reference ``visDetection``)."""
+    BGR image; optionally save (reference ``visDetection``).  Raises
+    ``ImportError`` where cv2 is not installed."""
+    import cv2
+
     canvas = np.ascontiguousarray(image.astype(np.uint8))
     for row in np.asarray(detections):
         cls, score = int(row[0]), float(row[1])

@@ -25,3 +25,16 @@ def tensor_device(x, device=None) -> torch.device:
     if isinstance(x, torch.Tensor):
         return x.device
     return resolve_device(None)
+
+
+def host_constant(array, device) -> torch.Tensor:
+    """A host constant (a model's priors, its anchors) as a tensor on
+    ``device``, with no host sync: on the card it is copied from pinned
+    memory without blocking, where a copy from pageable memory would
+    synchronize the program that first asks for it.  The reference's
+    constants are embedded in its jitted programs."""
+    t = torch.as_tensor(array)
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)

@@ -474,6 +474,17 @@ Phases, one JSON line each; any failure exits non-zero:
    p50/p99 against it; the launches by rank; the sharded calls'
    guarded gather against a gather per output on the same rows
    (``guarded_gather_ms``);
+6v. accuracy: ``examples/train_shapes_e2e`` at the reference's defaults
+   (SSD300 from scratch on 800 rendered-shapes records, validation
+   through K2 every epoch, an end at mAP 0.9 or epoch 30),
+   then ``tools/eval_quantized_ssd`` on its weights (fp, int8 weight-only,
+   int8 × int8, bf16 through K2; fp_approx_topk and ``--backend pallas``
+   through K1): the final mAP above ``ACCURACY_MIN_MAP``, the K1 and K2
+   rungs within ``ACCURACY_K1_K2_TOL``, the deltas reported, K1 and K2
+   held to their plain versions and timed on the trained detections;
+6u. analyze: the source rules, the kernel-bearing programs with the sync
+   debug mode armed, and the sync gate (``SYNC_TARGETS``: 0 debug-mode
+   syncs; a seeded ``rec/train`` step twice bit-equal);
 7. the ``kernels`` line, then the device line last.
 
 Exits non-zero, printing no result, when no CUDA device is present or
@@ -8006,9 +8017,169 @@ def dist_slice_phase(dev, smi, seed=73):
 
 
 # ---------------------------------------------------------------------------
+# 6v. accuracy: SSD300 trained from scratch on the rendered shapes through
+# the port's entry points, then the quantized-mAP tool on its weights
+# ---------------------------------------------------------------------------
+
+#: the reference's bar on the final VOC07 mAP (examples/train_shapes_e2e.py)
+ACCURACY_MIN_MAP = 0.5
+#: K1's and K2's rungs: both hold their keep masks equal to their plain
+#: versions, so their mAPs agree
+ACCURACY_K1_K2_TOL = 1e-6
+
+
+def accuracy_phase(dev, smi, kernel_ms=None):
+    """accuracy: ``examples/train_shapes_e2e.run`` at the reference's
+    defaults (800 + 200 shapes records, ``SSDVgg(4, 300)``, bf16 Adam 3e-4,
+    device augmentation, validation through K2 and a snapshot every epoch,
+    an end at mAP 0.9 or epoch 30), then
+    ``tools/eval_quantized_ssd.run`` on the weights it saved: ``--approx``
+    on the fused backend (the rungs fp, int8_weight_only, int8_compute
+    and bf16 through K2, fp_approx_topk through K1) and again with
+    ``--backend pallas`` (every rung through K1).  Fails where the final
+    mAP is not above ``ACCURACY_MIN_MAP``, where the fp rungs of K1 and
+    K2 differ by more than ``ACCURACY_K1_K2_TOL`` or where a rung raises;
+    the int8 and bf16 deltas are reported.  K1 and K2 are then held to
+    their plain versions (K1's keep mask equal, K2's rows by ``rows_err``)
+    and timed on the trained model's detections of 8 validation images,
+    printed beside ``kernel_ms``, this run's K1/K2 ms on SSD300's random and
+    trained-like scores.  Returns the phase's launches."""
+    import tempfile
+
+    import torch
+
+    from analytics_zoo_tpu_torch.examples import train_shapes_e2e
+    from analytics_zoo_tpu_torch.models.ssd import build_priors, config_for
+    from analytics_zoo_tpu_torch.ops import pallas_detout, pallas_nms
+    from analytics_zoo_tpu_torch.ops.detection_output import (
+        DetectionOutputParam, sweep_candidates)
+    from analytics_zoo_tpu_torch.pipelines import (PreProcessParam,
+                                                   load_val_set)
+    from analytics_zoo_tpu_torch.tools import eval_quantized_ssd as tool
+
+    t0 = time.perf_counter()
+    zero_kernel_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        params = os.path.join(tmp, "ssd_shapes.pt")
+        argv = ["--params-out", params, "--device", str(dev)]
+        args = train_shapes_e2e.build_parser().parse_args(argv)
+        report, details = train_shapes_e2e.run(args, tmp)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = launch_counts()
+        model = details["model"]
+        runs = {}
+        for backend in ("fused", "pallas"):
+            targv = ["--params", params, "--backend", backend, "--device",
+                     str(dev), "--out", os.path.join(tmp, f"{backend}.json")]
+            if backend == "fused":
+                targv.append("--approx")
+            runs[backend] = tool.run(tool.build_parser().parse_args(targv))
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        phase_s = time.perf_counter() - t0
+
+        # K1 and K2 on the trained model's detections of 8 val images
+        n = len(details["ap_per_class"]) + 1
+        pre = PreProcessParam(batch_size=BATCH, resolution=300, max_gt=8)
+        batch = next(iter(load_val_set(os.path.join(tmp, "val-*.azr"), pre,
+                                       device=dev)))
+        x = torch.as_tensor(batch["input"], device=dev)
+        with torch.inference_mode():
+            loc, conf = model.module(x)
+            probs = torch.softmax(conf, -1)
+        priors, variances = build_priors(config_for(300))
+        pri = torch.as_tensor(priors, device=dev)
+        var = torch.as_tensor(variances, device=dev)
+        post = DetectionOutputParam(n_classes=n)
+        dets = pallas_detout.fused_detection_output(loc, probs, pri, var,
+                                                    param=post)
+        torch.cuda.synchronize()
+        k2_err = rows_err(dets, pallas_detout.fused_detection_output_plain(
+            loc, probs, pri, var, post))
+        k2_ms = cuda_ms(lambda: pallas_detout.fused_detection_output(
+            loc, probs, pri, var, param=post), 20)
+        k2_bound, k2_by = bound(*detout_work(loc, probs, pri, var, post))
+        boxes, top, valid, _ = sweep_candidates(loc, probs, pri, var, post)
+        B, Cf, k = top.shape
+        planes = [boxes[..., i].reshape(B * Cf, k).contiguous()
+                  for i in range(4)] + [valid.reshape(B * Cf, k)]
+        keep = pallas_nms.nms_sweep(*planes)
+        torch.cuda.synchronize()
+        k1_err = (keep.float() - pallas_nms.nms_sweep_plain(*planes).float()
+                  ).abs().max().item()
+        if k1_err != 0:
+            raise AssertionError(f"accuracy: K1's keep mask differs from its "
+                                 f"plain version on the trained detections "
+                                 f"({k1_err})")
+        k1_ms = cuda_ms(lambda: pallas_nms.nms_sweep(*planes), 50)
+        k1_bound, k1_by = bound(6 * planes[0].numel() * 4,
+                                sweep_ops(keep, planes[4]))
+        kept = int(keep.sum().item())
+
+    (fused, fused_maps), (pallas, pallas_maps) = runs["fused"], runs["pallas"]
+    k1_k2 = {"fp_fused_vs_pallas": abs(fused_maps["fp"] - pallas_maps["fp"]),
+             "fp_fused_vs_approx_topk": abs(fused_maps["fp"]
+                                            - fused_maps["fp_approx_topk"])}
+    print(json.dumps({"accuracy": {
+        "epochs": details["epochs"], "epochs_max": args.epochs,
+        "final_map": details["final_map"],
+        "ap_per_class": details["ap_per_class"],
+        "val_map_by_epoch": [h.get("MeanAveragePrecision")
+                             for h in details["val_history"]],
+        "report": report,
+        "rungs": {"fused": fused_maps, "pallas": pallas_maps},
+        "deltas": {k: v for k, v in fused.items()
+                   if k.startswith("delta_")},
+        "deltas_pallas": {k: v for k, v in pallas.items()
+                          if k.startswith("delta_")},
+        "k1_vs_k2_map": k1_k2,
+        "launches": {"train": train_launches, "phase": launches},
+        "trained_detections": {
+            "batch": int(B), "rows": int(B * Cf), "candidates": int(k),
+            "k1_kept": kept, "k1_max_abs_err": k1_err,
+            "k2_max_abs_err": k2_err, "k1_ms": k1_ms, "k1_bound_ms": k1_bound,
+            "k1_bound_by": k1_by, "k2_ms": k2_ms, "k2_bound_ms": k2_bound,
+            "k2_bound_by": k2_by},
+        "ssd300_scores_ms": kernel_ms or {},
+        "train_s": train_s, "phase_s": phase_s,
+        "nvidia_smi": smi}}), flush=True)
+    if not details["final_map"] > ACCURACY_MIN_MAP:
+        raise AssertionError(f"accuracy: final mAP {details['final_map']} "
+                             f"not above {ACCURACY_MIN_MAP}")
+    if max(k1_k2.values()) > ACCURACY_K1_K2_TOL:
+        raise AssertionError(f"accuracy: K1 and K2 rungs differ {k1_k2} "
+                             f"(tol {ACCURACY_K1_K2_TOL})")
+    if not (launches["nms_sweep"] and launches["fused_detection_output"]):
+        raise AssertionError(f"accuracy: launches {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # 6u. az-analyze on the card: the source rules, and the program audit of
 # the kernel-bearing targets with the sync debug mode armed
 # ---------------------------------------------------------------------------
+
+
+def rec_step_repeats(dev) -> bool:
+    """A seeded ``rec/train`` step (the dedup lookups' segment-sum
+    backward) built and run twice: its parameters, buffers and Adam
+    slots after the step bit-equal."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from analytics_zoo_tpu_torch.analysis.targets import sync_audit_suite
+
+    runs = []
+    for _ in range(2):
+        built = sync_audit_suite(device=dev, names=("rec/train",)
+                                 )[0].build()
+        built.fn(*built.args)
+        torch.cuda.synchronize()
+        runs.append([t.detach().cpu() for t in pytree.tree_leaves(
+            built.donate_state()) if isinstance(t, torch.Tensor)])
+    return len(runs[0]) == len(runs[1]) and all(
+        torch.equal(a, b) for a, b in zip(*runs))
 
 
 def analyze_phase(dev, smi, dist_tp):
@@ -8019,7 +8190,14 @@ def analyze_phase(dev, smi, dist_tp):
     K3 in ``ds2/serve:*``, K3 and K4 in ``ds2-pallas/train``), and no
     violation may stand un-waived.  ``dist_tp``'s ranks audited the
     collective inventory of their tensor-parallel DS2 step: clean against
-    its own ``SpecSet``, firing against a data-only one.  Returns the
+    its own ``SpecSet``, firing against a data-only one.
+
+    The sync gate (ROADMAP F6): ``sync_audit_suite``'s programs
+    (``SYNC_TARGETS``: SSD's train, eval and validation, the rec,
+    Wide&Deep and sentiment train steps, Faster-RCNN's train step and
+    int8 rung) are audited the same way and must show 0 debug-mode
+    syncs; a seeded ``rec/train`` step run twice leaves bit-equal
+    parameters and Adam slots (its segment sums in order).  Returns the
     phase's kernel launches."""
     import torch
 
@@ -8027,8 +8205,10 @@ def analyze_phase(dev, smi, dist_tp):
                                                   run_source_engine)
     from analytics_zoo_tpu_torch.analysis.program import run_program_engine
     from analytics_zoo_tpu_torch.analysis.targets import (KERNEL_TARGETS,
+                                                          SYNC_TARGETS,
                                                           expected_kernels,
-                                                          kernel_audit_suite)
+                                                          kernel_audit_suite,
+                                                          sync_audit_suite)
 
     t0 = time.perf_counter()
     source = run_source_engine()
@@ -8036,8 +8216,12 @@ def analyze_phase(dev, smi, dist_tp):
     zero_kernel_counters()
     results = {}
     program = run_program_engine(kernel_audit_suite(device=dev), results)
+    sync_results = {}
+    program += run_program_engine(sync_audit_suite(device=dev),
+                                  sync_results)
     torch.cuda.synchronize()
     launches = launch_counts()
+    rec_repeat = rec_step_repeats(dev)
     violations = source + program
     unwaived = [format_violation(v) for v in violations if not v.waived]
     missing = {name: sorted(set(expected_kernels(name)) - set(r.kernels))
@@ -8055,6 +8239,8 @@ def analyze_phase(dev, smi, dist_tp):
                                   if v.waived]},
         "kernels": {n: r.kernels for n, r in results.items()},
         "sync_debug": {n: r.debug_syncs for n, r in results.items()},
+        "sync_targets": {n: r.debug_syncs for n, r in sync_results.items()},
+        "rec_train_repeat_bit_equal": rec_repeat,
         "launches": launches,
         "dist_tp_collectives": {"declared": tp_declared,
                                 "data_only_rules": tp_fired},
@@ -8063,6 +8249,13 @@ def analyze_phase(dev, smi, dist_tp):
     if unwaived or missing or absent:
         raise AssertionError(f"analyze: un-waived {unwaived}, kernels "
                              f"missing {missing}, targets absent {absent}")
+    synced = {n: r.debug_syncs for n, r in sync_results.items()
+              if r.debug_syncs}
+    if synced or sorted(sync_results) != sorted(SYNC_TARGETS):
+        raise AssertionError(f"analyze: debug-mode syncs {synced} in the "
+                             f"sync gate's targets {sorted(sync_results)}")
+    if not rec_repeat:
+        raise AssertionError("analyze: two seeded rec/train steps differ")
     if tp_declared or tp_fired != [["collective-inventory"]] * len(tp):
         raise AssertionError(f"analyze: dist_tp's collective inventory "
                              f"{tp_declared} on the declared mesh, rules "
@@ -8769,6 +8962,13 @@ def main() -> int:
          dist_slice_phase_s=time.perf_counter() - t0 - fleet_s - sdc_s)
     fleet_paths = {"fleet_chaos": fleet_chaos, "dist_sdc": dist_sdc,
                    "dist_slice": dist_slice}
+
+    # -- 6v. SSD300 trained on the shapes to its mAP, the quantized-mAP
+    # tool on its weights (K2 in validation and the fused rungs, K1 in
+    # the pallas rungs) ------------------------------------------------
+    fleet_paths["accuracy"] = accuracy_phase(dev, smi, {
+        "k1_random_ms": k1_ms, "k1_trained_like_ms": k1_trained_ms,
+        "k2_dense_ms": k2_ms, "k2_trained_like_ms": k2_trained_ms})
 
     # -- 6u. az-analyze on the card (K1-K4 in their targets' programs) ---
     analyze = analyze_phase(dev, smi, dist_tp)

@@ -85,10 +85,16 @@ def _assert_targets_equal(got, want):
                                rtol=1e-6, atol=1e-6)
 
 
+# the reference's target samplers as one compiled program each, as its
+# jitted train step runs them (op by op they compile each op apart)
+_jit_rpn_targets = jax.jit(jft.rpn_targets, static_argnums=(6,))
+_jit_head_targets = jax.jit(jft.head_targets, static_argnums=(6,))
+
+
 def _rpn_both(anchors, gt, gt_mask, h, w, fg, p=tft.FrcnnLossParam()):
     jp = jft.FrcnnLossParam(**p.__dict__)
-    want = jft.rpn_targets(jnp.asarray(anchors), jnp.asarray(gt),
-                           jnp.asarray(gt_mask), h, w, jnp.asarray(fg), jp)
+    want = _jit_rpn_targets(jnp.asarray(anchors), jnp.asarray(gt),
+                            jnp.asarray(gt_mask), h, w, jnp.asarray(fg), jp)
     got = tft.rpn_targets(T(anchors), T(gt), T(gt_mask), h, w, T(fg), p)
     return got, want
 
@@ -179,10 +185,10 @@ def test_head_targets_match_reference(seed):
     roi_mask = (rng.rand(len(rois)) > 0.1).astype(np.float32)
     bg = np.round(rng.rand(len(rois)), 1).astype(np.float32)
     p = tft.FrcnnLossParam(head_sample=32, head_pos_frac=0.25)
-    want = jft.head_targets(jnp.asarray(rois), jnp.asarray(roi_mask),
-                            jnp.asarray(gt), jnp.asarray(labels),
-                            jnp.asarray(mask), jnp.asarray(bg),
-                            jft.FrcnnLossParam(**p.__dict__))
+    want = _jit_head_targets(jnp.asarray(rois), jnp.asarray(roi_mask),
+                             jnp.asarray(gt), jnp.asarray(labels),
+                             jnp.asarray(mask), jnp.asarray(bg),
+                             jft.FrcnnLossParam(**p.__dict__))
     got = tft.head_targets(T(rois), T(roi_mask), T(gt), T(labels), T(mask),
                            T(bg), p)
     _assert_targets_equal(got, want)
@@ -243,7 +249,9 @@ def test_training_loss_matches_reference():
     def jloss(diff):
         return jft.frcnn_training_loss({**out, **diff}, batch)
 
-    want, jgrad = jax.value_and_grad(jloss)(
+    # one compiled program, not op by op: the reference's own train step
+    # runs the loss jitted
+    want, jgrad = jax.jit(jax.value_and_grad(jloss))(
         {k: jnp.asarray(out[k]) for k in keys})
     tout = {k: T(v) for k, v in out.items()}
     for k in keys:
@@ -300,9 +308,10 @@ def test_train_outputs_keys_shapes_and_order(net):
     proposals."""
     jnet, params, tnet, x, batch = net
     xi, info, gt, gm = _inputs(x, batch)
-    want = jnet.apply({"params": params}, jnp.asarray(xi), jnp.asarray(info),
-                      extra_rois=jnp.asarray(gt), extra_rois_mask=jnp.asarray(
-                          gm), train_outputs=True)
+    want = jax.jit(lambda v, *a: jnet.apply(
+        v, *a, extra_rois=jnp.asarray(gt), extra_rois_mask=jnp.asarray(gm),
+        train_outputs=True))({"params": params}, jnp.asarray(xi),
+                             jnp.asarray(info))
     with torch.no_grad():
         got = tnet(T(xi), T(info), extra_rois=T(gt), extra_rois_mask=T(gm),
                    train_outputs=True)

@@ -175,8 +175,9 @@ def test_port_imports_pull_in_no_jax():
 def test_zoo_slice_imports_without_cv2():
     """The card's import path of the model-zoo slice (the package's
     ``pipelines``, ``models``, ``ops``, ``core`` and ``parallel``) loads
-    no cv2: only ``pipelines.visualizer`` needs it, and nothing imports
-    that module."""
+    no cv2: only ``pipelines.visualizer.vis_detection`` needs it, and
+    the module and its text dump (``result_to_string``) import without
+    it."""
     import subprocess
     import sys
 
@@ -189,8 +190,13 @@ def test_zoo_slice_imports_without_cv2():
             "from analytics_zoo_tpu_torch.ops import DedupEmbed\n"
             "from analytics_zoo_tpu_torch.parallel import sparse_adam_apply\n"
             "from analytics_zoo_tpu_torch.models import SentimentNet\n"
+            "import numpy as np\n"
+            "from analytics_zoo_tpu_torch.pipelines.visualizer import (\n"
+            "    result_to_string, vis_detection)\n"
+            "assert result_to_string(np.array([[1, 0.5, 0, 0, 4, 4]])) \\\n"
+            "    == 'aeroplane 0.5000 0.0 0.0 4.0 4.0'\n"
             "try:\n"
-            "    import analytics_zoo_tpu_torch.pipelines.visualizer\n"
+            "    vis_detection(np.zeros((4, 4, 3)), np.zeros((0, 6)))\n"
             "except ImportError:\n"
             "    print('visualizer needs cv2')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -83,10 +83,11 @@ def _models(name):
         jnet = JF(param=JFP(num_classes=4, proposal=JPP(64, 16)))
         shapes = jax.eval_shape(jnet.init, jax.random.PRNGKey(0),
                                 jnp.zeros((1, 128, 128, 3)), jnp.ones((1, 3)))
-        return shapes["params"], faster_rcnn.FasterRcnnVgg(
+        # names and shapes only: no seeded draw of its 137M parameters
+        return shapes["params"], sc.unfilled(
+            faster_rcnn.FasterRcnnVgg,
             faster_rcnn.FrcnnParam(num_classes=4,
-                                   proposal=ProposalParam(64, 16)),
-            device="cpu")
+                                   proposal=ProposalParam(64, 16)))
     if name == "ds2":
         from analytics_zoo_tpu.models.deepspeech2 import DeepSpeech2 as JD
         from analytics_zoo_tpu_torch.models.deepspeech2 import DeepSpeech2

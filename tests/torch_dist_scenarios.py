@@ -487,11 +487,13 @@ def frcnn_train(batches, res, shape, axes, pooled=2, weights=None,
     from analytics_zoo_tpu_torch.pipelines import frcnn as pipe
 
     mesh = _mesh(shape, axes)
-    model = faster_rcnn.FasterRcnnVgg(
-        faster_rcnn.FrcnnParam(num_classes=3, pooled=pooled,
-                               proposal=ProposalParam(128, 32)),
-        device="cpu", seed=0)
-    if weights is not None:
+    param = faster_rcnn.FrcnnParam(num_classes=3, pooled=pooled,
+                                   proposal=ProposalParam(128, 32))
+    if weights is None:
+        model = faster_rcnn.FasterRcnnVgg(param, device="cpu", seed=0)
+    else:
+        # the seeded draw of 137M parameters would be overwritten
+        model = unfilled(faster_rcnn.FasterRcnnVgg, param, seed=0)
         model.load_state_dict({k: torch.from_numpy(v)
                                for k, v in weights.items()})
     losses = []
@@ -1306,10 +1308,11 @@ def _family_model(family, weights):
     elif family == "frcnn":
         from analytics_zoo_tpu_torch.models import faster_rcnn
         from analytics_zoo_tpu_torch.ops.proposal import ProposalParam
-        model = faster_rcnn.FasterRcnnDetector(
-            faster_rcnn.FrcnnParam(num_classes=4,
-                                   proposal=ProposalParam(64, 16)),
-            device="cpu", seed=0)
+        # its weights are loaded below: no seeded draw
+        model = unfilled(faster_rcnn.FasterRcnnDetector,
+                         faster_rcnn.FrcnnParam(
+                             num_classes=4, proposal=ProposalParam(64, 16)),
+                         seed=0)
     elif family == "fraud":
         model = Model(simple.FraudMLP(), device="cpu")
     elif family == "rec":
