@@ -1,11 +1,13 @@
-"""What the SSD entry points share: ``--device``, the saved model's
-loader, the refusal of images the port's codecs cannot decode, and the
-device's name for reports."""
+"""What the examples share: ``--device`` and DS2's ``--rnn-engine``, the
+saved SSD model's loader, the refusal of images the port's codecs cannot
+decode, the device's name for reports, the accuracy-report sidecar, and
+the process group of a multi-rank example."""
 
 from __future__ import annotations
 
 import argparse
-from typing import Sequence
+import os
+from typing import Dict, Sequence
 
 import torch
 
@@ -18,6 +20,17 @@ def add_device_argument(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: the GPU; 'cpu' "
                         "runs the kernels' plain PyTorch versions)")
+
+
+def add_rnn_engine_argument(p: argparse.ArgumentParser) -> None:
+    """DS2's recurrence engine (``make_ds2_model(rnn_engine=)``): None
+    is the blocked loop, as on the reference; ``pallas`` runs the
+    persistent-RNN kernels, K3 forward and K4 backward, and raises where
+    they do not fit the card."""
+    p.add_argument("--rnn-engine", choices=("legacy", "blocked", "pallas"),
+                   default=None,
+                   help="recurrence engine (default: the blocked loop; "
+                        "'pallas' runs the persistent-RNN kernels)")
 
 
 def device_name(device) -> str:
@@ -53,3 +66,48 @@ def refuse_non_jpeg(paths: Sequence[str]) -> None:
         raise SystemExit(f"not JPEG, which the port's codecs (nvJPEG on "
                          f"the card, libjpeg on the CPU) cannot decode: "
                          f"{', '.join(bad)}")
+
+
+def report_device(device) -> Dict[str, str]:
+    """A report's ``backend`` (the torch device type, where the reference
+    writes JAX's backend) and ``device`` (the card's name)."""
+    dev = torch.device(device)
+    return {"backend": dev.type, "device": device_name(dev)}
+
+
+def append_report(out_path: str, title: str, module: str,
+                  report: Dict) -> None:
+    """Append ``report`` as a titled JSON block to ``out_path`` (the
+    README suggests ``ACCURACY_torch.md``, beside the reference's banked
+    ``ACCURACY.md``), stamped with ``python -m <module> <options>``."""
+    from analytics_zoo_tpu_torch.utils import report as report_lib
+
+    report_lib.append_report(out_path, title, f"-m {module}", report)
+
+
+def init_ranks(device):
+    """Join this process to its ranks (the ``torchrun`` variables, one
+    rank when none is set) and return its device.  Ranks that outnumber
+    the cards share them (``LOCAL_RANK`` modulo the cards) over gloo,
+    since NCCL refuses two ranks of one communicator on one device."""
+    from analytics_zoo_tpu_torch.utils import engine
+    from analytics_zoo_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    backend = local_rank = None
+    if dev.type == "cuda" and world > torch.cuda.device_count():
+        backend = "gloo"
+        local_rank = (int(os.environ.get("LOCAL_RANK", 0))
+                      % torch.cuda.device_count())
+    engine.init(engine.EngineConfig(device=dev.type, backend=backend,
+                                    local_rank=local_rank))
+    return engine.device()
+
+
+def lead_rank() -> bool:
+    """True on the rank that prints and writes reports (rank 0, or the
+    only process)."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0

@@ -123,50 +123,112 @@ class Contrast(FeatureTransformer):
         feature.mat = feature.mat.astype(np.float32) * alpha
 
 
-def _to_hsv(mat: np.ndarray) -> np.ndarray:
-    import cv2
+def _to_hsv(mat: np.ndarray, cv2_free: bool = False) -> np.ndarray:
+    """BGR → 8-bit HSV (H in [0, 180)) as ``cv2.cvtColor`` makes it;
+    ``cv2_free`` computes it in numpy with cv2's own fixed-point tables
+    (``RGB2HSV_b``: S and H scaled by 2^12 reciprocals and rounded)."""
+    u8 = np.clip(mat, 0, 255).astype(np.uint8)
+    if not cv2_free:
+        import cv2
 
-    return cv2.cvtColor(np.clip(mat, 0, 255).astype(np.uint8), cv2.COLOR_BGR2HSV)
+        return cv2.cvtColor(u8, cv2.COLOR_BGR2HSV)
+    b, g, r = (u8[..., i].astype(np.int64) for i in range(3))
+    v = np.maximum(np.maximum(b, g), r)
+    diff = v - np.minimum(np.minimum(b, g), r)
+    s = (diff * _SDIV[v] + (1 << 11)) >> 12
+    h = np.where(v == r, g - b,
+                 np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * _HDIV[diff] + (1 << 11)) >> 12
+    h = np.where(h < 0, h + 180, h)
+    return np.stack([h, s, v], -1).astype(np.uint8)
 
 
-def _from_hsv(hsv: np.ndarray) -> np.ndarray:
-    import cv2
+#: cv2's division tables for 8-bit HSV: 255·2^12 / v and 180·2^12 / (6·d)
+_SDIV = np.concatenate([[0], np.rint((255 << 12) / np.arange(1, 256))]
+                       ).astype(np.int64)
+_HDIV = np.concatenate([[0], np.rint((180 << 12) / (6.0 * np.arange(1, 256)))]
+                       ).astype(np.int64)
+#: the hexcone's sectors: which of (v, v(1-s), v(1-sf), v(1-s(1-f)))
+#: each of B, G, R takes
+_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3],
+                     [2, 1, 0]])
 
-    return cv2.cvtColor(hsv, cv2.COLOR_HSV2BGR).astype(np.float32)
+
+def _from_hsv(hsv: np.ndarray, cv2_free: bool = False) -> np.ndarray:
+    """8-bit HSV → float BGR (whole levels) as ``cv2.cvtColor`` makes it;
+    ``cv2_free`` computes the hexcone in float32 numpy, within a level of
+    cv2's (``HSV_TOL``)."""
+    if not cv2_free:
+        import cv2
+
+        return cv2.cvtColor(hsv, cv2.COLOR_HSV2BGR).astype(np.float32)
+    f = hsv.astype(np.float32)
+    h = f[..., 0] * np.float32(6.0 / 180.0)
+    s = f[..., 1] * np.float32(1.0 / 255.0)
+    v = f[..., 2]
+    sector = np.floor(h).astype(np.int64)
+    frac = h - sector.astype(np.float32)
+    tab = np.stack([v, v * (1 - s), v * (1 - s * frac),
+                    v * (1 - s * (1 - frac))], -1)
+    bgr = np.take_along_axis(tab, _SECTORS[sector % 6], -1)
+    return np.clip(np.rint(bgr), 0, 255).astype(np.float32)
+
+
+#: the cv2-free HSV route against cv2's, in levels of a BGR channel after
+#: a Saturation or Hue op: the 8-bit HSV mat is cv2's exactly; the way
+#: back rounds cv2's hexcone in float32 by its own operation order, one
+#: level apart at most.  The bound is for one op: a second HSV op after
+#: it (``ColorJitter`` with saturation and hue both on) converts inputs
+#: already a level apart, and a level of B, G or R can move H by several
+#: of its units, so such a chain can end a few levels from cv2's
+HSV_TOL = 1
+
+
+def _hsv_route(device) -> bool:
+    """True where Saturation and Hue convert without cv2 (a CUDA
+    pipeline, whose card has no cv2); ``None`` keeps cv2, as before."""
+    return device is not None and _resize_route(device)
 
 
 class Saturation(FeatureTransformer):
-    """Scale the HSV S channel."""
+    """Scale the HSV S channel.  ``device``: a CUDA pipeline converts
+    to and from HSV without cv2 (within ``HSV_TOL`` of it), the CPU or
+    None through cv2."""
 
-    def __init__(self, delta_low: float = 0.5, delta_high: float = 1.5):
+    def __init__(self, delta_low: float = 0.5, delta_high: float = 1.5,
+                 device=None):
         super().__init__()
         self.low, self.high = delta_low, delta_high
+        self.cv2_free = _hsv_route(device)
         self.rng = sample_random()
 
     def transform_mat(self, feature: ImageFeature) -> None:
         alpha = self.rng.uniform(self.low, self.high)
         if abs(alpha - 1.0) < 1e-3:
             return
-        hsv = _to_hsv(feature.mat).astype(np.float32)
+        hsv = _to_hsv(feature.mat, self.cv2_free).astype(np.float32)
         hsv[..., 1] = np.clip(hsv[..., 1] * alpha, 0, 255)
-        feature.mat = _from_hsv(hsv.astype(np.uint8))
+        feature.mat = _from_hsv(hsv.astype(np.uint8), self.cv2_free)
 
 
 class Hue(FeatureTransformer):
-    """Shift the HSV H channel by delta ∈ [low, high] (OpenCV's H units)."""
+    """Shift the HSV H channel by delta ∈ [low, high] (OpenCV's H units).
+    ``device`` picks the conversion as ``Saturation``'s."""
 
-    def __init__(self, delta_low: float = -18.0, delta_high: float = 18.0):
+    def __init__(self, delta_low: float = -18.0, delta_high: float = 18.0,
+                 device=None):
         super().__init__()
         self.low, self.high = delta_low, delta_high
+        self.cv2_free = _hsv_route(device)
         self.rng = sample_random()
 
     def transform_mat(self, feature: ImageFeature) -> None:
         delta = self.rng.uniform(self.low, self.high)
-        hsv = _to_hsv(feature.mat).astype(np.float32)
+        hsv = _to_hsv(feature.mat, self.cv2_free).astype(np.float32)
         # delta applies directly to OpenCV's [0,180) H channel, matching the
         # reference's convertTo(..., 1, delta) on the HSV mat
         hsv[..., 0] = np.mod(hsv[..., 0] + delta, 180.0)
-        feature.mat = _from_hsv(hsv.astype(np.uint8))
+        feature.mat = _from_hsv(hsv.astype(np.uint8), self.cv2_free)
 
 
 class ChannelOrder(FeatureTransformer):
@@ -209,22 +271,26 @@ class ColorJitter(FeatureTransformer):
     """Random-prob composition of brightness/contrast/saturation/hue/
     channel-order in one of Caffe-SSD's two fixed orders, or fully
     shuffled.  Whether each op applies is drawn by its
-    ``RandomTransformer``'s own generator, as in the reference."""
+    ``RandomTransformer``'s own generator, as in the reference.
+    ``device`` picks the HSV conversion, as ``Saturation``'s."""
 
     def __init__(self, brightness_prob: float = 0.5, brightness_delta: float = 32,
                  contrast_prob: float = 0.5, contrast_lower: float = 0.5,
                  contrast_upper: float = 1.5, hue_prob: float = 0.5,
                  hue_delta: float = 18, saturation_prob: float = 0.5,
                  saturation_lower: float = 0.5, saturation_upper: float = 1.5,
-                 random_order_prob: float = 0.0, shuffle: bool = False):
+                 random_order_prob: float = 0.0, shuffle: bool = False,
+                 device=None):
         super().__init__()
         self.brightness = RandomTransformer(
             Brightness(-brightness_delta, brightness_delta), brightness_prob)
         self.contrast = RandomTransformer(
             Contrast(contrast_lower, contrast_upper), contrast_prob)
         self.saturation = RandomTransformer(
-            Saturation(saturation_lower, saturation_upper), saturation_prob)
-        self.hue = RandomTransformer(Hue(-hue_delta, hue_delta), hue_prob)
+            Saturation(saturation_lower, saturation_upper, device=device),
+            saturation_prob)
+        self.hue = RandomTransformer(Hue(-hue_delta, hue_delta,
+                                         device=device), hue_prob)
         self.channel_order = RandomTransformer(ChannelOrder(),
                                                random_order_prob)
         self.shuffle = shuffle

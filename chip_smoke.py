@@ -5184,7 +5184,7 @@ def dist_child(task, **kw):
             "nccl": dist_nccl_rank, "seq": dist_seq_rank,
             "attn": dist_attn_rank, "spatial": dist_spatial_rank,
             "serve": dist_serve_rank, "sdc": dist_sdc_rank,
-            "slice": dist_slice_rank}[task](**kw)
+            "slice": dist_slice_rank, "examples": examples_rank}[task](**kw)
 
 
 class recording_optimizer:
@@ -8156,6 +8156,344 @@ def accuracy_phase(dev, smi, kernel_ms=None):
 
 
 # ---------------------------------------------------------------------------
+# 6w. the command-line examples on the card: DS2 training, inference and
+# long audio (K3, K4), AttentionASR, Faster-RCNN predict and shapes
+# training, the zoo, the augmentation demo (K1-K4 none)
+# ---------------------------------------------------------------------------
+
+#: DS2 at full width for one training epoch of 2 synthetic batches, and
+#: for inference over EXAMPLES_WAVS seeded 30 s wavs in one batch of 8
+EXAMPLES_DS2_FULL = ("--hidden", "1760")
+EXAMPLES_WAVS = 8
+EXAMPLES_WAV_S = 30
+#: K3's fp32 tolerance (PERF.md §6): the pallas run's log-probs against
+#: the blocked loop's, relative L2
+EXAMPLES_K3_TOL = 1e-4
+#: train_frcnn_shapes cut from its 20 epochs to fit the phase
+EXAMPLES_FRCNN_EPOCHS = 2
+#: fraud_detection cut from 20 bagged models x 10 epochs (some 147,000
+#: eager steps of a 29-10-2 MLP, 681 s on the card) to fit the phase
+EXAMPLES_FRAUD_CUT = ("--models", "4", "--epochs", "1",
+                      "--threshold-from", "2", "--threshold-to", "4")
+EXAMPLES_JPEGS = 8
+EXAMPLES_FRCNN_SIZE = 512
+EXAMPLES_RANKS = 2
+
+
+def write_wav(path, samples, rate=16000) -> None:
+    """16-bit mono PCM through the standard library's ``wave``."""
+    import wave
+
+    import numpy as np
+
+    pcm = np.clip(np.round(samples * 32767.0), -32768, 32767).astype("<i2")
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(pcm.tobytes())
+
+
+def examples_rank(name, argv):
+    """One rank of a multi-rank example: its ``run`` with the counts
+    zeroed just before, and this rank's launches just after."""
+    import importlib
+
+    import torch
+
+    mod = importlib.import_module(f"analytics_zoo_tpu_torch.examples.{name}")
+    args = mod.build_parser().parse_args(argv)
+    zero_kernel_counters()
+    out = mod.run(args)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if isinstance(out, tuple):
+        out = out[0]
+    return {"out": out, "launches": launches}
+
+
+def examples_phase(dev, smi):
+    """examples: each ported example's ``run`` (what its ``main`` runs,
+    less the printing) on the card, on data made here, the counts set to
+    0 just before each and read just after, a line each:
+    ``train_ds2`` at its defaults through K3/K4 and one epoch at hidden
+    1760 × 3 layers; ``ds2_inference`` at hidden 1760 over 8 seeded 30 s
+    wavs through K3 and through the blocked loop (log-probs within
+    ``EXAMPLES_K3_TOL``, transcripts equal); ``long_audio_asr`` and
+    ``train_attention_asr --variant ring`` on two ranks over gloo;
+    ``train_attention_asr`` full and moe; ``predict_frcnn`` on its demo
+    batch and on 8 rendered JPEGs at 512²; ``train_frcnn_shapes`` cut to
+    ``EXAMPLES_FRCNN_EPOCHS``; ``fraud_detection`` cut to
+    ``EXAMPLES_FRAUD_CUT``, ``recommender`` and ``sentiment`` at their
+    defaults; ``image_augmentation`` on a rendered
+    JPEG.  Fails where an example raises, a report's device is not the
+    card, or a launch count is not what its path implies (K3 and K4 in
+    DS2 training, K3 in DS2 inference and on each long-audio rank, none
+    of K1-K4 elsewhere).  Returns the phase's launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.data import native
+    from analytics_zoo_tpu_torch.data.synthetic import render_shapes_image
+    from analytics_zoo_tpu_torch.examples import (
+        ds2_inference, fraud_detection, image_augmentation, predict_frcnn,
+        recommender, sentiment, train_attention_asr, train_ds2,
+        train_frcnn_shapes)
+    from analytics_zoo_tpu_torch import parallel
+    from analytics_zoo_tpu_torch.examples.common import device_name
+    from analytics_zoo_tpu_torch.transform.audio import read_audio
+    from analytics_zoo_tpu_torch.utils import engine
+
+    t_phase = time.perf_counter()
+    card = device_name(dev)
+    codec = native.codec_for(dev)
+    names = ("nms_sweep", "fused_detection_output", "persistent_rnn",
+             "persistent_rnn_bwd")
+    total = dict.fromkeys(names, 0)
+    d = ["--device", str(dev)]
+
+    def add(launches):
+        for k in names:
+            total[k] += launches[k]
+
+    def counted(fn):
+        zero_kernel_counters()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        add(launches)
+        return out, launches, time.perf_counter() - t0
+
+    def expect(what, launches, k3=False, k4=False):
+        want = {"nms_sweep": False, "fused_detection_output": False,
+                "persistent_rnn": k3, "persistent_rnn_bwd": k4}
+        got = {k: launches[k] > 0 for k in names}
+        if got != want:
+            raise AssertionError(f"examples: {what} launched {launches}; "
+                                 f"its path implies {want}")
+
+    def on_card(what, report):
+        if report["device"] != card or report["backend"] != dev.type:
+            raise AssertionError(f"examples: {what} reported "
+                                 f"{report['device']!r} on "
+                                 f"{report['backend']!r}, not {card!r}")
+
+    def parse(mod, argv):
+        return mod.build_parser().parse_args(list(argv) + d)
+
+    def spawn(name, argv):
+        t0 = time.perf_counter()
+        ranks = engine.spawn(os.path.abspath(__file__) + ":dist_child",
+                             EXAMPLES_RANKS,
+                             dict(task="examples", name=name,
+                                  argv=list(argv) + d),
+                             timeout=DIST_TIMEOUT, device=dev.type,
+                             backend=DIST_BACKEND,
+                             local_ranks=[0] * EXAMPLES_RANKS)
+        for r in ranks:
+            add(r["launches"])
+        return ranks, time.perf_counter() - t0
+
+    lines = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- DS2 training, defaults through K3/K4, then at full width --
+        (rep, _), l, s = counted(lambda: train_ds2.run(parse(
+            train_ds2, ["--rnn-engine", "pallas"])))
+        on_card("train_ds2", rep)
+        expect("train_ds2", l, k3=True, k4=True)
+        (full, _), lf, sf = counted(lambda: train_ds2.run(parse(
+            train_ds2, [*EXAMPLES_DS2_FULL, "--rnn-layers", "3",
+                        "--batches", "2", "--epochs", "1",
+                        "--rnn-engine", "pallas"])))
+        on_card("train_ds2 full width", full)
+        expect("train_ds2 full width", lf, k3=True, k4=True)
+        lines["train_ds2"] = {
+            "cer": rep["cer"], "beam_cer": rep["beam_cer"],
+            "exact_sequence_acc": rep["exact_sequence_acc"],
+            "launches": l, "s": s,
+            "full_width": {"hidden": 1760, "rnn_layers": 3, "batches": 2,
+                           "epochs": 1, "cer": full["cer"], "launches": lf,
+                           "s": sf}}
+
+        # -- DS2 inference at full width: K3 against the blocked loop --
+        wav_dir = os.path.join(tmp, "wavs")
+        os.makedirs(wav_dir)
+        utts = synthetic_utterances([EXAMPLES_WAV_S] * EXAMPLES_WAVS, 0)
+        for uid, x in utts.items():
+            write_wav(os.path.join(wav_dir, f"{uid}.wav"), x)
+        inf_argv = ["-d", wav_dir, *EXAMPLES_DS2_FULL, "--layers", "3",
+                    "-s", str(EXAMPLES_WAV_S), "-b", str(EXAMPLES_WAVS)]
+        k3_run, lk, sk = counted(lambda: ds2_inference.run(parse(
+            ds2_inference, inf_argv + ["--rnn-engine", "pallas"])))
+        expect("ds2_inference pallas", lk, k3=True)
+        plain_run, lp, sp = counted(lambda: ds2_inference.run(parse(
+            ds2_inference, inf_argv + ["--rnn-engine", "blocked"])))
+        expect("ds2_inference blocked", lp)
+        k3_pipe, plain_pipe = k3_run["pipeline"], plain_run["pipeline"]
+        for pipe in (k3_pipe, plain_pipe):
+            if pipe.device.type != dev.type:
+                raise AssertionError(f"examples: ds2_inference on "
+                                     f"{pipe.device}")
+        for (k, a), b in zip(k3_pipe.model.state_dict().items(),
+                             plain_pipe.model.state_dict().values()):
+            if not torch.equal(a, b):
+                raise AssertionError(f"examples: ds2_inference engines' "
+                                     f"weights differ at {k}")
+        segments = []
+        for path in sorted(k3_run["transcripts"]):
+            samples, _ = read_audio(path)
+            segments.extend(k3_pipe.segmenter.segment(samples, path))
+        feats = torch.from_numpy(k3_pipe._featurize_device(segments)).to(dev)
+        with torch.inference_mode():
+            lp_k3 = k3_pipe._eval_step(feats).double()
+            lp_plain = plain_pipe._eval_step(feats).double()
+        rel = (torch.linalg.vector_norm(lp_k3 - lp_plain)
+               / torch.linalg.vector_norm(lp_plain)).item()
+        same = k3_run["transcripts"] == plain_run["transcripts"]
+        lines["ds2_inference"] = {
+            "wavs": EXAMPLES_WAVS, "seconds": EXAMPLES_WAV_S,
+            "hidden": 1760, "layers": 3, "logp_rel_l2": rel,
+            "tol": EXAMPLES_K3_TOL, "transcripts_equal": same,
+            "transcript_chars": [len(t) for t in
+                                 k3_run["transcripts"].values()],
+            "launches_pallas": lk, "launches_blocked": lp,
+            "s_pallas": sk, "s_blocked": sp}
+        if not (rel <= EXAMPLES_K3_TOL and same):
+            raise AssertionError(f"examples: ds2_inference K3 against the "
+                                 f"blocked loop: {lines['ds2_inference']}")
+        del k3_run, plain_run, k3_pipe, plain_pipe, feats
+        torch.cuda.empty_cache()
+
+        # -- long audio: chunked and sequence-parallel on two ranks --
+        ranks, s = spawn("long_audio_asr", ["--rnn-engine", "pallas"])
+        for i, r in enumerate(ranks):
+            expect(f"long_audio_asr rank {i}", r["launches"], k3=True)
+        lines["long_audio_asr"] = {
+            "ranks": EXAMPLES_RANKS, "audio_s": ranks[0]["out"]["audio_s"],
+            "chunked": ranks[0]["out"]["chunked"],
+            "seqpar": ranks[0]["out"]["seqpar"],
+            "seqpar_same_on_ranks": len({r["out"]["seqpar"]
+                                         for r in ranks}) == 1,
+            "chunked_s": [r["out"]["chunked_s"] for r in ranks],
+            "seqpar_s": [r["out"]["seqpar_s"] for r in ranks],
+            "launches_by_rank": [r["launches"] for r in ranks], "s": s}
+
+        # -- AttentionASR: full and moe here, ring on two ranks --
+        attn = {}
+        for variant in ("full", "moe"):
+            (rep, _), l, s = counted(lambda: train_attention_asr.run(parse(
+                train_attention_asr, ["--variant", variant])))
+            on_card(f"train_attention_asr {variant}", rep)
+            expect(f"train_attention_asr {variant}", l)
+            attn[variant] = {"cer": rep["cer"], "beam_cer": rep["beam_cer"],
+                             "s": s}
+        ranks, s = spawn("train_attention_asr", ["--variant", "ring"])
+        for i, r in enumerate(ranks):
+            on_card(f"train_attention_asr ring rank {i}", r["out"])
+            expect(f"train_attention_asr ring rank {i}", r["launches"])
+        attn["ring"] = {"cer": ranks[0]["out"]["cer"],
+                        "beam_cer": ranks[0]["out"]["beam_cer"],
+                        "mesh": ranks[0]["out"]["mesh"], "s": s}
+        lines["train_attention_asr"] = attn
+
+        # -- Faster-RCNN: the demo batch, then 8 rendered JPEGs --
+        fargs = ["--size", str(EXAMPLES_FRCNN_SIZE)]
+        demo, l, s = counted(lambda: predict_frcnn.run(parse(
+            predict_frcnn, fargs)))
+        expect("predict_frcnn demo", l)
+        det = demo["detector"]
+        img_dir = os.path.join(tmp, "jpegs")
+        os.makedirs(img_dir)
+        rng = np.random.RandomState(0)
+        for i in range(EXAMPLES_JPEGS):
+            img, _ = render_shapes_image(rng, EXAMPLES_FRCNN_SIZE)
+            with open(os.path.join(img_dir, f"shape{i}.jpg"), "wb") as f:
+                f.write(native.encode_jpeg(img, codec=codec))
+        folder, lj, sj = counted(lambda: predict_frcnn.run(parse(
+            predict_frcnn, fargs + ["--image-dir", img_dir]), detector=det))
+        expect("predict_frcnn images", lj)
+        if next(det.parameters()).device.type != dev.type:
+            raise AssertionError("examples: predict_frcnn off the card")
+        conf = predict_frcnn.build_parser().get_default("conf")
+        lines["predict_frcnn"] = {
+            "size": EXAMPLES_FRCNN_SIZE,
+            "demo_ms_per_batch": demo["ms"], "demo_batch": 2,
+            "images_ms_per_batch": folder["ms"],
+            "images_batch": EXAMPLES_JPEGS,
+            "detections_by_image": {
+                n: int((dt[:, 1] >= conf).sum())
+                for n, dt in zip(folder["names"], folder["detections"])},
+            "s": s + sj}
+        del demo, folder, det
+        torch.cuda.empty_cache()
+
+        # -- Faster-RCNN trained on shapes, cut to a few epochs --
+        with recording_optimizer(parallel) as runs:
+            (rep, _), l, s = counted(lambda: train_frcnn_shapes.run(parse(
+                train_frcnn_shapes, [
+                    "--epochs", str(EXAMPLES_FRCNN_EPOCHS), "--params-out",
+                    os.path.join(tmp, "frcnn.pt")]), tmp))
+        on_card("train_frcnn_shapes", rep)
+        expect("train_frcnn_shapes", l)
+        losses = [float(h["loss"]) for h in runs[0].history]
+        lines["train_frcnn_shapes"] = {
+            "cut": f"--epochs {EXAMPLES_FRCNN_EPOCHS} of 20",
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "steps": len(losses), "map": rep["final_map_voc07"],
+            "ap_per_class": rep["ap_per_class"], "s": s}
+        torch.cuda.empty_cache()
+
+        # -- the zoo at the examples' defaults --
+        rep, l, s = counted(lambda: fraud_detection.run(parse(
+            fraud_detection, EXAMPLES_FRAUD_CUT)))
+        on_card("fraud_detection", rep)
+        expect("fraud_detection", l)
+        lines["fraud_detection"] = {"cut": " ".join(EXAMPLES_FRAUD_CUT),
+                                    "auprc": rep["auprc"],
+                                    "precision": rep["precision"],
+                                    "recall": rep["recall"], "s": s}
+        rep, l, s = counted(lambda: recommender.run(parse(recommender, [])))
+        on_card("recommender", rep)
+        expect("recommender", l)
+        lines["recommender"] = {"model": rep["model"],
+                                "mae_stars": rep["mae_stars"], "s": s}
+        rep, l, s = counted(lambda: sentiment.run(parse(sentiment, [])))
+        on_card("sentiment", rep)
+        expect("sentiment", l)
+        lines["sentiment"] = {"head": rep["head"],
+                              "accuracy": rep["accuracy"], "s": s}
+
+        # -- the augmentation demo on one rendered JPEG --
+        src = os.path.join(tmp, "shape.jpg")
+        img, _ = render_shapes_image(np.random.RandomState(1), 300)
+        with open(src, "wb") as f:
+            f.write(native.encode_jpeg(img, codec=codec))
+        out_dir = os.path.join(tmp, "aug")
+        written, l, s = counted(lambda: image_augmentation.run(parse(
+            image_augmentation, ["-f", src, "-o", out_dir])))
+        expect("image_augmentation", l)
+        decoded = {}
+        for name, path in written.items():
+            with open(path, "rb") as f:
+                m = native.decode_jpeg(f.read(), codec)
+            decoded[name] = None if m is None else list(m.shape)
+        if len(written) != 9 or any(v is None for v in decoded.values()):
+            raise AssertionError(f"examples: image_augmentation wrote "
+                                 f"{decoded}")
+        lines["image_augmentation"] = {"files": len(written),
+                                       "decoded": decoded, "s": s}
+
+    print(json.dumps({"examples": {
+        **lines, "launches": total,
+        "phase_s": time.perf_counter() - t_phase,
+        "nvidia_smi": smi}}), flush=True)
+    return total
+
+
+# ---------------------------------------------------------------------------
 # 6u. az-analyze on the card: the source rules, and the program audit of
 # the kernel-bearing targets with the sync debug mode armed
 # ---------------------------------------------------------------------------
@@ -8969,6 +9307,9 @@ def main() -> int:
     fleet_paths["accuracy"] = accuracy_phase(dev, smi, {
         "k1_random_ms": k1_ms, "k1_trained_like_ms": k1_trained_ms,
         "k2_dense_ms": k2_ms, "k2_trained_like_ms": k2_trained_ms})
+
+    # -- 6w. the command-line examples (K3/K4 in DS2's, none elsewhere) --
+    fleet_paths["examples"] = examples_phase(dev, smi)
 
     # -- 6u. az-analyze on the card (K1-K4 in their targets' programs) ---
     analyze = analyze_phase(dev, smi, dist_tp)

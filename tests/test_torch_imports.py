@@ -203,3 +203,38 @@ def test_zoo_slice_imports_without_cv2():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.strip() == "visualizer needs cv2"
+
+
+EXAMPLES = ("train_ds2", "ds2_inference", "long_audio_asr",
+            "train_attention_asr", "predict_frcnn", "train_frcnn_shapes",
+            "fraud_detection", "recommender", "sentiment",
+            "image_augmentation")
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_names_no_cv2_or_pandas(name):
+    """The examples run on the card's machine, which has neither cv2 nor
+    pandas: no example module imports them, even inside a function."""
+    path = ROOT / "analytics_zoo_tpu_torch" / "examples" / f"{name}.py"
+    bad = sorted(set(imported_roots(path)) & {"cv2", "pandas"})
+    assert not bad, f"{name} imports {bad}"
+
+
+def test_examples_import_without_cv2_and_pandas():
+    """Each example module, and what it imports at module level, loads
+    with cv2 and pandas unimportable, and builds its parser."""
+    import subprocess
+    import sys
+
+    code = ("import importlib, sys\n"
+            "sys.modules['cv2'] = None\n"
+            "sys.modules['pandas'] = None\n"
+            f"for name in {EXAMPLES!r}:\n"
+            "    mod = importlib.import_module(\n"
+            "        'analytics_zoo_tpu_torch.examples.' + name)\n"
+            "    assert mod.build_parser().get_default('device') == 'cuda'\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip() == "ok"
