@@ -3,8 +3,19 @@
 // merge — for a batch.
 //
 // Replaces: analytics_zoo_tpu/ops/pallas_detout.py, fused_detection_output
-// (pallas_call at :285, body _fused_kernel at :91), stage="full".  Output
+// (pallas_call at :285, body _fused_kernel at :91), every stage.  Output
 // rows (class_id, score, x1, y1, x2, y2), empty rows (-1, 0, 0, 0, 0, 0).
+//
+// The reference's profile stages ("decode", "select") write a probe into
+// every entry of an image's (keep_topk, 6) block: the sum over ALL priors
+// of the decoded (and, under clip, clipped) x1 and y2, plus, for
+// "select", the sum of every kept score of the image's foreground rows
+// (its `allkeep` plane; here the kept lists the select launch writes).
+// The select launch decodes only the candidates, so the probe is a launch
+// of its own (3 below): one block an image decodes every prior with the
+// same decode() and reduces in double in a fixed order, so a run repeats
+// bit for bit.  "decode" is that launch alone, "select" the select launch
+// then it, "full" select + merge.
 //
 // What bounds it on the H100: the dependency chain, not bytes.  It reads
 // loc, conf, priors and variances once (7.3 MB for SSD300 at batch 8) and
@@ -50,6 +61,7 @@ namespace {
 constexpr int kSelectThreads = 512;
 constexpr int kSelectWarps = kSelectThreads / 32;
 constexpr int kMergeThreads = 256;
+constexpr int kProbeThreads = 256;
 constexpr int kMergeWindow = 4096;  // scores of the kept lists staged at once
 constexpr int kBlockSmem = 232448;  // shared memory one block may use
 constexpr int kHistWords = 128;     // 256 bins of 16-bit counts, two a word
@@ -471,6 +483,48 @@ merge_kernel(const float* __restrict__ kscore,
   }
 }
 
+// 3. the profile stages' probe: one block an image.  A thread sums its
+//    priors' decoded x1 + y2 (and, with kcount, its share of the image's
+//    kept scores) in double; the block reduces in a fixed tree.
+__global__ void __launch_bounds__(kProbeThreads)
+probe_kernel(const float4* __restrict__ loc,
+             const float4* __restrict__ priors,
+             const float4* __restrict__ var,
+             const float* __restrict__ kscore,
+             const int* __restrict__ kcount, float* __restrict__ out, int P,
+             int n_fg, int nms_topk, int keep_topk, int clip) {
+  __shared__ double part[2][kProbeThreads];
+  const int b = blockIdx.x, t = threadIdx.x;
+  const size_t img = static_cast<size_t>(b) * P;
+  double boxes = 0.0, kept = 0.0;
+  for (int p = t; p < P; p += kProbeThreads) {
+    const float4 o = decode(loc[img + p], priors[p], var[p], clip);
+    boxes += static_cast<double>(o.x);
+    boxes += static_cast<double>(o.w);
+  }
+  if (kcount != nullptr) {
+    const size_t rows = static_cast<size_t>(b) * n_fg;
+    for (int i = t; i < n_fg * nms_topk; i += kProbeThreads) {
+      const int f = i / nms_topk, j = i - f * nms_topk;
+      if (j < kcount[rows + f])
+        kept += static_cast<double>(kscore[(rows + f) * nms_topk + j]);
+    }
+  }
+  part[0][t] = boxes;
+  part[1][t] = kept;
+  __syncthreads();
+  for (int h = kProbeThreads / 2; h > 0; h >>= 1) {
+    if (t < h) {
+      part[0][t] += part[0][t + h];
+      part[1][t] += part[1][t + h];
+    }
+    __syncthreads();
+  }
+  const float probe = static_cast<float>(part[0][0] + part[1][0]);
+  float* ob = out + static_cast<size_t>(b) * keep_topk * 6;
+  for (int i = t; i < keep_topk * 6; i += kProbeThreads) ob[i] = probe;
+}
+
 }  // namespace
 
 extern "C" {
@@ -487,9 +541,11 @@ size_t az_detection_output_smem(int P, int nms_topk, int tile) {
   return region_y_bytes(P, m) + region_x_bytes(m, tile);
 }
 
-// Launch K2 (select, then merge) on `stream`.  Every buffer is allocated
-// by the caller: kscore (B,n_fg,nms_topk), kbox (B,n_fg,nms_topk,4),
-// kcount (B,n_fg), out (B,keep_topk,6).  `stamps` (null, or
+// Launch K2 on `stream`: `stage` 2 ("full") select, then merge; 1
+// ("select") select, then the probe over the kept lists; 0 ("decode") the
+// probe alone.  Every buffer is allocated by the caller: kscore
+// (B,n_fg,nms_topk), kbox (B,n_fg,nms_topk,4), kcount (B,n_fg) (null for
+// stage 0), out (B,keep_topk,6).  `stamps` (null, or
 // nms::kStampSlots words) takes block 0's phase stamps: the select's
 // start, keys, radix select, compaction, ranks and boxes, the engine's
 // three (nms_common.cuh), kept lists written (slots 0-8); the merge's
@@ -500,9 +556,18 @@ int az_detection_output(const float* loc, const float* conf,
                         float* kbox, int* kcount, float* out, int B, int P,
                         int C, int n_fg, int bg, float conf_thresh,
                         float nms_thresh, int nms_topk, int keep_topk,
-                        int clip, int tile, unsigned long long* stamps,
-                        void* stream) {
+                        int clip, int tile, int stage,
+                        unsigned long long* stamps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float4* loc4 = reinterpret_cast<const float4*>(loc);
+  const float4* pr4 = reinterpret_cast<const float4*>(priors);
+  const float4* var4 = reinterpret_cast<const float4*>(var);
+  if (stage == 0) {
+    probe_kernel<<<B, kProbeThreads, 0, st>>>(loc4, pr4, var4, nullptr,
+                                              nullptr, out, P, n_fg,
+                                              nms_topk, keep_topk, clip);
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t smem = az_detection_output_smem(P, nms_topk, tile);
   cudaError_t e = cudaSuccess;
   if (smem > 48 * 1024) {
@@ -512,13 +577,16 @@ int az_detection_output(const float* loc, const float* conf,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   select_kernel<<<B * n_fg, kSelectThreads, smem, st>>>(
-      reinterpret_cast<const float4*>(loc), conf,
-      reinterpret_cast<const float4*>(priors),
-      reinterpret_cast<const float4*>(var), kscore,
-      reinterpret_cast<float4*>(kbox), kcount, P, C, n_fg, bg, conf_thresh,
-      nms_thresh, nms_topk, clip, tile, stamps);
+      loc4, conf, pr4, var4, kscore, reinterpret_cast<float4*>(kbox), kcount,
+      P, C, n_fg, bg, conf_thresh, nms_thresh, nms_topk, clip, tile, stamps);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (stage == 1) {
+    probe_kernel<<<B, kProbeThreads, 0, st>>>(loc4, pr4, var4, kscore,
+                                              kcount, out, P, n_fg,
+                                              nms_topk, keep_topk, clip);
+    return static_cast<int>(cudaGetLastError());
+  }
 
   // the window shrinks only where n_fg + 1 offsets leave less room
   const int room = (kBlockSmem - 64) / 4 - (n_fg + 1);

@@ -1,5 +1,5 @@
 """Kernel K2: the fused DetectionOutput (counterpart of
-``ops/pallas_detout.py``, ``stage="full"``).
+``ops/pallas_detout.py``, every ``stage``).
 
 ``fused_detection_output`` computes the whole SSD post-processing chain
 in one call — decode; per (image, foreground class) the confidence
@@ -15,6 +15,17 @@ over every (image, class) row and loops only over the sequential pop
 index.  The reference's VMEM budget and its warn-and-fall-back are TPU
 planning and have no counterpart: the kernel takes SSD300 and SSD512
 alike, and raises, naming the limit, for a geometry past it.
+
+``stage`` takes the reference's profile stages (:data:`STAGES`).  Their
+outputs are probes, not detections: every entry of image b's
+``(keep_topk, 6)`` block holds the sum over all P priors of the decoded
+(and, under ``clip_boxes``, clipped) x1 and y2; ``"select"`` adds the sum
+of every kept score of the image's foreground rows (the reference's
+``allkeep`` plane).  The kernel sums kept scores above 0, as its kept
+lists hold them; with ``conf_thresh >= 0`` that is every kept score.
+Unlike the reference's, the port's stages are not prefixes of one
+program: ``"full"`` decodes only the candidates, so ``"decode"`` is a
+launch of its own and its time is no part of ``"full"``'s.
 """
 
 from __future__ import annotations
@@ -43,6 +54,9 @@ SELECT_PHASES = ("keys", "radix_select", "compact", "rank_decode", "mask",
 MERGE_PHASES = ("offsets", "stage", "rank", "write")
 MERGE_STAMPS = len(SELECT_PHASES) + 1
 from analytics_zoo_tpu_torch.utils import cuda_build
+
+#: the reference's stages: its profile ladder's probes, then the product
+STAGES = ("decode", "select", "full")
 
 #: dynamic shared memory one select block may use: 227 KB less the
 #: block's static scan scratch
@@ -114,10 +128,36 @@ def fused_keep_plain(loc, conf, priors, variances, param
     return boxes, keep
 
 
-def fused_detection_output_plain(loc, conf, priors, variances, param
-                                 ) -> torch.Tensor:
+def check_stage(stage: str) -> None:
+    if stage not in STAGES:
+        raise ValueError(f"stage must be one of {STAGES}, got {stage!r}")
+
+
+def stage_probe_plain(loc, conf, priors, variances, param, stage: str
+                      ) -> torch.Tensor:
+    """The probe of a profile stage, one float32 an image (B,): Σ_p x1 +
+    Σ_p y2 of every decoded prior, plus, for ``"select"``, Σ of the
+    image's kept scores above 0, summed in float64 as the kernel does."""
+    if stage == "decode":
+        boxes = decode_bbox(priors, variances, loc, clip=param.clip_boxes)
+        kept = torch.zeros(conf.shape[0], dtype=torch.float64,
+                           device=conf.device)
+    else:
+        boxes, keep = fused_keep_plain(loc, conf, priors, variances, param)
+        kept = torch.where(keep > 0, keep, 0.0).double().sum((1, 2))
+    total = (boxes[..., 0].double().sum(-1) + boxes[..., 3].double().sum(-1)
+             + kept)
+    return total.to(torch.float32)
+
+
+def fused_detection_output_plain(loc, conf, priors, variances, param,
+                                 stage: str = "full") -> torch.Tensor:
     """Plain PyTorch version of K2: (B,P,4), (B,P,C) → (B,keep_topk,6)."""
+    check_stage(stage)
     B, P, C = conf.shape
+    if stage != "full":
+        probe = stage_probe_plain(loc, conf, priors, variances, param, stage)
+        return probe[:, None, None].expand(B, param.keep_topk, 6).clone()
     boxes, keep = fused_keep_plain(loc, conf, priors, variances, param)
     fg = torch.as_tensor(foreground_ids(C, param.background_id),
                          device=conf.device)
@@ -149,32 +189,39 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_fused(loc, conf, priors, variances, param, n_fg, out,
-                  stamps=None):
-    """Launch K2 into ``out``; ``stamps`` (int64, ``STAMP_SLOTS`` words,
-    or None) takes the select's phase stamps (:data:`SELECT_PHASES`)."""
+                  stamps=None, stage: str = "full"):
+    """Launch K2's ``stage`` into ``out``; ``stamps`` (int64,
+    ``STAMP_SLOTS`` words, or None) takes the select's phase stamps
+    (:data:`SELECT_PHASES`)."""
     fn = cuda_build.load_function(
         "detection_output", "az_detection_output",
         [ctypes.c_void_p] * 8
-        + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_int] * 4
+        + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_int] * 5
         + [ctypes.c_void_p, ctypes.c_void_p])
     B, P, C = conf.shape
     dev = conf.device
-    kscore = torch.empty((B, n_fg, param.nms_topk), dtype=torch.float32,
-                         device=dev)
-    kbox = torch.empty((B, n_fg, param.nms_topk, 4), dtype=torch.float32,
-                       device=dev)
-    kcount = torch.empty((B, n_fg), dtype=torch.int32, device=dev)
+    kscore = kbox = kcount = None
+    if stage != "decode":
+        kscore = torch.empty((B, n_fg, param.nms_topk), dtype=torch.float32,
+                             device=dev)
+        kbox = torch.empty((B, n_fg, param.nms_topk, 4), dtype=torch.float32,
+                           device=dev)
+        kcount = torch.empty((B, n_fg), dtype=torch.int32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(loc.data_ptr(), conf.data_ptr(), priors.data_ptr(),
-                  variances.data_ptr(), kscore.data_ptr(), kbox.data_ptr(),
-                  kcount.data_ptr(), out.data_ptr(),
+                  variances.data_ptr(), ptr(kscore), ptr(kbox), ptr(kcount),
+                  out.data_ptr(),
                   B, P, C, n_fg, int(param.background_id),
                   float(param.conf_thresh), float(param.nms_thresh),
                   int(param.nms_topk), int(param.keep_topk),
                   int(bool(param.clip_boxes)),
-                  select_tile(P, param.nms_topk),
-                  None if stamps is None else stamps.data_ptr(), stream)
+                  select_tile(P, param.nms_topk), STAGES.index(stage),
+                  ptr(stamps), stream)
     cuda_build.check_launch("detection_output", code,
                             "fused DetectionOutput kernel")
 
@@ -204,9 +251,13 @@ def block_phases_us(loc, conf, priors, variances, param, planes) -> dict:
 @cuda_build.kernel_op("K2")
 def fused_detection_output(loc: torch.Tensor, conf: torch.Tensor,
                            priors: torch.Tensor, variances: torch.Tensor, *,
-                           param) -> torch.Tensor:
+                           param, stage: str = "full") -> torch.Tensor:
     """Batched fused DetectionOutput: loc (B,P,4), conf (B,P,C)
-    probabilities, priors and variances (P,4) → (B, keep_topk, 6)."""
+    probabilities, priors and variances (P,4) → (B, keep_topk, 6).
+    ``stage`` "decode" or "select" gives a profile stage's probe (see the
+    module's docstring); ``launches_by_stage`` counts each stage's
+    launches, ``launches`` all of them."""
+    check_stage(stage)
     B, P, C = conf.shape
     if loc.shape != (B, P, 4) or priors.shape != (P, 4) \
             or variances.shape != (P, 4):
@@ -222,7 +273,7 @@ def fused_detection_output(loc: torch.Tensor, conf: torch.Tensor,
         raise ValueError("fused DetectionOutput: inputs on different devices")
     if dev.type == "cpu":
         return fused_detection_output_plain(loc, conf, priors, variances,
-                                            param)
+                                            param, stage)
     if dev.type != "cuda":
         raise ValueError(f"fused DetectionOutput: no kernel for device {dev}")
     if select_tile(P, param.nms_topk) is None:
@@ -233,15 +284,23 @@ def fused_detection_output(loc: torch.Tensor, conf: torch.Tensor,
                          f"{SELECT_SMEM_BYTES}")
     out = torch.empty((B, param.keep_topk, 6), dtype=torch.float32,
                       device=dev)
-    if B and P and param.keep_topk and param.nms_topk > 0:
+    # with nms_topk 0 no score is kept: "select"'s probe is "decode"'s
+    launched = ("decode" if stage == "select" and param.nms_topk <= 0
+                else stage)
+    if B and P and param.keep_topk and (param.nms_topk > 0
+                                        or launched == "decode"):
         loc, conf, priors, variances = (
             _aligned(t) for t in (loc, conf, priors, variances))
-        _launch_fused(loc, conf, priors, variances, param, n_fg, out)
+        _launch_fused(loc, conf, priors, variances, param, n_fg, out,
+                      stage=launched)
         fused_detection_output.launches += 1
+        fused_detection_output.launches_by_stage[stage] += 1
     else:
         out.zero_()
-        out[..., 0] = -1.0
+        if stage == "full":
+            out[..., 0] = -1.0
     return out
 
 
 fused_detection_output.launches = 0
+fused_detection_output.launches_by_stage = dict.fromkeys(STAGES, 0)

@@ -111,10 +111,17 @@ SWEEP_PHASES = ("load", "mask", "walk", "later_tiles", "write")
 
 def phase_split_us(stamps: torch.Tensor, phases, start: int = 0) -> dict:
     """µs of each phase of block 0 from a stamps buffer: slot ``start``
-    is the launch's start, slot start + i + 1 the end of ``phases[i]``."""
-    t = stamps[start:start + len(phases) + 1].double().cpu()
-    return {name: (t[i + 1] - t[i]).item() / 1e3
-            for i, name in enumerate(phases)}
+    is the launch's start, slot start + i + 1 the end of ``phases[i]``.
+    A slot left 0 is a phase block 0 never reached (a row with few or no
+    candidates skips some): it counts 0 µs, so the phases still sum to
+    the block's time."""
+    t = stamps[start:start + len(phases) + 1].double().cpu().tolist()
+    out, prev = {}, t[0]
+    for i, name in enumerate(phases):
+        end = t[i + 1] or prev
+        out[name] = (end - prev) / 1e3
+        prev = end
+    return out
 
 
 def _launch_nms_sweep(planes, keep, iou_threshold: float, off: float,

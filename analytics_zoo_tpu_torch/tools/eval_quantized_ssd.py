@@ -19,8 +19,9 @@ default).  Train the weights first::
         --params ssd_shapes.pt
 
 ``--params`` is a ``Model.save`` file (a ``torch.save`` state dict).
-Writes one JSON to ``--out`` (default ``INT8_MAP_PARITY_torch.json``;
-the reference's ``INT8_MAP_PARITY.json`` is never written).
+Writes one ``run_metadata``-stamped JSON to ``--out`` (default
+``INT8_MAP_PARITY_torch.json``; the reference's ``INT8_MAP_PARITY.json``
+is never written), which ``tools/check_artifacts.py`` lints.
 """
 
 from __future__ import annotations
@@ -161,8 +162,14 @@ def run(args) -> Tuple[Dict, Dict[str, float]]:
 
 
 def main(argv=None) -> int:
+    from analytics_zoo_tpu_torch.obs import run_metadata
+
     args = build_parser().parse_args(argv)
     report, _ = run(args)
+    report["run_metadata"] = run_metadata(
+        "eval_quantized_ssd", seed=args.seed,
+        extra={"detout_backend": args.backend,
+               "approx": bool(args.approx)})
     print(json.dumps(report))
     with open(args.out, "w") as f:
         json.dump(report, f, indent=2)

@@ -221,7 +221,11 @@ class _QLayer(nn.Module):
         self.bias = (None if bias is None else
                      nn.Parameter(bias.detach().clone(), requires_grad=False))
 
+    @property
     def weight(self) -> torch.Tensor:
+        """The dequantized fp32 weight.  A forward that reads a layer's
+        ``weight`` itself (DeepSpeech2's ``conv1`` and its cells' ``h2h``)
+        computes on it: weight-only int8 in either mode."""
         return QTensor(self.weight_q, self.weight_scale).dequant()
 
 
@@ -240,7 +244,7 @@ class QConv1d(_QLayer):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.compute == "dequant":
-            return F.conv1d(x, self.weight(), self.bias, self.stride,
+            return F.conv1d(x, self.weight, self.bias, self.stride,
                             self.padding, self.dilation)
         qa, a_scale = quantize_activation(x)
         acc = int8_conv2d(qa[:, :, None], self.weight_q[:, :, None],
@@ -283,7 +287,7 @@ class QConv2d(_QLayer):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.compute == "dequant":
-            return F.conv2d(x, self.weight(), self.bias, self.stride,
+            return F.conv2d(x, self.weight, self.bias, self.stride,
                             self.padding, self.dilation)
         qa, a_scale = quantize_activation(x)
         acc = int8_conv2d(qa, self.weight_q, self.stride, self.padding,
@@ -300,7 +304,7 @@ class QLinear(_QLayer):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.compute == "dequant":
-            return F.linear(x, self.weight(), self.bias)
+            return F.linear(x, self.weight, self.bias)
         qa, a_scale = quantize_activation(x)
         acc = int8_matmul(qa.reshape(-1, qa.shape[-1]), self.weight_q)
         acc = acc.reshape(*qa.shape[:-1], -1)

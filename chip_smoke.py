@@ -482,10 +482,21 @@ Phases, one JSON line each; any failure exits non-zero:
    through K1): the final mAP above ``ACCURACY_MIN_MAP``, the K1 and K2
    rungs within ``ACCURACY_K1_K2_TOL``, the deltas reported, K1 and K2
    held to their plain versions and timed on the trained detections;
+6w. examples: the ten other command-line examples (``examples_phase``);
+6x. tools: ``tools/profile_serve`` at the reference's defaults (SSD300,
+   batch 128, bg-bias 8, bf16) for ``fused`` (K2's "decode", "select"
+   and "full" stages) and ``pallas`` (K1), ``export_serving --verify``
+   (SSD300 and DS2 at hidden 1760), ``convert_caffe`` (npz and
+   ``--build``), a ``seqfile_to_azr`` round trip, ``serve_drill``,
+   ``obs_drill`` and ``az_trace --drill`` at full size with the
+   sentinel, every report linted; then each K2 stage on the backbone's
+   loc/conf against its plain version (``TOOLS_PROBE_TOL``), its ms and
+   bound (``tools_profile``, ``tools`` and ``timing`` lines);
 6u. analyze: the source rules, the kernel-bearing programs with the sync
    debug mode armed, and the sync gate (``SYNC_TARGETS``: 0 debug-mode
    syncs; a seeded ``rec/train`` step twice bit-equal);
-7. the ``kernels`` line, then the device line last.
+7. a ``timing`` line of the whole script's seconds, the ``kernels``
+   line, then the device line last.
 
 Exits non-zero, printing no result, when no CUDA device is present or
 the port's package is not beside this script.
@@ -2091,7 +2102,7 @@ def ssd_serving_phase(dev, smi):
             raise AssertionError(f"int8 conv {n}: accumulators differ from "
                                  f"the plain version by "
                                  f"{(got - want).abs().max().item()}")
-        w32 = m.weight()
+        w32 = m.weight
         x32, xbf = caps[n], caps[n].to(torch.bfloat16)
         int8_layers[n] = {
             "input": list(caps[n].shape), "weight": list(m.weight_q.shape),
@@ -8499,6 +8510,305 @@ def examples_phase(dev, smi):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# 6x. the tools on the card: profile_serve at its defaults (K2 by stage, K1
+# on "pallas"), export_serving, convert_caffe, seqfile_to_azr, and the
+# serve / telemetry / az_trace drills at their full sizes
+# ---------------------------------------------------------------------------
+
+#: K2's stage probes against their plain versions, relative: both sum in
+#: float64 and cast to float32 once, so they may differ in the last bit
+TOOLS_PROBE_TOL = 1e-6
+TOOLS_DS2_HIDDEN = 1760
+
+
+def stage_bound(stage, loc, conf, priors, variances, post):
+    """(ms, by) of the least time K2's ``stage`` could take on these
+    inputs: "decode" reads loc, priors and variances once, writes the
+    probes and decodes and sums every prior (22 operations a prior);
+    "select" is the fused work without the merge plus that decode;
+    "full" ``detout_work``."""
+    B, P, _ = conf.shape
+    decode_ops = B * P * 22
+    if stage == "decode":
+        return bound(4 * (loc.numel() + 8 * P + B * post.keep_topk * 6),
+                     decode_ops)
+    nbytes, ops = detout_work(loc, conf, priors, variances, post)
+    if stage == "select":
+        merge = B * post.keep_topk * max(1, math.ceil(math.log2(
+            max(conf.shape[2] - 1, 2))))
+        return bound(nbytes, ops - merge + decode_ops)
+    return bound(nbytes, ops)
+
+
+def tools_phase(dev, smi):
+    """tools: the port's command-line tools on the card, each through its
+    ``run``/``main`` as ``python -m`` calls it.  K1-K4's counts are zeroed
+    just before and read just after the tools run (``profile_serve`` at
+    the reference's defaults, SSD300, 21 classes, batch 128, bg-bias 8,
+    bf16, for ``--backend fused`` (K2's "decode", "select" and "full") and
+    ``pallas`` (K1); ``export_serving --verify`` for SSD300 at 21 classes
+    and DS2 at hidden ``TOOLS_DS2_HIDDEN``; ``convert_caffe`` of a seeded
+    SSD300 caffemodel (``ssd300_deploy_prototxt``), to the ``--ssd 300``
+    npz and ``--build``; a ``seqfile_to_azr`` round trip of 16 shapes
+    records; ``serve_drill``, ``obs_drill`` (its overhead A/B timed on the
+    card) and ``az_trace --drill`` at their full sizes, ``az_trace
+    --sentinel`` against the drill's own report, ``check_artifacts`` over
+    every report).  Then, launches outside the count: each K2 stage on
+    the backbone's loc/conf against its plain version (probes within
+    ``TOOLS_PROBE_TOL`` relative, "full" rows by ``rows_err``), its ms
+    (CUDA events) and bound; the npz loaded into ``SSDVgg`` with nothing
+    missing; the built graph's detections EQUAL to the graph loaded from
+    the caffemodel directly.  Fails on any ``checks`` entry false, a
+    replay that is not byte-identical, a verify past its bound, or a
+    tool's non-zero exit.  Prints a ``tools`` line, a ``tools_profile``
+    line and a ``timing`` line; returns the counted launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from analytics_zoo_tpu_torch.core.module import Model
+    from analytics_zoo_tpu_torch.data.records import read_ssd_records
+    from analytics_zoo_tpu_torch.data.synthetic import generate_shapes_records
+    from analytics_zoo_tpu_torch.models import DeepSpeech2, SSDVgg
+    from analytics_zoo_tpu_torch.ops import pallas_detout
+    from analytics_zoo_tpu_torch.tools import (az_trace, check_artifacts,
+                                               convert_caffe, export_serving,
+                                               obs_drill, profile_serve,
+                                               seqfile_to_azr, serve_drill)
+    from analytics_zoo_tpu_torch.utils import caffe
+    from analytics_zoo_tpu_torch.utils.convert import load_weights_by_name
+
+    k2 = pallas_detout.fused_detection_output
+    t_phase = time.perf_counter()
+    seconds = {}
+    tmp = tempfile.mkdtemp(prefix="tools-")
+    # the seeded SSD300 caffemodel convert_caffe reads (building the graph
+    # runs it once on zeros: a K2 launch outside the count)
+    rng = np.random.RandomState(83)
+    proto = os.path.join(tmp, "deploy.prototxt")
+    with open(proto, "w") as f:
+        f.write(ssd300_deploy_prototxt())
+    graph = caffe.build_caffe_graph(caffe.parse_prototxt(proto), device=dev)
+    caffemodel = os.path.join(tmp, "ssd300.caffemodel")
+    caffe.save_caffemodel(caffemodel, seeded_caffe_net(graph, rng))
+    del graph
+    zero_kernel_counters()
+    k2.launches_by_stage = dict.fromkeys(pallas_detout.STAGES, 0)
+
+    # -- the tools, counted --------------------------------------------------
+    profiles, by_backend, details = {}, {}, None
+    for backend in ("fused", "pallas"):
+        t0 = time.perf_counter()
+        before = launch_counts()
+        out = os.path.join(tmp, f"SERVE_PROFILE_{backend}_torch.json")
+        args = profile_serve.build_parser().parse_args(
+            ["--backend", backend, "--device", str(dev), "--out", out])
+        report, det = profile_serve.run(args)
+        with open(out, "w") as f:
+            json.dump(report, f)
+        torch.cuda.synchronize()
+        profiles[backend] = report
+        by_backend[backend] = {k: v - before[k]
+                               for k, v in launch_counts().items()}
+        if backend == "fused":
+            details = det
+        seconds[f"profile_serve_{backend}"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    exports = {}
+    for arch, module, extra in (
+            ("ssd300", SSDVgg(21, 300, device=dev), ["--classes", "21"]),
+            ("ds2", DeepSpeech2(hidden=TOOLS_DS2_HIDDEN, device=dev),
+             ["--hidden", str(TOOLS_DS2_HIDDEN)])):
+        model_file = os.path.join(tmp, f"{arch}.pt")
+        Model(module, device=dev).save(model_file)
+        del module
+        rep = export_serving.run(export_serving.build_parser().parse_args(
+            ["--model-file", model_file, "--arch", arch, "--out",
+             os.path.join(tmp, f"{arch}_int8.npz"), "--verify", "--device",
+             str(dev), *extra]))
+        exports[arch] = {"quantized_mb": rep["quantized_bytes"] / 1e6,
+                         "fp32_mb": rep["fp32_bytes"] / 1e6,
+                         "disk_mb": rep["disk_bytes"] / 1e6,
+                         "verify": rep["verify"]}
+    seconds["export_serving"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    npz = os.path.join(tmp, "ssd300_vgg.npz")
+    if convert_caffe.main([caffemodel, "--ssd", "300", "-o", npz]) != 0:
+        raise AssertionError("convert_caffe --ssd 300 failed")
+    built_path = os.path.join(tmp, "ssd300_graph.pt")
+    built = convert_caffe.run(convert_caffe.build_parser().parse_args(
+        [caffemodel, "--prototxt", proto, "--build", "-o", built_path,
+         "--device", str(dev)]))
+    seconds["convert_caffe"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    shards = generate_shapes_records(os.path.join(tmp, "shapes"),
+                                     n_images=16, num_shards=2, seed=5,
+                                     device=dev)
+    records = list(read_ssd_records(shards))
+    seq = os.path.join(tmp, "shapes.seq")
+    seqfile_to_azr.write_sequence_file(
+        seq, [seqfile_to_azr.encode_reference_record(r) for r in records])
+    if seqfile_to_azr.main([seq, "-o", os.path.join(tmp, "back"), "-p",
+                            "3"]) != 0:
+        raise AssertionError("seqfile_to_azr failed")
+    back = list(read_ssd_records(sorted(
+        os.path.join(tmp, n) for n in os.listdir(tmp)
+        if n.startswith("back-"))))
+    key = lambda r: os.path.basename(r.path)  # noqa: E731
+    round_trip = (len(back) == len(records) and all(
+        a.data == b.data and key(a) == key(b) and np.array_equal(a.gt, b.gt)
+        for a, b in zip(sorted(records, key=key), sorted(back, key=key))))
+    seconds["seqfile_to_azr"] = time.perf_counter() - t0
+
+    drills = {}
+    t0 = time.perf_counter()
+    sd_out = os.path.join(tmp, "SERVE_DRILL_torch.json")
+    if serve_drill.main(["--device", str(dev), "--out", sd_out]) != 0:
+        raise AssertionError("serve_drill failed")
+    with open(sd_out) as f:
+        drills["serve_drill"] = json.load(f)
+    seconds["serve_drill"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    od_out = os.path.join(tmp, "TELEMETRY_DRILL_torch.json")
+    if obs_drill.main(["--device", str(dev), "--out", od_out]) != 0:
+        raise AssertionError("obs_drill failed")
+    with open(od_out) as f:
+        drills["obs_drill"] = json.load(f)
+    seconds["obs_drill"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    az_out = os.path.join(tmp, "AZ_TRACE_torch.json")
+    flight = os.path.join(tmp, "flight.jsonl")
+    if az_trace.main(["--drill", "--device", str(dev), "--out", az_out,
+                      "--flight-out", flight]) != 0:
+        raise AssertionError("az_trace --drill failed")
+    with open(az_out) as f:
+        drills["az_trace"] = json.load(f)
+    sentinel = az_trace.main(["--sentinel", az_out, "--device", str(dev)])
+    query = az_trace.main(["--flight", flight, "--attribute",
+                           "--slo-report"])
+    seconds["az_trace"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    by_stage = dict(k2.launches_by_stage)
+    lint = check_artifacts.check_artifacts(tmp)
+
+    # -- checks, launches not counted ----------------------------------------
+    loc, conf = details["loc"], details["conf"]
+    pri, var, post = details["priors"], details["variances"], details["post"]
+    stages = {}
+    for stage in pallas_detout.STAGES:
+        got = k2(loc, conf, pri, var, param=post, stage=stage)
+        torch.cuda.synchronize()
+        want = pallas_detout.fused_detection_output_plain(
+            loc, conf, pri, var, post, stage=stage)
+        if stage == "full":
+            err = rows_err(got, want)
+            rel = None
+        else:
+            if not torch.equal(got, got[:, :1, :1].expand_as(got)):
+                raise AssertionError(f"K2 {stage}: a probe block holds "
+                                     "more than one value")
+            err = (got - want).abs().max().item()
+            rel = err / max(want.abs().max().item(), 1e-30)
+            if not rel <= TOOLS_PROBE_TOL:
+                raise AssertionError(f"K2 {stage} probe: relative error "
+                                     f"{rel} (tol {TOOLS_PROBE_TOL})")
+        again = k2(loc, conf, pri, var, param=post, stage=stage)
+        torch.cuda.synchronize()
+        b_ms, b_by = stage_bound(stage, loc, conf, pri, var, post)
+        stages[stage] = {
+            "max_abs_err": err, "rel_err": rel,
+            "repeat_bit_equal": bool(torch.equal(got, again)),
+            "probe_image0": None if stage == "full"
+            else got[0, 0, 0].item(),
+            "plain_probe_image0": None if stage == "full"
+            else want[0, 0, 0].item(),
+            "ms": cuda_ms(lambda: k2(loc, conf, pri, var, param=post,
+                                     stage=stage), 20),
+            "plain_ms": cuda_ms(lambda: pallas_detout.
+                                fused_detection_output_plain(
+                                    loc, conf, pri, var, post, stage=stage),
+                                1, 1),
+            "bound_ms": b_ms, "bound_by": b_by}
+        if not stages[stage]["repeat_bit_equal"]:
+            raise AssertionError(f"K2 {stage}: two launches differ")
+    ssd_state = SSDVgg(21, 300, device=dev).state_dict()
+    _, rep = load_weights_by_name(ssd_state, dict(np.load(npz)))
+    x = torch.from_numpy(np.random.RandomState(3).rand(2, 300, 300, 3)
+                         .astype(np.float32) * 255 - 120).to(dev)
+    direct = caffe.build_caffe_graph(caffe.parse_prototxt(proto), device=dev)
+    direct.load_state_dict(caffe.load_caffe_weights(direct, caffemodel)[0])
+    rebuilt = caffe.build_caffe_graph(caffe.parse_prototxt(proto),
+                                      device=dev)
+    rebuilt.load_state_dict(torch.load(built_path, map_location=dev))
+    with torch.inference_mode():
+        graph_equal = bool(torch.equal(rebuilt(x), direct(x)))
+    del direct, rebuilt
+
+    checks = {
+        "profiles_launched_k2_by_stage": all(by_stage.values()),
+        "pallas_profile_launched_k1": by_backend["pallas"]["nms_sweep"] > 0,
+        "fused_profile_launched_no_k1": by_backend["fused"]["nms_sweep"] == 0,
+        "no_k3_k4": not (launches["persistent_rnn"]
+                         or launches["persistent_rnn_bwd"]),
+        "export_verify_within_bound": all(
+            c["rel"] < export_serving.VERIFY_REL_MAX
+            for e in exports.values() for c in e["verify"].values()),
+        "caffe_npz_loads_ssdvgg_whole": not (rep["missing"]
+                                             or rep["unused"]),
+        "caffe_build_loaded_whole": not (built["report"]["missing"]
+                                         or built["report"]["unused"]),
+        "caffe_built_graph_equal": graph_equal,
+        "seqfile_round_trip_equal": round_trip,
+        "artifacts_lint_clean": lint == [],
+        "az_trace_sentinel_clean": sentinel == 0,
+        "az_trace_query_ok": query == 0,
+        **{f"{name}_checks_ok": d["checks"]["ok"] and d["verdict"] == "PASS"
+           for name, d in drills.items()},
+        "serve_drill_replay_identical":
+            drills["serve_drill"]["checks"]["replay_identical_from_seed"],
+        "obs_drill_replay_identical":
+            drills["obs_drill"]["serve_trace"]["replay_identical"],
+        "az_trace_replay_identical":
+            drills["az_trace"]["serve_trace"]["replay_identical"]
+            and drills["az_trace"]["checks"]["analysis_replay_identical"],
+    }
+    failed = sorted(k for k, v in checks.items() if not v)
+    fused = profiles["fused"]
+    emit("tools_profile", nvidia_smi=smi, batch=fused["batch"],
+         priors=fused["priors"],
+         valid_candidates=fused["valid_candidates_per_class_row"],
+         ms_fused=fused["ms"], ms_pallas=profiles["pallas"]["ms"],
+         ladder=fused["detout_coherence"],
+         ladder_pallas=profiles["pallas"]["detout_coherence"],
+         k2_block_split_us=fused["k2_block_split_us"], stages=stages,
+         launches=launches, k2_launches_by_stage=by_stage,
+         launches_by_backend=by_backend)
+    emit("tools", checks=checks, exports=exports,
+         lint=lint, caffe_loaded=len(built["report"]["loaded"]),
+         seqfile_records=len(records),
+         drills={name: {"accounting": (d["drill"]["accounting"]
+                                       if name == "serve_drill" else
+                                       d["serve_trace"]["accounting"]),
+                        "checks": d["checks"]}
+                 for name, d in drills.items()},
+         obs_overhead=drills["obs_drill"]["obs_overhead"])
+    if failed:
+        raise AssertionError(f"tools: checks failed {failed}")
+    for name in os.listdir(tmp):
+        os.remove(os.path.join(tmp, name))
+    os.rmdir(tmp)
+    emit("timing", nvidia_smi=smi, tools_phase_s=time.perf_counter()
+         - t_phase, tools_s=seconds)
+    return {**launches, "k2_by_stage": by_stage}
+
+
 def rec_step_repeats(dev) -> bool:
     """A seeded ``rec/train`` step (the dedup lookups' segment-sum
     backward) built and run twice: its parameters, buffers and Adam
@@ -8602,6 +8912,7 @@ def analyze_phase(dev, smi, dist_tp):
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -9311,6 +9622,10 @@ def main() -> int:
     # -- 6w. the command-line examples (K3/K4 in DS2's, none elsewhere) --
     fleet_paths["examples"] = examples_phase(dev, smi)
 
+    # -- 6x. the tools: profile_serve (K2 by stage, K1), the drills -------
+    tools = tools_phase(dev, smi)
+    fleet_paths["tools"] = tools
+
     # -- 6u. az-analyze on the card (K1-K4 in their targets' programs) ---
     analyze = analyze_phase(dev, smi, dist_tp)
     fleet_paths["analyze"] = analyze
@@ -9318,7 +9633,8 @@ def main() -> int:
     def fleet_counts(name):
         return {path: counts[name] for path, counts in fleet_paths.items()}
 
-    # -- 7. kernels, then the device line last ----------------------------
+    # -- 7. the script's seconds, the kernels, then the device line last --
+    emit("timing", nvidia_smi=smi, script_s=time.perf_counter() - t_script)
     kernels = [
         {"name": "nms_sweep", "route": "cuda",
          "source": "analytics_zoo_tpu_torch/csrc/nms_sweep.cu",
@@ -9380,6 +9696,7 @@ def main() -> int:
              "frcnn_train": frcnn_train["fused_detection_output"],
              **zoo_paths("fused_detection_output"),
              **fleet_counts("fused_detection_output")},
+         "launches_by_stage_tools": tools["k2_by_stage"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
         {"name": "persistent_rnn", "route": "cuda",

@@ -252,6 +252,61 @@ class TestFusedDetectionOutput:
         _assert_rows_match(got, ref)
 
 
+class TestStages:
+    """K2's profile stages: the plain probes against the JAX kernel's
+    ``stage="decode"|"select"`` programs in interpret mode.  The JAX
+    kernel sums in float32 over its padded lanes (they decode to 0), the
+    port in float64: relative tolerance 1e-5 (two float32 sums of 2 × 160
+    boxes and the kept scores)."""
+
+    @pytest.mark.parametrize("stage", ["decode", "select"])
+    @pytest.mark.parametrize("name", ["trained_like_0", "dense_0",
+                                      "all_background", "clip"])
+    def test_probe_matches_jax(self, name, stage):
+        loc, conf, priors, variances, kw = _case(name)
+        if name == "clip":
+            # boxes past the image, so the clip changes the sums
+            loc = loc * 20.0
+        ref = np.asarray(jax_fused(
+            jnp.asarray(loc), jnp.asarray(conf), jnp.asarray(priors),
+            jnp.asarray(variances), param=JaxParam(**kw), interpret=True,
+            stage=stage))
+        got = pallas_detout.fused_detection_output(
+            T(loc), T(conf), T(priors), T(variances),
+            param=DetectionOutputParam(**kw), stage=stage).numpy()
+        assert got.shape == ref.shape == (2, kw["keep_topk"], 6)
+        # one value an image, in every entry of its block
+        assert (got == got[:, :1, :1]).all()
+        np.testing.assert_allclose(got, ref, rtol=1e-5)
+        if name == "clip":
+            unclipped = pallas_detout.fused_detection_output(
+                T(loc), T(conf), T(priors), T(variances),
+                param=DetectionOutputParam(**dict(kw, clip_boxes=False)),
+                stage=stage).numpy()
+            assert not np.allclose(unclipped, got, rtol=1e-3)
+        if name == "all_background" and stage == "select":
+            # nothing kept: "select"'s probe is "decode"'s
+            dec = pallas_detout.fused_detection_output(
+                T(loc), T(conf), T(priors), T(variances),
+                param=DetectionOutputParam(**kw), stage="decode").numpy()
+            np.testing.assert_array_equal(got, dec)
+
+    def test_full_stage_is_the_default_and_unknown_stage_raises(self):
+        loc, conf, priors, variances, kw = _case("trained_like_7")
+        args = (T(loc), T(conf), T(priors), T(variances))
+        param = DetectionOutputParam(**kw)
+        np.testing.assert_array_equal(
+            pallas_detout.fused_detection_output(*args, param=param,
+                                                 stage="full").numpy(),
+            pallas_detout.fused_detection_output(*args, param=param).numpy())
+        for fn in (lambda: pallas_detout.fused_detection_output(
+                       *args, param=param, stage="merge"),
+                   lambda: pallas_detout.fused_detection_output_plain(
+                       *args, param, stage="merge")):
+            with pytest.raises(ValueError, match="stage must be one of"):
+                fn()
+
+
 class TestDispatch:
     def test_auto_is_plain_on_cpu_fused_on_cuda(self):
         from analytics_zoo_tpu_torch.ops.detection_output import (

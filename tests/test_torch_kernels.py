@@ -242,6 +242,64 @@ def test_fused_kernel_ssd300_and_backends_agree(regime):
         _assert_rows_match(out, want)
 
 
+@pytest.mark.parametrize("stage", ["decode", "select", "full"])
+@pytest.mark.parametrize("regime", ["dense", "trained"])
+@pytest.mark.parametrize("clip", [False, True])
+def test_fused_stages_match_plain_and_repeat(stage, regime, clip):
+    """Each of K2's stages at SSD300 (batch 4, 21 classes) against its
+    plain version: the probes within 1e-6 relative (both sum in float64;
+    the cast to float32 may differ in the last bit), "full" rows as
+    ``_assert_rows_match``; a second launch bit-equal (the probe's
+    reduction order is fixed).  ``launches_by_stage`` counts the stage."""
+    dev = _cuda()
+    priors, variances = (torch.from_numpy(a).to(dev)
+                         for a in build_priors(ssd300_config()))
+    loc, conf = (t.to(dev) for t in _detout_inputs(5, 8732, 21, regime,
+                                                   batch=4))
+    loc = loc * 4.0                 # boxes past the image, for the clip
+    p = DetectionOutputParam(clip_boxes=clip)
+    before = dict(pallas_detout.fused_detection_output.launches_by_stage)
+    got = pallas_detout.fused_detection_output(loc, conf, priors, variances,
+                                               param=p, stage=stage)
+    again = pallas_detout.fused_detection_output(loc, conf, priors,
+                                                 variances, param=p,
+                                                 stage=stage)
+    torch.cuda.synchronize()
+    after = pallas_detout.fused_detection_output.launches_by_stage
+    assert {k: after[k] - before[k] for k in after} == {
+        k: 2 * (k == stage) for k in after}
+    assert torch.equal(got, again)
+    want = pallas_detout.fused_detection_output_plain(
+        loc, conf, priors, variances, p, stage=stage)
+    if stage == "full":
+        _assert_rows_match(got, want)
+    else:
+        assert torch.equal(got, got[:, :1, :1].expand_as(got))
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+def test_fused_stage_refusals():
+    """An unknown stage raises; a geometry past K2's select block raises
+    for every stage, as "full" does."""
+    dev = _cuda()
+    loc, conf = (t.to(dev) for t in _detout_inputs(1, 300, 6, "dense"))
+    pri, var = (t.to(dev) for t in _priors(2, 300))
+    p = DetectionOutputParam(n_classes=6, nms_topk=64, keep_topk=32)
+    with pytest.raises(ValueError, match="stage must be one of"):
+        pallas_detout.fused_detection_output(loc, conf, pri, var, param=p,
+                                             stage="merge")
+    P = 60000
+    big = torch.zeros((1, P, 4), device=dev)
+    for stage in pallas_detout.STAGES:
+        with pytest.raises(ValueError, match="shared memory"):
+            pallas_detout.fused_detection_output(
+                big, torch.full((1, P, 4), 0.25, device=dev),
+                torch.zeros((P, 4), device=dev),
+                torch.full((P, 4), 0.1, device=dev),
+                param=DetectionOutputParam(n_classes=4, nms_topk=64,
+                                           keep_topk=32), stage=stage)
+
+
 def _priors(seed, P):
     rng = np.random.RandomState(seed)
     cx = rng.rand(P, 2).astype(np.float32)

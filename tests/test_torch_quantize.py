@@ -248,7 +248,7 @@ def test_int8_dense():
     dq = tq.QLinear(lin, tq.quantize_tensor(lin.weight), "dequant")
     with torch.no_grad():
         torch.testing.assert_close(
-            dq(xt), xt @ dq.weight().t() + lin.bias, rtol=1e-6, atol=1e-6)
+            dq(xt), xt @ dq.weight.t() + lin.bias, rtol=1e-6, atol=1e-6)
 
 
 def _x(seed=0):

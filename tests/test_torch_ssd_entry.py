@@ -268,7 +268,9 @@ def test_tool_report_and_rungs(rung_report):
     report, maps, params, val1 = rung_report
     ref_keys = report_keys(REFERENCE["eval_quantized_ssd"])
     assert list(report) == [k for k in ref_keys if k != "backend"] + [
-        "delta_bf16", "backend", "device", "delta_approx_topk"]
+        "delta_bf16", "backend", "device", "delta_approx_topk",
+        "run_metadata"]
+    assert report["run_metadata"]["tool"] == "eval_quantized_ssd"
     assert report["detout_backend"] == "fused"
     assert list(report["map"]) == ["fp", "int8_weight_only", "int8_compute",
                                    "bf16", "fp_approx_topk"]
